@@ -1,0 +1,51 @@
+"""raytpu_torch — the PyTorch / CUDA port of raytpu for NVIDIA Hopper.
+
+The same scenes, cameras, presets, counter-based RNG streams and material
+semantics as the JAX package ``raytpu``, with tensors in place of jax
+arrays.  The forward render runs on an H100 through a hand-written CUDA
+megakernel (``raytpu_torch/kernels/megakernel.py``, source in
+``raytpu_torch/csrc/``) and anywhere through the plain PyTorch version
+(``raytpu_torch/golden.py``).  This package never imports jax.
+
+Not ported yet (see ROADMAP.md): gradients (``render_grad``), the BVH,
+progressive rendering, sharding, the wavefront engine and the v1 fract-sin
+RNG mode.
+"""
+
+from raytpu_torch.config import RenderConfig
+from raytpu_torch.camera import (
+    Camera,
+    make_camera,
+    reference_camera_v1,
+    reference_camera_v2,
+)
+from raytpu_torch.scene import (
+    Scene,
+    make_scene,
+    test_world,
+    random_world,
+    config1_world,
+    config2_world,
+    final_world,
+    v1_world,
+)
+from raytpu_torch.render import render
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RenderConfig",
+    "Camera",
+    "make_camera",
+    "reference_camera_v1",
+    "reference_camera_v2",
+    "Scene",
+    "make_scene",
+    "test_world",
+    "random_world",
+    "config1_world",
+    "config2_world",
+    "final_world",
+    "v1_world",
+    "render",
+]

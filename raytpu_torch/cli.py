@@ -1,0 +1,128 @@
+"""Command-line interface (counterpart of ``raytpu/cli.py``'s ``render``).
+
+    python -m raytpu_torch.cli render --scene random --width 1024 \
+        --height 576 --spp 60 --depth 50 --device cuda --out frame.png
+
+Only the ``render`` subcommand is ported.  ``--bvh``, ``--progressive``,
+``--devices`` and the other subcommands belong to parts not ported yet and
+exit with an error that names their ROADMAP item; raytpu's other options
+are not accepted.  None is silently ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+SCENES = ("config1", "test", "random", "final", "v1")
+
+# option -> (value meaning "not asked for", ROADMAP item that ports it)
+_NOT_PORTED = {
+    "bvh": (False, "--bvh needs the BVH (ROADMAP queue 1, M5; queue 2, K1c)"),
+    "progressive": (0, "--progressive needs progressive rendering "
+                       "(ROADMAP queue 1, M8; queue 2, K2)"),
+    "devices": (1, "--devices > 1 needs sharding over torch.distributed "
+                   "(ROADMAP queue 1, M9)"),
+}
+_SUBCOMMANDS_NOT_PORTED = {
+    "gradcheck": "gradients (ROADMAP queue 1, M6/M7; queue 2, K3)",
+    "validate": "debug.py's cross-backend sweep (ROADMAP queue 1, M11)",
+    "info": "the tools (ROADMAP queue 1, M11)",
+}
+
+
+def _build_scene(name: str, seed: int, device):
+    import raytpu_torch as rt
+    if name == "config1":
+        return rt.config1_world(device=device)
+    if name == "test":
+        return rt.test_world(device=device)
+    if name == "random":
+        return rt.random_world(seed=seed, device=device)
+    if name == "final":
+        return rt.final_world(seed=seed, device=device)
+    return rt.v1_world(device=device)  # the v1 app's seven-sphere world
+
+
+def cmd_render(args) -> int:
+    for opt, (unset, msg) in _NOT_PORTED.items():
+        if getattr(args, opt) != unset:
+            raise SystemExit(f"not ported yet: {msg}")
+    import raytpu_torch as rt
+    from raytpu_torch import io, profiling
+    from raytpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
+                       depth=args.depth, rng_mode=args.rng_mode,
+                       scatter_mode=args.scatter_mode, gamma=args.gamma)
+    scene = _build_scene(args.scene, args.seed, args.device)
+    cam = rt.make_camera(tuple(args.look_from), tuple(args.look_at),
+                         vfov=args.vfov, aspect=cfg.aspect,
+                         aperture=args.aperture, focus_dist=args.focus_dist,
+                         device=args.device)
+    img, stats = profiling.timed(
+        lambda: rt.render(scene, cam, cfg, backend=args.backend), cfg,
+        label="render")
+    io.save_image(args.out, img.cpu().numpy())
+    print(f"wrote {args.out}  ({stats.rays_per_sec / 1e6:.2f} Mrays/s, "
+          f"{stats.wall_s * 1e3:.1f} ms on {stats.device})")
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="raytpu_torch", description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    r = sub.add_parser("render", help="render a scene to an image file")
+    r.add_argument("--scene", choices=SCENES, default="test")
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--width", type=int, default=400)
+    r.add_argument("--height", type=int, default=200)
+    r.add_argument("--spp", type=int, default=20)
+    r.add_argument("--depth", type=int, default=12)
+    r.add_argument("--look-from", type=float, nargs=3,
+                   default=[13.0, 2.0, 3.0])
+    r.add_argument("--look-at", type=float, nargs=3, default=[0.0, 0.0, 0.0])
+    r.add_argument("--vfov", type=float, default=20.0)
+    r.add_argument("--aperture", type=float, default=0.0)
+    r.add_argument("--focus-dist", type=float, default=None)
+    r.add_argument("--device", required=True,
+                   help="where the scene is built and rendered: cpu, cuda, "
+                        "cuda:N")
+    r.add_argument("--backend", choices=("auto", "golden", "cuda"),
+                   default="auto",
+                   help="auto = the CUDA kernel on a cuda device, the plain "
+                        "PyTorch version on cpu")
+    r.add_argument("--gamma", type=float, default=2.2,
+                   help="output gamma: 2.2 = v2's pow(1/2.2), 2.0 = v1's sqrt")
+    r.add_argument("--scatter-mode", choices=("v2", "v1"), default="v2",
+                   help="material semantics generation")
+    r.add_argument("--rng-mode",
+                   choices=("sequential", "parallel", "v1_fractsin"),
+                   default="sequential",
+                   help="sequential = reference-parity seed chain; parallel "
+                        "= per-sample streams (v1_fractsin: not ported yet)")
+    # accepted so that these raytpu command lines parse; refused in cmd_render
+    r.add_argument("--bvh", action="store_true", help="not ported yet (M5)")
+    r.add_argument("--progressive", type=int, default=0, metavar="BATCH",
+                   help="not ported yet (M8)")
+    r.add_argument("--devices", type=int, default=1, metavar="N",
+                   help="not ported yet (M9)")
+    r.add_argument("--out", default="out.png")
+    r.set_defaults(fn=cmd_render)
+
+    for name, what in _SUBCOMMANDS_NOT_PORTED.items():
+        sub.add_parser(name, help=f"not ported yet: needs {what}")
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in _SUBCOMMANDS_NOT_PORTED:
+        # refused before parsing, so raytpu's options for it need no twin
+        raise SystemExit(f"not ported yet: '{argv[0]}' needs "
+                         f"{_SUBCOMMANDS_NOT_PORTED[argv[0]]}")
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

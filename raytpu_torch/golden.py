@@ -1,0 +1,354 @@
+"""Plain PyTorch renderer (counterpart of ``raytpu/golden.py``).
+
+The executable spec of the reference's forward rendering semantics (ref:
+CSVersion/ShaderCompute.hlsl:255-315 driver loop, :155-205 intersection,
+:207-252 materials), written SoA over flat pixel batches in straight-line
+tensor code.  It is the plain version of the CUDA megakernel
+(``raytpu_torch/kernels/megakernel.py``): the wrapper runs it for CPU
+tensors, and the tests and ``chip_smoke.py`` hold the kernel against it on
+the same device.
+
+It mirrors raytpu's golden op for op, so the reference quirks that file
+pins hold here too: metal always scatters, diffuse directions are
+normalized, jitter is ``1.1 / (dim - 1)``, the t-range is (t_min, +inf),
+depth exhaustion and a failed scatter give black, one RNG advance per
+scatter whatever the material, and the seed comes from absolute pixel
+coordinates only.
+
+Two habits keep it bit-compatible with the kernel on a card:
+- every operation rounds on its own (one torch op per f32 operation), which
+  the kernel matches by being built with ``-fmad=false``;
+- divisions by a constant divide by a 0-dim f32 tensor on the data's device
+  (``rng.f32_like``): a Python-scalar divisor may become a multiply by its
+  reciprocal, which rounds differently from the kernel's division.
+
+``rng_mode="v1_fractsin"`` (the v1 fract-sin parity mode) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytpu_torch import rng
+from raytpu_torch.camera import Camera, get_ray
+from raytpu_torch.config import RenderConfig
+from raytpu_torch.scene import Scene
+
+_INF = float("inf")
+_SAFE_EPS = 1e-20
+_FRACTSIN_TODO = ("rng_mode='v1_fractsin' is not ported yet (ROADMAP queue 1, "
+                  "M2/M3: the v1 fract-sin helpers and their golden mode)")
+
+
+def _dot3(ax, ay, az, bx, by, bz):
+    return ax * bx + ay * by + az * bz
+
+
+def _normalize3(x, y, z):
+    inv = torch.rsqrt(torch.clamp(_dot3(x, y, z, x, y, z), min=_SAFE_EPS))
+    return x * inv, y * inv, z * inv
+
+
+def hit_world(scene: Scene, ro, rd, t_min):
+    """Closest hit over all spheres (ref: ShaderCompute.hlsl:155-205).
+
+    ro, rd: tuples of 3 tensors of common shape S (unnormalized direction).
+    Returns (hit_any S bool, t S f32, idx S i64, normal SoA, front S bool).
+    An argmin over per-sphere nearest valid roots; ties go to the lowest
+    index (``argmin`` returns the first minimum, as the kernel's strict
+    ``<`` update keeps the first winner).
+    """
+    rox, roy, roz = ro
+    rdx, rdy, rdz = rd
+    cx, cy, cz = scene.center[:, 0], scene.center[:, 1], scene.center[:, 2]
+    rad = scene.radius
+    t_min = rng.f32_like(rox, t_min)
+
+    # Broadcast pixels x spheres: shape S + (N,)
+    ocx = rox[..., None] - cx
+    ocy = roy[..., None] - cy
+    ocz = roz[..., None] - cz
+    a = _dot3(rdx, rdy, rdz, rdx, rdy, rdz)[..., None]
+    inv_a = 1.0 / a
+    half_b = ocx * rdx[..., None] + ocy * rdy[..., None] + ocz * rdz[..., None]
+    c = _dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad
+    disc = half_b * half_b - a * c
+
+    has_root = disc >= 0
+    sqrtd = torch.sqrt(torch.where(has_root, disc, 1.0))
+    root1 = (-half_b - sqrtd) * inv_a
+    root2 = (-half_b + sqrtd) * inv_a
+    # accept near root if >= t_min (reference rejects root < t_min), else far
+    root = torch.where(root1 >= t_min, root1, root2)
+    ok = has_root & (root >= t_min)
+    t_all = torch.where(ok, root, _INF)
+
+    t = t_all.amin(dim=-1)
+    idx = t_all.argmin(dim=-1)
+    hit_any = torch.isfinite(t)
+    t = torch.where(hit_any, t, 1.0)  # safe t for downstream math
+
+    # hit point and outward normal (ref: hlsl:180-183)
+    px = rox + t * rdx
+    py = roy + t * rdy
+    pz = roz + t * rdz
+    hc = scene.center[idx]
+    hr = scene.radius[idx]
+    inv_r = 1.0 / torch.where(hr == 0, 1.0, hr)
+    nx = (px - hc[..., 0]) * inv_r
+    ny = (py - hc[..., 1]) * inv_r
+    nz = (pz - hc[..., 2]) * inv_r
+    front = _dot3(rdx, rdy, rdz, nx, ny, nz) < 0
+    sgn = torch.where(front, 1.0, -1.0)
+    return hit_any, t, idx, (nx * sgn, ny * sgn, nz * sgn), front
+
+
+def _reflect(vx, vy, vz, nx, ny, nz):
+    """v - 2*dot(v,n)*n (ref: hlsl:76-79)."""
+    d = _dot3(vx, vy, vz, nx, ny, nz)
+    return vx - 2 * d * nx, vy - 2 * d * ny, vz - 2 * d * nz
+
+
+def _refract(ux, uy, uz, nx, ny, nz, ratio):
+    """Snell refraction of a unit vector (ref: hlsl:81-88)."""
+    cos_theta = torch.clamp(_dot3(-ux, -uy, -uz, nx, ny, nz), max=1.0)
+    px = ratio * (ux + cos_theta * nx)
+    py = ratio * (uy + cos_theta * ny)
+    pz = ratio * (uz + cos_theta * nz)
+    par = -torch.sqrt(torch.clamp(
+        torch.abs(1.0 - _dot3(px, py, pz, px, py, pz)), min=_SAFE_EPS))
+    return px + par * nx, py + par * ny, pz + par * nz
+
+
+def _schlick(cosine, ref_idx):
+    """Schlick reflectance approximation (ref: hlsl:90-97)."""
+    r0 = (1.0 - ref_idx) / (1.0 + ref_idx)
+    r0 = r0 * r0
+    m = 1.0 - cosine
+    return r0 + (1.0 - r0) * (m * m * m * m * m)
+
+
+def scatter(scene: Scene, rd, p, normal, front, idx, seed, mode: str = "v2"):
+    """Material scatter (ref: ShaderCompute.hlsl:207-252).
+
+    Returns (scatter_ok, atten SoA, new_dir SoA, new_seed).  All three
+    material branches are computed and selected by mask; every branch
+    consumes the SAME single hash draw.  ``mode="v1"`` selects the
+    pixel-shader generation's materials (ref: Shader_RT.fx:217-243):
+    hemisphere diffuse with a near-zero guard and saturated-fuzz metal on
+    the normalized incoming direction, both unnormalized.
+    """
+    rdx, rdy, rdz = rd
+    nx, ny, nz = normal
+    mat = scene.mat_type[idx]
+    alb = scene.albedo[idx]
+    param = scene.mat_param[idx]
+
+    (sx, sy, sz), seed_new = rng.random_in_unit_sphere(seed)
+    h1, _ = rng.hash1(seed)  # same underlying draw, same new seed
+
+    if mode == "v1":
+        # hemisphere flip (Shader_RT.fx:151-163)
+        flip = _dot3(sx, sy, sz, nx, ny, nz) > 0
+        hxx = torch.where(flip, sx, -sx)
+        hyy = torch.where(flip, sy, -sy)
+        hzz = torch.where(flip, sz, -sz)
+        # v1 lambert (Shader_RT.fx:217-229): n + hemisphere, near-zero guard
+        ldx = nx + hxx
+        ldy = ny + hyy
+        ldz = nz + hzz
+        s_eps = 1e-8
+        near0 = ((torch.abs(ldx) < s_eps) & (torch.abs(ldy) < s_eps)
+                 & (torch.abs(ldz) < s_eps))
+        ddx = torch.where(near0, nx, ldx)
+        ddy = torch.where(near0, ny, ldy)
+        ddz = torch.where(near0, nz, ldz)
+        # v1 metal (Shader_RT.fx:233-241): reflect(normalize(rd)) +
+        # saturate(fuzz) * hemisphere, unnormalized
+        u1x, u1y, u1z = _normalize3(rdx, rdy, rdz)
+        rx, ry, rz = _reflect(u1x, u1y, u1z, nx, ny, nz)
+        fz = torch.clamp(param, 0.0, 1.0)
+        mdx = rx + fz * hxx
+        mdy = ry + fz * hyy
+        mdz = rz + fz * hzz
+    else:
+        # diffuse (hlsl:209-217): dir = normalize(normal + rand_sphere)
+        ddx, ddy, ddz = _normalize3(nx + sx, ny + sy, nz + sz)
+        # metal (hlsl:219-227): dir = normalize(reflect(rd, n) + fuzz*rand)
+        rx, ry, rz = _reflect(rdx, rdy, rdz, nx, ny, nz)
+        mdx, mdy, mdz = _normalize3(rx + param * sx, ry + param * sy,
+                                    rz + param * sz)
+
+    # dielectric (hlsl:229-249); non-glass lanes get a safe IOR so the
+    # unselected branch stays finite
+    is_glass = mat == 2
+    ior = torch.where(is_glass, torch.clamp(param, min=1e-3), 1.5)
+    ux, uy, uz = _normalize3(rdx, rdy, rdz)
+    ratio = torch.where(front, 1.0 / ior, ior)
+    cosine = torch.clamp(_dot3(-ux, -uy, -uz, nx, ny, nz), max=1.0)
+    sine = torch.sqrt(torch.clamp(1.0 - cosine * cosine, min=0.0))
+    cannot = ratio * sine > 1.0
+    use_reflect = cannot | (_schlick(cosine, ratio) > h1)
+    rfx, rfy, rfz = _reflect(ux, uy, uz, nx, ny, nz)
+    tx, ty, tz = _refract(ux, uy, uz, nx, ny, nz, ratio)
+    gdx = torch.where(use_reflect, rfx, tx)
+    gdy = torch.where(use_reflect, rfy, ty)
+    gdz = torch.where(use_reflect, rfz, tz)
+
+    is_d = mat == 0
+    is_m = mat == 1
+    ok = is_d | is_m | is_glass
+
+    atr = torch.where(is_glass, 1.0, alb[..., 0])
+    atg = torch.where(is_glass, 1.0, alb[..., 1])
+    atb = torch.where(is_glass, 1.0, alb[..., 2])
+
+    ox = torch.where(is_d, ddx, torch.where(is_m, mdx, gdx))
+    oy = torch.where(is_d, ddy, torch.where(is_m, mdy, gdy))
+    oz = torch.where(is_d, ddz, torch.where(is_m, mdz, gdz))
+    return ok, (atr, atg, atb), (ox, oy, oz), seed_new
+
+
+def _sky(rdx, rdy, rdz):
+    """Background gradient (ref: hlsl:279-283), of the pre-scatter ray."""
+    _, uy, _ = _normalize3(rdx, rdy, rdz)
+    t = 0.5 * (uy + 1.0)
+    return 1.0 - 0.5 * t, 1.0 - 0.3 * t, 1.0  # lerp(white, (.5,.7,1.))
+
+
+def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
+          scatter_mode: str = "v2"):
+    """Iterative bounce loop (ref: sample_color, hlsl:255-287).
+
+    SoA over pixel shape S; returns ((r,g,b), seed).  Dead lanes are
+    masked; the seed advances only on live scattering lanes.  The loop
+    stops early once no lane is alive: a dead lane's state never changes
+    again, so that is the same result as running all ``depth`` steps.
+    """
+    ox, oy, oz = ro
+    dx, dy, dz = rd
+    cr = torch.ones_like(ox)
+    cg = torch.ones_like(ox)
+    cb = torch.ones_like(ox)
+    rr = torch.zeros_like(ox)
+    rg = torch.zeros_like(ox)
+    rb = torch.zeros_like(ox)
+    alive = torch.ones_like(ox, dtype=torch.bool)
+    sd = seed
+    for _ in range(depth):
+        if not bool(alive.any()):
+            break
+        hit_any, t, idx, normal, front = hit_world(
+            scene, (ox, oy, oz), (dx, dy, dz), t_min)
+        px = ox + t * dx
+        py = oy + t * dy
+        pz = oz + t * dz
+        ok, (ar, ag, ab), (sx, sy, sz), sd_new = scatter(
+            scene, (dx, dy, dz), (px, py, pz), normal, front, idx, sd,
+            scatter_mode)
+
+        scat = alive & hit_any & ok
+        absorbed = alive & hit_any & ~ok
+        missed = alive & ~hit_any
+
+        skr, skg, skb = _sky(dx, dy, dz)
+        rr = torch.where(missed, cr * skr, rr)
+        rg = torch.where(missed, cg * skg, rg)
+        rb = torch.where(missed, cb * skb, rb)
+
+        cr = torch.where(scat, cr * ar, cr)
+        cg = torch.where(scat, cg * ag, cg)
+        cb = torch.where(scat, cb * ab, cb)
+        ox = torch.where(scat, px, ox)
+        oy = torch.where(scat, py, oy)
+        oz = torch.where(scat, pz, oz)
+        dx = torch.where(scat, sx, dx)
+        dy = torch.where(scat, sy, dy)
+        dz = torch.where(scat, sz, dz)
+        sd = torch.where(scat, sd_new, sd)
+        alive = alive & ~(missed | absorbed)
+    # depth exhausted while alive -> black (rr init is already 0)
+    return (rr, rg, rb), sd
+
+
+def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
+                      px, py, seed, spp: int, init=None, s0: int = 0):
+    """Add ``spp`` LINEAR samples per pixel starting from carried RNG state.
+
+    Returns ((sum_r, sum_g, sum_b), seed').  The sums are taken sample by
+    sample, so K batches of spp/K samples (threading ``seed`` and ``init``)
+    equal one spp-sample render bit for bit.  In the "parallel" RNG mode,
+    ``seed`` is the per-pixel BASE state and ``s0`` the index of the first
+    sample (each sample's stream is ``fold_in(seed, s0 + i)``); the
+    returned seed is the unchanged base.
+    """
+    if cfg.rng_mode == "v1_fractsin":
+        raise NotImplementedError(_FRACTSIN_TODO)
+    if cfg.rng_mode not in ("sequential", "parallel"):
+        raise ValueError(f"unknown rng_mode: {cfg.rng_mode!r}")
+    fx = px.to(torch.float32)
+    fy = py.to(torch.float32)
+    # rounded to f32 from the f64 quotient, as raytpu and the kernel do
+    inv_w = rng.f32_like(fx, 1.0 / (cfg.width - 1))
+    inv_h = rng.f32_like(fx, 1.0 / (cfg.height - 1))
+    if init is None:
+        init = (torch.zeros_like(fx),) * 3
+    acc_r, acc_g, acc_b = init
+    parallel = cfg.rng_mode == "parallel"
+
+    sd = seed
+    for s in range(spp):
+        smp = rng.fold_in(seed, s + s0) if parallel else sd
+        (j1a, _), smp = rng.hash2(smp)
+        (_, j2b), smp = rng.hash2(smp)
+        u = (fx + j1a * 1.1) * inv_w
+        v = (fy + j2b * 1.1) * inv_h
+        ro, rd, smp = get_ray(cam, u, v, smp)
+        (r, g, b), smp = trace(scene, ro, rd, smp, cfg.depth, cfg.t_min,
+                               cfg.scatter_mode)
+        acc_r = acc_r + r
+        acc_g = acc_g + g
+        acc_b = acc_b + b
+        if not parallel:
+            sd = smp
+    return (acc_r, acc_g, acc_b), sd
+
+
+def _to_gamma(x, gamma):
+    """pow(x, 1/gamma) as exp(log(x) / gamma), zero-safe (ref toGamma
+    hlsl:99-103)."""
+    safe = torch.where(x > 0, x, 1.0)
+    return torch.where(x > 0, torch.exp(torch.log(safe) / rng.f32_like(x, gamma)),
+                       0.0)
+
+
+def render_pixels(scene: Scene, cam: Camera, cfg: RenderConfig, px, py):
+    """Render a flat SoA batch of pixels; returns (r, g, b) tensors.
+
+    px, py: integer tensors of pixel coordinates (x = column, y = row;
+    row 0 is the BOTTOM of the image, v = y/(H-1) — ShaderCompute.hlsl:306-307).
+    """
+    seed = rng.pixel_seed(px, py)
+    (acc_r, acc_g, acc_b), _ = accumulate_pixels(
+        scene, cam, cfg, px, py, seed, cfg.spp)
+    inv_spp = rng.f32_like(acc_r, 1.0 / cfg.spp)
+    return (_to_gamma(acc_r * inv_spp, cfg.gamma),
+            _to_gamma(acc_g * inv_spp, cfg.gamma),
+            _to_gamma(acc_b * inv_spp, cfg.gamma))
+
+
+def render_golden(scene: Scene, cam: Camera, cfg: RenderConfig):
+    """Full-frame render -> (H, W, 3) f32 image in [0, 1] on the scene's
+    device, ``cfg.chunk_pixels`` pixels at a time (the chunk bounds the
+    pixels x spheres intermediates; pixels are independent, so the chunk
+    size never changes a value)."""
+    h, w = cfg.height, cfg.width
+    n = h * w
+    dev = scene.center.device
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    chunk = min(cfg.chunk_pixels, n)
+    for start in range(0, n, chunk):
+        flat = torch.arange(start, min(start + chunk, n), device=dev)
+        r, g, b = render_pixels(scene, cam, cfg, flat % w, flat // w)
+        out[start:start + chunk] = torch.stack([r, g, b], dim=-1)
+    return out.reshape(h, w, 3)

@@ -1,0 +1,82 @@
+"""Build and load the package's CUDA sources at first use.
+
+Each ``.cu`` file under ``raytpu_torch/csrc/`` is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into a shared library with a plain C interface and
+loaded with ``ctypes``.  The library lands in ``raytpu_torch/build/`` (listed
+in ``.gitignore``) under a name keyed by a hash of the source and the flags,
+so an edited source or flag rebuilds and an unchanged one is reused.
+Nothing here runs at import time: importing the package needs no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+# -fmad=false: no multiply-add contraction, so the kernel rounds every f32
+# operation as the plain PyTorch version does (the ground sphere's
+# discriminant is a catastrophic cancellation).  No --use_fast_math: the
+# root test needs sqrtf(negative) = NaN and IEEE division.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, dict] = {}  # source name -> {"seconds", "ptxas", "path"}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cands = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<source>``, building it first
+    if no library for this exact source and these flags exists."""
+    with _lock:
+        if source in _loaded:
+            return _loaded[source]
+        src = CSRC / source
+        digest = hashlib.sha256(src.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        lib_path = BUILD_DIR / f"{src.stem}_{digest[:16]}.so"
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, lib_path)  # atomic: a reader never sees half a file
+            build_log[source] = {
+                "seconds": time.perf_counter() - t0,
+                "ptxas": [ln.strip() for ln in proc.stderr.splitlines()
+                          if "registers" in ln or "spill" in ln],
+                "path": str(lib_path)}
+        else:
+            build_log.setdefault(source, {"seconds": 0.0, "ptxas": [],
+                                          "path": str(lib_path)})
+        lib = ctypes.CDLL(str(lib_path))
+        _loaded[source] = lib
+        return lib

@@ -1,0 +1,122 @@
+"""raytpu_torch's CLI, image writers and timing helper on the CPU."""
+
+import os
+import struct
+import subprocess
+import sys
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from raytpu import io as jio
+import raytpu_torch as rt
+from raytpu_torch import cli, io, profiling
+from raytpu_torch.config import RenderConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = ["--width", "32", "--height", "16", "--spp", "1", "--depth", "3"]
+
+
+def _read_png(path):
+    """(width, height, rows) of an 8-bit RGB PNG written by io.save_png."""
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    w, h = struct.unpack(">II", data[16:24])
+    idat_len = struct.unpack(">I", data[33:37])[0]
+    raw = zlib.decompress(data[41:41 + idat_len])
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)[:, 1:]
+    return w, h, rows.reshape(h, w, 3)
+
+
+def test_cli_render_writes_the_rendered_png(tmp_path):
+    out = tmp_path / "frame.png"
+    assert cli.main(["render", "--scene", "test", *SMALL, "--device", "cpu",
+                     "--out", str(out)]) == 0
+    w, h, pix = _read_png(out)
+    assert (w, h) == (32, 16)
+    cfg = RenderConfig(width=32, height=16, spp=1, depth=3)
+    img = rt.render(rt.test_world(device="cpu"),
+                    rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0),
+                                   vfov=20.0, aspect=cfg.aspect,
+                                   device="cpu"), cfg)
+    np.testing.assert_array_equal(pix, io.to_uint8(img.numpy()))
+
+
+@pytest.mark.parametrize("scene", ["config1", "v1"])
+def test_cli_render_other_scenes_and_modes(tmp_path, scene):
+    out = tmp_path / "frame.ppm"
+    assert cli.main(["render", "--scene", scene, *SMALL, "--device", "cpu",
+                     "--rng-mode", "parallel", "--scatter-mode", "v1",
+                     "--aperture", "0.1", "--focus-dist", "10",
+                     "--out", str(out)]) == 0
+    assert out.read_bytes().startswith(b"P6\n32 16\n255\n")
+
+
+@pytest.mark.parametrize("flag", [["--bvh"], ["--progressive", "4"],
+                                  ["--devices", "2"]],
+                         ids=["bvh", "progressive", "devices"])
+def test_cli_refuses_unported_options(tmp_path, flag):
+    out = tmp_path / "never.png"
+    with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
+        cli.main(["render", *SMALL, "--device", "cpu", *flag,
+                  "--out", str(out)])
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("flag", [["--refill", "2"], ["--checkpoint", "c"]],
+                         ids=["refill", "checkpoint"])
+def test_cli_rejects_other_raytpu_options(tmp_path, flag):
+    out = tmp_path / "never.png"
+    with pytest.raises(SystemExit) as e:
+        cli.main(["render", *SMALL, "--device", "cpu", *flag,
+                  "--out", str(out)])
+    assert e.value.code == 2 and not out.exists()
+
+
+@pytest.mark.parametrize("cmd", ["gradcheck", "validate", "info"])
+def test_cli_refuses_unported_subcommands(cmd):
+    with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
+        cli.main([cmd, "--scene", "test"])
+
+
+def test_cli_module_entry_point(tmp_path):
+    out = tmp_path / "frame.png"
+    proc = subprocess.run(
+        [sys.executable, "-m", "raytpu_torch.cli", "render", *SMALL,
+         "--device", "cpu", "--out", str(out)],
+        cwd=ROOT, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    assert "on cpu" in proc.stdout and out.exists()
+    proc = subprocess.run(
+        [sys.executable, "-m", "raytpu_torch.cli", "render", "--bvh",
+         "--device", "cpu", "--out", str(out)],
+        cwd=ROOT, capture_output=True, text=True)
+    assert proc.returncode != 0 and "M5" in proc.stderr
+
+
+def test_io_matches_raytpu(tmp_path):
+    img = np.random.default_rng(0).uniform(-0.2, 1.2, (5, 7, 3)).astype(
+        np.float32)
+    np.testing.assert_array_equal(io.to_uint8(img), jio.to_uint8(img))
+    for ext in ("png", "ppm"):
+        a, b = tmp_path / f"a.{ext}", tmp_path / f"b.{ext}"
+        io.save_image(str(a), img)
+        jio.save_image(str(b), img)
+        assert a.read_bytes() == b.read_bytes()
+
+
+def test_timed_names_the_device():
+    cfg = RenderConfig(width=8, height=4, spp=3, depth=1)
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return torch.zeros(cfg.height, cfg.width, 3)
+
+    out, stats = profiling.timed(fn, cfg, iters=2)
+    assert len(calls) == 3 and out.shape == (4, 8, 3)
+    assert stats.device == "cpu" and stats.primary_rays == 96
+    assert stats.wall_s > 0 and stats.rays_per_sec > 0
+    assert stats.as_dict()["config"] == "8x4 spp3 d1"

@@ -1,0 +1,186 @@
+"""The port's render path on the CPU against raytpu's Pallas megakernel.
+
+``raytpu_torch.render(backend="auto")`` on CPU tensors goes through the
+kernel wrapper, which runs the plain PyTorch version there; it is held
+against ``raytpu.kernels.megakernel.render_pallas(..., interpret=True)``,
+the way tests/test_pallas.py runs the Pallas kernel on the CPU.  Tolerance:
+|d| <= 3e-4 on at least 99% of pixels (the cross-context budget; see
+tests/test_torch_golden.py for what moves pixels between XLA and torch).
+
+The CUDA kernel itself runs only on a card: tests/test_torch_cuda_kernel.py.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import raytpu
+from raytpu.config import RenderConfig
+from raytpu.kernels import megakernel as jmk
+import raytpu_torch as rt
+from raytpu_torch import convert, golden
+from raytpu_torch.render import render_grad
+from raytpu_torch.kernels import megakernel as tmk
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _np(nt):
+    return {k: np.asarray(v) for k, v in nt._asdict().items()}
+
+
+def _inputs(name):
+    if name == "test_world":
+        cfg = RenderConfig(width=64, height=36, spp=2, depth=4)
+        scene, look = raytpu.test_world(), ((13.0, 2.0, 3.0), (0.0, 0.0, 0.0))
+        kw = {"vfov": 20.0}
+    elif name == "unaligned":
+        cfg = RenderConfig(width=50, height=21, spp=2, depth=3)
+        scene, look = raytpu.config1_world(), ((0.0, 0.2, 1.0),
+                                               (0.0, 0.0, -1.0))
+        kw = {"vfov": 60.0}
+    elif name == "defocus":
+        cfg = RenderConfig(width=64, height=24, spp=2, depth=3)
+        scene, look = raytpu.config1_world(), ((0.0, 0.5, 2.0),
+                                               (0.0, 0.0, -1.0))
+        kw = {"vfov": 40.0, "aperture": 0.4, "focus_dist": 3.0}
+    elif name == "many_spheres_parallel":
+        cfg = RenderConfig(width=32, height=16, spp=2, depth=3,
+                           rng_mode="parallel")
+        scene, look = raytpu.random_world(seed=3, half_extent=4), (
+            (13.0, 2.0, 3.0), (0.0, 0.0, 0.0))
+        kw = {"vfov": 20.0}
+    else:  # v1 materials on the v1 world through the thin-lens v1 camera
+        cfg = RenderConfig(width=40, height=30, spp=1, depth=6, gamma=2.0,
+                           scatter_mode="v1")
+        scene, look = raytpu.v1_world(), ((13.0, 2.0, 3.0), (0.0, 0.0, 0.0))
+        kw = {"vfov": 20.0, "aperture": 0.1, "focus_dist": 10.0}
+    cam = raytpu.make_camera(*look, aspect=cfg.aspect, **kw)
+    return scene, cam, cfg
+
+
+@pytest.mark.parametrize("name", ["test_world", "unaligned", "defocus",
+                                  "many_spheres_parallel", "v1"])
+def test_render_auto_matches_pallas_interpret(name):
+    scene, cam, cfg = _inputs(name)
+    want = np.asarray(jmk.render_pallas(scene, cam, cfg, interpret=True))
+    s = convert.scene_from_numpy(_np(scene), "cpu")
+    c = convert.camera_from_numpy(_np(cam), "cpu")
+    before = tmk.launches
+    got = rt.render(s, c, cfg, backend="auto")
+    assert tmk.launches == before  # CPU tensors never reach the kernel
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    d = np.abs(got.numpy() - want).max(axis=-1)
+    assert float((d > 3e-4).mean()) <= 0.01, float(d.max())
+    assert torch.equal(got, rt.render(s, c, cfg, backend="golden"))
+
+
+def _small():
+    cfg = RenderConfig(width=16, height=8, spp=1, depth=2)
+    scene = rt.test_world(device="cpu")
+    cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                         aspect=cfg.aspect, device="cpu")
+    return scene, cam, cfg
+
+
+@pytest.mark.parametrize("bad", [
+    ("center", lambda t: t.double()),
+    ("center", lambda t: t[:, :2]),
+    ("radius", lambda t: t[:-1]),
+    ("mat_type", lambda t: t.float()),
+    ("albedo", lambda t: t.reshape(-1)),
+    ("mat_param", lambda t: t.half()),
+], ids=["center_f64", "center_n2", "radius_short", "mat_type_f32",
+        "albedo_flat", "mat_param_f16"])
+def test_wrapper_rejects_bad_scene(bad):
+    scene, cam, cfg = _small()
+    field, f = bad
+    scene = scene._replace(**{field: f(getattr(scene, field))})
+    with pytest.raises(ValueError, match=field):
+        rt.render(scene, cam, cfg)
+
+
+def test_wrapper_rejects_bad_camera_and_config():
+    scene, cam, cfg = _small()
+    with pytest.raises(ValueError, match="origin"):
+        rt.render(scene, cam._replace(origin=cam.origin.double()), cfg)
+    with pytest.raises(ValueError, match="lens_radius"):
+        rt.render(scene, cam._replace(lens_radius=cam.lens_radius[None]), cfg)
+    with pytest.raises(ValueError, match="frame"):
+        rt.render(scene, cam, cfg.replace(width=1))
+    with pytest.raises(ValueError, match="scatter_mode"):
+        rt.render(scene, cam, cfg.replace(scatter_mode="v3"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rt.render(scene, cam, cfg.replace(rng_mode="v1_fractsin",
+                                          scatter_mode="v1"))
+
+
+def test_wrapper_rejects_requires_grad():
+    scene, cam, cfg = _small()
+    with pytest.raises(ValueError, match="requires grad"):
+        rt.render(scene._replace(center=scene.center.requires_grad_()),
+                  cam, cfg)
+    with pytest.raises(ValueError, match="requires grad"):
+        rt.render(scene, cam._replace(origin=cam.origin.requires_grad_()),
+                  cfg)
+
+
+def test_kernel_launch_needs_cuda_tensors():
+    scene, cam, cfg = _small()
+    cp, sp = tmk.pack_camera(cam), tmk.pack_scene(scene)
+    assert cp.shape == (tmk.CAM_PACK,) and cp.is_contiguous()
+    assert sp.shape == (tmk.SCENE_ROWS, 4) and sp.is_contiguous()
+    np.testing.assert_array_equal(sp[4].numpy(), [0, 0, 1, 2])
+    with pytest.raises(ValueError, match="CUDA"):
+        tmk.launch(cp, sp, cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        rt.render(scene, cam, cfg, backend="cuda")
+    with pytest.raises(ValueError, match="backend"):
+        rt.render(scene, cam, cfg, backend="pallas")
+
+
+def test_render_grad_not_ported():
+    scene, cam, cfg = _small()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        render_grad(scene, cam, cfg, None)
+
+
+def test_render_device_argument_moves_inputs():
+    scene, cam, cfg = _small()
+    a = rt.render(scene, cam, cfg, device="cpu")
+    b = golden.render_golden(scene, cam, cfg)
+    assert torch.equal(a, b)
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import raytpu_torch, raytpu_torch.cli, raytpu_torch.convert, "
+        "raytpu_torch.io, raytpu_torch.profiling, "
+        "raytpu_torch.kernels.megakernel\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'raytpu'))\n"
+        "print(bad, 'jax' in before, 'jax' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True).stdout
+    bad, before, after = out.rsplit(" ", 2)
+    assert bad == "[]"
+    assert after.strip() == before  # jax stays out unless preloaded
+
+
+def test_sources_never_import_jax_or_raytpu():
+    pkg = os.path.join(ROOT, "raytpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(dirpath, f)).read()
+                assert "import jax" not in text, f
+                assert "from raytpu " not in text and "from raytpu." not in \
+                    text, f
+                assert "import raytpu\n" not in text, f
