@@ -5,11 +5,14 @@ semantics as the JAX package ``raytpu``, with tensors in place of jax
 arrays.  The forward render runs on an H100 through a hand-written CUDA
 megakernel (``raytpu_torch/kernels/megakernel.py``, source in
 ``raytpu_torch/csrc/``) and anywhere through the plain PyTorch version
-(``raytpu_torch/golden.py``).  This package never imports jax.
+(``raytpu_torch/golden.py``).  Gradients of the image w.r.t. the scene and
+camera (``render`` under autograd, ``render_grad``, ``optim.optimize``) run
+backward through the fused VJP kernel (``raytpu_torch/kernels/gradkernel.py``)
+on a card and through the adjoint (``raytpu_torch/adjoint.py``) anywhere.
+This package never imports jax.
 
-Not ported yet (see ROADMAP.md): gradients (``render_grad``), the BVH,
-progressive rendering, sharding, the wavefront engine and the v1 fract-sin
-RNG mode.
+Not ported yet (see ROADMAP.md): the BVH, the winner-index tape, progressive
+rendering, sharding, the wavefront engine and the v1 fract-sin RNG mode.
 """
 
 from raytpu_torch.config import RenderConfig
@@ -29,7 +32,7 @@ from raytpu_torch.scene import (
     final_world,
     v1_world,
 )
-from raytpu_torch.render import render
+from raytpu_torch.render import render, render_grad
 
 __version__ = "0.1.0"
 
@@ -48,4 +51,5 @@ __all__ = [
     "final_world",
     "v1_world",
     "render",
+    "render_grad",
 ]

@@ -1,17 +1,19 @@
-"""Command-line interface (counterpart of ``raytpu/cli.py``'s ``render``).
+"""Command-line interface (counterpart of ``raytpu/cli.py``).
 
     python -m raytpu_torch.cli render --scene random --width 1024 \
         --height 576 --spp 60 --depth 50 --device cuda --out frame.png
+    python -m raytpu_torch.cli gradcheck --device cuda
 
-Only the ``render`` subcommand is ported.  ``--bvh``, ``--progressive``,
-``--devices`` and the other subcommands belong to parts not ported yet and
-exit with an error that names their ROADMAP item; raytpu's other options
-are not accepted.  None is silently ignored.
+The ``render`` and ``gradcheck`` subcommands are ported.  ``--bvh``,
+``--progressive``, ``--devices`` and the other subcommands belong to parts
+not ported yet and exit with an error that names their ROADMAP item;
+raytpu's other options are not accepted.  None is silently ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 SCENES = ("config1", "test", "random", "final", "v1")
@@ -25,7 +27,6 @@ _NOT_PORTED = {
                    "(ROADMAP queue 1, M9)"),
 }
 _SUBCOMMANDS_NOT_PORTED = {
-    "gradcheck": "gradients (ROADMAP queue 1, M6/M7; queue 2, K3)",
     "validate": "debug.py's cross-backend sweep (ROADMAP queue 1, M11)",
     "info": "the tools (ROADMAP queue 1, M11)",
 }
@@ -67,6 +68,48 @@ def cmd_render(args) -> int:
     print(f"wrote {args.out}  ({stats.rays_per_sec / 1e6:.2f} Mrays/s, "
           f"{stats.wall_s * 1e3:.1f} ms on {stats.device})")
     return 0
+
+
+def cmd_gradcheck(args) -> int:
+    """Analytic-vs-finite-difference gradient self-check (raytpu's
+    ``gradcheck`` problem): d(sum of four pixels' r+g+b) / d albedo[1, 0]
+    from autograd through :func:`render` (on ``cuda``: the forward kernel
+    and the VJP kernel), against a central difference with eps 1e-2."""
+    import torch
+    import raytpu_torch as rt
+    from raytpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=48, height=24, spp=2, depth=4)
+    scene = rt.make_scene([
+        ((0.0, -100.5, -1.0), 100.0, 0, (0.5, 0.5, 0.5), 0.0),
+        ((0.0, 0.0, -1.0), 0.5, 0, (0.7, 0.3, 0.3), 0.0),
+    ], args.device)
+    cam = rt.make_camera((0.0, 0.3, 1.5), (0.0, 0.0, -1.0), vfov=45.0,
+                         aspect=cfg.aspect, device=args.device)
+    px = torch.tensor([22, 24, 26, 23], device=args.device)
+    py = torch.tensor([12, 12, 13, 11], device=args.device)
+
+    def pixels(albedo):
+        img = rt.render(scene._replace(albedo=albedo), cam, cfg)
+        return img[py, px].sum()
+
+    albedo = scene.albedo.detach().requires_grad_()
+    (g,) = torch.autograd.grad(pixels(albedo), albedo)
+    analytic = float(g[1, 0])
+    eps = 1e-2
+
+    def at(v):
+        a = scene.albedo.clone()
+        a[1, 0] = v
+        return float(pixels(a))
+
+    a0 = float(scene.albedo[1, 0])
+    fd = (at(a0 + eps) - at(a0 - eps)) / (2 * eps)
+    err = abs(analytic - fd)
+    print(json.dumps({"grad_max_err_vs_fd": err, "pass": err < 1e-3,
+                      "analytic": analytic, "finite_difference": fd,
+                      "device": str(albedo.device)}))
+    return 0 if err < 1e-3 else 1
 
 
 def main(argv=None) -> int:
@@ -111,6 +154,11 @@ def main(argv=None) -> int:
                    help="not ported yet (M9)")
     r.add_argument("--out", default="out.png")
     r.set_defaults(fn=cmd_render)
+
+    g = sub.add_parser("gradcheck", help="gradient vs finite-diff check")
+    g.add_argument("--device", required=True,
+                   help="where the check runs: cpu, cuda, cuda:N")
+    g.set_defaults(fn=cmd_gradcheck)
 
     for name, what in _SUBCOMMANDS_NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported yet: needs {what}")

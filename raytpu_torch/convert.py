@@ -5,6 +5,11 @@ field names as this package's.  These helpers take or give a dict of numpy
 arrays keyed by those names (``raytpu_obj._asdict()`` mapped through
 ``np.asarray`` is one), so both packages can be fed bit-identical inputs
 without this package importing jax.
+
+Gradients are Scenes and Cameras too, with ``mat_type`` None (a discrete
+leaf has no cotangent; raytpu gives a float0 array there):
+:func:`grads_to_numpy` and :func:`scene_grads_from_numpy` carry them across,
+so the tests compare both packages' gradients leaf by leaf.
 """
 
 from __future__ import annotations
@@ -46,3 +51,24 @@ def scene_to_numpy(scene: Scene) -> dict:
 def camera_to_numpy(cam: Camera) -> dict:
     """dict of numpy arrays (host copies) keyed by the Camera field names."""
     return {k: v.detach().cpu().numpy() for k, v in cam._asdict().items()}
+
+
+def grads_to_numpy(grads) -> dict:
+    """dict of numpy arrays from a gradient Scene or Camera, without the
+    fields that hold None (``mat_type``) or a float0 array."""
+    out = {}
+    for k, v in _fields(grads).items():
+        if k == "mat_type" or v is None:
+            continue
+        out[k] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                  else np.asarray(v, np.float32))
+    return out
+
+
+def scene_grads_from_numpy(d, device) -> Scene:
+    """Gradient Scene on ``device`` (``mat_type`` None) from a dict (or
+    NamedTuple) of arrays; a ``mat_type`` entry is ignored."""
+    d = _fields(d)
+    return Scene(**{k: (None if k == "mat_type" else
+                        torch.from_numpy(np.array(d[k], np.float32)).to(device))
+                    for k in Scene._fields})

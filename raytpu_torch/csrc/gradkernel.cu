@@ -1,0 +1,626 @@
+// Fused image + VJP kernel K3 for Hopper (sm_90a): one thread per pixel.
+//
+// Replaces the TPU kernel raytpu/kernels/gradkernel.py::render_pallas_vjp
+// (kernel body _make_grad_kernel with the per-sample PASS 2; the bounce
+// transpose is _bounce_f's, the silhouette terms silhouette_terms').  Given
+// an image cotangent ct it returns the image, the cotangent of every
+// sphere's continuous leaves (center, radius, albedo, mat_param) and the 18
+// raygen sums from which the host assembles the camera cotangent.  It
+// computes what the TPU kernel computes, not its schedule: the (8, 128)
+// tiles, the VMEM residual scratch, the one-hot MXU scatter, the block_w
+// scramble and the SMEM Kahan slots are TPU mechanisms with no counterpart.
+//
+//   PASS 1 (skipped when the image is given, parallel RNG only): the
+//          pixel's spp samples through trace_path(), the very code K1a
+//          runs, so the image is K1a's bit for bit; then the cotangent of
+//          the linear sample sum, d_acc = ct * exp(log(img)*(1-gamma))/gamma
+//          * inv_spp (0 where img <= 0), in gradkernel.py:878-888's order.
+//   PASS 2 per sample, in order: re-run the forward, keeping per bounce the
+//          incoming ray, throughput, winner and pre-bounce seed (11 words)
+//          in per-thread local memory; walk the bounces in reverse through
+//          a hand-written transpose of _bounce_f; then transpose raygen
+//          into the 18 camera sums.  Sequential RNG needs no stored seeds:
+//          each re-run sample's final seed is the next one's start.
+//
+// The transpose is derived by hand, piece by piece (bounce_vjp below): the
+// quadratic root with the straight-through sqrt (value from sqrtf(disc),
+// gradient from the 1e-20-clamped branch), hit point and normal with the
+// inv_r guard, normalize with rsqrtf, reflect, refract with the ratio
+// chosen by the front face, the v2 diffuse / metal directions, the v1
+// flip / fuzz branch, the glass select, the throughput products and the
+// sky of the pre-scatter direction on a miss.  Discrete events stay
+// detached exactly as _bounce_f marks them: the winner, front face, near
+// root, TIR / Schlick coin, v1 flip and near-zero guard and every draw.
+// max / min against a constant pass half the gradient at a tie, as
+// jnp.maximum does.  A thread reads back only the rows it wrote in this
+// sample, so dead lanes cannot feed 0 * inf into the reverse, and a miss's
+// winner (-1) never addresses a sphere.
+//
+// Accumulation is in f64 and cast to f32 once, by the wrapper.  The camera
+// sums are deterministic: each warp sums its lanes' per-thread f64 sums
+// with a fixed butterfly and writes one row of an (n_warps, 18) buffer,
+// which the wrapper reduces in a fixed order.  That matters most for the
+// origin cotangent, a difference of sums that cancel about 800x
+// (gradkernel.py:970-973, where the TPU kernel Kahan-compensates f32).
+// Sphere cotangents go through atomicAdd(double*) (native on sm_90): lanes
+// of a warp with the same winner are first summed in a fixed lane order,
+// but the atomics of different warps land in whatever order the card runs
+// them, so two runs may differ in the last bits of those f64 sums.  After
+// the cast to f32 they are bit-equal unless a sum lies within ~1e-13 of an
+// f32 rounding boundary.  chip_smoke.py phase 2b compares two runs (with
+// and without PASS 1, parallel RNG) and finds them bit-equal.
+//
+// What bounds it on this card: the closest-hit sweeps (two per sample, the
+// PASS-1 and the PASS-2 one; three with vis_w, whose near-miss sweep runs
+// at every miss), warp divergence (paths end at different depths, materials
+// branch per lane), local-memory traffic for the residuals (44 bytes per
+// bounce per thread, cached in L1/L2, up to kMaxDepth rows), and atomic
+// contention on the ground sphere, which almost every diffuse ray hits.
+// This first design answers them only simply: the sweep is K1a's (no
+// BVH); the reverse loop runs to the warp's longest path so that every
+// lane joins the warp-level sums; lanes with the same winner are summed
+// with shuffles (a full-warp butterfly when all 32 agree) before one lane
+// issues the atomics.  K4's winner-index tape removes the PASS-2 sweep;
+// staging the scene in shared memory and per-block partial sums are later
+// work.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "render_common.cuh"
+
+namespace {
+
+using namespace rt;
+
+constexpr int kMaxDepth = 64;   // local residual rows; the wrapper refuses more
+constexpr int kLeaves = 8;      // cx cy cz rad ar ag ab mp
+constexpr int kCamSums = 18;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+struct Params {
+  const CamPack* cam;
+  const float* scene;   // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
+  const float* ct;      // (height, width, 3) image cotangent
+  const float* img_in;  // (height, width, 3) forward image, or null (PASS 1)
+  float* img_out;       // (height, width, 3)
+  double* gsc;          // (kLeaves, n) sphere cotangents, zeroed by the caller
+  double* gcam;         // (n_warps, kCamSums) camera sums, one row a warp
+  int n, width, height, spp, depth;
+  float t_min, inv_w, inv_h, inv_spp, gamma, vis_w;
+  int parallel, v1;
+};
+
+// d max(x, c)/dx and d min(x, c)/dx with jnp's tie rule: half at a tie.
+__device__ __forceinline__ float dmax(float x, float c) {
+  return x > c ? 1.0f : (x == c ? 0.5f : 0.0f);
+}
+__device__ __forceinline__ float dmin(float x, float c) {
+  return x < c ? 1.0f : (x == c ? 0.5f : 0.0f);
+}
+
+// VJP of normalize3 at v for the output cotangent g; adds into gv.
+__device__ __forceinline__ void normalize3_vjp(const float v[3],
+                                               const float g[3], float gv[3]) {
+  float s = dot3(v[0], v[1], v[2], v[0], v[1], v[2]);
+  float m = fmaxf(s, kSafeEps);
+  float inv = rsqrtf(m);
+  float g_inv = dot3(g[0], g[1], g[2], v[0], v[1], v[2]);
+  // d rsqrt(m)/dm = -0.5 * rsqrt(m) / m
+  float g_s = g_inv * (-0.5f * inv / m) * dmax(s, kSafeEps);
+  for (int k = 0; k < 3; ++k) gv[k] += g[k] * inv + 2.0f * v[k] * g_s;
+}
+
+// VJP of reflect(v, n) = v - 2 (v.n) n for the output cotangent g.
+__device__ __forceinline__ void reflect_vjp(const float v[3], const float n[3],
+                                            const float g[3], float gv[3],
+                                            float gn[3]) {
+  float d = dot3(v[0], v[1], v[2], n[0], n[1], n[2]);
+  float g_d = -2.0f * dot3(g[0], g[1], g[2], n[0], n[1], n[2]);
+  for (int k = 0; k < 3; ++k) {
+    gv[k] += g[k] + g_d * n[k];
+    gn[k] += -2.0f * d * g[k] + g_d * v[k];
+  }
+}
+
+// VJP of golden._refract(u, n, ratio) for the output cotangent g.
+__device__ __forceinline__ void refract_vjp(const float u[3], const float n[3],
+                                            float ratio, const float g[3],
+                                            float gu[3], float gn[3],
+                                            float& g_ratio) {
+  float cdot = dot3(-u[0], -u[1], -u[2], n[0], n[1], n[2]);
+  float ct = fminf(cdot, 1.0f);
+  float inner[3], pp[3];
+  for (int k = 0; k < 3; ++k) {
+    inner[k] = u[k] + ct * n[k];
+    pp[k] = ratio * inner[k];
+  }
+  float w = 1.0f - dot3(pp[0], pp[1], pp[2], pp[0], pp[1], pp[2]);
+  float aw = fabsf(w);
+  float sq = sqrtf(fmaxf(aw, kSafeEps));
+  float par = -sq;
+  // out = pp + par * n
+  float g_par = dot3(g[0], g[1], g[2], n[0], n[1], n[2]);
+  float g_w = -g_par * (0.5f / sq) * dmax(aw, kSafeEps) *
+              (w > 0.0f ? 1.0f : (w < 0.0f ? -1.0f : 0.0f));
+  float g_pp[3], g_in[3];
+  for (int k = 0; k < 3; ++k) {
+    gn[k] += par * g[k];
+    g_pp[k] = g[k] - 2.0f * pp[k] * g_w;
+  }
+  g_ratio += dot3(g_pp[0], g_pp[1], g_pp[2], inner[0], inner[1], inner[2]);
+  for (int k = 0; k < 3; ++k) g_in[k] = ratio * g_pp[k];
+  float g_ct = dot3(g_in[0], g_in[1], g_in[2], n[0], n[1], n[2]);
+  float g_cdot = g_ct * dmin(cdot, 1.0f);
+  for (int k = 0; k < 3; ++k) {
+    gu[k] += g_in[k] - g_cdot * n[k];
+    gn[k] += ct * g_in[k] - g_cdot * u[k];
+  }
+}
+
+// VJP of c * sky(d) (a miss's radiance) for the cotangent dacc: adds into
+// the throughput and direction cotangents.
+__device__ __forceinline__ void sky_vjp(const float d[3], const float c[3],
+                                        const float dacc[3], float gd[3],
+                                        float gc[3]) {
+  float kr, kg, kb;
+  sky(d[0], d[1], d[2], kr, kg, kb);
+  gc[0] += dacc[0] * kr;
+  gc[1] += dacc[1] * kg;
+  gc[2] += dacc[2] * kb;
+  float g_t = -0.5f * (c[0] * dacc[0]) - 0.3f * (c[1] * dacc[1]);
+  float g_u[3] = {0.0f, 0.5f * g_t, 0.0f};
+  normalize3_vjp(d, g_u, gd);
+}
+
+// Transpose of one scattering bounce (_bounce_f with scat set) against its
+// winner.  g holds the cotangent of the outgoing (origin, direction,
+// throughput) on entry and of the incoming one on exit; ga receives the
+// winner's leaf cotangents (cx cy cz rad ar ag ab mp).
+__device__ void bounce_vjp(const SceneView& s, const Residual& r, float t_min,
+                           bool v1, float g[9], float ga[kLeaves]) {
+  const int w = r.win;
+  const float o[3] = {r.ox, r.oy, r.oz};
+  const float d[3] = {r.dx, r.dy, r.dz};
+  const float c[3] = {r.cr, r.cg, r.cb};
+  const float C[3] = {s.cx[w], s.cy[w], s.cz[w]};
+  const float R = s.rad[w], mt = s.mt[w], mp = s.mp[w];
+  const float alb[3] = {s.ar[w], s.ag[w], s.ab[w]};
+  const bool is_d = mt == 0.0f, is_m = mt == 1.0f, is_g = mt == 2.0f;
+
+  // -- recompute the forward (closest_hit's root, scatter's normal)
+  float oc[3] = {o[0] - C[0], o[1] - C[1], o[2] - C[2]};
+  float a = dot3(d[0], d[1], d[2], d[0], d[1], d[2]);
+  float hb = oc[0] * d[0] + oc[1] * d[1] + oc[2] * d[2];
+  float cc = dot3(oc[0], oc[1], oc[2], oc[0], oc[1], oc[2]) - R * R;
+  float disc = hb * hb - a * cc;
+  float sqrtd = sqrtf(disc);  // the value: a hit has disc >= 0
+  float sqrt_safe = sqrtf(fmaxf(disc, kSafeEps));  // the gradient's branch
+  float inv_a = 1.0f / a;
+  float root1 = (-hb - sqrtd) * inv_a;
+  float root2 = (-hb + sqrtd) * inv_a;
+  bool near = root1 >= t_min;
+  float t = near ? root1 : root2;
+  float p[3], q[3], n[3];
+  float r_safe = R == 0.0f ? 1.0f : R;
+  float inv_r = 1.0f / r_safe;
+  for (int k = 0; k < 3; ++k) {
+    p[k] = o[k] + t * d[k];
+    q[k] = p[k] - C[k];
+    n[k] = q[k] * inv_r;
+  }
+  bool front = dot3(d[0], d[1], d[2], n[0], n[1], n[2]) < 0.0f;
+  float sgn = front ? 1.0f : -1.0f;
+  for (int k = 0; k < 3; ++k) n[k] = n[k] * sgn;
+  uint32_t sd = r.seed;
+  uint32_t nd = draw(sd);
+  float sv[3];
+  unit_sphere(nd, sv[0], sv[1], sv[2]);
+
+  // -- throughput: n_c = c * at
+  float g_o[3] = {0.0f, 0.0f, 0.0f};
+  float g_nd[3] = {g[3], g[4], g[5]};
+  float g_d[3] = {0.0f, 0.0f, 0.0f};
+  float g_n[3] = {0.0f, 0.0f, 0.0f};
+  float g_c[3];
+  float g_p[3] = {g[0], g[1], g[2]};  // the new origin is the hit point
+  float g_mp = 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    g_c[k] = g[6 + k] * (is_g ? 1.0f : alb[k]);
+    ga[4 + k] = is_g ? 0.0f : g[6 + k] * c[k];
+  }
+
+  // -- the selected direction's transpose
+  if (is_g) {
+    float ior = fmaxf(mp, 1e-3f);
+    float u[3] = {d[0], d[1], d[2]};
+    normalize3(u[0], u[1], u[2]);
+    float ratio = front ? 1.0f / ior : ior;
+    float cosine = fminf(dot3(-u[0], -u[1], -u[2], n[0], n[1], n[2]), 1.0f);
+    float sine = sqrtf(fmaxf(1.0f - cosine * cosine, 0.0f));
+    bool cannot = ratio * sine > 1.0f;
+    float r0 = (1.0f - ratio) / (1.0f + ratio);
+    r0 = r0 * r0;
+    float m = 1.0f - cosine;
+    float schlick = r0 + (1.0f - r0) * (m * m * m * m * m);
+    float g_u[3] = {0.0f, 0.0f, 0.0f};
+    if (cannot || schlick > hash1_of(nd)) {
+      reflect_vjp(u, n, g_nd, g_u, g_n);
+    } else {
+      float g_ratio = 0.0f;
+      refract_vjp(u, n, ratio, g_nd, g_u, g_n, g_ratio);
+      float g_ior = front ? -g_ratio / (ior * ior) : g_ratio;
+      g_mp += g_ior * dmax(mp, 1e-3f);
+    }
+    normalize3_vjp(d, g_u, g_d);
+  } else if (v1) {
+    if (is_d) {  // near0 ? n : n + hemisphere: n takes it either way
+      for (int k = 0; k < 3; ++k) g_n[k] += g_nd[k];
+    } else {  // reflect(normalize(d), n) + saturate(fuzz) * hemisphere
+      bool flip = dot3(sv[0], sv[1], sv[2], n[0], n[1], n[2]) > 0.0f;
+      float hh[3];
+      for (int k = 0; k < 3; ++k) hh[k] = flip ? sv[k] : -sv[k];
+      float u1[3] = {d[0], d[1], d[2]};
+      normalize3(u1[0], u1[1], u1[2]);
+      float g_fz = dot3(g_nd[0], g_nd[1], g_nd[2], hh[0], hh[1], hh[2]);
+      g_mp += g_fz * dmin(fmaxf(mp, 0.0f), 1.0f) * dmax(mp, 0.0f);
+      float g_u1[3] = {0.0f, 0.0f, 0.0f};
+      reflect_vjp(u1, n, g_nd, g_u1, g_n);
+      normalize3_vjp(d, g_u1, g_d);
+    }
+  } else if (is_d) {  // normalize(n + s)
+    float qd[3] = {n[0] + sv[0], n[1] + sv[1], n[2] + sv[2]};
+    normalize3_vjp(qd, g_nd, g_n);
+  } else {  // normalize(reflect(d, n) + fuzz * s)
+    float rv[3];
+    reflect(d[0], d[1], d[2], n[0], n[1], n[2], rv[0], rv[1], rv[2]);
+    float q2[3] = {rv[0] + mp * sv[0], rv[1] + mp * sv[1], rv[2] + mp * sv[2]};
+    float g_q2[3] = {0.0f, 0.0f, 0.0f};
+    normalize3_vjp(q2, g_nd, g_q2);
+    g_mp += dot3(g_q2[0], g_q2[1], g_q2[2], sv[0], sv[1], sv[2]);
+    reflect_vjp(d, n, g_q2, g_d, g_n);
+  }
+
+  // -- normal: n = (p - C) * inv_r * sgn
+  float g_inv_r = 0.0f, g_C[3];
+  for (int k = 0; k < 3; ++k) {
+    float g_nr = g_n[k] * sgn;
+    float g_q = g_nr * inv_r;
+    g_inv_r += g_nr * q[k];
+    g_p[k] += g_q;
+    g_C[k] = -g_q;
+  }
+  float g_R = R != 0.0f ? -g_inv_r / (r_safe * r_safe) : 0.0f;
+
+  // -- hit point: p = o + t * d
+  float g_t = dot3(g_p[0], g_p[1], g_p[2], d[0], d[1], d[2]);
+  for (int k = 0; k < 3; ++k) {
+    g_o[k] += g_p[k];
+    g_d[k] += t * g_p[k];
+  }
+
+  // -- root: t = (-hb -/+ sqrtd) * inv_a, straight-through sqrt
+  float g_hb = -g_t * inv_a;
+  float g_sq = (near ? -g_t : g_t) * inv_a;
+  float g_inva = g_t * (near ? (-hb - sqrtd) : (-hb + sqrtd));
+  float g_a = -g_inva * inv_a * inv_a;
+  float g_disc = g_sq * (0.5f / sqrt_safe) * dmax(disc, kSafeEps);
+  g_hb += 2.0f * hb * g_disc;
+  g_a += -cc * g_disc;
+  float g_cc = -a * g_disc;
+  g_R += -2.0f * R * g_cc;
+  for (int k = 0; k < 3; ++k) {
+    float g_oc = 2.0f * oc[k] * g_cc + g_hb * d[k];
+    g_d[k] += g_hb * oc[k] + 2.0f * d[k] * g_a;
+    g_o[k] += g_oc;
+    g_C[k] -= g_oc;
+  }
+
+  for (int k = 0; k < 3; ++k) {
+    g[k] = g_o[k];
+    g[3 + k] = g_d[k];
+    g[6 + k] = g_c[k];
+    ga[k] = g_C[k];
+  }
+  ga[3] = g_R;
+  ga[7] = g_mp;
+}
+
+// raytpu's soft-coverage boundary term for sphere (C, R) along ray (o, d):
+// d(sigmoid(disc / (a vis_w))) scaled by the radiance jump's cotangent.
+// Adds into gb = (d cx, d cy, d cz, d rad).
+__device__ __forceinline__ void boundary(const float o[3], const float d[3],
+                                         float a, const float C[3], float R,
+                                         const float jump[3],
+                                         const float dacc[3], float vis_w,
+                                         float gb[4]) {
+  float oc[3] = {o[0] - C[0], o[1] - C[1], o[2] - C[2]};
+  float hb = oc[0] * d[0] + oc[1] * d[1] + oc[2] * d[2];
+  float c = dot3(oc[0], oc[1], oc[2], oc[0], oc[1], oc[2]) - R * R;
+  float disc = hb * hb - a * c;
+  float sref = a * vis_w;
+  float sig = 1.0f / (1.0f + expf(-disc / sref));
+  float dsig = sig * (1.0f - sig) / sref;
+  float w_ct = dacc[0] * jump[0] + dacc[1] * jump[1] + dacc[2] * jump[2];
+  float f = dsig * w_ct;
+  // d disc / d center = 2a*oc - 2hb*d ; d disc / d radius = 2aR
+  for (int k = 0; k < 3; ++k) gb[k] += f * (2.0f * a * oc[k] - 2.0f * hb * d[k]);
+  gb[3] += f * (2.0f * a * R);
+}
+
+// The miss side of the silhouette terms: the nearest forward-facing
+// near-miss sphere (argmax of the negative discriminant, the first on
+// ties) gaining coverage, with raytpu's one-bounce radiance estimate by
+// material.  Returns its index or -1, and its (cx cy cz rad) cotangent.
+__device__ int near_miss(const SceneView& s, const Residual& r,
+                         const float v[3], const float dacc[3], float vis_w,
+                         float gb[4]) {
+  const float o[3] = {r.ox, r.oy, r.oz};
+  const float d[3] = {r.dx, r.dy, r.dz};
+  const float c[3] = {r.cr, r.cg, r.cb};
+  float a = dot3(d[0], d[1], d[2], d[0], d[1], d[2]);
+  float best = __int_as_float(0xff800000);  // -inf
+  int m = -1;
+  for (int j = 0; j < s.n; ++j) {
+    float ocx = o[0] - s.cx[j];
+    float ocy = o[1] - s.cy[j];
+    float ocz = o[2] - s.cz[j];
+    float rad = s.rad[j];
+    float hb = ocx * d[0] + ocy * d[1] + ocz * d[2];
+    float cc = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad;
+    float disc = hb * hb - a * cc;
+    if (hb < 0.0f && disc < 0.0f && disc > best) {
+      best = disc;
+      m = j;
+    }
+  }
+  if (m < 0) return -1;
+  const float C[3] = {s.cx[m], s.cy[m], s.cz[m]};
+  const float alb[3] = {s.ar[m], s.ag[m], s.ab[m]};
+  const float mt = s.mt[m];
+  float mo[3] = {o[0] - C[0], o[1] - C[1], o[2] - C[2]};
+  float hb_m = mo[0] * d[0] + mo[1] * d[1] + mo[2] * d[2];
+  float t_ca = -hb_m / a;  // closest approach along the ray
+  float nb[3] = {mo[0] + t_ca * d[0], mo[1] + t_ca * d[1],
+                 mo[2] + t_ca * d[2]};
+  normalize3(nb[0], nb[1], nb[2]);
+  float ud[3] = {d[0], d[1], d[2]};
+  normalize3(ud[0], ud[1], ud[2]);
+  float rf[3];
+  reflect(ud[0], ud[1], ud[2], nb[0], nb[1], nb[2], rf[0], rf[1], rf[2]);
+  float skn[3], skf[3];
+  sky(nb[0], nb[1], nb[2], skn[0], skn[1], skn[2]);
+  sky(rf[0], rf[1], rf[2], skf[0], skf[1], skf[2]);
+  float jump[3];
+  for (int k = 0; k < 3; ++k) {
+    float est = mt == 0.0f ? alb[k] * skn[k]
+                           : (mt == 2.0f ? skf[k] : alb[k] * skf[k]);
+    jump[k] = c[k] * est - v[k];
+  }
+  boundary(o, d, a, C, s.rad[m], jump, dacc, vis_w, gb);
+  return m;
+}
+
+// Adds k values per lane into acc[i * n + key] for every lane whose key is
+// >= 0.  All 32 lanes of the warp must call it together.  Lanes with the
+// same key are summed in f64 in a fixed lane order (a butterfly when the
+// whole warp agrees), and one lane of each group issues the atomics.
+template <int k>
+__device__ __forceinline__ void add_by_key(double* acc, int n, int key,
+                                           const float* v) {
+  const unsigned peers = __match_any_sync(kFull, key);
+  if (key < 0) return;
+  const int lane = threadIdx.x & 31;
+  double sum[k];
+  if (peers == kFull) {
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+      double x = static_cast<double>(v[i]);
+      for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+      sum[i] = x;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < k; ++i) sum[i] = 0.0;
+    unsigned rest = peers;
+    while (rest) {
+      int src = __ffs(rest) - 1;
+      rest &= rest - 1;
+#pragma unroll
+      for (int i = 0; i < k; ++i)
+        sum[i] += __shfl_sync(peers, static_cast<double>(v[i]), src);
+    }
+  }
+  if (lane == __ffs(peers) - 1) {
+#pragma unroll
+    for (int i = 0; i < k; ++i)
+      if (sum[i] != 0.0) atomicAdd(acc + static_cast<size_t>(i) * n + key, sum[i]);
+  }
+}
+
+__global__ void __launch_bounds__(256)
+render_vjp_kernel(Params p) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  // lanes outside the frame stay to the end: every warp-level sum needs
+  // all 32 lanes; they trace nothing and add nothing
+  const bool valid = x < p.width && y < p.height;
+  const int spp = valid ? p.spp : 0;
+
+  const CamPack cam = *p.cam;
+  const SceneView s = scene_view(p.scene, p.n);
+  const bool v1 = p.v1 != 0;
+  const float fx = static_cast<float>(x);
+  const float fy = static_cast<float>(y);
+  const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
+                                   static_cast<uint32_t>(y));
+  const size_t pix = valid ? (static_cast<size_t>(y) * p.width + x) * 3 : 0;
+
+  // -- PASS 1: the image (K1a's samples), or the given one
+  float img[3] = {0.0f, 0.0f, 0.0f};
+  if (p.img_in != nullptr) {
+    if (valid)
+      for (int k = 0; k < 3; ++k) img[k] = p.img_in[pix + k];
+  } else {
+    uint32_t chain = seed0;
+    float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+    for (int smp = 0; smp < spp; ++smp) {
+      uint32_t sd = p.parallel ? fold_in(seed0, static_cast<uint32_t>(smp))
+                               : chain;
+      RayGen gr;
+      Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, gr);
+      float rr, rg, rb;
+      trace_path<false>(s, r, sd, p.depth, p.t_min, v1, rr, rg, rb, nullptr);
+      acc_r = acc_r + rr;
+      acc_g = acc_g + rg;
+      acc_b = acc_b + rb;
+      if (!p.parallel) chain = sd;
+    }
+    img[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
+    img[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
+    img[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
+  }
+  float dacc[3] = {0.0f, 0.0f, 0.0f};
+  if (valid) {
+    const float one_m_g = 1.0f - p.gamma;
+    for (int k = 0; k < 3; ++k) {
+      p.img_out[pix + k] = img[k];
+      float dd = img[k] > 0.0f ? expf(logf(img[k]) * one_m_g) / p.gamma
+                               : 0.0f;
+      dacc[k] = p.ct[pix + k] * dd * p.inv_spp;
+    }
+  }
+
+  // -- PASS 2: per sample, re-forward with residuals, then reverse
+  Residual res[kMaxDepth];
+  double cam_acc[kCamSums];
+#pragma unroll
+  for (int i = 0; i < kCamSums; ++i) cam_acc[i] = 0.0;
+  uint32_t chain = seed0;
+  for (int smp = 0; smp < p.spp; ++smp) {  // warp-uniform trip count
+    int len = 0;
+    float v[3] = {0.0f, 0.0f, 0.0f};
+    RayGen gr = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (smp < spp) {
+      uint32_t sd = p.parallel ? fold_in(seed0, static_cast<uint32_t>(smp))
+                               : chain;
+      Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, gr);
+      len = trace_path<true>(s, r, sd, p.depth, p.t_min, v1, v[0], v[1],
+                             v[2], res);
+      if (!p.parallel) chain = sd;
+    }
+    float g[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    const int warp_len = __reduce_max_sync(kFull, len);
+    for (int it = 0; it < warp_len; ++it) {
+      const int d = len - 1 - it;
+      int key = -1, key_nm = -1;
+      float ga[kLeaves] = {}, gb[4] = {};
+      if (d >= 0) {
+        const Residual& r = res[d];
+        if (r.win < 0) {  // miss: radiance c * sky(d); the state passes
+          const float dv[3] = {r.dx, r.dy, r.dz};
+          const float cv[3] = {r.cr, r.cg, r.cb};
+          float gd[3] = {g[3], g[4], g[5]}, gc[3] = {g[6], g[7], g[8]};
+          sky_vjp(dv, cv, dacc, gd, gc);
+          for (int k = 0; k < 3; ++k) {
+            g[3 + k] = gd[k];
+            g[6 + k] = gc[k];
+          }
+          if (p.vis_w > 0.0f) key_nm = near_miss(s, r, v, dacc, p.vis_w, gb);
+        } else {
+          const float mt = s.mt[r.win];
+          if (mt == 0.0f || mt == 1.0f || mt == 2.0f) {  // else absorbed
+            bounce_vjp(s, r, p.t_min, v1, g, ga);
+            key = r.win;
+            if (p.vis_w > 0.0f) {  // hit side: v turns into thr * sky
+              const float o3[3] = {r.ox, r.oy, r.oz};
+              const float d3[3] = {r.dx, r.dy, r.dz};
+              const float C[3] = {s.cx[key], s.cy[key], s.cz[key]};
+              float kr, kg, kb;
+              sky(r.dx, r.dy, r.dz, kr, kg, kb);
+              const float jump[3] = {v[0] - r.cr * kr, v[1] - r.cg * kg,
+                                     v[2] - r.cb * kb};
+              float gh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              boundary(o3, d3, dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz), C,
+                       s.rad[key], jump, dacc, p.vis_w, gh);
+              for (int k = 0; k < 4; ++k) ga[k] += gh[k];
+            }
+          }
+        }
+      }
+      add_by_key<kLeaves>(p.gsc, p.n, key, ga);
+      if (p.vis_w > 0.0f) add_by_key<4>(p.gsc, p.n, key_nm, gb);
+    }
+
+    // -- raygen transpose: d = L + uH + vV - o consumes o with weight -1,
+    // so everything the origin feeds (camera origin, lens offset) sees
+    // d_o - d_d
+    const float eo[3] = {g[0] - g[3], g[1] - g[4], g[2] - g[5]};
+    for (int k = 0; k < 3; ++k) {
+      cam_acc[k] += eo[k];
+      cam_acc[3 + k] += g[3 + k];
+      cam_acc[6 + k] += gr.u * g[3 + k];
+      cam_acc[9 + k] += gr.v * g[3 + k];
+      cam_acc[12 + k] += gr.ldx * eo[k];
+      cam_acc[15 + k] += gr.ldy * eo[k];
+    }
+  }
+
+  // camera sums: one f64 butterfly per warp, lane 0 writes the warp's row
+  const size_t warp = (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                       blockIdx.x) * blockDim.y + threadIdx.y;
+#pragma unroll
+  for (int i = 0; i < kCamSums; ++i) {
+    double xs = cam_acc[i];
+    for (int off = 16; off > 0; off >>= 1) xs += __shfl_xor_sync(kFull, xs, off);
+    if ((threadIdx.x & 31) == 0) p.gcam[warp * kCamSums + i] = xs;
+  }
+}
+
+}  // namespace
+
+// C entry point (loaded with ctypes).  Launches on `stream` and does not
+// synchronise; returns cudaGetLastError() so a refused launch is reported.
+// img_in may be null: PASS 1 then renders the image.  gsc is a zeroed f64
+// (8, n) buffer; gcam an f64 (n_warps, 18) buffer, n_warps the grid's
+// blocks times 8 (raytpu_render_vjp_warps).  The block's x extent is one
+// warp, so threadIdx.x is the lane.
+extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
+                                 const void* ct, const void* img_in,
+                                 void* img_out, void* gsc, void* gcam,
+                                 int width, int height, int spp, int depth,
+                                 float t_min, float inv_w, float inv_h,
+                                 float inv_spp, float gamma, float vis_w,
+                                 int parallel, int v1, void* stream) {
+  if (depth > kMaxDepth) return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.cam = static_cast<const CamPack*>(cam);
+  p.scene = static_cast<const float*>(scene);
+  p.ct = static_cast<const float*>(ct);
+  p.img_in = static_cast<const float*>(img_in);
+  p.img_out = static_cast<float*>(img_out);
+  p.gsc = static_cast<double*>(gsc);
+  p.gcam = static_cast<double*>(gcam);
+  p.n = n;
+  p.width = width;
+  p.height = height;
+  p.spp = spp;
+  p.depth = depth;
+  p.t_min = t_min;
+  p.inv_w = inv_w;
+  p.inv_h = inv_h;
+  p.inv_spp = inv_spp;
+  p.gamma = gamma;
+  p.vis_w = vis_w;
+  p.parallel = parallel;
+  p.v1 = v1;
+  dim3 block(32, 8);
+  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  render_vjp_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of the camera-sum buffer raytpu_render_vjp needs for this frame.
+extern "C" int raytpu_render_vjp_warps(int width, int height) {
+  return ((width + 31) / 32) * ((height + 7) / 8) * 8;
+}

@@ -1,0 +1,377 @@
+// Device code shared by the forward megakernel (megakernel.cu, K1a) and the
+// fused VJP kernel (gradkernel.cu, K3): the counter-based RNG, the jittered
+// thin-lens ray, the brute-force closest-hit sweep, the v2 / v1 materials,
+// the sky and the gamma.  K3's PASS 1 must give K1a's image bit for bit, so
+// both kernels trace a sample through trace_path() below and nothing else.
+//
+// Numerics (both kernels are built with -fmad=false and without fast math):
+// the op order is raytpu/golden.py's (and raytpu_torch/golden.py's), so no
+// multiply-add contracts.  Contraction at the ground sphere's discriminant
+// half_b^2 - a*c moves t by ~19 ulp (catastrophic cancellation at r = 1000).
+// The root test relies on sqrtf(negative) = NaN and on NaN comparing false.
+// Where raytpu uses exp(log(c)/3) for a cube root, sin/cos of 2*pi*u,
+// exp(log(x)/gamma) for gamma and rsqrt for normalization, so does this file.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace rt {
+
+constexpr uint32_t kK = 1103515245u;
+constexpr uint32_t kWeyl = 0x9E3779B9u;
+constexpr uint32_t kM1 = 0x85EBCA6Bu;
+constexpr uint32_t kM2 = 0xC2B2AE35u;
+constexpr uint32_t kFold = 0xBB67AE85u;
+constexpr float kInvU24 = 1.0f / 16777216.0f;
+constexpr float kInvI31 = 1.0f / 2147483648.0f;
+constexpr float kTwoPi = 6.28318530718f;
+constexpr float kSafeEps = 1e-20f;
+constexpr float kInf = 3.0e38f;  // "no hit yet"; the golden's +inf
+
+// Camera pack (raytpu_torch.kernels.megakernel.pack_camera, 19 floats):
+// origin, horizontal, vertical, lower_left, the lens basis u and v, lens_r.
+// The lens basis v is named w here, since v is the vertical span.
+struct CamPack {
+  float o[3], h[3], v[3], ll[3], u[3], w[3], lens_r;
+};
+
+// The (9, n) scene pack: rows cx cy cz rad mat_type ar ag ab mat_param.
+struct SceneView {
+  const float* __restrict__ cx;
+  const float* __restrict__ cy;
+  const float* __restrict__ cz;
+  const float* __restrict__ rad;
+  const float* __restrict__ mt;
+  const float* __restrict__ ar;
+  const float* __restrict__ ag;
+  const float* __restrict__ ab;
+  const float* __restrict__ mp;
+  int n;
+};
+
+__device__ __forceinline__ SceneView scene_view(const float* pack, int n) {
+  return SceneView{pack,         pack + n,     pack + 2 * n,
+                   pack + 3 * n, pack + 4 * n, pack + 5 * n,
+                   pack + 6 * n, pack + 7 * n, pack + 8 * n, n};
+}
+
+__device__ __forceinline__ uint32_t base_hash(uint32_t px, uint32_t py) {
+  uint32_t hx = kK * ((px >> 1) ^ py);
+  uint32_t hy = kK * ((py >> 1) ^ px);
+  uint32_t h32 = kK * (hx ^ (hy >> 3));
+  return h32 ^ (h32 >> 16);
+}
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= kM1;
+  h ^= h >> 13;
+  h *= kM2;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t fold_in(uint32_t state, uint32_t k) {
+  return fmix32(state + (k + 1u) * kFold);
+}
+
+// One state advance (Weyl step + finalize): returns the draw, advances state.
+__device__ __forceinline__ uint32_t draw(uint32_t& state) {
+  state += kWeyl;
+  return fmix32(state);
+}
+
+__device__ __forceinline__ float u31(uint32_t n) {
+  return static_cast<float>(static_cast<int>(n & 0x7FFFFFFFu)) * kInvI31;
+}
+
+__device__ __forceinline__ float hash1_of(uint32_t n) {
+  return static_cast<float>(static_cast<int>(n >> 8)) * kInvU24;
+}
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az,
+                                      float bx, float by, float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+  float inv = rsqrtf(fmaxf(dot3(x, y, z, x, y, z), kSafeEps));
+  x = x * inv;
+  y = y * inv;
+  z = z * inv;
+}
+
+__device__ __forceinline__ void reflect(float vx, float vy, float vz,
+                                        float nx, float ny, float nz,
+                                        float& ox, float& oy, float& oz) {
+  float d = dot3(vx, vy, vz, nx, ny, nz);
+  ox = vx - 2.0f * d * nx;
+  oy = vy - 2.0f * d * ny;
+  oz = vz - 2.0f * d * nz;
+}
+
+// Unit-sphere sample from the draw n (hash3 lanes): cbrt radius as
+// exp(log(c)/3) with the c == 0 guard, angles as sin/cos of b * 2pi.
+__device__ __forceinline__ void unit_sphere(uint32_t n, float& sx, float& sy,
+                                            float& sz) {
+  float a = u31(n);
+  float b = u31(n * 16807u);
+  float c = u31(n * 48271u);
+  float h = a * 2.0f - 1.0f;
+  float phi = b * kTwoPi;
+  float r = c > 0.0f ? expf(logf(fmaxf(c, 1e-30f)) / 3.0f) : 0.0f;
+  float s = sqrtf(fmaxf(1.0f - h * h, 0.0f));
+  float rs = r * s;
+  sx = rs * sinf(phi);
+  sy = rs * cosf(phi);
+  sz = r * h;
+}
+
+// The sky of direction (dx, dy, dz): lerp(white, (.5, .7, 1.), t).
+__device__ __forceinline__ void sky(float dx, float dy, float dz, float& r,
+                                    float& g, float& b) {
+  float ux = dx, uy = dy, uz = dz;
+  normalize3(ux, uy, uz);
+  float t = 0.5f * (uy + 1.0f);
+  r = 1.0f - 0.5f * t;
+  g = 1.0f - 0.3f * t;
+  b = 1.0f;
+}
+
+__device__ __forceinline__ float to_gamma(float lin, float gamma) {
+  return lin > 0.0f ? expf(logf(lin) / gamma) : 0.0f;
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// What raygen drew, for the camera cotangent: the jittered screen
+// coordinates (u, v) and the unit-disk lens sample (0 for a pinhole).
+struct RayGen {
+  float u, v, ldx, ldy;
+};
+
+// Jittered camera ray (golden accumulate_pixels + camera.get_ray).  A
+// pinhole camera consumes no lens draw.
+__device__ __forceinline__ Ray gen_ray(const CamPack& cam, float fx, float fy,
+                                       float inv_w, float inv_h,
+                                       uint32_t& sd, RayGen& g) {
+  float j1a = u31(draw(sd));
+  float j2b = u31(draw(sd) * 48271u);
+  g.u = (fx + j1a * 1.1f) * inv_w;
+  g.v = (fy + j2b * 1.1f) * inv_h;
+  g.ldx = 0.0f;
+  g.ldy = 0.0f;
+  float offx = 0.0f, offy = 0.0f, offz = 0.0f;
+  if (cam.lens_r > 0.0f) {
+    uint32_t n = draw(sd);
+    float a = u31(n);
+    float b = u31(n * 48271u);
+    float phi = b * kTwoPi;
+    float r = sqrtf(a);
+    g.ldx = r * sinf(phi);
+    g.ldy = r * cosf(phi);
+    float rdx = cam.lens_r * g.ldx;
+    float rdy = cam.lens_r * g.ldy;
+    offx = cam.u[0] * rdx + cam.w[0] * rdy;
+    offy = cam.u[1] * rdx + cam.w[1] * rdy;
+    offz = cam.u[2] * rdx + cam.w[2] * rdy;
+  }
+  Ray r;
+  r.ox = cam.o[0] + offx;
+  r.oy = cam.o[1] + offy;
+  r.oz = cam.o[2] + offz;
+  r.dx = cam.ll[0] + g.u * cam.h[0] + g.v * cam.v[0] - r.ox;
+  r.dy = cam.ll[1] + g.u * cam.h[1] + g.v * cam.v[1] - r.oy;
+  r.dz = cam.ll[2] + g.u * cam.h[2] + g.v * cam.v[2] - r.oz;
+  return r;
+}
+
+// Closest hit over all spheres (golden.hit_world); the strict < keeps the
+// lowest index on ties, like argmin.  Returns the winner or -1; tb = t.
+__device__ __forceinline__ int closest_hit(const SceneView& s, const Ray& r,
+                                           float t_min, float& tb) {
+  float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  float inv_a = 1.0f / a;
+  tb = kInf;
+  int win = -1;
+  for (int j = 0; j < s.n; ++j) {
+    float ocx = r.ox - s.cx[j];
+    float ocy = r.oy - s.cy[j];
+    float ocz = r.oz - s.cz[j];
+    float rad = s.rad[j];
+    float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+    float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad;
+    float disc = half_b * half_b - a * c;
+    // NaN form of the root test: disc < 0 -> NaN -> compares false
+    float sqrtd = sqrtf(disc);
+    float root1 = (-half_b - sqrtd) * inv_a;
+    float root2 = (-half_b + sqrtd) * inv_a;
+    float root = root1 >= t_min ? root1 : root2;
+    if (root >= t_min && root < tb) {
+      tb = root;
+      win = j;
+    }
+  }
+  return win;
+}
+
+// Material scatter of a ray that hit sphere `win` at t (golden.scatter):
+// one draw feeds the sphere sample (hash3 lanes) and the Schlick coin
+// (hash1) alike.  Writes the hit point into r's origin, the new direction
+// into r's direction, multiplies the attenuation into (cr, cg, cb) and
+// advances sd by its one draw.
+__device__ __forceinline__ void scatter(const SceneView& s, int win, float tb,
+                                        bool is_g, bool v1, uint32_t& sd,
+                                        Ray& r, float& cr, float& cg,
+                                        float& cb) {
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
+  // hit point and outward normal
+  float hpx = r.ox + tb * dx;
+  float hpy = r.oy + tb * dy;
+  float hpz = r.oz + tb * dz;
+  float h_rad = s.rad[win];
+  float inv_r = 1.0f / (h_rad == 0.0f ? 1.0f : h_rad);
+  float nx = (hpx - s.cx[win]) * inv_r;
+  float ny = (hpy - s.cy[win]) * inv_r;
+  float nz = (hpz - s.cz[win]) * inv_r;
+  bool front = dot3(dx, dy, dz, nx, ny, nz) < 0.0f;
+  float sgn = front ? 1.0f : -1.0f;
+  nx = nx * sgn;
+  ny = ny * sgn;
+  nz = nz * sgn;
+
+  uint32_t n = draw(sd);
+  float mp = s.mp[win];
+  float odx, ody, odz;
+  float atr = 1.0f, atg = 1.0f, atb = 1.0f;
+  if (is_g) {
+    float h1 = hash1_of(n);
+    float ior = fmaxf(mp, 1e-3f);
+    float ux = dx, uy = dy, uz = dz;
+    normalize3(ux, uy, uz);
+    float ratio = front ? 1.0f / ior : ior;
+    float cosine = fminf(dot3(-ux, -uy, -uz, nx, ny, nz), 1.0f);
+    float sine = sqrtf(fmaxf(1.0f - cosine * cosine, 0.0f));
+    bool cannot = ratio * sine > 1.0f;
+    float r0 = (1.0f - ratio) / (1.0f + ratio);
+    r0 = r0 * r0;
+    float m = 1.0f - cosine;
+    float schlick = r0 + (1.0f - r0) * (m * m * m * m * m);
+    if (cannot || schlick > h1) {
+      reflect(ux, uy, uz, nx, ny, nz, odx, ody, odz);
+    } else {  // refract (golden._refract)
+      float cos_t = fminf(dot3(-ux, -uy, -uz, nx, ny, nz), 1.0f);
+      float px = ratio * (ux + cos_t * nx);
+      float py = ratio * (uy + cos_t * ny);
+      float pz = ratio * (uz + cos_t * nz);
+      float par = -sqrtf(fmaxf(fabsf(1.0f - dot3(px, py, pz, px, py, pz)),
+                               kSafeEps));
+      odx = px + par * nx;
+      ody = py + par * ny;
+      odz = pz + par * nz;
+    }
+  } else {
+    bool is_d = s.mt[win] == 0.0f;
+    float sx, sy, sz;
+    unit_sphere(n, sx, sy, sz);
+    atr = s.ar[win];
+    atg = s.ag[win];
+    atb = s.ab[win];
+    if (v1) {
+      // hemisphere flip (Shader_RT.fx:151-163)
+      bool flip = dot3(sx, sy, sz, nx, ny, nz) > 0.0f;
+      float hx = flip ? sx : -sx;
+      float hy = flip ? sy : -sy;
+      float hz = flip ? sz : -sz;
+      if (is_d) {  // n + hemisphere, near-zero guard, unnormalized
+        float lx = nx + hx, ly = ny + hy, lz = nz + hz;
+        bool near0 = fabsf(lx) < 1e-8f && fabsf(ly) < 1e-8f &&
+                     fabsf(lz) < 1e-8f;
+        odx = near0 ? nx : lx;
+        ody = near0 ? ny : ly;
+        odz = near0 ? nz : lz;
+      } else {  // reflect(normalize(rd)) + saturate(fuzz) * hemisphere
+        float ux = dx, uy = dy, uz = dz;
+        normalize3(ux, uy, uz);
+        float rx, ry, rz;
+        reflect(ux, uy, uz, nx, ny, nz, rx, ry, rz);
+        float fz = fminf(fmaxf(mp, 0.0f), 1.0f);
+        odx = rx + fz * hx;
+        ody = ry + fz * hy;
+        odz = rz + fz * hz;
+      }
+    } else if (is_d) {  // normalize(normal + sphere sample)
+      odx = nx + sx;
+      ody = ny + sy;
+      odz = nz + sz;
+      normalize3(odx, ody, odz);
+    } else {  // normalize(reflect(rd, n) + fuzz * sphere sample)
+      float rx, ry, rz;
+      reflect(dx, dy, dz, nx, ny, nz, rx, ry, rz);
+      odx = rx + mp * sx;
+      ody = ry + mp * sy;
+      odz = rz + mp * sz;
+      normalize3(odx, ody, odz);
+    }
+  }
+  cr = cr * atr;
+  cg = cg * atg;
+  cb = cb * atb;
+  r.ox = hpx;
+  r.oy = hpy;
+  r.oz = hpz;
+  r.dx = odx;
+  r.dy = ody;
+  r.dz = odz;
+}
+
+// One bounce's state as the reverse sweep of K3 needs it: the incoming ray
+// and throughput, the winner (-1 on a miss) and the pre-bounce seed.
+struct Residual {
+  float ox, oy, oz, dx, dy, dz, cr, cg, cb;
+  int win;
+  uint32_t seed;
+};
+
+// Trace one sample for at most `depth` bounces, stopping at the first
+// miss, absorption or the depth cap (black).  Returns the number of
+// bounces taken (rows of `res` written when kStore); `sd` ends as the
+// sample's final seed and (rr, rg, rb) as its radiance.
+template <bool kStore>
+__device__ __forceinline__ int trace_path(const SceneView& s, Ray r,
+                                          uint32_t& sd, int depth,
+                                          float t_min, bool v1, float& rr,
+                                          float& rg, float& rb,
+                                          Residual* res) {
+  float cr = 1.0f, cg = 1.0f, cb = 1.0f;
+  rr = 0.0f;
+  rg = 0.0f;
+  rb = 0.0f;
+  for (int d = 0; d < depth; ++d) {
+    float tb;
+    int win = closest_hit(s, r, t_min, tb);
+    if (kStore) {
+      res[d] = Residual{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+                        cr,   cg,   cb,   win,  sd};
+    }
+    if (win < 0) {  // miss: sky of the pre-scatter direction
+      float kr, kg, kb;
+      sky(r.dx, r.dy, r.dz, kr, kg, kb);
+      rr = cr * kr;
+      rg = cg * kg;
+      rb = cb * kb;
+      return d + 1;
+    }
+    float mt = s.mt[win];
+    bool is_d = mt == 0.0f, is_m = mt == 1.0f, is_g = mt == 2.0f;
+    if (!(is_d || is_m || is_g)) return d + 1;  // absorbed: black, seed kept
+    scatter(s, win, tb, is_g, v1, sd, r, cr, cg, cb);
+  }
+  return depth;  // depth cap: rr, rg, rb are still 0 (black)
+}
+
+}  // namespace rt

@@ -44,9 +44,33 @@ def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
 
+def _max_c(x, c):
+    """max(x, c) for a constant c.  ``torch.maximum`` rather than ``clamp``:
+    at a tie it splits the gradient in halves, as jnp.maximum / jnp.clip
+    do (``clamp`` passes it all), so autograd agrees with jax.grad."""
+    return torch.maximum(x, rng.f32_like(x, c))
+
+
+def _min_c(x, c):
+    """min(x, c) for a constant c, with jnp.minimum's tie gradient."""
+    return torch.minimum(x, rng.f32_like(x, c))
+
+
 def _normalize3(x, y, z):
-    inv = torch.rsqrt(torch.clamp(_dot3(x, y, z, x, y, z), min=_SAFE_EPS))
+    inv = torch.rsqrt(_max_c(_dot3(x, y, z, x, y, z), _SAFE_EPS))
     return x * inv, y * inv, z * inv
+
+
+def _sqrt_st(disc, has_root):
+    """sqrt of the masked discriminant with a straight-through gradient.
+
+    The value is the exact ``sqrt(where(disc >= 0, disc, 1))``; the
+    gradient comes from the 1e-20-clamped branch, since d sqrt blows up at
+    disc == 0 (a tangent ray).  raytpu's golden, adjoint and VJP kernel
+    carry the same guard (raytpu/golden.py:97-99)."""
+    sqrt_safe = torch.sqrt(_max_c(disc, _SAFE_EPS))
+    sqrt_exact = torch.sqrt(torch.where(has_root, disc, 1.0))
+    return sqrt_safe + (sqrt_exact - sqrt_safe).detach()
 
 
 def hit_world(scene: Scene, ro, rd, t_min):
@@ -75,7 +99,7 @@ def hit_world(scene: Scene, ro, rd, t_min):
     disc = half_b * half_b - a * c
 
     has_root = disc >= 0
-    sqrtd = torch.sqrt(torch.where(has_root, disc, 1.0))
+    sqrtd = _sqrt_st(disc, has_root)
     root1 = (-half_b - sqrtd) * inv_a
     root2 = (-half_b + sqrtd) * inv_a
     # accept near root if >= t_min (reference rejects root < t_min), else far
@@ -111,12 +135,12 @@ def _reflect(vx, vy, vz, nx, ny, nz):
 
 def _refract(ux, uy, uz, nx, ny, nz, ratio):
     """Snell refraction of a unit vector (ref: hlsl:81-88)."""
-    cos_theta = torch.clamp(_dot3(-ux, -uy, -uz, nx, ny, nz), max=1.0)
+    cos_theta = _min_c(_dot3(-ux, -uy, -uz, nx, ny, nz), 1.0)
     px = ratio * (ux + cos_theta * nx)
     py = ratio * (uy + cos_theta * ny)
     pz = ratio * (uz + cos_theta * nz)
-    par = -torch.sqrt(torch.clamp(
-        torch.abs(1.0 - _dot3(px, py, pz, px, py, pz)), min=_SAFE_EPS))
+    par = -torch.sqrt(_max_c(
+        torch.abs(1.0 - _dot3(px, py, pz, px, py, pz)), _SAFE_EPS))
     return px + par * nx, py + par * ny, pz + par * nz
 
 
@@ -167,7 +191,7 @@ def scatter(scene: Scene, rd, p, normal, front, idx, seed, mode: str = "v2"):
         # saturate(fuzz) * hemisphere, unnormalized
         u1x, u1y, u1z = _normalize3(rdx, rdy, rdz)
         rx, ry, rz = _reflect(u1x, u1y, u1z, nx, ny, nz)
-        fz = torch.clamp(param, 0.0, 1.0)
+        fz = _min_c(_max_c(param, 0.0), 1.0)
         mdx = rx + fz * hxx
         mdy = ry + fz * hyy
         mdz = rz + fz * hzz
@@ -182,11 +206,11 @@ def scatter(scene: Scene, rd, p, normal, front, idx, seed, mode: str = "v2"):
     # dielectric (hlsl:229-249); non-glass lanes get a safe IOR so the
     # unselected branch stays finite
     is_glass = mat == 2
-    ior = torch.where(is_glass, torch.clamp(param, min=1e-3), 1.5)
+    ior = torch.where(is_glass, _max_c(param, 1e-3), 1.5)
     ux, uy, uz = _normalize3(rdx, rdy, rdz)
     ratio = torch.where(front, 1.0 / ior, ior)
-    cosine = torch.clamp(_dot3(-ux, -uy, -uz, nx, ny, nz), max=1.0)
-    sine = torch.sqrt(torch.clamp(1.0 - cosine * cosine, min=0.0))
+    cosine = _min_c(_dot3(-ux, -uy, -uz, nx, ny, nz), 1.0)
+    sine = torch.sqrt(_max_c(1.0 - cosine * cosine, 0.0))
     cannot = ratio * sine > 1.0
     use_reflect = cannot | (_schlick(cosine, ratio) > h1)
     rfx, rfy, rfz = _reflect(ux, uy, uz, nx, ny, nz)

@@ -3,9 +3,11 @@
 Each ``.cu`` file under ``raytpu_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ``ctypes``.  The library lands in ``raytpu_torch/build/`` (listed
-in ``.gitignore``) under a name keyed by a hash of the source and the flags,
-so an edited source or flag rebuilds and an unchanged one is reused.
-Nothing here runs at import time: importing the package needs no ``nvcc``.
+in ``.gitignore``) under a name keyed by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source, header or flag
+rebuilds and an unchanged one is reused.  :func:`load_all` builds several
+sources at once, one ``nvcc`` each.  Nothing here runs at import time:
+importing the package needs no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}  # one per source: builds run in parallel
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, dict] = {}  # source name -> {"seconds", "ptxas", "path"}
 
@@ -48,14 +51,23 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _headers_bytes() -> bytes:
+    """Every header under ``csrc/``, in name order: a source that includes
+    one must rebuild when it changes, so the build key hashes them all."""
+    return b"".join(h.name.encode() + h.read_bytes()
+                    for h in sorted(CSRC.glob("*.cuh")))
+
+
 def load(source: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<source>``, building it first
     if no library for this exact source and these flags exists."""
     with _lock:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         if source in _loaded:
             return _loaded[source]
         src = CSRC / source
-        digest = hashlib.sha256(src.read_bytes()
+        digest = hashlib.sha256(src.read_bytes() + _headers_bytes()
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         lib_path = BUILD_DIR / f"{src.stem}_{digest[:16]}.so"
         if not lib_path.exists():
@@ -80,3 +92,23 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         _loaded[source] = lib
         return lib
+
+
+def load_all(sources) -> None:
+    """Build (or find) every source in ``sources`` at once: one ``nvcc`` per
+    source, all started together, so a cold start waits for the slowest."""
+    errors = []
+
+    def one(src):
+        try:
+            load(src)
+        except Exception as e:  # reported below, after every build ended
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(s,)) for s in sources]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]

@@ -10,6 +10,14 @@ For CPU tensors it runs the plain PyTorch version
 the kernel or raises — it never falls back.  :func:`launch` is the kernel
 wrapper proper, on the packed operands the kernel reads.  ``launches``
 counts the kernel launches made through :func:`launch`.
+
+Under autograd (any continuous leaf requires grad) :func:`render_fwd` goes
+through :class:`_Render`, the counterpart of raytpu's ``custom_vjp`` around
+``_render_pallas`` (raytpu/kernels/megakernel.py:1634-1684): the forward is
+this kernel, the backward the fused VJP kernel K3
+(``raytpu_torch/kernels/gradkernel.py``), which takes the forward image in
+parallel RNG mode so as to skip its own PASS 1.  On CPU tensors the same
+Function runs the plain versions of both (golden forward, adjoint VJP).
 """
 
 from __future__ import annotations
@@ -80,10 +88,6 @@ def check_inputs(scene: Scene, cam: Camera, cfg: RenderConfig) -> torch.device:
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, scene.center on "
                              f"{device}")
-        if t.requires_grad:
-            raise ValueError(
-                f"{name} requires grad: the forward kernel has no backward "
-                "yet (ROADMAP queue 2, K3; M6/M7)")
     return device
 
 
@@ -103,6 +107,32 @@ def pack_scene(scene: Scene) -> torch.Tensor:
         scene.mat_param]).contiguous()
 
 
+def check_packs(cam_pack: torch.Tensor, scene_pack: torch.Tensor) -> None:
+    """Raise unless both packs are contiguous f32 CUDA tensors of the
+    kernels' shapes on one device, carrying no autograd history: only
+    :class:`_Render` may run a kernel under autograd, because only it
+    supplies the backward."""
+    for name, t, shape in (("cam_pack", cam_pack, (CAM_PACK,)),
+                           ("scene_pack", scene_pack,
+                            (SCENE_ROWS, scene_pack.shape[-1]))):
+        if t.requires_grad:
+            raise ValueError(f"{name} requires grad: a kernel launched "
+                             "directly has no backward; go through "
+                             "render_fwd (or render), whose autograd "
+                             "Function runs K3 backward")
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want torch.float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cam_pack.device != scene_pack.device:
+        raise ValueError("cam_pack and scene_pack lie on different devices")
+    if scene_pack.shape[1] < 1:
+        raise ValueError("the scene needs at least one sphere")
+
+
 def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
            cfg: RenderConfig) -> torch.Tensor:
     """Launch the kernel on the packed operands -> (H, W, 3) f32 image.
@@ -111,24 +141,8 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     synchronise.  ``inv_w``, ``inv_h`` and ``inv_spp`` are computed in f64
     here and rounded to f32, as raytpu's kernel and both goldens do."""
     global launches
-    for name, t, shape in (("cam_pack", cam_pack, (CAM_PACK,)),
-                           ("scene_pack", scene_pack,
-                            (SCENE_ROWS, scene_pack.shape[-1]))):
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want torch.float32 {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.requires_grad:
-            raise ValueError(f"{name} requires grad: the forward kernel "
-                             "has no backward yet (ROADMAP queue 2, K3)")
-    if cam_pack.device != scene_pack.device:
-        raise ValueError("cam_pack and scene_pack lie on different devices")
+    check_packs(cam_pack, scene_pack)
     n = scene_pack.shape[1]
-    if n < 1:
-        raise ValueError("the scene needs at least one sphere")
     device = scene_pack.device
     lib = _lib()
     out = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32,
@@ -151,13 +165,62 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     return out
 
 
-def render_fwd(scene: Scene, cam: Camera, cfg: RenderConfig) -> torch.Tensor:
-    """Full-frame forward render -> (H, W, 3) f32 image in [0, 1] on the
-    inputs' device (row 0 = bottom scanline).  CPU tensors take the plain
-    PyTorch version; CUDA tensors launch the kernel."""
-    device = check_inputs(scene, cam, cfg)
+class _Render(torch.autograd.Function):
+    """The forward kernel with K3 as its backward.
+
+    apply(cfg, vis_w, mat_type, center, radius, albedo, mat_param, *camera)
+    -> image.  ``mat_type`` is discrete and gets no gradient; ``vis_w > 0``
+    adds silhouette terms to the backward only."""
+
+    @staticmethod
+    def forward(ctx, cfg, vis_w, mat_type, center, radius, albedo, mat_param,
+                *cam_leaves):
+        scene = Scene(center, radius, mat_type, albedo, mat_param)
+        cam = Camera(*cam_leaves)
+        img = _forward(scene, cam, cfg)
+        ctx.cfg, ctx.vis_w = cfg, vis_w
+        ctx.save_for_backward(mat_type, center, radius, albedo, mat_param,
+                              img, *cam_leaves)
+        return img
+
+    @staticmethod
+    def backward(ctx, ct):
+        from raytpu_torch.kernels import gradkernel
+        mat_type, center, radius, albedo, mat_param, img, *cam_leaves = \
+            ctx.saved_tensors
+        cfg = ctx.cfg
+        # parallel RNG: the forward image elides K3's PASS 1
+        _, ds, dc = gradkernel.render_vjp(
+            Scene(center, radius, mat_type, albedo, mat_param),
+            Camera(*cam_leaves), cfg, ct,
+            img=img if cfg.rng_mode == "parallel" else None,
+            vis_w=ctx.vis_w)
+        return (None, None, None, ds.center, ds.radius, ds.albedo,
+                ds.mat_param, *dc)
+
+
+def _forward(scene: Scene, cam: Camera, cfg: RenderConfig) -> torch.Tensor:
+    device = scene.center.device
     if device.type == "cpu":
         return golden.render_golden(scene, cam, cfg)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     return launch(pack_camera(cam), pack_scene(scene), cfg)
+
+
+def render_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
+               vis_w: float = 0.0) -> torch.Tensor:
+    """Full-frame forward render -> (H, W, 3) f32 image in [0, 1] on the
+    inputs' device (row 0 = bottom scanline).  CPU tensors take the plain
+    PyTorch version; CUDA tensors launch the kernel.  When autograd is on
+    and a continuous leaf of the scene or camera requires grad, the image
+    carries a backward: K3 on CUDA tensors, the adjoint on CPU tensors
+    (``vis_w > 0`` adds silhouette gradients)."""
+    check_inputs(scene, cam, cfg)
+    leaves = (scene.center, scene.radius, scene.albedo, scene.mat_param,
+              *cam)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        return _Render.apply(cfg, float(vis_w), scene.mat_type,
+                             scene.center, scene.radius, scene.albedo,
+                             scene.mat_param, *cam)
+    return _forward(scene, cam, cfg)

@@ -8,13 +8,19 @@ Build a Scene and a Camera on a device, call :func:`render`.  Backends:
   (raytpu_torch/kernels/megakernel.py); CUDA tensors only.
 - ``"auto"``   — the kernel for CUDA tensors, the plain version for CPU
   tensors.
+
+Gradients: :func:`render` on inputs that require grad returns an image with
+a backward (on CUDA tensors the forward kernel K1a and the fused VJP kernel
+K3; on CPU tensors the plain golden forward and the adjoint VJP).
+:func:`render_grad` is raytpu's surface: an MSE loss against a target and
+the gradients of the scene's and camera's continuous leaves.
 """
 
 from __future__ import annotations
 
 import torch
 
-from raytpu_torch import golden
+from raytpu_torch import adjoint, golden
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import megakernel
@@ -24,13 +30,18 @@ BACKENDS = ("auto", "golden", "cuda")
 
 
 def render(scene: Scene, cam: Camera, cfg: RenderConfig,
-           backend: str = "auto", device=None) -> torch.Tensor:
+           backend: str = "auto", device=None,
+           vis_w: float = 0.0) -> torch.Tensor:
     """Render -> (H, W, 3) f32 image in [0, 1] on the inputs' device.
 
     Row 0 is the bottom scanline (v = 0); use :func:`raytpu_torch.io.save_image`
     to write a display-oriented file.  ``device``, when given, moves the
     scene and camera there first; otherwise they stay where they are and
-    the image is made on their device.
+    the image is made on their device.  When a continuous leaf requires
+    grad, the image is differentiable: ``golden`` through plain autograd,
+    ``auto`` / ``cuda`` through the kernels' autograd Function, whose
+    backward adds silhouette gradients for ``vis_w > 0`` (the image itself
+    does not depend on ``vis_w``).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend: {backend!r} (choose from "
@@ -45,12 +56,42 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig,
                          f"{scene.center.device}")
     # "auto" and "cuda": the wrapper launches the kernel on CUDA tensors
     # and runs the plain version on CPU tensors
-    return megakernel.render_fwd(scene, cam, cfg)
+    return megakernel.render_fwd(scene, cam, cfg, vis_w=vis_w)
 
 
 def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
                 backend: str = "auto", vis_w: float = 0.0):
-    """Not ported yet: gradients need the adjoint (ROADMAP queue 1, M6), the
-    kernel autograd wiring (M7) and the fused VJP kernel (queue 2, K3)."""
-    raise NotImplementedError(
-        "render_grad is not ported yet (ROADMAP queue 1, M6/M7; queue 2, K3)")
+    """MSE loss against ``target`` and its gradients w.r.t. (scene, camera).
+
+    Returns ``(loss, image, (scene_grads, camera_grads))``: a Scene whose
+    ``mat_type`` is None (a discrete leaf) and a Camera.  ``vis_w > 0`` adds
+    silhouette (boundary) gradients for geometry optimization; the forward
+    stays the exact hard render.  ``backend="golden"`` runs the adjoint
+    renderer (raytpu_torch/adjoint.py) on any device; ``"auto"`` and
+    ``"cuda"`` the kernels on CUDA tensors (K1a forward, K3 backward) and
+    the plain versions on CPU tensors.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend: {backend!r} (choose from "
+                         f"{BACKENDS})")
+    adjoint.check_cfg(cfg)
+    if backend == "cuda" and not scene.center.is_cuda:
+        raise ValueError("backend='cuda' needs CUDA tensors; the scene is on "
+                         f"{scene.center.device}")
+    leaves = [t.detach().requires_grad_()
+              for t in (scene.center, scene.radius, scene.albedo,
+                        scene.mat_param, *cam)]
+    s = Scene(leaves[0], leaves[1], scene.mat_type, leaves[2], leaves[3])
+    c = Camera(*leaves[4:])
+    target = torch.as_tensor(target, dtype=torch.float32,
+                             device=scene.center.device)
+    with torch.enable_grad():
+        if backend == "golden":
+            img = adjoint.render_golden_adjoint(s, c, cfg, vis_w)
+        else:
+            img = megakernel.render_fwd(s, c, cfg, vis_w=vis_w)
+        loss = torch.mean((img - target) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+    scene_grads = Scene(center=grads[0], radius=grads[1], mat_type=None,
+                        albedo=grads[2], mat_param=grads[3])
+    return loss.detach(), img.detach(), (scene_grads, Camera(*grads[4:]))

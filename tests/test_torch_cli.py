@@ -1,5 +1,6 @@
 """raytpu_torch's CLI, image writers and timing helper on the CPU."""
 
+import json
 import os
 import struct
 import subprocess
@@ -76,7 +77,15 @@ def test_cli_rejects_other_raytpu_options(tmp_path, flag):
 
 
 @pytest.mark.parametrize("cmd", ["gradcheck", "validate", "info"])
-def test_cli_refuses_unported_subcommands(cmd):
+def test_cli_refuses_unported_subcommands(cmd, capsys):
+    """validate and info refuse with their ROADMAP item; gradcheck is
+    ported: on the CPU it passes (analytic vs finite difference < 1e-3)."""
+    if cmd == "gradcheck":
+        assert cli.main(["gradcheck", "--device", "cpu"]) == 0
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["pass"] is True and out["grad_max_err_vs_fd"] < 1e-3
+        assert out["device"] == "cpu"
+        return
     with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
         cli.main([cmd, "--scene", "test"])
 

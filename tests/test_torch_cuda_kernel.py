@@ -1,4 +1,5 @@
-"""The CUDA megakernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+forward megakernel K1a and the fused VJP kernel K3.
 
 These tests need a CUDA card and nvcc; without a card they skip (the
 condition is a string, so pytest evaluates it at setup, not at import).
@@ -15,6 +16,9 @@ are bit-equal; sin/cos/exp/log and rsqrt may round differently between the
 kernel and torch's CUDA builds, and a 1-ulp change can flip a Schlick coin or
 a near-tie closest hit.  So: |d| <= 3e-4 (the repo's cross-context image
 budget) on all but 0.1% of pixels; depth 1 (no scatter) to 1e-6 everywhere.
+K3's image runs K1a's device code and must equal K1a's bit for bit; its
+cotangents are held to 1e-3 of each leaf's largest entry (chip_smoke.py
+phase 2b states why).
 """
 
 import pytest
@@ -23,7 +27,7 @@ import torch
 import raytpu_torch as rt
 from raytpu_torch import golden
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.kernels import megakernel
+from raytpu_torch.kernels import gradkernel, megakernel
 
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs a CUDA card")
@@ -73,6 +77,88 @@ def test_depth1_exact():
     got = rt.render(scene, cam, cfg, backend="cuda")
     want = golden.render_golden(scene, cam, cfg)
     assert float((got - want).abs().max()) <= 1e-6
+
+
+def _rel(a, b, floor):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), floor)
+
+
+def _vjp_errors(got, want):
+    """Relative max error per leaf, max|a - b| / max(max|b|, floor), floor
+    1e-8 for scene leaves and 1e-6 for camera leaves."""
+    errs = {k: _rel(getattr(got[1], k), getattr(want[1], k), 1e-8)
+            for k in ("center", "radius", "albedo", "mat_param")}
+    errs.update({k: _rel(a, b, 1e-6) for k, a, b in
+                 zip(rt.Camera._fields, got[2], want[2])})
+    return errs
+
+
+@needs_card
+@pytest.mark.parametrize("cfg,kw,vis_w", [
+    (RenderConfig(width=64, height=32, spp=2, depth=4), {}, 0.0),
+    (RenderConfig(width=64, height=32, spp=2, depth=4, rng_mode="parallel"),
+     dict(aperture=0.3, focus_dist=12.0), 0.0),
+    (RenderConfig(width=64, height=32, spp=2, depth=6, gamma=2.0,
+                  scatter_mode="v1"), dict(aperture=0.1, focus_dist=10.0),
+     0.0),
+    (RenderConfig(width=50, height=21, spp=3, depth=5), {}, 0.0),
+    (RenderConfig(width=64, height=32, spp=2, depth=4),
+     dict(aperture=0.3, focus_dist=12.0), 0.005),
+], ids=["sequential", "parallel_defocus", "v1", "unaligned", "vis_w"])
+def test_vjp_kernel_matches_plain(cfg, kw, vis_w):
+    """K3 against its plain version (the adjoint's VJP) on the same CUDA
+    tensors: K3's image bit-equal to K1a's, and every leaf's cotangent
+    within 1e-3 of max|b| (the kernel sums in f64, the plain version in f32
+    autograd order)."""
+    scene = rt.test_world(device="cuda")
+    cam = _cam(cfg, **kw)
+    img = megakernel.launch(megakernel.pack_camera(cam),
+                            megakernel.pack_scene(scene), cfg)
+    target = torch.rand(img.shape, generator=torch.Generator().manual_seed(0))
+    ct = 2.0 * (img - target.cuda()) / img.numel()
+    gradkernel.launches = 0
+    got = gradkernel.render_vjp(scene, cam, cfg, ct, vis_w=vis_w)
+    assert gradkernel.launches == 1
+    want = gradkernel.render_vjp_plain(scene, cam, cfg, ct, vis_w)
+    assert torch.equal(got[0], img)
+    errs = _vjp_errors(got, want)
+    assert max(errs.values()) <= 1e-3, errs
+
+
+@needs_card
+def test_vjp_pass1_elision_bit_equal():
+    """Parallel RNG: passing the forward image skips PASS 1 and leaves the
+    gradients bit-equal (tests/test_gradkernel.py demands the same of the
+    TPU kernel)."""
+    cfg = RenderConfig(width=64, height=16, spp=2, depth=3,
+                       rng_mode="parallel")
+    scene = rt.test_world(device="cuda")
+    cam = _cam(cfg)
+    img = rt.render(scene, cam, cfg)
+    ct = 2.0 * (img - 0.25) / img.numel()
+    a = gradkernel.render_vjp(scene, cam, cfg, ct)
+    b = gradkernel.render_vjp(scene, cam, cfg, ct, img=img)
+    assert torch.equal(a[0], b[0])
+    for x, y in zip((*a[1][:2], *a[1][3:], *a[2]), (*b[1][:2], *b[1][3:],
+                                                    *b[2])):
+        assert torch.equal(x, y)
+
+
+@needs_card
+def test_autograd_runs_forward_and_vjp_kernels():
+    cfg = RenderConfig(width=48, height=24, spp=2, depth=4)
+    scene = rt.test_world(device="cuda")
+    cam = _cam(cfg)
+    center = scene.center.clone().requires_grad_()
+    megakernel.launches = 0
+    gradkernel.launches = 0
+    loss, _, (sg, _) = rt.render_grad(scene, cam, cfg,
+                                      torch.zeros(24, 48, 3, device="cuda"))
+    img = rt.render(scene._replace(center=center), cam, cfg)
+    (g,) = torch.autograd.grad(img.square().mean(), center)
+    assert megakernel.launches == 2 and gradkernel.launches == 2
+    assert bool(torch.isfinite(g).all())
+    torch.testing.assert_close(g, sg.center, rtol=1e-6, atol=0)
 
 
 @needs_card

@@ -24,6 +24,7 @@ Tolerances:
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -171,6 +172,69 @@ def test_fractsin_mode_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tg.render_golden(s, c, cfg.replace(scatter_mode="v1",
                                            rng_mode="v1_fractsin"))
+
+
+def test_tangent_ray_gradient_is_finite():
+    """A ray that grazes a sphere (disc == 0 exactly): the root's sqrt
+    takes its gradient from the 1e-20-clamped branch, so d t / d center is
+    finite and equals jax.grad through raytpu's golden, [1, 0, 0]."""
+    sphere = [((0.0, 0.0, 0.0), 1.0, 0, (0.5, 0.5, 0.5), 0.0)]
+    js = raytpu.make_scene(sphere)
+    o, d = (-5.0, 1.0, 0.0), (1.0, 0.0, 0.0)
+
+    def t_jax(center):
+        ro = tuple(jnp.asarray([v], jnp.float32) for v in o)
+        rd = tuple(jnp.asarray([v], jnp.float32) for v in d)
+        return jg.hit_world(js._replace(center=center), ro, rd, 1e-3)[1][0]
+
+    want = np.asarray(jax.grad(t_jax)(js.center))
+    ts = convert.scene_from_numpy(_np(js), "cpu")
+    center = ts.center.clone().requires_grad_()
+    hit, t, _, _, _ = tg.hit_world(
+        ts._replace(center=center),
+        tuple(torch.tensor([v]) for v in o),
+        tuple(torch.tensor([v]) for v in d), 1e-3)
+    assert bool(hit[0]) and float(t[0].detach()) == 5.0
+    (got,) = torch.autograd.grad(t[0], center)
+    np.testing.assert_array_equal(want, [[1.0, 0.0, 0.0]])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mode,aperture", [("sequential", 0.0),
+                                           ("parallel", 0.3)],
+                         ids=["sequential_pinhole", "parallel_defocus"])
+def test_render_golden_autograd_matches_jax_grad(mode, aperture):
+    """torch autograd through render_golden against jax.grad through
+    raytpu's render_golden, loss mean(img^2), on test_world at 32x16, 2 spp,
+    depth 3.  Budget 5e-3 of max|b| per leaf (floor 1e-8 scene, 1e-6
+    camera), tests/test_torch_adjoint.py's: the t of the ground sphere
+    moves by up to ~6e-5 between XLA and torch (see hit_world above), and
+    the geometry cotangents carry it.  Measured: 2.1e-3 (radius) in the
+    parallel defocus case, 4.0e-4 (radius) in the sequential pinhole
+    case."""
+    cfg = RenderConfig(width=32, height=16, spp=2, depth=3, rng_mode=mode)
+    scene = raytpu.test_world()
+    cam = _cam(cfg, aperture=aperture, focus_dist=12.0)
+
+    def loss_j(s, c):
+        return jnp.mean(jg.render_golden(s, c, cfg) ** 2)
+
+    gs_j, gc_j = jax.grad(loss_j, argnums=(0, 1), allow_int=True)(scene, cam)
+    s = convert.scene_from_numpy(_np(scene), "cpu")
+    c = convert.camera_from_numpy(_np(cam), "cpu")
+    leaves = [t.clone().requires_grad_()
+              for t in (s.center, s.radius, s.albedo, s.mat_param, *c)]
+    img = tg.render_golden(
+        s._replace(center=leaves[0], radius=leaves[1], albedo=leaves[2],
+                   mat_param=leaves[3]), type(c)(*leaves[4:]), cfg)
+    g = torch.autograd.grad(torch.mean(img ** 2), leaves)
+    names = ["center", "radius", "albedo", "mat_param", *c._fields]
+    want = [getattr(gs_j, k) for k in names[:4]] + list(gc_j)
+    for k, a, b in zip(names, g, want):
+        b = np.asarray(b)
+        floor = 1e-8 if k in names[:4] else 1e-6
+        err = np.abs(a.numpy() - b).max() / max(np.abs(b).max(), floor)
+        assert np.isfinite(a.numpy()).all() and err <= 5e-3, (k, err)
 
 
 @pytest.mark.parametrize("name,outliers", [("unaligned", 0),

@@ -1,0 +1,188 @@
+"""The fused VJP kernel's wrapper (raytpu_torch.kernels.gradkernel), the
+autograd wiring around the forward kernel, ``render_grad`` and the config-3
+optimisation, on the CPU against raytpu.
+
+On CPU tensors ``render_vjp`` runs its plain version (the VJP of the
+port's adjoint renderer); it is held against
+``raytpu.kernels.gradkernel.render_pallas_vjp(..., interpret=True)``, the way
+tests/test_gradkernel.py runs the Pallas kernel on the CPU.  The CUDA kernel
+itself runs only on a card: tests/test_torch_cuda_kernel.py.
+
+Tolerances are those of tests/test_torch_adjoint.py: images |d| <= 3e-4 on
+at least 99% of pixels, gradients max|a - b| / max(max|b|, floor) <= 5e-3
+per leaf (floor 1e-8 scene, 1e-6 camera).  Measured on the CPU (worst leaf
+of each case, the radius in every one): sequential defocus 6.0e-4, parallel
+pinhole 2.8e-4, parallel with ``img=`` 2.8e-4; ``render_grad`` against
+raytpu's golden backend 3.1e-4 with either port backend, the loss within
+3e-7 relative.  The camera assembly from the 18 sums is exact up to the
+order of a 3-term dot product (rtol 1e-6).
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import raytpu
+from raytpu.config import RenderConfig
+from raytpu.kernels import gradkernel as jgk
+from raytpu.render import render_grad as j_render_grad
+import raytpu_torch as rt
+from raytpu_torch import convert, optim
+from raytpu_torch.kernels import gradkernel as tgk, megakernel as tmk
+from test_torch_adjoint import GRAD_BUDGET, cotangent, leaf_errors
+
+LOOK = ((13.0, 2.0, 3.0), (0.0, 0.0, 0.0))
+
+
+def _np(nt):
+    return {k: np.asarray(v) for k, v in nt._asdict().items()}
+
+
+def _to_port(scene, cam):
+    return (convert.scene_from_numpy(_np(scene), "cpu"),
+            convert.camera_from_numpy(_np(cam), "cpu"))
+
+
+def _case(name):
+    cfg = RenderConfig(width=32, height=16, spp=2, depth=3)
+    kw = {}
+    if name == "sequential_defocus":
+        kw = dict(aperture=0.3, focus_dist=12.0)
+    else:
+        cfg = cfg.replace(rng_mode="parallel")
+    cam = raytpu.make_camera(*LOOK, vfov=20.0, aspect=cfg.aspect, **kw)
+    return raytpu.test_world(), cam, cfg
+
+
+@pytest.mark.parametrize("name", ["sequential_defocus", "parallel_pinhole",
+                                  "parallel_pinhole_img"])
+def test_render_vjp_matches_pallas_interpret(name):
+    scene, cam, cfg = _case(name)
+    img_ref = raytpu.render(scene, cam, cfg, backend="golden")
+    ct = cotangent(img_ref, seed=1)
+    use_img = name.endswith("_img")
+    want = jgk.render_pallas_vjp(
+        scene, cam, cfg, jnp.asarray(ct), interpret=True,
+        **(dict(img=img_ref, p2_refill=False) if use_img else {}))
+    s, c = _to_port(scene, cam)
+    img_t = torch.from_numpy(np.array(img_ref)) if use_img else None
+    before = tgk.launches
+    img, ds, dc = tgk.render_vjp(s, c, cfg, torch.from_numpy(ct), img=img_t)
+    assert tgk.launches == before  # CPU tensors never reach the kernel
+    assert ds.mat_type is None
+    d = np.abs(img.numpy() - np.asarray(want[0])).max(axis=-1)
+    assert float((d > 3e-4).mean()) <= 0.01, float(d.max())
+    errs = leaf_errors(ds, dc, want[1], want[2])
+    assert max(errs.values()) <= GRAD_BUDGET, errs
+
+
+@pytest.mark.parametrize("aperture", [0.0, 0.3], ids=["pinhole", "defocus"])
+def test_camera_assembly_matches_raytpu(monkeypatch, aperture):
+    """camera_grads on 18 given sums equals raytpu's host assembly
+    (render_pallas_vjp's last lines) on the same sums: raytpu's function
+    runs with its pallas_call replaced by one that returns those sums."""
+    cfg = RenderConfig(width=16, height=8, spp=1, depth=1)
+    scene = raytpu.test_world()
+    cam = raytpu.make_camera(*LOOK, vfov=20.0, aspect=cfg.aspect,
+                             aperture=aperture, focus_dist=10.0)
+    sums = np.random.default_rng(3).normal(0, 1, 32).astype(np.float32)
+
+    def fake_pallas_call(kernel, *, out_shape, **kw):
+        def run(*operands):
+            outs = [jnp.zeros(o.shape, o.dtype) for o in out_shape]
+            outs[-1] = jnp.asarray(sums).reshape(out_shape[-1].shape)
+            return tuple(outs)
+        return run
+
+    monkeypatch.setattr(jgk.pl, "pallas_call", fake_pallas_call)
+    _, _, want = jgk.render_pallas_vjp(
+        scene, cam, cfg, jnp.zeros((cfg.height, cfg.width, 3)),
+        interpret=True)
+    got = tgk.camera_grads(torch.from_numpy(sums[:tgk.CAM_SUMS]),
+                           _to_port(scene, cam)[1])
+    for k in rt.Camera._fields:
+        np.testing.assert_allclose(getattr(got, k).numpy(),
+                                   np.asarray(getattr(want, k)), rtol=1e-6,
+                                   atol=1e-7, err_msg=k)
+    if aperture == 0.0:
+        for k in ("u", "v", "lens_radius"):
+            assert not getattr(got, k).any(), k
+
+
+@pytest.mark.parametrize("backend", ["golden", "auto"])
+def test_render_grad_matches_raytpu_golden(backend):
+    """render_grad on CPU tensors: ``golden`` runs the adjoint renderer,
+    ``auto`` the forward kernel's autograd Function (plain golden forward,
+    the VJP kernel's plain version backward); both equal raytpu's
+    ``render_grad(backend="golden")``."""
+    cfg = RenderConfig(width=32, height=16, spp=2, depth=3)
+    scene = raytpu.test_world()
+    cam = raytpu.make_camera(*LOOK, vfov=20.0, aspect=cfg.aspect)
+    target = np.random.default_rng(2).uniform(
+        0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
+    loss_j, img_j, (gs_j, gc_j) = j_render_grad(scene, cam, cfg, target,
+                                                backend="golden")
+    s, c = _to_port(scene, cam)
+    loss, img, (gs, gc) = rt.render_grad(s, c, cfg, target, backend=backend)
+    assert gs.mat_type is None and not loss.requires_grad
+    gs_j = convert.scene_grads_from_numpy(gs_j, "cpu")  # float0 -> None
+    assert gs_j.mat_type is None and gs_j.center.dtype == torch.float32
+    d = np.abs(img.numpy() - np.asarray(img_j)).max(axis=-1)
+    assert float((d > 3e-4).mean()) <= 0.01, float(d.max())
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-5)
+    errs = leaf_errors(gs, gc, gs_j, gc_j)
+    assert max(errs.values()) <= GRAD_BUDGET, errs
+
+
+def test_render_autograd_equals_render_vjp():
+    """autograd through render() runs the VJP kernel's wrapper as its
+    backward: the same cotangents as calling render_vjp directly."""
+    scene, cam, cfg = _case("parallel_pinhole")
+    s, c = _to_port(scene, cam)
+    ct = torch.from_numpy(cotangent(np.zeros((16, 32, 3), np.float32), 4))
+    leaves = [t.clone().requires_grad_() for t in (s.center, s.albedo,
+                                                   c.origin)]
+    img = rt.render(s._replace(center=leaves[0], albedo=leaves[1]),
+                    c._replace(origin=leaves[2]), cfg, vis_w=0.005)
+    assert torch.equal(img.detach(), rt.render(s, c, cfg))
+    got = torch.autograd.grad(img, leaves, ct)
+    _, ds, dc = tgk.render_vjp(s, c, cfg, ct, vis_w=0.005)
+    for a, b in zip(got, (ds.center, ds.albedo, dc.origin)):
+        assert torch.equal(a, b)
+
+
+def test_wrappers_check_their_inputs():
+    scene, cam, cfg = _case("parallel_pinhole")
+    s, c = _to_port(scene, cam)
+    with pytest.raises(ValueError, match="ct"):
+        tgk.render_vjp(s, c, cfg, torch.zeros(cfg.height, cfg.width))
+    with pytest.raises(ValueError, match="img"):
+        tgk.render_vjp(s, c, cfg, torch.zeros(cfg.height, cfg.width, 3),
+                       img=torch.zeros(cfg.height, cfg.width, 3,
+                                       dtype=torch.float64))
+    with pytest.raises(ValueError, match="v1_fractsin"):
+        tgk.render_vjp(s, c, cfg.replace(rng_mode="v1_fractsin"),
+                       torch.zeros(cfg.height, cfg.width, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        tgk.launch(tmk.pack_camera(c), tmk.pack_scene(s), cfg,
+                   torch.zeros(cfg.height, cfg.width, 3))
+    with pytest.raises(ValueError, match="v1_fractsin"):
+        rt.render_grad(s, c, cfg.replace(rng_mode="v1_fractsin"),
+                       np.zeros((cfg.height, cfg.width, 3), np.float32))
+
+
+def test_config3_problem_loss_decreases():
+    """The config-3 inverse-rendering problem at 48x24 on the CPU: a few
+    Adam steps on the hero sphere's centre lower the loss and move the
+    centre towards the truth."""
+    cfg = RenderConfig(width=48, height=24, spp=4, depth=4)
+    truth, scene0, _, target, loss_fn = optim.inverse_render_problem(
+        cfg, device="cpu")
+    assert tuple(target.shape) == (24, 48, 3)
+    params, losses = optim.optimize(loss_fn, {"center": scene0.center[1]},
+                                    steps=6, lr=0.02)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    err0 = float((scene0.center[1] - truth.center[1]).norm())
+    err1 = float((params["center"] - truth.center[1]).norm())
+    assert err1 < err0, (err0, err1)

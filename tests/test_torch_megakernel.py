@@ -120,13 +120,22 @@ def test_wrapper_rejects_bad_camera_and_config():
 
 
 def test_wrapper_rejects_requires_grad():
+    """render() on leaves that require grad returns a differentiable image
+    (the wrapper's autograd Function); launch() itself still refuses packed
+    operands that carry autograd history, since it has no backward."""
     scene, cam, cfg = _small()
+    center = scene.center.clone().requires_grad_()
+    origin = cam.origin.clone().requires_grad_()
+    img = rt.render(scene._replace(center=center),
+                    cam._replace(origin=origin), cfg)
+    assert img.requires_grad
+    assert torch.equal(img.detach(), rt.render(scene, cam, cfg))
+    g_center, g_origin = torch.autograd.grad(img.sum(), (center, origin))
+    assert bool(torch.isfinite(g_center).all()) and g_center.abs().sum() > 0
+    assert bool(torch.isfinite(g_origin).all()) and g_origin.abs().sum() > 0
     with pytest.raises(ValueError, match="requires grad"):
-        rt.render(scene._replace(center=scene.center.requires_grad_()),
-                  cam, cfg)
-    with pytest.raises(ValueError, match="requires grad"):
-        rt.render(scene, cam._replace(origin=cam.origin.requires_grad_()),
-                  cfg)
+        tmk.launch(tmk.pack_camera(cam._replace(origin=origin)),
+                   tmk.pack_scene(scene), cfg)
 
 
 def test_kernel_launch_needs_cuda_tensors():
@@ -144,9 +153,20 @@ def test_kernel_launch_needs_cuda_tensors():
 
 
 def test_render_grad_not_ported():
+    """render_grad is ported: an MSE loss, the image and finite gradients
+    of every continuous leaf (mat_type's is None)."""
     scene, cam, cfg = _small()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_grad(scene, cam, cfg, None)
+    target = torch.full((cfg.height, cfg.width, 3), 0.5)
+    loss, img, (sg, cg) = render_grad(scene, cam, cfg, target)
+    assert torch.equal(img, rt.render(scene, cam, cfg))
+    assert float(loss) == pytest.approx(float(((img - target) ** 2).mean()))
+    assert sg.mat_type is None
+    for name in ("center", "radius", "albedo", "mat_param"):
+        g, x = getattr(sg, name), getattr(scene, name)
+        assert g.shape == x.shape and bool(torch.isfinite(g).all()), name
+    for g, x in zip(cg, cam):
+        assert g.shape == x.shape and bool(torch.isfinite(g).all())
+    assert sg.albedo.abs().sum() > 0 and cg.origin.abs().sum() > 0
 
 
 def test_render_device_argument_moves_inputs():
@@ -161,8 +181,9 @@ def test_import_leaves_jax_unloaded():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import raytpu_torch, raytpu_torch.cli, raytpu_torch.convert, "
-        "raytpu_torch.io, raytpu_torch.profiling, "
-        "raytpu_torch.kernels.megakernel\n"
+        "raytpu_torch.io, raytpu_torch.profiling, raytpu_torch.adjoint, "
+        "raytpu_torch.optim, raytpu_torch.kernels.megakernel, "
+        "raytpu_torch.kernels.gradkernel\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'raytpu'))\n"
