@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 Needs a CUDA card and nvcc; builds the port's CUDA kernels from
-``raytpu_torch/csrc/`` (the forward megakernel K1a and the fused VJP kernel
-K3, one nvcc each, in parallel) and drives ``raytpu_torch``'s two paths:
-the forward render and the gradient path (autograd through ``render``,
-``render_grad``, ``optim.optimize``).  It imports nothing of JAX or of
+``raytpu_torch/csrc/`` (the forward megakernels K1a / K1c / K1' / K4-write
+and the fused VJP kernel K3 with its BVH and tape-replay variants, one nvcc
+each, in parallel) and the host BVH builder (g++), and drives
+``raytpu_torch``'s paths: the forward render and the gradient path
+(autograd through ``render``, ``render_grad``, ``optim.optimize``), brute
+and over a BVH, taped and not.  It imports nothing of JAX or of
 ``raytpu``, and uses one card (the first that CUDA_VISIBLE_DEVICES names,
 card 0 without it).  Phases, one JSON line each:
 
@@ -24,10 +26,31 @@ card 0 without it).  Phases, one JSON line each:
     gradients, then 20 Adam steps of ``optim.optimize`` on the hero
     sphere's centre, each step one K1a and one K3 launch;
 4.  K1a times from CUDA events, kernel and plain version;
-4b. fwd+bwd and K3 times, beside the plain adjoint's.
+4b. fwd+bwd and K3 times, beside the plain adjoint's;
+4c. taped against untaped ``render_grad`` in alternating pairs at the
+    config-2 frame over 4 to 500 spheres (where the tape starts to pay);
+5.  config 4 (BASELINE: ``final_world()``, 500 spheres, 800x400, 100 spp,
+    depth 12) over a BVH:
+    5a. bvh_build: the native builder ran, its arrays equal the numpy
+        builder's; leaves per copy, outliers, build ms;
+    5b. K1c against its plain version at 2 spp, and against K1a at full
+        size (pixels that differ: only exact ties of t may);
+    5c. the census K1' at full size (leaves entered per step, steps per
+        sample, sphere tests per frame) and against its plain version;
+    5d. K3's BVH variant against K3 brute (both RNG modes, ``vis_w`` 0 and
+        0.005) and against the plain adjoint;
+    5e. K4: the taping forward's image against K1a's and K1c's, taped K3
+        against untaped K3 (brute and BVH, full and partial tapes), and
+        ``tape_plan``'s decisions;
+    5f. the main path at full size: ``render(..., bvh=)``, ``render_grad``
+        with the BVH in both RNG modes and brute in parallel RNG, each
+        with its launches by variant checked, and ``cli render --bvh``;
+    5g. times at full size (forward, fwd+bwd, K3 with and without the
+        tape) and the tape's coverage rule on REFERENCE_V2.
 
 It exits non-zero at the first failure.  The line before the last is the
-kernel table as JSON, the last line ``{"ok": true, "device": {...}}``.
+kernel table as JSON, the line before it the card's name and power limit,
+the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -50,6 +73,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BUDGET_DELTA = 3e-4    # cross-context image budget (post-gamma)
 BUDGET_SHARE = 1e-3    # share of pixels allowed above it (path flips)
 DEPTH1_TOL = 1e-6      # depth-1 spp-1: jitter, primary hit and sky only
+TIE_SHARE = 1e-4       # K1c vs K1a: pixels an exact tie of t may change
 PLAIN_CHUNK = 1 << 16  # plain version's pixels per chunk on the card
 # K3 vs its plain version, per leaf: max|a - b| / max(max|b|, floor), floor
 # 1e-8 for scene leaves and 1e-6 for camera leaves.  Both sides run the same
@@ -69,6 +93,22 @@ GRAD_BUDGET = 5e-3
 VIS_W = 0.005          # the config-3 problem's silhouette weight
 ADAM_STEPS = 20
 ADAM_LR = 0.005        # at 0.01 the loss bottomed at step 14 and rose again
+LEAF = 64              # build_bvh's default leaf size (raytpu's)
+TAPE_PAIRS = 10        # taped / untaped pairs a scene in phase 4c
+# The least time the card could take (the roofline bound): the larger
+# of the bytes a kernel must move over 3.35 TB/s and its f32 operations over
+# 67 TFLOP/s, the H100 SXM's published peaks at 700 W (an FMA counts two
+# operations there; the kernels are built with -fmad=false, so this bound is
+# twice as loose as the instruction count makes it).  Operations are counted
+# by hand from csrc/render_common.cuh and gradkernel.cu and rounded down:
+# the census of this run's data gives how many of each.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+OPS_SPHERE_TEST = 24   # sphere_root: 3 sub, dot 5, c 7, disc 3, sqrt, 2 roots 5
+OPS_BOX_TEST = 24      # 6 sub, 6 mul, 6 min/max, 3 max (tnear), 3 min (tfar)
+OPS_STEP = 50          # hit point, normal, the material's new direction
+OPS_SAMPLE = 30        # raygen, the sample's sum (the gamma is per pixel)
+OPS_STEP_REVERSE = 200  # bounce_vjp of one scattering step (K3's reverse)
 
 
 def fail(msg: str) -> None:
@@ -122,6 +162,569 @@ def leaf_errors(got, want, cam_fields) -> tuple[dict, float]:
         worst_abs = max(worst_abs, d)
         rel[k] = d / max(float(b.abs().max()), floor)
     return rel, worst_abs
+
+
+def once_ms(fn):
+    """(result, ms) of one call, from CUDA events (the plain versions: a
+    second call would double a run of seconds)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """bound_ms and bound_by for ``ops`` f32 operations and ``nbytes``
+    bytes (PEAK_F32, PEAK_BYTES)."""
+    t_ops = ops / PEAK_F32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def forward_ops(c: dict) -> float:
+    """f32 operations of one forward over the census ``c``: the sweep's
+    sphere and leaf-box tests, the scatter of every step, the raygen of
+    every sample."""
+    return (c["sphere_tests"] * OPS_SPHERE_TEST
+            + c["box_tests"] * OPS_BOX_TEST
+            + c["bounce_steps"] * OPS_STEP + c["samples"] * OPS_SAMPLE)
+
+
+def k3_ops(c: dict, sweeps: int, taped_steps: int = 0) -> float:
+    """K3's f32 operations over the census ``c``: ``sweeps`` forwards
+    (PASS 2's, and PASS 1's in sequential RNG), less the sweep of each of
+    the ``taped_steps`` a tape holds (one sphere test each instead), plus
+    the reverse of every step.  The vis_w near-miss sweep is not counted."""
+    sweep = (c["sphere_tests"] * OPS_SPHERE_TEST
+             + c["box_tests"] * OPS_BOX_TEST)
+    saved = sweep * taped_steps / max(c["bounce_steps"], 1)
+    return (sweeps * forward_ops(c) - saved
+            + taped_steps * OPS_SPHERE_TEST
+            + c["bounce_steps"] * OPS_STEP_REVERSE)
+
+
+def frame_bytes(cfg, spheres: int, images: int) -> int:
+    """Bytes every kernel moves at least: the scene pack (9 f32 a sphere)
+    read once and ``images`` f32 (H, W, 3) planes read or written once."""
+    return 9 * 4 * spheres + images * cfg.height * cfg.width * 3 * 4
+
+
+def flat_grads(out) -> list:
+    """The f32 outputs of a VJP (img, d_scene, d_cam) as one list: image,
+    the four scene leaves, the seven camera leaves."""
+    return [out[0], *[getattr(out[1], k) for k in
+                      ("center", "radius", "albedo", "mat_param")], *out[2]]
+
+
+def marked_tape(cfg, rows: int, g_cap: int, dev) -> torch.Tensor:
+    """A tape for ``megakernel.launch(..., tape=)`` filled with
+    ``golden.TAPE_UNWRITTEN``, so that the slots the taping forward writes
+    can be told from the rest (``render_tape_fwd`` leaves those as
+    allocated: the replay never reads them)."""
+    from raytpu_torch import golden
+    return torch.full((g_cap, cfg.height * cfg.width), golden.TAPE_UNWRITTEN,
+                      dtype=golden.tape_dtype(rows), device=dev)
+
+
+def reset_counts(megakernel, gradkernel) -> None:
+    megakernel.launches = gradkernel.launches = 0
+    for d in (megakernel.variants, gradkernel.variants):
+        for k in d:
+            d[k] = 0
+
+
+def variant_counts(megakernel, gradkernel) -> dict:
+    """The launches by variant since the last reset_counts, nonzero only."""
+    return {k: v for d in (megakernel.variants, gradkernel.variants)
+            for k, v in d.items() if v}
+
+
+def tape_pairs(dev, card: str) -> dict:
+    """Phase 4c: where the tape starts to pay (``tape_plan``'s
+    TAPE_MIN_SPHERES).  ``render_grad`` at the config-2 frame in parallel
+    RNG (brute sweep), untaped (TAPE_BUDGET 0) and taped (the floor set to
+    0), in TAPE_PAIRS pairs whose order alternates, over scenes of 4 to 500
+    spheres; each time the mean of 5 calls from CUDA events."""
+    import raytpu_torch as rt
+    from raytpu_torch.config import CONFIG2
+    from raytpu_torch.kernels import gradkernel
+
+    cfg = CONFIG2.replace(rng_mode="parallel")
+    cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                         aspect=cfg.aspect, device=dev)
+    target = torch.full((cfg.height, cfg.width, 3), 0.5, device=dev)
+    budget, floor = gradkernel.TAPE_BUDGET, gradkernel.TAPE_MIN_SPHERES
+    scenes = [("config2_world", rt.config2_world(device=dev))]
+    scenes += [(f"final_world_n{n}", rt.final_world(n=n, device=dev))
+               for n in (8, 16, 32, 64, 500)]
+    out = {}
+    for label, scene in scenes:
+        def run(taped):
+            gradkernel.TAPE_BUDGET = budget if taped else 0
+            gradkernel.TAPE_MIN_SPHERES = 0
+            try:
+                return cuda_ms(lambda: rt.render_grad(scene, cam, cfg,
+                                                      target), 5)
+            finally:
+                gradkernel.TAPE_BUDGET = budget
+                gradkernel.TAPE_MIN_SPHERES = floor
+        untaped, taped = [], []
+        for i in range(TAPE_PAIRS):
+            first = bool(i % 2)  # taped first in odd pairs
+            a, b = run(first), run(not first)
+            (taped if first else untaped).append(a)
+            (untaped if first else taped).append(b)
+        row = {"spheres": scene.count,
+               "tapes_by_default": scene.count >= floor,
+               "untaped_median_ms": float(np.median(untaped)),
+               "taped_median_ms": float(np.median(taped)),
+               "taped_faster_pairs": sum(t < u for t, u in
+                                         zip(taped, untaped)),
+               "untaped_ms": untaped, "taped_ms": taped}
+        out[label] = row
+        phase("tape_pairs", scene=label,
+              frame=f"{cfg.width}x{cfg.height} spp{cfg.spp} d{cfg.depth} "
+                    "parallel", card=card, pairs=TAPE_PAIRS, **row)
+    return out
+
+
+def config4_phases(dev, card: str) -> list:
+    """Phases 5a-5g (see the module docstring) -> the kernel table's
+    entries of K1c, K1', K4 (write, brute and BVH) and K3's BVH and
+    tape-replay variants."""
+    import raytpu_torch as rt
+    from raytpu_torch import bvh as tbvh, golden, io, native, profiling
+    from raytpu_torch.config import CONFIG4, REFERENCE_V2
+    from raytpu_torch.kernels import gradkernel, megakernel
+
+    cfg4 = CONFIG4                        # sequential RNG, BASELINE's
+    cfg4p = CONFIG4.replace(rng_mode="parallel")
+    cfg2 = CONFIG4.replace(spp=2)         # the cell the plain versions run
+    cfg2p = cfg2.replace(rng_mode="parallel")
+    full2 = cfg2.spp * cfg2.depth
+    npix = cfg4.width * cfg4.height
+    scene = rt.final_world(device=dev)
+    cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                         aspect=cfg4.aspect, device=dev)
+    cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
+    gen = torch.Generator().manual_seed(7)
+    target = torch.rand((cfg4.height, cfg4.width, 3), generator=gen).to(dev)
+    plain = {"chunk_pixels": PLAIN_CHUNK}
+
+    # -- 5a: the BVH, built on the host by the native builder
+    t0 = time.perf_counter()
+    bvh = rt.build_bvh(scene, leaf_size=LEAF)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    bvh = rt.build_bvh(scene, leaf_size=LEAF)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = rt.build_bvh(scene, leaf_size=LEAF, use_native=False)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    equal = all(torch.equal(a, b) for a, b in (
+        (bvh.nodes, ref.nodes), (bvh.perm, ref.perm), (bvh.flat, ref.flat)))
+    phase("bvh_build", scene=f"final_world(), {scene.count} spheres",
+          leaf_size=LEAF, built_by=bvh.built_by,
+          native_build_error=native.build_error,
+          array_equal_numpy_builder=equal, leaves_per_copy=bvh.n_leaves,
+          outliers=bvh.n_outliers, permuted_rows=int(bvh.perm.shape[0]),
+          first_build_ms_with_gxx=first_ms, build_ms=build_ms,
+          numpy_build_ms=numpy_ms)
+    if bvh.built_by != "native median" or not equal:
+        fail(f"the BVH build: {bvh.built_by}, equal to numpy: {equal}, "
+             f"{native.build_error}")
+    spv = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    rows = spv.shape[1]
+    tape_elt = torch.empty((), dtype=golden.tape_dtype(rows)).element_size()
+    flat_bytes = bvh.flat.numel() * 4
+
+    # -- 5b: K1c against its plain version (2 spp) and against K1a (full)
+    k1c2 = megakernel.launch(cp, spv, cfg2, bvh)
+    want, k1c_plain_ms = once_ms(lambda: golden.render_golden(
+        scene, cam, cfg2.replace(**plain), bvh))
+    res = compare(k1c2, want)
+    k1a4 = megakernel.launch(cp, sp, cfg4)
+    k1c4 = megakernel.launch(cp, spv, cfg4, bvh)
+    differ = int((k1a4 != k1c4).any(dim=-1).sum())
+    ok = res["share_above_budget"] <= BUDGET_SHARE and differ <= TIE_SHARE * npix
+    phase("k1c_vs_plain", frame="800x400 spp2 d12 sequential", ok=ok,
+          tolerance=f"share |d| > {BUDGET_DELTA} <= {BUDGET_SHARE}",
+          plain_ms=k1c_plain_ms, **res,
+          k1c_vs_k1a_full_config4_pixels_differ=differ,
+          allowed_exact_t_ties=int(TIE_SHARE * npix))
+    if not ok:
+        fail("K1c disagrees with its plain version or with K1a")
+    del want, k1a4
+
+    # -- 5c: the census K1' (full size), and against its plain version
+    c4 = profiling.census(scene, cam, cfg4, bvh)
+    c4_brute = profiling.census(scene, cam, cfg4)
+    c2 = profiling.census(scene, cam, cfg2, bvh)
+    c2p = profiling.census(scene, cam, cfg2p, bvh)
+    c2p_brute = profiling.census(scene, cam, cfg2p)
+    img_cen, _ = megakernel.launch(cp, spv, cfg2, bvh, count=True)
+    plain_c = dict.fromkeys(golden.CENSUS, 0)
+    _, cen_plain_ms = once_ms(lambda: golden.render_golden(
+        scene, cam, cfg2.replace(**plain), bvh, census=plain_c))
+    census_rel = max(abs(c2[k] - plain_c[k]) / max(plain_c[k], 1)
+                     for k in golden.CENSUS)
+    steps_rel = (abs(c4["bounce_steps"] - c4_brute["bounce_steps"])
+                 / c4_brute["bounce_steps"])
+    ok = (torch.equal(img_cen, k1c2) and census_rel <= 1e-3
+          and steps_rel <= TIE_SHARE)
+    phase("census", frame="800x400 spp100 d12 sequential", card=card,
+          ok=ok, bvh=c4, brute=c4_brute,
+          leaves_entered_per_step=c4["leaves_entered"] / c4["bounce_steps"],
+          steps_per_sample=c4["bounce_steps"] / c4["samples"],
+          sphere_tests_per_frame=c4["sphere_tests"],
+          brute_sphere_tests_per_frame=c4_brute["sphere_tests"],
+          sphere_test_cut=c4_brute["sphere_tests"] / c4["sphere_tests"],
+          spp2_kernel=c2, spp2_plain=plain_c, spp2_max_rel_diff=census_rel,
+          image_bit_equal_k1c=torch.equal(img_cen, k1c2))
+    if not ok:
+        fail("the census disagrees with its plain version or the brute one")
+
+    # -- 5d: K3's BVH variant against K3 brute and the plain adjoint
+    k3bvh_err = k3bvh_plain_ms = None
+    for cfg in (cfg2, cfg2p):
+        img = megakernel.launch(cp, spv, cfg, bvh)
+        ct = 2.0 * (img - target) / img.numel()
+        for vis_w in (0.0, VIS_W):
+            got = gradkernel.render_vjp(scene, cam, cfg, ct, vis_w=vis_w,
+                                        bvh=bvh)
+            brute = gradkernel.render_vjp(scene, cam, cfg, ct, vis_w=vis_w)
+            rel, _ = leaf_errors(got, brute, rt.Camera._fields)
+            worst = max(rel, key=rel.get)
+            row = {"frame": f"800x400 spp2 d12 {cfg.rng_mode}",
+                   "vis_w": vis_w,
+                   "img_bit_equal_brute": torch.equal(got[0], brute[0]),
+                   "img_bit_equal_k1c": torch.equal(got[0], img),
+                   "worst_leaf": worst, "rel_err": rel[worst],
+                   "budget": GRAD_BUDGET}
+            if cfg is cfg2 and vis_w == 0.0:  # and the plain adjoint
+                want, k3bvh_plain_ms = once_ms(
+                    lambda: gradkernel.render_vjp_plain(
+                        scene, cam, cfg.replace(**plain), ct, 0.0, bvh))
+                prel, k3bvh_err = leaf_errors(got, want, rt.Camera._fields)
+                row.update(vs_plain_worst_rel=max(prel.values()),
+                           vs_plain_max_abs=k3bvh_err,
+                           plain_ms=k3bvh_plain_ms)
+                ok_plain = max(prel.values()) <= GRAD_BUDGET
+                del want
+            else:
+                ok_plain = True
+            ok = (row["img_bit_equal_brute"] and row["img_bit_equal_k1c"]
+                  and rel[worst] <= GRAD_BUDGET and ok_plain)
+            phase("k3_bvh_vs_brute", ok=ok, **row)
+            if not ok:
+                fail(f"K3's BVH variant disagrees: {row}")
+            del got, brute
+    ct2 = 2.0 * (k1c2 - target) / k1c2.numel()
+    k3bvh_ms = cuda_ms(lambda: gradkernel.launch(cp, spv, cfg2, ct2, None,
+                                                 0.0, bvh), 3)
+
+    # -- 5e: K4, the taping forward and K3's tape replay
+    n_rv2 = rt.random_world(device=dev).count
+    plan4 = gradkernel.tape_plan(cfg4p, scene.count, bvh)
+    plan_rv2 = gradkernel.tape_plan(REFERENCE_V2.replace(rng_mode="parallel"),
+                                    n_rv2)
+    plan_vis = gradkernel.tape_plan(cfg4p, scene.count, bvh, vis_w=VIS_W)
+    plan_seq = gradkernel.tape_plan(cfg4, scene.count, bvh)
+    plan_few = gradkernel.tape_plan(cfg4p, 4)  # config 2's sphere count
+    ok = (plan4 == {"g_cap": cfg4.spp * cfg4.depth, "partial": False,
+                    "bytes": cfg4.spp * cfg4.depth * npix * tape_elt}
+          and plan_vis is None and plan_seq is None and plan_few is None)
+    phase("tape_plan", ok=ok, config4_parallel=plan4,
+          reference_v2_parallel=plan_rv2, config4_parallel_vis_w=plan_vis,
+          config4_sequential=plan_seq, four_spheres_parallel=plan_few,
+          budget=gradkernel.TAPE_BUDGET,
+          partial_min_coverage=gradkernel.PARTIAL_MIN_COVERAGE,
+          tape_min_spheres=gradkernel.TAPE_MIN_SPHERES)
+    if not ok:
+        fail("tape_plan's decisions for config 4 are not the expected ones")
+    tape4 = marked_tape(cfg4p, rows, plan4["g_cap"], dev)
+    tape4_b = marked_tape(cfg4p, scene.count, plan4["g_cap"], dev)
+    img_tb = megakernel.launch(cp, spv, cfg4p, bvh, tape=tape4)
+    img_ta = megakernel.launch(cp, sp, cfg4p, tape=tape4_b)
+    k1c4p = megakernel.launch(cp, spv, cfg4p, bvh)
+    k1a4p = megakernel.launch(cp, sp, cfg4p)
+    row = {"frame": "800x400 spp100 d12 parallel",
+           "tape_bvh_img_bit_equal_k1c": torch.equal(img_tb, k1c4p),
+           "tape_brute_img_bit_equal_k1a": torch.equal(img_ta, k1a4p),
+           "k1a_vs_k1c_pixels_differ": int((k1a4p != k1c4p).any(-1).sum()),
+           "tapes_equal_through_perm": float(
+               (torch.where(tape4 >= 0, bvh.perm.long()[tape4.long().clamp(
+                   min=0)], tape4.long()) == tape4_b.long()).float().mean()),
+           "tape_bytes": tape4.numel() * tape_elt,
+           "steps_logged": int((tape4 != golden.TAPE_UNWRITTEN).sum())}
+    row["census_steps"] = profiling.census(scene, cam, cfg4p,
+                                           bvh)["bounce_steps"]
+    ok = (row["tape_bvh_img_bit_equal_k1c"]
+          and row["tape_brute_img_bit_equal_k1a"]
+          and row["k1a_vs_k1c_pixels_differ"] <= TIE_SHARE * npix
+          and row["steps_logged"] == row["census_steps"])
+    phase("k4_taping_forward", ok=ok, **row)
+    if not ok:
+        fail(f"the taping forward's image or tape is wrong: {row}")
+    del tape4_b, img_ta
+
+    entries = {}
+    for sweep, b, pack, c in (("brute", None, sp, c2p_brute),
+                              ("bvh", bvh, spv, c2p)):
+        img2, tape2 = gradkernel.render_tape_fwd(scene, cam, cfg2p, full2, b)
+        ct = 2.0 * (img2 - target) / img2.numel()
+        untaped = [flat_grads(gradkernel.render_vjp(
+            scene, cam, cfg2p, ct, img=img2, bvh=b)) for _ in range(3)]
+        spread = [max(float((r[i] - untaped[0][i]).abs().max())
+                      for r in untaped[1:]) for i in range(len(untaped[0]))]
+        caps = {}
+        for g_cap in (full2, 0, 1, 2, cfg2p.depth + 3):
+            taped = flat_grads(gradkernel.render_vjp(
+                scene, cam, cfg2p, ct, img=img2, bvh=b,
+                tape=tape2[:g_cap], tape_partial=g_cap < full2))
+            diffs = {i: float((a - u).abs().max()) for i, (a, u) in
+                     enumerate(zip(taped, untaped[0])) if not torch.equal(a, u)}
+            # image (0) and camera sums (5-11) have a fixed order: bit-equal;
+            # a sphere leaf (1-4) may differ within untaped K3's own spread
+            bad = {i: d for i, d in diffs.items()
+                   if not 1 <= i <= 4 or d > spread[i]}
+            caps[g_cap] = {"bit_equal": not diffs, "differing": diffs,
+                           "untaped_spread": {i: spread[i] for i in diffs}}
+            if bad:
+                phase("k4_taped_vs_untaped", ok=False, sweep=sweep,
+                      g_cap=g_cap, differing=diffs, untaped_spread=spread)
+                fail(f"taped K3 ({sweep}, g_cap {g_cap}) differs from untaped")
+        k4_ms = cuda_ms(lambda: megakernel.launch(cp, pack, cfg2p, b,
+                                                  tape=tape2), 5)
+        k3t_ms = cuda_ms(lambda: gradkernel.launch(
+            cp, pack, cfg2p, ct, img2, 0.0, b, tape2), 3)
+        k3u_ms = cuda_ms(lambda: gradkernel.launch(
+            cp, pack, cfg2p, ct, img2, 0.0, b), 3)
+        (pimg, ptape), k4_plain_ms = once_ms(lambda: golden.render_golden_tape(
+            scene, cam, cfg2p.replace(**plain), full2, b))
+        k4_err = float((pimg - img2).abs().max())
+        written = ptape != golden.TAPE_UNWRITTEN  # the rest is never read
+        tape_share = float((ptape == tape2)[written].float().mean())
+        want, k3t_plain_ms = once_ms(lambda: gradkernel.render_vjp_plain(
+            scene, cam, cfg2p.replace(**plain), ct, 0.0, b, tape2))
+        got = gradkernel.render_vjp(scene, cam, cfg2p, ct, img=img2, bvh=b,
+                                    tape=tape2)
+        prel, k3t_err = leaf_errors(got, want, rt.Camera._fields)
+        ok = (tape_share >= 1 - BUDGET_SHARE and max(prel.values())
+              <= GRAD_BUDGET and compare(img2, pimg)["share_above_budget"]
+              <= BUDGET_SHARE)
+        phase("k4_taped_vs_untaped", ok=ok, sweep=sweep,
+              frame="800x400 spp2 d12 parallel", g_caps=caps,
+              plain_tape_share_equal=tape_share, write_vs_plain_img=k4_err,
+              replay_vs_plain_worst_rel=max(prel.values()),
+              k4_write_ms=k4_ms, k3_taped_ms=k3t_ms, k3_untaped_ms=k3u_ms,
+              plain_write_ms=k4_plain_ms, plain_replay_ms=k3t_plain_ms,
+              card=card)
+        if not ok:
+            fail(f"K4 ({sweep}) disagrees with its plain version")
+        # the tape bytes moved: one slot a step this run took, written by
+        # K4 and read by the replay (the slots past a pixel's last step
+        # are neither)
+        tbytes = c["bounce_steps"] * tape_elt
+        nk = pack.shape[1]
+        entries[f"K4/{sweep}"] = dict(
+            max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms,
+            **bound(forward_ops(c), frame_bytes(cfg2p, nk, 1) + tbytes
+                    + (flat_bytes if b is not None else 0)))
+        entries["K3/bvh+tape" if b is not None else "K3/tape"] = dict(
+            max_abs_err=k3t_err, ms=k3t_ms, plain_ms=k3t_plain_ms,
+            untaped_ms=k3u_ms,
+            **bound(k3_ops(c, 1, c["bounce_steps"]),
+                    frame_bytes(cfg2p, nk, 3) + tbytes + 8 * 8 * nk))
+        del untaped, want, got, tape2, ptape
+
+    entries["K1c"] = dict(max_abs_err=res["max_abs_err"],
+                          ms=cuda_ms(lambda: megakernel.launch(
+                              cp, spv, cfg2, bvh), 5),
+                          plain_ms=k1c_plain_ms,
+                          **bound(forward_ops(c2), frame_bytes(cfg2, rows, 1)
+                                  + flat_bytes))
+    entries["K1'"] = dict(max_abs_err=float((img_cen - k1c2).abs().max()),
+                          census_max_rel_diff=census_rel,
+                          ms=cuda_ms(lambda: megakernel.launch(
+                              cp, spv, cfg2, bvh, count=True), 5),
+                          plain_ms=cen_plain_ms,
+                          **bound(forward_ops(c2), frame_bytes(cfg2, rows, 1)
+                                  + flat_bytes))
+    entries["K3/bvh"] = dict(max_abs_err=k3bvh_err, ms=k3bvh_ms,
+                             plain_ms=k3bvh_plain_ms,
+                             **bound(k3_ops(c2, 2),
+                                     frame_bytes(cfg2, rows, 2) + flat_bytes
+                                     + 8 * 8 * rows))
+
+    # -- 5f: the main path at full config 4, through the entry points
+    launches = {}
+    reset_counts(megakernel, gradkernel)
+    img = rt.render(scene, cam, cfg4, bvh=bvh)
+    torch.cuda.synchronize()
+    launches["render"] = variant_counts(megakernel, gradkernel)
+    mean = float(img.mean())
+    runs = {}
+    for label, cfg, b in (("parallel_bvh", cfg4p, bvh),
+                          ("sequential_bvh", cfg4, bvh),
+                          ("parallel_brute", cfg4p, None)):
+        reset_counts(megakernel, gradkernel)
+        runs[label] = rt.render_grad(scene, cam, cfg, target, bvh=b)
+        torch.cuda.synchronize()
+        launches[label] = variant_counts(megakernel, gradkernel)
+    reset_counts(megakernel, gradkernel)
+    profiling.census(scene, cam, cfg4, bvh)
+    launches["census"] = variant_counts(megakernel, gradkernel)
+    want_launches = {"render": {"K1c": 1},
+                     "parallel_bvh": {"K4/bvh": 1, "K3/bvh+tape": 1},
+                     "sequential_bvh": {"K1c": 1, "K3/bvh": 1},
+                     "parallel_brute": {"K4/brute": 1, "K3/tape": 1},
+                     "census": {"K1'/bvh": 1}}
+    finite = {k: all(bool(torch.isfinite(g).all()) for g in
+                     flat_grads((r[1], *r[2]))) for k, r in runs.items()}
+    band = (0.45, 0.75)  # mean of this frame (plain version, 100x50 4 spp: 0.61)
+    phase("main_path_config4", frame="800x400 spp100 d12",
+          spheres=scene.count, launches=launches, mean=mean,
+          mean_band=band, min=float(img.min()), max=float(img.max()),
+          losses={k: float(r[0]) for k, r in runs.items()},
+          grads_finite=finite,
+          sphere0_center_grad=runs["parallel_bvh"][2][0].center[0].tolist(),
+          taped_img_bit_equal_k1c=torch.equal(runs["parallel_bvh"][1],
+                                              k1c4p),
+          seq_img_bit_equal_render=torch.equal(runs["sequential_bvh"][1],
+                                               img))
+    if launches != want_launches:
+        fail(f"config-4 launches by variant {launches}, want {want_launches}")
+    if (tuple(img.shape) != (cfg4.height, cfg4.width, 3)
+            or not bool(torch.isfinite(img).all()) or float(img.min()) < 0
+            or not band[0] <= mean <= band[1]):
+        fail(f"config-4 image implausible: mean {mean}")
+    if not all(finite.values()) or not all(
+            np.isfinite(float(r[0])) for r in runs.values()):
+        fail(f"config-4 gradients not finite: {finite}")
+    if not (torch.equal(runs["parallel_bvh"][1], k1c4p)
+            and torch.equal(runs["sequential_bvh"][1], img)):
+        fail("render_grad's image is not the forward kernel's")
+    del runs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "config4.png")
+        cmd = [sys.executable, "-m", "raytpu_torch.cli", "render", "--bvh",
+               "--scene", "final", "--width", str(cfg4.width), "--height",
+               str(cfg4.height), "--spp", str(cfg4.spp), "--depth",
+               str(cfg4.depth), "--device", "cuda", "--out", png]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            fail(f"CLI --bvh exited {proc.returncode}: {proc.stderr[-2000:]}")
+        ref = os.path.join(tmp, "in_process.png")
+        io.save_png(ref, img.cpu().numpy())
+        with open(png, "rb") as f, open(ref, "rb") as g:
+            same = f.read() == g.read()
+        phase("cli_bvh", command=" ".join(cmd[1:-1]),
+              stdout=proc.stdout.strip(), identical_to_render=same)
+        if not same:
+            fail("the CLI's --bvh PNG differs from render(..., bvh=)'s image")
+
+    # -- 5g: times at full config 4 (CUDA events, after a warm-up call)
+    t = {"card": card}
+    t["fwd_k1a_ms"] = cuda_ms(lambda: megakernel.launch(cp, sp, cfg4), 3)
+    t["fwd_k1c_ms"] = cuda_ms(lambda: megakernel.launch(cp, spv, cfg4, bvh),
+                              3)
+    t["census_k1prime_ms"] = cuda_ms(lambda: megakernel.launch(
+        cp, spv, cfg4, bvh, count=True), 3)
+    t["taping_fwd_bvh_ms"] = cuda_ms(lambda: megakernel.launch(
+        cp, spv, cfg4p, bvh, tape=tape4), 3)
+    budget = gradkernel.TAPE_BUDGET
+    for label, cfg, b in (("brute", cfg4p, None), ("bvh", cfg4p, bvh),
+                          ("seq_brute", cfg4, None), ("seq_bvh", cfg4, bvh)):
+        gradkernel.TAPE_BUDGET = 0  # untaped
+        t[f"fwd_bwd_{label}_ms"] = cuda_ms(lambda: rt.render_grad(
+            scene, cam, cfg, target, bvh=b), 2)
+        gradkernel.TAPE_BUDGET = budget
+        if cfg is cfg4p:
+            t[f"fwd_bwd_{label}_tape_ms"] = cuda_ms(lambda: rt.render_grad(
+                scene, cam, cfg, target, bvh=b), 2)
+    _, tape4_b = gradkernel.render_tape_fwd(scene, cam, cfg4p,
+                                            plan4["g_cap"])
+    for label, pack, b, img_f, tp in (("brute", sp, None, k1a4p, tape4_b),
+                                      ("bvh", spv, bvh, k1c4p, tape4)):
+        ct = 2.0 * (img_f - target) / img_f.numel()
+        t[f"k3_{label}_ms"] = cuda_ms(lambda: gradkernel.launch(
+            cp, pack, cfg4p, ct, img_f, 0.0, b), 2)
+        t[f"k3_{label}_tape_ms"] = cuda_ms(lambda: gradkernel.launch(
+            cp, pack, cfg4p, ct, img_f, 0.0, b, tp), 2)
+    t["tape_bytes"] = tape4.numel() * tape_elt
+    rays = cfg4.width * cfg4.height * cfg4.spp
+    t["fwd_k1c_mrays_s"] = rays / t["fwd_k1c_ms"] / 1e3
+    t["fwd_bwd_bvh_tape_mrays_s"] = rays / t["fwd_bwd_bvh_tape_ms"] / 1e3
+    t["k3_over_k1a"] = t["k3_brute_ms"] / t["fwd_k1a_ms"]
+    t["k3_bvh_tape_over_k1c"] = t["k3_bvh_tape_ms"] / t["fwd_k1c_ms"]
+    t.update(bound_k1a_ms=bound(forward_ops(c4_brute), 0)["bound_ms"],
+             bound_k1c_ms=bound(forward_ops(c4), 0)["bound_ms"])
+    phase("timing_config4", frame="800x400 spp100 d12", **t)
+    del tape4, tape4_b
+
+    # the tape's coverage rule: REFERENCE_V2 in parallel RNG at 8 spp, K3
+    # with tapes holding about 25%, 50%, 75% and 90% of the frame's steps
+    cfg_r = REFERENCE_V2.replace(spp=8, rng_mode="parallel")
+    scene_r = rt.random_world(device=dev)
+    cam_r = rt.reference_camera_v2(cfg_r.aspect, device=dev)
+    cp_r, sp_r = megakernel.pack_camera(cam_r), megakernel.pack_scene(scene_r)
+    worst = cfg_r.spp * cfg_r.depth
+    tape_r = marked_tape(cfg_r, scene_r.count, worst, dev)
+    img_r = megakernel.launch(cp_r, sp_r, cfg_r, tape=tape_r)
+    per_pix = (tape_r != golden.TAPE_UNWRITTEN).sum(dim=0)
+    total = int(per_pix.sum())
+
+    def coverage(g):
+        return int(per_pix.clamp(max=g).sum()) / total
+
+    def cap_for(share):
+        lo, hi = 0, worst
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (mid + 1, hi) if coverage(mid) < share else (lo, mid)
+        return lo
+
+    ct_r = 2.0 * (img_r - 0.5) / img_r.numel()
+    untaped_ms = cuda_ms(lambda: gradkernel.launch(cp_r, sp_r, cfg_r, ct_r,
+                                                   img_r), 3)
+    full_ms = cuda_ms(lambda: gradkernel.launch(cp_r, sp_r, cfg_r, ct_r,
+                                                img_r, 0.0, None, tape_r), 3)
+    rows_cov = []
+    for share in (0.25, 0.5, 0.75, 0.9):
+        g = cap_for(share)
+        ms = cuda_ms(lambda: gradkernel.launch(cp_r, sp_r, cfg_r, ct_r, img_r,
+                                               0.0, None, tape_r[:g]), 3)
+        cov = coverage(g)
+        rows_cov.append({"g_cap": g, "coverage": cov,
+                         "of_worst_case": g / worst, "k3_ms": ms,
+                         "proportional_ms": untaped_ms
+                         - cov * (untaped_ms - full_ms)})
+    phase("tape_coverage", frame="1024x576 spp8 d50 parallel random_world",
+          card=card, steps_per_pixel=total / per_pix.numel(),
+          k3_untaped_ms=untaped_ms, k3_full_tape_ms=full_ms,
+          full_tape_bytes=tape_r.numel() * tape_elt, partial=rows_cov,
+          rule=f"partial when g_cap >= {gradkernel.PARTIAL_MIN_COVERAGE} "
+               "x spp x depth")
+    del tape_r
+
+    for k, n in (("K1c", launches["render"]["K1c"]
+                  + launches["sequential_bvh"]["K1c"]),
+                 ("K1'", launches["census"]["K1'/bvh"]),
+                 ("K4/bvh", launches["parallel_bvh"]["K4/bvh"]),
+                 ("K4/brute", launches["parallel_brute"]["K4/brute"]),
+                 ("K3/bvh", launches["sequential_bvh"]["K3/bvh"]),
+                 ("K3/bvh+tape", launches["parallel_bvh"]["K3/bvh+tape"]),
+                 ("K3/tape", launches["parallel_brute"]["K3/tape"])):
+        entries[k]["launches"] = n
+    return entries
 
 
 def main() -> None:
@@ -439,27 +1042,68 @@ def main() -> None:
         grad_timings[label] = row
         phase("grad_timing", case=label, **row)
 
-    print(json.dumps({"kernels": [{
-        "name": "render_fwd_kernel",
-        "route": "cuda",
-        "source": "raytpu_torch/csrc/megakernel.cu",
-        "replaces": "raytpu/kernels/megakernel.py:1456",
-        "launches": grad_launches[0],
-        "launches_forward_path": fwd_launches[0],
-        "max_abs_err": worst,
-        "ms": timings["config2"]["kernel_ms"],
-        "plain_ms": timings["config2"]["plain_ms"],
-    }, {
-        "name": "render_vjp_kernel",
-        "route": "cuda",
-        "source": "raytpu_torch/csrc/gradkernel.cu",
-        "replaces": "raytpu/kernels/gradkernel.py:1519",
-        "launches": grad_launches[1],
-        "max_abs_err": k3_worst_abs,
-        "max_rel_err": k3_worst_rel,
-        "ms": grad_timings["config3_vis_w"]["k3_ms"],
-        "plain_ms": grad_timings["config3_vis_w"]["plain_vjp_ms"],
-    }]}), flush=True)
+    tape_pairs(dev, card)
+
+    # -- phase 5: config 4 over a BVH, the tape
+    entries = config4_phases(dev, card)
+
+    # bounds of K1a and K3 in the cells their times come from
+    from raytpu_torch import profiling
+    c_k1a = profiling.census(c2_scene, c2_cam, CONFIG2)
+    c_k3 = profiling.census(scene0, cam3, CONFIG3)
+    n3 = scene0.count
+    src = "raytpu_torch/csrc/"
+    fwd_src, grad_src = src + "megakernel.cu", src + "gradkernel.cu"
+    table = [dict(
+        name="render_fwd_kernel (K1a, brute sweep)", route="cuda",
+        source=fwd_src, replaces="raytpu/kernels/megakernel.py:1456",
+        cell="config 2", launches=grad_launches[0],
+        launches_forward_path=fwd_launches[0], max_abs_err=worst,
+        ms=timings["config2"]["kernel_ms"],
+        plain_ms=timings["config2"]["plain_ms"],
+        **bound(forward_ops(c_k1a), frame_bytes(CONFIG2, 4, 1)),
+        library_ms=None), dict(
+        name="render_vjp_kernel (K3, brute sweep)", route="cuda",
+        source=grad_src, replaces="raytpu/kernels/gradkernel.py:1519",
+        cell="config 3, vis_w 0.005 (near-miss sweep not in the bound)",
+        launches=grad_launches[1], max_abs_err=k3_worst_abs,
+        max_rel_err=k3_worst_rel,
+        ms=grad_timings["config3_vis_w"]["k3_ms"],
+        plain_ms=grad_timings["config3_vis_w"]["plain_vjp_ms"],
+        **bound(k3_ops(c_k3, 2), frame_bytes(CONFIG3, n3, 2) + 64 * n3),
+        library_ms=None)]
+    for key, name, source, replaces, cell in (
+            ("K1c", "render_fwd_kernel<bvh> (K1c, flat BVH sweep)", fwd_src,
+             "raytpu/kernels/megakernel.py:1456 (_flat_sweep_ti :246)",
+             "config 4 at 2 spp, sequential"),
+            ("K1'", "render_fwd_kernel<bvh, count> (K1', census)", fwd_src,
+             "raytpu/kernels/megakernel.py:1456 (count_leaves :1554)",
+             "config 4 at 2 spp, sequential"),
+            ("K4/bvh", "render_fwd_kernel<bvh, tape write> (K4 write, BVH)",
+             fwd_src, "raytpu/kernels/gradkernel.py:1873",
+             "config 4 at 2 spp, parallel, full tape"),
+            ("K4/brute", "render_fwd_kernel<tape write> (K4 write, brute)",
+             fwd_src, "raytpu/kernels/gradkernel.py:1873",
+             "config 4 at 2 spp, parallel, full tape"),
+            ("K3/bvh", "render_vjp_kernel<bvh> (K3, flat BVH sweep)",
+             grad_src, "raytpu/kernels/gradkernel.py:1519 (bvh=)",
+             "config 4 at 2 spp, sequential"),
+            ("K3/bvh+tape", "render_vjp_kernel<bvh, tape read> (K3 replay "
+             "of K4, BVH)", grad_src,
+             "raytpu/kernels/gradkernel.py:1519 (tape_mode='read' :1668)",
+             "config 4 at 2 spp, parallel, full tape"),
+            ("K3/tape", "render_vjp_kernel<tape read> (K3 replay of K4, "
+             "brute)", grad_src,
+             "raytpu/kernels/gradkernel.py:1519 (tape_mode='read' :1668)",
+             "config 4 at 2 spp, parallel, full tape")):
+        e = entries[key]
+        table.append(dict(name=name, route="cuda", source=source,
+                          replaces=replaces, cell=cell,
+                          launches=e.pop("launches"), library_ms=None, **e))
+    missing = [e["name"] for e in table if not e["launches"]]
+    if missing:
+        fail(f"kernels not launched on their main path: {missing}")
+    print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,15 @@ megakernel (``raytpu_torch/kernels/megakernel.py``, source in
 camera (``render`` under autograd, ``render_grad``, ``optim.optimize``) run
 backward through the fused VJP kernel (``raytpu_torch/kernels/gradkernel.py``)
 on a card and through the adjoint (``raytpu_torch/adjoint.py``) anywhere.
-This package never imports jax.
+``build_bvh(scene)`` (``raytpu_torch/bvh.py``) gives a BVH that
+``render(..., bvh=)`` and ``render_grad(..., bvh=)`` sweep as a flat leaf
+list; in parallel RNG the gradient path tapes each bounce's winner in the
+forward and replays the tape in the backward.  This package never imports
+jax.
 
-Not ported yet (see ROADMAP.md): the BVH, the winner-index tape, progressive
-rendering, sharding, the wavefront engine and the v1 fract-sin RNG mode.
+Not ported yet (see ROADMAP.md): progressive rendering, sharding and slab
+mode, the skip-pointer walk and the dense stage, the windowed-refill PASS 2,
+the wavefront engine and the v1 fract-sin RNG mode.
 """
 
 from raytpu_torch.config import RenderConfig
@@ -33,6 +38,7 @@ from raytpu_torch.scene import (
     v1_world,
 )
 from raytpu_torch.render import render, render_grad
+from raytpu_torch.bvh import build_bvh
 
 __version__ = "0.1.0"
 
@@ -52,4 +58,5 @@ __all__ = [
     "v1_world",
     "render",
     "render_grad",
+    "build_bvh",
 ]

@@ -24,6 +24,14 @@ policy is raytpu's: the winner, the front face, the near-root choice, the
 TIR / Schlick coin, the v1 hemisphere flip and near-zero guard and every RNG
 draw carry no gradient.  ``vis_w > 0`` adds raytpu's silhouette (boundary)
 terms to the backward; the forward stays the exact hard render.
+
+Winners come from a sweep — :func:`raytpu_torch.golden.hit_world`, or with a
+BVH :func:`raytpu_torch.golden.hit_world_bvh` over the scene in leaf order —
+or, for the steps a winner-index tape holds, from the tape
+(:class:`_Winners`): the plain version of K3's tape replay.  The winner
+alone decides the bounce (``_bounce_math`` recomputes that one sphere's t
+with hit_world's formula), so a taped forward keeps the same residuals as a
+swept one, and its gradients are bit-equal.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from raytpu_torch import golden, rng
+from raytpu_torch.bvh import BVH, permute_scene
 from raytpu_torch.camera import Camera, get_ray
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.golden import (_INF, _dot3, _max_c, _min_c, _normalize3,
@@ -250,16 +259,59 @@ def _silhouette(scene, res, v, dacc, vis_w, g_center, g_radius):
     g_radius.index_add_(0, m_idx, gr)
 
 
+class _Winners:
+    """Closest-hit winners of one bounce step for the adjoint's forward.
+
+    Swept (``hit_world``, or ``hit_world_bvh`` when ``bvh`` is given and
+    the scene is in its leaf order), or read from a winner-index tape for
+    the steps it holds: ``tape = (buf, pix, k)`` as in
+    :func:`raytpu_torch.golden.log_winners`, ``k`` the lanes' next global
+    step, advanced by one for every live lane.  Steps at or past the
+    tape's cap are swept, as K3's tape replay does."""
+
+    def __init__(self, bvh: BVH | None = None, tape=None):
+        self.bvh, self.tape = bvh, tape
+
+    def _sweep(self, scene, ro, rd, t_min):
+        if self.bvh is None:
+            hit = golden.hit_world(scene, ro, rd, t_min)
+        else:
+            hit = golden.hit_world_bvh(scene, self.bvh, ro, rd, t_min)
+        return hit[0], hit[2]
+
+    def __call__(self, scene, ro, rd, t_min, alive):
+        """-> (hit_any, winner index) per lane."""
+        if self.tape is None:
+            return self._sweep(scene, ro, rd, t_min)
+        buf, pix, k = self.tape
+        g_cap = buf.shape[0]
+        taped = k < g_cap
+        if g_cap == 0 or bool((alive & ~taped).any()):
+            hit_any, idx = self._sweep(scene, ro, rd, t_min)
+        else:
+            hit_any = idx = None
+        if g_cap:
+            w = buf[k.clamp(max=g_cap - 1), pix].to(torch.int64)
+            if idx is None:
+                hit_any, idx = w >= 0, w
+            else:
+                hit_any = torch.where(taped, w >= 0, hit_any)
+                idx = torch.where(taped, w, idx)
+        k += alive.to(k.dtype)
+        return hit_any, idx
+
+
 class _TraceAdjoint(torch.autograd.Function):
     """golden.trace with the hand-structured backward.
 
     apply(center, radius, albedo, mat_param, mat_type, ox, oy, oz, dx, dy,
-    dz, seed, depth, t_min, vis_w, scatter_mode) -> (r, g, b, seed')."""
+    dz, seed, depth, t_min, vis_w, scatter_mode, winners) -> (r, g, b,
+    seed'); ``winners`` is a :class:`_Winners`."""
 
     @staticmethod
     def forward(ctx, center, radius, albedo, mat_param, mat_type,
                 ox, oy, oz, dx, dy, dz, seed, depth, t_min, vis_w,
-                scatter_mode):
+                scatter_mode, winners):
         scene = Scene(center, radius, mat_type, albedo, mat_param)
         cr = torch.ones_like(ox)
         cg = torch.ones_like(ox)
@@ -275,8 +327,12 @@ class _TraceAdjoint(torch.autograd.Function):
             # bounces pass every cotangent through unchanged: stop early
             if not bool(alive.any()):
                 break
-            hit_any, _, idx, _, _ = golden.hit_world(
-                scene, (ox, oy, oz), (dx, dy, dz), t_min)
+            hit_any, idx = winners(scene, (ox, oy, oz), (dx, dy, dz),
+                                   t_min, alive)
+            # one index for every lane that does not scatter off a
+            # sphere (misses, dead lanes): their terms are masked out, so
+            # swept and taped forwards keep identical residuals
+            idx = torch.where(alive & hit_any, idx, 0)
             mat = mat_type[idx]
             ok = (mat == 0) | (mat == 1) | (mat == 2)
             scat = alive & hit_any & ok
@@ -348,17 +404,19 @@ class _TraceAdjoint(torch.autograd.Function):
         d_ox, d_oy, d_oz, d_dx, d_dy, d_dz = carry[:6]
         return (g_center, g_radius, g_albedo, g_param, None,
                 d_ox, d_oy, d_oz, d_dx, d_dy, d_dz,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def trace_adjoint(scene: Scene, ro, rd, seed, depth: int, t_min: float,
-                  vis_w: float = 0.0, scatter_mode: str = "v2"):
+                  vis_w: float = 0.0, scatter_mode: str = "v2",
+                  winners: _Winners | None = None):
     """Drop-in for golden.trace with the hand-structured backward:
-    -> ((r, g, b), seed').  ``vis_w > 0`` adds silhouette gradients."""
+    -> ((r, g, b), seed').  ``vis_w > 0`` adds silhouette gradients;
+    ``winners`` (default: the brute sweep) picks each step's winner."""
     r, g, b, sd = _TraceAdjoint.apply(
         scene.center, scene.radius, scene.albedo, scene.mat_param,
         scene.mat_type, *ro, *rd, seed, depth, t_min, float(vis_w),
-        scatter_mode)
+        scatter_mode, _Winners() if winners is None else winners)
     return (r, g, b), sd
 
 
@@ -386,7 +444,8 @@ def _camera_ray(scene, cam, cfg, px, py, sd):
 
 
 def render_pixels_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
-                          px, py, vis_w: float = 0.0):
+                          px, py, vis_w: float = 0.0,
+                          winners: _Winners | None = None):
     """golden.render_pixels with the adjoint trace; sequential RNG chain
     (the sample loop threads each pixel's seed) -> (r, g, b)."""
     sd = rng.pixel_seed(px, py)
@@ -394,49 +453,74 @@ def render_pixels_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
     for _ in range(cfg.spp):
         ro, rd, sd = _camera_ray(scene, cam, cfg, px, py, sd)
         (r, g, b), sd = trace_adjoint(scene, ro, rd, sd, cfg.depth,
-                                      cfg.t_min, vis_w, cfg.scatter_mode)
+                                      cfg.t_min, vis_w, cfg.scatter_mode,
+                                      winners)
         acc = [acc[0] + r, acc[1] + g, acc[2] + b]
     inv_spp = rng.f32_like(acc[0], 1.0 / cfg.spp)
     return tuple(_to_gamma(a * inv_spp, cfg.gamma) for a in acc)
 
 
 def render_golden_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
-                          vis_w: float = 0.0) -> torch.Tensor:
+                          vis_w: float = 0.0, bvh: BVH | None = None,
+                          tape=None) -> torch.Tensor:
     """Full-frame render whose backward is the hand-structured adjoint.
 
-    Forward values equal render_golden's up to the order of the sample sum
-    (parallel mode); gradients equal autograd of golden (same detach
-    policy) at O(P * depth) backward cost.  Sequential RNG runs pixel
-    chunks; parallel RNG runs one slot per (pixel, sample), as raytpu's
-    does.  Differentiable through ordinary autograd: call
-    ``torch.autograd.grad`` (or ``backward``) on its image."""
+    Forward values equal render_golden's; gradients equal autograd of
+    golden (same detach policy) at O(P * depth) backward cost.  Sequential
+    RNG runs pixel chunks, each through its samples in order; parallel RNG
+    runs each sample in order over pixel chunks, so either way a pixel's
+    bounce steps come in its global step order.  Differentiable through
+    ordinary autograd: call ``torch.autograd.grad`` (or ``backward``) on
+    its image.
+
+    ``bvh``: the forward sweeps its flat leaf list over the scene in leaf
+    order (permuted differentiably, so gradients land in input order).
+    ``tape`` (g_cap, H*W), a winner-index tape of this frame (from
+    :func:`raytpu_torch.golden.render_golden_tape` with the same ``bvh``):
+    steps below ``g_cap`` take their winner from it instead of sweeping —
+    the plain version of K3's replay; the gradients are bit-equal to the
+    untaped ones."""
     check_cfg(cfg)
     h, w = cfg.height, cfg.width
     n = h * w
     dev = scene.center.device
+    if bvh is not None:
+        scene = permute_scene(scene, bvh.perm)
+    k = None if tape is None else torch.zeros(n, dtype=torch.int64,
+                                              device=dev)
+
+    def winners(start, stop):
+        if tape is None:
+            return _Winners(bvh)
+        return _Winners(bvh, (tape, torch.arange(start, stop, device=dev),
+                              k[start:stop]))
+
     if cfg.rng_mode != "parallel":
         chunk = min(cfg.chunk_pixels, n)
         parts = []
         for start in range(0, n, chunk):
-            flat = torch.arange(start, min(start + chunk, n), device=dev)
+            stop = min(start + chunk, n)
+            flat = torch.arange(start, stop, device=dev)
             r, g, b = render_pixels_adjoint(scene, cam, cfg, flat % w,
-                                            flat // w, vis_w)
+                                            flat // w, vis_w,
+                                            winners(start, stop))
             parts.append(torch.stack([r, g, b], dim=-1))
         return torch.cat(parts).reshape(h, w, 3)
 
-    spp = cfg.spp
-    slots = n * spp
-    chunk = min(max(cfg.chunk_pixels, 131072), slots)
-    parts = []
-    for start in range(0, slots, chunk):
-        slot = torch.arange(start, min(start + chunk, slots), device=dev)
-        pix = slot // spp
-        px, py = pix % w, pix // w
-        sd = rng.fold_in(rng.pixel_seed(px, py), slot % spp)
-        ro, rd, sd = _camera_ray(scene, cam, cfg, px, py, sd)
-        (r, g, b), _ = trace_adjoint(scene, ro, rd, sd, cfg.depth, cfg.t_min,
-                                     vis_w, cfg.scatter_mode)
-        parts.append(torch.stack([r, g, b], dim=-1))
-    lin = torch.cat(parts).reshape(n, spp, 3)
-    lin = lin.sum(dim=1) * rng.f32_like(lin, 1.0 / spp)
+    chunk = min(max(cfg.chunk_pixels, 131072), n)
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    for s in range(cfg.spp):
+        parts = []
+        for start in range(0, n, chunk):
+            stop = min(start + chunk, n)
+            flat = torch.arange(start, stop, device=dev)
+            px, py = flat % w, flat // w
+            sd = rng.fold_in(rng.pixel_seed(px, py), s)
+            ro, rd, sd = _camera_ray(scene, cam, cfg, px, py, sd)
+            (r, g, b), _ = trace_adjoint(scene, ro, rd, sd, cfg.depth,
+                                         cfg.t_min, vis_w, cfg.scatter_mode,
+                                         winners(start, stop))
+            parts.append(torch.stack([r, g, b], dim=-1))
+        acc = acc + torch.cat(parts)
+    lin = acc * rng.f32_like(acc, 1.0 / cfg.spp)
     return _to_gamma(lin, cfg.gamma).reshape(h, w, 3)

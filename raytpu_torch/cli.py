@@ -2,9 +2,15 @@
 
     python -m raytpu_torch.cli render --scene random --width 1024 \
         --height 576 --spp 60 --depth 50 --device cuda --out frame.png
+    python -m raytpu_torch.cli render --scene final --width 800 \
+        --height 400 --spp 100 --bvh --device cuda --out final.png
     python -m raytpu_torch.cli gradcheck --device cuda
 
-The ``render`` and ``gradcheck`` subcommands are ported.  ``--bvh``,
+The ``render`` and ``gradcheck`` subcommands are ported, ``render --bvh``
+(with ``--bvh-builder``) among them: every backend of the port's
+``render`` sweeps the BVH it is given (raytpu refuses ``--bvh`` on its
+golden backend, which would ignore it; here none does), and
+``--bvh-builder`` without ``--bvh`` is refused rather than ignored.
 ``--progressive``, ``--devices`` and the other subcommands belong to parts
 not ported yet and exit with an error that names their ROADMAP item;
 raytpu's other options are not accepted.  None is silently ignored.
@@ -20,7 +26,6 @@ SCENES = ("config1", "test", "random", "final", "v1")
 
 # option -> (value meaning "not asked for", ROADMAP item that ports it)
 _NOT_PORTED = {
-    "bvh": (False, "--bvh needs the BVH (ROADMAP queue 1, M5; queue 2, K1c)"),
     "progressive": (0, "--progressive needs progressive rendering "
                        "(ROADMAP queue 1, M8; queue 2, K2)"),
     "devices": (1, "--devices > 1 needs sharding over torch.distributed "
@@ -49,6 +54,8 @@ def cmd_render(args) -> int:
     for opt, (unset, msg) in _NOT_PORTED.items():
         if getattr(args, opt) != unset:
             raise SystemExit(f"not ported yet: {msg}")
+    if args.bvh_builder is not None and not args.bvh:
+        raise SystemExit("--bvh-builder needs --bvh")
     import raytpu_torch as rt
     from raytpu_torch import io, profiling
     from raytpu_torch.config import RenderConfig
@@ -61,9 +68,11 @@ def cmd_render(args) -> int:
                          vfov=args.vfov, aspect=cfg.aspect,
                          aperture=args.aperture, focus_dist=args.focus_dist,
                          device=args.device)
+    bvh = (rt.build_bvh(scene, builder=args.bvh_builder or "median")
+           if args.bvh else None)
     img, stats = profiling.timed(
-        lambda: rt.render(scene, cam, cfg, backend=args.backend), cfg,
-        label="render")
+        lambda: rt.render(scene, cam, cfg, backend=args.backend, bvh=bvh),
+        cfg, label="render")
     io.save_image(args.out, img.cpu().numpy())
     print(f"wrote {args.out}  ({stats.rays_per_sec / 1e6:.2f} Mrays/s, "
           f"{stats.wall_s * 1e3:.1f} ms on {stats.device})")
@@ -146,8 +155,13 @@ def main(argv=None) -> int:
                    default="sequential",
                    help="sequential = reference-parity seed chain; parallel "
                         "= per-sample streams (v1_fractsin: not ported yet)")
+    r.add_argument("--bvh", action="store_true",
+                   help="build a BVH of the scene and sweep its flat leaf "
+                        "list (K1c on a cuda device)")
+    r.add_argument("--bvh-builder", choices=("median", "sah"), default=None,
+                   help="BVH build heuristic (default median; sah = the "
+                        "native binned surface-area heuristic)")
     # accepted so that these raytpu command lines parse; refused in cmd_render
-    r.add_argument("--bvh", action="store_true", help="not ported yet (M5)")
     r.add_argument("--progressive", type=int, default=0, metavar="BATCH",
                    help="not ported yet (M8)")
     r.add_argument("--devices", type=int, default=1, metavar="N",

@@ -2,25 +2,39 @@
 //
 // Replaces the TPU kernel raytpu/kernels/gradkernel.py::render_pallas_vjp
 // (kernel body _make_grad_kernel with the per-sample PASS 2; the bounce
-// transpose is _bounce_f's, the silhouette terms silhouette_terms').  Given
-// an image cotangent ct it returns the image, the cotangent of every
-// sphere's continuous leaves (center, radius, albedo, mat_param) and the 18
-// raygen sums from which the host assembles the camera cotangent.  It
-// computes what the TPU kernel computes, not its schedule: the (8, 128)
-// tiles, the VMEM residual scratch, the one-hot MXU scatter, the block_w
-// scramble and the SMEM Kahan slots are TPU mechanisms with no counterpart.
+// transpose is _bounce_f's, the silhouette terms silhouette_terms'), with
+// the brute sweep, the flat BVH sweep (bvh=) and the tape replay (K4's read
+// side, tape_mode="read").  Given an image cotangent ct it returns the
+// image, the cotangent of every sphere's continuous leaves (center, radius,
+// albedo, mat_param) and the 18 raygen sums from which the host assembles
+// the camera cotangent.  It computes what the TPU kernel computes, not its
+// schedule: the (8, 128) tiles, the VMEM residual scratch, the one-hot MXU
+// scatter, the block_w scramble, the windowed refill and its tape layout
+// and the SMEM Kahan slots are TPU mechanisms with no counterpart.
 //
 //   PASS 1 (skipped when the image is given, parallel RNG only): the
-//          pixel's spp samples through trace_path(), the very code K1a
-//          runs, so the image is K1a's bit for bit; then the cotangent of
-//          the linear sample sum, d_acc = ct * exp(log(img)*(1-gamma))/gamma
-//          * inv_spp (0 where img <= 0), in gradkernel.py:878-888's order.
+//          pixel's spp samples through trace_path(), the very code the
+//          forward (K1a, or K1c with a BVH) runs, so the image is the
+//          forward's bit for bit; then the cotangent of the linear sample
+//          sum, d_acc = ct * exp(log(img)*(1-gamma))/gamma * inv_spp (0
+//          where img <= 0), in gradkernel.py:878-888's order.
 //   PASS 2 per sample, in order: re-run the forward, keeping per bounce the
 //          incoming ray, throughput, winner and pre-bounce seed (11 words)
 //          in per-thread local memory; walk the bounces in reverse through
 //          a hand-written transpose of _bounce_f; then transpose raygen
 //          into the 18 camera sums.  Sequential RNG needs no stored seeds:
-//          each re-run sample's final seed is the next one's start.
+//          each re-run sample's final seed is the next one's start.  With
+//          a tape (parallel RNG, image given), each of the pixel's first
+//          g_cap bounce steps takes its winner from the tape and recomputes
+//          that one sphere's t instead of sweeping; later steps sweep.  The
+//          winner decides the bounce, so the residuals, and the gradients,
+//          are those of the untaped kernel bit for bit.
+//
+// With a BVH the scene arrives in leaf order (padded with NaN dummies that
+// never win): the sweeps are K1c's, the sphere cotangents accumulate in
+// that order, dummies included, and the wrapper scatters them back to input
+// order.  The near-miss sweep of vis_w runs over every permuted row (NaN
+// rows fail its test), as gradkernel.py:1671 bounds it by nk.
 //
 // The transpose is derived by hand, piece by piece (bounce_vjp below): the
 // quadratic root with the straight-through sqrt (value from sqrtf(disc),
@@ -50,19 +64,20 @@
 // f32 rounding boundary.  chip_smoke.py phase 2b compares two runs (with
 // and without PASS 1, parallel RNG) and finds them bit-equal.
 //
-// What bounds it on this card: the closest-hit sweeps (two per sample, the
-// PASS-1 and the PASS-2 one; three with vis_w, whose near-miss sweep runs
-// at every miss), warp divergence (paths end at different depths, materials
-// branch per lane), local-memory traffic for the residuals (44 bytes per
-// bounce per thread, cached in L1/L2, up to kMaxDepth rows), and atomic
-// contention on the ground sphere, which almost every diffuse ray hits.
-// This first design answers them only simply: the sweep is K1a's (no
-// BVH); the reverse loop runs to the warp's longest path so that every
-// lane joins the warp-level sums; lanes with the same winner are summed
-// with shuffles (a full-warp butterfly when all 32 agree) before one lane
-// issues the atomics.  K4's winner-index tape removes the PASS-2 sweep;
-// staging the scene in shared memory and per-block partial sums are later
-// work.
+// What bounds it on this card: the closest-hit sweeps (two per sample in
+// sequential RNG, the PASS-1 and the PASS-2 one; one in parallel RNG with
+// the image given, none for the steps a tape holds; one more with vis_w,
+// whose near-miss sweep runs over every sphere at every miss), warp
+// divergence (paths end at different depths, materials branch per lane),
+// local-memory traffic for the residuals (44 bytes per bounce per thread,
+// cached in L1/L2, up to kMaxDepth rows), and atomic contention on the
+// ground sphere, which almost every diffuse ray hits.  This design answers
+// the sweep with the BVH and the tape, and the rest only simply: the reverse
+// loop runs to the warp's longest path so that every lane joins the
+// warp-level sums; lanes with the same winner are summed with shuffles (a
+// full-warp butterfly when all 32 agree) before one lane issues the
+// atomics.  Staging the scene in shared memory and per-block partial sums
+// are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,12 +96,14 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 struct Params {
   const CamPack* cam;
   const float* scene;   // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
+  FlatBvh bvh;          // flat == null: the brute sweep
+  const void* tape;     // (g_cap, height * width) int16 / int32 (kTape)
   const float* ct;      // (height, width, 3) image cotangent
   const float* img_in;  // (height, width, 3) forward image, or null (PASS 1)
   float* img_out;       // (height, width, 3)
   double* gsc;          // (kLeaves, n) sphere cotangents, zeroed by the caller
   double* gcam;         // (n_warps, kCamSums) camera sums, one row a warp
-  int n, width, height, spp, depth;
+  int n, width, height, spp, depth, g_cap, tape_wide;
   float t_min, inv_w, inv_h, inv_spp, gamma, vis_w;
   int parallel, v1;
 };
@@ -438,6 +455,7 @@ __device__ __forceinline__ void add_by_key(double* acc, int n, int key,
   }
 }
 
+template <bool kBvh, bool kTape>
 __global__ void __launch_bounds__(256)
 render_vjp_kernel(Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -455,6 +473,7 @@ render_vjp_kernel(Params p) {
   const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
                                    static_cast<uint32_t>(y));
   const size_t pix = valid ? (static_cast<size_t>(y) * p.width + x) * 3 : 0;
+  Census cn{0u, 0u, 0u};  // unused: K3 does not count
 
   // -- PASS 1: the image (K1a's samples), or the given one
   float img[3] = {0.0f, 0.0f, 0.0f};
@@ -470,7 +489,10 @@ render_vjp_kernel(Params p) {
       RayGen gr;
       Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, gr);
       float rr, rg, rb;
-      trace_path<false>(s, r, sd, p.depth, p.t_min, v1, rr, rg, rb, nullptr);
+      TapeCursor none{nullptr, 0, 0, 0, 0, 0};
+      trace_path<false, kBvh, kNoTape, false>(s, p.bvh, r, sd, p.depth,
+                                              p.t_min, v1, rr, rg, rb,
+                                              nullptr, none, cn);
       acc_r = acc_r + rr;
       acc_g = acc_g + rg;
       acc_b = acc_b + rb;
@@ -497,6 +519,10 @@ render_vjp_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < kCamSums; ++i) cam_acc[i] = 0.0;
   uint32_t chain = seed0;
+  // the pixel's tape: step k of its samples in order, as the forward wrote
+  TapeCursor tc{const_cast<void*>(p.tape),
+                static_cast<size_t>(p.width) * p.height, pix / 3, p.g_cap,
+                0, p.tape_wide};
   for (int smp = 0; smp < p.spp; ++smp) {  // warp-uniform trip count
     int len = 0;
     float v[3] = {0.0f, 0.0f, 0.0f};
@@ -505,8 +531,9 @@ render_vjp_kernel(Params p) {
       uint32_t sd = p.parallel ? fold_in(seed0, static_cast<uint32_t>(smp))
                                : chain;
       Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, gr);
-      len = trace_path<true>(s, r, sd, p.depth, p.t_min, v1, v[0], v[1],
-                             v[2], res);
+      len = trace_path<true, kBvh, kTape ? kTapeRead : kNoTape, false>(
+          s, p.bvh, r, sd, p.depth, p.t_min, v1, v[0], v[1], v[2], res, tc,
+          cn);
       if (!p.parallel) chain = sd;
     }
     float g[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -577,25 +604,46 @@ render_vjp_kernel(Params p) {
   }
 }
 
+template <bool kBvh, bool kTape>
+int launch(const Params& p, cudaStream_t stream) {
+  dim3 block(32, 8);
+  dim3 grid((p.width + block.x - 1) / block.x,
+            (p.height + block.y - 1) / block.y);
+  render_vjp_kernel<kBvh, kTape><<<grid, block, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry point (loaded with ctypes).  Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() so a refused launch is reported.
 // img_in may be null: PASS 1 then renders the image.  gsc is a zeroed f64
 // (8, n) buffer; gcam an f64 (n_warps, 18) buffer, n_warps the grid's
-// blocks times 8 (raytpu_render_vjp_warps).  The block's x extent is one
-// warp, so threadIdx.x is the lane.
+// blocks times 8 (raytpu_render_vjp_warps).  `flat` non-null: the flat BVH
+// sweep over the scene in leaf order (n permuted rows).  `tape_read`: the
+// replay of a winner-index tape of g_cap steps a pixel (int32 when
+// tape_wide; null only when g_cap is 0); it needs parallel RNG and img_in.
+// The block's x extent is one warp, so threadIdx.x is the lane.
 extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
-                                 const void* ct, const void* img_in,
-                                 void* img_out, void* gsc, void* gcam,
-                                 int width, int height, int spp, int depth,
-                                 float t_min, float inv_w, float inv_h,
-                                 float inv_spp, float gamma, float vis_w,
-                                 int parallel, int v1, void* stream) {
+                                 const void* flat, int n_leaves,
+                                 int leaf_size, int out_base, int out_cnt,
+                                 int tape_read, const void* tape, int g_cap,
+                                 int tape_wide, const void* ct,
+                                 const void* img_in, void* img_out,
+                                 void* gsc, void* gcam, int width,
+                                 int height, int spp, int depth, float t_min,
+                                 float inv_w, float inv_h, float inv_spp,
+                                 float gamma, float vis_w, int parallel,
+                                 int v1, void* stream) {
   if (depth > kMaxDepth) return static_cast<int>(cudaErrorInvalidValue);
+  if (tape_read && (!parallel || img_in == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.cam = static_cast<const CamPack*>(cam);
   p.scene = static_cast<const float*>(scene);
+  p.bvh = FlatBvh{static_cast<const float*>(flat), n_leaves, leaf_size,
+                  out_base, out_cnt};
+  p.tape = tape;
   p.ct = static_cast<const float*>(ct);
   p.img_in = static_cast<const float*>(img_in);
   p.img_out = static_cast<float*>(img_out);
@@ -606,6 +654,8 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.height = height;
   p.spp = spp;
   p.depth = depth;
+  p.g_cap = g_cap;
+  p.tape_wide = tape_wide;
   p.t_min = t_min;
   p.inv_w = inv_w;
   p.inv_h = inv_h;
@@ -614,10 +664,10 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.vis_w = vis_w;
   p.parallel = parallel;
   p.v1 = v1;
-  dim3 block(32, 8);
-  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  render_vjp_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (flat != nullptr)
+    return tape_read ? launch<true, true>(p, st) : launch<true, false>(p, st);
+  return tape_read ? launch<false, true>(p, st) : launch<false, false>(p, st);
 }
 
 // Rows of the camera-sum buffer raytpu_render_vjp needs for this frame.

@@ -1,30 +1,48 @@
-// Forward render megakernel for Hopper (sm_90a): one thread per pixel.
+// Forward render megakernels for Hopper (sm_90a): one thread per pixel.
 //
-// Replaces the TPU kernel raytpu/kernels/megakernel.py::_render_pallas_fwd_impl
-// (kernel body from _make_kernel: make_gen_ray, make_bounce_body with the
-// brute-force sphere sweep, the sequential / persistent-refill sample loop and
-// the gamma epilogue).  It computes the same thing, not the same schedule:
-// the (8, 128) tiles, SMEM scalar packs, block_w scramble and one-hot MXU
-// extraction are TPU mechanisms and have no counterpart here.  A thread owns
-// one pixel and runs its spp samples in order, each for at most `depth`
-// bounces, stopping at the first miss, absorption or the depth cap.  That is
-// the reference's own shape (one thread per pixel, ShaderCompute.hlsl CSMain)
+// One kernel template, four TPU kernels:
+//   K1a  brute sweep           raytpu/kernels/megakernel.py
+//                              ::_render_pallas_fwd_impl (no BVH)
+//   K1c  flat BVH sweep        the same function with nodes / perm / flat
+//                              (_flat_sweep_ti, _seed_outlier_tests, the
+//                              octant pick)
+//   K1'  K1c (or K1a) + census the same function with count_leaves=True
+//   K4   taping forward        raytpu/kernels/gradkernel.py::render_tape_fwd
+//        (write side)          (brute or BVH)
+// (kernel body from _make_kernel: make_gen_ray, make_bounce_body, the
+// sequential / persistent-refill sample loop and the gamma epilogue.)  It
+// computes the same thing, not the same schedule: the (8, 128) tiles, SMEM
+// scalar packs, block_w scramble, "enter a leaf if any lane hits it", the
+// one-hot MXU winner extraction and the windowed refill schedule of the TPU
+// tape are TPU mechanisms with no counterpart here.  A thread owns one pixel
+// and runs its spp samples in order, each for at most `depth` bounces,
+// stopping at the first miss, absorption or the depth cap.  That is the
+// reference's own shape (one thread per pixel, ShaderCompute.hlsl CSMain)
 // and it gives both of the JAX kernel's loop forms, which are bit-identical.
 //
 // What bounds it on this card: FP32 ALU work in the closest-hit sweep (about
-// 20 flops per ray and sphere, every sphere tested for every ray), and warp
-// divergence, because paths end at different depths and the material
-// branches differ per lane.  This first design answers the ALU bound only
-// by doing no more than the sweep needs (the winner's attributes are read
-// once, after the sweep, by index) and keeps the rest simple: sphere j is
-// read from global memory at a warp-uniform address (a broadcast from L1),
-// and divergence is left to the SIMT scheduler.  Staging the scene in
-// shared memory and regrouping rays against divergence are later work.
+// 24 flops per ray and sphere test), and warp divergence, because paths end
+// at different depths and the material branches differ per lane.  K1a tests
+// every sphere for every ray.  K1c tests the outliers, then walks the L leaf
+// boxes of the ray's own octant copy front to back (about 30 flops each) and
+// enters a leaf, leaf_size sphere tests, only if the ray's own slab test
+// passes within its best t so far: a thread enters what its ray needs, not
+// what its warp needs (divergent, but a skipped leaf costs a lane nothing
+// it would have used).  The winner's attributes are read once, by index,
+// after the sweep.  Scene rows and leaf rows are read from global memory at
+// warp-uniform (K1a) or octant-uniform (K1c) addresses, broadcasts from L1.
+// K4 adds one 2- or 4-byte store per bounce step, tape[k][pix]: threads of a
+// warp are neighbouring pixels and write neighbouring addresses at the same
+// k, so the stores coalesce whenever the warp's lanes are at the same step.
+// The census (K1') keeps three per-thread counters in registers and adds them
+// once per warp at the end (a warp reduction, then one 64-bit atomic per
+// counter); without it the counting code is not compiled.  Staging the scene
+// in shared memory and regrouping rays against divergence are later work.
 //
-// Numerics and the device functions (RNG, raygen, sweep, materials, sky,
-// gamma) live in render_common.cuh, which the fused VJP kernel K3
-// (gradkernel.cu) shares, so that its PASS 1 reproduces this image bit for
-// bit.
+// Numerics and the device functions (RNG, raygen, the closest-hit policies,
+// materials, sky, gamma) live in render_common.cuh, which the fused VJP
+// kernel K3 (gradkernel.cu) shares, so that its passes reproduce this image
+// bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,20 +53,30 @@ namespace {
 
 using namespace rt;
 
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kCensus = 3;  // leaves entered, bounce steps, samples
+
 struct Params {
   const CamPack* cam;
   const float* scene;  // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
+  FlatBvh bvh;         // flat == null: the brute sweep
+  void* tape;          // (g_cap, height * width) int16 / int32, or null
+  unsigned long long* census;  // (kCensus,) counters, or null
   float* out;          // (height, width, 3)
-  int n, width, height, spp, depth;
+  int n, width, height, spp, depth, g_cap, tape_wide;
   float t_min, inv_w, inv_h, inv_spp, gamma;
   int parallel, v1;
 };
 
+template <bool kBvh, int kTape, bool kCount>
 __global__ void __launch_bounds__(256)
 render_fwd_kernel(Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= p.width || y >= p.height) return;
+  // lanes outside the frame stay to the end when counting: the census adds
+  // per warp, with all 32 lanes
+  const bool valid = x < p.width && y < p.height;
+  if (!kCount && !valid) return;
 
   const CamPack cam = *p.cam;
   const SceneView s = scene_view(p.scene, p.n);
@@ -56,47 +84,92 @@ render_fwd_kernel(Params p) {
   const float fy = static_cast<float>(y);
   const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
                                    static_cast<uint32_t>(y));
+  const size_t pix = static_cast<size_t>(y) * p.width + x;
+  TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.height, pix,
+                p.g_cap, 0, p.tape_wide};
+  Census cn{0u, 0u, 0u};
 
   uint32_t chain = seed0;  // the sequential mode's carried seed
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int smp = 0; smp < p.spp; ++smp) {
+  const int spp = valid ? p.spp : 0;
+  for (int smp = 0; smp < spp; ++smp) {
     uint32_t sd = p.parallel ? fold_in(seed0, static_cast<uint32_t>(smp))
                              : chain;
     RayGen g;
     Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
     float rr, rg, rb;
-    trace_path<false>(s, r, sd, p.depth, p.t_min, p.v1 != 0, rr, rg, rb,
-                      nullptr);
+    trace_path<false, kBvh, kTape, kCount>(s, p.bvh, r, sd, p.depth,
+                                           p.t_min, p.v1 != 0, rr, rg, rb,
+                                           nullptr, tc, cn);
     acc_r = acc_r + rr;
     acc_g = acc_g + rg;
     acc_b = acc_b + rb;
     if (!p.parallel) chain = sd;
   }
 
-  float* o = p.out + (static_cast<size_t>(y) * p.width + x) * 3;
-  o[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
-  o[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
-  o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
+  if (valid) {
+    float* o = p.out + pix * 3;
+    o[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
+    o[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
+    o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
+  }
+  if (kCount) {
+    const unsigned v[kCensus] = {cn.leaves, cn.steps, cn.samples};
+#pragma unroll
+    for (int i = 0; i < kCensus; ++i) {
+      const unsigned sum = __reduce_add_sync(kFull, v[i]);
+      if ((threadIdx.x & 31) == 0 && sum)
+        atomicAdd(p.census + i, static_cast<unsigned long long>(sum));
+    }
+  }
+}
+
+template <bool kBvh, int kTape, bool kCount>
+int launch(const Params& p, cudaStream_t stream) {
+  dim3 block(32, 8);
+  dim3 grid((p.width + block.x - 1) / block.x,
+            (p.height + block.y - 1) / block.y);
+  render_fwd_kernel<kBvh, kTape, kCount><<<grid, block, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes).  Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() so a refused launch is reported.
+// The variant follows the operands: `flat` non-null -> the flat BVH sweep
+// (scene in leaf order), else the brute sweep; `taping` -> the taping
+// forward into `tape` (g_cap steps a pixel, int32 when tape_wide; null
+// only when g_cap is 0); `census` non-null -> the counting variant (not
+// with a tape).  The block's x extent is one warp, so threadIdx.x is the
+// lane.
 extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
-                                 void* out, int width, int height, int spp,
-                                 int depth, float t_min, float inv_w,
-                                 float inv_h, float inv_spp, float gamma,
-                                 int parallel, int v1, void* stream) {
+                                 const void* flat, int n_leaves,
+                                 int leaf_size, int out_base, int out_cnt,
+                                 int taping, void* tape, int g_cap,
+                                 int tape_wide, void* census, void* out,
+                                 int width,
+                                 int height, int spp, int depth, float t_min,
+                                 float inv_w, float inv_h, float inv_spp,
+                                 float gamma, int parallel, int v1,
+                                 void* stream) {
+  if (taping && census != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.cam = static_cast<const CamPack*>(cam);
   p.scene = static_cast<const float*>(scene);
+  p.bvh = FlatBvh{static_cast<const float*>(flat), n_leaves, leaf_size,
+                  out_base, out_cnt};
+  p.tape = tape;
+  p.census = static_cast<unsigned long long*>(census);
   p.out = static_cast<float*>(out);
   p.n = n;
   p.width = width;
   p.height = height;
   p.spp = spp;
   p.depth = depth;
+  p.g_cap = g_cap;
+  p.tape_wide = tape_wide;
   p.t_min = t_min;
   p.inv_w = inv_w;
   p.inv_h = inv_h;
@@ -104,8 +177,14 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   p.gamma = gamma;
   p.parallel = parallel;
   p.v1 = v1;
-  dim3 block(32, 8);
-  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  render_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool bvh = flat != nullptr;
+  if (taping)
+    return bvh ? launch<true, kTapeWrite, false>(p, st)
+               : launch<false, kTapeWrite, false>(p, st);
+  if (census != nullptr)
+    return bvh ? launch<true, kNoTape, true>(p, st)
+               : launch<false, kNoTape, true>(p, st);
+  return bvh ? launch<true, kNoTape, false>(p, st)
+             : launch<false, kNoTape, false>(p, st);
 }

@@ -1,8 +1,10 @@
-// Device code shared by the forward megakernel (megakernel.cu, K1a) and the
-// fused VJP kernel (gradkernel.cu, K3): the counter-based RNG, the jittered
-// thin-lens ray, the brute-force closest-hit sweep, the v2 / v1 materials,
-// the sky and the gamma.  K3's PASS 1 must give K1a's image bit for bit, so
-// both kernels trace a sample through trace_path() below and nothing else.
+// Device code shared by the forward megakernels (megakernel.cu: K1a, K1c,
+// K1', K4's write side) and the fused VJP kernel (gradkernel.cu: K3 and its
+// BVH and tape-read variants): the counter-based RNG, the jittered
+// thin-lens ray, the closest-hit policies (brute sweep, flat BVH sweep,
+// tape read), the v2 / v1 materials, the sky and the gamma.  K3's passes
+// must give the forward's image bit for bit, so every kernel traces a
+// sample through trace_path() below and nothing else.
 //
 // Numerics (both kernels are built with -fmad=false and without fast math):
 // the op order is raytpu/golden.py's (and raytpu_torch/golden.py's), so no
@@ -190,32 +192,162 @@ __device__ __forceinline__ Ray gen_ray(const CamPack& cam, float fx, float fy,
   return r;
 }
 
-// Closest hit over all spheres (golden.hit_world); the strict < keeps the
-// lowest index on ties, like argmin.  Returns the winner or -1; tb = t.
-__device__ __forceinline__ int closest_hit(const SceneView& s, const Ray& r,
-                                           float t_min, float& tb) {
-  float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
-  float inv_a = 1.0f / a;
-  tb = kInf;
-  int win = -1;
-  for (int j = 0; j < s.n; ++j) {
-    float ocx = r.ox - s.cx[j];
-    float ocy = r.oy - s.cy[j];
-    float ocz = r.oz - s.cz[j];
-    float rad = s.rad[j];
-    float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-    float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad;
-    float disc = half_b * half_b - a * c;
-    // NaN form of the root test: disc < 0 -> NaN -> compares false
-    float sqrtd = sqrtf(disc);
-    float root1 = (-half_b - sqrtd) * inv_a;
-    float root2 = (-half_b + sqrtd) * inv_a;
-    float root = root1 >= t_min ? root1 : root2;
+// ---- the closest hit: a compile-time policy of trace_path ---------------
+//
+// Brute (K1a, K3): every sphere, in index order.  Flat BVH (K1c, K3's BVH
+// variant): the outlier tail, then the leaf rows of the octant copy the
+// ray's own direction picks.  Tape read (K3's replay of K4's tape): the
+// winner from the tape, its t recomputed for that one sphere.  All three
+// compute a sphere's t with sphere_root(), so a winner's t is one number
+// wherever it comes from, and the images and residuals of every variant
+// are bit-equal (the BVH's up to exact equal-t ties of distinct spheres).
+
+// The flat leaf list of a BVH (raytpu_torch/bvh.py): `flat` (8 * n_leaves,
+// 9) f32 rows [min xyz, max xyz, start, count, skip], copy o's leaves in
+// its front-to-back order; every leaf holds leaf_size permuted rows (NaN
+// dummies pad it); the outliers are permuted rows [out_base, +out_cnt).
+struct FlatBvh {
+  const float* __restrict__ flat;
+  int n_leaves, leaf_size, out_base, out_cnt;
+};
+
+// Per-thread counts of the census (K1'): leaves entered, closest-hit
+// steps, samples.
+struct Census {
+  unsigned leaves, steps, samples;
+};
+
+// The root test of ray r against sphere j (golden.hit_world's arithmetic,
+// op for op): the t the sweeps compare, NaN or < t_min on a miss.  The NaN
+// form of the root test: disc < 0 -> sqrtf gives NaN -> compares false.
+__device__ __forceinline__ float sphere_root(const SceneView& s, const Ray& r,
+                                             float a, float inv_a,
+                                             float t_min, int j) {
+  float ocx = r.ox - s.cx[j];
+  float ocy = r.oy - s.cy[j];
+  float ocz = r.oz - s.cz[j];
+  float rad = s.rad[j];
+  float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad;
+  float disc = half_b * half_b - a * c;
+  float sqrtd = sqrtf(disc);
+  float root1 = (-half_b - sqrtd) * inv_a;
+  float root2 = (-half_b + sqrtd) * inv_a;
+  return root1 >= t_min ? root1 : root2;
+}
+
+// Spheres [j0, j1) into the running best: strict <, so among equal t the
+// first tested wins (the lowest index in the brute sweep, like argmin).
+__device__ __forceinline__ void sweep_range(const SceneView& s, const Ray& r,
+                                            float a, float inv_a, float t_min,
+                                            int j0, int j1, float& tb,
+                                            int& win) {
+  for (int j = j0; j < j1; ++j) {
+    float root = sphere_root(s, r, a, inv_a, t_min, j);
     if (root >= t_min && root < tb) {
       tb = root;
       win = j;
     }
   }
+}
+
+// min / max that propagate NaN, as torch.minimum and jnp.minimum do (fminf
+// drops it): a slab test on a padded face gives NaN and must enter.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// Closest hit (golden.hit_world, or golden.hit_world_bvh over the scene in
+// leaf order when kBvh).  Returns the winner or -1; tb = its t.
+template <bool kBvh, bool kCount>
+__device__ __forceinline__ int closest_hit(const SceneView& s,
+                                           const FlatBvh& bvh, const Ray& r,
+                                           float t_min, float& tb,
+                                           Census& cn) {
+  float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  float inv_a = 1.0f / a;
+  tb = kInf;
+  int win = -1;
+  if (!kBvh) {
+    sweep_range(s, r, a, inv_a, t_min, 0, s.n, tb, win);
+    return win;
+  }
+  // outliers first: a giant ground sphere seeds tb, so far leaves cull
+  sweep_range(s, r, a, inv_a, t_min, bvh.out_base,
+              bvh.out_base + bvh.out_cnt, tb, win);
+  const float inv_dx = 1.0f / r.dx, inv_dy = 1.0f / r.dy,
+              inv_dz = 1.0f / r.dz;
+  const int octant = (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
+                     (r.dz < 0.0f ? 1 : 0);
+  const float* row = bvh.flat + static_cast<size_t>(octant) * bvh.n_leaves * 9;
+  for (int k = 0; k < bvh.n_leaves; ++k, row += 9) {
+    float t1 = (row[0] - r.ox) * inv_dx;
+    float t2 = (row[3] - r.ox) * inv_dx;
+    float t3 = (row[1] - r.oy) * inv_dy;
+    float t4 = (row[4] - r.oy) * inv_dy;
+    float t5 = (row[2] - r.oz) * inv_dz;
+    float t6 = (row[5] - r.oz) * inv_dz;
+    float tnear = nan_max(nan_max(nan_min(t1, t2), nan_min(t3, t4)),
+                          nan_max(nan_min(t5, t6), t_min));
+    float tfar = nan_min(nan_min(nan_max(t1, t2), nan_max(t3, t4)),
+                         nan_min(nan_max(t5, t6), tb));
+    if (tnear > tfar) continue;  // NaN enters
+    if (kCount) ++cn.leaves;
+    const int start = static_cast<int>(row[6]);
+    sweep_range(s, r, a, inv_a, t_min, start, start + bvh.leaf_size, tb,
+                win);
+  }
+  return win;
+}
+
+// The winner-index tape of one pixel (K4): tape[k * stride + pix], k the
+// pixel's global bounce step counted across its samples in order; int16
+// (wide == 0) or int32 elements; g_cap steps are kept, later ones are not.
+enum TapeMode { kNoTape = 0, kTapeWrite = 1, kTapeRead = 2 };
+
+struct TapeCursor {
+  void* buf;
+  size_t stride, pix;
+  int g_cap, k, wide;
+
+  __device__ __forceinline__ int get() const {
+    const size_t i = static_cast<size_t>(k) * stride + pix;
+    return wide ? static_cast<const int*>(buf)[i]
+                : static_cast<int>(static_cast<const int16_t*>(buf)[i]);
+  }
+  __device__ __forceinline__ void put(int w) const {
+    const size_t i = static_cast<size_t>(k) * stride + pix;
+    if (wide)
+      static_cast<int*>(buf)[i] = w;
+    else
+      static_cast<int16_t*>(buf)[i] = static_cast<int16_t>(w);
+  }
+};
+
+// One bounce step's closest hit under the policy: read from the tape while
+// it holds the step, else swept; written to the tape when kTape is write.
+template <bool kBvh, int kTape, bool kCount>
+__device__ __forceinline__ int step_hit(const SceneView& s, const FlatBvh& bvh,
+                                        const Ray& r, float t_min, float& tb,
+                                        TapeCursor& tc, Census& cn) {
+  int win;
+  if (kTape == kTapeRead && tc.k < tc.g_cap) {
+    win = tc.get();
+    if (win >= 0) {
+      float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+      tb = sphere_root(s, r, a, 1.0f / a, t_min, win);
+    } else {
+      tb = kInf;
+    }
+  } else {
+    win = closest_hit<kBvh, kCount>(s, bvh, r, t_min, tb, cn);
+  }
+  if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
+  if (kTape != kNoTape) ++tc.k;
+  if (kCount) ++cn.steps;
   return win;
 }
 
@@ -340,20 +472,25 @@ struct Residual {
 // Trace one sample for at most `depth` bounces, stopping at the first
 // miss, absorption or the depth cap (black).  Returns the number of
 // bounces taken (rows of `res` written when kStore); `sd` ends as the
-// sample's final seed and (rr, rg, rb) as its radiance.
-template <bool kStore>
-__device__ __forceinline__ int trace_path(const SceneView& s, Ray r,
+// sample's final seed and (rr, rg, rb) as its radiance.  The closest hit
+// of each step is step_hit's policy (kBvh, kTape, kCount); `tc` advances
+// one step per bounce taken.
+template <bool kStore, bool kBvh, int kTape, bool kCount>
+__device__ __forceinline__ int trace_path(const SceneView& s,
+                                          const FlatBvh& bvh, Ray r,
                                           uint32_t& sd, int depth,
                                           float t_min, bool v1, float& rr,
                                           float& rg, float& rb,
-                                          Residual* res) {
+                                          Residual* res, TapeCursor& tc,
+                                          Census& cn) {
   float cr = 1.0f, cg = 1.0f, cb = 1.0f;
   rr = 0.0f;
   rg = 0.0f;
   rb = 0.0f;
+  if (kCount) ++cn.samples;
   for (int d = 0; d < depth; ++d) {
     float tb;
-    int win = closest_hit(s, r, t_min, tb);
+    int win = step_hit<kBvh, kTape, kCount>(s, bvh, r, t_min, tb, tc, cn);
     if (kStore) {
       res[d] = Residual{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
                         cr,   cg,   cb,   win,  sd};

@@ -22,6 +22,12 @@ Two habits keep it bit-compatible with the kernel on a card:
   (``rng.f32_like``): a Python-scalar divisor may become a multiply by its
   reciprocal, which rounds differently from the kernel's division.
 
+With a BVH (:mod:`raytpu_torch.bvh`) the closest hit is
+:func:`hit_world_bvh`, the plain version of the kernels' flat-leaf sweep
+(K1c), over the scene in BVH leaf order.  :func:`render_golden_tape` is the
+plain version of the taping forward (K4's write side): the image plus each
+pixel's log of closest-hit winners.
+
 ``rng_mode="v1_fractsin"`` (the v1 fract-sin parity mode) is not ported yet.
 """
 
@@ -30,12 +36,16 @@ from __future__ import annotations
 import torch
 
 from raytpu_torch import rng
+from raytpu_torch.bvh import BVH, outlier_tail, permute_scene
 from raytpu_torch.camera import Camera, get_ray
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.scene import Scene
 
 _INF = float("inf")
 _SAFE_EPS = 1e-20
+TAPE_UNWRITTEN = -2  # a tape slot no step reached (a miss logs -1)
+# the census of a frame (K1'): leaves entered, closest-hit steps, samples
+CENSUS = ("leaves_entered", "bounce_steps", "samples")
 _FRACTSIN_TODO = ("rng_mode='v1_fractsin' is not ported yet (ROADMAP queue 1, "
                   "M2/M3: the v1 fract-sin helpers and their golden mode)")
 
@@ -125,6 +135,143 @@ def hit_world(scene: Scene, ro, rd, t_min):
     front = _dot3(rdx, rdy, rdz, nx, ny, nz) < 0
     sgn = torch.where(front, 1.0, -1.0)
     return hit_any, t, idx, (nx * sgn, ny * sgn, nz * sgn), front
+
+
+def _sphere_ts(scene: Scene, j, ro, rd, a, inv_a, t_min):
+    """t of the rays against spheres ``j`` (shape S + (k,)), +inf where a
+    ray misses: hit_world's per-sphere arithmetic, op for op."""
+    rox, roy, roz = (x[..., None] for x in ro)
+    rdx, rdy, rdz = (x[..., None] for x in rd)
+    ocx = rox - scene.center[j, 0]
+    ocy = roy - scene.center[j, 1]
+    ocz = roz - scene.center[j, 2]
+    rad = scene.radius[j]
+    half_b = ocx * rdx + ocy * rdy + ocz * rdz
+    c = _dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad
+    disc = half_b * half_b - a[..., None] * c
+    has_root = disc >= 0
+    sqrtd = _sqrt_st(disc, has_root)
+    root1 = (-half_b - sqrtd) * inv_a[..., None]
+    root2 = (-half_b + sqrtd) * inv_a[..., None]
+    root = torch.where(root1 >= t_min, root1, root2)
+    return torch.where(has_root & (root >= t_min), root, _INF)
+
+
+def _take_closest(t_all, j, tb, idx):
+    """Fold candidates ``t_all`` / ``j`` (S + (k,)) into the running best:
+    the first minimum wins, and only if it is strictly closer — the
+    kernels' in-order strict ``<`` update."""
+    m = t_all.amin(dim=-1)
+    am = t_all.argmin(dim=-1, keepdim=True)
+    win = m < tb
+    return (torch.where(win, m, tb),
+            torch.where(win, torch.gather(j, -1, am)[..., 0], idx))
+
+
+def hit_world_bvh(scene_perm: Scene, bvh: BVH, ro, rd, t_min, census=None,
+                  live=None):
+    """Closest hit through the BVH's flat leaf list: the plain version of
+    the kernels' sweep (``csrc/render_common.cuh`` closest_hit<kBvh>).
+
+    ``scene_perm`` is the scene in leaf order
+    (:func:`raytpu_torch.bvh.permute_scene`); the result is
+    :func:`hit_world`'s, with the winner as a permuted index.  Vectorised
+    over rays: the outlier tail is tested first, then each ray walks the
+    leaf rows of the octant copy its own direction's signs pick (bit 2 =
+    dx < 0, bit 1 = dy < 0, bit 0 = dz < 0), entering a leaf iff its slab
+    test passes, ``!(tnear > tfar)`` with ``tfar`` clamped to the best t so
+    far (a NaN from a ray on a padded face enters).  NaN dummies never win.
+    The closest hit does not depend on the visiting order, so the winner is
+    hit_world's except on exact ties of t between distinct spheres.
+    ``census`` (a dict): adds the leaves the ``live`` lanes enter to
+    ``census["leaves_entered"]``, as the census kernel K1' counts them.
+    """
+    if bvh.flat is None or not bvh.leaf_size:
+        raise ValueError("the flat sweep needs a BVH with padded leaves "
+                         "and a flat leaf list (build_bvh(pad_leaves=True))")
+    rox, roy, roz = ro
+    rdx, rdy, rdz = rd
+    dev = rox.device
+    t_min = rng.f32_like(rox, t_min)
+    a = _dot3(rdx, rdy, rdz, rdx, rdy, rdz)
+    inv_a = 1.0 / a
+    tb = torch.full_like(rox, _INF)
+    idx = torch.zeros(rox.shape, dtype=torch.int64, device=dev)
+    tail = outlier_tail(bvh.perm, bvh.flat, bvh.leaf_size)
+    if tail is not None:
+        j = torch.arange(tail[0], tail[0] + tail[1], device=dev).expand(
+            *rox.shape, tail[1])
+        tb, idx = _take_closest(_sphere_ts(scene_perm, j, ro, rd, a, inv_a,
+                                           t_min), j, tb, idx)
+    n_leaves, ls = bvh.n_leaves, int(bvh.leaf_size)
+    flat = bvh.flat
+    inv_dx, inv_dy, inv_dz = 1.0 / rdx, 1.0 / rdy, 1.0 / rdz
+    octant = ((rdx < 0).to(torch.int64) * 4 + (rdy < 0).to(torch.int64) * 2
+              + (rdz < 0).to(torch.int64))
+    lanes = torch.arange(ls, device=dev)
+    for k in range(n_leaves):
+        row = flat[octant * n_leaves + k]                      # S + (9,)
+        t1 = (row[..., 0] - rox) * inv_dx
+        t2 = (row[..., 3] - rox) * inv_dx
+        t3 = (row[..., 1] - roy) * inv_dy
+        t4 = (row[..., 4] - roy) * inv_dy
+        t5 = (row[..., 2] - roz) * inv_dz
+        t6 = (row[..., 5] - roz) * inv_dz
+        tnear = torch.maximum(
+            torch.maximum(torch.minimum(t1, t2), torch.minimum(t3, t4)),
+            torch.maximum(torch.minimum(t5, t6), t_min))
+        tfar = torch.minimum(
+            torch.minimum(torch.maximum(t1, t2), torch.maximum(t3, t4)),
+            torch.minimum(torch.maximum(t5, t6), tb))
+        enter = ~(tnear > tfar)
+        if census is not None:
+            census["leaves_entered"] += int((enter & live).sum())
+        if not bool(enter.any()):
+            continue
+        sel = enter.nonzero(as_tuple=True)
+        j = row[sel][:, 6].to(torch.int64)[:, None] + lanes
+        t_sel, i_sel = _take_closest(
+            _sphere_ts(scene_perm, j, tuple(x[sel] for x in ro),
+                       tuple(x[sel] for x in rd), a[sel], inv_a[sel], t_min),
+            j, tb[sel], idx[sel])
+        tb = tb.index_put(sel, t_sel)
+        idx = idx.index_put(sel, i_sel)
+
+    hit_any = torch.isfinite(tb)
+    t = torch.where(hit_any, tb, 1.0)
+    idx = torch.where(hit_any, idx, 0)
+    px = rox + t * rdx
+    py = roy + t * rdy
+    pz = roz + t * rdz
+    hc = scene_perm.center[idx]
+    hr = scene_perm.radius[idx]
+    inv_r = 1.0 / torch.where(hr == 0, 1.0, hr)
+    nx = (px - hc[..., 0]) * inv_r
+    ny = (py - hc[..., 1]) * inv_r
+    nz = (pz - hc[..., 2]) * inv_r
+    front = _dot3(rdx, rdy, rdz, nx, ny, nz) < 0
+    sgn = torch.where(front, 1.0, -1.0)
+    return hit_any, t, idx, (nx * sgn, ny * sgn, nz * sgn), front
+
+
+def tape_dtype(rows: int) -> torch.dtype:
+    """The tape's element type for a scene of ``rows`` kernel-side spheres
+    (the permuted count under a BVH): int16 below 32767, else int32."""
+    return torch.int16 if rows < 32767 else torch.int32
+
+
+def log_winners(tape, alive, win) -> None:
+    """Append one bounce step to each live lane's winner log.
+
+    ``tape = (buf, pix, k)``: ``buf`` (g_cap, H*W) is the frame's tape,
+    ``pix`` the lanes' flat pixel indices and ``k`` their next global step
+    (updated in place).  A live lane writes ``win`` (-1 for a miss) at
+    ``buf[k, pix]`` while ``k < g_cap``, and every live lane's ``k``
+    advances: steps past the cap are counted, not logged."""
+    buf, pix, k = tape
+    w = alive & (k < buf.shape[0])
+    buf[k[w], pix[w]] = win[w].to(buf.dtype)
+    k += alive.to(k.dtype)
 
 
 def _reflect(vx, vy, vz, nx, ny, nz):
@@ -241,13 +388,19 @@ def _sky(rdx, rdy, rdz):
 
 
 def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
-          scatter_mode: str = "v2"):
+          scatter_mode: str = "v2", bvh: BVH | None = None, tape=None,
+          census=None):
     """Iterative bounce loop (ref: sample_color, hlsl:255-287).
 
     SoA over pixel shape S; returns ((r,g,b), seed).  Dead lanes are
     masked; the seed advances only on live scattering lanes.  The loop
     stops early once no lane is alive: a dead lane's state never changes
     again, so that is the same result as running all ``depth`` steps.
+    With ``bvh`` the scene is in leaf order and the closest hit is
+    :func:`hit_world_bvh`; ``tape`` (see :func:`log_winners`) logs each
+    live lane's winner per bounce; ``census`` (a dict of :data:`CENSUS`
+    counts) adds the samples, the live lanes' bounce steps and, with a BVH,
+    the leaves they enter: the plain version of the census kernel K1'.
     """
     ox, oy, oz = ro
     dx, dy, dz = rd
@@ -259,11 +412,22 @@ def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
     rb = torch.zeros_like(ox)
     alive = torch.ones_like(ox, dtype=torch.bool)
     sd = seed
+    if census is not None:
+        census["samples"] += ox.numel()
     for _ in range(depth):
         if not bool(alive.any()):
             break
-        hit_any, t, idx, normal, front = hit_world(
-            scene, (ox, oy, oz), (dx, dy, dz), t_min)
+        if census is not None:
+            census["bounce_steps"] += int(alive.sum())
+        if bvh is None:
+            hit_any, t, idx, normal, front = hit_world(
+                scene, (ox, oy, oz), (dx, dy, dz), t_min)
+        else:
+            hit_any, t, idx, normal, front = hit_world_bvh(
+                scene, bvh, (ox, oy, oz), (dx, dy, dz), t_min, census,
+                alive)
+        if tape is not None:
+            log_winners(tape, alive, torch.where(hit_any, idx, -1))
         px = ox + t * dx
         py = oy + t * dy
         pz = oz + t * dz
@@ -296,7 +460,8 @@ def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
 
 
 def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
-                      px, py, seed, spp: int, init=None, s0: int = 0):
+                      px, py, seed, spp: int, init=None, s0: int = 0,
+                      bvh: BVH | None = None, tape=None, census=None):
     """Add ``spp`` LINEAR samples per pixel starting from carried RNG state.
 
     Returns ((sum_r, sum_g, sum_b), seed').  The sums are taken sample by
@@ -304,7 +469,8 @@ def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
     equal one spp-sample render bit for bit.  In the "parallel" RNG mode,
     ``seed`` is the per-pixel BASE state and ``s0`` the index of the first
     sample (each sample's stream is ``fold_in(seed, s0 + i)``); the
-    returned seed is the unchanged base.
+    returned seed is the unchanged base.  ``bvh``, ``tape`` and ``census``
+    go to :func:`trace` (the scene then in leaf order).
     """
     if cfg.rng_mode == "v1_fractsin":
         raise NotImplementedError(_FRACTSIN_TODO)
@@ -329,7 +495,7 @@ def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
         v = (fy + j2b * 1.1) * inv_h
         ro, rd, smp = get_ray(cam, u, v, smp)
         (r, g, b), smp = trace(scene, ro, rd, smp, cfg.depth, cfg.t_min,
-                               cfg.scatter_mode)
+                               cfg.scatter_mode, bvh, tape, census)
         acc_r = acc_r + r
         acc_g = acc_g + g
         acc_b = acc_b + b
@@ -346,33 +512,64 @@ def _to_gamma(x, gamma):
                        0.0)
 
 
-def render_pixels(scene: Scene, cam: Camera, cfg: RenderConfig, px, py):
+def render_pixels(scene: Scene, cam: Camera, cfg: RenderConfig, px, py,
+                  bvh: BVH | None = None, tape=None, census=None):
     """Render a flat SoA batch of pixels; returns (r, g, b) tensors.
 
     px, py: integer tensors of pixel coordinates (x = column, y = row;
     row 0 is the BOTTOM of the image, v = y/(H-1) — ShaderCompute.hlsl:306-307).
+    ``bvh``, ``tape`` and ``census`` as in :func:`trace`.
     """
     seed = rng.pixel_seed(px, py)
     (acc_r, acc_g, acc_b), _ = accumulate_pixels(
-        scene, cam, cfg, px, py, seed, cfg.spp)
+        scene, cam, cfg, px, py, seed, cfg.spp, bvh=bvh, tape=tape,
+        census=census)
     inv_spp = rng.f32_like(acc_r, 1.0 / cfg.spp)
     return (_to_gamma(acc_r * inv_spp, cfg.gamma),
             _to_gamma(acc_g * inv_spp, cfg.gamma),
             _to_gamma(acc_b * inv_spp, cfg.gamma))
 
 
-def render_golden(scene: Scene, cam: Camera, cfg: RenderConfig):
+def render_golden(scene: Scene, cam: Camera, cfg: RenderConfig,
+                  bvh: BVH | None = None, tape=None, census=None):
     """Full-frame render -> (H, W, 3) f32 image in [0, 1] on the scene's
     device, ``cfg.chunk_pixels`` pixels at a time (the chunk bounds the
     pixels x spheres intermediates; pixels are independent, so the chunk
-    size never changes a value)."""
+    size never changes a value).
+
+    ``bvh``: the closest hit sweeps the BVH's flat leaf list
+    (:func:`hit_world_bvh`, the plain version of K1c); the image is the
+    brute sweep's except on exact ties of t.  ``tape`` (g_cap, H*W), when
+    given, receives each pixel's winners, step by step across its samples
+    in order (see :func:`render_golden_tape`).  ``census``, a dict, receives
+    the frame's :data:`CENSUS` counts (see :func:`trace`)."""
     h, w = cfg.height, cfg.width
     n = h * w
     dev = scene.center.device
+    if bvh is not None:
+        scene = permute_scene(scene, bvh.perm)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     chunk = min(cfg.chunk_pixels, n)
     for start in range(0, n, chunk):
         flat = torch.arange(start, min(start + chunk, n), device=dev)
-        r, g, b = render_pixels(scene, cam, cfg, flat % w, flat // w)
+        cursor = (None if tape is None else
+                  (tape, flat, torch.zeros_like(flat)))
+        r, g, b = render_pixels(scene, cam, cfg, flat % w, flat // w, bvh,
+                                cursor, census)
         out[start:start + chunk] = torch.stack([r, g, b], dim=-1)
     return out.reshape(h, w, 3)
+
+
+def render_golden_tape(scene: Scene, cam: Camera, cfg: RenderConfig,
+                       g_cap: int, bvh: BVH | None = None):
+    """The plain version of the taping forward (K4's write side) ->
+    (image, tape).  The image is :func:`render_golden`'s; ``tape`` is
+    (g_cap, H*W), int16 or int32 (:func:`tape_dtype`): ``tape[k, pix]`` is
+    the closest-hit winner (-1 for a miss) of pixel ``pix``'s k-th bounce
+    step, counted across its samples in order, as a permuted index under a
+    BVH.  Steps past ``g_cap`` are not logged; slots no step reached hold
+    ``TAPE_UNWRITTEN``."""
+    rows = scene.count if bvh is None else int(bvh.perm.shape[0])
+    tape = torch.full((g_cap, cfg.height * cfg.width), TAPE_UNWRITTEN,
+                      dtype=tape_dtype(rows), device=scene.center.device)
+    return render_golden(scene, cam, cfg, bvh, tape), tape

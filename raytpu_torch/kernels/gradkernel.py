@@ -1,8 +1,10 @@
-"""Fused image + VJP kernel K3: wrapper of ``csrc/gradkernel.cu``.
+"""Fused image + VJP kernel K3 and the winner-index tape K4: wrapper of
+``csrc/gradkernel.cu`` (and of the taping forward in ``csrc/megakernel.cu``).
 
 Counterpart of ``raytpu/kernels/gradkernel.py::render_pallas_vjp`` with the
-brute-force sweep and the per-sample PASS 2 (no BVH, no slab, no windowed
-refill, no tape).  See the note at the top of the ``.cu`` file.
+per-sample PASS 2, the brute-force or the flat BVH sweep and the tape
+replay (no slab, no windowed refill), and of its ``tape_plan`` and
+``render_tape_fwd``.  See the notes at the top of the ``.cu`` files.
 
 :func:`render_vjp` takes the scene and camera as the package's NamedTuples
 and an image cotangent ``ct``.  For CPU tensors it runs the plain PyTorch
@@ -10,7 +12,19 @@ version (:func:`render_vjp_plain`, a VJP of
 :func:`raytpu_torch.adjoint.render_golden_adjoint`, as raytpu's
 ``megakernel._golden_bwd``); for CUDA tensors it launches the kernel or
 raises, never falling back.  :func:`launch` is the kernel wrapper proper, on
-packed operands.  ``launches`` counts the kernel launches made through it.
+packed operands.  ``launches`` counts the kernel launches made through it,
+``variants`` the same launches by variant.
+
+The tape (K4).  The taping forward (:func:`render_tape_fwd`) renders the
+forward's image and logs, per pixel, the closest-hit winner of each bounce
+step, counted across the pixel's samples in order: ``tape[k, pix]``, int16
+below 32767 kernel-side spheres, else int32, -1 for a miss.  K3 replays it
+in parallel RNG (the image given, so PASS 1 is elided): each of the first
+``g_cap`` steps takes its winner from the tape and recomputes that one
+sphere's t, and the steps past the cap sweep.  The winner alone decides a
+bounce, so taped gradients are bit-equal to untaped ones for every
+``g_cap`` from 0 to ``spp * depth``.  :func:`tape_plan` decides when the
+autograd path tapes.
 """
 
 from __future__ import annotations
@@ -20,7 +34,8 @@ import ctypes
 import numpy as np
 import torch
 
-from raytpu_torch import adjoint
+from raytpu_torch import adjoint, golden
+from raytpu_torch.bvh import BVH, outlier_tail, permute_scene
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import _build, megakernel
@@ -32,13 +47,36 @@ LEAVES = 8      # sphere cotangent rows: cx cy cz rad ar ag ab mp
 CAM_SUMS = 18   # raygen cotangent sums (raytpu gradkernel.py:960-969)
 
 launches = 0    # kernel launches through launch(); a run resets and reads it
+# the same launches by variant (sweep, and "+tape" for the tape replay); a
+# run resets and reads them
+variants = dict.fromkeys(("K3", "K3/bvh", "K3/tape", "K3/bvh+tape"), 0)
+
+# The tape's device-memory budget in bytes; a module constant (tests may
+# monkeypatch it).  raytpu's default, 4 GiB: CONFIG4's full tape takes
+# 768 MB (int16), REFERENCE_V2's 3.54 GB.
+TAPE_BUDGET = 4 * 2**30
+# A partial tape engages when it holds at least this share of the frame's
+# worst-case steps (spp * depth a pixel).  On this card a covered step saves
+# its sweep and an uncovered step costs what the untaped kernel pays, while
+# the write side adds one 2- or 4-byte store per step, so any coverage pays
+# in time; the floor only keeps the plan from holding gigabytes for a
+# sliver of the steps.  (raytpu's 0.15 / 0.5 thresholds are TPU
+# measurements of its windowed schedule and do not carry over.)
+PARTIAL_MIN_COVERAGE = 0.05
+# The fewest spheres at which the autograd path tapes.  Below it a step's
+# sweep is too cheap to outweigh the tape's stores and reads: on an H100,
+# render_grad at the config-2 frame in parallel RNG lost 7 of 10 pairs
+# taped at 4 spheres (median +3.5%) and won 8 of 10 at 8 spheres (-5.5%),
+# 10 of 10 from 32 (chip_smoke.py phase 4c).
+TAPE_MIN_SPHERES = 8
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raytpu_render_vjp
-    fn.argtypes = [ptr, ptr, i, ptr, ptr, ptr, ptr, ptr,
+    fn.argtypes = [ptr, ptr, i, ptr, i, i, i, i, i, ptr, i, i,
+                   ptr, ptr, ptr, ptr, ptr,
                    i, i, i, i, f, f, f, f, f, f, i, i, ptr]
     fn.restype = ctypes.c_int
     lib.raytpu_render_vjp_warps.argtypes = [i, i]
@@ -88,26 +126,41 @@ def _check_frame(cfg: RenderConfig, ct: torch.Tensor, img, device):
 
 
 def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
-           cfg: RenderConfig, ct: torch.Tensor, img=None, vis_w: float = 0.0):
-    """Launch K3 on packed operands -> (image, (8, N) f32 sphere
+           cfg: RenderConfig, ct: torch.Tensor, img=None, vis_w: float = 0.0,
+           bvh: BVH | None = None, tape: torch.Tensor | None = None):
+    """Launch K3 on packed operands -> (image, (8, P) f32 sphere
     cotangents, (18,) f32 camera sums).
 
     ``img`` (parallel RNG only) is the forward image: it elides PASS 1.
     Sequential RNG chains each pixel's seed through its samples, so PASS 1
-    must run and ``img`` is ignored there, as in raytpu.  Runs on the
-    current stream of the operands' device and does not synchronise."""
+    must run and ``img`` is ignored there, as in raytpu.  ``bvh``: the flat
+    BVH sweep, ``scene_pack`` then in leaf order (P permuted rows) and the
+    cotangents in that order.  ``tape`` (g_cap, H*W), a winner-index tape
+    of this frame from :func:`render_tape_fwd` with the same ``bvh``: the
+    replay; it needs parallel RNG and ``img``.  Runs on the current stream
+    of the operands' device and does not synchronise."""
     global launches
     megakernel.check_packs(cam_pack, scene_pack)
     if cfg.depth > MAX_DEPTH:
         raise ValueError(f"depth {cfg.depth}: the VJP kernel keeps at most "
                          f"{MAX_DEPTH} bounces of residuals per thread")
     device = scene_pack.device
+    n = scene_pack.shape[1]
     skip_p1 = img is not None and cfg.rng_mode == "parallel"
     img_in = img if skip_p1 else None
     _check_frame(cfg, ct, img_in, device)
+    if bvh is not None:
+        megakernel.check_bvh(bvh, n, device)
+    if tape is not None:
+        if not skip_p1:
+            raise ValueError("the tape replay needs parallel RNG and the "
+                             "forward image (img=)")
+        megakernel.check_tape(tape, cfg, n, device)
+    tail = None if bvh is None else outlier_tail(bvh.perm, bvh.flat,
+                                                 bvh.leaf_size)
+    out_base, out_cnt = tail if tail else (0, 0)
     ct = ct.contiguous()
     img_in = None if img_in is None else img_in.detach().contiguous()
-    n = scene_pack.shape[1]
     lib = _lib()
     out = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32,
                       device=device)
@@ -119,9 +172,16 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_vjp(
-            cam_pack.data_ptr(), scene_pack.data_ptr(), n, ct.data_ptr(),
-            None if img_in is None else img_in.data_ptr(), out.data_ptr(),
-            gsc.data_ptr(), gcam.data_ptr(),
+            cam_pack.data_ptr(), scene_pack.data_ptr(), n,
+            None if bvh is None else bvh.flat.data_ptr(),
+            0 if bvh is None else bvh.n_leaves,
+            0 if bvh is None else int(bvh.leaf_size), out_base, out_cnt,
+            int(tape is not None),
+            None if tape is None or tape.numel() == 0 else tape.data_ptr(),
+            0 if tape is None else tape.shape[0],
+            int(tape is not None and tape.dtype == torch.int32),
+            ct.data_ptr(), None if img_in is None else img_in.data_ptr(),
+            out.data_ptr(), gsc.data_ptr(), gcam.data_ptr(),
             cfg.width, cfg.height, cfg.spp, cfg.depth,
             float(np.float32(cfg.t_min)),
             float(np.float32(1.0 / (cfg.width - 1))),
@@ -133,45 +193,147 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"render_vjp_kernel launch failed: CUDA error {err}")
     launches += 1
+    tags = "+".join(t for t, on in (("bvh", bvh is not None),
+                                    ("tape", tape is not None)) if on)
+    variants["K3/" + tags if tags else "K3"] += 1
     return out, gsc.to(torch.float32), gcam.sum(dim=0).to(torch.float32)
 
 
 def render_vjp_plain(scene: Scene, cam: Camera, cfg: RenderConfig, ct,
-                     vis_w: float = 0.0):
+                     vis_w: float = 0.0, bvh: BVH | None = None, tape=None):
     """The plain version of K3 on any device: the VJP of the adjoint
-    renderer for the image cotangent ``ct`` -> (img, d_scene, d_cam)."""
+    renderer for the image cotangent ``ct`` -> (img, d_scene, d_cam).
+    ``bvh`` sweeps its flat leaf list; ``tape`` replays a winner-index tape
+    (the plain version of K3's tape read)."""
     leaves = [t.detach().requires_grad_()
               for t in (scene.center, scene.radius, scene.albedo,
                         scene.mat_param, *cam)]
     with torch.enable_grad():
         img = adjoint.render_golden_adjoint(
             Scene(leaves[0], leaves[1], scene.mat_type, leaves[2],
-                  leaves[3]), Camera(*leaves[4:]), cfg, vis_w)
+                  leaves[3]), Camera(*leaves[4:]), cfg, vis_w, bvh=bvh,
+            tape=tape)
         grads = torch.autograd.grad(img, leaves, ct, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, leaves)]
     return img.detach(), _scene_grads(*grads[:4]), Camera(*grads[4:])
 
 
+def _kernel_rows(scene: Scene, bvh: BVH | None) -> int:
+    """Spheres the kernels see: the permuted rows, dummies included."""
+    return scene.count if bvh is None else int(bvh.perm.shape[0])
+
+
 def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
-               vis_w: float = 0.0):
+               vis_w: float = 0.0, bvh: BVH | None = None, tape=None,
+               tape_partial: bool = False):
     """Fused image + VJP -> (img, d_scene, d_cam) for the image cotangent
     ``ct`` (H, W, 3), the counterpart of raytpu's ``render_pallas_vjp``.
 
-    ``d_scene.mat_type`` is None (a discrete leaf).  ``img`` (parallel RNG)
-    elides the kernel's PASS 1; the plain version ignores it.  ``vis_w >
-    0`` adds raytpu's silhouette (boundary) gradients.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    ``d_scene.mat_type`` is None (a discrete leaf); ``d_scene`` is in the
+    input order of the spheres, also with ``bvh`` (the kernel accumulates
+    in leaf order and the cotangents are scattered back by ``perm``,
+    dummies dropped).  ``img`` (parallel RNG) elides the kernel's PASS 1;
+    the plain version ignores it.  ``vis_w > 0`` adds raytpu's silhouette
+    (boundary) gradients.  ``tape`` (from :func:`render_tape_fwd` with the
+    same ``bvh``, parallel RNG, ``img`` given) is replayed instead of
+    sweeping its steps; ``tape_partial`` says whether it holds fewer than
+    ``spp * depth`` steps a pixel, and a tape that disagrees is refused.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     adjoint.check_cfg(cfg)
     device = megakernel.check_inputs(scene, cam, cfg)
     ct = torch.as_tensor(ct, dtype=torch.float32, device=device)
     _check_frame(cfg, ct, img, device)
+    rows = _kernel_rows(scene, bvh)
+    if bvh is not None:
+        megakernel.check_bvh(bvh, rows, device)
+    if tape is not None:
+        if cfg.rng_mode != "parallel" or img is None:
+            raise ValueError("the tape replay needs parallel RNG and the "
+                             "forward image (img=)")
+        megakernel.check_tape(tape, cfg, rows, device)
+        if (tape.shape[0] < cfg.spp * cfg.depth) != bool(tape_partial):
+            raise ValueError(
+                f"tape of {tape.shape[0]} steps a pixel passed as "
+                f"{'partial' if tape_partial else 'full'} for a frame of "
+                f"{cfg.spp * cfg.depth}")
     if device.type == "cpu":
-        return render_vjp_plain(scene, cam, cfg, ct, vis_w)
+        return render_vjp_plain(scene, cam, cfg, ct, vis_w, bvh, tape)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    out, gsc, gcam = launch(megakernel.pack_camera(cam),
-                            megakernel.pack_scene(scene), cfg, ct, img, vis_w)
+    packed = megakernel.pack_scene(scene if bvh is None else
+                                   permute_scene(scene, bvh.perm))
+    out, gsc, gcam = launch(megakernel.pack_camera(cam), packed, cfg, ct,
+                            img, vis_w, bvh, tape)
+    if bvh is not None:
+        # leaf order -> input order; each sphere has one row, dummies none
+        perm = bvh.perm.to(torch.int64)
+        real = perm >= 0
+        g = torch.zeros((LEAVES, scene.count), dtype=gsc.dtype, device=device)
+        g[:, perm[real]] = gsc[:, real]
+        gsc = g
     d_scene = _scene_grads(gsc[0:3].T.contiguous(), gsc[3],
                            gsc[4:7].T.contiguous(), gsc[7])
     return out, d_scene, camera_grads(gcam, cam)
+
+
+def tape_plan(cfg: RenderConfig, n: int, bvh: BVH | None = None,
+              vis_w: float = 0.0):
+    """-> ``{"g_cap", "bytes", "partial"}`` when the autograd path tapes,
+    else None (raytpu's ``tape_plan`` gate, with the port's sizing).
+
+    Tapes in parallel RNG only (K3 elides PASS 1 there, so the replay has
+    the forward's per-sample streams), with ``vis_w == 0`` (the
+    silhouette terms' near-miss sweep keeps the sweeping kernel) and from
+    :data:`TAPE_MIN_SPHERES` spheres (raytpu's scene-size gate).  A full
+    tape, ``g_cap = spp * depth`` steps a pixel, when it fits
+    :data:`TAPE_BUDGET`; else a partial tape of as many steps as fit, when
+    that is at least :data:`PARTIAL_MIN_COVERAGE` of ``spp * depth``; else
+    None.  ``n`` is the scene's sphere count; the element type follows the
+    kernel-side rows (``bvh.perm``'s length with a BVH)."""
+    if (cfg.rng_mode != "parallel" or vis_w != 0.0
+            or n < TAPE_MIN_SPHERES):
+        return None
+    rows = n if bvh is None else int(bvh.perm.shape[0])
+    elt = torch.empty((), dtype=golden.tape_dtype(rows)).element_size()
+    plane = cfg.height * cfg.width * elt  # one step of every pixel
+    worst = cfg.spp * cfg.depth
+    g_fit = TAPE_BUDGET // plane
+    if worst <= g_fit:
+        return {"g_cap": worst, "bytes": worst * plane, "partial": False}
+    if g_fit < 1 or g_fit < PARTIAL_MIN_COVERAGE * worst:
+        return None
+    return {"g_cap": int(g_fit), "bytes": int(g_fit) * plane, "partial": True}
+
+
+def render_tape_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
+                    g_cap: int, bvh: BVH | None = None):
+    """The taping forward -> (img, tape): the forward's image (K1a's, or
+    K1c's with ``bvh``, bit for bit: the same device function traces it)
+    and the winner-index tape, (g_cap, H*W) of :func:`golden.tape_dtype`,
+    ``tape[k, pix]`` the winner (a permuted index under a BVH, -1 for a
+    miss) of pixel ``pix``'s k-th bounce step across its samples in order.
+    Slots no step reached are left as allocated: the replay never reads
+    them, since it takes the forward's steps again (the plain version marks
+    them ``golden.TAPE_UNWRITTEN``; ``profiling.census`` counts the steps).
+    CPU tensors take the plain version (:func:`golden.render_golden_tape`);
+    CUDA tensors launch the taping forward kernel."""
+    device = megakernel.check_inputs(scene, cam, cfg)
+    rows = _kernel_rows(scene, bvh)
+    if bvh is not None:
+        megakernel.check_bvh(bvh, rows, device)
+    if not 0 <= g_cap <= cfg.spp * cfg.depth:
+        raise ValueError(f"g_cap {g_cap}: a frame of {cfg.spp} samples and "
+                         f"depth {cfg.depth} has at most "
+                         f"{cfg.spp * cfg.depth} steps a pixel")
+    if device.type == "cpu":
+        return golden.render_golden_tape(scene, cam, cfg, g_cap, bvh)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    tape = torch.empty((g_cap, cfg.height * cfg.width),
+                       dtype=golden.tape_dtype(rows), device=device)
+    packed = megakernel.pack_scene(scene if bvh is None else
+                                   permute_scene(scene, bvh.perm))
+    img = megakernel.launch(megakernel.pack_camera(cam), packed, cfg, bvh,
+                            tape=tape)
+    return img, tape

@@ -1,9 +1,11 @@
 """Render timing (counterpart of ``raytpu/profiling.py``'s RenderStats
-and ``timed``).
+and ``timed``) and the frame census.
 
 On a card the time comes from CUDA events around the calls, after a
 ``torch.cuda.synchronize()``; on the CPU from the host clock.  Every result
-names the device it ran on.
+names the device it ran on.  :func:`census` counts the work of a frame
+(raytpu's ``count_leaves`` census, scripts/probe_roofline.py's input): the
+census kernel K1' on a card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import time
 
 import torch
 
+from raytpu_torch import golden
 from raytpu_torch.config import RenderConfig
 
 
@@ -64,3 +67,39 @@ def timed(fn, cfg: RenderConfig, label: str = "fwd",
         wall_s=wall, primary_rays=rays, rays_per_sec=rays / wall,
         config=f"{cfg.width}x{cfg.height} spp{cfg.spp} d{cfg.depth}",
         device=device, label=label)
+
+
+def census(scene, cam, cfg: RenderConfig, bvh=None) -> dict:
+    """The work of one frame -> {"leaves_entered", "bounce_steps",
+    "samples", "sphere_tests", "box_tests", "device"}: samples traced,
+    closest-hit steps (one per bounce taken, identical for the brute and the
+    BVH sweep), the BVH leaves those steps enter, and from them the sphere
+    tests the sweep runs (every sphere a step, or the outliers plus
+    ``leaf_size`` a leaf entered) and the leaf-box tests (every leaf of the
+    ray's octant copy a step).  CUDA tensors launch the census kernel K1'
+    (:func:`raytpu_torch.kernels.megakernel.launch` with ``count=True``);
+    CPU tensors run its plain version."""
+    from raytpu_torch.bvh import permute_scene
+    from raytpu_torch.kernels import megakernel
+    device = megakernel.check_inputs(scene, cam, cfg)
+    if device.type == "cpu":
+        counts = dict.fromkeys(golden.CENSUS, 0)
+        golden.render_golden(scene, cam, cfg, bvh, census=counts)
+        name = "cpu"
+    else:
+        packed = megakernel.pack_scene(scene if bvh is None else
+                                       permute_scene(scene, bvh.perm))
+        _, cnt = megakernel.launch(megakernel.pack_camera(cam), packed, cfg,
+                                   bvh, count=True)
+        counts = dict(zip(golden.CENSUS, (int(c) for c in cnt.tolist())))
+        name = torch.cuda.get_device_name(device)
+    steps = counts["bounce_steps"]
+    if bvh is None:
+        counts["sphere_tests"] = steps * scene.count
+        counts["box_tests"] = 0
+    else:
+        counts["sphere_tests"] = (counts["leaves_entered"] * bvh.leaf_size
+                                  + steps * bvh.n_outliers)
+        counts["box_tests"] = steps * bvh.n_leaves
+    counts["device"] = name
+    return counts

@@ -14,6 +14,13 @@ a backward (on CUDA tensors the forward kernel K1a and the fused VJP kernel
 K3; on CPU tensors the plain golden forward and the adjoint VJP).
 :func:`render_grad` is raytpu's surface: an MSE loss against a target and
 the gradients of the scene's and camera's continuous leaves.
+
+``bvh=`` (:func:`raytpu_torch.bvh.build_bvh` of the scene, on its device)
+sweeps the BVH's flat leaf list instead of every sphere: K1c forward and
+K3's BVH variant backward on CUDA tensors, their plain versions on CPU
+tensors.  In parallel RNG with ``vis_w == 0`` (from 8 spheres) the
+gradient path tapes each bounce's winner in the forward (K4) and K3 replays the tape instead of
+sweeping (:func:`raytpu_torch.kernels.gradkernel.tape_plan`).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ BACKENDS = ("auto", "golden", "cuda")
 
 def render(scene: Scene, cam: Camera, cfg: RenderConfig,
            backend: str = "auto", device=None,
-           vis_w: float = 0.0) -> torch.Tensor:
+           vis_w: float = 0.0, bvh=None) -> torch.Tensor:
     """Render -> (H, W, 3) f32 image in [0, 1] on the inputs' device.
 
     Row 0 is the bottom scanline (v = 0); use :func:`raytpu_torch.io.save_image`
@@ -41,7 +48,9 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig,
     grad, the image is differentiable: ``golden`` through plain autograd,
     ``auto`` / ``cuda`` through the kernels' autograd Function, whose
     backward adds silhouette gradients for ``vis_w > 0`` (the image itself
-    does not depend on ``vis_w``).
+    does not depend on ``vis_w``).  ``bvh`` (built for this scene; moved
+    with it when ``device`` is given) makes every backend sweep its flat
+    leaf list: the same image up to exact ties of t between spheres.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend: {backend!r} (choose from "
@@ -49,18 +58,19 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig,
     if device is not None:
         scene = Scene(*(t.to(device) for t in scene))
         cam = Camera(*(t.to(device) for t in cam))
+        bvh = None if bvh is None else bvh.to(device)
     if backend == "golden":
-        return golden.render_golden(scene, cam, cfg)
+        return golden.render_golden(scene, cam, cfg, bvh)
     if backend == "cuda" and not scene.center.is_cuda:
         raise ValueError("backend='cuda' needs CUDA tensors; the scene is on "
                          f"{scene.center.device}")
     # "auto" and "cuda": the wrapper launches the kernel on CUDA tensors
     # and runs the plain version on CPU tensors
-    return megakernel.render_fwd(scene, cam, cfg, vis_w=vis_w)
+    return megakernel.render_fwd(scene, cam, cfg, vis_w=vis_w, bvh=bvh)
 
 
 def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
-                backend: str = "auto", vis_w: float = 0.0):
+                backend: str = "auto", vis_w: float = 0.0, bvh=None):
     """MSE loss against ``target`` and its gradients w.r.t. (scene, camera).
 
     Returns ``(loss, image, (scene_grads, camera_grads))``: a Scene whose
@@ -69,7 +79,12 @@ def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
     stays the exact hard render.  ``backend="golden"`` runs the adjoint
     renderer (raytpu_torch/adjoint.py) on any device; ``"auto"`` and
     ``"cuda"`` the kernels on CUDA tensors (K1a forward, K3 backward) and
-    the plain versions on CPU tensors.
+    the plain versions on CPU tensors.  ``bvh`` makes ``"auto"`` and
+    ``"cuda"`` sweep its flat leaf list (K1c forward or, in parallel RNG,
+    the taping forward K4; K3's BVH variant or its tape replay backward);
+    ``"golden"`` ignores it, as raytpu's adjoint is the brute-force oracle
+    (raytpu/render.py:139).  An optimisation loop that moves spheres keeps
+    the BVH's boxes around them with :func:`raytpu_torch.bvh.refit`.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend: {backend!r} (choose from "
@@ -89,7 +104,7 @@ def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
         if backend == "golden":
             img = adjoint.render_golden_adjoint(s, c, cfg, vis_w)
         else:
-            img = megakernel.render_fwd(s, c, cfg, vis_w=vis_w)
+            img = megakernel.render_fwd(s, c, cfg, vis_w=vis_w, bvh=bvh)
         loss = torch.mean((img - target) ** 2)
         grads = torch.autograd.grad(loss, leaves)
     scene_grads = Scene(center=grads[0], radius=grads[1], mat_type=None,

@@ -1,0 +1,351 @@
+"""The port's BVH (raytpu_torch.bvh, raytpu_torch.native, the flat sweep
+golden.hit_world_bvh and the BVH render and gradient paths) on the CPU
+against raytpu.
+
+Inputs are raytpu's scenes carried across with ``raytpu_torch.convert`` and
+rays drawn from numpy seeds.  Tolerances:
+- the build (nodes, perm, flat), ``permute_scene`` and ``refit``:
+  array-equal (both builds are the same host arithmetic in f64 and f32);
+- the flat sweep's winners, mapped through ``perm``: bit-exact against
+  raytpu's golden ``hit_world`` (the brute sweep); its t bit-equal to the
+  port's own brute ``hit_world`` and within 1e-4 of raytpu's (XLA may
+  contract the ground sphere's discriminant into a multiply-add: measured
+  6.8e-5 on 12 of 1311 hits);
+- the BVH render: |d| <= 3e-4 on at least 99.9% of pixels against
+  ``render_pallas(..., bvh=, interpret=True)`` (the cross-context image
+  budget of tests/test_torch_megakernel.py) in parallel RNG.  In sequential
+  RNG three of the 2048 pixels differ by up to 0.055 (0.15%): a path flip
+  between XLA's and torch's rounding, carried on by the pixel's seed chain,
+  the same three pixels on raytpu's brute Pallas render against the port's
+  brute render.  That case holds the BVH render to exactly the brute
+  render's disagreement;
+- ``render_grad(bvh=)``: 5e-3 of each leaf's largest entry against raytpu's
+  golden gradients (the port's gradient budget, tests/test_torch_adjoint.py)
+  at depth 3; at depth 4 the sequential case's path flip moves the geometry
+  cotangents by up to 0.47 of their largest entry on the brute path too.
+  Against the port's own brute path the BVH gradients are bit-equal.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import raytpu
+from raytpu import bvh as jbvh, golden as jgolden
+from raytpu.config import RenderConfig
+from raytpu.kernels import megakernel as jmk
+from raytpu.render import render_grad as j_render_grad
+import raytpu_torch as rt
+from raytpu_torch import bvh as tbvh, convert, golden, native, profiling
+from raytpu_torch.kernels import gradkernel as tgk, megakernel as tmk
+from test_torch_adjoint import GRAD_BUDGET, leaf_errors
+
+CFG = RenderConfig(width=64, height=32, spp=2, depth=4)
+LOOK = ((13.0, 2.0, 3.0), (0.0, 0.0, 0.0))
+
+
+def _np(nt):
+    return {k: np.asarray(v) for k, v in nt._asdict().items()}
+
+
+def _port_scene(scene):
+    return convert.scene_from_numpy(_np(scene), "cpu")
+
+
+def _world(n=48, cfg=CFG):
+    scene = raytpu.final_world(n=n)
+    cam = raytpu.make_camera(*LOOK, vfov=20.0, aspect=cfg.aspect)
+    return (scene, cam, _port_scene(scene),
+            convert.camera_from_numpy(_np(cam), "cpu"))
+
+
+def _assert_same_bvh(got, want):
+    np.testing.assert_array_equal(got.nodes.numpy(), np.asarray(want.nodes))
+    np.testing.assert_array_equal(got.perm.numpy(), np.asarray(want.perm))
+    assert got.leaf_size == want.leaf_size
+    if want.flat is None:
+        assert got.flat is None
+    else:
+        np.testing.assert_array_equal(got.flat.numpy(),
+                                      np.asarray(want.flat))
+    assert (got.n_outliers, got.n_trav, got.n_leaves) == (
+        want.n_outliers, want.n_trav, want.n_leaves)
+
+
+@pytest.mark.parametrize("leaf", [1, 4, 16, 64])
+@pytest.mark.parametrize("split", [True, False], ids=["split", "nosplit"])
+@pytest.mark.parametrize("builder,use_native", [
+    ("median", True), ("median", False), ("sah", True)],
+    ids=["median_native", "median_numpy", "sah"])
+def test_build_matches_raytpu(builder, use_native, split, leaf):
+    scene = raytpu.final_world(n=48)
+    want = jbvh.build_bvh(scene, leaf_size=leaf, use_native=use_native,
+                          builder=builder, split_outliers=split)
+    got = tbvh.build_bvh(_port_scene(scene), leaf_size=leaf,
+                         use_native=use_native, builder=builder,
+                         split_outliers=split)
+    _assert_same_bvh(got, want)
+    assert got.spheres == 48
+    assert got.built_by == (f"native {builder}" if use_native or
+                            builder == "sah" else "numpy median")
+    assert got.n_outliers == (1 if split else 0)  # the ground sphere
+
+
+def test_build_unpadded_matches_raytpu():
+    scene = raytpu.random_world(seed=2, half_extent=3)
+    want = jbvh.build_bvh(scene, leaf_size=8, pad_leaves=False)
+    got = tbvh.build_bvh(_port_scene(scene), leaf_size=8, pad_leaves=False)
+    _assert_same_bvh(got, want)
+
+
+def test_native_builder_is_built_here_and_numpy_is_its_fallback(monkeypatch):
+    """native.py compiles native/rt_native.cpp into raytpu_torch/build/ and
+    records the builder that ran; without the library build_bvh falls back
+    to the numpy median builder, with the same arrays."""
+    scene = _port_scene(raytpu.final_world(n=40))
+    lib = native.get_lib()
+    assert lib is not None, native.build_error
+    assert native.BUILD_DIR.name == "build"
+    assert native.BUILD_DIR.parent.name == "raytpu_torch"
+    assert lib.rt_native_abi_version() == native.ABI_VERSION == 2
+    a = tbvh.build_bvh(scene, leaf_size=8)
+    monkeypatch.setattr(native, "build_bvh_native", lambda *a, **k: None)
+    b = tbvh.build_bvh(scene, leaf_size=8)
+    assert (a.built_by, b.built_by) == ("native median", "numpy median")
+    for x, y in ((a.nodes, b.nodes), (a.perm, b.perm), (a.flat, b.flat)):
+        assert torch.equal(x, y)
+    # SAH without the library falls back to median, as raytpu's does
+    assert tbvh.build_bvh(scene, leaf_size=8, builder="sah").built_by == \
+        "numpy median"
+    with pytest.raises(ValueError, match="builder"):
+        tbvh.build_bvh(scene, builder="lbvh")
+
+
+def test_refit_matches_raytpu():
+    scene = raytpu.final_world(n=48)
+    bvh_j = jbvh.build_bvh(scene, leaf_size=8)
+    shift = np.random.default_rng(4).normal(0, 0.3, (48, 3)).astype(
+        np.float32)
+    moved = scene._replace(center=np.asarray(scene.center) + shift)
+    want = jbvh.refit(bvh_j, moved)
+    got = tbvh.refit(tbvh.build_bvh(_port_scene(scene), leaf_size=8),
+                     _port_scene(moved))
+    np.testing.assert_array_equal(got.flat.numpy(), np.asarray(want.flat))
+    np.testing.assert_array_equal(got.nodes.numpy(), np.asarray(want.nodes))
+    with pytest.raises(ValueError, match="refit"):
+        tbvh.refit(tbvh.build_bvh(_port_scene(scene), pad_leaves=False),
+                   _port_scene(moved))
+
+
+def test_permute_scene_round_trips():
+    scene = _port_scene(raytpu.final_world(n=48))
+    b = tbvh.build_bvh(scene, leaf_size=16)
+    ps = tbvh.permute_scene(scene, b.perm)
+    want = jbvh.permute_scene(raytpu.final_world(n=48),
+                              np.asarray(b.perm.numpy()))
+    for k in ("center", "radius", "mat_type", "albedo", "mat_param"):
+        np.testing.assert_array_equal(getattr(ps, k).numpy(),
+                                      np.asarray(getattr(want, k)), err_msg=k)
+    real = b.perm >= 0
+    assert int(real.sum()) == 48 and bool(torch.isnan(ps.radius[~real]).all())
+    back = torch.empty_like(scene.center)
+    back[b.perm[real].long()] = ps.center[real]
+    assert torch.equal(back, scene.center)
+
+
+def _rays(n=2048, seed=9):
+    rs = np.random.default_rng(seed)
+    o = np.float32([13.0, 2.0, 3.0]) + rs.normal(0, 2.0, (n, 3))
+    o[: n // 4] = rs.uniform(-10, 10, (n // 4, 3)) * [1, 0.1, 1] + [0, 0.3, 0]
+    d = rs.normal(0, 1.0, (n, 3))
+    d[n // 4:] += -o[n // 4:] / 10
+    d[:8] = [[1, 0, 0], [0, -1, 0], [0, 0, 1], [-1, 0, 0],
+             [0, 1e-9, -1], [1, -1, 0], [0, -1, 1], [-1, -1, -1]]
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def test_flat_sweep_winners_bit_exact_against_raytpu_hit_world():
+    """hit_world_bvh on 2048 rays (a quarter starting among the spheres,
+    axis-aligned and grazing directions among them): its winners mapped
+    through perm, its t and its normals equal raytpu's brute golden."""
+    scene_j = raytpu.final_world(n=48)
+    o, d = _rays()
+    ro = tuple(o[:, i] for i in range(3))
+    rd = tuple(d[:, i] for i in range(3))
+    hit_j, t_j, idx_j, n_j, front_j = jgolden.hit_world(
+        scene_j, ro, rd, np.float32(1e-3))
+    scene = _port_scene(scene_j)
+    for leaf in (4, 16, 64):
+        b = tbvh.build_bvh(scene, leaf_size=leaf)
+        ps = tbvh.permute_scene(scene, b.perm)
+        hit, t, idx, nrm, front = golden.hit_world_bvh(
+            ps, b, tuple(torch.from_numpy(x) for x in ro),
+            tuple(torch.from_numpy(x) for x in rd), 1e-3)
+        np.testing.assert_array_equal(hit.numpy(), np.asarray(hit_j))
+        h = hit.numpy()
+        assert h.mean() > 0.3 and not h.all()
+        np.testing.assert_array_equal(b.perm[idx].long().numpy()[h],
+                                      np.asarray(idx_j)[h])
+        np.testing.assert_allclose(t.numpy()[h], np.asarray(t_j)[h],
+                                   rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(front.numpy()[h], np.asarray(front_j)[h])
+        # against the port's own brute sweep: bit-equal
+        want = golden.hit_world(scene, tuple(torch.from_numpy(x) for x in ro),
+                                tuple(torch.from_numpy(x) for x in rd), 1e-3)
+        assert torch.equal(hit, want[0]) and torch.equal(t, want[1])
+        assert torch.equal(b.perm[idx].long()[hit], want[2][hit].long())
+        for a, w in zip(nrm, want[3]):
+            assert torch.equal(a[hit], w[hit])
+
+
+def test_flat_sweep_agrees_with_the_scalar_oracle():
+    """closest_hit_numpy (the skip-pointer walk over ``nodes``, f64) and
+    the flat sweep pick the same sphere on 256 rays."""
+    scene = _port_scene(raytpu.final_world(n=48))
+    b = tbvh.build_bvh(scene, leaf_size=8)
+    ps = tbvh.permute_scene(scene, b.perm)
+    o, d = _rays(256, seed=3)
+    _, _, idx, _, _ = golden.hit_world_bvh(
+        ps, b, tuple(torch.from_numpy(o[:, i].copy()) for i in range(3)),
+        tuple(torch.from_numpy(d[:, i].copy()) for i in range(3)), 1e-3)
+    hit = 0
+    for i in range(256):
+        t, j = tbvh.closest_hit_numpy(
+            b.nodes.numpy()[: b.n_trav], ps.center.numpy(),
+            ps.radius.numpy(), o[i].astype(np.float64),
+            d[i].astype(np.float64), 1e-3, b.n_outliers)
+        if j >= 0:
+            hit += 1
+            assert int(idx[i]) == j, i
+    assert hit > 64
+
+
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_bvh_render_matches_pallas_interpret(rng_mode):
+    cfg = CFG.replace(rng_mode=rng_mode)
+    scene_j, cam_j, scene, cam = _world(cfg=cfg)
+    bvh_j = jbvh.build_bvh(scene_j, leaf_size=16)
+    want = np.asarray(jmk.render_pallas(scene_j, cam_j, cfg, bvh=bvh_j,
+                                        interpret=True))
+    b = tbvh.build_bvh(scene, leaf_size=16)
+    before = dict(tmk.variants)
+    got = rt.render(scene, cam, cfg, bvh=b)
+    assert tmk.variants == before  # CPU tensors never reach the kernel
+    d = np.abs(got.numpy() - want).max(axis=-1)
+    if rng_mode == "parallel":
+        assert float((d > 3e-4).mean()) <= 1e-3, float(d.max())
+    else:  # the brute path's own cross-context flips, and no others
+        want_brute = np.asarray(jmk.render_pallas(scene_j, cam_j, cfg,
+                                                  interpret=True))
+        d_brute = np.abs(rt.render(scene, cam, cfg).numpy()
+                         - want_brute).max(axis=-1)
+        np.testing.assert_array_equal(d > 3e-4, d_brute > 3e-4)
+        assert float((d > 3e-4).mean()) <= 2e-3, float(d.max())
+    # the flat sweep gives the brute sweep's image (no ties here)
+    assert torch.equal(got, rt.render(scene, cam, cfg))
+    assert torch.equal(got, rt.render(scene, cam, cfg, backend="golden",
+                                      bvh=b))
+
+
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_render_grad_bvh_matches_raytpu_golden(rng_mode):
+    """render_grad(bvh=) on CPU tensors (the BVH autograd Function: the
+    flat-sweep forward, in parallel RNG the taping one, and the adjoint's
+    VJP over the scene in leaf order, replaying the tape) against raytpu's
+    golden gradients; the gradients come back in input order."""
+    cfg = CFG.replace(depth=3, rng_mode=rng_mode)
+    scene_j, cam_j, scene, cam = _world(cfg=cfg)
+    target = np.random.default_rng(2).uniform(
+        0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
+    loss_j, img_j, (gs_j, gc_j) = j_render_grad(scene_j, cam_j, cfg, target,
+                                                backend="golden")
+    b = tbvh.build_bvh(scene, leaf_size=8)
+    loss, img, (gs, gc) = rt.render_grad(scene, cam, cfg, target, bvh=b)
+    d = np.abs(img.numpy() - np.asarray(img_j)).max(axis=-1)
+    assert float((d > 3e-4).mean()) <= 1e-3, float(d.max())
+    # the image budget lets 0.1% of pixels flip: one flipped pixel of 2048
+    # moves the mean squared error by up to ~1e-4 of it (measured 7.4e-5)
+    np.testing.assert_allclose(float(loss), float(loss_j), rtol=2e-4)
+    errs = leaf_errors(gs, gc, convert.scene_grads_from_numpy(gs_j, "cpu"),
+                       gc_j)
+    assert max(errs.values()) <= GRAD_BUDGET, errs
+    # against the port's own brute path (untaped): bit-equal
+    _, _, (gs_b, gc_b) = rt.render_grad(scene, cam, cfg, target)
+    for k in ("center", "radius", "albedo", "mat_param"):
+        assert torch.equal(getattr(gs, k), getattr(gs_b, k)), k
+    # golden ignores the BVH for gradients, as raytpu's does
+    _, _, (gs_g, _) = rt.render_grad(scene, cam, cfg, target,
+                                     backend="golden", bvh=b)
+    errs_g = leaf_errors(gs_g, gc, gs, gc)
+    assert max(errs_g.values()) <= GRAD_BUDGET, errs_g
+
+
+def test_bvh_autograd_gives_no_gradient_to_the_bvh():
+    cfg = RenderConfig(width=16, height=8, spp=1, depth=2)
+    _, _, scene, cam = _world(n=24, cfg=cfg)
+    b = tbvh.build_bvh(scene, leaf_size=4)
+    center = scene.center.clone().requires_grad_()
+    flat = b.flat.clone().requires_grad_()
+    img = rt.render(scene._replace(center=center), cam, cfg,
+                    bvh=dataclasses.replace(b, flat=flat))
+    g_center, g_flat = torch.autograd.grad(img.sum(), (center, flat),
+                                           allow_unused=True)
+    assert g_flat is None and bool(torch.isfinite(g_center).all())
+    assert g_center.abs().sum() > 0
+
+
+def test_wrappers_refuse_a_bad_bvh_and_cpu_tensors_on_the_kernels():
+    cfg = RenderConfig(width=16, height=8, spp=1, depth=2)
+    _, _, scene, cam = _world(n=24, cfg=cfg)
+    b = tbvh.build_bvh(scene, leaf_size=4)
+    with pytest.raises(ValueError, match="flat"):
+        rt.render(scene, cam, cfg, bvh=tbvh.build_bvh(scene,
+                                                      pad_leaves=False))
+    with pytest.raises(ValueError, match="bvh.flat"):
+        rt.render(scene, cam, cfg, bvh=dataclasses.replace(
+            b, flat=b.flat.double()))
+    with pytest.raises(ValueError, match="built for 24"):
+        rt.render(scene._replace(**{k: getattr(scene, k)[:20] for k in (
+            "center", "radius", "mat_type", "albedo", "mat_param")}),
+            cam, cfg, bvh=b)
+    with pytest.raises(ValueError, match="perm"):
+        tmk.check_bvh(b, b.perm.shape[0] + 1, b.device)
+    with pytest.raises(ValueError, match="raytpu_torch.bvh.BVH"):
+        rt.render(scene, cam, cfg, bvh=(b.nodes, b.perm))
+    packed = tmk.pack_scene(tbvh.permute_scene(scene, b.perm))
+    with pytest.raises(ValueError, match="CUDA"):
+        tmk.launch(tmk.pack_camera(cam), packed, cfg, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgk.launch(tmk.pack_camera(cam), packed, cfg,
+                   torch.zeros(cfg.height, cfg.width, 3), bvh=b)
+    with pytest.raises(ValueError, match="CUDA"):
+        rt.render(scene, cam, cfg, backend="cuda", bvh=b)
+
+
+def test_census_plain_version_counts_the_frame():
+    """profiling.census on CPU tensors (the plain version of K1'): samples
+    are W*H*spp, the bounce steps the slots a full tape fills, the same for
+    the brute and the BVH sweep; leaves entered lie between one a step
+    that is not stopped by the outlier alone and every leaf; the image is
+    untouched by counting."""
+    cfg = CFG.replace(rng_mode="parallel")
+    _, _, scene, cam = _world(cfg=cfg)
+    b = tbvh.build_bvh(scene, leaf_size=16)
+    got = profiling.census(scene, cam, cfg, b)
+    brute = profiling.census(scene, cam, cfg)
+    _, tape = golden.render_golden_tape(scene, cam, cfg,
+                                        cfg.spp * cfg.depth, b)
+    steps = int((tape != golden.TAPE_UNWRITTEN).sum())
+    assert got["samples"] == brute["samples"] == 64 * 32 * 2
+    assert got["bounce_steps"] == brute["bounce_steps"] == steps
+    assert brute["leaves_entered"] == 0 and got["device"] == "cpu"
+    assert 0 < got["leaves_entered"] <= steps * b.n_leaves
+    assert got["sphere_tests"] == (got["leaves_entered"] * 16
+                                   + steps * b.n_outliers)
+    assert got["box_tests"] == steps * b.n_leaves
+    assert brute["sphere_tests"] == steps * 48
+    counts = dict.fromkeys(golden.CENSUS, 0)
+    img = golden.render_golden(scene, cam, cfg, b, census=counts)
+    assert torch.equal(img, golden.render_golden(scene, cam, cfg, b))

@@ -59,7 +59,27 @@ def test_cli_render_other_scenes_and_modes(tmp_path, scene):
                                   ["--devices", "2"]],
                          ids=["bvh", "progressive", "devices"])
 def test_cli_refuses_unported_options(tmp_path, flag):
+    """--progressive and --devices refuse with their ROADMAP item.  --bvh
+    is ported: it writes the image render(..., bvh=build_bvh(scene))
+    gives, with either builder; --bvh-builder without --bvh refuses."""
     out = tmp_path / "never.png"
+    if flag == ["--bvh"]:
+        for builder in ("median", "sah"):
+            assert cli.main(["render", "--scene", "final", *SMALL,
+                             "--device", "cpu", "--bvh", "--bvh-builder",
+                             builder, "--out", str(out)]) == 0
+            cfg = RenderConfig(width=32, height=16, spp=1, depth=3)
+            scene = rt.final_world(device="cpu")
+            img = rt.render(scene, rt.make_camera(
+                (13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                aspect=cfg.aspect, device="cpu"), cfg,
+                bvh=rt.build_bvh(scene, builder=builder))
+            np.testing.assert_array_equal(_read_png(out)[2],
+                                          io.to_uint8(img.numpy()))
+        with pytest.raises(SystemExit, match="--bvh-builder needs --bvh"):
+            cli.main(["render", *SMALL, "--device", "cpu", "--bvh-builder",
+                      "sah", "--out", str(tmp_path / "never2.png")])
+        return
     with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
         cli.main(["render", *SMALL, "--device", "cpu", *flag,
                   "--out", str(out)])
@@ -98,11 +118,18 @@ def test_cli_module_entry_point(tmp_path):
         cwd=ROOT, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     assert "on cpu" in proc.stdout and out.exists()
+    out_bvh = tmp_path / "bvh.png"
     proc = subprocess.run(
         [sys.executable, "-m", "raytpu_torch.cli", "render", "--bvh",
-         "--device", "cpu", "--out", str(out)],
+         "--scene", "final", *SMALL, "--device", "cpu", "--out",
+         str(out_bvh)], cwd=ROOT, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    assert "on cpu" in proc.stdout and out_bvh.exists()
+    proc = subprocess.run(
+        [sys.executable, "-m", "raytpu_torch.cli", "render", "--progressive",
+         "2", "--device", "cpu", "--out", str(out)],
         cwd=ROOT, capture_output=True, text=True)
-    assert proc.returncode != 0 and "M5" in proc.stderr
+    assert proc.returncode != 0 and "M8" in proc.stderr
 
 
 def test_io_matches_raytpu(tmp_path):

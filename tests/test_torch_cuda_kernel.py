@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-forward megakernel K1a and the fused VJP kernel K3.
+forward megakernel K1a, its BVH variant K1c and census K1', the taping
+forward K4 and the fused VJP kernel K3 with its BVH and tape-replay
+variants.
 
 These tests need a CUDA card and nvcc; without a card they skip (the
 condition is a string, so pytest evaluates it at setup, not at import).
@@ -18,14 +20,18 @@ a near-tie closest hit.  So: |d| <= 3e-4 (the repo's cross-context image
 budget) on all but 0.1% of pixels; depth 1 (no scatter) to 1e-6 everywhere.
 K3's image runs K1a's device code and must equal K1a's bit for bit; its
 cotangents are held to 1e-3 of each leaf's largest entry (chip_smoke.py
-phase 2b states why).
+phase 2b states why).  K1c's image equals K1a's except on exact ties of t
+between spheres (none here); the taping forward's image equals the
+untaped one bit for bit, and K3's taped gradients equal its untaped ones
+(the same f64 sums, atomics in whatever order: bit-equal after the f32 cast
+at these sizes).
 """
 
 import pytest
 import torch
 
 import raytpu_torch as rt
-from raytpu_torch import golden
+from raytpu_torch import bvh as tbvh, golden
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import gradkernel, megakernel
 
@@ -178,3 +184,135 @@ def test_kernel_deterministic_and_rejects_bad_packs():
         megakernel.launch(cp, sp[:, ::2], cfg)
     with pytest.raises(ValueError):
         megakernel.launch(cp.cpu(), sp, cfg)
+
+
+def _bvh_world(cfg, n=120, leaf=16):
+    scene = rt.final_world(n=n, device="cuda")
+    return scene, _cam(cfg), tbvh.build_bvh(scene, leaf_size=leaf)
+
+
+def _reset_counts():
+    for d in (megakernel.variants, gradkernel.variants):
+        for k in d:
+            d[k] = 0
+
+
+@needs_card
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_bvh_kernel_matches_plain_and_brute(rng_mode):
+    cfg = RenderConfig(width=128, height=64, spp=4, depth=8,
+                       rng_mode=rng_mode)
+    scene, cam, bvh = _bvh_world(cfg)
+    _reset_counts()
+    got = rt.render(scene, cam, cfg, bvh=bvh)
+    brute = rt.render(scene, cam, cfg)
+    assert megakernel.variants["K1c"] == 1 == megakernel.variants["K1a"]
+    _agree(got, golden.render_golden(scene, cam, cfg, bvh))
+    assert torch.equal(got, brute)
+
+
+@needs_card
+def test_census_counts_the_frame():
+    """K1': the image is K1c's; samples = W*H*spp; bounce steps = the
+    slots the taping forward writes; a brute census counts the same steps
+    and enters no leaf."""
+    cfg = RenderConfig(width=96, height=48, spp=3, depth=6,
+                       rng_mode="parallel")
+    scene, cam, bvh = _bvh_world(cfg)
+    cp = megakernel.pack_camera(cam)
+    sp = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    img, cen = megakernel.launch(cp, sp, cfg, bvh, count=True)
+    # the taping forward writes only the slots of steps taken
+    tape = torch.full((cfg.spp * cfg.depth, 96 * 48), golden.TAPE_UNWRITTEN,
+                      dtype=golden.tape_dtype(sp.shape[1]), device="cuda")
+    megakernel.launch(cp, sp, cfg, bvh, tape=tape)
+    leaves, steps, samples = cen.tolist()
+    assert torch.equal(img, megakernel.launch(cp, sp, cfg, bvh))
+    assert samples == 96 * 48 * 3
+    assert steps == int((tape != golden.TAPE_UNWRITTEN).sum())
+    assert 0 < leaves <= steps * bvh.n_leaves
+    _, cen_b = megakernel.launch(cp, megakernel.pack_scene(scene), cfg,
+                                 count=True)
+    assert cen_b.tolist() == [0, steps, samples]
+    # the plain version on the same CUDA tensors counts the same work (a
+    # path flip between the two could move a few steps: none here)
+    plain = dict.fromkeys(golden.CENSUS, 0)
+    golden.render_golden(scene, cam, cfg, bvh, census=plain)
+    assert [plain[k] for k in golden.CENSUS] == cen.tolist()
+
+
+def _grads(out):
+    return (out[0], *[getattr(out[1], k) for k in
+                      ("center", "radius", "albedo", "mat_param")], *out[2])
+
+
+@needs_card
+@pytest.mark.parametrize("sweep", ["brute", "bvh"])
+def test_tape_write_and_replay_bit_equal(sweep):
+    cfg = RenderConfig(width=96, height=48, spp=2, depth=5,
+                       rng_mode="parallel")
+    scene, cam, bvh = _bvh_world(cfg)
+    bvh = bvh if sweep == "bvh" else None
+    full = cfg.spp * cfg.depth
+    img, tape = gradkernel.render_tape_fwd(scene, cam, cfg, full, bvh)
+    assert torch.equal(img, rt.render(scene, cam, cfg, bvh=bvh))
+    _, want_tape = golden.render_golden_tape(scene, cam, cfg, full, bvh)
+    written = want_tape != golden.TAPE_UNWRITTEN  # the rest is never read
+    assert float((tape == want_tape)[written].float().mean()) >= 0.999
+    ct = 2.0 * (img - 0.25) / img.numel()
+    base = _grads(gradkernel.render_vjp(scene, cam, cfg, ct, img=img,
+                                        bvh=bvh))
+    for g_cap in (full, 0, 1, 2, cfg.depth + 3):
+        _reset_counts()
+        out = gradkernel.render_vjp(scene, cam, cfg, ct, img=img, bvh=bvh,
+                                    tape=tape[:g_cap].contiguous(),
+                                    tape_partial=g_cap < full)
+        assert gradkernel.variants["K3/bvh+tape" if bvh else "K3/tape"] == 1
+        for a, b in zip(_grads(out), base):
+            assert torch.equal(a, b), g_cap
+
+
+@needs_card
+@pytest.mark.parametrize("rng_mode,vis_w", [("sequential", 0.0),
+                                            ("parallel", 0.0),
+                                            ("sequential", 0.005)])
+def test_bvh_vjp_kernel_matches_plain(rng_mode, vis_w):
+    cfg = RenderConfig(width=64, height=32, spp=2, depth=4,
+                       rng_mode=rng_mode)
+    scene, cam, bvh = _bvh_world(cfg, n=48)
+    img = rt.render(scene, cam, cfg, bvh=bvh)
+    ct = 2.0 * (img - 0.5) / img.numel()
+    _reset_counts()
+    got = gradkernel.render_vjp(scene, cam, cfg, ct, vis_w=vis_w, bvh=bvh)
+    assert gradkernel.variants["K3/bvh"] == 1
+    want = gradkernel.render_vjp_plain(scene, cam, cfg, ct, vis_w, bvh)
+    assert torch.equal(got[0], img)
+    errs = _vjp_errors(got, want)
+    assert max(errs.values()) <= 1e-3, errs
+    brute = gradkernel.render_vjp(scene, cam, cfg, ct, vis_w=vis_w)
+    errs = _vjp_errors(got, brute)
+    assert max(errs.values()) <= 1e-6, errs
+
+
+@needs_card
+def test_bvh_autograd_launches():
+    """render_grad(bvh=): parallel RNG runs the taping forward and K3's
+    tape replay; sequential RNG K1c and K3's BVH variant, and no tape."""
+    cfg = RenderConfig(width=64, height=32, spp=2, depth=4,
+                       rng_mode="parallel")
+    scene, cam, bvh = _bvh_world(cfg, n=48)
+    target = torch.zeros(32, 64, 3, device="cuda")
+    _reset_counts()
+    _, _, (sg, _) = rt.render_grad(scene, cam, cfg, target, bvh=bvh)
+    assert megakernel.variants["K4/bvh"] == 1
+    assert gradkernel.variants["K3/bvh+tape"] == 1
+    assert sum(megakernel.variants.values()) == 1
+    assert sum(gradkernel.variants.values()) == 1
+    _reset_counts()
+    _, _, (sg2, _) = rt.render_grad(scene, cam, cfg.replace(
+        rng_mode="sequential"), target, bvh=bvh)
+    assert megakernel.variants["K1c"] == 1 == gradkernel.variants["K3/bvh"]
+    assert sum(megakernel.variants.values()) == 1
+    assert sum(gradkernel.variants.values()) == 1
+    assert bool(torch.isfinite(sg.center).all())
+    assert bool(torch.isfinite(sg2.center).all())

@@ -183,7 +183,8 @@ def test_import_leaves_jax_unloaded():
         "import raytpu_torch, raytpu_torch.cli, raytpu_torch.convert, "
         "raytpu_torch.io, raytpu_torch.profiling, raytpu_torch.adjoint, "
         "raytpu_torch.optim, raytpu_torch.kernels.megakernel, "
-        "raytpu_torch.kernels.gradkernel\n"
+        "raytpu_torch.kernels.gradkernel, raytpu_torch.bvh, "
+        "raytpu_torch.native\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'raytpu'))\n"
