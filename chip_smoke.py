@@ -3,12 +3,13 @@
     python3 chip_smoke.py
 
 Needs a CUDA card and nvcc; builds the port's CUDA kernels from
-``raytpu_torch/csrc/`` (the forward megakernels K1a / K1c / K1' / K4-write
-and the fused VJP kernel K3 with its BVH and tape-replay variants, one nvcc
-each, in parallel) and the host BVH builder (g++), and drives
-``raytpu_torch``'s paths: the forward render and the gradient path
+``raytpu_torch/csrc/`` (the forward megakernels K1a / K1b / K1c / K1' / K2 /
+K4-write and the fused VJP kernel K3 with its BVH, tape-replay and slab
+variants, one nvcc each, in parallel) and the host BVH builder (g++), and
+drives ``raytpu_torch``'s paths: the forward render and the gradient path
 (autograd through ``render``, ``render_grad``, ``optim.optimize``), brute
-and over a BVH, taped and not.  It imports nothing of JAX or of
+and over a BVH, taped and not, the progressive render with its checkpoints
+and the sharded render and train step over a ``torch.distributed`` group.  It imports nothing of JAX or of
 ``raytpu``, and uses one card (the first that CUDA_VISIBLE_DEVICES names,
 card 0 without it).  Phases, one JSON line each:
 
@@ -46,7 +47,29 @@ card 0 without it).  Phases, one JSON line each:
         with the BVH in both RNG modes and brute in parallel RNG, each
         with its launches by variant checked, and ``cli render --bvh``;
     5g. times at full size (forward, fwd+bwd, K3 with and without the
-        tape) and the tape's coverage rule on REFERENCE_V2.
+        tape) and the tape's coverage rule on REFERENCE_V2;
+6.  config 5 (BASELINE: ``final_world()``, 1920x1080, 500 spp, depth 12,
+    sequential RNG) progressive and sharded:
+    6a. K2, the carry-state kernel, against its plain version at 480x270,
+        4 spp (both RNG modes, brute and BVH): batches 1+2+1 bit-equal to
+        the plain version's and to one batch, the image of the state equal
+        to ``render()``'s;
+    6b. slab mode at the config-5 frame, 2 spp, BVH: K1b, K2, K4 and K3 on
+        three uneven slabs and one past the frame, stitched against the
+        full frame, and each against its plain version on the last slab;
+    6c. the main path: ``render_progressive`` at full CONFIG5 in batches of
+        50 (ms per batch), interrupted after 5 batches and resumed from its
+        checkpoint, against the one-shot ``render``; K2 on the full frame
+        from the state after 5 batches (s0 = 250, 2 spp, both RNG modes)
+        against its plain version; then ``cli render --progressive 100
+        --checkpoint``;
+    6d. the sharded path on one card, a world-size-1 NCCL group:
+        ``render_sharded``, ``accumulate(group=)`` and three
+        ``make_train_step`` steps at 1920x1080, 20 spp, parallel RNG, BVH
+        with refit, taped, against ``render`` and ``render_grad``; then
+        three steps of raytpu's falling-loss problem at the same frame;
+        then K1b, K2, K4 and K3 on that path's slab (rows 0-1079) against
+        their plain versions at 2 spp.
 
 It exits non-zero at the first failure.  The line before the last is the
 kernel table as JSON, the line before it the card's name and power limit,
@@ -75,6 +98,10 @@ BUDGET_SHARE = 1e-3    # share of pixels allowed above it (path flips)
 DEPTH1_TOL = 1e-6      # depth-1 spp-1: jitter, primary hit and sky only
 TIE_SHARE = 1e-4       # K1c vs K1a: pixels an exact tie of t may change
 PLAIN_CHUNK = 1 << 16  # plain version's pixels per chunk on the card
+# ... on config 5's full frame (8 chunks): on an H100 its time went with
+# the number of (chunk, bounce step) pairs, about 16 ms each, not with
+# their pixels
+FRAME_CHUNK = 1 << 18
 # K3 vs its plain version, per leaf: max|a - b| / max(max|b|, floor), floor
 # 1e-8 for scene leaves and 1e-6 for camera leaves.  Both sides run the same
 # f32 op order per bounce, but K3 sums the cotangents of up to 5.9e7
@@ -109,6 +136,11 @@ OPS_BOX_TEST = 24      # 6 sub, 6 mul, 6 min/max, 3 max (tnear), 3 min (tfar)
 OPS_STEP = 50          # hit point, normal, the material's new direction
 OPS_SAMPLE = 30        # raygen, the sample's sum (the gamma is per pixel)
 OPS_STEP_REVERSE = 200  # bounce_vjp of one scattering step (K3's reverse)
+
+
+# the slab kernels' cell in the kernel table (phases 6b and 6d)
+SLAB_CELL = ("config 5 frame spp2 parallel, rows 0-1079 (6d's slab); error "
+             "also on rows 1021-1140 (6b)")
 
 
 def fail(msg: str) -> None:
@@ -219,6 +251,13 @@ def flat_grads(out) -> list:
     the four scene leaves, the seven camera leaves."""
     return [out[0], *[getattr(out[1], k) for k in
                       ("center", "radius", "albedo", "mat_param")], *out[2]]
+
+
+def k3_sums(out) -> torch.Tensor:
+    """K3's f64 sums from ``gradkernel.launch``'s (image, sphere sums,
+    camera sums) as one row: the sphere rows cx cy cz | rad | ar ag ab |
+    mp, then the 18 camera sums (``gradkernel.camera_grads``)."""
+    return torch.cat([out[1].reshape(-1), out[2]])
 
 
 def marked_tape(cfg, rows: int, g_cap: int, dev) -> torch.Tensor:
@@ -727,6 +766,610 @@ def config4_phases(dev, card: str) -> list:
     return entries
 
 
+def slab_census(scene, cam, cfg, bvh, row0=0, rows=None) -> dict:
+    """The census of a row slab (the whole frame without ``rows``)."""
+    from raytpu_torch import profiling
+    return profiling.census(scene, cam, cfg, bvh, row0=row0, rows=rows)
+
+
+def state_bytes(cfg, rows: int) -> int:
+    """K2's carried state of ``rows`` rows, read once and written once:
+    f32 sums (3 a pixel) and u32 seeds."""
+    return 2 * rows * cfg.width * (3 * 4 + 4)
+
+
+def k2_phase(dev, card: str) -> dict:
+    """Phase 6a: K2 against its plain version at 480x270, 4 spp, depth 12,
+    ``final_world()`` -> the kernel table's K2/brute and K2/bvh entries."""
+    import raytpu_torch as rt
+    from raytpu_torch import bvh as tbvh, golden, progressive
+    from raytpu_torch.kernels import gradkernel, megakernel
+
+    cfg0 = rt.RenderConfig(width=480, height=270, spp=4, depth=12)
+    scene = rt.final_world(device=dev)
+    cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                         aspect=cfg0.aspect, device=dev)
+    bvh = rt.build_bvh(scene, leaf_size=LEAF)
+    entries = {}
+    for rng_mode in ("sequential", "parallel"):
+        cfg = cfg0.replace(rng_mode=rng_mode, chunk_pixels=PLAIN_CHUNK)
+        for sweep, b in (("brute", None), ("bvh", bvh)):
+            init = progressive.init_state(cfg, device=dev)
+            reset_counts(megakernel, gradkernel)
+            st = plain = init
+            for k in (1, 2, 1):
+                st = progressive.accumulate(scene, cam, cfg, st, k, bvh=b)
+                plain = progressive.accumulate(scene, cam, cfg, plain, k,
+                                               backend="golden", bvh=b)
+            one = progressive.accumulate(scene, cam, cfg, init, 4, bvh=b)
+            torch.cuda.synchronize()
+            counts = variant_counts(megakernel, gradkernel)
+            img = rt.render(scene, cam, cfg, bvh=b)
+            shown = progressive.image(st, cfg)
+            img_err = float((shown - img).abs().max())
+            row = {"acc_bit_equal_plain": torch.equal(st.acc, plain.acc),
+                   "seed_bit_equal_plain": torch.equal(st.seed, plain.seed),
+                   "acc_max_abs_vs_plain": float(
+                       (st.acc - plain.acc).abs().max()),
+                   "batched_bit_equal_one_shot": torch.equal(
+                       st.acc, one.acc) and torch.equal(st.seed, one.seed),
+                   "image_bit_equal_render": torch.equal(shown, img),
+                   "image_max_abs_vs_render": img_err,
+                   "launches": counts}
+            ok = (row["acc_bit_equal_plain"] and row["seed_bit_equal_plain"]
+                  and row["batched_bit_equal_one_shot"] and img_err <= 2e-7
+                  and counts == {f"K2/{sweep}": 4})
+            phase("k2_vs_plain", frame=f"480x270 spp4 d12 {rng_mode}",
+                  sweep=sweep, batches=[1, 2, 1], ok=ok, **row,
+                  tolerance="acc and seed bit-equal; image vs render() "
+                            "bit-equal or within 2e-7")
+            if not ok:
+                fail(f"K2 ({rng_mode}, {sweep}) disagrees: {row}")
+            if rng_mode != "sequential":
+                continue
+            cp = megakernel.pack_camera(cam)
+            sp = megakernel.pack_scene(
+                scene if b is None else tbvh.permute_scene(scene, b.perm))
+            acc0 = init.acc.contiguous()
+            seed0 = megakernel._u32_bits(init.seed).contiguous()
+            ms = cuda_ms(lambda: megakernel.launch_accumulate(
+                cp, sp, cfg, acc0, seed0, 0, cfg.spp, b), 5)
+            _, plain_ms = once_ms(lambda: golden.accumulate_golden(
+                scene, cam, cfg, init.acc, init.seed, 0, cfg.spp, b))
+            c = slab_census(scene, cam, cfg, b)
+            extra = 0 if b is None else b.flat.numel() * 4
+            entries[f"K2/{sweep}"] = dict(
+                max_abs_err=row["acc_max_abs_vs_plain"], ms=ms,
+                plain_ms=plain_ms, launches=counts[f"K2/{sweep}"],
+                **bound(forward_ops(c), frame_bytes(cfg, sp.shape[1], 0)
+                        + state_bytes(cfg, cfg.height) + extra))
+    return entries
+
+
+def slab_phase(dev, card: str, bvh, scene, cam) -> dict:
+    """Phase 6b: slab mode at the config-5 frame (1920x1080, 2 spp, BVH):
+    K1b, K2's slab, the slab taping forward and K3's slab on three uneven
+    slabs and one past the frame, stitched against the full frame, and each
+    against its plain version on the slab past the frame -> those slab
+    kernels' entries (:func:`slab_vs_plain`)."""
+    from raytpu_torch import bvh as tbvh, progressive, shard
+    from raytpu_torch.config import CONFIG5
+    from raytpu_torch.kernels import gradkernel, megakernel
+
+    h, w = CONFIG5.height, CONFIG5.width
+    slabs = ((0, 301), (301, 420), (721, 300), (1021, 120))
+    last = slabs[-1]
+    cp = megakernel.pack_camera(cam)
+    spv = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    n = spv.shape[1]
+    gen = torch.Generator().manual_seed(11)
+    for rng_mode in ("sequential", "parallel"):
+        cfg = CONFIG5.replace(spp=2, rng_mode=rng_mode,
+                              chunk_pixels=PLAIN_CHUNK)
+        full = megakernel.launch(cp, spv, cfg, bvh)
+        init = progressive.init_state(cfg, device=dev)
+        acc0 = init.acc.contiguous()
+        seed0 = megakernel._u32_bits(init.seed).contiguous()
+        facc, fseed = megakernel.launch_accumulate(cp, spv, cfg, acc0, seed0,
+                                                   0, 2, bvh)
+        target = torch.rand((h, w, 3), generator=gen).to(dev)
+        ct = 2.0 * (full - target) / full.numel()
+        img_in = full if rng_mode == "parallel" else None
+        want = k3_sums(gradkernel.launch(cp, spv, cfg, ct, img_in, 0.0, bvh))
+        imgs, accs, seeds, sums, k3imgs = [], [], [], 0.0, []
+        for row0, rows in slabs:
+            live = min(rows, h - row0)
+            imgs.append(megakernel.launch(cp, spv, cfg, bvh, row0=row0,
+                                          rows=rows))
+            a, s = megakernel.launch_accumulate(
+                cp, spv, cfg, shard.slab_of(acc0, row0, rows),
+                shard.slab_of(seed0, row0, rows), 0, 2, bvh, row0, rows)
+            accs.append(a)
+            seeds.append(s)
+            ct_s = shard.slab_of(ct, row0, rows)
+            ct_s[live:] = 1.0  # ignored
+            img_s = (None if img_in is None
+                     else shard.slab_of(img_in, row0, rows))
+            out = gradkernel.launch(cp, spv, cfg, ct_s, img_s, 0.0, bvh,
+                                    row0=row0, rows=rows)
+            k3imgs.append(out[0])
+            sums = sums + k3_sums(out)
+        pads_zero = all(not bool(t[h - last[0]:].any()) for t in
+                        (imgs[-1], accs[-1], seeds[-1], k3imgs[-1]))
+        stitch = {
+            "k1b_bit_equal_full": torch.equal(torch.cat(imgs)[:h], full),
+            "k2_acc_bit_equal_full": torch.equal(torch.cat(accs)[:h], facc),
+            "k2_seed_bit_equal_full": torch.equal(torch.cat(seeds)[:h],
+                                                  fseed),
+            "k3_img_bit_equal_full": torch.equal(torch.cat(k3imgs)[:h],
+                                                 full),
+            "rows_past_frame_zero": pads_zero}
+        leaf_rel = {}
+        i = 0
+        for k, size in (("center", 3 * n), ("radius", n), ("albedo", 3 * n),
+                        ("mat_param", n), ("cam_origin", 3),
+                        ("cam_lower_left", 3), ("cam_horizontal", 3),
+                        ("cam_vertical", 3), ("cam_lens", 6)):
+            # rows cx cy cz | rad | ar ag ab | mp, then the 18 camera sums
+            # (gradkernel.camera_grads)
+            a, b = sums[i:i + size], want[i:i + size]
+            leaf_rel[k] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-12)
+            i += size
+        stitch["k3_sums_rel"] = leaf_rel
+        ok = all(v for k, v in stitch.items() if k != "k3_sums_rel") and \
+            max(leaf_rel.values()) <= 1e-6
+        if rng_mode == "parallel":
+            g = cfg.spp * cfg.depth
+            tape = marked_tape(cfg, n, g, dev)
+            img_t = megakernel.launch(cp, spv, cfg, bvh, tape=tape)
+            tapes_ok = True
+            for row0, rows in slabs:
+                live = min(rows, h - row0)
+                tape_s = marked_tape(cfg.replace(height=rows), n, g, dev)
+                img_s = megakernel.launch(cp, spv, cfg, bvh, tape=tape_s,
+                                          row0=row0, rows=rows)
+                tapes_ok &= (torch.equal(img_s[:live],
+                                         img_t[row0:row0 + live])
+                             and torch.equal(tape_s[:, :live * w],
+                                             tape[:, row0 * w:
+                                                  (row0 + live) * w]))
+            stitch["k4_tape_and_image_bit_equal_full"] = tapes_ok
+            ok &= tapes_ok
+        phase("slab_mode", frame=f"1920x1080 spp2 d12 {rng_mode} bvh",
+              slabs=slabs, ok=ok, **stitch,
+              tolerance="bit-equal; K3 sums (f64) within 1e-6 of each "
+                        "leaf's largest entry")
+        if not ok:
+            fail(f"slab mode ({rng_mode}) disagrees with the full frame: "
+                 f"{stitch}")
+        del target, ct
+
+    # each slab kernel against its plain version on the slab past the frame
+    return slab_vs_plain(card, bvh, scene, cam, CONFIG5.replace(
+        spp=2, rng_mode="parallel", chunk_pixels=PLAIN_CHUNK), *last)
+
+
+def slab_vs_plain(card: str, bvh, scene, cam, cfg, row0: int,
+                  rows: int) -> dict:
+    """K1b, K2's slab, the slab taping forward (image and tape) and K3's
+    slab replaying that tape, on rows ``[row0, row0 + rows)`` of ``cfg``'s
+    frame (parallel RNG, BVH), each against its plain version on the same
+    inputs -> {kernel: max_abs_err, ms and plain_ms (CUDA events), the
+    bound of this slab's census}."""
+    import raytpu_torch as rt
+    from raytpu_torch import bvh as tbvh, golden, progressive, shard
+    from raytpu_torch.kernels import gradkernel, megakernel
+
+    live = min(rows, cfg.height - row0)
+    cp = megakernel.pack_camera(cam)
+    spv = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    n = spv.shape[1]
+    flat_bytes = bvh.flat.numel() * 4
+    c = slab_census(scene, cam, cfg, bvh, row0, rows)
+    fwd_bytes = frame_bytes(cfg.replace(height=rows), n, 1) + flat_bytes
+    entries = {}
+    got = megakernel.launch(cp, spv, cfg, bvh, row0=row0, rows=rows)
+    want, plain_ms = once_ms(lambda: golden.render_golden(
+        scene, cam, cfg, bvh, row0=row0, rows=rows))
+    res = compare(got, want)
+    entries["K1b/bvh"] = dict(
+        max_abs_err=res["max_abs_err"], plain_ms=plain_ms,
+        ms=cuda_ms(lambda: megakernel.launch(cp, spv, cfg, bvh, row0=row0,
+                                             rows=rows), 3),
+        **bound(forward_ops(c), fwd_bytes))
+    del got, want
+    init = progressive.init_state(cfg, device=spv.device)
+    acc_s, seed_s = (shard.slab_of(init.acc, row0, rows),
+                     shard.slab_of(init.seed, row0, rows))
+    bits = megakernel._u32_bits(seed_s).contiguous()
+    k2 = megakernel.launch_accumulate(cp, spv, cfg, acc_s, bits, 0, cfg.spp,
+                                      bvh, row0, rows)
+    (pacc, pseed), k2_plain_ms = once_ms(lambda: golden.accumulate_golden(
+        scene, cam, cfg, acc_s, seed_s, 0, cfg.spp, bvh, row0, rows))
+    k2_bit = (torch.equal(k2[0], pacc)
+              and torch.equal(k2[1].long() & 0xFFFFFFFF, pseed))
+    entries["K2/bvh+slab"] = dict(
+        max_abs_err=float((k2[0] - pacc).abs().max()), plain_ms=k2_plain_ms,
+        ms=cuda_ms(lambda: megakernel.launch_accumulate(
+            cp, spv, cfg, acc_s, bits, 0, cfg.spp, bvh, row0, rows), 3),
+        **bound(forward_ops(c), frame_bytes(cfg, n, 0) + flat_bytes
+                + state_bytes(cfg, rows)))
+    del k2, pacc, pseed
+    g = cfg.spp * cfg.depth
+    tape_s = marked_tape(cfg.replace(height=rows), n, g, spv.device)
+    img_t = megakernel.launch(cp, spv, cfg, bvh, tape=tape_s, row0=row0,
+                              rows=rows)
+    (pimg, ptape), k4_plain_ms = once_ms(lambda: golden.render_golden_tape(
+        scene, cam, cfg, g, bvh, row0, rows))
+    written = ptape != golden.TAPE_UNWRITTEN
+    tape_share = float((ptape == tape_s)[written].float().mean())
+    tape_elt = tape_s.element_size()
+    entries["K4/bvh+slab"] = dict(
+        max_abs_err=float((img_t - pimg).abs().max()),
+        plain_ms=k4_plain_ms, plain_tape_share_equal=tape_share,
+        ms=cuda_ms(lambda: megakernel.launch(cp, spv, cfg, bvh, tape=tape_s,
+                                             row0=row0, rows=rows), 3),
+        **bound(forward_ops(c), fwd_bytes + c["bounce_steps"] * tape_elt))
+    del pimg, ptape, written
+    ct_s = 2.0 * (img_t - 0.5) / (cfg.height * cfg.width * 3)
+    ct_s[live:] = 0.0
+    got3 = gradkernel.render_vjp(scene, cam, cfg, ct_s, img=img_t, bvh=bvh,
+                                 tape=tape_s, row0=row0, rows=rows)
+    want3, k3_plain_ms = once_ms(lambda: gradkernel.render_vjp_plain(
+        scene, cam, cfg, ct_s, 0.0, bvh, tape_s, row0, rows))
+    prel, k3_err = leaf_errors(got3, want3, rt.Camera._fields)
+    entries["K3/bvh+tape+slab"] = dict(
+        max_abs_err=k3_err, max_rel_err=max(prel.values()),
+        plain_ms=k3_plain_ms,
+        ms=cuda_ms(lambda: gradkernel.launch(
+            cp, spv, cfg, ct_s, img_t, 0.0, bvh, tape_s, row0, rows), 3),
+        **bound(k3_ops(c, 1, c["bounce_steps"]),
+                frame_bytes(cfg.replace(height=rows), n, 3) + flat_bytes
+                + c["bounce_steps"] * tape_elt + 8 * 8 * n))
+    ok = (res["share_above_budget"] <= BUDGET_SHARE and k2_bit
+          and tape_share >= 1 - BUDGET_SHARE
+          and max(prel.values()) <= GRAD_BUDGET)
+    phase("slab_vs_plain", frame=f"{cfg.width}x{cfg.height} spp{cfg.spp} "
+          f"d{cfg.depth} {cfg.rng_mode} bvh", slab=[row0, rows],
+          live_rows=live, ok=ok, k1b=res, k2_bit_equal_plain=k2_bit,
+          k4_plain_tape_share_equal=tape_share, k3_vs_plain_rel=prel,
+          card=card, tolerance=f"images: share |d| > {BUDGET_DELTA} <= "
+          f"{BUDGET_SHARE}; K2 bit-equal; tape slots equal on >= "
+          f"{1 - BUDGET_SHARE}; K3 {GRAD_BUDGET} of each leaf's largest "
+          "entry", times={k: {"ms": e["ms"], "plain_ms": e["plain_ms"]}
+                          for k, e in entries.items()})
+    if not ok:
+        fail(f"a slab kernel disagrees with its plain version on rows "
+             f"{row0}-{row0 + rows - 1}")
+    return entries
+
+
+def train_steps(cfg, group, bvh, scene, cam, target, lr: float):
+    """Three steps of ``shard.make_train_step`` -> (losses, ms per step
+    from CUDA events, launches by variant per step, (the first step's
+    gradients, its image))."""
+    from raytpu_torch import shard
+    from raytpu_torch.kernels import gradkernel, megakernel
+    step = shard.make_train_step(cfg, group=group, lr=lr, bvh=bvh)
+    losses, step_ms, launches, first = [], [], [], None
+    for _ in range(3):
+        reset_counts(megakernel, gradkernel)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scene, cam, loss = step(scene, cam, target)
+        stop.record()
+        stop.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        launches.append(variant_counts(megakernel, gradkernel))
+        losses.append(float(loss))
+        first = first or (step.last_grads, step.last_image)
+    return losses, step_ms, launches, first
+
+
+def slab_main_times(cfg, scene, cam, bvh, card: str) -> dict:
+    """Each slab kernel at the main path's shape (phase 6d: the one slab of
+    a world of one, 1920x1080, 20 spp, parallel, BVH, full tape) -> {key:
+    (ms, bound)}, the bound from this frame's census."""
+    from raytpu_torch import bvh as tbvh, golden, progressive
+    from raytpu_torch.kernels import gradkernel, megakernel
+    h = cfg.height
+    c = slab_census(scene, cam, cfg, bvh)
+    cp = megakernel.pack_camera(cam)
+    spv = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    n, extra = spv.shape[1], bvh.flat.numel() * 4
+    g = cfg.spp * cfg.depth
+    tape = torch.empty((g, h * cfg.width), dtype=golden.tape_dtype(n),
+                       device=spv.device)
+    elt = tape.element_size()
+    init = progressive.init_state(cfg, device=spv.device)
+    bits = megakernel._u32_bits(init.seed).contiguous()
+    img = megakernel.launch(cp, spv, cfg, bvh, tape=tape, row0=0, rows=h)
+    ct = 2.0 * (img - 0.5) / img.numel()
+    fwd = frame_bytes(cfg, n, 1) + extra
+    out = {
+        "K1b/bvh": (cuda_ms(lambda: megakernel.launch(
+            cp, spv, cfg, bvh, row0=0, rows=h), 3),
+            bound(forward_ops(c), fwd)),
+        "K2/bvh+slab": (cuda_ms(lambda: megakernel.launch_accumulate(
+            cp, spv, cfg, init.acc, bits, 0, cfg.spp, bvh, 0, h), 3),
+            bound(forward_ops(c), frame_bytes(cfg, n, 0) + extra
+                  + state_bytes(cfg, h))),
+        "K4/bvh+slab": (cuda_ms(lambda: megakernel.launch(
+            cp, spv, cfg, bvh, tape=tape, row0=0, rows=h), 3),
+            bound(forward_ops(c), fwd + c["bounce_steps"] * elt)),
+        "K3/bvh+tape+slab": (cuda_ms(lambda: gradkernel.launch(
+            cp, spv, cfg, ct, img, 0.0, bvh, tape, 0, h), 3),
+            bound(k3_ops(c, 1, c["bounce_steps"]),
+                  frame_bytes(cfg, n, 3) + extra + c["bounce_steps"] * elt
+                  + 8 * 8 * n))}
+    phase("slab_kernels_main_path", frame="1920x1080 spp20 d12 parallel "
+          "bvh, one slab of 1080 rows", card=card, census=c,
+          times={k: {"ms": ms, **b} for k, (ms, b) in out.items()})
+    return out
+
+
+def k2_main_shape(scene, cam, bvh, state, card: str) -> float:
+    """Phase 6c's check of K2 at the main path's shape: one 2-spp batch on
+    the full config-5 frame from ``state``, the main path's state after 5
+    batches of 50 (s0 = 250), against its plain version on the same
+    inputs, acc and seed bit for bit.  Sequential RNG (the main path's)
+    resumes the state's seed chains; parallel RNG takes the same sums with
+    the base seeds, so that s0 picks the streams -> the largest |acc -
+    plain|."""
+    from raytpu_torch import progressive
+    from raytpu_torch.config import CONFIG5
+    spp, rows, worst = 2, {}, 0.0
+    for rng_mode in ("sequential", "parallel"):
+        cfg = CONFIG5.replace(rng_mode=rng_mode, chunk_pixels=FRAME_CHUNK)
+        st = state if rng_mode == "sequential" else state._replace(
+            seed=progressive.init_state(cfg, device=state.acc.device).seed)
+        got, ms = once_ms(lambda: progressive.accumulate(
+            scene, cam, cfg, st, spp, bvh=bvh))
+        want, plain_ms = once_ms(lambda: progressive.accumulate(
+            scene, cam, cfg, st, spp, backend="golden", bvh=bvh))
+        err = float((got.acc - want.acc).abs().max())
+        worst = max(worst, err)
+        rows[rng_mode] = {
+            "acc_bit_equal_plain": torch.equal(got.acc, want.acc),
+            "seed_bit_equal_plain": torch.equal(got.seed, want.seed),
+            "acc_max_abs_vs_plain": err, "ms": ms, "plain_ms": plain_ms}
+    ok = all(r["acc_bit_equal_plain"] and r["seed_bit_equal_plain"]
+             for r in rows.values())
+    phase("k2_vs_plain_main_shape", frame="1920x1080 d12 bvh",
+          s0=state.samples, spp=spp, ok=ok, card=card,
+          tolerance="acc and seed bit-equal", **rows)
+    if not ok:
+        fail(f"K2 on the config-5 frame disagrees with its plain version: "
+             f"{rows}")
+    return worst
+
+
+def config5_phases(dev, card: str) -> dict:
+    """Phases 6a-6d (see the module docstring) -> the kernel table's K2
+    and slab entries, each with its launches on its path."""
+    import raytpu_torch as rt
+    from raytpu_torch import io, progressive, shard
+    from raytpu_torch.config import CONFIG5
+    from raytpu_torch.kernels import gradkernel, megakernel
+
+    entries = k2_phase(dev, card)
+    scene = rt.final_world(device=dev)
+    cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                         aspect=CONFIG5.aspect, device=dev)
+    bvh = rt.build_bvh(scene, leaf_size=LEAF)
+    entries.update(slab_phase(dev, card, bvh, scene, cam))
+
+    # -- 6c: the main path, config 5 progressive over the BVH
+    cfg = CONFIG5
+    batch = 50
+    rays = cfg.width * cfg.height * cfg.spp
+    reset_counts(megakernel, gradkernel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_ms = []
+    gen = progressive.render_progressive(scene, cam, cfg, batch=batch,
+                                         bvh=bvh)
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        item = next(gen, None)
+        stop.record()
+        if item is None:
+            break
+        stop.synchronize()
+        batch_ms.append(start.elapsed_time(stop))
+        state, img = item
+    total_s = time.perf_counter() - t0
+    main_launches = variant_counts(megakernel, gradkernel)
+    # the work of one batch: the census of the first 50 samples (a batch
+    # time above also holds image(), a few elementwise passes)
+    c50 = slab_census(scene, cam, cfg.replace(spp=batch), bvh)
+    b50 = bound(forward_ops(c50), frame_bytes(cfg, int(bvh.perm.shape[0]), 0)
+                + bvh.flat.numel() * 4 + state_bytes(cfg, cfg.height))
+    entries["K2/bvh"].update(
+        launches=main_launches.get("K2/bvh", 0),
+        main_path_ms=float(np.median(batch_ms)),
+        main_path_bound_ms=b50["bound_ms"], main_path_bound_by=b50["bound_by"])
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "config5.npz")
+        t0 = time.perf_counter()
+        gen = progressive.render_progressive(scene, cam, cfg, batch=batch,
+                                             checkpoint_path=ck, bvh=bvh)
+        for _ in range(5):
+            first = next(gen)
+        gen.close()
+        rest = list(progressive.render_progressive(
+            scene, cam, cfg, batch=batch, checkpoint_path=ck, resume=True,
+            bvh=bvh))
+        torch.cuda.synchronize()
+        ck_total_s = time.perf_counter() - t0
+        resumed = rest[-1][1]
+        oneshot, oneshot_ms = once_ms(lambda: rt.render(scene, cam, cfg,
+                                                        bvh=bvh))
+        mean = float(img.mean())
+        row = {"samples": [first[0].samples, len(rest), rest[-1][0].samples],
+               "resumed_bit_equal_uninterrupted": torch.equal(resumed, img),
+               "bit_equal_one_shot_render": torch.equal(img, oneshot),
+               "max_abs_vs_one_shot": float((img - oneshot).abs().max()),
+               "mean": mean, "finite": bool(torch.isfinite(img).all())}
+        band = (0.45, 0.75)  # config 4's band: the same scene and camera
+        ok = (row["resumed_bit_equal_uninterrupted"]
+              and row["max_abs_vs_one_shot"] <= 2e-7 and row["finite"]
+              and band[0] <= mean <= band[1]
+              and main_launches == {"K2/bvh": cfg.spp // batch})
+        phase("main_path_config5_progressive",
+              frame="1920x1080 spp500 d12 sequential bvh", batch=batch,
+              spheres=scene.count, launches=main_launches, ok=ok,
+              ms_per_batch=batch_ms, total_s=total_s,
+              mrays_s=rays / total_s / 1e6,
+              kernel_mrays_s=rays / sum(batch_ms) * 1e-3,
+              with_checkpoints_total_s=ck_total_s,
+              one_shot_render_ms=oneshot_ms,
+              one_shot_mrays_s=rays / oneshot_ms * 1e-3, mean_band=band,
+              card=card, **row)
+        if not ok:
+            fail(f"config-5 progressive: {row}, launches {main_launches}")
+        entries["K2/bvh"]["max_abs_err"] = max(
+            entries["K2/bvh"]["max_abs_err"],
+            k2_main_shape(scene, cam, bvh, first[0], card))
+
+        png = os.path.join(tmp, "config5.png")
+        ck2 = os.path.join(tmp, "cli.npz")
+        cmd = [sys.executable, "-m", "raytpu_torch.cli", "render", "--scene",
+               "final", "--bvh", "--progressive", "100", "--checkpoint", ck2,
+               "--width", str(cfg.width), "--height", str(cfg.height),
+               "--spp", str(cfg.spp), "--depth", str(cfg.depth), "--device",
+               "cuda", "--out", png]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"CLI --progressive exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        ref = os.path.join(tmp, "in_process.png")
+        io.save_png(ref, img.cpu().numpy())
+        with open(png, "rb") as f, open(ref, "rb") as g:
+            same = f.read() == g.read()
+        saved, _ = progressive.load_checkpoint(ck2, device=dev)
+        phase("cli_progressive", command=" ".join(cmd[1:]).replace(
+            tmp, "<tmp>"), seconds=cli_s, stderr=proc.stderr.strip()[-400:],
+            checkpoint_samples=saved.samples, identical_to_render=same)
+        if not same or saved.samples != cfg.spp:
+            fail("the CLI's --progressive PNG differs from the in-process "
+                 "progressive image")
+    del state, img, resumed, oneshot, rest
+
+    # -- 6d: the sharded path on one card, a world-size-1 NCCL group
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        group = shard.init_distributed(
+            device=dev, init_method="file://" + os.path.join(tmp, "init"),
+            world_size=1, rank=0)
+        try:
+            cfg = CONFIG5.replace(spp=20, rng_mode="parallel")
+            reset_counts(megakernel, gradkernel)
+            img = shard.render_sharded(scene, cam, cfg, group=group, bvh=bvh)
+            torch.cuda.synchronize()
+            render_launches = variant_counts(megakernel, gradkernel)
+            ref = rt.render(scene, cam, cfg, bvh=bvh)
+            reset_counts(megakernel, gradkernel)
+            st = progressive.init_state(cfg, device=dev)
+            for _ in range(2):
+                st = progressive.accumulate(scene, cam, cfg, st, 10, bvh=bvh,
+                                            group=group)
+            torch.cuda.synchronize()
+            acc_launches = variant_counts(megakernel, gradkernel)
+            shown = progressive.image(st, cfg)
+            # config 5's scene against itself with the albedo scaled by 0.7
+            target = rt.render(scene._replace(albedo=scene.albedo * 0.7),
+                               cam, cfg, bvh=bvh)
+            losses, step_ms, step_launches, first = train_steps(
+                cfg, group, bvh, scene, cam, target, 1e-2)
+            grads0, img0 = first
+            rloss, rimg, (rsg, rcg) = rt.render_grad(scene, cam, cfg, target,
+                                                     bvh=bvh)
+            rel, _ = leaf_errors((None, *grads0), (None, rsg, rcg),
+                                 rt.Camera._fields)
+            # raytpu's falling-loss problem (tests/test_shard.py
+            # test_train_step_reduces_loss): the hero sphere's albedo
+            # perturbed, lr 2.0; six spheres buried in the ground (never
+            # hit) bring it to the tape's 8-sphere floor
+            spheres = [((0.0, -100.5, -1.0), 100.0, 0, (0.5, 0.5, 0.5), 0.0),
+                       ((0.0, 0.0, -1.0), 0.5, 0, (0.7, 0.3, 0.3), 0.0)]
+            spheres += [((-3.0 + k, -110.0, -1.0), 0.5, 0, (0.5, 0.5, 0.5),
+                         0.0) for k in range(6)]
+            hero = rt.make_scene(spheres, dev)
+            hcam = rt.make_camera((0.0, 0.3, 1.5), (0.0, 0.0, -1.0),
+                                  vfov=45.0, aspect=cfg.aspect, device=dev)
+            hbvh = rt.build_bvh(hero)
+            htarget = rt.render(hero, hcam, cfg, bvh=hbvh)
+            alb = hero.albedo.clone()
+            alb[1] = torch.tensor([0.3, 0.6, 0.5], device=dev)
+            hlosses, hstep_ms, hlaunches, _ = train_steps(
+                cfg, group, hbvh, hero._replace(albedo=alb), hcam, htarget,
+                2.0)
+            want_step = {"K4/bvh+slab": 1, "K3/bvh+tape+slab": 1}
+            row = {"render_sharded_bit_equal_render": torch.equal(img, ref),
+                   "render_launches": render_launches,
+                   "accumulate_image_bit_equal_render": torch.equal(shown,
+                                                                    ref),
+                   "accumulate_launches": acc_launches,
+                   "final_world_losses": losses,
+                   "render_grad_loss": float(rloss),
+                   "step_image_bit_equal_render_grad": torch.equal(img0,
+                                                                   rimg),
+                   "grad_rel_vs_render_grad": rel,
+                   "step_launches": step_launches, "step_ms": step_ms,
+                   "hero_losses": hlosses, "hero_step_ms": hstep_ms,
+                   "hero_step_launches": hlaunches,
+                   "backend": dist.get_backend(group)}
+            ok = (row["render_sharded_bit_equal_render"]
+                  and row["accumulate_image_bit_equal_render"]
+                  and render_launches == {"K1b/bvh": 1}
+                  and acc_launches == {"K2/bvh+slab": 2}
+                  and all(x == want_step for x in step_launches + hlaunches)
+                  and max(rel.values()) <= GRAD_BUDGET
+                  and np.isfinite(losses + hlosses).all()
+                  and hlosses[-1] < hlosses[0]
+                  and row["backend"] == "nccl")
+            phase("sharded_world1_nccl",
+                  frame="1920x1080 spp20 d12 parallel bvh (refit, taped)",
+                  final_world="lr 0.01, target: albedo x 0.7 (its loss is "
+                              "not held to fall: the step has no silhouette "
+                              "terms and 500 spheres' edges move)",
+                  hero="lr 2.0, the hero sphere's albedo perturbed",
+                  ok=ok, budget=GRAD_BUDGET, card=card, **row)
+            if not ok:
+                fail(f"the sharded path on one card: {row}")
+            main_times = slab_main_times(cfg, scene, cam, bvh, card)
+        finally:
+            dist.destroy_process_group()
+    # each slab kernel on the main path's slab (a world of one: rows
+    # 0-1079) against its plain version, cut to 2 spp; the table keeps
+    # these times and the worse error of this slab and 6b's
+    on_main = slab_vs_plain(card, bvh, scene, cam, cfg.replace(
+        spp=2, chunk_pixels=FRAME_CHUNK), 0, shard.slab_rows(cfg, 1))
+    for key, (ms, b) in main_times.items():
+        e = on_main[key]
+        for k in ("max_abs_err", "max_rel_err"):
+            if k in e:
+                e[k] = max(e[k], entries[key][k])
+        entries[key] = dict(e, main_path_ms=ms,
+                            main_path_bound_ms=b["bound_ms"],
+                            main_path_bound_by=b["bound_by"])
+    entries["K1b/bvh"]["launches"] = render_launches["K1b/bvh"]
+    entries["K2/bvh+slab"]["launches"] = acc_launches["K2/bvh+slab"]
+    entries["K4/bvh+slab"]["launches"] = sum(
+        x["K4/bvh+slab"] for x in step_launches + hlaunches)
+    entries["K3/bvh+tape+slab"]["launches"] = sum(
+        x["K3/bvh+tape+slab"] for x in step_launches + hlaunches)
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -1047,6 +1690,9 @@ def main() -> None:
     # -- phase 5: config 4 over a BVH, the tape
     entries = config4_phases(dev, card)
 
+    # -- phase 6: config 5, progressive (K2) and sharded (slab mode)
+    entries5 = config5_phases(dev, card)
+
     # bounds of K1a and K3 in the cells their times come from
     from raytpu_torch import profiling
     c_k1a = profiling.census(c2_scene, c2_cam, CONFIG2)
@@ -1097,6 +1743,34 @@ def main() -> None:
              "raytpu/kernels/gradkernel.py:1519 (tape_mode='read' :1668)",
              "config 4 at 2 spp, parallel, full tape")):
         e = entries[key]
+        table.append(dict(name=name, route="cuda", source=source,
+                          replaces=replaces, cell=cell,
+                          launches=e.pop("launches"), library_ms=None, **e))
+    for key, name, source, replaces, cell in (
+            ("K2/brute", "render_fwd_kernel<carry> (K2, brute)", fwd_src,
+             "raytpu/kernels/megakernel.py:1742 (accumulate_pallas)",
+             "480x270 spp4 d12 sequential final_world (launches: phase 6a)"),
+            ("K2/bvh", "render_fwd_kernel<bvh, carry> (K2, flat BVH)",
+             fwd_src,
+             "raytpu/kernels/megakernel.py:1742 (accumulate_pallas, bvh=)",
+             "480x270 spp4 d12 sequential final_world; error also on the "
+             "config 5 frame, s0 250 (launches: config 5 progressive)"),
+            ("K2/bvh+slab", "render_fwd_kernel<bvh, carry> on a row slab "
+             "(K2 slab)", fwd_src,
+             "raytpu/kernels/megakernel.py:1742 (row0/rows)",
+             SLAB_CELL),
+            ("K1b/bvh", "render_fwd_kernel<bvh> on a row slab (K1b)", fwd_src,
+             "raytpu/kernels/megakernel.py:1456 (row0/rows)",
+             SLAB_CELL),
+            ("K4/bvh+slab", "render_fwd_kernel<bvh, tape write> on a row "
+             "slab (K4 slab)", fwd_src,
+             "raytpu/kernels/gradkernel.py:1873 (row0/rows)",
+             SLAB_CELL + ", full tape"),
+            ("K3/bvh+tape+slab", "render_vjp_kernel<bvh, tape read> on a row "
+             "slab (K3 slab)", grad_src,
+             "raytpu/kernels/gradkernel.py:1519 (row0/rows)",
+             SLAB_CELL + ", full tape")):
+        e = entries5[key]
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, cell=cell,
                           launches=e.pop("launches"), library_ms=None, **e))

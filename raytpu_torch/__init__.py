@@ -12,12 +12,14 @@ on a card and through the adjoint (``raytpu_torch/adjoint.py``) anywhere.
 ``build_bvh(scene)`` (``raytpu_torch/bvh.py``) gives a BVH that
 ``render(..., bvh=)`` and ``render_grad(..., bvh=)`` sweep as a flat leaf
 list; in parallel RNG the gradient path tapes each bounce's winner in the
-forward and replays the tape in the backward.  This package never imports
-jax.
+forward and replays the tape in the backward.  ``progressive`` renders in
+checkpointed sample batches (the carry-state kernel K2 on a card) and
+``shard`` splits the frame into row slabs over a ``torch.distributed``
+group (every kernel's slab mode).  This package never imports jax.
 
-Not ported yet (see ROADMAP.md): progressive rendering, sharding and slab
-mode, the skip-pointer walk and the dense stage, the windowed-refill PASS 2,
-the wavefront engine and the v1 fract-sin RNG mode.
+Not ported yet (see ROADMAP.md): the skip-pointer walk and the dense stage,
+the windowed-refill PASS 2, the tools (``scene_io``, ``debug``, ``cli
+validate`` / ``info``), the wavefront engine and the v1 fract-sin RNG mode.
 """
 
 from raytpu_torch.config import RenderConfig

@@ -462,7 +462,8 @@ def render_pixels_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
 
 def render_golden_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
                           vis_w: float = 0.0, bvh: BVH | None = None,
-                          tape=None) -> torch.Tensor:
+                          tape=None, row0: int = 0,
+                          rows: int | None = None) -> torch.Tensor:
     """Full-frame render whose backward is the hand-structured adjoint.
 
     Forward values equal render_golden's; gradients equal autograd of
@@ -479,15 +480,18 @@ def render_golden_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
     :func:`raytpu_torch.golden.render_golden_tape` with the same ``bvh``):
     steps below ``g_cap`` take their winner from it instead of sweeping —
     the plain version of K3's replay; the gradients are bit-equal to the
-    untaped ones."""
+    untaped ones.  ``row0`` / ``rows``: the (rows, W, 3) slab from absolute
+    row ``row0`` (the plain version of K3's slab mode; ``tape`` is then
+    (g_cap, rows*W)); rows past the frame are 0 and carry no gradient."""
     check_cfg(cfg)
-    h, w = cfg.height, cfg.width
-    n = h * w
+    w = cfg.width
+    rows, live = golden.slab_pixels(cfg, row0, rows)
     dev = scene.center.device
     if bvh is not None:
         scene = permute_scene(scene, bvh.perm)
-    k = None if tape is None else torch.zeros(n, dtype=torch.int64,
+    k = None if tape is None else torch.zeros(live, dtype=torch.int64,
                                               device=dev)
+    pad = torch.zeros((rows * w - live, 3), dtype=torch.float32, device=dev)
 
     def winners(start, stop):
         if tape is None:
@@ -496,31 +500,32 @@ def render_golden_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
                               k[start:stop]))
 
     if cfg.rng_mode != "parallel":
-        chunk = min(cfg.chunk_pixels, n)
+        chunk = max(min(cfg.chunk_pixels, live), 1)
         parts = []
-        for start in range(0, n, chunk):
-            stop = min(start + chunk, n)
+        for start in range(0, live, chunk):
+            stop = min(start + chunk, live)
             flat = torch.arange(start, stop, device=dev)
             r, g, b = render_pixels_adjoint(scene, cam, cfg, flat % w,
-                                            flat // w, vis_w,
+                                            row0 + flat // w, vis_w,
                                             winners(start, stop))
             parts.append(torch.stack([r, g, b], dim=-1))
-        return torch.cat(parts).reshape(h, w, 3)
+        return torch.cat(parts + [pad]).reshape(rows, w, 3)
 
-    chunk = min(max(cfg.chunk_pixels, 131072), n)
-    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    chunk = max(min(max(cfg.chunk_pixels, 131072), live), 1)
+    acc = torch.zeros((live, 3), dtype=torch.float32, device=dev)
     for s in range(cfg.spp):
         parts = []
-        for start in range(0, n, chunk):
-            stop = min(start + chunk, n)
+        for start in range(0, live, chunk):
+            stop = min(start + chunk, live)
             flat = torch.arange(start, stop, device=dev)
-            px, py = flat % w, flat // w
+            px, py = flat % w, row0 + flat // w
             sd = rng.fold_in(rng.pixel_seed(px, py), s)
             ro, rd, sd = _camera_ray(scene, cam, cfg, px, py, sd)
             (r, g, b), _ = trace_adjoint(scene, ro, rd, sd, cfg.depth,
                                          cfg.t_min, vis_w, cfg.scatter_mode,
                                          winners(start, stop))
             parts.append(torch.stack([r, g, b], dim=-1))
-        acc = acc + torch.cat(parts)
+        if parts:
+            acc = acc + torch.cat(parts)
     lin = acc * rng.f32_like(acc, 1.0 / cfg.spp)
-    return _to_gamma(lin, cfg.gamma).reshape(h, w, 3)
+    return torch.cat([_to_gamma(lin, cfg.gamma), pad]).reshape(rows, w, 3)

@@ -4,33 +4,38 @@
         --height 576 --spp 60 --depth 50 --device cuda --out frame.png
     python -m raytpu_torch.cli render --scene final --width 800 \
         --height 400 --spp 100 --bvh --device cuda --out final.png
+    python -m raytpu_torch.cli render --scene final --bvh --progressive 16 \
+        --checkpoint ckpt.npz --resume --device cuda --out final.png
+    torchrun --nproc-per-node 4 -m raytpu_torch.cli render --devices 4 \
+        --scene final --bvh --device cuda --out final.png
     python -m raytpu_torch.cli gradcheck --device cuda
 
 The ``render`` and ``gradcheck`` subcommands are ported, ``render --bvh``
-(with ``--bvh-builder``) among them: every backend of the port's
-``render`` sweeps the BVH it is given (raytpu refuses ``--bvh`` on its
-golden backend, which would ignore it; here none does), and
-``--bvh-builder`` without ``--bvh`` is refused rather than ignored.
-``--progressive``, ``--devices`` and the other subcommands belong to parts
-not ported yet and exit with an error that names their ROADMAP item;
-raytpu's other options are not accepted.  None is silently ignored.
+(with ``--bvh-builder``), ``--progressive`` (with ``--checkpoint``,
+``--resume`` and ``--preview-every``) and ``--devices`` among them: every
+backend of the port's ``render`` sweeps the BVH it is given (raytpu refuses
+``--bvh`` on its golden backend, which would ignore it; here none does).
+``--devices N`` shards the rows over N processes of a ``torchrun`` launch
+whose ``WORLD_SIZE`` is N, each on ``cuda:LOCAL_RANK`` (or the CPU with
+``--device cpu``); process 0 writes ``--out`` and the checkpoint.  Outside
+such a launch it exits with an error that says how to launch it; it never
+renders on one device instead.  An option that would be ignored
+(``--bvh-builder`` without ``--bvh``, ``--checkpoint`` or
+``--preview-every`` without ``--progressive``, ``--resume`` without
+``--checkpoint``) is refused.  The other subcommands belong to parts not
+ported yet and exit with an error that names their ROADMAP item; raytpu's
+other options are not accepted.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 SCENES = ("config1", "test", "random", "final", "v1")
 
-# option -> (value meaning "not asked for", ROADMAP item that ports it)
-_NOT_PORTED = {
-    "progressive": (0, "--progressive needs progressive rendering "
-                       "(ROADMAP queue 1, M8; queue 2, K2)"),
-    "devices": (1, "--devices > 1 needs sharding over torch.distributed "
-                   "(ROADMAP queue 1, M9)"),
-}
 _SUBCOMMANDS_NOT_PORTED = {
     "validate": "debug.py's cross-backend sweep (ROADMAP queue 1, M11)",
     "info": "the tools (ROADMAP queue 1, M11)",
@@ -50,33 +55,89 @@ def _build_scene(name: str, seed: int, device):
     return rt.v1_world(device=device)  # the v1 app's seven-sphere world
 
 
+def _distributed(args):
+    """(group, rank, device) of this process in a ``torchrun`` launch of
+    ``--devices`` processes; exits, saying how to launch, outside one."""
+    import torch
+    from raytpu_torch import shard
+    n = args.devices
+    env = os.environ.get("WORLD_SIZE")
+    if n < 2 or env is None or int(env) != n:
+        raise SystemExit(
+            f"--devices {n} needs one process per device under torchrun "
+            f"(WORLD_SIZE {env or 'unset'}): torchrun --nproc-per-node {n} "
+            f"-m raytpu_torch.cli render --devices {n} ...; nothing was "
+            "rendered")
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    group = shard.init_distributed(device=device)
+    return group, shard.world(group)[0], device
+
+
 def cmd_render(args) -> int:
-    for opt, (unset, msg) in _NOT_PORTED.items():
-        if getattr(args, opt) != unset:
-            raise SystemExit(f"not ported yet: {msg}")
     if args.bvh_builder is not None and not args.bvh:
         raise SystemExit("--bvh-builder needs --bvh")
     import raytpu_torch as rt
-    from raytpu_torch import io, profiling
+    from raytpu_torch import io, profiling, progressive, shard
     from raytpu_torch.config import RenderConfig
 
+    group, rank, device = None, 0, args.device
+    if args.devices != 1:
+        group, rank, device = _distributed(args)
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        depth=args.depth, rng_mode=args.rng_mode,
                        scatter_mode=args.scatter_mode, gamma=args.gamma)
-    scene = _build_scene(args.scene, args.seed, args.device)
+    scene = _build_scene(args.scene, args.seed, device)
     cam = rt.make_camera(tuple(args.look_from), tuple(args.look_at),
                          vfov=args.vfov, aspect=cfg.aspect,
                          aperture=args.aperture, focus_dist=args.focus_dist,
-                         device=args.device)
+                         device=device)
     bvh = (rt.build_bvh(scene, builder=args.bvh_builder or "median")
            if args.bvh else None)
-    img, stats = profiling.timed(
-        lambda: rt.render(scene, cam, cfg, backend=args.backend, bvh=bvh),
-        cfg, label="render")
-    io.save_image(args.out, img.cpu().numpy())
-    print(f"wrote {args.out}  ({stats.rays_per_sec / 1e6:.2f} Mrays/s, "
-          f"{stats.wall_s * 1e3:.1f} ms on {stats.device})")
-    return 0
+    try:
+        if args.progressive:
+            img = None
+            for state, img in progressive.render_progressive(
+                    scene, cam, cfg, batch=args.progressive,
+                    checkpoint_path=args.checkpoint, resume=args.resume,
+                    backend=args.backend, bvh=bvh, group=group):
+                batches = state.samples // args.progressive
+                if rank:
+                    continue
+                print(f"samples {state.samples}/{cfg.spp}", file=sys.stderr)
+                if args.preview_every and batches % args.preview_every == 0:
+                    io.save_image(args.out, img.cpu().numpy())
+                    print(f"preview @ {state.samples} spp -> {args.out}",
+                          file=sys.stderr)
+            if img is None:  # resumed from a completed checkpoint
+                state, _ = progressive.load_checkpoint(args.checkpoint,
+                                                       device=device)
+                img = progressive.image(state, cfg)
+            if not rank:
+                io.save_image(args.out, img.cpu().numpy())
+                print(f"wrote {args.out}")
+            return 0
+        if group is not None:
+            def fn():
+                return shard.render_sharded(scene, cam, cfg, group=group,
+                                            bvh=bvh, backend=args.backend)
+        else:
+            def fn():
+                return rt.render(scene, cam, cfg, backend=args.backend,
+                                 bvh=bvh)
+        img, stats = profiling.timed(fn, cfg, label="render")
+        if not rank:
+            io.save_image(args.out, img.cpu().numpy())
+            print(f"wrote {args.out}  ({stats.rays_per_sec / 1e6:.2f} "
+                  f"Mrays/s, {stats.wall_s * 1e3:.1f} ms on {stats.device}"
+                  + (f", {shard.world(group)[1]} processes)" if group
+                     else ")"))
+        return 0
+    finally:
+        if group is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 def cmd_gradcheck(args) -> int:
@@ -161,11 +222,20 @@ def main(argv=None) -> int:
     r.add_argument("--bvh-builder", choices=("median", "sah"), default=None,
                    help="BVH build heuristic (default median; sah = the "
                         "native binned surface-area heuristic)")
-    # accepted so that these raytpu command lines parse; refused in cmd_render
     r.add_argument("--progressive", type=int, default=0, metavar="BATCH",
-                   help="not ported yet (M8)")
+                   help="render progressively in BATCH-sample steps")
+    r.add_argument("--preview-every", type=int, default=0, metavar="K",
+                   help="with --progressive: overwrite --out with the "
+                        "current image every K batches (live preview)")
+    r.add_argument("--checkpoint", default=None,
+                   help="with --progressive: checkpoint after every batch "
+                        "to this .npz (raytpu's layout)")
+    r.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint")
     r.add_argument("--devices", type=int, default=1, metavar="N",
-                   help="not ported yet (M9)")
+                   help="shard the rows over N processes of a torchrun "
+                        "launch (torchrun --nproc-per-node N -m "
+                        "raytpu_torch.cli render --devices N ...)")
     r.add_argument("--out", default="out.png")
     r.set_defaults(fn=cmd_render)
 
@@ -183,6 +253,20 @@ def main(argv=None) -> int:
         raise SystemExit(f"not ported yet: '{argv[0]}' needs "
                          f"{_SUBCOMMANDS_NOT_PORTED[argv[0]]}")
     args = p.parse_args(argv)
+    if args.cmd == "render":
+        for bad, msg in (
+                (args.checkpoint and not args.progressive,
+                 "--checkpoint needs --progressive"),
+                (args.preview_every and not args.progressive,
+                 "--preview-every needs --progressive"),
+                (args.resume and not args.checkpoint,
+                 "--resume needs --checkpoint"),
+                (args.checkpoint and not args.checkpoint.endswith(".npz"),
+                 "--checkpoint must end in .npz (numpy would append it)"),
+                (args.progressive < 0 or args.devices < 1,
+                 "--progressive and --devices take positive counts")):
+            if bad:
+                p.error(msg)
     return args.fn(args)
 
 

@@ -30,6 +30,12 @@
 //          winner decides the bounce, so the residuals, and the gradients,
 //          are those of the untaped kernel bit for bit.
 //
+// Slab mode (raytpu's row0 / rows): the launch covers rows [row0, row0 +
+// rows) of the cfg-sized frame; ct, the image and the tape hold those rows.
+// The RNG key and fy come from the absolute row, so a slab's sums are the
+// full frame's over its pixels.  Rows past the frame's last one trace
+// nothing, add nothing (their cotangent is ignored) and write 0.
+//
 // With a BVH the scene arrives in leaf order (padded with NaN dummies that
 // never win): the sweeps are K1c's, the sphere cotangents accumulate in
 // that order, dummies included, and the wrapper scatters them back to input
@@ -97,13 +103,13 @@ struct Params {
   const CamPack* cam;
   const float* scene;   // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
   FlatBvh bvh;          // flat == null: the brute sweep
-  const void* tape;     // (g_cap, height * width) int16 / int32 (kTape)
-  const float* ct;      // (height, width, 3) image cotangent
-  const float* img_in;  // (height, width, 3) forward image, or null (PASS 1)
-  float* img_out;       // (height, width, 3)
+  const void* tape;     // (g_cap, rows * width) int16 / int32 (kTape)
+  const float* ct;      // (rows, width, 3) image cotangent
+  const float* img_in;  // (rows, width, 3) forward image, or null (PASS 1)
+  float* img_out;       // (rows, width, 3)
   double* gsc;          // (kLeaves, n) sphere cotangents, zeroed by the caller
   double* gcam;         // (n_warps, kCamSums) camera sums, one row a warp
-  int n, width, height, spp, depth, g_cap, tape_wide;
+  int n, width, height, row0, rows, spp, depth, g_cap, tape_wide;
   float t_min, inv_w, inv_h, inv_spp, gamma, vis_w;
   int parallel, v1;
 };
@@ -459,11 +465,14 @@ template <bool kBvh, bool kTape>
 __global__ void __launch_bounds__(256)
 render_vjp_kernel(Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  // lanes outside the frame stay to the end: every warp-level sum needs
-  // all 32 lanes; they trace nothing and add nothing
-  const bool valid = x < p.width && y < p.height;
-  const int spp = valid ? p.spp : 0;
+  const int ly = blockIdx.y * blockDim.y + threadIdx.y;  // row in the slab
+  const int y = p.row0 + ly;                              // row in the frame
+  // lanes outside the slab's buffers, or on a row past the frame, stay to
+  // the end: every warp-level sum needs all 32 lanes; they trace nothing
+  // and add nothing
+  const bool valid = x < p.width && ly < p.rows;
+  const bool live = valid && y < p.height;
+  const int spp = live ? p.spp : 0;
 
   const CamPack cam = *p.cam;
   const SceneView s = scene_view(p.scene, p.n);
@@ -472,13 +481,13 @@ render_vjp_kernel(Params p) {
   const float fy = static_cast<float>(y);
   const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
                                    static_cast<uint32_t>(y));
-  const size_t pix = valid ? (static_cast<size_t>(y) * p.width + x) * 3 : 0;
+  const size_t pix = valid ? (static_cast<size_t>(ly) * p.width + x) * 3 : 0;
   Census cn{0u, 0u, 0u};  // unused: K3 does not count
 
   // -- PASS 1: the image (K1a's samples), or the given one
   float img[3] = {0.0f, 0.0f, 0.0f};
   if (p.img_in != nullptr) {
-    if (valid)
+    if (live)
       for (int k = 0; k < 3; ++k) img[k] = p.img_in[pix + k];
   } else {
     uint32_t chain = seed0;
@@ -506,10 +515,10 @@ render_vjp_kernel(Params p) {
   if (valid) {
     const float one_m_g = 1.0f - p.gamma;
     for (int k = 0; k < 3; ++k) {
-      p.img_out[pix + k] = img[k];
+      p.img_out[pix + k] = img[k];  // 0 on a row past the frame
       float dd = img[k] > 0.0f ? expf(logf(img[k]) * one_m_g) / p.gamma
                                : 0.0f;
-      dacc[k] = p.ct[pix + k] * dd * p.inv_spp;
+      if (live) dacc[k] = p.ct[pix + k] * dd * p.inv_spp;
     }
   }
 
@@ -521,7 +530,7 @@ render_vjp_kernel(Params p) {
   uint32_t chain = seed0;
   // the pixel's tape: step k of its samples in order, as the forward wrote
   TapeCursor tc{const_cast<void*>(p.tape),
-                static_cast<size_t>(p.width) * p.height, pix / 3, p.g_cap,
+                static_cast<size_t>(p.width) * p.rows, pix / 3, p.g_cap,
                 0, p.tape_wide};
   for (int smp = 0; smp < p.spp; ++smp) {  // warp-uniform trip count
     int len = 0;
@@ -608,7 +617,7 @@ template <bool kBvh, bool kTape>
 int launch(const Params& p, cudaStream_t stream) {
   dim3 block(32, 8);
   dim3 grid((p.width + block.x - 1) / block.x,
-            (p.height + block.y - 1) / block.y);
+            (p.rows + block.y - 1) / block.y);
   render_vjp_kernel<kBvh, kTape><<<grid, block, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -617,11 +626,13 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // C entry point (loaded with ctypes).  Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() so a refused launch is reported.
-// img_in may be null: PASS 1 then renders the image.  gsc is a zeroed f64
-// (8, n) buffer; gcam an f64 (n_warps, 18) buffer, n_warps the grid's
-// blocks times 8 (raytpu_render_vjp_warps).  `flat` non-null: the flat BVH
-// sweep over the scene in leaf order (n permuted rows).  `tape_read`: the
-// replay of a winner-index tape of g_cap steps a pixel (int32 when
+// It covers rows [row0, row0 + rows) of the width x height frame; ct,
+// img_in, img_out and the tape hold those rows.  img_in may be null: PASS 1
+// then renders the image.  gsc is a zeroed f64 (8, n) buffer; gcam an f64
+// (n_warps, 18) buffer, n_warps the grid's blocks times 8
+// (raytpu_render_vjp_warps of width and rows).  `flat` non-null: the flat
+// BVH sweep over the scene in leaf order (n permuted rows).  `tape_read`:
+// the replay of a winner-index tape of g_cap steps a pixel (int32 when
 // tape_wide; null only when g_cap is 0); it needs parallel RNG and img_in.
 // The block's x extent is one warp, so threadIdx.x is the lane.
 extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
@@ -631,11 +642,13 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
                                  int tape_wide, const void* ct,
                                  const void* img_in, void* img_out,
                                  void* gsc, void* gcam, int width,
-                                 int height, int spp, int depth, float t_min,
+                                 int height, int row0, int rows, int spp,
+                                 int depth, float t_min,
                                  float inv_w, float inv_h, float inv_spp,
                                  float gamma, float vis_w, int parallel,
                                  int v1, void* stream) {
-  if (depth > kMaxDepth) return static_cast<int>(cudaErrorInvalidValue);
+  if (depth > kMaxDepth || rows < 1 || row0 < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (tape_read && (!parallel || img_in == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -652,6 +665,8 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.n = n;
   p.width = width;
   p.height = height;
+  p.row0 = row0;
+  p.rows = rows;
   p.spp = spp;
   p.depth = depth;
   p.g_cap = g_cap;
@@ -670,7 +685,8 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   return tape_read ? launch<false, true>(p, st) : launch<false, false>(p, st);
 }
 
-// Rows of the camera-sum buffer raytpu_render_vjp needs for this frame.
-extern "C" int raytpu_render_vjp_warps(int width, int height) {
-  return ((width + 31) / 32) * ((height + 7) / 8) * 8;
+// Rows of the camera-sum buffer raytpu_render_vjp needs for a launch of
+// `rows` rows of this width.
+extern "C" int raytpu_render_vjp_warps(int width, int rows) {
+  return ((width + 31) / 32) * ((rows + 7) / 8) * 8;
 }

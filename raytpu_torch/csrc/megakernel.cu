@@ -1,14 +1,17 @@
 // Forward render megakernels for Hopper (sm_90a): one thread per pixel.
 //
-// One kernel template, four TPU kernels:
+// One kernel template, five TPU kernels:
 //   K1a  brute sweep           raytpu/kernels/megakernel.py
 //                              ::_render_pallas_fwd_impl (no BVH)
+//   K1b  row slab              the same function with row0 / rows
 //   K1c  flat BVH sweep        the same function with nodes / perm / flat
 //                              (_flat_sweep_ti, _seed_outlier_tests, the
 //                              octant pick)
 //   K1'  K1c (or K1a) + census the same function with count_leaves=True
+//   K2   carry-state batch     raytpu/kernels/megakernel.py
+//                              ::accumulate_pallas (brute or BVH, slab)
 //   K4   taping forward        raytpu/kernels/gradkernel.py::render_tape_fwd
-//        (write side)          (brute or BVH)
+//        (write side)          (brute or BVH, slab)
 // (kernel body from _make_kernel: make_gen_ray, make_bounce_body, the
 // sequential / persistent-refill sample loop and the gamma epilogue.)  It
 // computes the same thing, not the same schedule: the (8, 128) tiles, SMEM
@@ -39,6 +42,17 @@
 // counter); without it the counting code is not compiled.  Staging the scene
 // in shared memory and regrouping rays against divergence are later work.
 //
+// Slab mode (K1b, and every variant): the launch covers rows [row0, row0 +
+// rows) of the cfg-sized frame and its buffers (image, tape, carried state)
+// hold those rows only.  A thread's RNG key, fy and octant come from its
+// absolute row, so stitched slabs give the full frame bit for bit.  Rows
+// past the frame's last one (the last slab of an uneven split) trace
+// nothing and write 0.  K2 (kCarry) is the progressive batch: it reads the
+// pixel's linear sums and seed, adds spp samples (sequential RNG resumes the
+// seed chain; parallel RNG draws sample s from fold_in(base_hash, s0 + s)
+// and writes the base seed back) and writes linear sums, no gamma.  One
+// thread owns one pixel, so the state may be updated in place.
+//
 // Numerics and the device functions (RNG, raygen, the closest-hit policies,
 // materials, sky, gamma) live in render_common.cuh, which the fused VJP
 // kernel K3 (gradkernel.cu) shares, so that its passes reproduce this image
@@ -60,22 +74,29 @@ struct Params {
   const CamPack* cam;
   const float* scene;  // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
   FlatBvh bvh;         // flat == null: the brute sweep
-  void* tape;          // (g_cap, height * width) int16 / int32, or null
+  void* tape;          // (g_cap, rows * width) int16 / int32, or null
   unsigned long long* census;  // (kCensus,) counters, or null
-  float* out;          // (height, width, 3)
-  int n, width, height, spp, depth, g_cap, tape_wide;
+  const float* acc_in;      // K2: (rows, width, 3) linear sums carried in
+  const uint32_t* seed_in;  // K2: (rows, width) seeds carried in
+  float* out;          // (rows, width, 3): the image, or K2's linear sums
+  uint32_t* seed_out;  // K2: (rows, width) seeds carried out
+  int n, width, height, row0, rows, spp, depth, g_cap, tape_wide;
+  uint32_t s0;         // index of the batch's first sample (0 but for K2)
   float t_min, inv_w, inv_h, inv_spp, gamma;
   int parallel, v1;
 };
 
-template <bool kBvh, int kTape, bool kCount>
+template <bool kBvh, int kTape, bool kCount, bool kCarry>
 __global__ void __launch_bounds__(256)
 render_fwd_kernel(Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  // lanes outside the frame stay to the end when counting: the census adds
-  // per warp, with all 32 lanes
-  const bool valid = x < p.width && y < p.height;
+  const int ly = blockIdx.y * blockDim.y + threadIdx.y;  // row in the slab
+  const int y = p.row0 + ly;                              // row in the frame
+  // valid: a pixel of the slab's buffers; live: one the frame holds.
+  // Lanes outside the buffers stay to the end when counting: the census
+  // adds per warp, with all 32 lanes
+  const bool valid = x < p.width && ly < p.rows;
+  const bool live = valid && y < p.height;
   if (!kCount && !valid) return;
 
   const CamPack cam = *p.cam;
@@ -84,17 +105,24 @@ render_fwd_kernel(Params p) {
   const float fy = static_cast<float>(y);
   const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
                                    static_cast<uint32_t>(y));
-  const size_t pix = static_cast<size_t>(y) * p.width + x;
-  TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.height, pix,
+  const size_t pix = static_cast<size_t>(ly) * p.width + x;
+  TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.rows, pix,
                 p.g_cap, 0, p.tape_wide};
   Census cn{0u, 0u, 0u};
 
   uint32_t chain = seed0;  // the sequential mode's carried seed
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  const int spp = valid ? p.spp : 0;
+  if (kCarry && live) {
+    if (!p.parallel) chain = p.seed_in[pix];
+    acc_r = p.acc_in[pix * 3];
+    acc_g = p.acc_in[pix * 3 + 1];
+    acc_b = p.acc_in[pix * 3 + 2];
+  }
+  const int spp = live ? p.spp : 0;
   for (int smp = 0; smp < spp; ++smp) {
-    uint32_t sd = p.parallel ? fold_in(seed0, static_cast<uint32_t>(smp))
-                             : chain;
+    uint32_t sd = p.parallel
+                      ? fold_in(seed0, p.s0 + static_cast<uint32_t>(smp))
+                      : chain;
     RayGen g;
     Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
     float rr, rg, rb;
@@ -108,10 +136,19 @@ render_fwd_kernel(Params p) {
   }
 
   if (valid) {
+    // a row past the frame traced nothing: its sums are 0, and so is the
+    // gamma image of 0
     float* o = p.out + pix * 3;
-    o[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
-    o[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
-    o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
+    if (kCarry) {
+      o[0] = acc_r;
+      o[1] = acc_g;
+      o[2] = acc_b;
+      p.seed_out[pix] = live ? (p.parallel ? seed0 : chain) : 0u;
+    } else {
+      o[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
+      o[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
+      o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
+    }
   }
   if (kCount) {
     const unsigned v[kCensus] = {cn.leaves, cn.steps, cn.samples};
@@ -124,12 +161,13 @@ render_fwd_kernel(Params p) {
   }
 }
 
-template <bool kBvh, int kTape, bool kCount>
+template <bool kBvh, int kTape, bool kCount, bool kCarry>
 int launch(const Params& p, cudaStream_t stream) {
   dim3 block(32, 8);
   dim3 grid((p.width + block.x - 1) / block.x,
-            (p.height + block.y - 1) / block.y);
-  render_fwd_kernel<kBvh, kTape, kCount><<<grid, block, 0, stream>>>(p);
+            (p.rows + block.y - 1) / block.y);
+  render_fwd_kernel<kBvh, kTape, kCount, kCarry><<<grid, block, 0, stream>>>(
+      p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -137,23 +175,32 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // C entry point (loaded with ctypes).  Launches on `stream` and does not
 // synchronise; returns cudaGetLastError() so a refused launch is reported.
-// The variant follows the operands: `flat` non-null -> the flat BVH sweep
-// (scene in leaf order), else the brute sweep; `taping` -> the taping
-// forward into `tape` (g_cap steps a pixel, int32 when tape_wide; null
-// only when g_cap is 0); `census` non-null -> the counting variant (not
-// with a tape).  The block's x extent is one warp, so threadIdx.x is the
-// lane.
+// It renders rows [row0, row0 + rows) of the width x height frame into
+// buffers of `rows` rows.  The variant follows the operands: `flat`
+// non-null -> the flat BVH sweep (scene in leaf order), else the brute
+// sweep; `taping` -> the taping forward into `tape` (g_cap steps a pixel,
+// int32 when tape_wide; null only when g_cap is 0); `census` non-null ->
+// the counting variant; `carry` -> K2, which reads acc_in / seed_in and
+// writes `out` / seed_out (either pair may alias: a thread reads its own
+// pixel before it writes it) from sample index s0 on.  A tape, the census
+// and the carry exclude one another.  The block's x extent is one warp, so
+// threadIdx.x is the lane.
 extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                                  const void* flat, int n_leaves,
                                  int leaf_size, int out_base, int out_cnt,
                                  int taping, void* tape, int g_cap,
-                                 int tape_wide, void* census, void* out,
-                                 int width,
-                                 int height, int spp, int depth, float t_min,
+                                 int tape_wide, void* census, int carry,
+                                 const void* acc_in, const void* seed_in,
+                                 void* seed_out, unsigned s0, void* out,
+                                 int width, int height, int row0, int rows,
+                                 int spp, int depth, float t_min,
                                  float inv_w, float inv_h, float inv_spp,
                                  float gamma, int parallel, int v1,
                                  void* stream) {
-  if (taping && census != nullptr)
+  if ((taping != 0) + (census != nullptr) + (carry != 0) > 1 || rows < 1 ||
+      row0 < 0 ||
+      (carry && (acc_in == nullptr || seed_in == nullptr ||
+                 seed_out == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.cam = static_cast<const CamPack*>(cam);
@@ -162,10 +209,16 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                   out_base, out_cnt};
   p.tape = tape;
   p.census = static_cast<unsigned long long*>(census);
+  p.acc_in = static_cast<const float*>(acc_in);
+  p.seed_in = static_cast<const uint32_t*>(seed_in);
   p.out = static_cast<float*>(out);
+  p.seed_out = static_cast<uint32_t*>(seed_out);
+  p.s0 = s0;
   p.n = n;
   p.width = width;
   p.height = height;
+  p.row0 = row0;
+  p.rows = rows;
   p.spp = spp;
   p.depth = depth;
   p.g_cap = g_cap;
@@ -180,11 +233,14 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bvh = flat != nullptr;
   if (taping)
-    return bvh ? launch<true, kTapeWrite, false>(p, st)
-               : launch<false, kTapeWrite, false>(p, st);
+    return bvh ? launch<true, kTapeWrite, false, false>(p, st)
+               : launch<false, kTapeWrite, false, false>(p, st);
   if (census != nullptr)
-    return bvh ? launch<true, kNoTape, true>(p, st)
-               : launch<false, kNoTape, true>(p, st);
-  return bvh ? launch<true, kNoTape, false>(p, st)
-             : launch<false, kNoTape, false>(p, st);
+    return bvh ? launch<true, kNoTape, true, false>(p, st)
+               : launch<false, kNoTape, true, false>(p, st);
+  if (carry)
+    return bvh ? launch<true, kNoTape, false, true>(p, st)
+               : launch<false, kNoTape, false, true>(p, st);
+  return bvh ? launch<true, kNoTape, false, false>(p, st)
+             : launch<false, kNoTape, false, false>(p, st);
 }

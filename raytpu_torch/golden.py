@@ -26,7 +26,10 @@ With a BVH (:mod:`raytpu_torch.bvh`) the closest hit is
 :func:`hit_world_bvh`, the plain version of the kernels' flat-leaf sweep
 (K1c), over the scene in BVH leaf order.  :func:`render_golden_tape` is the
 plain version of the taping forward (K4's write side): the image plus each
-pixel's log of closest-hit winners.
+pixel's log of closest-hit winners.  :func:`accumulate_golden` is the plain
+version of the carry-state kernel K2 (one progressive batch).  All three
+take raytpu's slab mode, ``row0`` / ``rows`` (K1b): a slab's pixels are
+their pixel list.
 
 ``rng_mode="v1_fractsin"`` (the v1 fract-sin parity mode) is not ported yet.
 """
@@ -530,8 +533,18 @@ def render_pixels(scene: Scene, cam: Camera, cfg: RenderConfig, px, py,
             _to_gamma(acc_b * inv_spp, cfg.gamma))
 
 
+def slab_pixels(cfg: RenderConfig, row0: int = 0, rows: int | None = None):
+    """(rows, live): the rows of the slab ``[row0, row0 + rows)`` (the
+    whole frame when ``rows`` is None) and how many of its pixels, the
+    first ones in row-major order, lie inside the frame.  A slab's pixel
+    ``i`` is ``(i % W, row0 + i // W)``."""
+    rows = cfg.height if rows is None else rows
+    return rows, max(0, min(rows, cfg.height - row0)) * cfg.width
+
+
 def render_golden(scene: Scene, cam: Camera, cfg: RenderConfig,
-                  bvh: BVH | None = None, tape=None, census=None):
+                  bvh: BVH | None = None, tape=None, census=None,
+                  row0: int = 0, rows: int | None = None):
     """Full-frame render -> (H, W, 3) f32 image in [0, 1] on the scene's
     device, ``cfg.chunk_pixels`` pixels at a time (the chunk bounds the
     pixels x spheres intermediates; pixels are independent, so the chunk
@@ -539,37 +552,76 @@ def render_golden(scene: Scene, cam: Camera, cfg: RenderConfig,
 
     ``bvh``: the closest hit sweeps the BVH's flat leaf list
     (:func:`hit_world_bvh`, the plain version of K1c); the image is the
-    brute sweep's except on exact ties of t.  ``tape`` (g_cap, H*W), when
-    given, receives each pixel's winners, step by step across its samples
-    in order (see :func:`render_golden_tape`).  ``census``, a dict, receives
-    the frame's :data:`CENSUS` counts (see :func:`trace`)."""
-    h, w = cfg.height, cfg.width
-    n = h * w
+    brute sweep's except on exact ties of t.  ``tape`` (g_cap, rows*W),
+    when given, receives each pixel's winners, step by step across its
+    samples in order (see :func:`render_golden_tape`).  ``census``, a dict,
+    receives the frame's :data:`CENSUS` counts (see :func:`trace`).
+    ``row0`` / ``rows``: the (rows, W, 3) slab from absolute row ``row0``
+    (the plain version of K1b), its rows past the frame 0."""
+    w = cfg.width
+    rows, live = slab_pixels(cfg, row0, rows)
     dev = scene.center.device
     if bvh is not None:
         scene = permute_scene(scene, bvh.perm)
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    chunk = min(cfg.chunk_pixels, n)
-    for start in range(0, n, chunk):
-        flat = torch.arange(start, min(start + chunk, n), device=dev)
+    out = torch.zeros((rows * w, 3), dtype=torch.float32, device=dev)
+    chunk = max(min(cfg.chunk_pixels, live), 1)
+    for start in range(0, live, chunk):
+        stop = min(start + chunk, live)
+        flat = torch.arange(start, stop, device=dev)
         cursor = (None if tape is None else
                   (tape, flat, torch.zeros_like(flat)))
-        r, g, b = render_pixels(scene, cam, cfg, flat % w, flat // w, bvh,
-                                cursor, census)
-        out[start:start + chunk] = torch.stack([r, g, b], dim=-1)
-    return out.reshape(h, w, 3)
+        r, g, b = render_pixels(scene, cam, cfg, flat % w, row0 + flat // w,
+                                bvh, cursor, census)
+        out[start:stop] = torch.stack([r, g, b], dim=-1)
+    return out.reshape(rows, w, 3)
 
 
 def render_golden_tape(scene: Scene, cam: Camera, cfg: RenderConfig,
-                       g_cap: int, bvh: BVH | None = None):
+                       g_cap: int, bvh: BVH | None = None, row0: int = 0,
+                       rows: int | None = None):
     """The plain version of the taping forward (K4's write side) ->
     (image, tape).  The image is :func:`render_golden`'s; ``tape`` is
-    (g_cap, H*W), int16 or int32 (:func:`tape_dtype`): ``tape[k, pix]`` is
-    the closest-hit winner (-1 for a miss) of pixel ``pix``'s k-th bounce
-    step, counted across its samples in order, as a permuted index under a
-    BVH.  Steps past ``g_cap`` are not logged; slots no step reached hold
-    ``TAPE_UNWRITTEN``."""
-    rows = scene.count if bvh is None else int(bvh.perm.shape[0])
-    tape = torch.full((g_cap, cfg.height * cfg.width), TAPE_UNWRITTEN,
-                      dtype=tape_dtype(rows), device=scene.center.device)
-    return render_golden(scene, cam, cfg, bvh, tape), tape
+    (g_cap, rows*W), int16 or int32 (:func:`tape_dtype`): ``tape[k, pix]``
+    is the closest-hit winner (-1 for a miss) of pixel ``pix``'s k-th
+    bounce step, counted across its samples in order, as a permuted index
+    under a BVH.  Steps past ``g_cap`` are not logged; slots no step
+    reached hold ``TAPE_UNWRITTEN``.  ``row0`` / ``rows`` as in
+    :func:`render_golden`."""
+    n = scene.count if bvh is None else int(bvh.perm.shape[0])
+    pixels = slab_pixels(cfg, row0, rows)[0] * cfg.width
+    tape = torch.full((g_cap, pixels), TAPE_UNWRITTEN, dtype=tape_dtype(n),
+                      device=scene.center.device)
+    return render_golden(scene, cam, cfg, bvh, tape, row0=row0,
+                         rows=rows), tape
+
+
+def accumulate_golden(scene: Scene, cam: Camera, cfg: RenderConfig, acc,
+                      seed, s0: int, spp: int, bvh: BVH | None = None,
+                      row0: int = 0, rows: int | None = None):
+    """One progressive batch over the frame (the plain version of K2) ->
+    ``(acc', seed')``: :func:`accumulate_pixels` over ``cfg.chunk_pixels``
+    pixels at a time, from the carried ``acc`` (rows, W, 3) f32 linear sums
+    and ``seed`` (rows, W) int64 (u32 values), ``spp`` samples from sample
+    index ``s0`` on.  ``bvh`` and ``row0`` / ``rows`` as in
+    :func:`render_golden`; rows past the frame come out 0, sums and
+    seeds."""
+    w = cfg.width
+    rows, live = slab_pixels(cfg, row0, rows)
+    dev = scene.center.device
+    if bvh is not None:
+        scene = permute_scene(scene, bvh.perm)
+    acc_in = acc.reshape(-1, 3)
+    seed_in = seed.reshape(-1)
+    acc_out = torch.zeros((rows * w, 3), dtype=torch.float32, device=dev)
+    seed_out = torch.zeros(rows * w, dtype=torch.int64, device=dev)
+    chunk = max(min(cfg.chunk_pixels, live), 1)
+    for start in range(0, live, chunk):
+        stop = min(start + chunk, live)
+        flat = torch.arange(start, stop, device=dev)
+        part = acc_in[start:stop]
+        (r, g, b), sd = accumulate_pixels(
+            scene, cam, cfg, flat % w, row0 + flat // w, seed_in[start:stop],
+            spp, init=(part[:, 0], part[:, 1], part[:, 2]), s0=s0, bvh=bvh)
+        acc_out[start:stop] = torch.stack([r, g, b], dim=-1)
+        seed_out[start:stop] = sd
+    return acc_out.reshape(rows, w, 3), seed_out.reshape(rows, w)

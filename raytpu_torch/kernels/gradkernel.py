@@ -2,9 +2,10 @@
 ``csrc/gradkernel.cu`` (and of the taping forward in ``csrc/megakernel.cu``).
 
 Counterpart of ``raytpu/kernels/gradkernel.py::render_pallas_vjp`` with the
-per-sample PASS 2, the brute-force or the flat BVH sweep and the tape
-replay (no slab, no windowed refill), and of its ``tape_plan`` and
-``render_tape_fwd``.  See the notes at the top of the ``.cu`` files.
+per-sample PASS 2, the brute-force or the flat BVH sweep, the tape replay
+and the slab mode ``row0`` / ``rows`` (no windowed refill), and of its
+``tape_plan`` and ``render_tape_fwd``.  See the notes at the top of the
+``.cu`` files.
 
 :func:`render_vjp` takes the scene and camera as the package's NamedTuples
 and an image cotangent ``ct``.  For CPU tensors it runs the plain PyTorch
@@ -47,9 +48,11 @@ LEAVES = 8      # sphere cotangent rows: cx cy cz rad ar ag ab mp
 CAM_SUMS = 18   # raygen cotangent sums (raytpu gradkernel.py:960-969)
 
 launches = 0    # kernel launches through launch(); a run resets and reads it
-# the same launches by variant (sweep, and "+tape" for the tape replay); a
-# run resets and reads them
-variants = dict.fromkeys(("K3", "K3/bvh", "K3/tape", "K3/bvh+tape"), 0)
+# the same launches by variant (sweep, "+tape" for the tape replay, "+slab"
+# for a launch given rows); a run resets and reads them
+variants = dict.fromkeys(
+    ("K3", "K3/bvh", "K3/tape", "K3/bvh+tape", "K3/slab", "K3/bvh+slab",
+     "K3/tape+slab", "K3/bvh+tape+slab"), 0)
 
 # The tape's device-memory budget in bytes; a module constant (tests may
 # monkeypatch it).  raytpu's default, 4 GiB: CONFIG4's full tape takes
@@ -77,7 +80,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.raytpu_render_vjp
     fn.argtypes = [ptr, ptr, i, ptr, i, i, i, i, i, ptr, i, i,
                    ptr, ptr, ptr, ptr, ptr,
-                   i, i, i, i, f, f, f, f, f, f, i, i, ptr]
+                   i, i, i, i, i, i, f, f, f, f, f, f, i, i, ptr]
     fn.restype = ctypes.c_int
     lib.raytpu_render_vjp_warps.argtypes = [i, i]
     lib.raytpu_render_vjp_warps.restype = ctypes.c_int
@@ -113,8 +116,9 @@ def camera_grads(sums: torch.Tensor, cam: Camera) -> Camera:
     )
 
 
-def _check_frame(cfg: RenderConfig, ct: torch.Tensor, img, device):
-    shape = (cfg.height, cfg.width, 3)
+def _check_frame(cfg: RenderConfig, ct: torch.Tensor, img, device,
+                 rows: int | None = None):
+    shape = (cfg.height if rows is None else rows, cfg.width, 3)
     for name, t in (("ct", ct), ("img", img)):
         if t is None:
             continue
@@ -127,46 +131,52 @@ def _check_frame(cfg: RenderConfig, ct: torch.Tensor, img, device):
 
 def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
            cfg: RenderConfig, ct: torch.Tensor, img=None, vis_w: float = 0.0,
-           bvh: BVH | None = None, tape: torch.Tensor | None = None):
-    """Launch K3 on packed operands -> (image, (8, P) f32 sphere
-    cotangents, (18,) f32 camera sums).
+           bvh: BVH | None = None, tape: torch.Tensor | None = None,
+           row0: int = 0, rows: int | None = None):
+    """Launch K3 on packed operands -> (image, (8, P) sphere cotangents,
+    (18,) camera sums), the sums in f64 as the kernel accumulates them
+    (the caller casts them to f32, after a sharded step's all-reduce).
 
     ``img`` (parallel RNG only) is the forward image: it elides PASS 1.
     Sequential RNG chains each pixel's seed through its samples, so PASS 1
     must run and ``img`` is ignored there, as in raytpu.  ``bvh``: the flat
     BVH sweep, ``scene_pack`` then in leaf order (P permuted rows) and the
-    cotangents in that order.  ``tape`` (g_cap, H*W), a winner-index tape
-    of this frame from :func:`render_tape_fwd` with the same ``bvh``: the
-    replay; it needs parallel RNG and ``img``.  Runs on the current stream
-    of the operands' device and does not synchronise."""
+    cotangents in that order.  ``tape`` (g_cap, rows*W), a winner-index
+    tape of this frame from :func:`render_tape_fwd` with the same ``bvh``
+    and slab: the replay; it needs parallel RNG and ``img``.  ``row0`` /
+    ``rows``: the slab (:func:`megakernel.slab`); ``ct`` and ``img`` are
+    then (rows, W, 3).  Runs on the current stream of the operands' device
+    and does not synchronise."""
     global launches
     megakernel.check_packs(cam_pack, scene_pack)
     if cfg.depth > MAX_DEPTH:
         raise ValueError(f"depth {cfg.depth}: the VJP kernel keeps at most "
                          f"{MAX_DEPTH} bounces of residuals per thread")
+    slabbed = rows is not None
+    row0, rows = megakernel.slab(cfg, row0, rows)
     device = scene_pack.device
     n = scene_pack.shape[1]
     skip_p1 = img is not None and cfg.rng_mode == "parallel"
     img_in = img if skip_p1 else None
-    _check_frame(cfg, ct, img_in, device)
+    _check_frame(cfg, ct, img_in, device, rows)
     if bvh is not None:
         megakernel.check_bvh(bvh, n, device)
     if tape is not None:
         if not skip_p1:
             raise ValueError("the tape replay needs parallel RNG and the "
                              "forward image (img=)")
-        megakernel.check_tape(tape, cfg, n, device)
+        megakernel.check_tape(tape, cfg, n, device, rows)
     tail = None if bvh is None else outlier_tail(bvh.perm, bvh.flat,
                                                  bvh.leaf_size)
     out_base, out_cnt = tail if tail else (0, 0)
     ct = ct.contiguous()
     img_in = None if img_in is None else img_in.detach().contiguous()
     lib = _lib()
-    out = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32,
+    out = torch.empty((rows, cfg.width, 3), dtype=torch.float32,
                       device=device)
     gsc = torch.zeros((LEAVES, n), dtype=torch.float64, device=device)
     # one row of camera sums per warp, summed below in a fixed order
-    n_warps = lib.raytpu_render_vjp_warps(cfg.width, cfg.height)
+    n_warps = lib.raytpu_render_vjp_warps(cfg.width, rows)
     gcam = torch.empty((n_warps, CAM_SUMS), dtype=torch.float64,
                        device=device)
     with torch.cuda.device(device):
@@ -182,7 +192,7 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
             int(tape is not None and tape.dtype == torch.int32),
             ct.data_ptr(), None if img_in is None else img_in.data_ptr(),
             out.data_ptr(), gsc.data_ptr(), gcam.data_ptr(),
-            cfg.width, cfg.height, cfg.spp, cfg.depth,
+            cfg.width, cfg.height, row0, rows, cfg.spp, cfg.depth,
             float(np.float32(cfg.t_min)),
             float(np.float32(1.0 / (cfg.width - 1))),
             float(np.float32(1.0 / (cfg.height - 1))),
@@ -194,17 +204,33 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
         raise RuntimeError(f"render_vjp_kernel launch failed: CUDA error {err}")
     launches += 1
     tags = "+".join(t for t, on in (("bvh", bvh is not None),
-                                    ("tape", tape is not None)) if on)
+                                    ("tape", tape is not None),
+                                    ("slab", slabbed)) if on)
     variants["K3/" + tags if tags else "K3"] += 1
-    return out, gsc.to(torch.float32), gcam.sum(dim=0).to(torch.float32)
+    return out, gsc, gcam.sum(dim=0)
+
+
+def _reduced(grads: list, reduce) -> list:
+    """``grads`` (tensors of one dtype) summed in place across processes
+    by ``reduce``, as one 1-D tensor of that dtype, and split back."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    reduce(flat)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].reshape(g.shape))
+        i += g.numel()
+    return out
 
 
 def render_vjp_plain(scene: Scene, cam: Camera, cfg: RenderConfig, ct,
-                     vis_w: float = 0.0, bvh: BVH | None = None, tape=None):
+                     vis_w: float = 0.0, bvh: BVH | None = None, tape=None,
+                     row0: int = 0, rows: int | None = None, reduce=None):
     """The plain version of K3 on any device: the VJP of the adjoint
     renderer for the image cotangent ``ct`` -> (img, d_scene, d_cam).
     ``bvh`` sweeps its flat leaf list; ``tape`` replays a winner-index tape
-    (the plain version of K3's tape read)."""
+    (the plain version of K3's tape read); ``row0`` / ``rows`` take the
+    slab; ``reduce`` sums the f32 cotangents across processes (see
+    :func:`render_vjp`)."""
     leaves = [t.detach().requires_grad_()
               for t in (scene.center, scene.radius, scene.albedo,
                         scene.mat_param, *cam)]
@@ -212,10 +238,14 @@ def render_vjp_plain(scene: Scene, cam: Camera, cfg: RenderConfig, ct,
         img = adjoint.render_golden_adjoint(
             Scene(leaves[0], leaves[1], scene.mat_type, leaves[2],
                   leaves[3]), Camera(*leaves[4:]), cfg, vis_w, bvh=bvh,
-            tape=tape)
-        grads = torch.autograd.grad(img, leaves, ct, allow_unused=True)
+            tape=tape, row0=row0, rows=rows)
+        # a slab wholly past the frame renders nothing: no graph
+        grads = (torch.autograd.grad(img, leaves, ct, allow_unused=True)
+                 if img.requires_grad else [None] * len(leaves))
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, leaves)]
+    if reduce is not None:
+        grads = _reduced(grads, reduce)
     return img.detach(), _scene_grads(*grads[:4]), Camera(*grads[4:])
 
 
@@ -226,9 +256,15 @@ def _kernel_rows(scene: Scene, bvh: BVH | None) -> int:
 
 def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
                vis_w: float = 0.0, bvh: BVH | None = None, tape=None,
-               tape_partial: bool = False):
+               tape_partial: bool = False, row0: int = 0,
+               rows: int | None = None, reduce=None):
     """Fused image + VJP -> (img, d_scene, d_cam) for the image cotangent
     ``ct`` (H, W, 3), the counterpart of raytpu's ``render_pallas_vjp``.
+    ``row0`` / ``rows``: the slab (``ct``, ``img`` and the tape of its
+    rows); rows past the frame add nothing.  ``reduce``, a callable, is
+    given the cotangents as one 1-D tensor (sphere sums, then camera sums)
+    to sum in place across the processes of a sharded step: the kernel's
+    f64 sums before their cast to f32, the plain version's f32 cotangents.
 
     ``d_scene.mat_type`` is None (a discrete leaf); ``d_scene`` is in the
     input order of the spheres, also with ``bvh`` (the kernel accumulates
@@ -242,29 +278,36 @@ def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     adjoint.check_cfg(cfg)
     device = megakernel.check_inputs(scene, cam, cfg)
+    slabbed = rows is not None
+    row0, rows = megakernel.slab(cfg, row0, rows)
     ct = torch.as_tensor(ct, dtype=torch.float32, device=device)
-    _check_frame(cfg, ct, img, device)
-    rows = _kernel_rows(scene, bvh)
+    _check_frame(cfg, ct, img, device, rows)
+    n = _kernel_rows(scene, bvh)
     if bvh is not None:
-        megakernel.check_bvh(bvh, rows, device)
+        megakernel.check_bvh(bvh, n, device)
     if tape is not None:
         if cfg.rng_mode != "parallel" or img is None:
             raise ValueError("the tape replay needs parallel RNG and the "
                              "forward image (img=)")
-        megakernel.check_tape(tape, cfg, rows, device)
+        megakernel.check_tape(tape, cfg, n, device, rows)
         if (tape.shape[0] < cfg.spp * cfg.depth) != bool(tape_partial):
             raise ValueError(
                 f"tape of {tape.shape[0]} steps a pixel passed as "
                 f"{'partial' if tape_partial else 'full'} for a frame of "
                 f"{cfg.spp * cfg.depth}")
     if device.type == "cpu":
-        return render_vjp_plain(scene, cam, cfg, ct, vis_w, bvh, tape)
+        return render_vjp_plain(scene, cam, cfg, ct, vis_w, bvh, tape, row0,
+                                rows, reduce)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     packed = megakernel.pack_scene(scene if bvh is None else
                                    permute_scene(scene, bvh.perm))
     out, gsc, gcam = launch(megakernel.pack_camera(cam), packed, cfg, ct,
-                            img, vis_w, bvh, tape)
+                            img, vis_w, bvh, tape, row0,
+                            rows if slabbed else None)
+    if reduce is not None:
+        gsc, gcam = _reduced([gsc, gcam], reduce)
+    gsc, gcam = gsc.to(torch.float32), gcam.to(torch.float32)
     if bvh is not None:
         # leaf order -> input order; each sphere has one row, dummies none
         perm = bvh.perm.to(torch.int64)
@@ -278,7 +321,7 @@ def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
 
 
 def tape_plan(cfg: RenderConfig, n: int, bvh: BVH | None = None,
-              vis_w: float = 0.0):
+              vis_w: float = 0.0, rows: int | None = None):
     """-> ``{"g_cap", "bytes", "partial"}`` when the autograd path tapes,
     else None (raytpu's ``tape_plan`` gate, with the port's sizing).
 
@@ -290,13 +333,15 @@ def tape_plan(cfg: RenderConfig, n: int, bvh: BVH | None = None,
     :data:`TAPE_BUDGET`; else a partial tape of as many steps as fit, when
     that is at least :data:`PARTIAL_MIN_COVERAGE` of ``spp * depth``; else
     None.  ``n`` is the scene's sphere count; the element type follows the
-    kernel-side rows (``bvh.perm``'s length with a BVH)."""
+    kernel-side rows (``bvh.perm``'s length with a BVH).  ``rows``: the
+    tape of a ``rows``-row slab (raytpu's ``rows=slab``)."""
     if (cfg.rng_mode != "parallel" or vis_w != 0.0
             or n < TAPE_MIN_SPHERES):
         return None
-    rows = n if bvh is None else int(bvh.perm.shape[0])
-    elt = torch.empty((), dtype=golden.tape_dtype(rows)).element_size()
-    plane = cfg.height * cfg.width * elt  # one step of every pixel
+    kernel_rows = n if bvh is None else int(bvh.perm.shape[0])
+    elt = torch.empty((), dtype=golden.tape_dtype(kernel_rows)).element_size()
+    # one step of every pixel
+    plane = (cfg.height if rows is None else rows) * cfg.width * elt
     worst = cfg.spp * cfg.depth
     g_fit = TAPE_BUDGET // plane
     if worst <= g_fit:
@@ -307,7 +352,8 @@ def tape_plan(cfg: RenderConfig, n: int, bvh: BVH | None = None,
 
 
 def render_tape_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
-                    g_cap: int, bvh: BVH | None = None):
+                    g_cap: int, bvh: BVH | None = None, row0: int = 0,
+                    rows: int | None = None):
     """The taping forward -> (img, tape): the forward's image (K1a's, or
     K1c's with ``bvh``, bit for bit: the same device function traces it)
     and the winner-index tape, (g_cap, H*W) of :func:`golden.tape_dtype`,
@@ -316,24 +362,30 @@ def render_tape_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
     Slots no step reached are left as allocated: the replay never reads
     them, since it takes the forward's steps again (the plain version marks
     them ``golden.TAPE_UNWRITTEN``; ``profiling.census`` counts the steps).
-    CPU tensors take the plain version (:func:`golden.render_golden_tape`);
-    CUDA tensors launch the taping forward kernel."""
+    ``row0`` / ``rows``: the slab, image (rows, W, 3) and tape (g_cap,
+    rows*W).  CPU tensors take the plain version
+    (:func:`golden.render_golden_tape`); CUDA tensors launch the taping
+    forward kernel."""
     device = megakernel.check_inputs(scene, cam, cfg)
-    rows = _kernel_rows(scene, bvh)
+    slabbed = rows is not None
+    row0, rows = megakernel.slab(cfg, row0, rows)
+    n = _kernel_rows(scene, bvh)
     if bvh is not None:
-        megakernel.check_bvh(bvh, rows, device)
+        megakernel.check_bvh(bvh, n, device)
     if not 0 <= g_cap <= cfg.spp * cfg.depth:
         raise ValueError(f"g_cap {g_cap}: a frame of {cfg.spp} samples and "
                          f"depth {cfg.depth} has at most "
                          f"{cfg.spp * cfg.depth} steps a pixel")
     if device.type == "cpu":
-        return golden.render_golden_tape(scene, cam, cfg, g_cap, bvh)
+        return golden.render_golden_tape(scene, cam, cfg, g_cap, bvh, row0,
+                                         rows)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    tape = torch.empty((g_cap, cfg.height * cfg.width),
-                       dtype=golden.tape_dtype(rows), device=device)
+    tape = torch.empty((g_cap, rows * cfg.width),
+                       dtype=golden.tape_dtype(n), device=device)
     packed = megakernel.pack_scene(scene if bvh is None else
                                    permute_scene(scene, bvh.perm))
     img = megakernel.launch(megakernel.pack_camera(cam), packed, cfg, bvh,
-                            tape=tape)
+                            tape=tape, row0=row0,
+                            rows=rows if slabbed else None)
     return img, tape

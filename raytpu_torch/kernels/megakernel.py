@@ -1,22 +1,31 @@
 """Forward render megakernels: wrapper of ``csrc/megakernel.cu``.
 
-Counterpart of ``raytpu/kernels/megakernel.py::render_pallas`` (full frame,
-no dense stage) and of the write side of ``raytpu/kernels/gradkernel.py::
-render_tape_fwd``.  One kernel template, variants by operand: K1a (the
-brute-force sphere sweep), K1c (``bvh=``: the flat leaf-list sweep over the
-scene in leaf order), K1' (``count=True``: the census of leaves entered,
-bounce steps and samples) and K4's write side (``tape=``: the taping
-forward, the same image plus each step's winner).  The CUDA kernel is one
-thread per pixel; see the note at the top of the ``.cu`` file.
+Counterpart of ``raytpu/kernels/megakernel.py::render_pallas`` and
+``_render_pallas_fwd_impl`` (no dense stage), of ``accumulate_pallas``
+and of the write side of ``raytpu/kernels/gradkernel.py::render_tape_fwd``.
+One kernel template, variants by operand: K1a (the brute-force sphere
+sweep), K1c (``bvh=``: the flat leaf-list sweep over the scene in leaf
+order), K1' (``count=True``: the census of leaves entered, bounce steps and
+samples), K4's write side (``tape=``: the taping forward, the same image
+plus each step's winner) and K2 (:func:`accumulate`: one progressive batch
+on carried linear sums and seeds).  Every variant takes raytpu's slab mode,
+``row0`` / ``rows``: rows ``[row0, row0 + rows)`` of the cfg-sized frame,
+with the image, the tape and the carried state ``(rows, W, ...)`` (K1b is
+the forward in slab mode).  A slab may run past the frame's last row; those
+rows trace nothing and come out 0.  The CUDA kernel is one thread per
+pixel; see the note at the top of the ``.cu`` file.
 
-:func:`render_fwd` takes the scene and camera as the package's NamedTuples.
-For CPU tensors it runs the plain PyTorch version
-(:func:`raytpu_torch.golden.render_golden`, with a BVH its flat sweep
-:func:`raytpu_torch.golden.hit_world_bvh`); for CUDA tensors it launches
-the kernel or raises — it never falls back.  :func:`launch` is the kernel
-wrapper proper, on the packed operands the kernel reads.  ``launches``
-counts the kernel launches made through :func:`launch`, ``variants`` the
-same launches by variant.
+:func:`render_fwd` and :func:`accumulate` take the scene and camera as the
+package's NamedTuples.  For CPU tensors they run the plain PyTorch versions
+(:func:`raytpu_torch.golden.render_golden` and
+:func:`raytpu_torch.golden.accumulate_golden`, with a BVH their flat sweep
+:func:`raytpu_torch.golden.hit_world_bvh`); for CUDA tensors they launch
+the kernel or raise — they never fall back.  :func:`launch` and
+:func:`launch_accumulate` are the kernel wrappers proper, on the packed
+operands the kernel reads.  ``launches`` counts the kernel launches made
+through them, ``variants`` the same launches by variant; a launch given
+``rows`` (the sharded paths pass it, a world of one included) counts as a
+slab launch.
 
 Under autograd (any continuous leaf requires grad) :func:`render_fwd` goes
 through :class:`_Render`, the counterpart of raytpu's ``custom_vjp``s
@@ -55,10 +64,13 @@ CAM_PACK = 19   # origin, horizontal, vertical, lower_left, u, v, lens_radius
 SCENE_ROWS = 9  # cx, cy, cz, radius, mat_type, ar, ag, ab, mat_param
 
 launches = 0    # kernel launches through launch(); a run resets and reads it
-# the same launches by variant: K1a brute, K1c flat BVH, K1' census (by
-# sweep), K4 taping forward (by sweep); a run resets and reads them
-variants = dict.fromkeys(("K1a", "K1c", "K1'/brute", "K1'/bvh", "K4/brute",
-                          "K4/bvh"), 0)
+# the same launches by variant: K1a brute, K1c flat BVH, K1b a slab (by
+# sweep), K1' census, K2 carry-state batch and K4 taping forward (by sweep,
+# "+slab" for a slab); a run resets and reads them
+variants = dict.fromkeys(
+    ("K1a", "K1c", "K1b/brute", "K1b/bvh", "K1'/brute", "K1'/bvh")
+    + tuple(f"{k}/{sweep}{slab}" for k in ("K2", "K4")
+            for sweep in ("brute", "bvh") for slab in ("", "+slab")), 0)
 
 _SCENE_SPEC = {"center": (torch.float32, 2), "radius": (torch.float32, 1),
                "mat_type": (torch.int32, 1), "albedo": (torch.float32, 2),
@@ -69,10 +81,33 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raytpu_render_fwd
-    fn.argtypes = [ptr, ptr, i, ptr, i, i, i, i, i, ptr, i, i, ptr, ptr,
-                   i, i, i, i, f, f, f, f, f, i, i, ptr]
+    fn.argtypes = [ptr, ptr, i, ptr, i, i, i, i, i, ptr, i, i, ptr,
+                   i, ptr, ptr, ptr, ctypes.c_uint, ptr,
+                   i, i, i, i, i, i, f, f, f, f, f, i, i, ptr]
     fn.restype = ctypes.c_int
     return lib
+
+
+def slab(cfg: RenderConfig, row0: int = 0,
+         rows: int | None = None) -> tuple[int, int]:
+    """``(row0, rows)`` checked: the whole frame when ``rows`` is None,
+    else ``rows >= 1`` rows from absolute row ``row0 >= 0`` (a slab may run
+    past the frame's last row, as the last slab of an uneven split does)."""
+    if rows is None:
+        if row0:
+            raise ValueError("row0 needs rows")
+        return 0, cfg.height
+    row0, rows = int(row0), int(rows)
+    if row0 < 0 or rows < 1:
+        raise ValueError(f"slab: want row0 >= 0 and rows >= 1, got row0 "
+                         f"{row0}, rows {rows}")
+    return row0, rows
+
+
+def _u32_bits(seed: torch.Tensor) -> torch.Tensor:
+    """The int64 carrier of u32 seeds (:mod:`raytpu_torch.rng`) as int32
+    tensors with the same 32 bits, the kernel's ``uint32_t`` layout."""
+    return torch.where(seed >= 2**31, seed - 2**32, seed).to(torch.int32)
 
 
 def check_inputs(scene: Scene, cam: Camera, cfg: RenderConfig) -> torch.device:
@@ -184,57 +219,58 @@ def check_bvh(bvh: BVH, rows: int | None, device) -> None:
             raise ValueError(f"{name} is on {t.device}, the scene on {device}")
 
 
-def check_tape(tape: torch.Tensor, cfg: RenderConfig, rows: int,
-               device) -> None:
-    """Raise unless ``tape`` is a winner-index tape of this frame: (g_cap,
-    H*W) contiguous, ``g_cap <= spp * depth``, of :func:`golden.tape_dtype`
-    for ``rows`` kernel-side spheres, on ``device``."""
-    want = golden.tape_dtype(rows)
-    if (tape.dtype != want or tape.dim() != 2
-            or tape.shape[1] != cfg.height * cfg.width
+def check_tape(tape: torch.Tensor, cfg: RenderConfig, n: int, device,
+               rows: int | None = None) -> None:
+    """Raise unless ``tape`` is a winner-index tape of this frame (of its
+    ``rows``-row slab when given): (g_cap, rows*W) contiguous, ``g_cap <=
+    spp * depth``, of :func:`golden.tape_dtype` for ``n`` kernel-side
+    spheres, on ``device``."""
+    want = golden.tape_dtype(n)
+    pixels = (cfg.height if rows is None else rows) * cfg.width
+    if (tape.dtype != want or tape.dim() != 2 or tape.shape[1] != pixels
             or tape.shape[0] > cfg.spp * cfg.depth
             or not tape.is_contiguous()):
         raise ValueError(
             f"tape: want contiguous {want} (g_cap <= {cfg.spp * cfg.depth}, "
-            f"{cfg.height * cfg.width}) for this frame, got {tape.dtype} "
+            f"{pixels}) for this frame, got {tape.dtype} "
             f"{tuple(tape.shape)}")
     if tape.device != device:
         raise ValueError(f"tape is on {tape.device}, the scene on {device}")
 
 
-def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
-           cfg: RenderConfig, bvh: BVH | None = None,
-           tape: torch.Tensor | None = None, count: bool = False):
-    """Launch the kernel on the packed operands -> (H, W, 3) f32 image, or
-    (image, census) with ``count``: ``census`` (3,) int64 on the device,
-    the frame's ``golden.CENSUS`` counts.
+def _check_state(cfg: RenderConfig, rows: int, acc: torch.Tensor,
+                 seed: torch.Tensor, device,
+                 seed_dtype: torch.dtype = torch.int64) -> None:
+    """Raise unless ``acc`` (rows, W, 3) f32 and ``seed`` (rows, W) are
+    carried state of a ``rows``-row slab on ``device``: ``seed`` int64
+    (the u32 carrier) for :func:`accumulate`, int32 (the u32 bits) and
+    both contiguous for :func:`launch_accumulate`."""
+    bits = seed_dtype == torch.int32
+    for name, t, dtype, shape in (
+            ("acc", acc, torch.float32, (rows, cfg.width, 3)),
+            ("seed", seed, seed_dtype, (rows, cfg.width))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if bits and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the scene on {device}")
 
-    ``bvh``: the flat BVH sweep (K1c); ``scene_pack`` is then the scene in
-    leaf order (``pack_scene(permute_scene(scene, bvh.perm))``).  ``tape``
-    (g_cap, H*W): the taping forward (K4's write side) writes each pixel's
-    first g_cap winners (-1 for a miss) into it; other slots keep their
-    value.  Runs on the current stream of the operands' device and does not
-    synchronise.  ``inv_w``, ``inv_h`` and ``inv_spp`` are computed in f64
-    here and rounded to f32, as raytpu's kernel and both goldens do."""
+
+def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
+            rows: int, spp: int, out: torch.Tensor, *, tape=None,
+            census=None, carry=None) -> None:
+    """Run the C entry point once; ``carry`` = (acc_in, seed_in, seed_out,
+    s0) for K2, the seeds as int32 bits."""
     global launches
-    check_packs(cam_pack, scene_pack)
     n = scene_pack.shape[1]
-    device = scene_pack.device
-    if bvh is not None:
-        check_bvh(bvh, n, device)
-    if tape is not None:
-        check_tape(tape, cfg, n, device)
-        if count:
-            raise ValueError("the census does not count a taping forward")
     tail = None if bvh is None else outlier_tail(bvh.perm, bvh.flat,
                                                  bvh.leaf_size)
     out_base, out_cnt = tail if tail else (0, 0)
+    acc_in, seed_in, seed_out, s0 = carry if carry else (None,) * 3 + (0,)
     lib = _lib()
-    out = torch.empty((cfg.height, cfg.width, 3), dtype=torch.float32,
-                      device=device)
-    census = (torch.zeros(len(golden.CENSUS), dtype=torch.int64,
-                          device=device)
-              if count else None)
+    device = scene_pack.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_fwd(
@@ -246,8 +282,13 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
             None if tape is None or tape.numel() == 0 else tape.data_ptr(),
             0 if tape is None else tape.shape[0],
             int(tape is not None and tape.dtype == torch.int32),
-            None if census is None else census.data_ptr(), out.data_ptr(),
-            cfg.width, cfg.height, cfg.spp, cfg.depth,
+            None if census is None else census.data_ptr(),
+            int(carry is not None),
+            None if acc_in is None else acc_in.data_ptr(),
+            None if seed_in is None else seed_in.data_ptr(),
+            None if seed_out is None else seed_out.data_ptr(),
+            int(s0) & 0xFFFFFFFF, out.data_ptr(),
+            cfg.width, cfg.height, row0, rows, spp, cfg.depth,
             float(np.float32(cfg.t_min)),
             float(np.float32(1.0 / (cfg.width - 1))),
             float(np.float32(1.0 / (cfg.height - 1))),
@@ -258,42 +299,119 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"render_fwd_kernel launch failed: CUDA error {err}")
     launches += 1
+
+
+def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
+           cfg: RenderConfig, bvh: BVH | None = None,
+           tape: torch.Tensor | None = None, count: bool = False,
+           row0: int = 0, rows: int | None = None):
+    """Launch the kernel on the packed operands -> (rows, W, 3) f32 image
+    (rows = H without a slab), or (image, census) with ``count``:
+    ``census`` (3,) int64 on the device, the frame's ``golden.CENSUS``
+    counts.
+
+    ``bvh``: the flat BVH sweep (K1c); ``scene_pack`` is then the scene in
+    leaf order (``pack_scene(permute_scene(scene, bvh.perm))``).  ``tape``
+    (g_cap, rows*W): the taping forward (K4's write side) writes each
+    pixel's first g_cap winners (-1 for a miss) into it; other slots keep
+    their value.  ``row0`` / ``rows``: the slab (K1b; see :func:`slab`).
+    Runs on the current stream of the operands' device and does not
+    synchronise.  ``inv_w``, ``inv_h`` and ``inv_spp`` are computed in f64
+    here and rounded to f32, as raytpu's kernel and both goldens do."""
+    check_packs(cam_pack, scene_pack)
+    slabbed = rows is not None
+    row0, rows = slab(cfg, row0, rows)
+    n = scene_pack.shape[1]
+    device = scene_pack.device
+    if bvh is not None:
+        check_bvh(bvh, n, device)
+    if tape is not None:
+        check_tape(tape, cfg, n, device, rows)
+        if count:
+            raise ValueError("the census does not count a taping forward")
+    out = torch.empty((rows, cfg.width, 3), dtype=torch.float32,
+                      device=device)
+    census = (torch.zeros(len(golden.CENSUS), dtype=torch.int64,
+                          device=device)
+              if count else None)
+    _launch(cam_pack, scene_pack, cfg, bvh, row0, rows, cfg.spp, out,
+            tape=tape, census=census)
     sweep = "brute" if bvh is None else "bvh"
     if tape is not None:
-        variants[f"K4/{sweep}"] += 1
+        variants[f"K4/{sweep}" + ("+slab" if slabbed else "")] += 1
     elif count:
         variants[f"K1'/{sweep}"] += 1
+    elif slabbed:
+        variants[f"K1b/{sweep}"] += 1
     else:
         variants["K1a" if bvh is None else "K1c"] += 1
     return (out, census) if count else out
 
 
+def launch_accumulate(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
+                      cfg: RenderConfig, acc: torch.Tensor,
+                      seed: torch.Tensor, s0: int, spp: int,
+                      bvh: BVH | None = None, row0: int = 0,
+                      rows: int | None = None):
+    """Launch K2 on the packed operands: add ``spp`` samples, from sample
+    index ``s0`` on, to the carried state -> ``(acc', seed')`` in fresh
+    buffers (the kernel could update in place; the state stays
+    immutable, as raytpu's is).
+
+    ``acc`` (rows, W, 3) f32 linear sums and ``seed`` (rows, W) int32, the
+    bits of the u32 seeds.  Sequential RNG resumes each pixel's seed chain;
+    parallel RNG draws sample ``s`` from ``fold_in(base_hash(x, y), s0 +
+    s)`` and writes the base seed back.  ``bvh``, ``row0`` / ``rows`` as in
+    :func:`launch`; rows past the frame come out 0, sums and seeds."""
+    check_packs(cam_pack, scene_pack)
+    slabbed = rows is not None
+    row0, rows = slab(cfg, row0, rows)
+    n = scene_pack.shape[1]
+    device = scene_pack.device
+    if bvh is not None:
+        check_bvh(bvh, n, device)
+    if spp < 1 or s0 < 0:
+        raise ValueError(f"a batch needs spp >= 1 and s0 >= 0, got spp {spp}, "
+                         f"s0 {s0}")
+    _check_state(cfg, rows, acc, seed, device, torch.int32)
+    out = (torch.empty_like(acc), torch.empty_like(seed))
+    _launch(cam_pack, scene_pack, cfg, bvh, row0, rows, spp, out[0],
+            carry=(acc, seed, out[1], s0))
+    variants["K2/" + ("brute" if bvh is None else "bvh")
+             + ("+slab" if slabbed else "")] += 1
+    return out
+
+
 def _forward(scene: Scene, cam: Camera, cfg: RenderConfig,
-             bvh: BVH | None = None) -> torch.Tensor:
+             bvh: BVH | None = None, row0: int = 0,
+             rows: int | None = None) -> torch.Tensor:
     device = scene.center.device
     if device.type == "cpu":
-        return golden.render_golden(scene, cam, cfg, bvh)
+        return golden.render_golden(scene, cam, cfg, bvh, row0=row0,
+                                    rows=rows)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     packed = pack_scene(scene if bvh is None else
                         permute_scene(scene, bvh.perm))
-    return launch(pack_camera(cam), packed, cfg, bvh)
+    return launch(pack_camera(cam), packed, cfg, bvh, row0=row0, rows=rows)
 
 
 def _grad_forward(ctx, scene: Scene, cam: Camera, cfg: RenderConfig,
-                  vis_w: float, bvh: BVH | None) -> torch.Tensor:
+                  vis_w: float, bvh: BVH | None, row0: int,
+                  rows: int | None) -> torch.Tensor:
     """The forward under autograd: the taping forward where the tape plan
     applies (raytpu's ``_fwd`` / ``_fwd_bvh`` gate), else the plain
     forward kernel.  Keeps on ``ctx`` what the backward needs."""
     from raytpu_torch.kernels import gradkernel
-    plan = gradkernel.tape_plan(cfg, scene.count, bvh, vis_w)
+    plan = gradkernel.tape_plan(cfg, scene.count, bvh, vis_w, rows)
     if plan is None:
-        img, tape = _forward(scene, cam, cfg, bvh), None
+        img, tape = _forward(scene, cam, cfg, bvh, row0, rows), None
     else:
         img, tape = gradkernel.render_tape_fwd(scene, cam, cfg,
-                                               plan["g_cap"], bvh)
+                                               plan["g_cap"], bvh, row0, rows)
     ctx.cfg, ctx.vis_w, ctx.bvh, ctx.plan, ctx.tape = cfg, vis_w, bvh, plan, \
         tape
+    ctx.row0, ctx.rows = row0, rows
     return img
 
 
@@ -305,25 +423,28 @@ def _grad_backward(ctx, ct, scene: Scene, cam: Camera, img):
     _, ds, dc = gradkernel.render_vjp(
         scene, cam, cfg, ct, img=img if cfg.rng_mode == "parallel" else None,
         vis_w=ctx.vis_w, bvh=ctx.bvh, tape=ctx.tape,
-        tape_partial=plan is not None and plan["partial"])
+        tape_partial=plan is not None and plan["partial"], row0=ctx.row0,
+        rows=ctx.rows)
     return ds, dc
 
 
 class _Render(torch.autograd.Function):
-    """The forward kernel (K1a, K1c with a BVH, or K4's taping forward)
-    with K3 (its BVH variant with a BVH) as its backward: raytpu's
-    ``_fwd`` / ``_bwd`` and ``_fwd_bvh`` / ``_bwd_bvh``.
+    """The forward kernel (K1a, K1c with a BVH, K1b on a slab, or K4's
+    taping forward) with K3 (its BVH variant with a BVH, its slab mode on
+    a slab) as its backward: raytpu's ``_fwd`` / ``_bwd`` and ``_fwd_bvh``
+    / ``_bwd_bvh``.
 
-    apply(cfg, vis_w, bvh, mat_type, center, radius, albedo, mat_param,
-    *camera) -> image.  ``bvh`` (or None) and ``mat_type`` are derived or
-    discrete data and get no gradient; ``vis_w > 0`` adds silhouette terms
-    to the backward only."""
+    apply(cfg, vis_w, bvh, (row0, rows), mat_type, center, radius, albedo,
+    mat_param, *camera) -> image.  ``bvh`` (or None), the slab and
+    ``mat_type`` are derived or discrete data and get no gradient; ``vis_w
+    > 0`` adds silhouette terms to the backward only."""
 
     @staticmethod
-    def forward(ctx, cfg, vis_w, bvh, mat_type, center, radius, albedo,
-                mat_param, *cam_leaves):
+    def forward(ctx, cfg, vis_w, bvh, slab_rows, mat_type, center, radius,
+                albedo, mat_param, *cam_leaves):
         scene = Scene(center, radius, mat_type, albedo, mat_param)
-        img = _grad_forward(ctx, scene, Camera(*cam_leaves), cfg, vis_w, bvh)
+        img = _grad_forward(ctx, scene, Camera(*cam_leaves), cfg, vis_w, bvh,
+                            *slab_rows)
         ctx.save_for_backward(mat_type, center, radius, albedo, mat_param,
                               img, *cam_leaves)
         return img
@@ -335,29 +456,73 @@ class _Render(torch.autograd.Function):
         ds, dc = _grad_backward(
             ctx, ct, Scene(center, radius, mat_type, albedo, mat_param),
             Camera(*cam_leaves), img)
-        return (None, None, None, None, ds.center, ds.radius, ds.albedo,
-                ds.mat_param, *dc)
+        return (None, None, None, None, None, ds.center, ds.radius,
+                ds.albedo, ds.mat_param, *dc)
 
 
-def render_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
-               vis_w: float = 0.0, bvh: BVH | None = None) -> torch.Tensor:
-    """Full-frame forward render -> (H, W, 3) f32 image in [0, 1] on the
-    inputs' device (row 0 = bottom scanline).  CPU tensors take the plain
-    PyTorch version; CUDA tensors launch the kernel (K1a, or K1c with
-    ``bvh``, a :func:`raytpu_torch.bvh.build_bvh` of this scene on its
-    device).  When autograd is on and a continuous leaf of the scene or
-    camera requires grad, the image carries a backward: K3 on CUDA tensors,
-    the adjoint on CPU tensors (``vis_w > 0`` adds silhouette gradients)."""
+def _check_scene_bvh(scene: Scene, cam: Camera, cfg: RenderConfig,
+                     bvh: BVH | None) -> torch.device:
     device = check_inputs(scene, cam, cfg)
     if bvh is not None:
         check_bvh(bvh, None, device)
         if bvh.spheres and bvh.spheres != scene.count:
             raise ValueError(f"bvh was built for {bvh.spheres} spheres, the "
                              f"scene has {scene.count}")
+    return device
+
+
+def render_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
+               vis_w: float = 0.0, bvh: BVH | None = None, row0: int = 0,
+               rows: int | None = None) -> torch.Tensor:
+    """Forward render -> (H, W, 3) f32 image in [0, 1] on the inputs'
+    device (row 0 = bottom scanline), or with ``rows`` the (rows, W, 3)
+    slab from absolute row ``row0`` (K1b; rows past the frame are 0).  CPU
+    tensors take the plain PyTorch version; CUDA tensors launch the kernel
+    (K1a, or K1c with ``bvh``, a :func:`raytpu_torch.bvh.build_bvh` of this
+    scene on its device).  When autograd is on and a continuous leaf of the
+    scene or camera requires grad, the image carries a backward: K3 on CUDA
+    tensors, the adjoint on CPU tensors (``vis_w > 0`` adds silhouette
+    gradients)."""
+    _check_scene_bvh(scene, cam, cfg, bvh)
+    slab(cfg, row0, rows)
     leaves = (scene.center, scene.radius, scene.albedo, scene.mat_param,
               *cam)
     if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-        return _Render.apply(cfg, float(vis_w), bvh, scene.mat_type,
-                             scene.center, scene.radius, scene.albedo,
-                             scene.mat_param, *cam)
-    return _forward(scene, cam, cfg, bvh)
+        return _Render.apply(cfg, float(vis_w), bvh, (row0, rows),
+                             scene.mat_type, scene.center, scene.radius,
+                             scene.albedo, scene.mat_param, *cam)
+    return _forward(scene, cam, cfg, bvh, row0, rows)
+
+
+def accumulate(scene: Scene, cam: Camera, cfg: RenderConfig,
+               acc: torch.Tensor, seed: torch.Tensor, s0: int, spp: int,
+               bvh: BVH | None = None, row0: int = 0,
+               rows: int | None = None):
+    """One progressive batch (K2, raytpu's ``accumulate_pallas``) ->
+    ``(acc', seed')``: ``spp`` more samples, from sample index ``s0`` on,
+    added to the carried ``acc`` (rows, W, 3) f32 linear sums and ``seed``
+    (rows, W) int64 (the u32 carrier of :mod:`raytpu_torch.rng`); rows = H
+    without a slab.  Sequential RNG resumes each pixel's seed chain;
+    parallel RNG draws fresh, globally indexed streams from ``s0`` and
+    passes the base seed through.  K batches give one batch of their
+    summed spp bit for bit.  CPU tensors take the plain version
+    (:func:`raytpu_torch.golden.accumulate_golden`); CUDA tensors launch K2
+    into fresh buffers.  No autograd: the carried state is not
+    differentiated."""
+    device = _check_scene_bvh(scene, cam, cfg, bvh)
+    slabbed = rows is not None
+    row0, rows = slab(cfg, row0, rows)
+    _check_state(cfg, rows, acc, seed, device)
+    if device.type == "cpu":
+        return golden.accumulate_golden(scene, cam, cfg, acc, seed, s0, spp,
+                                        bvh, row0, rows)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    with torch.no_grad():
+        packed = pack_scene(scene if bvh is None else
+                            permute_scene(scene, bvh.perm))
+        acc2, seed2 = launch_accumulate(
+            pack_camera(cam), packed, cfg, acc.contiguous(),
+            _u32_bits(seed).contiguous(), s0, spp, bvh, row0,
+            rows if slabbed else None)
+    return acc2, seed2.to(torch.int64) & 0xFFFFFFFF

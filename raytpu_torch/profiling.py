@@ -69,7 +69,8 @@ def timed(fn, cfg: RenderConfig, label: str = "fwd",
         device=device, label=label)
 
 
-def census(scene, cam, cfg: RenderConfig, bvh=None) -> dict:
+def census(scene, cam, cfg: RenderConfig, bvh=None, row0: int = 0,
+           rows: int | None = None) -> dict:
     """The work of one frame -> {"leaves_entered", "bounce_steps",
     "samples", "sphere_tests", "box_tests", "device"}: samples traced,
     closest-hit steps (one per bounce taken, identical for the brute and the
@@ -78,19 +79,21 @@ def census(scene, cam, cfg: RenderConfig, bvh=None) -> dict:
     ``leaf_size`` a leaf entered) and the leaf-box tests (every leaf of the
     ray's octant copy a step).  CUDA tensors launch the census kernel K1'
     (:func:`raytpu_torch.kernels.megakernel.launch` with ``count=True``);
-    CPU tensors run its plain version."""
+    CPU tensors run its plain version.  ``row0`` / ``rows``: the work of
+    that row slab only."""
     from raytpu_torch.bvh import permute_scene
     from raytpu_torch.kernels import megakernel
     device = megakernel.check_inputs(scene, cam, cfg)
     if device.type == "cpu":
         counts = dict.fromkeys(golden.CENSUS, 0)
-        golden.render_golden(scene, cam, cfg, bvh, census=counts)
+        golden.render_golden(scene, cam, cfg, bvh, census=counts, row0=row0,
+                             rows=rows)
         name = "cpu"
     else:
         packed = megakernel.pack_scene(scene if bvh is None else
                                        permute_scene(scene, bvh.perm))
         _, cnt = megakernel.launch(megakernel.pack_camera(cam), packed, cfg,
-                                   bvh, count=True)
+                                   bvh, count=True, row0=row0, rows=rows)
         counts = dict(zip(golden.CENSUS, (int(c) for c in cnt.tolist())))
         name = torch.cuda.get_device_name(device)
     steps = counts["bounce_steps"]

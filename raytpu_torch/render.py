@@ -21,6 +21,10 @@ K3's BVH variant backward on CUDA tensors, their plain versions on CPU
 tensors.  In parallel RNG with ``vis_w == 0`` (from 8 spheres) the
 gradient path tapes each bounce's winner in the forward (K4) and K3 replays the tape instead of
 sweeping (:func:`raytpu_torch.kernels.gradkernel.tape_plan`).
+
+Progressive (checkpointed, batched) rendering is
+:mod:`raytpu_torch.progressive`; row-slab sharding over
+``torch.distributed`` is :mod:`raytpu_torch.shard`.
 """
 
 from __future__ import annotations
@@ -34,6 +38,17 @@ from raytpu_torch.kernels import megakernel
 from raytpu_torch.scene import Scene
 
 BACKENDS = ("auto", "golden", "cuda")
+
+
+def check_backend(backend: str, scene: Scene) -> None:
+    """Raise on an unknown backend, and on ``"cuda"`` for a scene that is
+    not on a card (``"auto"`` takes the plain version there instead)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend: {backend!r} (choose from "
+                         f"{BACKENDS})")
+    if backend == "cuda" and not scene.center.is_cuda:
+        raise ValueError("backend='cuda' needs CUDA tensors; the scene is on "
+                         f"{scene.center.device}")
 
 
 def render(scene: Scene, cam: Camera, cfg: RenderConfig,
@@ -52,18 +67,13 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig,
     with it when ``device`` is given) makes every backend sweep its flat
     leaf list: the same image up to exact ties of t between spheres.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend: {backend!r} (choose from "
-                         f"{BACKENDS})")
     if device is not None:
         scene = Scene(*(t.to(device) for t in scene))
         cam = Camera(*(t.to(device) for t in cam))
         bvh = None if bvh is None else bvh.to(device)
+    check_backend(backend, scene)
     if backend == "golden":
         return golden.render_golden(scene, cam, cfg, bvh)
-    if backend == "cuda" and not scene.center.is_cuda:
-        raise ValueError("backend='cuda' needs CUDA tensors; the scene is on "
-                         f"{scene.center.device}")
     # "auto" and "cuda": the wrapper launches the kernel on CUDA tensors
     # and runs the plain version on CPU tensors
     return megakernel.render_fwd(scene, cam, cfg, vis_w=vis_w, bvh=bvh)
@@ -86,13 +96,8 @@ def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
     (raytpu/render.py:139).  An optimisation loop that moves spheres keeps
     the BVH's boxes around them with :func:`raytpu_torch.bvh.refit`.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend: {backend!r} (choose from "
-                         f"{BACKENDS})")
+    check_backend(backend, scene)
     adjoint.check_cfg(cfg)
-    if backend == "cuda" and not scene.center.is_cuda:
-        raise ValueError("backend='cuda' needs CUDA tensors; the scene is on "
-                         f"{scene.center.device}")
     leaves = [t.detach().requires_grad_()
               for t in (scene.center, scene.radius, scene.albedo,
                         scene.mat_param, *cam)]

@@ -13,7 +13,7 @@ import torch
 
 from raytpu import io as jio
 import raytpu_torch as rt
-from raytpu_torch import cli, io, profiling
+from raytpu_torch import cli, io, profiling, progressive
 from raytpu_torch.config import RenderConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,16 +59,19 @@ def test_cli_render_other_scenes_and_modes(tmp_path, scene):
                                   ["--devices", "2"]],
                          ids=["bvh", "progressive", "devices"])
 def test_cli_refuses_unported_options(tmp_path, flag):
-    """--progressive and --devices refuse with their ROADMAP item.  --bvh
-    is ported: it writes the image render(..., bvh=build_bvh(scene))
-    gives, with either builder; --bvh-builder without --bvh refuses."""
+    """Options once refused, now ported.  --bvh writes the image
+    render(..., bvh=build_bvh(scene)) gives, with either builder;
+    --bvh-builder without --bvh refuses.  --progressive (with --checkpoint
+    and --resume) writes the one-shot render's image, also when resumed
+    from its checkpoint.  --devices N outside a torchrun launch of N
+    processes exits naming the launch, and renders nothing."""
     out = tmp_path / "never.png"
+    cfg = RenderConfig(width=32, height=16, spp=1, depth=3)
     if flag == ["--bvh"]:
         for builder in ("median", "sah"):
             assert cli.main(["render", "--scene", "final", *SMALL,
                              "--device", "cpu", "--bvh", "--bvh-builder",
                              builder, "--out", str(out)]) == 0
-            cfg = RenderConfig(width=32, height=16, spp=1, depth=3)
             scene = rt.final_world(device="cpu")
             img = rt.render(scene, rt.make_camera(
                 (13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
@@ -80,16 +83,71 @@ def test_cli_refuses_unported_options(tmp_path, flag):
             cli.main(["render", *SMALL, "--device", "cpu", "--bvh-builder",
                       "sah", "--out", str(tmp_path / "never2.png")])
         return
-    with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
+    if flag[0] == "--progressive":
+        cfg = cfg.replace(spp=5)
+        ck = tmp_path / "ck.npz"
+        args = ["render", "--scene", "final", "--bvh", "--width", "32",
+                "--height", "16", "--spp", "5", "--depth", "3", "--device",
+                "cpu", *flag, "--checkpoint", str(ck)]
+        assert cli.main([*args, "--out", str(out)]) == 0
+        scene = rt.final_world(device="cpu")
+        img = rt.render(scene, rt.make_camera(
+            (13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0, aspect=cfg.aspect,
+            device="cpu"), cfg, bvh=rt.build_bvh(scene))
+        want = io.to_uint8(img.numpy())
+        np.testing.assert_array_equal(_read_png(out)[2], want)
+        state, saved = progressive.load_checkpoint(str(ck), device="cpu")
+        assert state.samples == 5 and saved == cfg
+        # resumed from the completed checkpoint: nothing left to add
+        again = tmp_path / "again.png"
+        assert cli.main([*args, "--resume", "--out", str(again)]) == 0
+        np.testing.assert_array_equal(_read_png(again)[2], want)
+        return
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         cli.main(["render", *SMALL, "--device", "cpu", *flag,
                   "--out", str(out)])
     assert not out.exists()
 
 
+def test_cli_progressive_resumes_an_interrupted_render(tmp_path, capsys):
+    """An interrupted progressive render (a checkpoint after 2 of 6
+    samples, written by render_progressive) resumes to the uninterrupted
+    image; --preview-every writes the image every K batches."""
+    cfg = RenderConfig(width=32, height=16, spp=6, depth=3)
+    scene = rt.test_world(device="cpu")
+    cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                         aspect=cfg.aspect, device="cpu")
+    ck = tmp_path / "ck.npz"
+    gen = progressive.render_progressive(scene, cam, cfg, batch=2,
+                                         checkpoint_path=str(ck))
+    next(gen)
+    gen.close()
+    out = tmp_path / "out.png"
+    assert cli.main(["render", "--width", "32", "--height", "16", "--spp",
+                     "6", "--depth", "3", "--device", "cpu", "--progressive",
+                     "2", "--checkpoint", str(ck), "--resume",
+                     "--preview-every", "1", "--out", str(out)]) == 0
+    err = capsys.readouterr().err
+    assert "samples 4/6" in err and "samples 2/6" not in err
+    assert err.count("preview @") == 2
+    np.testing.assert_array_equal(_read_png(out)[2], io.to_uint8(
+        rt.render(scene, cam, cfg).numpy()))
+
+
 @pytest.mark.parametrize("flag", [["--refill", "2"], ["--checkpoint", "c"]],
                          ids=["refill", "checkpoint"])
 def test_cli_rejects_other_raytpu_options(tmp_path, flag):
+    """Usage errors (exit 2): raytpu's --refill is not an option of the
+    port; --checkpoint without --progressive would be ignored, and so are
+    --resume without --checkpoint, --preview-every without --progressive
+    and a checkpoint name numpy would change."""
     out = tmp_path / "never.png"
+    for extra in (["--resume"], ["--preview-every", "2"],
+                  ["--progressive", "2", "--checkpoint", "c"]):
+        with pytest.raises(SystemExit) as e:
+            cli.main(["render", *SMALL, "--device", "cpu", *extra,
+                      "--out", str(out)])
+        assert e.value.code == 2
     with pytest.raises(SystemExit) as e:
         cli.main(["render", *SMALL, "--device", "cpu", *flag,
                   "--out", str(out)])
@@ -127,9 +185,15 @@ def test_cli_module_entry_point(tmp_path):
     assert "on cpu" in proc.stdout and out_bvh.exists()
     proc = subprocess.run(
         [sys.executable, "-m", "raytpu_torch.cli", "render", "--progressive",
-         "2", "--device", "cpu", "--out", str(out)],
+         "1", *SMALL, "--device", "cpu", "--out", str(out)],
         cwd=ROOT, capture_output=True, text=True)
-    assert proc.returncode != 0 and "M8" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    assert "samples 1/1" in proc.stderr and "wrote" in proc.stdout
+    proc = subprocess.run(
+        [sys.executable, "-m", "raytpu_torch.cli", "render", "--devices",
+         "2", *SMALL, "--device", "cpu", "--out", str(out)],
+        cwd=ROOT, capture_output=True, text=True)
+    assert proc.returncode != 0 and "torchrun" in proc.stderr
 
 
 def test_io_matches_raytpu(tmp_path):

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 forward megakernel K1a, its BVH variant K1c and census K1', the taping
-forward K4 and the fused VJP kernel K3 with its BVH and tape-replay
-variants.
+forward K4, the fused VJP kernel K3 with its BVH and tape-replay variants,
+the carry-state kernel K2 and the slab mode of every one of them (K1b).
 
 These tests need a CUDA card and nvcc; without a card they skip (the
 condition is a string, so pytest evaluates it at setup, not at import).
@@ -24,14 +24,18 @@ phase 2b states why).  K1c's image equals K1a's except on exact ties of t
 between spheres (none here); the taping forward's image equals the
 untaped one bit for bit, and K3's taped gradients equal its untaped ones
 (the same f64 sums, atomics in whatever order: bit-equal after the f32 cast
-at these sizes).
+at these sizes).  K2 batched equals K2 in one batch bit for bit, and its
+image the forward kernel's (within 2e-7 where the gamma epilogue's
+reciprocal rounds apart); slabs stitched give the full frame bit for bit
+(image, state, tape), and K3's slab sums, added in f64, its full-frame sums
+within 1e-6 of each leaf's largest entry.
 """
 
 import pytest
 import torch
 
 import raytpu_torch as rt
-from raytpu_torch import bvh as tbvh, golden
+from raytpu_torch import bvh as tbvh, golden, progressive, shard
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import gradkernel, megakernel
 
@@ -316,3 +320,127 @@ def test_bvh_autograd_launches():
     assert sum(gradkernel.variants.values()) == 1
     assert bool(torch.isfinite(sg.center).all())
     assert bool(torch.isfinite(sg2.center).all())
+
+
+@needs_card
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+@pytest.mark.parametrize("sweep", ["brute", "bvh"])
+def test_accumulate_kernel_batches_and_plain(rng_mode, sweep):
+    """K2: batches 2 + 3 + 1 equal one 6-sample batch, acc and seed bit for
+    bit; the state agrees with the plain version's on the same CUDA
+    tensors; the image of the state is the forward kernel's."""
+    cfg = RenderConfig(width=96, height=48, spp=6, depth=6,
+                       rng_mode=rng_mode)
+    scene, cam, bvh = _bvh_world(cfg)
+    bvh = bvh if sweep == "bvh" else None
+    init = progressive.init_state(cfg, device="cuda")
+    _reset_counts()
+    one = progressive.accumulate(scene, cam, cfg, init, 6, bvh=bvh)
+    st = plain = init
+    for k in (2, 3, 1):
+        st = progressive.accumulate(scene, cam, cfg, st, k, bvh=bvh)
+        plain = progressive.accumulate(scene, cam, cfg, plain, k,
+                                       backend="golden", bvh=bvh)
+    assert megakernel.variants[f"K2/{sweep}"] == 4
+    assert sum(megakernel.variants.values()) == 4
+    assert st.samples == 6
+    assert torch.equal(st.acc, one.acc) and torch.equal(st.seed, one.seed)
+    _agree(st.acc / 6, plain.acc / 6)
+    assert float((st.seed == plain.seed).float().mean()) >= 0.999
+    img = rt.render(scene, cam, cfg, bvh=bvh)
+    assert float((progressive.image(st, cfg) - img).abs().max()) <= 2e-7
+
+
+_SLABS = ((0, 13), (13, 20), (33, 7), (40, 16))  # the last runs past H
+
+
+@needs_card
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_slabs_stitch_to_the_frame(rng_mode):
+    """K1b, K2, K4 and K3 on uneven slabs and one past the frame: stitched
+    images, state and tapes equal the full frame's bit for bit, rows past
+    the frame are 0, and K3's slab sums add up to its full-frame sums."""
+    cfg = RenderConfig(width=96, height=45, spp=2, depth=5,
+                       rng_mode=rng_mode)
+    h = cfg.height
+    scene, cam, bvh = _bvh_world(cfg)
+    full = rt.render(scene, cam, cfg, bvh=bvh)
+    init = progressive.init_state(cfg, device="cuda")
+    st = progressive.accumulate(scene, cam, cfg, init, 2, bvh=bvh)
+    _reset_counts()
+    imgs, accs, seeds = [], [], []
+    for row0, rows in _SLABS:
+        img = megakernel.render_fwd(scene, cam, cfg, bvh=bvh, row0=row0,
+                                    rows=rows)
+        acc, seed = megakernel.accumulate(
+            scene, cam, cfg, shard.slab_of(init.acc, row0, rows),
+            shard.slab_of(init.seed, row0, rows), 0, 2, bvh, row0, rows)
+        live = max(0, min(rows, h - row0))
+        for t in (img, acc):
+            assert not bool(t[live:].any())
+        assert not bool(seed[live:].any())
+        imgs.append(img[:live])
+        accs.append(acc[:live])
+        seeds.append(seed[:live])
+    assert megakernel.variants["K1b/bvh"] == 4 == megakernel.variants[
+        "K2/bvh+slab"]
+    assert torch.equal(torch.cat(imgs), full)
+    assert torch.equal(torch.cat(accs), st.acc)
+    assert torch.equal(torch.cat(seeds), st.seed)
+    ct = 2.0 * (full - 0.5) / full.numel()
+    cp = megakernel.pack_camera(cam)
+    sp = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+
+    def sums(out):  # K3's f64 sums, before the cast to f32, as one row
+        return torch.cat([out[1].reshape(-1), out[2]])
+
+    want, total = sums(gradkernel.launch(cp, sp, cfg, ct, None, 0.0, bvh)), 0.0
+    for row0, rows in _SLABS:
+        ct_s = torch.zeros((rows, cfg.width, 3), device="cuda")
+        live = max(0, min(rows, h - row0))
+        ct_s[:live] = ct[row0:row0 + live]
+        ct_s[live:] = 1.0  # ignored: rows past the frame
+        got = gradkernel.launch(cp, sp, cfg, ct_s, None, 0.0, bvh, row0=row0,
+                                rows=rows)
+        assert torch.equal(got[0][:live], full[row0:row0 + live])
+        assert not bool(got[0][live:].any())
+        total = total + sums(got)
+    assert gradkernel.variants["K3/bvh+slab"] == 4
+    # rows cx cy cz | rad | ar ag ab | mp of the permuted spheres, then the
+    # camera sums in threes
+    n = int(bvh.perm.shape[0])
+    i = 0
+    for size in (3 * n, n, 3 * n, n, 3, 3, 3, 3, 6):
+        a, b = total[i:i + size], want[i:i + size]
+        assert float((a - b).abs().max()) <= 1e-6 * max(
+            float(b.abs().max()), 1e-12), i
+        i += size
+    if rng_mode != "parallel":
+        return
+    g = cfg.spp * cfg.depth
+
+    def marked(rows):  # slots no step reaches keep the mark
+        return torch.full((g, rows * cfg.width), golden.TAPE_UNWRITTEN,
+                          dtype=golden.tape_dtype(sp.shape[1]), device="cuda")
+
+    tape = marked(h)
+    img_t = megakernel.launch(cp, sp, cfg, bvh, tape=tape)
+    for row0, rows in _SLABS:
+        live = max(0, min(rows, h - row0))
+        tape_s = marked(rows)
+        img_s = megakernel.launch(cp, sp, cfg, bvh, tape=tape_s, row0=row0,
+                                  rows=rows)
+        assert torch.equal(img_s[:live], img_t[row0:row0 + live])
+        assert torch.equal(tape_s[:, :live * cfg.width],
+                           tape[:, row0 * cfg.width:(row0 + live) * cfg.width])
+        assert bool((tape_s[:, live * cfg.width:]
+                     == golden.TAPE_UNWRITTEN).all())
+        out = gradkernel.render_vjp(
+            scene, cam, cfg, torch.zeros_like(img_s), img=img_s, bvh=bvh,
+            tape=tape_s, row0=row0, rows=rows)
+        assert torch.equal(out[0], img_s)
+    img_w, tape_w = gradkernel.render_tape_fwd(scene, cam, cfg, g, bvh, 13,
+                                               20)
+    assert torch.equal(img_w, img_t[13:33]) and tape_w.shape == (g, 20 * 96)
+    assert megakernel.variants["K4/bvh+slab"] == 5
+    assert gradkernel.variants["K3/bvh+tape+slab"] == 4
