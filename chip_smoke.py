@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Needs a CUDA card and nvcc; builds the port's CUDA kernels from
-``raytpu_torch/csrc/`` (the forward megakernels K1a / K1b / K1c / K1' / K2 /
-K4-write and the fused VJP kernel K3 with its BVH, tape-replay and slab
-variants, one nvcc each, in parallel) and the host BVH builder (g++), and
+``raytpu_torch/csrc/`` (the forward megakernels K1a / K1b / K1c / K1d / K1' /
+K2 / K4-write and the fused VJP kernel K3 with its BVH (flat and walk),
+tape-replay and slab variants, one nvcc each, in parallel) and the host BVH builder (g++), and
 drives ``raytpu_torch``'s paths: the forward render and the gradient path
 (autograd through ``render``, ``render_grad``, ``optim.optimize``), brute
 and over a BVH, taped and not, the progressive render with its checkpoints
@@ -70,6 +70,29 @@ card 0 without it).  Phases, one JSON line each:
         three steps of raytpu's falling-loss problem at the same frame;
         then K1b, K2, K4 and K3 on that path's slab (rows 0-1079) against
         their plain versions at 2 spp.
+7.  raytpu's 10,000-sphere scene (scripts/probe_10k_r5.py's recipe, built
+    here with numpy, written with ``scene_io.save_scene`` and loaded from
+    that file), 800x400, 20 spp, depth 12, over the skip-pointer walk K1d:
+    7a. ``build_bvh`` at leaf 64: 157 leaves a copy, past the flat sweep's
+        64, so raytpu's rule picks the walk;
+    7b. K1d, K1b/walk (a slab of all 400 rows), K2/walk (1 + 1 batches),
+        K1'/walk and K4/walk bit-equal to their plain versions on the whole
+        frame at 2 spp, both RNG modes, K3/walk and K3/walk+tape within the
+        gradient budget; K1d against its plain version on config 4's
+        unpadded BVH;
+    7c. at full size, both RNG modes: K1d against K1c forced on the same
+        BVH and against K1a (pixels that differ: exact ties only), K3/walk
+        against K3 over the flat sweep (f64 sums), the progressive render
+        in 4 batches of 5 against the one-shot render;
+    7d. the main path: ``cli render --scene-file --bvh --log`` (PNG
+        byte-equal to ``render()``'s, one log line naming the card),
+        ``render``, ``render_sharded`` and ``render_grad`` with their
+        launches by variant, the taped ``render_grad``'s K3 sums against
+        K3/walk untaped on the same operands (f64);
+    7e. ``cli validate --scene-file --bvh --device cuda`` and ``cli info``;
+    7f. times: K1d, K1c forced, K1a, fwd+bwd taped and untaped, the walk's
+        census (nodes and leaves a step), and the walk forced on config 4's
+        8-leaf BVH against K1c there (where raytpu's 64-leaf rule stands).
 
 It exits non-zero at the first failure.  The line before the last is the
 kernel table as JSON, the line before it the card's name and power limit,
@@ -78,8 +101,11 @@ the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -93,6 +119,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 BUDGET_DELTA = 3e-4    # cross-context image budget (post-gamma)
 BUDGET_SHARE = 1e-3    # share of pixels allowed above it (path flips)
 DEPTH1_TOL = 1e-6      # depth-1 spp-1: jitter, primary hit and sky only
@@ -149,7 +176,9 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str, **kv) -> None:
-    print(json.dumps({"phase": name, **kv}), flush=True)
+    """One JSON line; ``t_s`` the seconds since the script started."""
+    print(json.dumps({"phase": name, "t_s": time.perf_counter() - T0, **kv}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -260,6 +289,23 @@ def k3_sums(out) -> torch.Tensor:
     return torch.cat([out[1].reshape(-1), out[2]])
 
 
+def k3_sums_rel(got: torch.Tensor, want: torch.Tensor, n: int) -> dict:
+    """Per leaf, max |got - want| over the largest |want| of two rows of
+    K3's f64 sums (:func:`k3_sums`) over ``n`` kernel-side spheres."""
+    rel, i = {}, 0
+    for k, size in (("center", 3 * n), ("radius", n), ("albedo", 3 * n),
+                    ("mat_param", n), ("cam_origin", 3),
+                    ("cam_lower_left", 3), ("cam_horizontal", 3),
+                    ("cam_vertical", 3), ("cam_lens", 6)):
+        # rows cx cy cz | rad | ar ag ab | mp, then the 18 camera sums
+        # (gradkernel.camera_grads)
+        a, b = got[i:i + size], want[i:i + size]
+        rel[k] = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                  1e-12)
+        i += size
+    return rel
+
+
 def marked_tape(cfg, rows: int, g_cap: int, dev) -> torch.Tensor:
     """A tape for ``megakernel.launch(..., tape=)`` filled with
     ``golden.TAPE_UNWRITTEN``, so that the slots the taping forward writes
@@ -268,6 +314,24 @@ def marked_tape(cfg, rows: int, g_cap: int, dev) -> torch.Tensor:
     from raytpu_torch import golden
     return torch.full((g_cap, cfg.height * cfg.width), golden.TAPE_UNWRITTEN,
                       dtype=golden.tape_dtype(rows), device=dev)
+
+
+@contextlib.contextmanager
+def recording(module, name: str, calls: list):
+    """``module.name`` replaced, inside the block, by a wrapper that appends
+    each call's (bound arguments, result) to ``calls``."""
+    fn = getattr(module, name)
+    sig = inspect.signature(fn)
+
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((sig.bind(*args, **kwargs), out))
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
 
 
 def reset_counts(megakernel, gradkernel) -> None:
@@ -904,18 +968,7 @@ def slab_phase(dev, card: str, bvh, scene, cam) -> dict:
             "k3_img_bit_equal_full": torch.equal(torch.cat(k3imgs)[:h],
                                                  full),
             "rows_past_frame_zero": pads_zero}
-        leaf_rel = {}
-        i = 0
-        for k, size in (("center", 3 * n), ("radius", n), ("albedo", 3 * n),
-                        ("mat_param", n), ("cam_origin", 3),
-                        ("cam_lower_left", 3), ("cam_horizontal", 3),
-                        ("cam_vertical", 3), ("cam_lens", 6)):
-            # rows cx cy cz | rad | ar ag ab | mp, then the 18 camera sums
-            # (gradkernel.camera_grads)
-            a, b = sums[i:i + size], want[i:i + size]
-            leaf_rel[k] = float((a - b).abs().max()) / max(
-                float(b.abs().max()), 1e-12)
-            i += size
+        leaf_rel = k3_sums_rel(sums, want, n)
         stitch["k3_sums_rel"] = leaf_rel
         ok = all(v for k, v in stitch.items() if k != "k3_sums_rel") and \
             max(leaf_rel.values()) <= 1e-6
@@ -1370,6 +1423,516 @@ def config5_phases(dev, card: str) -> dict:
     return entries
 
 
+# Phase 7: raytpu's 10,000-sphere scene, past 64 leaves a copy: the walk
+BIG_SPHERES = 10_000
+
+
+def big_world(n: int, seed: int = 0, extent: float = 60.0) -> list:
+    """raytpu's large-scene recipe (scripts/probe_10k_r5.py big_world):
+    ground, three heroes and n - 4 spheres of radius 0.2 scattered over
+    [-extent, extent]^2 with final_world's material mix, as
+    ``(center, radius, mat_type, albedo, mat_param)`` tuples."""
+    rg = np.random.default_rng(seed)
+    spheres = [((0.0, -1000.0, 0.0), 1000.0, 0, (0.5, 0.5, 0.5), 0.0),
+               ((0.0, 1.0, 0.0), 1.0, 2, (1.0, 1.0, 1.0), 1.5),
+               ((-4.0, 1.0, 0.0), 1.0, 0, (0.4, 0.2, 0.1), 0.0),
+               ((4.0, 1.0, 0.0), 1.0, 1, (0.7, 0.6, 0.5), 0.0)]
+    while len(spheres) < n:
+        center = (rg.uniform(-extent, extent), 0.2,
+                  rg.uniform(-extent, extent))
+        m = rg.random()
+        if m < 0.8:
+            mat, alb, mp = 0, tuple(rg.random(3) * rg.random(3)), 0.0
+        elif m < 0.95:
+            mat, alb, mp = 1, tuple(0.5 + 0.5 * rg.random(3)), \
+                0.5 * rg.random()
+        else:
+            mat, alb, mp = 2, (1.0, 1.0, 1.0), 1.5
+        spheres.append((center, 0.2, mat, alb, mp))
+    return spheres[:n]
+
+
+def walk_vs_plain(scene, cam, cfg, bvh, card: str) -> dict:
+    """Phase 7b: each walk kernel against its plain version on ``cfg``'s
+    whole frame at 2 spp, both RNG modes: K1d, K1b/walk (the slab of all
+    rows), K2/walk (batches 1 + 1 from s0 = 0), K1'/walk (image and counts)
+    and K4/walk (image and tape) bit for bit, K3/walk and (parallel)
+    K3/walk+tape within GRAD_BUDGET -> the table's entries (times and
+    bounds in parallel RNG, K3/walk's in sequential)."""
+    from raytpu_torch import bvh as tbvh, golden, progressive, shard
+    from raytpu_torch.kernels import gradkernel, megakernel
+    import raytpu_torch as rt
+    row0, rows = 0, cfg.height  # K1b, K2, K4 and K3 as a slab of all rows
+    cp = megakernel.pack_camera(cam)
+    spv = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    n = spv.shape[1]
+    node_bytes = bvh.nodes.numel() * 4
+    entries, worst, worst_rel = {}, {}, {}
+    for rng_mode in ("sequential", "parallel"):
+        cfg2 = cfg.replace(spp=2, rng_mode=rng_mode, chunk_pixels=FRAME_CHUNK)
+        c = slab_census(scene, cam, cfg2, bvh, row0, rows)
+        fwd_bytes = frame_bytes(cfg2, n, 1) + node_bytes
+        row = {}
+        got = megakernel.launch(cp, spv, cfg2, bvh, row0=row0, rows=rows)
+        img_c, cen = megakernel.launch(cp, spv, cfg2, bvh, count=True,
+                                       row0=row0, rows=rows)
+        plain_c = dict.fromkeys(golden.CENSUS, 0)
+        want, census_plain_ms = once_ms(lambda: golden.render_golden(
+            scene, cam, cfg2, bvh, census=plain_c, row0=row0, rows=rows))
+        row["k1b_bit_equal"] = torch.equal(got, want)
+        worst["K1b/walk"] = max(worst.get("K1b/walk", 0.0),
+                                float((got - want).abs().max()))
+        row["k1prime_counts"] = cen.tolist()
+        row["k1prime_bit_equal"] = (torch.equal(img_c, want) and cen.tolist()
+                                    == [plain_c[k] for k in golden.CENSUS])
+        init = progressive.init_state(cfg2, device=spv.device)
+        acc_s = shard.slab_of(init.acc, row0, rows)
+        seed_s = shard.slab_of(init.seed, row0, rows)
+        bits = megakernel._u32_bits(seed_s).contiguous()
+        k2 = megakernel.launch_accumulate(cp, spv, cfg2, acc_s, bits, 0, 1,
+                                          bvh, row0, rows)
+        k2 = megakernel.launch_accumulate(cp, spv, cfg2, k2[0], k2[1], 1, 1,
+                                          bvh, row0, rows)
+
+        def k2_plain():
+            a, sd = golden.accumulate_golden(scene, cam, cfg2, acc_s, seed_s,
+                                             0, 1, bvh, row0, rows)
+            return golden.accumulate_golden(scene, cam, cfg2, a, sd, 1, 1,
+                                            bvh, row0, rows)
+        (pacc, pseed), k2_plain_ms = once_ms(k2_plain)
+        row["k2_bit_equal"] = (torch.equal(k2[0], pacc) and torch.equal(
+            k2[1].long() & 0xFFFFFFFF, pseed))
+        worst["K2/walk"] = max(worst.get("K2/walk", 0.0),
+                               float((k2[0] - pacc).abs().max()))
+        del k2, pacc, pseed, acc_s, seed_s, init
+        g = cfg2.spp * cfg2.depth
+        tape = marked_tape(cfg2, n, g, spv.device)
+        img_t = megakernel.launch(cp, spv, cfg2, bvh, tape=tape, row0=row0,
+                                  rows=rows)
+        (pimg, ptape), k4_plain_ms = once_ms(lambda: golden.render_golden_tape(
+            scene, cam, cfg2, g, bvh, row0, rows))
+        row["k4_bit_equal"] = torch.equal(img_t, pimg) and torch.equal(
+            tape, ptape)
+        worst["K4/walk"] = max(worst.get("K4/walk", 0.0),
+                               float((img_t - pimg).abs().max()))
+        del pimg, ptape
+        ct = 2.0 * (got - 0.5) / (cfg2.height * cfg2.width * 3)
+        k3 = gradkernel.render_vjp(scene, cam, cfg2, ct, bvh=bvh, row0=row0,
+                                   rows=rows)
+        want3, k3_plain_ms = once_ms(lambda: gradkernel.render_vjp_plain(
+            scene, cam, cfg2, ct, 0.0, bvh, None, row0, rows))
+        rel, err = leaf_errors(k3, want3, rt.Camera._fields)
+        del want3
+        row["k3_rel"] = rel
+        row["k3_img_bit_equal"] = torch.equal(k3[0], got)
+        worst["K3/walk"] = max(worst.get("K3/walk", 0.0), err)
+        worst_rel["K3/walk"] = max(worst_rel.get("K3/walk", 0.0),
+                                   max(rel.values()))
+        ok_par = True
+        if rng_mode == "parallel":
+            # K1d: the same frame launched whole; its plain version (and
+            # K1b's) timed without the census
+            k1d = megakernel.launch(cp, spv, cfg2, bvh)
+            want_k1d, k1_plain_ms = once_ms(lambda: golden.render_golden(
+                scene, cam, cfg2, bvh))
+            row["k1d_bit_equal"] = (torch.equal(k1d, want_k1d)
+                                    and torch.equal(want_k1d, want))
+            worst["K1d"] = float((k1d - want_k1d).abs().max())
+            del k1d, want_k1d
+            k3t = gradkernel.render_vjp(scene, cam, cfg2, ct, img=got,
+                                        bvh=bvh, tape=tape, row0=row0,
+                                        rows=rows)
+            want3t, k3t_plain_ms = once_ms(lambda: gradkernel.render_vjp_plain(
+                scene, cam, cfg2, ct, 0.0, bvh, tape, row0, rows))
+            relt, errt = leaf_errors(k3t, want3t, rt.Camera._fields)
+            del k3t, want3t
+            row["k3_tape_rel"] = relt
+            worst["K3/walk+tape"] = errt
+            worst_rel["K3/walk+tape"] = max(relt.values())
+            ok_par = row["k1d_bit_equal"] and max(relt.values()) <= GRAD_BUDGET
+            tb = c["bounce_steps"] * tape.element_size()
+            entries["K3/walk+tape"] = dict(
+                plain_ms=k3t_plain_ms,
+                ms=cuda_ms(lambda: gradkernel.launch(
+                    cp, spv, cfg2, ct, got, 0.0, bvh, tape, row0, rows), 3),
+                **bound(k3_ops(c, 1, c["bounce_steps"]),
+                        frame_bytes(cfg2, n, 3) + node_bytes + tb + 8 * 8 * n))
+            acc2 = torch.zeros((rows, cfg2.width, 3), device=spv.device)
+            times = {
+                "K1d": (k1_plain_ms, lambda: megakernel.launch(
+                    cp, spv, cfg2, bvh), fwd_bytes),
+                "K1b/walk": (k1_plain_ms, lambda: megakernel.launch(
+                    cp, spv, cfg2, bvh, row0=row0, rows=rows), fwd_bytes),
+                "K2/walk": (k2_plain_ms, lambda: megakernel.launch_accumulate(
+                    cp, spv, cfg2, acc2, bits, 0, 2, bvh, row0, rows),
+                    frame_bytes(cfg2, n, 0) + node_bytes
+                    + state_bytes(cfg2, rows)),
+                "K4/walk": (k4_plain_ms, lambda: megakernel.launch(
+                    cp, spv, cfg2, bvh, tape=tape, row0=row0, rows=rows),
+                    fwd_bytes + tb)}
+            for key, (pms, fn, nbytes) in times.items():
+                entries[key] = dict(plain_ms=pms, ms=cuda_ms(fn, 3),
+                                    **bound(forward_ops(c), nbytes))
+            row["plain_census_render_ms"] = census_plain_ms
+        else:
+            entries["K3/walk"] = dict(
+                plain_ms=k3_plain_ms,
+                ms=cuda_ms(lambda: gradkernel.launch(
+                    cp, spv, cfg2, ct, None, 0.0, bvh, None, row0, rows), 3),
+                **bound(k3_ops(c, 2), frame_bytes(cfg2, n, 2) + node_bytes
+                        + 8 * 8 * n))
+        ok = (row["k1b_bit_equal"] and row["k1prime_bit_equal"]
+              and row["k2_bit_equal"] and row["k4_bit_equal"]
+              and row["k3_img_bit_equal"] and max(rel.values()) <= GRAD_BUDGET
+              and ok_par)
+        phase("walk_vs_plain", frame=f"{cfg.width}x{cfg.height} (all rows) "
+              f"spp2 d12 {rng_mode}, {scene.count} spheres", ok=ok,
+              census=c, card=card,
+              tolerance=f"bit-equal; K3 {GRAD_BUDGET} of each leaf's largest "
+                        "entry", **row)
+        if not ok:
+            fail(f"a walk kernel disagrees with its plain version "
+                 f"({rng_mode}): {row}")
+        del got, want, tape, img_t, k3, ct
+        torch.cuda.empty_cache()
+    for key, e in entries.items():
+        e["max_abs_err"] = worst[key]
+        if key in worst_rel:
+            e["max_rel_err"] = worst_rel[key]
+    return entries
+
+
+def large_scene_phases(dev, card: str) -> dict:
+    """Phases 7a-7f (see the module docstring) -> the kernel table's
+    entries K1d, K1b/walk, K2/walk, K4/walk, K3/walk and K3/walk+tape,
+    each with its launches on its main path."""
+    import raytpu_torch as rt
+    from raytpu_torch import (bvh as tbvh, golden, io, profiling,
+                              progressive, scene_io, shard)
+    from raytpu_torch.config import CONFIG4, RenderConfig
+    from raytpu_torch.kernels import gradkernel, megakernel
+
+    # raytpu's 10k protocol (scripts/probe_10k_r5.py)
+    cfg = RenderConfig(width=800, height=400, spp=20, depth=12)
+    cfgp = cfg.replace(rng_mode="parallel")
+    npix = cfg.width * cfg.height
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "big_world_10k.json")
+        scene_io.save_scene(path, rt.make_scene(big_world(BIG_SPHERES),
+                                                "cpu"))
+        scene = scene_io.load_scene(path, device=dev)
+        cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                             aspect=cfg.aspect, device=dev)
+
+        # -- 7a: the BVH, leaf 64: past the flat sweep's 64 leaves a copy
+        rt.build_bvh(scene, leaf_size=LEAF)  # the native builder, warm
+        t0 = time.perf_counter()
+        bvh = rt.build_bvh(scene, leaf_size=LEAF)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        sweep = tbvh.sweep_of(bvh)
+        row = {"spheres": scene.count, "scene_file_bytes":
+               os.path.getsize(path), "leaf_size": LEAF,
+               "leaves_per_copy": bvh.n_leaves, "nodes_per_copy": bvh.n_trav,
+               "outliers": bvh.n_outliers,
+               "permuted_rows": int(bvh.perm.shape[0]),
+               "built_by": bvh.built_by, "build_ms": build_ms,
+               "sweep": sweep, "flat_max_leaves": tbvh.FLAT_MAX_LEAVES}
+        ok = (bvh.n_leaves, bvh.n_trav, bvh.n_outliers, sweep) == (
+            157, 313, 1, "walk")
+        phase("large_scene_build", ok=ok, **row)
+        if not ok:
+            fail(f"the 10k scene's BVH is not the expected one: {row}")
+        cp = megakernel.pack_camera(cam)
+        spv = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+        sp = megakernel.pack_scene(scene)
+        n = spv.shape[1]
+        flat = tbvh.with_sweep(bvh, "flat")  # K1c / K3/bvh forced
+
+        # -- 7b: each walk kernel against its plain version
+        entries = walk_vs_plain(scene, cam, cfg, bvh, card)
+        k1d_err = entries["K1d"]["max_abs_err"]
+        # and on config 4's unpadded BVH (one copy, variable leaves)
+        s4 = rt.final_world(device=dev)
+        c4p = CONFIG4.replace(spp=2, rng_mode="parallel",
+                              chunk_pixels=FRAME_CHUNK)
+        loose = rt.build_bvh(s4, pad_leaves=False)
+        cam4 = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                              aspect=CONFIG4.aspect, device=dev)
+        cp4 = megakernel.pack_camera(cam4)
+        sp4 = megakernel.pack_scene(tbvh.permute_scene(s4, loose.perm))
+        same = {}
+        for c in (c4p, c4p.replace(rng_mode="sequential")):
+            got = megakernel.launch(cp4, sp4, c, loose)
+            want = golden.render_golden(s4, cam4, c, loose)
+            same[c.rng_mode] = torch.equal(got, want)
+            k1d_err = max(k1d_err, float((got - want).abs().max()))
+        ok = all(same.values())
+        phase("k1d_unpadded_vs_plain", frame="800x400 spp2 d12, "
+              "final_world() unpadded (leaf 64)", ok=ok,
+              nodes=loose.n_trav, copies=loose.copies, bit_equal=same,
+              census=slab_census(s4, cam4, c4p, loose), card=card)
+        if not ok:
+            fail("K1d on an unpadded BVH disagrees with its plain version")
+        entries["K1d"]["max_abs_err"] = k1d_err
+        del got, want
+
+        # -- 7c: against the other sweeps at the full frame
+        gen = torch.Generator().manual_seed(13)
+        target = torch.rand((cfg.height, cfg.width, 3), generator=gen).to(dev)
+        band = (0.45, 0.75)  # mean (plain version, 80x40 2 spp: 0.60)
+        k2_launches = 0
+        for c in (cfgp, cfg):
+            k1d = megakernel.launch(cp, spv, c, bvh)
+            k1c = megakernel.launch(cp, spv, c, flat)
+            k1a = megakernel.launch(cp, sp, c)
+            ct = 2.0 * (k1d - target) / k1d.numel()
+            img_in = k1d if c.rng_mode == "parallel" else None
+            kw = gradkernel.launch(cp, spv, c, ct, img_in, 0.0, bvh)
+            kf = gradkernel.launch(cp, spv, c, ct, img_in, 0.0, flat)
+            reset_counts(megakernel, gradkernel)
+            st, img_p = None, None
+            for st, img_p in progressive.render_progressive(
+                    scene, cam, c, batch=5, bvh=bvh):
+                pass
+            torch.cuda.synchronize()
+            k2_launches += megakernel.variants["K2/walk"]
+            rel = k3_sums_rel(k3_sums(kw), k3_sums(kf), n)
+            r = {"k1d_vs_k1c_pixels_differ": int((k1d != k1c).any(-1).sum()),
+                 "k1d_vs_k1a_pixels_differ": int((k1d != k1a).any(-1).sum()),
+                 "k3_walk_img_bit_equal_k1d": torch.equal(kw[0], k1d),
+                 "k3_walk_vs_flat_sums_rel": rel,
+                 "progressive_batches": st.samples // 5,
+                 "progressive_launches": dict(
+                     variant_counts(megakernel, gradkernel)),
+                 "progressive_bit_equal_one_shot": torch.equal(img_p, k1d),
+                 "progressive_max_abs": float((img_p - k1d).abs().max()),
+                 "mean": float(k1d.mean())}
+            ok = (r["k1d_vs_k1c_pixels_differ"] <= TIE_SHARE * npix
+                  and r["k1d_vs_k1a_pixels_differ"] <= TIE_SHARE * npix
+                  and r["k3_walk_img_bit_equal_k1d"]
+                  and max(rel.values()) <= 1e-9
+                  and r["progressive_launches"] == {"K2/walk": 4}
+                  and r["progressive_max_abs"] <= 2e-7
+                  and bool(torch.isfinite(k1d).all())
+                  and band[0] <= r["mean"] <= band[1])
+            phase("walk_vs_sweeps", frame=f"800x400 spp20 d12 {c.rng_mode}, "
+                  f"{scene.count} spheres", ok=ok, card=card,
+                  allowed_exact_t_ties=int(TIE_SHARE * npix),
+                  tolerance="K1d vs K1c and K1a: pixels differ <= TIE_SHARE; "
+                            "K3 sums within 1e-9 of each leaf's largest; "
+                            "progressive image within 2e-7 (the gamma "
+                            "epilogue, as phase 6a)", **r)
+            if not ok:
+                fail(f"the walk disagrees with the other sweeps "
+                     f"({c.rng_mode}): {r}")
+            del k1d, k1c, k1a, kw, kf, img_p, st
+
+        # -- 7d: the main path through the entry points
+        launches = {}
+        reset_counts(megakernel, gradkernel)
+        img = rt.render(scene, cam, cfgp, bvh=bvh)
+        torch.cuda.synchronize()
+        launches["render"] = variant_counts(megakernel, gradkernel)
+        reset_counts(megakernel, gradkernel)
+        sharded = shard.render_sharded(scene, cam, cfgp, bvh=bvh)
+        torch.cuda.synchronize()
+        launches["render_sharded"] = variant_counts(megakernel, gradkernel)
+        runs, k3_calls = {}, []
+        for label, c in (("parallel", cfgp), ("sequential", cfg)):
+            reset_counts(megakernel, gradkernel)
+            with recording(gradkernel, "launch",
+                           k3_calls if label == "parallel" else []):
+                runs[label] = rt.render_grad(scene, cam, c, target, bvh=bvh)
+            torch.cuda.synchronize()
+            launches[label] = variant_counts(megakernel, gradkernel)
+        # the taped render_grad's K3 sums against K3/walk untaped on the
+        # same operands (its cotangent and forward image), both f64
+        (k3_args, taped), = k3_calls
+        k3_args.arguments["tape"] = None
+        untaped = gradkernel.launch(*k3_args.args, **k3_args.kwargs)
+        taped_rel = k3_sums_rel(k3_sums(untaped), k3_sums(taped), n)
+        taped_img_equal = torch.equal(untaped[0], taped[0])
+        del k3_calls, k3_args, taped, untaped
+        want_launches = {"render": {"K1d": 1}, "render_sharded": {
+            "K1b/walk": 1}, "parallel": {"K4/walk": 1, "K3/walk+tape": 1},
+            "sequential": {"K1d": 1, "K3/walk": 1}}
+        finite = {k: all(bool(torch.isfinite(g).all()) for g in
+                         flat_grads((r[1], *r[2]))) for k, r in runs.items()}
+        log = os.path.join(tmp, "runs.jsonl")
+        png = os.path.join(tmp, "big.png")
+        cmd = [sys.executable, "-m", "raytpu_torch.cli", "render",
+               "--scene-file", path, "--bvh", "--width", str(cfg.width),
+               "--height", str(cfg.height), "--spp", str(cfg.spp),
+               "--depth", str(cfg.depth), "--rng-mode", "parallel",
+               "--device", "cuda", "--log", log, "--out", png]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            fail(f"CLI --scene-file exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        ref = os.path.join(tmp, "in_process.png")
+        io.save_png(ref, img.cpu().numpy())
+        with open(png, "rb") as f, open(ref, "rb") as g:
+            same = f.read() == g.read()
+        with open(log) as f:
+            logged = [json.loads(x) for x in f.read().splitlines()]
+        row = {"launches": launches, "grads_finite": finite,
+               "losses": {k: float(r[0]) for k, r in runs.items()},
+               "render_sharded_bit_equal_render": torch.equal(sharded, img),
+               "render_grad_img_bit_equal_render": torch.equal(
+                   runs["parallel"][1], img),
+               "render_grad_taped_k3_vs_untaped_sums_rel": taped_rel,
+               "render_grad_taped_k3_img_bit_equal_untaped": taped_img_equal,
+               "cli_png_identical_to_render": same, "cli_log": logged,
+               "cli_stdout": proc.stdout.strip(),
+               "command": " ".join(cmd[1:]).replace(tmp, "<tmp>")}
+        ok = (launches == want_launches and all(finite.values()) and same
+              and row["render_sharded_bit_equal_render"]
+              and row["render_grad_img_bit_equal_render"]
+              and max(taped_rel.values()) <= 1e-9 and taped_img_equal
+              and len(logged) == 1
+              and logged[0]["device"] == torch.cuda.get_device_name(0)
+              and logged[0]["sweep"] == "walk")
+        phase("main_path_10k", frame="800x400 spp20 d12", ok=ok, card=card,
+              spheres=scene.count, **row)
+        if not ok:
+            fail(f"the 10k main path: {row}")
+        entries["K1d"]["launches"] = (launches["render"]["K1d"]
+                                      + launches["sequential"]["K1d"])
+        entries["K1b/walk"]["launches"] = launches["render_sharded"][
+            "K1b/walk"]
+        entries["K2/walk"]["launches"] = k2_launches
+        entries["K4/walk"]["launches"] = launches["parallel"]["K4/walk"]
+        entries["K3/walk"]["launches"] = launches["sequential"]["K3/walk"]
+        entries["K3/walk+tape"]["launches"] = launches["parallel"][
+            "K3/walk+tape"]
+        del runs, sharded
+
+        # -- 7e: the tools
+        cmd = [sys.executable, "-m", "raytpu_torch.cli", "validate",
+               "--scene-file", path, "--bvh", "--device", "cuda"]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        try:
+            rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            rep = {}
+        info = subprocess.run([sys.executable, "-m", "raytpu_torch.cli",
+                               "info"], cwd=ROOT, capture_output=True,
+                              text=True, timeout=300)
+        try:
+            info_rep = json.loads(info.stdout.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            info_rep = {}
+        ok = (proc.returncode == 0 and rep.get("kernel_bit_identical") is True
+              and rep.get("sweep") == "walk" and info.returncode == 0
+              and info_rep.get("platform") == "gpu"
+              and info_rep.get("device_kind") == torch.cuda.get_device_name(0))
+        phase("tools", ok=ok, validate_rc=proc.returncode,
+              validate=rep, info_rc=info.returncode, info=info_rep,
+              command=" ".join(cmd[1:]).replace(tmp, "<tmp>"))
+        if not ok:
+            fail(f"cli validate / info on the card: {proc.stderr[-2000:]} "
+                 f"{info.stderr[-1000:]}")
+
+        # -- 7f: times at the full frame (CUDA events, after a warm-up)
+        c20p = slab_census(scene, cam, cfgp, bvh)
+        c20 = slab_census(scene, cam, cfg, bvh)
+        c20f = slab_census(scene, cam, cfgp, flat)
+        c20b = slab_census(scene, cam, cfgp, None)
+        t = {"card": card}
+        t["k1d_ms"] = cuda_ms(lambda: megakernel.launch(cp, spv, cfgp, bvh),
+                              3)
+        t["k1d_profiler_ms"] = profiling.device_ms(
+            lambda: megakernel.launch(cp, spv, cfgp, bvh))
+        t["k1c_forced_ms"] = cuda_ms(lambda: megakernel.launch(
+            cp, spv, cfgp, flat), 3)
+        t["k1a_ms"] = cuda_ms(lambda: megakernel.launch(cp, sp, cfgp), 2)
+        t["k1b_walk_ms"] = cuda_ms(lambda: megakernel.launch(
+            cp, spv, cfgp, bvh, row0=0, rows=cfg.height), 3)
+        budget = gradkernel.TAPE_BUDGET
+        try:
+            gradkernel.TAPE_BUDGET = 0  # untaped
+            t["fwd_bwd_untaped_ms"] = cuda_ms(lambda: rt.render_grad(
+                scene, cam, cfgp, target, bvh=bvh), 2)
+        finally:
+            gradkernel.TAPE_BUDGET = budget
+        t["fwd_bwd_taped_ms"] = cuda_ms(lambda: rt.render_grad(
+            scene, cam, cfgp, target, bvh=bvh), 2)
+        t["fwd_bwd_sequential_ms"] = cuda_ms(lambda: rt.render_grad(
+            scene, cam, cfg, target, bvh=bvh), 2)
+        g = cfg.spp * cfg.depth
+        tape = torch.empty((g, npix), dtype=golden.tape_dtype(n), device=dev)
+        img_t = megakernel.launch(cp, spv, cfgp, bvh, tape=tape)
+        ct = 2.0 * (img_t - target) / img_t.numel()
+        t["k4_walk_ms"] = cuda_ms(lambda: megakernel.launch(
+            cp, spv, cfgp, bvh, tape=tape), 3)
+        t["k3_walk_tape_ms"] = cuda_ms(lambda: gradkernel.launch(
+            cp, spv, cfgp, ct, img_t, 0.0, bvh, tape), 3)
+        t["k3_walk_seq_ms"] = cuda_ms(lambda: gradkernel.launch(
+            cp, spv, cfg, ct, None, 0.0, bvh), 2)
+        init = progressive.init_state(cfgp, device=dev)
+        bits = megakernel._u32_bits(init.seed).contiguous()
+        t["k2_walk_batch5_ms"] = cuda_ms(lambda: megakernel.launch_accumulate(
+            cp, spv, cfgp, init.acc, bits, 0, 5, bvh), 3)
+        rays = npix * cfg.spp
+        t["k1d_mrays_s"] = rays / t["k1d_ms"] / 1e3
+        t["fwd_bwd_taped_mrays_s"] = rays / t["fwd_bwd_taped_ms"] / 1e3
+        t["census_walk"] = c20p
+        t["nodes_per_step"] = c20p["nodes_visited"] / c20p["bounce_steps"]
+        t["leaves_per_step"] = c20p["leaves_entered"] / c20p["bounce_steps"]
+        t["census_flat_forced"] = c20f
+        t.update(bound_k1d_ms=bound(forward_ops(c20p), 0)["bound_ms"],
+                 bound_k1c_forced_ms=bound(forward_ops(c20f), 0)["bound_ms"],
+                 bound_k1a_ms=bound(forward_ops(c20b), 0)["bound_ms"])
+        # where raytpu's 64-leaf rule stands on this card: the walk forced
+        # on config 4's BVH (8 leaves a copy, the flat sweep by the rule)
+        b4 = rt.build_bvh(s4, leaf_size=LEAF)
+        c4 = CONFIG4.replace(rng_mode="parallel")
+        spv4 = megakernel.pack_scene(tbvh.permute_scene(s4, b4.perm))
+        cp4f = megakernel.pack_camera(cam4)
+        ka = megakernel.launch(cp4f, spv4, c4, b4)
+        b4w = tbvh.with_sweep(b4, "walk")
+        kb = megakernel.launch(cp4f, spv4, c4, b4w)
+        t["config4_leaves"] = b4.n_leaves
+        t["config4_walk_bit_equal_flat"] = torch.equal(ka, kb)
+        t["config4_k1c_ms"] = cuda_ms(lambda: megakernel.launch(
+            cp4f, spv4, c4, b4), 3)
+        t["config4_k1d_forced_ms"] = cuda_ms(lambda: megakernel.launch(
+            cp4f, spv4, c4, b4w), 3)
+        phase("timing_10k", frame="800x400 spp20 d12 parallel (sequential "
+              "where named)", **t)
+        if not t["config4_walk_bit_equal_flat"]:
+            fail("the walk forced on config 4's BVH differs from K1c")
+        del tape, img_t
+
+        # the table's main-path times and bounds (full frame, 20 spp)
+        nb = bvh.nodes.numel() * 4
+        fwd = frame_bytes(cfgp, n, 1) + nb
+        tbytes = c20p["bounce_steps"] * golden.tape_dtype(n).itemsize
+        main = {
+            "K1d": (t["k1d_ms"], bound(forward_ops(c20p), fwd)),
+            "K1b/walk": (t["k1b_walk_ms"], bound(forward_ops(c20p), fwd)),
+            "K2/walk": (t["k2_walk_batch5_ms"], bound(
+                forward_ops(c20p) / 4, frame_bytes(cfgp, n, 0) + nb
+                + state_bytes(cfgp, cfg.height))),
+            "K4/walk": (t["k4_walk_ms"], bound(forward_ops(c20p),
+                                               fwd + tbytes)),
+            "K3/walk": (t["k3_walk_seq_ms"], bound(
+                k3_ops(c20, 2), frame_bytes(cfg, n, 2) + nb + 8 * 8 * n)),
+            "K3/walk+tape": (t["k3_walk_tape_ms"], bound(
+                k3_ops(c20p, 1, c20p["bounce_steps"]),
+                frame_bytes(cfgp, n, 3) + nb + tbytes + 8 * 8 * n))}
+        for key, (ms, b) in main.items():
+            entries[key].update(main_path_ms=ms,
+                                main_path_bound_ms=b["bound_ms"],
+                                main_path_bound_by=b["bound_by"])
+        return entries
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -1693,6 +2256,9 @@ def main() -> None:
     # -- phase 6: config 5, progressive (K2) and sharded (slab mode)
     entries5 = config5_phases(dev, card)
 
+    # -- phase 7: the 10,000-sphere scene over the skip-pointer walk
+    entries7 = large_scene_phases(dev, card)
+
     # bounds of K1a and K3 in the cells their times come from
     from raytpu_torch import profiling
     c_k1a = profiling.census(c2_scene, c2_cam, CONFIG2)
@@ -1771,6 +2337,33 @@ def main() -> None:
              "raytpu/kernels/gradkernel.py:1519 (row0/rows)",
              SLAB_CELL + ", full tape")):
         e = entries5[key]
+        table.append(dict(name=name, route="cuda", source=source,
+                          replaces=replaces, cell=cell,
+                          launches=e.pop("launches"), library_ms=None, **e))
+    big = (f"raytpu's {BIG_SPHERES}-sphere scene (scene file), 800x400 d12, "
+           "all 400 rows as a slab at 2 spp")
+    walk_ref = "raytpu/kernels/megakernel.py:1456 (the walk :640-696)"
+    for key, name, source, replaces, cell in (
+            ("K1d", "render_fwd_kernel<walk> (K1d, skip-pointer walk)",
+             fwd_src, walk_ref, f"raytpu's {BIG_SPHERES}-sphere scene (scene "
+             "file), 800x400 spp2 d12 parallel (plain: the same call as "
+             "K1b's); error also on config 4's unpadded BVH"),
+            ("K1b/walk", "render_fwd_kernel<walk> on a row slab (K1b walk)",
+             fwd_src, walk_ref + " (row0/rows)", big + ", parallel"),
+            ("K2/walk", "render_fwd_kernel<walk, carry> (K2 walk)", fwd_src,
+             "raytpu/kernels/megakernel.py:1742 (accumulate_pallas, the "
+             "walk :1786-1789)", big + ", parallel, 2 batches of 1"),
+            ("K4/walk", "render_fwd_kernel<walk, tape write> (K4 write, "
+             "walk)", fwd_src, "raytpu/kernels/gradkernel.py:1873 (the walk "
+             ":1903-1905)", big + ", parallel, full tape"),
+            ("K3/walk", "render_vjp_kernel<walk> (K3, skip-pointer walk)",
+             grad_src, "raytpu/kernels/gradkernel.py:1519 (the walk "
+             ":544-594)", big + ", sequential"),
+            ("K3/walk+tape", "render_vjp_kernel<walk, tape read> (K3 replay "
+             "of K4, walk)", grad_src, "raytpu/kernels/gradkernel.py:1519 "
+             "(tape_mode='read', the walk past g_cap)",
+             big + ", parallel, full tape")):
+        e = entries7[key]
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, cell=cell,
                           launches=e.pop("launches"), library_ms=None, **e))

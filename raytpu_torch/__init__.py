@@ -11,15 +11,18 @@ backward through the fused VJP kernel (``raytpu_torch/kernels/gradkernel.py``)
 on a card and through the adjoint (``raytpu_torch/adjoint.py``) anywhere.
 ``build_bvh(scene)`` (``raytpu_torch/bvh.py``) gives a BVH that
 ``render(..., bvh=)`` and ``render_grad(..., bvh=)`` sweep as a flat leaf
-list; in parallel RNG the gradient path tapes each bounce's winner in the
+list, or past 64 leaves a copy (raytpu's rule) by the skip-pointer walk;
+in parallel RNG the gradient path tapes each bounce's winner in the
 forward and replays the tape in the backward.  ``progressive`` renders in
 checkpointed sample batches (the carry-state kernel K2 on a card) and
 ``shard`` splits the frame into row slabs over a ``torch.distributed``
-group (every kernel's slab mode).  This package never imports jax.
+group (every kernel's slab mode).  ``scene_io`` reads and writes raytpu's
+JSON scene files, ``debug`` holds the scene lint, the checked render and
+the kernel-against-plain check behind ``cli validate``.  This package
+never imports jax.
 
-Not ported yet (see ROADMAP.md): the skip-pointer walk and the dense stage,
-the windowed-refill PASS 2, the tools (``scene_io``, ``debug``, ``cli
-validate`` / ``info``), the wavefront engine and the v1 fract-sin RNG mode.
+Not ported yet (see ROADMAP.md): the dense stage, the windowed-refill
+PASS 2, the wavefront engine and the v1 fract-sin RNG mode.
 """
 
 from raytpu_torch.config import RenderConfig

@@ -26,7 +26,8 @@ draw carry no gradient.  ``vis_w > 0`` adds raytpu's silhouette (boundary)
 terms to the backward; the forward stays the exact hard render.
 
 Winners come from a sweep — :func:`raytpu_torch.golden.hit_world`, or with a
-BVH :func:`raytpu_torch.golden.hit_world_bvh` over the scene in leaf order —
+BVH :func:`raytpu_torch.golden.hit_bvh` (the flat sweep or the skip-pointer
+walk, by raytpu's rule) over the scene in leaf order —
 or, for the steps a winner-index tape holds, from the tape
 (:class:`_Winners`): the plain version of K3's tape replay.  The winner
 alone decides the bounce (``_bounce_math`` recomputes that one sphere's t
@@ -262,32 +263,33 @@ def _silhouette(scene, res, v, dacc, vis_w, g_center, g_radius):
 class _Winners:
     """Closest-hit winners of one bounce step for the adjoint's forward.
 
-    Swept (``hit_world``, or ``hit_world_bvh`` when ``bvh`` is given and
-    the scene is in its leaf order), or read from a winner-index tape for
-    the steps it holds: ``tape = (buf, pix, k)`` as in
-    :func:`raytpu_torch.golden.log_winners`, ``k`` the lanes' next global
-    step, advanced by one for every live lane.  Steps at or past the
-    tape's cap are swept, as K3's tape replay does."""
+    Swept (``hit_world``, or ``hit_bvh`` by the BVH's sweep, flat or walk,
+    when ``bvh`` is given and the scene is in its leaf order), or read from
+    a winner-index tape for the steps it holds: ``tape = (buf, pix, k)`` as
+    in :func:`raytpu_torch.golden.log_winners`, ``k`` the lanes' next
+    global step, advanced by one for every live lane.  Steps at or past
+    the tape's cap are swept, as K3's tape replay does (by the walk past
+    ``g_cap`` on a walk BVH).  A dead lane's winner is never read."""
 
     def __init__(self, bvh: BVH | None = None, tape=None):
         self.bvh, self.tape = bvh, tape
 
-    def _sweep(self, scene, ro, rd, t_min):
+    def _sweep(self, scene, ro, rd, t_min, alive):
         if self.bvh is None:
             hit = golden.hit_world(scene, ro, rd, t_min)
         else:
-            hit = golden.hit_world_bvh(scene, self.bvh, ro, rd, t_min)
+            hit = golden.hit_bvh(scene, self.bvh, ro, rd, t_min, live=alive)
         return hit[0], hit[2]
 
     def __call__(self, scene, ro, rd, t_min, alive):
         """-> (hit_any, winner index) per lane."""
         if self.tape is None:
-            return self._sweep(scene, ro, rd, t_min)
+            return self._sweep(scene, ro, rd, t_min, alive)
         buf, pix, k = self.tape
         g_cap = buf.shape[0]
         taped = k < g_cap
         if g_cap == 0 or bool((alive & ~taped).any()):
-            hit_any, idx = self._sweep(scene, ro, rd, t_min)
+            hit_any, idx = self._sweep(scene, ro, rd, t_min, alive & ~taped)
         else:
             hit_any = idx = None
         if g_cap:
@@ -474,7 +476,7 @@ def render_golden_adjoint(scene: Scene, cam: Camera, cfg: RenderConfig,
     ordinary autograd: call ``torch.autograd.grad`` (or ``backward``) on
     its image.
 
-    ``bvh``: the forward sweeps its flat leaf list over the scene in leaf
+    ``bvh``: the forward sweeps the BVH (flat or walk) over the scene in leaf
     order (permuted differentiably, so gradients land in input order).
     ``tape`` (g_cap, H*W), a winner-index tape of this frame (from
     :func:`raytpu_torch.golden.render_golden_tape` with the same ``bvh``):

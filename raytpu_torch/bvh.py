@@ -14,13 +14,21 @@ direction-sign octant is ``o`` (bit 2 = dx < 0, bit 1 = dy < 0, bit 0 =
 dz < 0); ``perm`` (P,) f32, permuted position -> original sphere index, -1
 for a padding dummy; ``flat`` (8L, 9) the leaf rows of each copy in its
 preorder (front-to-back) position.  Integers are stored as f32 (exact below
-2^24).  The kernels (``csrc/render_common.cuh``, K1c) and the plain sweep
-(:func:`raytpu_torch.golden.hit_world_bvh`) iterate ``flat``; ``nodes``
-keeps the skip-pointer walk's layout for :func:`closest_hit_numpy` and a
-later walk kernel.
+2^24).  Unpadded BVHs (``pad_leaves=False``, raytpu's variable leaves) hold
+one copy of ``nodes`` with each leaf's own ``count`` and no flat list.
+
+Two closest-hit policies sweep a BVH, picked by raytpu's rule
+(:func:`sweep_of`): the flat sweep (K1c,
+:func:`raytpu_torch.golden.hit_world_bvh`) tests every leaf box of
+``flat`` and serves BVHs of at most :data:`FLAT_MAX_LEAVES` leaves a copy;
+the skip-pointer walk (K1d, :func:`raytpu_torch.golden.hit_world_walk`)
+follows ``nodes`` and serves the rest, unpadded BVHs included.
+:func:`closest_hit_numpy` is the walk's scalar oracle.
 
 :func:`refit` recomputes the boxes for moved spheres in torch, as raytpu's
-in-graph refit does.
+in-graph refit does; it voids the interior boxes of ``nodes`` to
+always-enter, so a walk over a refit BVH visits every node (still right,
+slower).
 """
 
 from __future__ import annotations
@@ -32,6 +40,14 @@ import torch
 
 from raytpu_torch import native
 from raytpu_torch.scene import Scene
+
+# The flat leaf-list sweep serves BVHs of at most this many leaves a copy,
+# the skip-pointer walk the rest (raytpu's _FLAT_MAX_LEAVES,
+# raytpu/kernels/megakernel.py:61-65).  raytpu chose 64 on a TPU; the port
+# keeps it and chip_smoke.py phase 7f times both sweeps on either side.
+# Tests monkeypatch it to force a sweep.
+FLAT_MAX_LEAVES = 64
+SWEEPS = ("flat", "walk")
 
 
 def outlier_tail(perm, flat, leaf_size):
@@ -50,12 +66,15 @@ class BVH:
     nodes: torch.Tensor  # (8M, 9) f32 (padded leaves) or (M, 9) f32
     perm: torch.Tensor   # (P,) f32: permuted position -> sphere, -1 = dummy
     # leaf size when every leaf is padded to exactly this many entries,
-    # None for raytpu's legacy variable leaves (no flat list: the kernels
-    # refuse such a BVH)
+    # None for raytpu's legacy variable leaves (no flat list: the walk
+    # sweeps such a BVH)
     leaf_size: int | None = None
     flat: torch.Tensor | None = None  # (8L, 9) f32 leaf rows, octant copies
     built_by: str = ""   # "native median", "native sah" or "numpy median"
     spheres: int = 0     # spheres of the scene it was built for (0: unknown)
+    # the closest-hit policy forced on this BVH ("flat" or "walk"), None for
+    # raytpu's rule; set through with_sweep (chip_smoke.py and the tests)
+    sweep: str | None = None
 
     @property
     def n_outliers(self) -> int:
@@ -84,10 +103,39 @@ class BVH:
     def device(self) -> torch.device:
         return self.perm.device
 
+    @property
+    def copies(self) -> int:
+        """Octant copies of ``nodes``: 8 with padded leaves, else 1."""
+        return 8 if self.leaf_size else 1
+
     def to(self, device) -> "BVH":
         return dataclasses.replace(
             self, nodes=self.nodes.to(device), perm=self.perm.to(device),
             flat=None if self.flat is None else self.flat.to(device))
+
+
+def sweep_of(bvh: BVH) -> str:
+    """The closest-hit policy that sweeps ``bvh``: ``bvh.sweep`` when
+    forced, else raytpu's rule (megakernel.py:1515-1516, :1786-1787,
+    gradkernel.py:1620-1621, :1903-1904): ``"flat"`` iff the BVH has a flat
+    leaf list of at most :data:`FLAT_MAX_LEAVES` leaves a copy, else
+    ``"walk"``."""
+    if bvh.sweep is not None:
+        return bvh.sweep
+    return ("flat" if bvh.flat is not None
+            and bvh.n_leaves <= FLAT_MAX_LEAVES else "walk")
+
+
+def with_sweep(bvh: BVH, sweep: str) -> BVH:
+    """``bvh`` with its closest-hit policy forced to ``sweep``.  The flat
+    sweep needs padded leaves and a flat leaf list; the walk takes any
+    BVH."""
+    if sweep not in SWEEPS:
+        raise ValueError(f"unknown sweep {sweep!r} (choose from {SWEEPS})")
+    if sweep == "flat" and (bvh.flat is None or not bvh.leaf_size):
+        raise ValueError("the flat sweep needs a BVH with padded leaves and "
+                         "a flat leaf list (build_bvh(pad_leaves=True))")
+    return dataclasses.replace(bvh, sweep=sweep)
 
 
 def _pad_leaf_nodes(nodes: np.ndarray, perm: np.ndarray, leaf_size: int):

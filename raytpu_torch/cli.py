@@ -8,13 +8,23 @@
         --checkpoint ckpt.npz --resume --device cuda --out final.png
     torchrun --nproc-per-node 4 -m raytpu_torch.cli render --devices 4 \
         --scene final --bvh --device cuda --out final.png
+    python -m raytpu_torch.cli render --scene-file big.json --bvh \
+        --device cuda --log runs.jsonl --out big.png
     python -m raytpu_torch.cli gradcheck --device cuda
+    python -m raytpu_torch.cli validate --scene-file big.json --bvh \
+        --device cuda
+    python -m raytpu_torch.cli info
 
-The ``render`` and ``gradcheck`` subcommands are ported, ``render --bvh``
-(with ``--bvh-builder``), ``--progressive`` (with ``--checkpoint``,
-``--resume`` and ``--preview-every``) and ``--devices`` among them: every
-backend of the port's ``render`` sweeps the BVH it is given (raytpu refuses
-``--bvh`` on its golden backend, which would ignore it; here none does).
+Every subcommand of raytpu's is ported: ``render`` with ``--bvh`` (and
+``--bvh-builder``), ``--scene-file`` (a JSON scene,
+:mod:`raytpu_torch.scene_io`), ``--log`` (one JSON line a run),
+``--progressive`` (with ``--checkpoint``, ``--resume`` and
+``--preview-every``) and ``--devices``; ``gradcheck``; ``validate`` (the
+scene lint and the kernel against its plain version on the device,
+:mod:`raytpu_torch.debug`; exit 0 iff it passes); ``info``.  Every backend
+of the port's ``render`` sweeps the BVH it is given, by the flat sweep or
+the skip-pointer walk as raytpu's rule picks (raytpu refuses ``--bvh`` on
+its golden backend, which would ignore it; here none does).
 ``--devices N`` shards the rows over N processes of a ``torchrun`` launch
 whose ``WORLD_SIZE`` is N, each on ``cuda:LOCAL_RANK`` (or the CPU with
 ``--device cpu``); process 0 writes ``--out`` and the checkpoint.  Outside
@@ -22,9 +32,8 @@ such a launch it exits with an error that says how to launch it; it never
 renders on one device instead.  An option that would be ignored
 (``--bvh-builder`` without ``--bvh``, ``--checkpoint`` or
 ``--preview-every`` without ``--progressive``, ``--resume`` without
-``--checkpoint``) is refused.  The other subcommands belong to parts not
-ported yet and exit with an error that names their ROADMAP item; raytpu's
-other options are not accepted.
+``--checkpoint``, ``--log`` with ``--progressive``) is refused; raytpu's
+wavefront options (``--refill``, ``--spp-batch``) are not accepted.
 """
 
 from __future__ import annotations
@@ -36,14 +45,12 @@ import sys
 
 SCENES = ("config1", "test", "random", "final", "v1")
 
-_SUBCOMMANDS_NOT_PORTED = {
-    "validate": "debug.py's cross-backend sweep (ROADMAP queue 1, M11)",
-    "info": "the tools (ROADMAP queue 1, M11)",
-}
 
-
-def _build_scene(name: str, seed: int, device):
+def _build_scene(name: str, seed: int, device, scene_file=None):
     import raytpu_torch as rt
+    if scene_file:
+        from raytpu_torch.scene_io import load_scene
+        return load_scene(scene_file, device=device)
     if name == "config1":
         return rt.config1_world(device=device)
     if name == "test":
@@ -53,6 +60,14 @@ def _build_scene(name: str, seed: int, device):
     if name == "final":
         return rt.final_world(seed=seed, device=device)
     return rt.v1_world(device=device)  # the v1 app's seven-sphere world
+
+
+def _build_camera(args, aspect, device):
+    import raytpu_torch as rt
+    return rt.make_camera(tuple(args.look_from), tuple(args.look_at),
+                          vfov=args.vfov, aspect=aspect,
+                          aperture=args.aperture, focus_dist=args.focus_dist,
+                          device=device)
 
 
 def _distributed(args):
@@ -79,7 +94,7 @@ def cmd_render(args) -> int:
     if args.bvh_builder is not None and not args.bvh:
         raise SystemExit("--bvh-builder needs --bvh")
     import raytpu_torch as rt
-    from raytpu_torch import io, profiling, progressive, shard
+    from raytpu_torch import bvh as tbvh, io, profiling, progressive, shard
     from raytpu_torch.config import RenderConfig
 
     group, rank, device = None, 0, args.device
@@ -88,11 +103,8 @@ def cmd_render(args) -> int:
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        depth=args.depth, rng_mode=args.rng_mode,
                        scatter_mode=args.scatter_mode, gamma=args.gamma)
-    scene = _build_scene(args.scene, args.seed, device)
-    cam = rt.make_camera(tuple(args.look_from), tuple(args.look_at),
-                         vfov=args.vfov, aspect=cfg.aspect,
-                         aperture=args.aperture, focus_dist=args.focus_dist,
-                         device=device)
+    scene = _build_scene(args.scene, args.seed, device, args.scene_file)
+    cam = _build_camera(args, cfg.aspect, device)
     bvh = (rt.build_bvh(scene, builder=args.bvh_builder or "median")
            if args.bvh else None)
     try:
@@ -133,6 +145,12 @@ def cmd_render(args) -> int:
                   f"Mrays/s, {stats.wall_s * 1e3:.1f} ms on {stats.device}"
                   + (f", {shard.world(group)[1]} processes)" if group
                      else ")"))
+            if args.log:
+                profiling.log_run(args.log, stats,
+                                  scene=args.scene_file or args.scene,
+                                  backend=args.backend,
+                                  sweep=None if bvh is None else
+                                  tbvh.sweep_of(bvh))
         return 0
     finally:
         if group is not None:
@@ -182,6 +200,56 @@ def cmd_gradcheck(args) -> int:
     return 0 if err < 1e-3 else 1
 
 
+def cmd_validate(args) -> int:
+    """Scene lint and the cross-backend check (:mod:`raytpu_torch.debug`)
+    on ``--device``: exit 0 iff the plain version's image is finite and, on
+    a card, the kernel (K1a, K1c or K1d) equals it bit for bit, or, on the
+    CPU with ``--bvh``, the plain BVH sweep equals the plain brute sweep up
+    to ties.  Scene lint findings are warnings, not failures (random_world's
+    energy-amplifying metal albedo is the reference's), as in raytpu."""
+    import raytpu_torch as rt
+    from raytpu_torch import debug
+    from raytpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
+                       depth=args.depth, scatter_mode=args.scatter_mode,
+                       rng_mode=args.rng_mode)
+    scene = _build_scene(args.scene, args.seed, args.device, args.scene_file)
+    cam = _build_camera(args, cfg.aspect, args.device)
+    bvh = rt.build_bvh(scene) if args.bvh else None
+    rep = {"scene_warnings": debug.validate_scene(scene)}
+    rep.update(debug.validate_backends(scene, cam, cfg, bvh=bvh))
+    rep["pass"] = bool(rep["plain_finite"]
+                       and rep.get("kernel_bit_identical", True)
+                       and rep.get("bvh_matches_brute", True))
+    print(json.dumps(rep))
+    return 0 if rep["pass"] else 1
+
+
+def cmd_info(args) -> int:
+    """The package, torch and the device this process sees, as JSON:
+    ``platform`` is "gpu" when CUDA has a card, else "cpu"."""
+    import torch
+    import raytpu_torch as rt
+    gpu = torch.cuda.is_available()
+    print(json.dumps({
+        "version": rt.__version__, "torch": torch.__version__,
+        "cuda": torch.version.cuda, "platform": "gpu" if gpu else "cpu",
+        "devices": torch.cuda.device_count() if gpu else 1,
+        "device_kind": torch.cuda.get_device_name(0) if gpu else "cpu"}))
+    return 0
+
+
+def _view_args(p) -> None:
+    """The camera options render and validate share (raytpu's)."""
+    p.add_argument("--look-from", type=float, nargs=3,
+                   default=[13.0, 2.0, 3.0])
+    p.add_argument("--look-at", type=float, nargs=3, default=[0.0, 0.0, 0.0])
+    p.add_argument("--vfov", type=float, default=20.0)
+    p.add_argument("--aperture", type=float, default=0.0)
+    p.add_argument("--focus-dist", type=float, default=None)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="raytpu_torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -189,17 +257,15 @@ def main(argv=None) -> int:
 
     r = sub.add_parser("render", help="render a scene to an image file")
     r.add_argument("--scene", choices=SCENES, default="test")
+    r.add_argument("--scene-file", default=None, metavar="JSON",
+                   help="load the scene from a JSON file (raytpu's "
+                        "scene_io schema; overrides --scene)")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--width", type=int, default=400)
     r.add_argument("--height", type=int, default=200)
     r.add_argument("--spp", type=int, default=20)
     r.add_argument("--depth", type=int, default=12)
-    r.add_argument("--look-from", type=float, nargs=3,
-                   default=[13.0, 2.0, 3.0])
-    r.add_argument("--look-at", type=float, nargs=3, default=[0.0, 0.0, 0.0])
-    r.add_argument("--vfov", type=float, default=20.0)
-    r.add_argument("--aperture", type=float, default=0.0)
-    r.add_argument("--focus-dist", type=float, default=None)
+    _view_args(r)
     r.add_argument("--device", required=True,
                    help="where the scene is built and rendered: cpu, cuda, "
                         "cuda:N")
@@ -217,8 +283,9 @@ def main(argv=None) -> int:
                    help="sequential = reference-parity seed chain; parallel "
                         "= per-sample streams (v1_fractsin: not ported yet)")
     r.add_argument("--bvh", action="store_true",
-                   help="build a BVH of the scene and sweep its flat leaf "
-                        "list (K1c on a cuda device)")
+                   help="build a BVH of the scene and sweep it: the flat "
+                        "leaf list up to 64 leaves a copy (K1c on a cuda "
+                        "device), else the skip-pointer walk (K1d)")
     r.add_argument("--bvh-builder", choices=("median", "sah"), default=None,
                    help="BVH build heuristic (default median; sah = the "
                         "native binned surface-area heuristic)")
@@ -236,6 +303,9 @@ def main(argv=None) -> int:
                    help="shard the rows over N processes of a torchrun "
                         "launch (torchrun --nproc-per-node N -m "
                         "raytpu_torch.cli render --devices N ...)")
+    r.add_argument("--log", default=None, metavar="JSONL",
+                   help="append the run's stats (device included) to this "
+                        "JSON-lines file")
     r.add_argument("--out", default="out.png")
     r.set_defaults(fn=cmd_render)
 
@@ -244,14 +314,29 @@ def main(argv=None) -> int:
                    help="where the check runs: cpu, cuda, cuda:N")
     g.set_defaults(fn=cmd_gradcheck)
 
-    for name, what in _SUBCOMMANDS_NOT_PORTED.items():
-        sub.add_parser(name, help=f"not ported yet: needs {what}")
+    v = sub.add_parser("validate",
+                       help="scene lint + the kernel against its plain "
+                            "version")
+    v.add_argument("--scene", choices=SCENES, default="test")
+    v.add_argument("--scene-file", default=None, metavar="JSON")
+    v.add_argument("--seed", type=int, default=0)
+    v.add_argument("--width", type=int, default=96)
+    v.add_argument("--height", type=int, default=48)
+    v.add_argument("--spp", type=int, default=2)
+    v.add_argument("--depth", type=int, default=5)
+    v.add_argument("--scatter-mode", choices=("v2", "v1"), default="v2")
+    v.add_argument("--rng-mode", choices=("sequential", "parallel"),
+                   default="sequential")
+    v.add_argument("--bvh", action="store_true",
+                   help="check the BVH's sweep (flat or walk by the rule)")
+    _view_args(v)
+    v.add_argument("--device", required=True,
+                   help="where the check runs: cpu, cuda, cuda:N")
+    v.set_defaults(fn=cmd_validate)
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _SUBCOMMANDS_NOT_PORTED:
-        # refused before parsing, so raytpu's options for it need no twin
-        raise SystemExit(f"not ported yet: '{argv[0]}' needs "
-                         f"{_SUBCOMMANDS_NOT_PORTED[argv[0]]}")
+    i = sub.add_parser("info", help="package, torch and device info")
+    i.set_defaults(fn=cmd_info)
+
     args = p.parse_args(argv)
     if args.cmd == "render":
         for bad, msg in (
@@ -263,6 +348,8 @@ def main(argv=None) -> int:
                  "--resume needs --checkpoint"),
                 (args.checkpoint and not args.checkpoint.endswith(".npz"),
                  "--checkpoint must end in .npz (numpy would append it)"),
+                (args.log and args.progressive,
+                 "--log needs a one-shot render (not --progressive)"),
                 (args.progressive < 0 or args.devices < 1,
                  "--progressive and --devices take positive counts")):
             if bad:

@@ -3,8 +3,10 @@
 // Replaces the TPU kernel raytpu/kernels/gradkernel.py::render_pallas_vjp
 // (kernel body _make_grad_kernel with the per-sample PASS 2; the bounce
 // transpose is _bounce_f's, the silhouette terms silhouette_terms'), with
-// the brute sweep, the flat BVH sweep (bvh=) and the tape replay (K4's read
-// side, tape_mode="read").  Given an image cotangent ct it returns the
+// the brute sweep, the flat BVH sweep (bvh=), the skip-pointer walk
+// (gradkernel.py:544-594, past 64 leaves a copy or unpadded) and the tape
+// replay (K4's read side, tape_mode="read"; a partial tape walks past
+// g_cap on a walk BVH).  Given an image cotangent ct it returns the
 // image, the cotangent of every sphere's continuous leaves (center, radius,
 // albedo, mat_param) and the 18 raygen sums from which the host assembles
 // the camera cotangent.  It computes what the TPU kernel computes, not its
@@ -14,7 +16,7 @@
 //
 //   PASS 1 (skipped when the image is given, parallel RNG only): the
 //          pixel's spp samples through trace_path(), the very code the
-//          forward (K1a, or K1c with a BVH) runs, so the image is the
+//          forward (K1a, or K1c / K1d with a BVH) runs, so the image is the
 //          forward's bit for bit; then the cotangent of the linear sample
 //          sum, d_acc = ct * exp(log(img)*(1-gamma))/gamma * inv_spp (0
 //          where img <= 0), in gradkernel.py:878-888's order.
@@ -37,9 +39,9 @@
 // nothing, add nothing (their cotangent is ignored) and write 0.
 //
 // With a BVH the scene arrives in leaf order (padded with NaN dummies that
-// never win): the sweeps are K1c's, the sphere cotangents accumulate in
-// that order, dummies included, and the wrapper scatters them back to input
-// order.  The near-miss sweep of vis_w runs over every permuted row (NaN
+// never win): the sweeps are K1c's or K1d's, the sphere cotangents
+// accumulate in that order, dummies included, and the wrapper scatters them
+// back to input order.  The near-miss sweep of vis_w runs over every permuted row (NaN
 // rows fail its test), as gradkernel.py:1671 bounds it by nk.
 //
 // The transpose is derived by hand, piece by piece (bounce_vjp below): the
@@ -102,7 +104,8 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 struct Params {
   const CamPack* cam;
   const float* scene;   // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
-  FlatBvh bvh;          // flat == null: the brute sweep
+  FlatBvh bvh;          // kFlat's leaf list
+  NodeBvh walk;         // kWalk's node list
   const void* tape;     // (g_cap, rows * width) int16 / int32 (kTape)
   const float* ct;      // (rows, width, 3) image cotangent
   const float* img_in;  // (rows, width, 3) forward image, or null (PASS 1)
@@ -461,7 +464,7 @@ __device__ __forceinline__ void add_by_key(double* acc, int n, int key,
   }
 }
 
-template <bool kBvh, bool kTape>
+template <int kHit, bool kTape>
 __global__ void __launch_bounds__(256)
 render_vjp_kernel(Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -482,7 +485,7 @@ render_vjp_kernel(Params p) {
   const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
                                    static_cast<uint32_t>(y));
   const size_t pix = valid ? (static_cast<size_t>(ly) * p.width + x) * 3 : 0;
-  Census cn{0u, 0u, 0u};  // unused: K3 does not count
+  Census cn{0u, 0u, 0u, 0u};  // unused: K3 does not count
 
   // -- PASS 1: the image (K1a's samples), or the given one
   float img[3] = {0.0f, 0.0f, 0.0f};
@@ -499,9 +502,9 @@ render_vjp_kernel(Params p) {
       Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, gr);
       float rr, rg, rb;
       TapeCursor none{nullptr, 0, 0, 0, 0, 0};
-      trace_path<false, kBvh, kNoTape, false>(s, p.bvh, r, sd, p.depth,
-                                              p.t_min, v1, rr, rg, rb,
-                                              nullptr, none, cn);
+      trace_path<false, kHit, kNoTape, false>(s, p.bvh, p.walk, r, sd,
+                                              p.depth, p.t_min, v1, rr, rg,
+                                              rb, nullptr, none, cn);
       acc_r = acc_r + rr;
       acc_g = acc_g + rg;
       acc_b = acc_b + rb;
@@ -540,9 +543,9 @@ render_vjp_kernel(Params p) {
       uint32_t sd = p.parallel ? fold_in(seed0, static_cast<uint32_t>(smp))
                                : chain;
       Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, gr);
-      len = trace_path<true, kBvh, kTape ? kTapeRead : kNoTape, false>(
-          s, p.bvh, r, sd, p.depth, p.t_min, v1, v[0], v[1], v[2], res, tc,
-          cn);
+      len = trace_path<true, kHit, kTape ? kTapeRead : kNoTape, false>(
+          s, p.bvh, p.walk, r, sd, p.depth, p.t_min, v1, v[0], v[1], v[2],
+          res, tc, cn);
       if (!p.parallel) chain = sd;
     }
     float g[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -613,13 +616,21 @@ render_vjp_kernel(Params p) {
   }
 }
 
-template <bool kBvh, bool kTape>
+template <int kHit, bool kTape>
 int launch(const Params& p, cudaStream_t stream) {
   dim3 block(32, 8);
   dim3 grid((p.width + block.x - 1) / block.x,
             (p.rows + block.y - 1) / block.y);
-  render_vjp_kernel<kBvh, kTape><<<grid, block, 0, stream>>>(p);
+  render_vjp_kernel<kHit, kTape><<<grid, block, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of the closest-hit policy `hit` for one variant.
+template <bool kTape>
+int launch_hit(int hit, const Params& p, cudaStream_t stream) {
+  if (hit == kFlat) return launch<kFlat, kTape>(p, stream);
+  if (hit == kWalk) return launch<kWalk, kTape>(p, stream);
+  return launch<kBrute, kTape>(p, stream);
 }
 
 }  // namespace
@@ -631,14 +642,18 @@ int launch(const Params& p, cudaStream_t stream) {
 // then renders the image.  gsc is a zeroed f64 (8, n) buffer; gcam an f64
 // (n_warps, 18) buffer, n_warps the grid's blocks times 8
 // (raytpu_render_vjp_warps of width and rows).  `flat` non-null: the flat
-// BVH sweep over the scene in leaf order (n permuted rows).  `tape_read`:
+// BVH sweep over the scene in leaf order (n permuted rows); `nodes`
+// non-null: the skip-pointer walk of its `copies` copies of n_trav nodes,
+// likewise; both: refused.  `tape_read`:
 // the replay of a winner-index tape of g_cap steps a pixel (int32 when
 // tape_wide; null only when g_cap is 0); it needs parallel RNG and img_in.
 // The block's x extent is one warp, so threadIdx.x is the lane.
 extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
                                  const void* flat, int n_leaves,
-                                 int leaf_size, int out_base, int out_cnt,
-                                 int tape_read, const void* tape, int g_cap,
+                                 int leaf_size, const void* nodes,
+                                 int n_trav, int copies, int out_base,
+                                 int out_cnt, int tape_read,
+                                 const void* tape, int g_cap,
                                  int tape_wide, const void* ct,
                                  const void* img_in, void* img_out,
                                  void* gsc, void* gcam, int width,
@@ -651,11 +666,16 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
     return static_cast<int>(cudaErrorInvalidValue);
   if (tape_read && (!parallel || img_in == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((flat != nullptr && nodes != nullptr) ||
+      (nodes != nullptr && (n_trav < 1 || (copies != 1 && copies != 8))))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.cam = static_cast<const CamPack*>(cam);
   p.scene = static_cast<const float*>(scene);
   p.bvh = FlatBvh{static_cast<const float*>(flat), n_leaves, leaf_size,
                   out_base, out_cnt};
+  p.walk = NodeBvh{static_cast<const float*>(nodes), n_trav, copies,
+                   out_base, out_cnt};
   p.tape = tape;
   p.ct = static_cast<const float*>(ct);
   p.img_in = static_cast<const float*>(img_in);
@@ -680,9 +700,9 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.parallel = parallel;
   p.v1 = v1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (flat != nullptr)
-    return tape_read ? launch<true, true>(p, st) : launch<true, false>(p, st);
-  return tape_read ? launch<false, true>(p, st) : launch<false, false>(p, st);
+  const int hit = flat != nullptr ? kFlat : (nodes != nullptr ? kWalk : kBrute);
+  return tape_read ? launch_hit<true>(hit, p, st)
+                   : launch_hit<false>(hit, p, st);
 }
 
 // Rows of the camera-sum buffer raytpu_render_vjp needs for a launch of

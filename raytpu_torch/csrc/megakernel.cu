@@ -1,17 +1,21 @@
 // Forward render megakernels for Hopper (sm_90a): one thread per pixel.
 //
-// One kernel template, five TPU kernels:
+// One kernel template, six TPU kernels:
 //   K1a  brute sweep           raytpu/kernels/megakernel.py
 //                              ::_render_pallas_fwd_impl (no BVH)
 //   K1b  row slab              the same function with row0 / rows
 //   K1c  flat BVH sweep        the same function with nodes / perm / flat
 //                              (_flat_sweep_ti, _seed_outlier_tests, the
 //                              octant pick)
-//   K1'  K1c (or K1a) + census the same function with count_leaves=True
+//   K1d  skip-pointer walk     the same function past 64 leaves a copy or
+//                              unpadded (megakernel.py:531-696)
+//   K1'  census                the same function with count_leaves=True
+//                              (brute, flat or walk)
 //   K2   carry-state batch     raytpu/kernels/megakernel.py
-//                              ::accumulate_pallas (brute or BVH, slab)
+//                              ::accumulate_pallas (brute, flat or walk,
+//                              slab)
 //   K4   taping forward        raytpu/kernels/gradkernel.py::render_tape_fwd
-//        (write side)          (brute or BVH, slab)
+//        (write side)          (brute, flat or walk, slab)
 // (kernel body from _make_kernel: make_gen_ray, make_bounce_body, the
 // sequential / persistent-refill sample loop and the gamma epilogue.)  It
 // computes the same thing, not the same schedule: the (8, 128) tiles, SMEM
@@ -31,15 +35,19 @@
 // enters a leaf, leaf_size sphere tests, only if the ray's own slab test
 // passes within its best t so far: a thread enters what its ray needs, not
 // what its warp needs (divergent, but a skipped leaf costs a lane nothing
-// it would have used).  The winner's attributes are read once, by index,
+// it would have used).  K1d walks the octant copy's nodes instead (see
+// render_common.cuh): box tests for the subtrees the ray enters rather than
+// for all L leaves.  The winner's attributes are read once, by index,
 // after the sweep.  Scene rows and leaf rows are read from global memory at
-// warp-uniform (K1a) or octant-uniform (K1c) addresses, broadcasts from L1.
+// warp-uniform (K1a) or octant-uniform (K1c) addresses, broadcasts from L1;
+// K1d's node rows at per-lane addresses once the lanes' walks part.
 // K4 adds one 2- or 4-byte store per bounce step, tape[k][pix]: threads of a
 // warp are neighbouring pixels and write neighbouring addresses at the same
 // k, so the stores coalesce whenever the warp's lanes are at the same step.
-// The census (K1') keeps three per-thread counters in registers and adds them
-// once per warp at the end (a warp reduction, then one 64-bit atomic per
-// counter); without it the counting code is not compiled.  Staging the scene
+// The census (K1') keeps three per-thread counters in registers (four for
+// the walk: the nodes visited) and adds them once per warp at the end (a
+// warp reduction, then one 64-bit atomic per counter); without it the
+// counting code is not compiled.  Staging the scene
 // in shared memory and regrouping rays against divergence are later work.
 //
 // Slab mode (K1b, and every variant): the launch covers rows [row0, row0 +
@@ -68,12 +76,14 @@ namespace {
 using namespace rt;
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kCensus = 3;  // leaves entered, bounce steps, samples
+// leaves entered, bounce steps, samples, nodes visited (the walk's only)
+constexpr int kCensus = 4;
 
 struct Params {
   const CamPack* cam;
   const float* scene;  // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
-  FlatBvh bvh;         // flat == null: the brute sweep
+  FlatBvh bvh;         // kFlat's leaf list
+  NodeBvh walk;        // kWalk's node list
   void* tape;          // (g_cap, rows * width) int16 / int32, or null
   unsigned long long* census;  // (kCensus,) counters, or null
   const float* acc_in;      // K2: (rows, width, 3) linear sums carried in
@@ -86,7 +96,7 @@ struct Params {
   int parallel, v1;
 };
 
-template <bool kBvh, int kTape, bool kCount, bool kCarry>
+template <int kHit, int kTape, bool kCount, bool kCarry>
 __global__ void __launch_bounds__(256)
 render_fwd_kernel(Params p) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -108,7 +118,7 @@ render_fwd_kernel(Params p) {
   const size_t pix = static_cast<size_t>(ly) * p.width + x;
   TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.rows, pix,
                 p.g_cap, 0, p.tape_wide};
-  Census cn{0u, 0u, 0u};
+  Census cn{0u, 0u, 0u, 0u};
 
   uint32_t chain = seed0;  // the sequential mode's carried seed
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -126,9 +136,9 @@ render_fwd_kernel(Params p) {
     RayGen g;
     Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
     float rr, rg, rb;
-    trace_path<false, kBvh, kTape, kCount>(s, p.bvh, r, sd, p.depth,
-                                           p.t_min, p.v1 != 0, rr, rg, rb,
-                                           nullptr, tc, cn);
+    trace_path<false, kHit, kTape, kCount>(s, p.bvh, p.walk, r, sd,
+                                           p.depth, p.t_min, p.v1 != 0, rr,
+                                           rg, rb, nullptr, tc, cn);
     acc_r = acc_r + rr;
     acc_g = acc_g + rg;
     acc_b = acc_b + rb;
@@ -151,9 +161,11 @@ render_fwd_kernel(Params p) {
     }
   }
   if (kCount) {
-    const unsigned v[kCensus] = {cn.leaves, cn.steps, cn.samples};
+    const unsigned v[kCensus] = {cn.leaves, cn.steps, cn.samples,
+                                 cn.nodes};
+    constexpr int kCounted = kHit == kWalk ? kCensus : kCensus - 1;
 #pragma unroll
-    for (int i = 0; i < kCensus; ++i) {
+    for (int i = 0; i < kCounted; ++i) {
       const unsigned sum = __reduce_add_sync(kFull, v[i]);
       if ((threadIdx.x & 31) == 0 && sum)
         atomicAdd(p.census + i, static_cast<unsigned long long>(sum));
@@ -161,14 +173,22 @@ render_fwd_kernel(Params p) {
   }
 }
 
-template <bool kBvh, int kTape, bool kCount, bool kCarry>
+template <int kHit, int kTape, bool kCount, bool kCarry>
 int launch(const Params& p, cudaStream_t stream) {
   dim3 block(32, 8);
   dim3 grid((p.width + block.x - 1) / block.x,
             (p.rows + block.y - 1) / block.y);
-  render_fwd_kernel<kBvh, kTape, kCount, kCarry><<<grid, block, 0, stream>>>(
+  render_fwd_kernel<kHit, kTape, kCount, kCarry><<<grid, block, 0, stream>>>(
       p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of the closest-hit policy `hit` for one variant.
+template <int kTape, bool kCount, bool kCarry>
+int launch_hit(int hit, const Params& p, cudaStream_t stream) {
+  if (hit == kFlat) return launch<kFlat, kTape, kCount, kCarry>(p, stream);
+  if (hit == kWalk) return launch<kWalk, kTape, kCount, kCarry>(p, stream);
+  return launch<kBrute, kTape, kCount, kCarry>(p, stream);
 }
 
 }  // namespace
@@ -177,19 +197,23 @@ int launch(const Params& p, cudaStream_t stream) {
 // synchronise; returns cudaGetLastError() so a refused launch is reported.
 // It renders rows [row0, row0 + rows) of the width x height frame into
 // buffers of `rows` rows.  The variant follows the operands: `flat`
-// non-null -> the flat BVH sweep (scene in leaf order), else the brute
-// sweep; `taping` -> the taping forward into `tape` (g_cap steps a pixel,
-// int32 when tape_wide; null only when g_cap is 0); `census` non-null ->
-// the counting variant; `carry` -> K2, which reads acc_in / seed_in and
+// non-null -> the flat BVH sweep (scene in leaf order), `nodes` non-null ->
+// the skip-pointer walk of its `copies` copies of n_trav nodes (scene in
+// leaf order), neither -> the brute sweep, both -> refused; `taping` ->
+// the taping forward into `tape` (g_cap steps a pixel, int32 when
+// tape_wide; null only when g_cap is 0); `census` non-null -> the counting
+// variant (kCensus counters); `carry` -> K2, which reads acc_in / seed_in and
 // writes `out` / seed_out (either pair may alias: a thread reads its own
 // pixel before it writes it) from sample index s0 on.  A tape, the census
 // and the carry exclude one another.  The block's x extent is one warp, so
 // threadIdx.x is the lane.
 extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                                  const void* flat, int n_leaves,
-                                 int leaf_size, int out_base, int out_cnt,
-                                 int taping, void* tape, int g_cap,
-                                 int tape_wide, void* census, int carry,
+                                 int leaf_size, const void* nodes,
+                                 int n_trav, int copies, int out_base,
+                                 int out_cnt, int taping, void* tape,
+                                 int g_cap, int tape_wide, void* census,
+                                 int carry,
                                  const void* acc_in, const void* seed_in,
                                  void* seed_out, unsigned s0, void* out,
                                  int width, int height, int row0, int rows,
@@ -198,7 +222,8 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                                  float gamma, int parallel, int v1,
                                  void* stream) {
   if ((taping != 0) + (census != nullptr) + (carry != 0) > 1 || rows < 1 ||
-      row0 < 0 ||
+      row0 < 0 || (flat != nullptr && nodes != nullptr) ||
+      (nodes != nullptr && (n_trav < 1 || (copies != 1 && copies != 8))) ||
       (carry && (acc_in == nullptr || seed_in == nullptr ||
                  seed_out == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -207,6 +232,8 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   p.scene = static_cast<const float*>(scene);
   p.bvh = FlatBvh{static_cast<const float*>(flat), n_leaves, leaf_size,
                   out_base, out_cnt};
+  p.walk = NodeBvh{static_cast<const float*>(nodes), n_trav, copies,
+                   out_base, out_cnt};
   p.tape = tape;
   p.census = static_cast<unsigned long long*>(census);
   p.acc_in = static_cast<const float*>(acc_in);
@@ -231,16 +258,9 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   p.parallel = parallel;
   p.v1 = v1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool bvh = flat != nullptr;
-  if (taping)
-    return bvh ? launch<true, kTapeWrite, false, false>(p, st)
-               : launch<false, kTapeWrite, false, false>(p, st);
-  if (census != nullptr)
-    return bvh ? launch<true, kNoTape, true, false>(p, st)
-               : launch<false, kNoTape, true, false>(p, st);
-  if (carry)
-    return bvh ? launch<true, kNoTape, false, true>(p, st)
-               : launch<false, kNoTape, false, true>(p, st);
-  return bvh ? launch<true, kNoTape, false, false>(p, st)
-             : launch<false, kNoTape, false, false>(p, st);
+  const int hit = flat != nullptr ? kFlat : (nodes != nullptr ? kWalk : kBrute);
+  if (taping) return launch_hit<kTapeWrite, false, false>(hit, p, st);
+  if (census != nullptr) return launch_hit<kNoTape, true, false>(hit, p, st);
+  if (carry) return launch_hit<kNoTape, false, true>(hit, p, st);
+  return launch_hit<kNoTape, false, false>(hit, p, st);
 }

@@ -1,10 +1,25 @@
 // Device code shared by the forward megakernels (megakernel.cu: K1a, K1c,
-// K1', K4's write side) and the fused VJP kernel (gradkernel.cu: K3 and its
-// BVH and tape-read variants): the counter-based RNG, the jittered
-// thin-lens ray, the closest-hit policies (brute sweep, flat BVH sweep,
-// tape read), the v2 / v1 materials, the sky and the gamma.  K3's passes
-// must give the forward's image bit for bit, so every kernel traces a
-// sample through trace_path() below and nothing else.
+// K1d, K1', K2, K4's write side) and the fused VJP kernel (gradkernel.cu:
+// K3 and its BVH and tape-read variants): the counter-based RNG, the
+// jittered thin-lens ray, the closest-hit policies (brute sweep, flat BVH
+// sweep, skip-pointer BVH walk, tape read), the v2 / v1 materials, the sky
+// and the gamma.  K3's passes must give the forward's image bit for bit, so
+// every kernel traces a sample through trace_path() below and nothing else.
+//
+// The skip-pointer walk (K1d) replaces raytpu/kernels/megakernel.py:640-696
+// and its VJP twin gradkernel.py:544-594, the path raytpu takes past 64
+// leaves a copy and for unpadded BVHs.  What bounds it on this card: the
+// same as the flat sweep, f32 operations in the box and sphere tests, plus
+// a data-dependent loop whose length differs per lane (divergence) and a
+// dependent load per node (the next row's address is the last row's skip).
+// Where the flat sweep tests all L leaf boxes of a copy, the walk tests the
+// nodes whose ancestors the ray enters within its best t so far: O(log L)
+// per leaf reached, so it wins where L is large.  The design stays simple:
+// one thread walks its own ray through its own octant's copy with no stack
+// (the skip pointers are the stack); node rows are read from global memory
+// through L1.  raytpu's tile rule (a node is entered when any lane of the
+// (8, 128) tile hits it) is a TPU mechanism for its vector unit, not
+// semantics: the closest hit does not depend on which nodes a ray visits.
 //
 // Numerics (both kernels are built with -fmad=false and without fast math):
 // the op order is raytpu/golden.py's (and raytpu_torch/golden.py's), so no
@@ -196,11 +211,16 @@ __device__ __forceinline__ Ray gen_ray(const CamPack& cam, float fx, float fy,
 //
 // Brute (K1a, K3): every sphere, in index order.  Flat BVH (K1c, K3's BVH
 // variant): the outlier tail, then the leaf rows of the octant copy the
-// ray's own direction picks.  Tape read (K3's replay of K4's tape): the
-// winner from the tape, its t recomputed for that one sphere.  All three
-// compute a sphere's t with sphere_root(), so a winner's t is one number
-// wherever it comes from, and the images and residuals of every variant
-// are bit-equal (the BVH's up to exact equal-t ties of distinct spheres).
+// ray's own direction picks.  Walk (K1d, K3's walk variant): the outlier
+// tail, then the skip-pointer walk of that copy's nodes.  Tape read (K3's
+// replay of K4's tape): the winner from the tape, its t recomputed for that
+// one sphere.  All of them compute a sphere's t with sphere_root(), so a
+// winner's t is one number wherever it comes from, and the images and
+// residuals of every variant are bit-equal (the BVH's up to exact equal-t
+// ties of distinct spheres).  The flat sweep and the walk enter the same
+// leaves in the same order: an interior box is the exact hull of its
+// children's, and the rounded slab bounds are monotone in the box.
+enum HitPolicy { kBrute = 0, kFlat = 1, kWalk = 2 };
 
 // The flat leaf list of a BVH (raytpu_torch/bvh.py): `flat` (8 * n_leaves,
 // 9) f32 rows [min xyz, max xyz, start, count, skip], copy o's leaves in
@@ -211,10 +231,21 @@ struct FlatBvh {
   int n_leaves, leaf_size, out_base, out_cnt;
 };
 
+// The node list of a BVH for the walk: `nodes` (copies * n_trav, 9) f32
+// rows [min xyz, max xyz, start, count, skip] in preorder, count 0 for an
+// interior node, skip the row after the node's subtree, relative within
+// its copy.  copies is 8 (padded leaves: copy o ordered front to back for
+// octant o) or 1 (raytpu's unpadded variable leaves); the outliers as in
+// FlatBvh (none without padding).
+struct NodeBvh {
+  const float* __restrict__ nodes;
+  int n_trav, copies, out_base, out_cnt;
+};
+
 // Per-thread counts of the census (K1'): leaves entered, closest-hit
-// steps, samples.
+// steps, samples, nodes the walk visits (the other policies leave it 0).
 struct Census {
-  unsigned leaves, steps, samples;
+  unsigned leaves, steps, samples, nodes;
 };
 
 // The root test of ray r against sphere j (golden.hit_world's arithmetic,
@@ -260,45 +291,80 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// Closest hit (golden.hit_world, or golden.hit_world_bvh over the scene in
-// leaf order when kBvh).  Returns the winner or -1; tb = its t.
-template <bool kBvh, bool kCount>
+// The slab test of ray r against the box of a BVH row: entered iff
+// !(tnear > tfar), tnear clamped below by t_min and tfar above by the best
+// t so far; a NaN (a ray on a padded face) enters.
+__device__ __forceinline__ bool box_enter(const float* row, const Ray& r,
+                                          float inv_dx, float inv_dy,
+                                          float inv_dz, float t_min,
+                                          float tb) {
+  float t1 = (row[0] - r.ox) * inv_dx;
+  float t2 = (row[3] - r.ox) * inv_dx;
+  float t3 = (row[1] - r.oy) * inv_dy;
+  float t4 = (row[4] - r.oy) * inv_dy;
+  float t5 = (row[2] - r.oz) * inv_dz;
+  float t6 = (row[5] - r.oz) * inv_dz;
+  float tnear = nan_max(nan_max(nan_min(t1, t2), nan_min(t3, t4)),
+                        nan_max(nan_min(t5, t6), t_min));
+  float tfar = nan_min(nan_min(nan_max(t1, t2), nan_max(t3, t4)),
+                       nan_min(nan_max(t5, t6), tb));
+  return !(tnear > tfar);
+}
+
+// Closest hit (golden.hit_world; golden.hit_world_bvh over the scene in
+// leaf order for kFlat, golden.hit_world_walk for kWalk).  Returns the
+// winner or -1; tb = its t.  `bvh` is read by kFlat, `walk` by kWalk.
+template <int kHit, bool kCount>
 __device__ __forceinline__ int closest_hit(const SceneView& s,
-                                           const FlatBvh& bvh, const Ray& r,
+                                           const FlatBvh& bvh,
+                                           const NodeBvh& walk, const Ray& r,
                                            float t_min, float& tb,
                                            Census& cn) {
   float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
   float inv_a = 1.0f / a;
   tb = kInf;
   int win = -1;
-  if (!kBvh) {
+  if (kHit == kBrute) {
     sweep_range(s, r, a, inv_a, t_min, 0, s.n, tb, win);
     return win;
   }
   // outliers first: a giant ground sphere seeds tb, so far leaves cull
-  sweep_range(s, r, a, inv_a, t_min, bvh.out_base,
-              bvh.out_base + bvh.out_cnt, tb, win);
+  const int out_base = kHit == kFlat ? bvh.out_base : walk.out_base;
+  const int out_cnt = kHit == kFlat ? bvh.out_cnt : walk.out_cnt;
+  sweep_range(s, r, a, inv_a, t_min, out_base, out_base + out_cnt, tb, win);
   const float inv_dx = 1.0f / r.dx, inv_dy = 1.0f / r.dy,
               inv_dz = 1.0f / r.dz;
   const int octant = (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
                      (r.dz < 0.0f ? 1 : 0);
-  const float* row = bvh.flat + static_cast<size_t>(octant) * bvh.n_leaves * 9;
-  for (int k = 0; k < bvh.n_leaves; ++k, row += 9) {
-    float t1 = (row[0] - r.ox) * inv_dx;
-    float t2 = (row[3] - r.ox) * inv_dx;
-    float t3 = (row[1] - r.oy) * inv_dy;
-    float t4 = (row[4] - r.oy) * inv_dy;
-    float t5 = (row[2] - r.oz) * inv_dz;
-    float t6 = (row[5] - r.oz) * inv_dz;
-    float tnear = nan_max(nan_max(nan_min(t1, t2), nan_min(t3, t4)),
-                          nan_max(nan_min(t5, t6), t_min));
-    float tfar = nan_min(nan_min(nan_max(t1, t2), nan_max(t3, t4)),
-                         nan_min(nan_max(t5, t6), tb));
-    if (tnear > tfar) continue;  // NaN enters
-    if (kCount) ++cn.leaves;
-    const int start = static_cast<int>(row[6]);
-    sweep_range(s, r, a, inv_a, t_min, start, start + bvh.leaf_size, tb,
-                win);
+  if (kHit == kFlat) {
+    const float* row =
+        bvh.flat + static_cast<size_t>(octant) * bvh.n_leaves * 9;
+    for (int k = 0; k < bvh.n_leaves; ++k, row += 9) {
+      if (!box_enter(row, r, inv_dx, inv_dy, inv_dz, t_min, tb)) continue;
+      if (kCount) ++cn.leaves;
+      const int start = static_cast<int>(row[6]);
+      sweep_range(s, r, a, inv_a, t_min, start, start + bvh.leaf_size, tb,
+                  win);
+    }
+    return win;
+  }
+  // the walk: a node pointer relative to the copy's first row; an entered
+  // interior node falls through to rel + 1, anything else jumps to skip
+  const float* base =
+      walk.nodes +
+      (walk.copies == 8 ? static_cast<size_t>(octant) * walk.n_trav * 9 : 0);
+  int rel = 0;
+  while (rel < walk.n_trav) {
+    const float* row = base + static_cast<size_t>(rel) * 9;
+    const bool enter = box_enter(row, r, inv_dx, inv_dy, inv_dz, t_min, tb);
+    const int count = static_cast<int>(row[7]);
+    if (kCount) ++cn.nodes;
+    if (enter && count > 0) {
+      if (kCount) ++cn.leaves;
+      const int start = static_cast<int>(row[6]);
+      sweep_range(s, r, a, inv_a, t_min, start, start + count, tb, win);
+    }
+    rel = (enter && count == 0) ? rel + 1 : static_cast<int>(row[8]);
   }
   return win;
 }
@@ -329,9 +395,10 @@ struct TapeCursor {
 
 // One bounce step's closest hit under the policy: read from the tape while
 // it holds the step, else swept; written to the tape when kTape is write.
-template <bool kBvh, int kTape, bool kCount>
+template <int kHit, int kTape, bool kCount>
 __device__ __forceinline__ int step_hit(const SceneView& s, const FlatBvh& bvh,
-                                        const Ray& r, float t_min, float& tb,
+                                        const NodeBvh& walk, const Ray& r,
+                                        float t_min, float& tb,
                                         TapeCursor& tc, Census& cn) {
   int win;
   if (kTape == kTapeRead && tc.k < tc.g_cap) {
@@ -343,7 +410,7 @@ __device__ __forceinline__ int step_hit(const SceneView& s, const FlatBvh& bvh,
       tb = kInf;
     }
   } else {
-    win = closest_hit<kBvh, kCount>(s, bvh, r, t_min, tb, cn);
+    win = closest_hit<kHit, kCount>(s, bvh, walk, r, t_min, tb, cn);
   }
   if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
   if (kTape != kNoTape) ++tc.k;
@@ -473,11 +540,12 @@ struct Residual {
 // miss, absorption or the depth cap (black).  Returns the number of
 // bounces taken (rows of `res` written when kStore); `sd` ends as the
 // sample's final seed and (rr, rg, rb) as its radiance.  The closest hit
-// of each step is step_hit's policy (kBvh, kTape, kCount); `tc` advances
+// of each step is step_hit's policy (kHit, kTape, kCount); `tc` advances
 // one step per bounce taken.
-template <bool kStore, bool kBvh, int kTape, bool kCount>
+template <bool kStore, int kHit, int kTape, bool kCount>
 __device__ __forceinline__ int trace_path(const SceneView& s,
-                                          const FlatBvh& bvh, Ray r,
+                                          const FlatBvh& bvh,
+                                          const NodeBvh& walk, Ray r,
                                           uint32_t& sd, int depth,
                                           float t_min, bool v1, float& rr,
                                           float& rg, float& rb,
@@ -490,7 +558,8 @@ __device__ __forceinline__ int trace_path(const SceneView& s,
   if (kCount) ++cn.samples;
   for (int d = 0; d < depth; ++d) {
     float tb;
-    int win = step_hit<kBvh, kTape, kCount>(s, bvh, r, t_min, tb, tc, cn);
+    int win = step_hit<kHit, kTape, kCount>(s, bvh, walk, r, t_min, tb, tc,
+                                            cn);
     if (kStore) {
       res[d] = Residual{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
                         cr,   cg,   cb,   win,  sd};

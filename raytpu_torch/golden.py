@@ -22,9 +22,11 @@ Two habits keep it bit-compatible with the kernel on a card:
   (``rng.f32_like``): a Python-scalar divisor may become a multiply by its
   reciprocal, which rounds differently from the kernel's division.
 
-With a BVH (:mod:`raytpu_torch.bvh`) the closest hit is
-:func:`hit_world_bvh`, the plain version of the kernels' flat-leaf sweep
-(K1c), over the scene in BVH leaf order.  :func:`render_golden_tape` is the
+With a BVH (:mod:`raytpu_torch.bvh`) the closest hit is :func:`hit_bvh`,
+over the scene in BVH leaf order: :func:`hit_world_bvh`, the plain version
+of the kernels' flat-leaf sweep (K1c), or :func:`hit_world_walk`, the plain
+version of their skip-pointer walk (K1d), by raytpu's rule
+(:func:`raytpu_torch.bvh.sweep_of`).  :func:`render_golden_tape` is the
 plain version of the taping forward (K4's write side): the image plus each
 pixel's log of closest-hit winners.  :func:`accumulate_golden` is the plain
 version of the carry-state kernel K2 (one progressive batch).  All three
@@ -39,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from raytpu_torch import rng
-from raytpu_torch.bvh import BVH, outlier_tail, permute_scene
+from raytpu_torch.bvh import BVH, outlier_tail, permute_scene, sweep_of
 from raytpu_torch.camera import Camera, get_ray
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.scene import Scene
@@ -47,8 +49,9 @@ from raytpu_torch.scene import Scene
 _INF = float("inf")
 _SAFE_EPS = 1e-20
 TAPE_UNWRITTEN = -2  # a tape slot no step reached (a miss logs -1)
-# the census of a frame (K1'): leaves entered, closest-hit steps, samples
-CENSUS = ("leaves_entered", "bounce_steps", "samples")
+# the census of a frame (K1'): leaves entered, closest-hit steps, samples,
+# and the nodes the walk visits (0 for the other sweeps)
+CENSUS = ("leaves_entered", "bounce_steps", "samples", "nodes_visited")
 _FRACTSIN_TODO = ("rng_mode='v1_fractsin' is not ported yet (ROADMAP queue 1, "
                   "M2/M3: the v1 fract-sin helpers and their golden mode)")
 
@@ -174,7 +177,8 @@ def _take_closest(t_all, j, tb, idx):
 def hit_world_bvh(scene_perm: Scene, bvh: BVH, ro, rd, t_min, census=None,
                   live=None):
     """Closest hit through the BVH's flat leaf list: the plain version of
-    the kernels' sweep (``csrc/render_common.cuh`` closest_hit<kBvh>).
+    the kernels' flat sweep (``csrc/render_common.cuh`` closest_hit<kFlat>,
+    K1c).
 
     ``scene_perm`` is the scene in leaf order
     (:func:`raytpu_torch.bvh.permute_scene`); the result is
@@ -192,41 +196,20 @@ def hit_world_bvh(scene_perm: Scene, bvh: BVH, ro, rd, t_min, census=None,
     if bvh.flat is None or not bvh.leaf_size:
         raise ValueError("the flat sweep needs a BVH with padded leaves "
                          "and a flat leaf list (build_bvh(pad_leaves=True))")
-    rox, roy, roz = ro
     rdx, rdy, rdz = rd
-    dev = rox.device
-    t_min = rng.f32_like(rox, t_min)
+    t_min = rng.f32_like(rdx, t_min)
     a = _dot3(rdx, rdy, rdz, rdx, rdy, rdz)
     inv_a = 1.0 / a
-    tb = torch.full_like(rox, _INF)
-    idx = torch.zeros(rox.shape, dtype=torch.int64, device=dev)
-    tail = outlier_tail(bvh.perm, bvh.flat, bvh.leaf_size)
-    if tail is not None:
-        j = torch.arange(tail[0], tail[0] + tail[1], device=dev).expand(
-            *rox.shape, tail[1])
-        tb, idx = _take_closest(_sphere_ts(scene_perm, j, ro, rd, a, inv_a,
-                                           t_min), j, tb, idx)
+    tb, idx = _seed_outliers(scene_perm, bvh, ro, rd, a, inv_a, t_min)
     n_leaves, ls = bvh.n_leaves, int(bvh.leaf_size)
     flat = bvh.flat
-    inv_dx, inv_dy, inv_dz = 1.0 / rdx, 1.0 / rdy, 1.0 / rdz
+    inv_d = (1.0 / rdx, 1.0 / rdy, 1.0 / rdz)
     octant = ((rdx < 0).to(torch.int64) * 4 + (rdy < 0).to(torch.int64) * 2
               + (rdz < 0).to(torch.int64))
-    lanes = torch.arange(ls, device=dev)
+    lanes = torch.arange(ls, device=rdx.device)
     for k in range(n_leaves):
         row = flat[octant * n_leaves + k]                      # S + (9,)
-        t1 = (row[..., 0] - rox) * inv_dx
-        t2 = (row[..., 3] - rox) * inv_dx
-        t3 = (row[..., 1] - roy) * inv_dy
-        t4 = (row[..., 4] - roy) * inv_dy
-        t5 = (row[..., 2] - roz) * inv_dz
-        t6 = (row[..., 5] - roz) * inv_dz
-        tnear = torch.maximum(
-            torch.maximum(torch.minimum(t1, t2), torch.minimum(t3, t4)),
-            torch.maximum(torch.minimum(t5, t6), t_min))
-        tfar = torch.minimum(
-            torch.minimum(torch.maximum(t1, t2), torch.maximum(t3, t4)),
-            torch.minimum(torch.maximum(t5, t6), tb))
-        enter = ~(tnear > tfar)
+        enter = _slab_enter(row, ro, inv_d, t_min, tb)
         if census is not None:
             census["leaves_entered"] += int((enter & live).sum())
         if not bool(enter.any()):
@@ -239,7 +222,28 @@ def hit_world_bvh(scene_perm: Scene, bvh: BVH, ro, rd, t_min, census=None,
             j, tb[sel], idx[sel])
         tb = tb.index_put(sel, t_sel)
         idx = idx.index_put(sel, i_sel)
+    return _hit_result(scene_perm, ro, rd, tb, idx)
 
+
+def _seed_outliers(scene_perm: Scene, bvh: BVH, ro, rd, a, inv_a, t_min):
+    """(tb, idx) after the outlier tail, which every BVH sweep tests
+    first: a giant ground sphere seeds tb, so far leaves cull."""
+    rox = ro[0]
+    tb = torch.full_like(rox, _INF)
+    idx = torch.zeros(rox.shape, dtype=torch.int64, device=rox.device)
+    tail = outlier_tail(bvh.perm, bvh.flat, bvh.leaf_size)
+    if tail is not None:
+        j = torch.arange(tail[0], tail[0] + tail[1],
+                         device=rox.device).expand(*rox.shape, tail[1])
+        tb, idx = _take_closest(_sphere_ts(scene_perm, j, ro, rd, a, inv_a,
+                                           t_min), j, tb, idx)
+    return tb, idx
+
+
+def _hit_result(scene_perm: Scene, ro, rd, tb, idx):
+    """hit_world's result from a sweep's best t and winner."""
+    rox, roy, roz = ro
+    rdx, rdy, rdz = rd
     hit_any = torch.isfinite(tb)
     t = torch.where(hit_any, tb, 1.0)
     idx = torch.where(hit_any, idx, 0)
@@ -255,6 +259,108 @@ def hit_world_bvh(scene_perm: Scene, bvh: BVH, ro, rd, t_min, census=None,
     front = _dot3(rdx, rdy, rdz, nx, ny, nz) < 0
     sgn = torch.where(front, 1.0, -1.0)
     return hit_any, t, idx, (nx * sgn, ny * sgn, nz * sgn), front
+
+
+def _slab_enter(row, ro, inv_d, t_min, tb):
+    """The slab test of the rays against the boxes ``row`` (..., 9):
+    ``!(tnear > tfar)`` with ``tnear`` clamped below by ``t_min`` and
+    ``tfar`` above by the best t so far; a NaN (a ray on a padded face)
+    enters.  The kernels' op order (render_common.cuh)."""
+    rox, roy, roz = ro
+    inv_dx, inv_dy, inv_dz = inv_d
+    t1 = (row[..., 0] - rox) * inv_dx
+    t2 = (row[..., 3] - rox) * inv_dx
+    t3 = (row[..., 1] - roy) * inv_dy
+    t4 = (row[..., 4] - roy) * inv_dy
+    t5 = (row[..., 2] - roz) * inv_dz
+    t6 = (row[..., 5] - roz) * inv_dz
+    tnear = torch.maximum(
+        torch.maximum(torch.minimum(t1, t2), torch.minimum(t3, t4)),
+        torch.maximum(torch.minimum(t5, t6), t_min))
+    tfar = torch.minimum(
+        torch.minimum(torch.maximum(t1, t2), torch.maximum(t3, t4)),
+        torch.minimum(torch.maximum(t5, t6), tb))
+    return ~(tnear > tfar)
+
+
+def hit_world_walk(scene_perm: Scene, bvh: BVH, ro, rd, t_min, census=None,
+                   live=None):
+    """Closest hit through the BVH's skip-pointer walk: the plain version
+    of the kernels' walk (``csrc/render_common.cuh`` closest_hit<kWalk>,
+    K1d) and of raytpu's (raytpu/kernels/megakernel.py:640-696,
+    gradkernel.py:544-594), per ray where raytpu walks per tile.
+
+    Arguments and result as :func:`hit_world_bvh`.  The outlier tail
+    (padded BVHs) is tested first; then each ray walks ``nodes`` from the
+    root of its copy (its own octant's of a padded BVH's eight, the one
+    copy of an unpadded BVH), a node pointer per ray: a node is entered iff
+    its slab test passes within the best t so far, an entered leaf's
+    ``count`` spheres from ``start`` are tested, and the next node is ``rel
+    + 1`` for an entered interior node, else the node's ``skip`` (relative
+    within the copy).  Vectorised over rays: the loop runs while any ray
+    still walks.  ``live`` (a mask): only those lanes walk the tree (the
+    others' results are never read).  ``census``: adds
+    the boxes the live lanes test to ``census["nodes_visited"]`` and the
+    leaves they enter to ``census["leaves_entered"]``, as K1' counts them.
+    """
+    rox, roy, roz = ro
+    rdx, rdy, rdz = rd
+    dev = rox.device
+    t_min = rng.f32_like(rox, t_min)
+    a = _dot3(rdx, rdy, rdz, rdx, rdy, rdz)
+    inv_a = 1.0 / a
+    tb, idx = _seed_outliers(scene_perm, bvh, ro, rd, a, inv_a, t_min)
+    inv_d = (1.0 / rdx, 1.0 / rdy, 1.0 / rdz)
+    m = bvh.n_trav
+    nodes = bvh.nodes
+    if bvh.copies == 8:
+        base = ((rdx < 0).to(torch.int64) * 4 + (rdy < 0).to(torch.int64) * 2
+                + (rdz < 0).to(torch.int64)) * m
+    else:
+        base = torch.zeros(rox.shape, dtype=torch.int64, device=dev)
+    lanes = torch.arange(int(nodes[:, 7].max()), device=dev)
+    rel = torch.zeros(rox.shape, dtype=torch.int64, device=dev)
+    if live is not None:
+        rel = torch.where(live, rel, m)
+    while True:
+        sel = (rel < m).nonzero(as_tuple=True)
+        if sel[0].numel() == 0:
+            break
+        r_sel = rel[sel]
+        row = nodes[base[sel] + r_sel]                          # (k, 9)
+        ro_s = tuple(x[sel] for x in ro)
+        enter = _slab_enter(row, ro_s, tuple(x[sel] for x in inv_d), t_min,
+                            tb[sel])
+        count = row[:, 7].to(torch.int64)
+        leaf = enter & (count > 0)
+        if census is not None:
+            census["nodes_visited"] += r_sel.numel()
+            census["leaves_entered"] += int(leaf.sum())
+        if bool(leaf.any()):
+            (k,) = leaf.nonzero(as_tuple=True)
+            sub = tuple(s[k] for s in sel)
+            j = row[k, 6].to(torch.int64)[:, None] + lanes
+            valid = lanes < count[k, None]
+            j = torch.where(valid, j, 0)
+            t_all = torch.where(valid, _sphere_ts(
+                scene_perm, j, tuple(x[k] for x in ro_s),
+                tuple(x[sub] for x in rd), a[sub], inv_a[sub], t_min), _INF)
+            t_new, i_new = _take_closest(t_all, j, tb[sub], idx[sub])
+            tb = tb.index_put(sub, t_new)
+            idx = idx.index_put(sub, i_new)
+        nxt = torch.where(enter & (count == 0), r_sel + 1,
+                          row[:, 8].to(torch.int64))
+        rel = rel.index_put(sel, nxt)
+    return _hit_result(scene_perm, ro, rd, tb, idx)
+
+
+def hit_bvh(scene_perm: Scene, bvh: BVH, ro, rd, t_min, census=None,
+            live=None):
+    """Closest hit over ``bvh`` by its sweep (:func:`raytpu_torch.bvh.
+    sweep_of`, raytpu's rule): :func:`hit_world_bvh` (flat, K1c's) or
+    :func:`hit_world_walk` (the walk, K1d's)."""
+    sweep = hit_world_bvh if sweep_of(bvh) == "flat" else hit_world_walk
+    return sweep(scene_perm, bvh, ro, rd, t_min, census, live)
 
 
 def tape_dtype(rows: int) -> torch.dtype:
@@ -392,7 +498,7 @@ def _sky(rdx, rdy, rdz):
 
 def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
           scatter_mode: str = "v2", bvh: BVH | None = None, tape=None,
-          census=None):
+          census=None, check=None):
     """Iterative bounce loop (ref: sample_color, hlsl:255-287).
 
     SoA over pixel shape S; returns ((r,g,b), seed).  Dead lanes are
@@ -400,10 +506,14 @@ def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
     stops early once no lane is alive: a dead lane's state never changes
     again, so that is the same result as running all ``depth`` steps.
     With ``bvh`` the scene is in leaf order and the closest hit is
-    :func:`hit_world_bvh`; ``tape`` (see :func:`log_winners`) logs each
-    live lane's winner per bounce; ``census`` (a dict of :data:`CENSUS`
-    counts) adds the samples, the live lanes' bounce steps and, with a BVH,
-    the leaves they enter: the plain version of the census kernel K1'.
+    :func:`hit_bvh`; ``tape`` (see :func:`log_winners`) logs each live
+    lane's winner per bounce; ``census`` (a dict of :data:`CENSUS` counts)
+    adds the samples, the live lanes' bounce steps and, with a BVH, the
+    leaves they enter and the nodes the walk visits: the plain version of
+    the census kernel K1'.  ``check(bounce, idx, values)``, when given, is
+    called after each bounce with every lane's winner and a tuple of the
+    bounce's values (t, normal, attenuation, new direction, throughput,
+    radiance), for :func:`raytpu_torch.debug.checked_render`.
     """
     ox, oy, oz = ro
     dx, dy, dz = rd
@@ -417,7 +527,7 @@ def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
     sd = seed
     if census is not None:
         census["samples"] += ox.numel()
-    for _ in range(depth):
+    for bounce in range(depth):
         if not bool(alive.any()):
             break
         if census is not None:
@@ -426,7 +536,7 @@ def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
             hit_any, t, idx, normal, front = hit_world(
                 scene, (ox, oy, oz), (dx, dy, dz), t_min)
         else:
-            hit_any, t, idx, normal, front = hit_world_bvh(
+            hit_any, t, idx, normal, front = hit_bvh(
                 scene, bvh, (ox, oy, oz), (dx, dy, dz), t_min, census,
                 alive)
         if tape is not None:
@@ -458,13 +568,17 @@ def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
         dz = torch.where(scat, sz, dz)
         sd = torch.where(scat, sd_new, sd)
         alive = alive & ~(missed | absorbed)
+        if check is not None:
+            check(bounce, idx, (t, *normal, ar, ag, ab, sx, sy, sz, cr, cg,
+                                cb, rr, rg, rb))
     # depth exhausted while alive -> black (rr init is already 0)
     return (rr, rg, rb), sd
 
 
 def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
                       px, py, seed, spp: int, init=None, s0: int = 0,
-                      bvh: BVH | None = None, tape=None, census=None):
+                      bvh: BVH | None = None, tape=None, census=None,
+                      check=None):
     """Add ``spp`` LINEAR samples per pixel starting from carried RNG state.
 
     Returns ((sum_r, sum_g, sum_b), seed').  The sums are taken sample by
@@ -472,8 +586,8 @@ def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
     equal one spp-sample render bit for bit.  In the "parallel" RNG mode,
     ``seed`` is the per-pixel BASE state and ``s0`` the index of the first
     sample (each sample's stream is ``fold_in(seed, s0 + i)``); the
-    returned seed is the unchanged base.  ``bvh``, ``tape`` and ``census``
-    go to :func:`trace` (the scene then in leaf order).
+    returned seed is the unchanged base.  ``bvh``, ``tape``, ``census``
+    and ``check`` go to :func:`trace` (the scene then in leaf order).
     """
     if cfg.rng_mode == "v1_fractsin":
         raise NotImplementedError(_FRACTSIN_TODO)
@@ -498,7 +612,7 @@ def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
         v = (fy + j2b * 1.1) * inv_h
         ro, rd, smp = get_ray(cam, u, v, smp)
         (r, g, b), smp = trace(scene, ro, rd, smp, cfg.depth, cfg.t_min,
-                               cfg.scatter_mode, bvh, tape, census)
+                               cfg.scatter_mode, bvh, tape, census, check)
         acc_r = acc_r + r
         acc_g = acc_g + g
         acc_b = acc_b + b
@@ -516,17 +630,18 @@ def _to_gamma(x, gamma):
 
 
 def render_pixels(scene: Scene, cam: Camera, cfg: RenderConfig, px, py,
-                  bvh: BVH | None = None, tape=None, census=None):
+                  bvh: BVH | None = None, tape=None, census=None,
+                  check=None):
     """Render a flat SoA batch of pixels; returns (r, g, b) tensors.
 
     px, py: integer tensors of pixel coordinates (x = column, y = row;
     row 0 is the BOTTOM of the image, v = y/(H-1) — ShaderCompute.hlsl:306-307).
-    ``bvh``, ``tape`` and ``census`` as in :func:`trace`.
+    ``bvh``, ``tape``, ``census`` and ``check`` as in :func:`trace`.
     """
     seed = rng.pixel_seed(px, py)
     (acc_r, acc_g, acc_b), _ = accumulate_pixels(
         scene, cam, cfg, px, py, seed, cfg.spp, bvh=bvh, tape=tape,
-        census=census)
+        census=census, check=check)
     inv_spp = rng.f32_like(acc_r, 1.0 / cfg.spp)
     return (_to_gamma(acc_r * inv_spp, cfg.gamma),
             _to_gamma(acc_g * inv_spp, cfg.gamma),
@@ -550,12 +665,13 @@ def render_golden(scene: Scene, cam: Camera, cfg: RenderConfig,
     pixels x spheres intermediates; pixels are independent, so the chunk
     size never changes a value).
 
-    ``bvh``: the closest hit sweeps the BVH's flat leaf list
-    (:func:`hit_world_bvh`, the plain version of K1c); the image is the
-    brute sweep's except on exact ties of t.  ``tape`` (g_cap, rows*W),
-    when given, receives each pixel's winners, step by step across its
-    samples in order (see :func:`render_golden_tape`).  ``census``, a dict,
-    receives the frame's :data:`CENSUS` counts (see :func:`trace`).
+    ``bvh``: the closest hit sweeps the BVH (:func:`hit_bvh`: the flat
+    leaf list, the plain version of K1c, or the skip-pointer walk, of K1d);
+    the image is the brute sweep's except on exact ties of t.  ``tape``
+    (g_cap, rows*W), when given, receives each pixel's winners, step by
+    step across its samples in order (see :func:`render_golden_tape`).
+    ``census``, a dict, receives the frame's :data:`CENSUS` counts (see
+    :func:`trace`).
     ``row0`` / ``rows``: the (rows, W, 3) slab from absolute row ``row0``
     (the plain version of K1b), its rows past the frame 0."""
     w = cfg.width

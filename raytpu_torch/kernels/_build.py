@@ -84,7 +84,8 @@ def load(source: str) -> ctypes.CDLL:
             build_log[source] = {
                 "seconds": time.perf_counter() - t0,
                 "ptxas": [ln.strip() for ln in proc.stderr.splitlines()
-                          if "registers" in ln or "spill" in ln],
+                          if "registers" in ln or "spill" in ln
+                          or "entry function" in ln],
                 "path": str(lib_path)}
         else:
             build_log.setdefault(source, {"seconds": 0.0, "ptxas": [],

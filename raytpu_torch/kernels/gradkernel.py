@@ -2,10 +2,11 @@
 ``csrc/gradkernel.cu`` (and of the taping forward in ``csrc/megakernel.cu``).
 
 Counterpart of ``raytpu/kernels/gradkernel.py::render_pallas_vjp`` with the
-per-sample PASS 2, the brute-force or the flat BVH sweep, the tape replay
-and the slab mode ``row0`` / ``rows`` (no windowed refill), and of its
-``tape_plan`` and ``render_tape_fwd``.  See the notes at the top of the
-``.cu`` files.
+per-sample PASS 2, the brute-force sweep, the flat BVH sweep or the
+skip-pointer walk (by raytpu's rule, :func:`raytpu_torch.bvh.sweep_of`),
+the tape replay and the slab mode ``row0`` / ``rows`` (no windowed
+refill), and of its ``tape_plan`` and ``render_tape_fwd``.  See the notes
+at the top of the ``.cu`` files.
 
 :func:`render_vjp` takes the scene and camera as the package's NamedTuples
 and an image cotangent ``ct``.  For CPU tensors it runs the plain PyTorch
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from raytpu_torch import adjoint, golden
-from raytpu_torch.bvh import BVH, outlier_tail, permute_scene
+from raytpu_torch.bvh import BVH, permute_scene
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import _build, megakernel
@@ -48,11 +49,13 @@ LEAVES = 8      # sphere cotangent rows: cx cy cz rad ar ag ab mp
 CAM_SUMS = 18   # raygen cotangent sums (raytpu gradkernel.py:960-969)
 
 launches = 0    # kernel launches through launch(); a run resets and reads it
-# the same launches by variant (sweep, "+tape" for the tape replay, "+slab"
-# for a launch given rows); a run resets and reads them
+# the same launches by variant (the sweep: "bvh" for the flat one, "walk";
+# "+tape" for the tape replay, "+slab" for a launch given rows); a run
+# resets and reads them
 variants = dict.fromkeys(
-    ("K3", "K3/bvh", "K3/tape", "K3/bvh+tape", "K3/slab", "K3/bvh+slab",
-     "K3/tape+slab", "K3/bvh+tape+slab"), 0)
+    ("K3", "K3/bvh", "K3/walk", "K3/tape", "K3/bvh+tape", "K3/walk+tape",
+     "K3/slab", "K3/bvh+slab", "K3/walk+slab", "K3/tape+slab",
+     "K3/bvh+tape+slab", "K3/walk+tape+slab"), 0)
 
 # The tape's device-memory budget in bytes; a module constant (tests may
 # monkeypatch it).  raytpu's default, 4 GiB: CONFIG4's full tape takes
@@ -78,7 +81,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raytpu_render_vjp
-    fn.argtypes = [ptr, ptr, i, ptr, i, i, i, i, i, ptr, i, i,
+    fn.argtypes = [ptr, ptr, i, ptr, i, i, ptr, i, i, i, i, i, ptr, i, i,
                    ptr, ptr, ptr, ptr, ptr,
                    i, i, i, i, i, i, f, f, f, f, f, f, i, i, ptr]
     fn.restype = ctypes.c_int
@@ -140,7 +143,8 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     ``img`` (parallel RNG only) is the forward image: it elides PASS 1.
     Sequential RNG chains each pixel's seed through its samples, so PASS 1
     must run and ``img`` is ignored there, as in raytpu.  ``bvh``: the flat
-    BVH sweep, ``scene_pack`` then in leaf order (P permuted rows) and the
+    BVH sweep or the walk (:func:`raytpu_torch.bvh.sweep_of`);
+    ``scene_pack`` is then in leaf order (P permuted rows) and the
     cotangents in that order.  ``tape`` (g_cap, rows*W), a winner-index
     tape of this frame from :func:`render_tape_fwd` with the same ``bvh``
     and slab: the replay; it needs parallel RNG and ``img``.  ``row0`` /
@@ -166,9 +170,6 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
             raise ValueError("the tape replay needs parallel RNG and the "
                              "forward image (img=)")
         megakernel.check_tape(tape, cfg, n, device, rows)
-    tail = None if bvh is None else outlier_tail(bvh.perm, bvh.flat,
-                                                 bvh.leaf_size)
-    out_base, out_cnt = tail if tail else (0, 0)
     ct = ct.contiguous()
     img_in = None if img_in is None else img_in.detach().contiguous()
     lib = _lib()
@@ -183,10 +184,7 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_vjp(
             cam_pack.data_ptr(), scene_pack.data_ptr(), n,
-            None if bvh is None else bvh.flat.data_ptr(),
-            0 if bvh is None else bvh.n_leaves,
-            0 if bvh is None else int(bvh.leaf_size), out_base, out_cnt,
-            int(tape is not None),
+            *megakernel.bvh_args(bvh), int(tape is not None),
             None if tape is None or tape.numel() == 0 else tape.data_ptr(),
             0 if tape is None else tape.shape[0],
             int(tape is not None and tape.dtype == torch.int32),
@@ -203,9 +201,9 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"render_vjp_kernel launch failed: CUDA error {err}")
     launches += 1
-    tags = "+".join(t for t, on in (("bvh", bvh is not None),
-                                    ("tape", tape is not None),
-                                    ("slab", slabbed)) if on)
+    tags = "+".join(t for t, on in (
+        (megakernel.sweep_tag(bvh), bvh is not None),
+        ("tape", tape is not None), ("slab", slabbed)) if on)
     variants["K3/" + tags if tags else "K3"] += 1
     return out, gsc, gcam.sum(dim=0)
 
@@ -227,7 +225,7 @@ def render_vjp_plain(scene: Scene, cam: Camera, cfg: RenderConfig, ct,
                      row0: int = 0, rows: int | None = None, reduce=None):
     """The plain version of K3 on any device: the VJP of the adjoint
     renderer for the image cotangent ``ct`` -> (img, d_scene, d_cam).
-    ``bvh`` sweeps its flat leaf list; ``tape`` replays a winner-index tape
+    ``bvh`` sweeps the BVH by its sweep; ``tape`` replays a winner-index tape
     (the plain version of K3's tape read); ``row0`` / ``rows`` take the
     slab; ``reduce`` sums the f32 cotangents across processes (see
     :func:`render_vjp`)."""
@@ -355,7 +353,8 @@ def render_tape_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
                     g_cap: int, bvh: BVH | None = None, row0: int = 0,
                     rows: int | None = None):
     """The taping forward -> (img, tape): the forward's image (K1a's, or
-    K1c's with ``bvh``, bit for bit: the same device function traces it)
+    K1c's or K1d's with ``bvh``, bit for bit: the same device function
+    traces it)
     and the winner-index tape, (g_cap, H*W) of :func:`golden.tape_dtype`,
     ``tape[k, pix]`` the winner (a permuted index under a BVH, -1 for a
     miss) of pixel ``pix``'s k-th bounce step across its samples in order.
@@ -363,9 +362,8 @@ def render_tape_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
     them, since it takes the forward's steps again (the plain version marks
     them ``golden.TAPE_UNWRITTEN``; ``profiling.census`` counts the steps).
     ``row0`` / ``rows``: the slab, image (rows, W, 3) and tape (g_cap,
-    rows*W).  CPU tensors take the plain version
-    (:func:`golden.render_golden_tape`); CUDA tensors launch the taping
-    forward kernel."""
+    rows*W).  CPU tensors take the plain version (:func:`golden.render_golden_tape`);
+    CUDA tensors launch the taping forward kernel."""
     device = megakernel.check_inputs(scene, cam, cfg)
     slabbed = rows is not None
     row0, rows = megakernel.slab(cfg, row0, rows)

@@ -4,28 +4,34 @@ Counterpart of ``raytpu/kernels/megakernel.py::render_pallas`` and
 ``_render_pallas_fwd_impl`` (no dense stage), of ``accumulate_pallas``
 and of the write side of ``raytpu/kernels/gradkernel.py::render_tape_fwd``.
 One kernel template, variants by operand: K1a (the brute-force sphere
-sweep), K1c (``bvh=``: the flat leaf-list sweep over the scene in leaf
-order), K1' (``count=True``: the census of leaves entered, bounce steps and
-samples), K4's write side (``tape=``: the taping forward, the same image
-plus each step's winner) and K2 (:func:`accumulate`: one progressive batch
-on carried linear sums and seeds).  Every variant takes raytpu's slab mode,
-``row0`` / ``rows``: rows ``[row0, row0 + rows)`` of the cfg-sized frame,
-with the image, the tape and the carried state ``(rows, W, ...)`` (K1b is
-the forward in slab mode).  A slab may run past the frame's last row; those
-rows trace nothing and come out 0.  The CUDA kernel is one thread per
-pixel; see the note at the top of the ``.cu`` file.
+sweep), K1c and K1d (``bvh=``: over the scene in leaf order, the flat
+leaf-list sweep or the skip-pointer walk by raytpu's rule,
+:func:`raytpu_torch.bvh.sweep_of`: the walk past
+:data:`raytpu_torch.bvh.FLAT_MAX_LEAVES` leaves a copy and for unpadded
+BVHs), K1' (``count=True``: the census of leaves entered, bounce steps,
+samples and nodes visited), K4's write side (``tape=``: the taping forward,
+the same image plus each step's winner) and K2 (:func:`accumulate`: one
+progressive batch on carried linear sums and seeds).  Every variant takes
+raytpu's slab mode, ``row0`` / ``rows``: rows ``[row0, row0 + rows)`` of
+the cfg-sized frame, with the image, the tape and the carried state
+``(rows, W, ...)`` (K1b is the forward in slab mode).  A slab may run
+past the frame's last row; those rows trace nothing and come out 0.  The
+CUDA kernel is one thread per pixel; see the note at the top of the ``.cu``
+file.
 
 :func:`render_fwd` and :func:`accumulate` take the scene and camera as the
 package's NamedTuples.  For CPU tensors they run the plain PyTorch versions
 (:func:`raytpu_torch.golden.render_golden` and
-:func:`raytpu_torch.golden.accumulate_golden`, with a BVH their flat sweep
-:func:`raytpu_torch.golden.hit_world_bvh`); for CUDA tensors they launch
-the kernel or raise — they never fall back.  :func:`launch` and
-:func:`launch_accumulate` are the kernel wrappers proper, on the packed
-operands the kernel reads.  ``launches`` counts the kernel launches made
-through them, ``variants`` the same launches by variant; a launch given
-``rows`` (the sharded paths pass it, a world of one included) counts as a
-slab launch.
+:func:`raytpu_torch.golden.accumulate_golden`, with a BVH their sweep by the
+same rule, :func:`raytpu_torch.golden.hit_bvh`); for CUDA tensors they
+launch the kernel or raise — they never fall back, and a walk BVH always
+launches a walk variant.  :func:`launch` and :func:`launch_accumulate` are
+the kernel wrappers proper, on the packed operands the kernel reads (a
+BVH from :func:`raytpu_torch.bvh.with_sweep` forces a sweep, for
+``chip_smoke.py`` and the tests).  ``launches`` counts the kernel launches made through them,
+``variants`` the same launches by variant; a launch given ``rows`` (the
+sharded paths pass it, a world of one included) counts as a slab
+launch.
 
 Under autograd (any continuous leaf requires grad) :func:`render_fwd` goes
 through :class:`_Render`, the counterpart of raytpu's ``custom_vjp``s
@@ -37,8 +43,8 @@ parallel RNG mode so as to skip its own PASS 1.  Where
 :func:`raytpu_torch.kernels.gradkernel.tape_plan` applies (parallel RNG,
 ``vis_w == 0``, the tape within its budget) the forward is the taping one
 and K3 replays its tape instead of sweeping.  The taping forward traces
-through the same device function as K1a / K1c, so the image under grad is
-the image without it, bit for bit (raytpu's taping forward runs another
+through the same device function as K1a / K1c / K1d, so the image under
+grad is the image without it, bit for bit (raytpu's taping forward runs another
 schedule and may differ by FMA contraction; here that cannot arise).  On
 CPU tensors the same Functions run the plain versions of every piece
 (golden forward, golden taping forward, the adjoint's VJP and its tape
@@ -53,7 +59,7 @@ import numpy as np
 import torch
 
 from raytpu_torch import golden
-from raytpu_torch.bvh import BVH, outlier_tail, permute_scene
+from raytpu_torch.bvh import BVH, outlier_tail, permute_scene, sweep_of
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import _build
@@ -64,13 +70,16 @@ CAM_PACK = 19   # origin, horizontal, vertical, lower_left, u, v, lens_radius
 SCENE_ROWS = 9  # cx, cy, cz, radius, mat_type, ar, ag, ab, mat_param
 
 launches = 0    # kernel launches through launch(); a run resets and reads it
-# the same launches by variant: K1a brute, K1c flat BVH, K1b a slab (by
-# sweep), K1' census, K2 carry-state batch and K4 taping forward (by sweep,
-# "+slab" for a slab); a run resets and reads them
+# the same launches by variant: K1a brute, K1c flat BVH, K1d the walk,
+# K1b a slab (by sweep), K1' census, K2 carry-state batch and K4 taping
+# forward (by sweep, "+slab" for a slab); the sweeps are "brute", "bvh"
+# (flat) and "walk"; a run resets and reads them
+SWEEP_TAGS = ("brute", "bvh", "walk")
 variants = dict.fromkeys(
-    ("K1a", "K1c", "K1b/brute", "K1b/bvh", "K1'/brute", "K1'/bvh")
+    ("K1a", "K1c", "K1d")
+    + tuple(f"{k}/{sweep}" for k in ("K1b", "K1'") for sweep in SWEEP_TAGS)
     + tuple(f"{k}/{sweep}{slab}" for k in ("K2", "K4")
-            for sweep in ("brute", "bvh") for slab in ("", "+slab")), 0)
+            for sweep in SWEEP_TAGS for slab in ("", "+slab")), 0)
 
 _SCENE_SPEC = {"center": (torch.float32, 2), "radius": (torch.float32, 1),
                "mat_type": (torch.int32, 1), "albedo": (torch.float32, 2),
@@ -81,8 +90,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raytpu_render_fwd
-    fn.argtypes = [ptr, ptr, i, ptr, i, i, i, i, i, ptr, i, i, ptr,
-                   i, ptr, ptr, ptr, ctypes.c_uint, ptr,
+    fn.argtypes = [ptr, ptr, i, ptr, i, i, ptr, i, i, i, i, i, ptr, i, i,
+                   ptr, i, ptr, ptr, ptr, ctypes.c_uint, ptr,
                    i, i, i, i, i, i, f, f, f, f, f, i, i, ptr]
     fn.restype = ctypes.c_int
     return lib
@@ -191,32 +200,49 @@ def check_packs(cam_pack: torch.Tensor, scene_pack: torch.Tensor) -> None:
 
 
 def check_bvh(bvh: BVH, rows: int | None, device) -> None:
-    """Raise unless ``bvh`` is one the flat sweep takes for a scene of
-    ``rows`` permuted rows (None: as many as ``perm`` has) on ``device``:
-    padded leaves with a flat leaf list of f32 contiguous rows, ``perm``
-    one entry per row."""
+    """Raise unless ``bvh`` is one its sweep (:func:`sweep_of`) takes for a
+    scene of ``rows`` permuted rows (None: as many as ``perm`` has) on
+    ``device``, ``perm`` one entry per row.  The flat sweep: padded leaves
+    with a flat leaf list of f32 contiguous rows.  The walk: ``nodes`` f32
+    contiguous, (8 n_trav, 9) with padded leaves or (n_trav, 9) without,
+    fewer than 2^24 nodes a copy (integers stored as f32 are exact)."""
     if not isinstance(bvh, BVH):
         raise ValueError(f"bvh: want a raytpu_torch.bvh.BVH, got "
                          f"{type(bvh).__name__}")
-    if bvh.flat is None or not bvh.leaf_size:
-        raise ValueError("bvh: the flat sweep needs padded leaves and a flat "
-                         "leaf list (build_bvh(pad_leaves=True))")
-    flat = bvh.flat
+    sweep = sweep_of(bvh)
     if rows is None:
         rows = bvh.perm.shape[0] if bvh.perm.dim() == 1 else -1
-    if (flat.dtype != torch.float32 or flat.dim() != 2 or flat.shape[1] != 9
-            or flat.shape[0] < 8 or flat.shape[0] % 8 or
-            not flat.is_contiguous()):
-        raise ValueError(f"bvh.flat: want contiguous torch.float32 (8L, 9), "
-                         f"got {flat.dtype} {tuple(flat.shape)}")
     if bvh.perm.dim() != 1 or bvh.perm.shape[0] != rows:
         raise ValueError(f"bvh.perm has {tuple(bvh.perm.shape)} entries, the "
                          f"scene pack {rows} rows")
-    if bvh.n_leaves * bvh.leaf_size > rows:
+    if sweep == "flat":
+        if bvh.flat is None or not bvh.leaf_size:
+            raise ValueError("bvh: the flat sweep needs padded leaves and a "
+                             "flat leaf list (build_bvh(pad_leaves=True))")
+        arr, name = bvh.flat, "bvh.flat"
+        if (arr.dtype != torch.float32 or arr.dim() != 2
+                or arr.shape[1] != 9 or arr.shape[0] < 8 or arr.shape[0] % 8
+                or not arr.is_contiguous()):
+            raise ValueError(f"bvh.flat: want contiguous torch.float32 (8L, "
+                             f"9), got {arr.dtype} {tuple(arr.shape)}")
+    else:
+        if bvh.leaf_size and bvh.flat is None:
+            raise ValueError("bvh: padded leaves need the flat leaf list, "
+                             "which locates the outlier tail")
+        arr, name = bvh.nodes, "bvh.nodes"
+        copies = bvh.copies
+        if (arr.dtype != torch.float32 or arr.dim() != 2
+                or arr.shape[1] != 9 or arr.shape[0] < copies
+                or arr.shape[0] % copies or arr.shape[0] // copies >= 2**24
+                or not arr.is_contiguous()):
+            raise ValueError(f"bvh.nodes: want contiguous torch.float32 "
+                             f"({'8M' if copies == 8 else 'M'}, 9) for the "
+                             f"walk, got {arr.dtype} {tuple(arr.shape)}")
+    if bvh.leaf_size and bvh.n_leaves * bvh.leaf_size > rows:
         raise ValueError("bvh: more leaf entries than permuted rows")
-    for name, t in (("bvh.flat", flat), ("bvh.perm", bvh.perm)):
+    for n, t in ((name, arr), ("bvh.perm", bvh.perm)):
         if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, the scene on {device}")
+            raise ValueError(f"{n} is on {t.device}, the scene on {device}")
 
 
 def check_tape(tape: torch.Tensor, cfg: RenderConfig, n: int, device,
@@ -258,6 +284,19 @@ def _check_state(cfg: RenderConfig, rows: int, acc: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, the scene on {device}")
 
 
+def bvh_args(bvh: BVH | None) -> tuple:
+    """The C entry points' BVH operands: (flat, n_leaves, leaf_size, nodes,
+    n_trav, copies, out_base, out_cnt), ``flat`` set for the flat sweep,
+    ``nodes`` for the walk, neither for the brute sweep."""
+    if bvh is None:
+        return (None, 0, 0, None, 0, 0, 0, 0)
+    tail = outlier_tail(bvh.perm, bvh.flat, bvh.leaf_size) or (0, 0)
+    if sweep_of(bvh) == "flat":
+        return (bvh.flat.data_ptr(), bvh.n_leaves, int(bvh.leaf_size), None,
+                0, 0, *tail)
+    return (None, 0, 0, bvh.nodes.data_ptr(), bvh.n_trav, bvh.copies, *tail)
+
+
 def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
             rows: int, spp: int, out: torch.Tensor, *, tape=None,
             census=None, carry=None) -> None:
@@ -265,19 +304,13 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
     s0) for K2, the seeds as int32 bits."""
     global launches
     n = scene_pack.shape[1]
-    tail = None if bvh is None else outlier_tail(bvh.perm, bvh.flat,
-                                                 bvh.leaf_size)
-    out_base, out_cnt = tail if tail else (0, 0)
     acc_in, seed_in, seed_out, s0 = carry if carry else (None,) * 3 + (0,)
     lib = _lib()
     device = scene_pack.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_fwd(
-            cam_pack.data_ptr(), scene_pack.data_ptr(), n,
-            None if bvh is None else bvh.flat.data_ptr(),
-            0 if bvh is None else bvh.n_leaves,
-            0 if bvh is None else int(bvh.leaf_size), out_base, out_cnt,
+            cam_pack.data_ptr(), scene_pack.data_ptr(), n, *bvh_args(bvh),
             int(tape is not None),
             None if tape is None or tape.numel() == 0 else tape.data_ptr(),
             0 if tape is None else tape.shape[0],
@@ -301,17 +334,26 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
     launches += 1
 
 
+def sweep_tag(bvh: BVH | None) -> str:
+    """The sweep's name in :data:`variants`: "brute", "bvh" (the flat
+    sweep) or "walk"."""
+    if bvh is None:
+        return "brute"
+    return "bvh" if sweep_of(bvh) == "flat" else "walk"
+
+
 def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
            cfg: RenderConfig, bvh: BVH | None = None,
            tape: torch.Tensor | None = None, count: bool = False,
            row0: int = 0, rows: int | None = None):
     """Launch the kernel on the packed operands -> (rows, W, 3) f32 image
     (rows = H without a slab), or (image, census) with ``count``:
-    ``census`` (3,) int64 on the device, the frame's ``golden.CENSUS``
+    ``census`` (4,) int64 on the device, the frame's ``golden.CENSUS``
     counts.
 
-    ``bvh``: the flat BVH sweep (K1c); ``scene_pack`` is then the scene in
-    leaf order (``pack_scene(permute_scene(scene, bvh.perm))``).  ``tape``
+    ``bvh``: the flat BVH sweep (K1c) or the skip-pointer walk (K1d), by
+    :func:`raytpu_torch.bvh.sweep_of`; ``scene_pack`` is then the scene in leaf order
+    (``pack_scene(permute_scene(scene, bvh.perm))``).  ``tape``
     (g_cap, rows*W): the taping forward (K4's write side) writes each
     pixel's first g_cap winners (-1 for a miss) into it; other slots keep
     their value.  ``row0`` / ``rows``: the slab (K1b; see :func:`slab`).
@@ -336,15 +378,15 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
               if count else None)
     _launch(cam_pack, scene_pack, cfg, bvh, row0, rows, cfg.spp, out,
             tape=tape, census=census)
-    sweep = "brute" if bvh is None else "bvh"
+    tag = sweep_tag(bvh)
     if tape is not None:
-        variants[f"K4/{sweep}" + ("+slab" if slabbed else "")] += 1
+        variants[f"K4/{tag}" + ("+slab" if slabbed else "")] += 1
     elif count:
-        variants[f"K1'/{sweep}"] += 1
+        variants[f"K1'/{tag}"] += 1
     elif slabbed:
-        variants[f"K1b/{sweep}"] += 1
+        variants[f"K1b/{tag}"] += 1
     else:
-        variants["K1a" if bvh is None else "K1c"] += 1
+        variants[{"brute": "K1a", "bvh": "K1c", "walk": "K1d"}[tag]] += 1
     return (out, census) if count else out
 
 
@@ -361,8 +403,9 @@ def launch_accumulate(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     ``acc`` (rows, W, 3) f32 linear sums and ``seed`` (rows, W) int32, the
     bits of the u32 seeds.  Sequential RNG resumes each pixel's seed chain;
     parallel RNG draws sample ``s`` from ``fold_in(base_hash(x, y), s0 +
-    s)`` and writes the base seed back.  ``bvh``, ``row0`` / ``rows`` as in
-    :func:`launch`; rows past the frame come out 0, sums and seeds."""
+    s)`` and writes the base seed back.  ``bvh`` and ``row0`` / ``rows``
+    as in :func:`launch`; rows past the frame come out 0, sums and
+    seeds."""
     check_packs(cam_pack, scene_pack)
     slabbed = rows is not None
     row0, rows = slab(cfg, row0, rows)
@@ -377,8 +420,7 @@ def launch_accumulate(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     out = (torch.empty_like(acc), torch.empty_like(seed))
     _launch(cam_pack, scene_pack, cfg, bvh, row0, rows, spp, out[0],
             carry=(acc, seed, out[1], s0))
-    variants["K2/" + ("brute" if bvh is None else "bvh")
-             + ("+slab" if slabbed else "")] += 1
+    variants[f"K2/{sweep_tag(bvh)}" + ("+slab" if slabbed else "")] += 1
     return out
 
 
@@ -429,9 +471,9 @@ def _grad_backward(ctx, ct, scene: Scene, cam: Camera, img):
 
 
 class _Render(torch.autograd.Function):
-    """The forward kernel (K1a, K1c with a BVH, K1b on a slab, or K4's
-    taping forward) with K3 (its BVH variant with a BVH, its slab mode on
-    a slab) as its backward: raytpu's ``_fwd`` / ``_bwd`` and ``_fwd_bvh``
+    """The forward kernel (K1a, K1c or K1d with a BVH, K1b on a slab, or
+    K4's taping forward) with K3 (its BVH variant with a BVH, its slab mode
+    on a slab) as its backward: raytpu's ``_fwd`` / ``_bwd`` and ``_fwd_bvh``
     / ``_bwd_bvh``.
 
     apply(cfg, vis_w, bvh, (row0, rows), mat_type, center, radius, albedo,
@@ -478,11 +520,11 @@ def render_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
     device (row 0 = bottom scanline), or with ``rows`` the (rows, W, 3)
     slab from absolute row ``row0`` (K1b; rows past the frame are 0).  CPU
     tensors take the plain PyTorch version; CUDA tensors launch the kernel
-    (K1a, or K1c with ``bvh``, a :func:`raytpu_torch.bvh.build_bvh` of this
-    scene on its device).  When autograd is on and a continuous leaf of the
-    scene or camera requires grad, the image carries a backward: K3 on CUDA
-    tensors, the adjoint on CPU tensors (``vis_w > 0`` adds silhouette
-    gradients)."""
+    (K1a, or with ``bvh``, a :func:`raytpu_torch.bvh.build_bvh` of this
+    scene on its device, K1c or K1d by raytpu's rule).  When autograd is
+    on and a continuous leaf of the scene or camera requires grad, the
+    image carries a backward: K3 on CUDA tensors, the adjoint on CPU
+    tensors (``vis_w > 0`` adds silhouette gradients)."""
     _check_scene_bvh(scene, cam, cfg, bvh)
     slab(cfg, row0, rows)
     leaves = (scene.center, scene.radius, scene.albedo, scene.mat_param,

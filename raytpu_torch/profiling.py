@@ -1,16 +1,21 @@
-"""Render timing (counterpart of ``raytpu/profiling.py``'s RenderStats
-and ``timed``) and the frame census.
+"""Render timing, run logs and traces (counterpart of
+``raytpu/profiling.py``) and the frame census.
 
 On a card the time comes from CUDA events around the calls, after a
 ``torch.cuda.synchronize()``; on the CPU from the host clock.  Every result
-names the device it ran on.  :func:`census` counts the work of a frame
+names the device it ran on.  :func:`log_run` appends one JSON line a run;
+:func:`trace` and :func:`device_ms` take ``torch.profiler`` where raytpu
+takes ``jax.profiler``.  :func:`census` counts the work of a frame
 (raytpu's ``count_leaves`` census, scripts/probe_roofline.py's input): the
 census kernel K1' on a card, its plain version on the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
+import os
 import time
 
 import torch
@@ -69,19 +74,66 @@ def timed(fn, cfg: RenderConfig, label: str = "fwd",
         device=device, label=label)
 
 
+def log_run(path: str, stats: RenderStats, **extra) -> None:
+    """Append one JSON line to the run log ``path``: the time, ``stats``
+    (with the device it ran on) and ``extra``."""
+    rec = {"ts": time.time(), **stats.as_dict(), **extra}
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``torch.profiler`` trace of the block, CPU and (when there is a
+    card) CUDA activity, written to ``log_dir/trace.json`` (Chrome trace
+    format, for chrome://tracing or Perfetto); yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_ms(run_once) -> float:
+    """The card's kernel time of one call, in ms: the device time of every
+    kernel ``run_once()`` launches, summed over the device-side events of a
+    ``torch.profiler`` trace (the call is synchronised before the trace
+    ends).  Raises when the
+    trace holds no device time: on the CPU, or where the profiler cannot
+    see the card (time with CUDA events there)."""
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms needs a CUDA card")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_once()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler trace holds no device time")
+    return us / 1e3
+
+
 def census(scene, cam, cfg: RenderConfig, bvh=None, row0: int = 0,
            rows: int | None = None) -> dict:
     """The work of one frame -> {"leaves_entered", "bounce_steps",
-    "samples", "sphere_tests", "box_tests", "device"}: samples traced,
-    closest-hit steps (one per bounce taken, identical for the brute and the
-    BVH sweep), the BVH leaves those steps enter, and from them the sphere
-    tests the sweep runs (every sphere a step, or the outliers plus
-    ``leaf_size`` a leaf entered) and the leaf-box tests (every leaf of the
-    ray's octant copy a step).  CUDA tensors launch the census kernel K1'
+    "samples", "nodes_visited", "sphere_tests", "box_tests", "device"}:
+    samples traced, closest-hit steps (one per bounce taken, identical for
+    every sweep), the BVH leaves those steps enter and the nodes the walk
+    visits, and from them the sphere tests the sweep runs (every sphere a
+    step, or the outliers plus the leaves' spheres) and the box tests
+    (the flat sweep: every leaf of the ray's octant copy a step; the walk:
+    the nodes it visits).  A padded leaf holds ``leaf_size`` spheres; for an
+    unpadded BVH's variable leaves the sphere tests take the mean leaf
+    size, an estimate.  CUDA tensors launch the census kernel K1'
     (:func:`raytpu_torch.kernels.megakernel.launch` with ``count=True``);
     CPU tensors run its plain version.  ``row0`` / ``rows``: the work of
     that row slab only."""
-    from raytpu_torch.bvh import permute_scene
+    from raytpu_torch.bvh import permute_scene, sweep_of
     from raytpu_torch.kernels import megakernel
     device = megakernel.check_inputs(scene, cam, cfg)
     if device.type == "cpu":
@@ -96,13 +148,15 @@ def census(scene, cam, cfg: RenderConfig, bvh=None, row0: int = 0,
                                    bvh, count=True, row0=row0, rows=rows)
         counts = dict(zip(golden.CENSUS, (int(c) for c in cnt.tolist())))
         name = torch.cuda.get_device_name(device)
+    counts["device"] = name
     steps = counts["bounce_steps"]
     if bvh is None:
-        counts["sphere_tests"] = steps * scene.count
-        counts["box_tests"] = 0
-    else:
-        counts["sphere_tests"] = (counts["leaves_entered"] * bvh.leaf_size
-                                  + steps * bvh.n_outliers)
-        counts["box_tests"] = steps * bvh.n_leaves
-    counts["device"] = name
+        counts.update(sphere_tests=steps * scene.count, box_tests=0)
+        return counts
+    per_leaf = bvh.leaf_size or (
+        int(bvh.perm.shape[0]) / int((bvh.nodes[:, 7] > 0).sum()))
+    counts["sphere_tests"] = (counts["leaves_entered"] * per_leaf
+                              + steps * bvh.n_outliers)
+    counts["box_tests"] = (steps * bvh.n_leaves if sweep_of(bvh) == "flat"
+                           else counts["nodes_visited"])
     return counts

@@ -66,8 +66,8 @@ def accumulate(scene: Scene, cam: Camera, cfg: RenderConfig,
     The first sample's index (the parallel RNG mode's stream offset) is
     ``state.samples``.  ``backend="golden"`` runs the plain version on any
     device; ``"auto"`` launches K2 on CUDA tensors and the plain version on
-    CPU tensors; ``"cuda"`` needs CUDA tensors.  ``bvh`` sweeps its flat
-    leaf list.  ``group``: each process of the group adds the samples of
+    CPU tensors; ``"cuda"`` needs CUDA tensors.  ``bvh`` sweeps the BVH,
+    flat or by the walk (K2's walk variant past 64 leaves a copy).  ``group``: each process of the group adds the samples of
     its row slab (:func:`raytpu_torch.shard.slab_rows`) and the slabs are
     gathered, so every process returns the whole state, bit-identical to
     the unsharded one."""

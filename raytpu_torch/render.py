@@ -16,9 +16,10 @@ K3; on CPU tensors the plain golden forward and the adjoint VJP).
 the gradients of the scene's and camera's continuous leaves.
 
 ``bvh=`` (:func:`raytpu_torch.bvh.build_bvh` of the scene, on its device)
-sweeps the BVH's flat leaf list instead of every sphere: K1c forward and
-K3's BVH variant backward on CUDA tensors, their plain versions on CPU
-tensors.  In parallel RNG with ``vis_w == 0`` (from 8 spheres) the
+sweeps the BVH instead of every sphere, by raytpu's rule
+(:func:`raytpu_torch.bvh.sweep_of`): its flat leaf list up to 64 leaves a
+copy, else the skip-pointer walk.  K1c or K1d forward and K3's BVH or walk
+variant backward on CUDA tensors, their plain versions on CPU tensors.  In parallel RNG with ``vis_w == 0`` (from 8 spheres) the
 gradient path tapes each bounce's winner in the forward (K4) and K3 replays the tape instead of
 sweeping (:func:`raytpu_torch.kernels.gradkernel.tape_plan`).
 
@@ -64,8 +65,9 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig,
     ``auto`` / ``cuda`` through the kernels' autograd Function, whose
     backward adds silhouette gradients for ``vis_w > 0`` (the image itself
     does not depend on ``vis_w``).  ``bvh`` (built for this scene; moved
-    with it when ``device`` is given) makes every backend sweep its flat
-    leaf list: the same image up to exact ties of t between spheres.
+    with it when ``device`` is given) makes every backend sweep it, by the
+    flat leaf list or the skip-pointer walk: the same image up to exact
+    ties of t between spheres.
     """
     if device is not None:
         scene = Scene(*(t.to(device) for t in scene))
@@ -90,8 +92,9 @@ def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
     renderer (raytpu_torch/adjoint.py) on any device; ``"auto"`` and
     ``"cuda"`` the kernels on CUDA tensors (K1a forward, K3 backward) and
     the plain versions on CPU tensors.  ``bvh`` makes ``"auto"`` and
-    ``"cuda"`` sweep its flat leaf list (K1c forward or, in parallel RNG,
-    the taping forward K4; K3's BVH variant or its tape replay backward);
+    ``"cuda"`` sweep it, flat or by the walk (K1c / K1d forward or, in
+    parallel RNG, the taping forward K4; K3's BVH variant or its tape
+    replay backward);
     ``"golden"`` ignores it, as raytpu's adjoint is the brute-force oracle
     (raytpu/render.py:139).  An optimisation loop that moves spheres keeps
     the BVH's boxes around them with :func:`raytpu_torch.bvh.refit`.

@@ -125,7 +125,7 @@ def render_sharded(scene: Scene, cam: Camera, cfg: RenderConfig, *,
     """Full-frame render with the rows sharded over ``group`` -> (H, W, 3)
     on every process, bit-identical to :func:`raytpu_torch.render` for any
     world size.  Each process renders its slab: ``"auto"`` / ``"cuda"``
-    through the forward kernel's slab mode (K1b, over ``bvh`` K1c's sweep)
+    through the forward kernel's slab mode (K1b, over ``bvh`` K1c's or K1d's sweep)
     on CUDA tensors and its plain version on CPU tensors; ``"golden"``
     through the plain version on any device.  No autograd."""
     check_backend(backend, scene)

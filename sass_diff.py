@@ -1,0 +1,77 @@
+"""Compare the machine code (SASS) of two builds of the port's kernels.
+
+    python3 sass_diff.py OTHER_ROOT
+
+builds (or finds) the kernel libraries of the checkout that holds this
+script and of the checkout at ``OTHER_ROOT`` (for example an earlier
+commit unpacked with ``git archive``), disassembles both with ``cuobjdump -sass`` and prints, for each
+kernel instantiation of the other build, its instruction count in both and
+whether the instructions are the same; it exits 1 if any differs.
+Kernel-parameter offsets (``c[0x0][...]``) are masked: a parameter struct
+that grew moves them without changing the code.  A first template argument
+that was a bool (``kBvh`` before the walk: 0 brute, 1 flat) is matched to
+the closest-hit policy that replaced it, so a checkout from before the walk
+compares too.  Needs the CUDA toolkit (``nvcc``, ``cuobjdump``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from raytpu_torch.kernels import _build  # this checkout's: sys.path[0]
+
+ROOT = Path(__file__).resolve().parent
+SOURCES = ("megakernel.cu", "gradkernel.cu")
+# builds a checkout's kernels and prints their libraries' paths
+_BUILD = ("import json; from raytpu_torch.kernels import _build; "
+          f"_build.load_all({list(SOURCES)!r}); "
+          "print(json.dumps({s: v['path'] for s, v in "
+          "_build.build_log.items()}))")
+
+
+def functions(lib: Path) -> dict:
+    """{(kernel, template args): [instructions]} of a built library."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    res, name = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : \S*?(render_\w+?_kernel)I(\w+?)EEvNS", ln)
+        if m:
+            name = (m.group(1), re.sub(r"^Lb([01])", r"Li\1", m.group(2)))
+            res[name] = []
+        elif name is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", ln)
+            if m:
+                ins = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]",
+                             m.group(1))
+                res[name].append(" ".join(ins.split()))
+    return res
+
+
+def main(other_root: str) -> int:
+    libs = [json.loads(subprocess.run(
+        [sys.executable, "-c", _BUILD], cwd=root, capture_output=True,
+        text=True, check=True).stdout.splitlines()[-1])
+        for root in (Path(other_root).resolve(), ROOT)]
+    differ = 0
+    for src in SOURCES:
+        old, new = (functions(Path(paths[src])) for paths in libs)
+        for key, ins in sorted(old.items()):
+            got = new.get(key)
+            same = got == ins
+            differ += not same
+            print(f"{src} {key[1]}: {len(ins)} -> "
+                  f"{None if got is None else len(got)} instructions, "
+                  f"{'identical' if same else 'DIFFERENT'}")
+        print(f"{src} new: {sorted(k[1] for k in set(new) - set(old))}")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1]))

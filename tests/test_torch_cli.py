@@ -156,16 +156,28 @@ def test_cli_rejects_other_raytpu_options(tmp_path, flag):
 
 @pytest.mark.parametrize("cmd", ["gradcheck", "validate", "info"])
 def test_cli_refuses_unported_subcommands(cmd, capsys):
-    """validate and info refuse with their ROADMAP item; gradcheck is
-    ported: on the CPU it passes (analytic vs finite difference < 1e-3)."""
+    """Subcommands once refused, now ported.  gradcheck on the CPU passes
+    (analytic vs finite difference < 1e-3); validate on the CPU checks the
+    plain version (finite, and with --bvh the BVH sweep against the brute
+    sweep) and exits 0 with its JSON report; info prints the platform."""
     if cmd == "gradcheck":
         assert cli.main(["gradcheck", "--device", "cpu"]) == 0
         out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert out["pass"] is True and out["grad_max_err_vs_fd"] < 1e-3
         assert out["device"] == "cpu"
         return
-    with pytest.raises(SystemExit, match="not ported yet.*ROADMAP"):
-        cli.main([cmd, "--scene", "test"])
+    if cmd == "validate":
+        assert cli.main(["validate", "--scene", "final", "--bvh", "--width",
+                         "24", "--height", "12", "--device", "cpu"]) == 0
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["pass"] is True and out["plain_finite"] is True
+        assert out["sweep"] == "flat" and out["bvh_matches_brute"] is True
+        assert out["device"] == "cpu"
+        return
+    assert cli.main(["info"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["platform"] == ("gpu" if torch.cuda.is_available() else "cpu")
+    assert out["version"] == rt.__version__
 
 
 def test_cli_module_entry_point(tmp_path):

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-forward megakernel K1a, its BVH variant K1c and census K1', the taping
-forward K4, the fused VJP kernel K3 with its BVH and tape-replay variants,
-the carry-state kernel K2 and the slab mode of every one of them (K1b).
+forward megakernel K1a, its BVH variants K1c (the flat sweep) and K1d (the
+skip-pointer walk) and census K1', the taping forward K4, the fused VJP
+kernel K3 with its BVH, walk and tape-replay variants, the carry-state
+kernel K2 and the slab mode of every one of them (K1b).
 
 These tests need a CUDA card and nvcc; without a card they skip (the
 condition is a string, so pytest evaluates it at setup, not at import).
@@ -28,14 +29,16 @@ at these sizes).  K2 batched equals K2 in one batch bit for bit, and its
 image the forward kernel's (within 2e-7 where the gamma epilogue's
 reciprocal rounds apart); slabs stitched give the full frame bit for bit
 (image, state, tape), and K3's slab sums, added in f64, its full-frame sums
-within 1e-6 of each leaf's largest entry.
+within 1e-6 of each leaf's largest entry.  The walk's image equals the
+flat sweep's on the same BVH bit for bit (the same leaves in the same
+order), and its census counts the flat sweep's leaves and steps.
 """
 
 import pytest
 import torch
 
 import raytpu_torch as rt
-from raytpu_torch import bvh as tbvh, golden, progressive, shard
+from raytpu_torch import bvh as tbvh, golden, profiling, progressive, shard
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import gradkernel, megakernel
 
@@ -230,14 +233,14 @@ def test_census_counts_the_frame():
     tape = torch.full((cfg.spp * cfg.depth, 96 * 48), golden.TAPE_UNWRITTEN,
                       dtype=golden.tape_dtype(sp.shape[1]), device="cuda")
     megakernel.launch(cp, sp, cfg, bvh, tape=tape)
-    leaves, steps, samples = cen.tolist()
+    leaves, steps, samples, nodes = cen.tolist()
     assert torch.equal(img, megakernel.launch(cp, sp, cfg, bvh))
     assert samples == 96 * 48 * 3
     assert steps == int((tape != golden.TAPE_UNWRITTEN).sum())
-    assert 0 < leaves <= steps * bvh.n_leaves
+    assert 0 < leaves <= steps * bvh.n_leaves and nodes == 0  # flat sweep
     _, cen_b = megakernel.launch(cp, megakernel.pack_scene(scene), cfg,
                                  count=True)
-    assert cen_b.tolist() == [0, steps, samples]
+    assert cen_b.tolist() == [0, steps, samples, 0]
     # the plain version on the same CUDA tensors counts the same work (a
     # path flip between the two could move a few steps: none here)
     plain = dict.fromkeys(golden.CENSUS, 0)
@@ -444,3 +447,126 @@ def test_slabs_stitch_to_the_frame(rng_mode):
     assert torch.equal(img_w, img_t[13:33]) and tape_w.shape == (g, 20 * 96)
     assert megakernel.variants["K4/bvh+slab"] == 5
     assert gradkernel.variants["K3/bvh+tape+slab"] == 4
+
+
+def _walk_world(cfg, padded=True):
+    """final_world(n=300) at leaf 4: 75 leaves a copy, so the rule walks
+    it; unpadded, the walk is the only sweep."""
+    scene = rt.final_world(n=300, device="cuda")
+    bvh = tbvh.build_bvh(scene, leaf_size=4, pad_leaves=padded)
+    assert tbvh.sweep_of(bvh) == "walk"
+    return scene, _cam(cfg), bvh
+
+
+@needs_card
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+def test_walk_kernels_match_plain(padded, rng_mode):
+    """K1d, K2/walk, K3/walk and (parallel RNG) K4/walk with K3's replay
+    against their plain versions on the same CUDA tensors, each launch
+    counted by its variant."""
+    cfg = RenderConfig(width=64, height=32, spp=2, depth=5,
+                       rng_mode=rng_mode)
+    scene, cam, bvh = _walk_world(cfg, padded)
+    _reset_counts()
+    img = rt.render(scene, cam, cfg, bvh=bvh)
+    assert megakernel.variants["K1d"] == 1 == sum(megakernel.variants.values())
+    _agree(img, golden.render_golden(scene, cam, cfg, bvh))
+    assert torch.equal(img, rt.render(scene, cam, cfg))  # brute: no ties
+    init = progressive.init_state(cfg, device="cuda")
+    st = plain = init
+    _reset_counts()
+    for k in (1, 1):
+        st = progressive.accumulate(scene, cam, cfg, st, k, bvh=bvh)
+        plain = progressive.accumulate(scene, cam, cfg, plain, k,
+                                       backend="golden", bvh=bvh)
+    assert megakernel.variants["K2/walk"] == 2
+    _agree(st.acc / 2, plain.acc / 2)
+    assert float((st.seed == plain.seed).float().mean()) >= 0.999
+    assert float((progressive.image(st, cfg) - img).abs().max()) <= 2e-7
+    ct = 2.0 * (img - 0.5) / img.numel()
+    _reset_counts()
+    got = gradkernel.render_vjp(scene, cam, cfg, ct, bvh=bvh)
+    assert gradkernel.variants["K3/walk"] == 1
+    assert torch.equal(got[0], img)
+    want = gradkernel.render_vjp_plain(scene, cam, cfg, ct, 0.0, bvh)
+    errs = _vjp_errors(got, want)
+    assert max(errs.values()) <= 1e-3, errs
+    if rng_mode != "parallel":
+        return
+    full = cfg.spp * cfg.depth
+    _reset_counts()
+    img_t, tape = gradkernel.render_tape_fwd(scene, cam, cfg, full, bvh)
+    assert megakernel.variants["K4/walk"] == 1 and torch.equal(img_t, img)
+    _, want_tape = golden.render_golden_tape(scene, cam, cfg, full, bvh)
+    written = want_tape != golden.TAPE_UNWRITTEN
+    assert float((tape == want_tape)[written].float().mean()) >= 0.999
+    base = _grads(gradkernel.render_vjp(scene, cam, cfg, ct, img=img, bvh=bvh))
+    for g_cap in (full, 3):
+        out = gradkernel.render_vjp(scene, cam, cfg, ct, img=img, bvh=bvh,
+                                    tape=tape[:g_cap].contiguous(),
+                                    tape_partial=g_cap < full)
+        for a, b in zip(_grads(out), base):
+            assert torch.equal(a, b), g_cap
+    assert gradkernel.variants["K3/walk+tape"] == 2
+
+
+@needs_card
+def test_walk_against_forced_flat_census_and_slabs():
+    """K1d against K1c forced on the same BVH: bit-equal images, the same
+    leaves entered and steps counted (K1'/walk, K1'/bvh), the nodes visited
+    counted by the walk only and by its plain version alike; K3 over the
+    walk against K3 over the flat sweep: the same f64 sums to 1e-9 of each
+    leaf's largest; a slab over the walk equals the full frame's rows."""
+    cfg = RenderConfig(width=96, height=48, spp=3, depth=6,
+                       rng_mode="parallel")
+    scene, cam, bvh = _walk_world(cfg)
+    cp = megakernel.pack_camera(cam)
+    sp = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    _reset_counts()
+    walk = megakernel.launch(cp, sp, cfg, bvh)
+    forced = tbvh.with_sweep(bvh, "flat")
+    flat = megakernel.launch(cp, sp, cfg, forced)
+    assert megakernel.variants["K1d"] == 1 == megakernel.variants["K1c"]
+    assert torch.equal(walk, flat)
+    img_w, cen_w = megakernel.launch(cp, sp, cfg, bvh, count=True)
+    img_f, cen_f = megakernel.launch(cp, sp, cfg, forced, count=True)
+    assert megakernel.variants["K1'/walk"] == 1 == megakernel.variants[
+        "K1'/bvh"]
+    assert torch.equal(img_w, walk) and torch.equal(img_f, flat)
+    leaves, steps, samples, nodes = cen_w.tolist()
+    assert cen_f.tolist() == [leaves, steps, samples, 0]
+    assert samples == 96 * 48 * 3 and steps <= nodes <= steps * bvh.n_trav
+    plain = dict.fromkeys(golden.CENSUS, 0)
+    golden.render_golden(scene, cam, cfg, bvh, census=plain)
+    assert [plain[k] for k in golden.CENSUS] == cen_w.tolist()
+    c = profiling.census(scene, cam, cfg, bvh)
+    assert c["box_tests"] == nodes and c["sphere_tests"] == (
+        leaves * 4 + steps * bvh.n_outliers)
+    ct = 2.0 * (walk - 0.5) / walk.numel()
+    _reset_counts()
+    a = gradkernel.launch(cp, sp, cfg, ct, walk, 0.0, bvh)
+    b = gradkernel.launch(cp, sp, cfg, ct, walk, 0.0, forced)
+    assert gradkernel.variants["K3/walk"] == 1 == gradkernel.variants["K3/bvh"]
+    assert torch.equal(a[0], b[0])
+    for x, y in ((a[1], b[1]), (a[2], b[2])):
+        assert float((x - y).abs().max()) <= 1e-9 * float(y.abs().max())
+    part = megakernel.render_fwd(scene, cam, cfg, bvh=bvh, row0=20, rows=40)
+    assert megakernel.variants["K1b/walk"] == 1
+    assert torch.equal(part[:28], walk[20:]) and not bool(part[28:].any())
+    part_k3 = gradkernel.launch(cp, sp, cfg, ct[20:], walk[20:], 0.0, bvh,
+                                row0=20, rows=28)
+    assert gradkernel.variants["K3/walk+slab"] == 1
+    assert torch.equal(part_k3[0], walk[20:])
+
+
+@needs_card
+def test_device_ms_reads_the_kernels_time():
+    """profiling.device_ms sums the kernel time of one render from a
+    torch.profiler trace of the card."""
+    cfg = RenderConfig(width=128, height=64, spp=4, depth=8)
+    scene = rt.test_world(device="cuda")
+    cam = _cam(cfg)
+    rt.render(scene, cam, cfg)
+    ms = profiling.device_ms(lambda: rt.render(scene, cam, cfg))
+    assert 0 < ms < 1000

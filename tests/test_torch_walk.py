@@ -1,0 +1,323 @@
+"""The port's skip-pointer BVH walk (K1d's plain version,
+golden.hit_world_walk, and every path that sweeps a BVH by it) on the CPU
+against raytpu's walk.
+
+raytpu takes the walk past ``_FLAT_MAX_LEAVES`` (64) leaves a copy and for
+unpadded BVHs: ``final_world(n=300)`` at leaf 4 has 75 leaves a copy, so
+both packages walk it by their own rule.  Elsewhere the walk is forced by
+``monkeypatch`` on ``raytpu.kernels.megakernel._FLAT_MAX_LEAVES`` and
+``gradkernel._FLAT_MAX_LEAVES`` (as raytpu's tests/test_dense.py does) and
+on ``raytpu_torch.bvh.FLAT_MAX_LEAVES``.  raytpu's kernels run in
+interpret mode.
+
+Tolerances:
+- winners: bit-exact against the scalar oracle ``closest_hit_numpy`` (f64)
+  and against the flat sweep and the brute sweep (through ``perm``), t and
+  normals bit-equal to the port's own sweeps;
+- images: |d| <= 3e-4 on at least 99.9% of pixels against raytpu's
+  ``render_pallas(..., bvh=, interpret=True)`` (the repo's cross-context
+  image budget; at 2 spp the pixels above it are those where raytpu's own
+  brute render differs from the port's, XLA's contraction of the ground
+  sphere's discriminant: 2 of 2048, up to 3.8e-4), bit-equal to the port's
+  flat-sweep and brute images (the walk enters the flat sweep's leaves in
+  its order: no tie can differ); K3's image against raytpu's VJP on 99%
+  (tests/test_torch_gradkernel.py's budget: at 1 spp one pixel of 512
+  differs by 5.3e-4 the same way);
+- gradients: 5e-3 of each leaf's largest entry against raytpu's
+  ``render_pallas_vjp`` (the port's gradient budget), every leaf, both RNG
+  modes, bit-equal to the port's flat-BVH gradients.  The cotangent is
+  zeroed on the pixels whose image differs from raytpu's by more than
+  3e-4: there XLA's and torch's rounding took another path, whose
+  gradient is another path's.  On ``final_world(n=48)`` at 32x16, 1 spp,
+  depth 3, sequential RNG, one pixel of 512 does (|d| 5.3e-4); with its
+  cotangent kept, the leaves differ by up to 1.1e-2 (origin) with the
+  cotangent of seed 4 and 1.7e-2 (radius) with seed 9, the same for the
+  walk and the brute sweep in both packages; with it zeroed, by at most
+  1.3e-3 (seed 4) and 9.7e-4 (seed 9).  World seeds 1 and 2 have no such
+  pixel: at most 4.4e-3 and 1.5e-3 (seed 4);
+- progressive batches, slabs and the tape replay: bit-equal.
+"""
+
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import raytpu
+from raytpu import bvh as jbvh
+from raytpu.config import RenderConfig
+from raytpu.kernels import gradkernel as jgk, megakernel as jmk
+import raytpu_torch as rt
+from raytpu_torch import bvh as tbvh, convert, golden, profiling, progressive
+from raytpu_torch.kernels import gradkernel as tgk, megakernel as tmk
+from test_torch_adjoint import GRAD_BUDGET, cotangent, leaf_errors
+
+LOOK = ((13.0, 2.0, 3.0), (0.0, 0.0, 0.0))
+
+
+def _np(nt):
+    return {k: np.asarray(v) for k, v in nt._asdict().items()}
+
+
+def _world(n, cfg):
+    scene = raytpu.final_world(n=n)
+    cam = raytpu.make_camera(*LOOK, vfov=20.0, aspect=cfg.aspect)
+    return (scene, cam, convert.scene_from_numpy(_np(scene), "cpu"),
+            convert.camera_from_numpy(_np(cam), "cpu"))
+
+
+def _rays(n=256, seed=3):
+    rs = np.random.default_rng(seed)
+    o = np.float32([13.0, 2.0, 3.0]) + rs.normal(0, 2.0, (n, 3))
+    o[: n // 4] = rs.uniform(-10, 10, (n // 4, 3)) * [1, 0.1, 1] + [0, 0.3, 0]
+    d = rs.normal(0, 1.0, (n, 3))
+    d[n // 4:] += -o[n // 4:] / 10
+    d[:4] = [[1, 0, 0], [0, -1, 0], [0, 0, 1], [-1, -1, -1]]
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def test_sweep_rule_and_forcing(monkeypatch):
+    """raytpu's rule: the flat sweep up to FLAT_MAX_LEAVES leaves a copy,
+    the walk past it and for unpadded BVHs; with_sweep forces either where
+    it applies, and the rule follows a monkeypatched threshold."""
+    cfg = RenderConfig(width=16, height=8, spp=1, depth=1)
+    _, _, scene, _ = _world(300, cfg)
+    small = tbvh.build_bvh(scene, leaf_size=16)
+    big = tbvh.build_bvh(scene, leaf_size=4)
+    loose = tbvh.build_bvh(scene, leaf_size=4, pad_leaves=False)
+    assert (small.n_leaves, big.n_leaves) == (19, 75)
+    assert [tbvh.sweep_of(b) for b in (small, big, loose)] == [
+        "flat", "walk", "walk"]
+    assert (big.copies, loose.copies) == (8, 1)
+    assert tbvh.sweep_of(tbvh.with_sweep(big, "flat")) == "flat"
+    assert tbvh.sweep_of(tbvh.with_sweep(small, "walk")) == "walk"
+    with pytest.raises(ValueError, match="flat sweep needs"):
+        tbvh.with_sweep(loose, "flat")
+    with pytest.raises(ValueError, match="unknown sweep"):
+        tbvh.with_sweep(small, "dense")
+    monkeypatch.setattr(tbvh, "FLAT_MAX_LEAVES", 0)
+    assert tbvh.sweep_of(small) == "walk"
+    # the walk's operands are checked, and the flat list that locates the
+    # outlier tail of a padded BVH
+    tmk.check_bvh(small, None, small.device)
+    tmk.check_bvh(loose, None, loose.device)
+    with pytest.raises(ValueError, match="outlier"):
+        tmk.check_bvh(dataclasses.replace(small, flat=None), None,
+                      small.device)
+    with pytest.raises(ValueError, match="bvh.nodes"):
+        tmk.check_bvh(dataclasses.replace(small, nodes=small.nodes.double()),
+                      None, small.device)
+    with pytest.raises(ValueError, match="bvh.nodes"):
+        tmk.check_bvh(dataclasses.replace(small, nodes=small.nodes[:-1]),
+                      None, small.device)
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+def test_walk_winners_bit_exact(padded):
+    """hit_world_walk on 256 rays (a quarter among the spheres, axis
+    aligned ones among them): its winners equal the scalar oracle's, the
+    flat sweep's and the brute sweep's; t and normals equal the port's own
+    sweeps' bit for bit; the census counts the boxes the walk tests."""
+    cfg = RenderConfig(width=16, height=8, spp=1, depth=1)
+    _, _, scene, _ = _world(300, cfg)
+    b = tbvh.build_bvh(scene, leaf_size=4, pad_leaves=padded)
+    assert tbvh.sweep_of(b) == "walk" and b.n_outliers == (1 if padded else 0)
+    ps = tbvh.permute_scene(scene, b.perm)
+    o, d = _rays()
+    ro = tuple(torch.from_numpy(o[:, i].copy()) for i in range(3))
+    rd = tuple(torch.from_numpy(d[:, i].copy()) for i in range(3))
+    counts = dict.fromkeys(golden.CENSUS, 0)
+    hit, t, idx, nrm, front = golden.hit_world_walk(
+        ps, b, ro, rd, 1e-3, census=counts, live=torch.ones(256, dtype=bool))
+    hits = 0
+    for i in range(256):
+        _, j = tbvh.closest_hit_numpy(
+            b.nodes.numpy()[: b.n_trav], ps.center.numpy(),
+            ps.radius.numpy(), o[i].astype(np.float64),
+            d[i].astype(np.float64), 1e-3, b.n_outliers)
+        assert (int(idx[i]) if hit[i] else -1) == j, i
+        hits += j >= 0
+    assert hits > 64 and not bool(hit.all())
+    want = golden.hit_world(scene, ro, rd, 1e-3)
+    assert torch.equal(hit, want[0]) and torch.equal(t, want[1])
+    assert torch.equal(b.perm[idx].long()[hit], want[2][hit])
+    for a, w in zip(nrm, want[3]):
+        assert torch.equal(a[hit], w[hit])
+    if padded:
+        flat = golden.hit_world_bvh(ps, b, ro, rd, 1e-3)
+        assert all(torch.equal(x, y) for x, y in zip(
+            (hit, t, idx, front), (flat[0], flat[1], flat[2], flat[4])))
+    assert 256 <= counts["nodes_visited"] <= 256 * b.n_trav
+    assert 0 < counts["leaves_entered"] < counts["nodes_visited"]
+    # only the live lanes walk: theirs are the winners above
+    live = torch.arange(256) % 2 == 0
+    counts_live = dict.fromkeys(golden.CENSUS, 0)
+    off = golden.hit_world_walk(ps, b, ro, rd, 1e-3, census=counts_live,
+                                live=live)
+    assert torch.equal(off[2][live], idx[live])
+    assert counts_live["nodes_visited"] < counts["nodes_visited"]
+
+
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_walk_render_matches_raytpu_walk(rng_mode):
+    """render(bvh=) over a BVH of 75 leaves a copy: the walk in both
+    packages.  Against raytpu's walk in interpret mode (parallel RNG; in
+    sequential RNG raytpu's XLA rounding flips a few paths on its brute
+    render too, tests/test_torch_bvh.py), and bit-equal to the port's flat
+    sweep on the same BVH, its brute sweep and its unpadded BVH (at 32x16
+    in sequential RNG, where raytpu is not called)."""
+    w, h = (64, 32) if rng_mode == "parallel" else (32, 16)
+    cfg = RenderConfig(width=w, height=h, spp=2, depth=3, rng_mode=rng_mode)
+    scene_j, cam_j, scene, cam = _world(300, cfg)
+    b = tbvh.build_bvh(scene, leaf_size=4)
+    before = dict(tmk.variants)
+    got = rt.render(scene, cam, cfg, bvh=b)
+    assert tmk.variants == before  # CPU tensors never reach the kernel
+    if rng_mode == "parallel":
+        b_j = jbvh.build_bvh(scene_j, leaf_size=4)
+        assert b_j.n_leaves > jmk._FLAT_MAX_LEAVES  # raytpu walks it too
+        want = np.asarray(jmk.render_pallas(scene_j, cam_j, cfg, bvh=b_j,
+                                            interpret=True))
+        d = np.abs(got.numpy() - want).max(axis=-1)
+        assert float((d > 3e-4).mean()) <= 1e-3, float(d.max())
+    assert torch.equal(got, rt.render(scene, cam, cfg,
+                                      bvh=tbvh.with_sweep(b, "flat")))
+    assert torch.equal(got, rt.render(scene, cam, cfg))
+    loose = tbvh.build_bvh(scene, leaf_size=4, pad_leaves=False)
+    assert torch.equal(got, rt.render(scene, cam, cfg, bvh=loose))
+
+
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_walk_vjp_and_render_grad_match_raytpu(rng_mode, monkeypatch):
+    """The VJP over the walk (raytpu's forced by _FLAT_MAX_LEAVES = 0, the
+    port's by FLAT_MAX_LEAVES = 0) against raytpu's render_pallas_vjp in
+    interpret mode on the same cotangents (seeds 4 and 9, zeroed where a
+    path flipped: module docstring); render_grad(bvh=) over the walk
+    (in parallel RNG taped: the walk's taping forward and replay) bit-equal
+    to the flat sweep's gradients on the same BVH."""
+    cfg = RenderConfig(width=32, height=16, spp=1, depth=3, rng_mode=rng_mode)
+    scene_j, cam_j, scene, cam = _world(48, cfg)
+    b_j = jbvh.build_bvh(scene_j, leaf_size=4)
+    img_j = np.asarray(raytpu.render(scene_j, cam_j, cfg, backend="golden"))
+    target = np.random.default_rng(5).uniform(
+        0, 1, (cfg.height, cfg.width, 3)).astype(np.float32)
+    monkeypatch.setattr(jmk, "_FLAT_MAX_LEAVES", 0)
+    monkeypatch.setattr(jgk, "_FLAT_MAX_LEAVES", 0)
+    b = tbvh.build_bvh(scene, leaf_size=4)
+    flat_grads = rt.render_grad(scene, cam, cfg, target, bvh=b)
+    flipped = np.abs(flat_grads[1].numpy() - img_j).max(axis=-1) > 3e-4
+    assert float(flipped.mean()) <= 0.01
+    monkeypatch.setattr(tbvh, "FLAT_MAX_LEAVES", 0)
+    assert tbvh.sweep_of(b) == "walk"
+    for seed in (4, 9):
+        ct = np.where(flipped[..., None], np.float32(0),
+                      cotangent(img_j, seed=seed))
+        want = jgk.render_pallas_vjp(scene_j, cam_j, cfg, jnp.asarray(ct),
+                                     bvh=b_j, interpret=True)
+        img, ds, dc = tgk.render_vjp(scene, cam, cfg, torch.from_numpy(ct),
+                                     bvh=b)
+        d = np.abs(img.numpy() - np.asarray(want[0])).max(axis=-1)
+        assert float((d > 3e-4).mean()) <= 0.01, float(d.max())
+        errs = leaf_errors(ds, dc, want[1], want[2])
+        assert max(errs.values()) <= GRAD_BUDGET, (seed, errs)
+    assert (tgk.tape_plan(cfg, scene.count, b) is None) == (
+        rng_mode == "sequential")
+    loss, img_w, (gs, gc) = rt.render_grad(scene, cam, cfg, target, bvh=b)
+    assert float(loss) == float(flat_grads[0])
+    assert torch.equal(img_w, flat_grads[1])
+    for k in ("center", "radius", "albedo", "mat_param"):
+        assert torch.equal(getattr(gs, k), getattr(flat_grads[2][0], k)), k
+    for a, w in zip(gc, flat_grads[2][1]):
+        assert torch.equal(a, w)
+
+
+def test_walk_partial_tape_replay_walks_past_the_cap():
+    """A partial tape over the walk: steps past g_cap are walked; the
+    gradients equal the untaped ones and the taping forward's image the
+    plain render's, bit for bit."""
+    cfg = RenderConfig(width=24, height=12, spp=2, depth=3,
+                       rng_mode="parallel")
+    _, _, scene, cam = _world(300, cfg)
+    b = tbvh.build_bvh(scene, leaf_size=4)
+    ct = torch.from_numpy(cotangent(np.zeros((12, 24, 3), np.float32), 2))
+    img, tape = tgk.render_tape_fwd(scene, cam, cfg, 2, b)
+    assert torch.equal(img, rt.render(scene, cam, cfg, bvh=b))
+    full = tgk.render_vjp(scene, cam, cfg, ct, img=img, bvh=b)
+    part = tgk.render_vjp(scene, cam, cfg, ct, img=img, bvh=b, tape=tape,
+                          tape_partial=True)
+    for out in (full, part):
+        assert torch.equal(out[0], img)
+    for k in ("center", "radius", "albedo", "mat_param"):
+        assert torch.equal(getattr(part[1], k), getattr(full[1], k)), k
+    for a, w in zip(part[2], full[2]):
+        assert torch.equal(a, w)
+
+
+def test_walk_progressive_batches_and_slabs():
+    """accumulate in 1 + 2 batches over the walk equals one batch of 3;
+    a slab rendered over the walk equals the full frame's rows; the census
+    counts the flat sweep's leaves and steps over the walk, and the walk's
+    box tests are the nodes it visits."""
+    cfg = RenderConfig(width=24, height=12, spp=3, depth=3,
+                       rng_mode="sequential")
+    _, _, scene, cam = _world(300, cfg)
+    b = tbvh.build_bvh(scene, leaf_size=4)
+    init = progressive.init_state(cfg, device="cpu")
+    one = progressive.accumulate(scene, cam, cfg, init, 3, bvh=b)
+    st = progressive.accumulate(scene, cam, cfg, init, 1, bvh=b)
+    st = progressive.accumulate(scene, cam, cfg, st, 2, bvh=b)
+    assert torch.equal(st.acc, one.acc) and torch.equal(st.seed, one.seed)
+    assert torch.equal(progressive.image(st, cfg),
+                       rt.render(scene, cam, cfg, bvh=b))
+    full = rt.render(scene, cam, cfg, bvh=b)
+    part = tmk.render_fwd(scene, cam, cfg, bvh=b, row0=5, rows=9)
+    assert torch.equal(part[:7], full[5:]) and not bool(part[7:].any())
+    walk = profiling.census(scene, cam, cfg, b)
+    flat = profiling.census(scene, cam, cfg, tbvh.with_sweep(b, "flat"))
+    for k in ("leaves_entered", "bounce_steps", "samples", "sphere_tests"):
+        assert walk[k] == flat[k], k
+    assert flat["nodes_visited"] == 0
+    assert walk["box_tests"] == walk["nodes_visited"] > 0
+    assert walk["box_tests"] < flat["box_tests"]
+
+
+def test_refit_bvh_walks_every_node():
+    """After refit the interior boxes always enter: the walk visits every
+    node of its copy on every step, and still gives the image."""
+    cfg = RenderConfig(width=16, height=8, spp=1, depth=2)
+    _, _, scene, cam = _world(300, cfg)
+    b = tbvh.refit(tbvh.build_bvh(scene, leaf_size=4), scene)
+    c = profiling.census(scene, cam, cfg, b)
+    assert c["nodes_visited"] == c["bounce_steps"] * b.n_trav
+    assert torch.equal(rt.render(scene, cam, cfg, bvh=b),
+                       rt.render(scene, cam, cfg))
+
+
+def test_walk_reaches_sharded_progressive_and_train_step():
+    """The walk reaches the other entry points through the wrappers:
+    render_sharded and render_progressive over a BVH of 75 leaves a copy
+    equal render(); a train step (refit each step: the walk then enters
+    every interior node) equals the step over the same BVH forced flat, bit
+    for bit."""
+    from raytpu_torch import shard
+    cfg = RenderConfig(width=24, height=12, spp=2, depth=3,
+                       rng_mode="parallel")
+    _, _, scene, cam = _world(300, cfg)
+    b = tbvh.build_bvh(scene, leaf_size=4)
+    assert tbvh.sweep_of(b) == "walk"
+    img = rt.render(scene, cam, cfg, bvh=b)
+    assert torch.equal(shard.render_sharded(scene, cam, cfg, bvh=b), img)
+    for _, last in progressive.render_progressive(scene, cam, cfg, batch=1,
+                                                  bvh=b):
+        pass
+    assert torch.equal(last, img)
+    target = torch.from_numpy(np.random.default_rng(6).uniform(
+        0, 1, (12, 24, 3)).astype(np.float32))
+    runs = []
+    for bvh in (b, tbvh.with_sweep(b, "flat")):
+        s, c, loss = shard.make_train_step(cfg, bvh=bvh)(scene, cam, target)
+        runs.append([loss, *s[:2], *s[3:], *c])
+    for a, w in zip(*runs):
+        assert torch.equal(a, w)
