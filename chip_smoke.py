@@ -3,13 +3,15 @@
     python3 chip_smoke.py
 
 Needs a CUDA card and nvcc; builds the port's CUDA kernels from
-``raytpu_torch/csrc/`` (the forward megakernels K1a / K1b / K1c / K1d / K1' /
-K2 / K4-write and the fused VJP kernel K3 with its BVH (flat and walk),
-tape-replay and slab variants, one nvcc each, in parallel) and the host BVH builder (g++), and
-drives ``raytpu_torch``'s paths: the forward render and the gradient path
-(autograd through ``render``, ``render_grad``, ``optim.optimize``), brute
-and over a BVH, taped and not, the progressive render with its checkpoints
-and the sharded render and train step over a ``torch.distributed`` group.  It imports nothing of JAX or of
+``raytpu_torch/csrc/`` (the forward megakernels K1a / K1b / K1c / K1d / K1e /
+K1' / K2 / K4-write, the fused VJP kernel K3 with its BVH (flat and walk),
+tape-replay and slab variants and the wavefront's segment kernels K5 / K6,
+one nvcc a source, in parallel) and the host BVH builder (g++), and drives
+``raytpu_torch``'s paths: the forward render and the gradient path
+(autograd through ``render``, ``render_grad``, ``optim.optimize``), brute,
+dense and over a BVH, taped and not, the progressive render with its
+checkpoints, the sharded render and train step over a
+``torch.distributed`` group and the sorted wavefront.  It imports nothing of JAX or of
 ``raytpu``, and uses one card (the first that CUDA_VISIBLE_DEVICES names,
 card 0 without it).  Phases, one JSON line each:
 
@@ -20,8 +22,9 @@ card 0 without it).  Phases, one JSON line each:
     cotangent within the budget below;
 2c. ``python -m raytpu_torch.cli gradcheck --device cuda`` in a subprocess;
 3.  the forward path: ``render`` at the full REFERENCE_V2 frame (1024x576,
-    60 spp, depth 50, random_world) with the launch counter checked, then
-    the same frame through the CLI in a subprocess;
+    60 spp, depth 50, random_world: 327 spheres, so the dense stage K1e)
+    with the launches by variant checked, then the same frame through the
+    CLI in a subprocess;
 3b. the gradient path at full CONFIG3 (400x200, 20 spp, depth 12) on the
     config-3 inverse-rendering problem: one ``render_grad`` with silhouette
     gradients, then 20 Adam steps of ``optim.optimize`` on the hero
@@ -93,6 +96,24 @@ card 0 without it).  Phases, one JSON line each:
     7f. times: K1d, K1c forced, K1a, fwd+bwd taped and untaped, the walk's
         census (nodes and leaves a step), and the walk forced on config 4's
         8-leaf BVH against K1c there (where raytpu's 64-leaf rule stands).
+8.  the dense stage K1e and the sorted wavefront (K5, K6):
+    8a. K1e against K1a forced at the full REFERENCE_V2 frame (0 pixels
+        differ) and against its plain version at 2 spp;
+    8b. every K5 launch of a ``render(backend="wavefront")`` frame against
+        its plain version, bit for bit, brute (config 2's scene), dense
+        (REFERENCE_V2's), flat BVH (config 4's) and walk (the 10k scene),
+        both RNG modes, and every K6 launch of a ``refill=2`` frame
+        (parallel RNG), at frames where the plain calls take seconds;
+    8c. the main path at full width: ``render(backend="wavefront")`` at
+        REFERENCE_V2, config 2, config 4 (sequential; parallel with
+        ``refill=2`` at 1 and 4 samples in flight) and the 10k scene,
+        against ``render()`` (bit-equal at one slot a pixel), with their
+        launches by variant; ``render_grad(backend="wavefront")``; a
+        wavefront image's K3 gradients; ``cli render --backend wavefront
+        --refill 2`` (PNG byte-equal);
+    8d. times: K1e against K1a, the wavefront against the megakernel per
+        frame, and where a wavefront frame's device time goes (segments,
+        sorts, gathers, the rest) with the device's idle share.
 
 It exits non-zero at the first failure.  The line before the last is the
 kernel table as JSON, the line before it the card's name and power limit,
@@ -334,17 +355,17 @@ def recording(module, name: str, calls: list):
         setattr(module, name, fn)
 
 
-def reset_counts(megakernel, gradkernel) -> None:
-    megakernel.launches = gradkernel.launches = 0
-    for d in (megakernel.variants, gradkernel.variants):
-        for k in d:
-            d[k] = 0
+def reset_counts(*modules) -> None:
+    """Zero the launch counts of the kernel wrapper ``modules``."""
+    for m in modules:
+        m.launches = 0
+        for k in m.variants:
+            m.variants[k] = 0
 
 
-def variant_counts(megakernel, gradkernel) -> dict:
+def variant_counts(*modules) -> dict:
     """The launches by variant since the last reset_counts, nonzero only."""
-    return {k: v for d in (megakernel.variants, gradkernel.variants)
-            for k, v in d.items() if v}
+    return {k: v for m in modules for k, v in m.variants.items() if v}
 
 
 def tape_pairs(dev, card: str) -> dict:
@@ -451,7 +472,7 @@ def config4_phases(dev, card: str) -> list:
     want, k1c_plain_ms = once_ms(lambda: golden.render_golden(
         scene, cam, cfg2.replace(**plain), bvh))
     res = compare(k1c2, want)
-    k1a4 = megakernel.launch(cp, sp, cfg4)
+    k1a4 = megakernel.launch(cp, sp, cfg4, brute=True)
     k1c4 = megakernel.launch(cp, spv, cfg4, bvh)
     differ = int((k1a4 != k1c4).any(dim=-1).sum())
     ok = res["share_above_budget"] <= BUDGET_SHARE and differ <= TIE_SHARE * npix
@@ -555,7 +576,7 @@ def config4_phases(dev, card: str) -> list:
     img_tb = megakernel.launch(cp, spv, cfg4p, bvh, tape=tape4)
     img_ta = megakernel.launch(cp, sp, cfg4p, tape=tape4_b)
     k1c4p = megakernel.launch(cp, spv, cfg4p, bvh)
-    k1a4p = megakernel.launch(cp, sp, cfg4p)
+    k1a4p = megakernel.launch(cp, sp, cfg4p, brute=True)
     row = {"frame": "800x400 spp100 d12 parallel",
            "tape_bvh_img_bit_equal_k1c": torch.equal(img_tb, k1c4p),
            "tape_brute_img_bit_equal_k1a": torch.equal(img_ta, k1a4p),
@@ -736,7 +757,8 @@ def config4_phases(dev, card: str) -> list:
 
     # -- 5g: times at full config 4 (CUDA events, after a warm-up call)
     t = {"card": card}
-    t["fwd_k1a_ms"] = cuda_ms(lambda: megakernel.launch(cp, sp, cfg4), 3)
+    t["fwd_k1a_ms"] = cuda_ms(lambda: megakernel.launch(cp, sp, cfg4,
+                                                        brute=True), 3)
     t["fwd_k1c_ms"] = cuda_ms(lambda: megakernel.launch(cp, spv, cfg4, bvh),
                               3)
     t["census_k1prime_ms"] = cuda_ms(lambda: megakernel.launch(
@@ -1399,6 +1421,7 @@ def config5_phases(dev, card: str) -> dict:
             if not ok:
                 fail(f"the sharded path on one card: {row}")
             main_times = slab_main_times(cfg, scene, cam, bvh, card)
+            dist.barrier()  # every rank done before the teardown
         finally:
             dist.destroy_process_group()
     # each slab kernel on the main path's slab (a world of one: rows
@@ -1933,6 +1956,350 @@ def large_scene_phases(dev, card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 8: the sorted wavefront (K5, K6) and the dense stage K1e
+# the planes a launch reads and writes, bytes a slot: K5 14 in, 14 + the
+# key out; K6 16 ride + 3 aux in, 16 out
+PLANE_BYTES = {"K5": (14 + 15) * 4, "K6": (16 + 3 + 16) * 4}
+SEED_PLANE = {"K5": 13, "K6": 12}  # the u32 bits, compared bit for bit
+
+
+def planes_vs_plain(kernel: str, got: torch.Tensor,
+                    want: torch.Tensor) -> tuple[bool, float]:
+    """(bit-equal, max |d| over the float planes) of a segment kernel's
+    planes against its plain version's; the seed plane compares bits."""
+    i = SEED_PLANE[kernel]
+    bits = torch.equal(got[i].view(torch.int32), want[i].view(torch.int32))
+    rest = [k for k in range(got.shape[0]) if k != i]
+    a, b = got[rest], want[rest]
+    same = bits and bool((a == b).all())
+    return same, float((a - b).abs().max())
+
+
+def segments_vs_plain(label, scene, cam, cfg, bvh, refill: int,
+                      card: str) -> dict:
+    """Phase 8b, one case: every K5 (or, with ``refill``, K6) launch of
+    ``render(backend="wavefront")`` against its plain version on the same
+    planes; the image against ``render()``'s -> a row with the launches'
+    summed kernel and plain times and their bound (the frame's census, the
+    planes' bytes)."""
+    import raytpu_torch as rt
+    from raytpu_torch import profiling, wavefront as wf
+    from raytpu_torch.kernels import wavefront as kwf
+    kernel = "K6" if refill else "K5"
+    name = "launch_refill_segment" if refill else "launch_segment"
+    plain = wf.refill_segment_plain if refill else wf.segment_plain
+    calls = []
+    with recording(kwf, name, calls):
+        img = rt.render(scene, cam, cfg, backend="wavefront", bvh=bvh,
+                        refill=refill)
+    torch.cuda.synchronize()
+    ref = rt.render(scene, cam, cfg, bvh=bvh)
+    fn = getattr(kwf, name)
+    same, worst, k_ms, p_ms = True, 0.0, 0.0, 0.0
+    for b, out in calls:
+        want, ms = once_ms(lambda: plain(*b.args))
+        eq, err = planes_vs_plain(kernel, out, want)
+        same, worst, p_ms = same and eq, max(worst, err), p_ms + ms
+        k_ms += cuda_ms(lambda: fn(*b.args), 2)
+        del want
+    c = profiling.census(scene, cam, cfg, bvh)
+    slots = calls[0][0].args[1].shape[1]
+    ops = (c["sphere_tests"] * OPS_SPHERE_TEST + c["box_tests"] * OPS_BOX_TEST
+           + c["bounce_steps"] * OPS_STEP
+           + (c["samples"] * OPS_SAMPLE if refill else 0))
+    nbytes = (len(calls) * slots * PLANE_BYTES[kernel] + 9 * 4 * scene.count
+              + (0 if bvh is None else max(bvh.nodes.numel(),
+                                           bvh.flat.numel()) * 4))
+    row = {"case": label, "kernel": kernel, "frame": f"{cfg.width}x"
+           f"{cfg.height} spp{cfg.spp} d{cfg.depth} {cfg.rng_mode}",
+           "policy": calls[0][0].args[0].policy, "launches": len(calls),
+           "slots": slots, "bit_equal_plain": same, "max_abs_err": worst,
+           "image_bit_equal_render": torch.equal(img, ref), "ms": k_ms,
+           "plain_ms": p_ms, "card": card, **bound(ops, nbytes)}
+    ok = same and row["image_bit_equal_render"]
+    phase("segment_vs_plain", ok=ok, tolerance="bit-equal planes and keys "
+          "(the seed plane's bits); image bit-equal to render()", **row)
+    if not ok:
+        fail(f"{kernel} disagrees with its plain version ({label}): {row}")
+    del calls
+    return row
+
+
+def wavefront_breakdown(fn, frame_ms: float) -> dict:
+    """Where one wavefront frame's device time goes, from a torch.profiler
+    trace of ``fn()``: the segment kernels, the sorts (torch.sort's radix
+    kernels), the gathers and scatters of the planes, the rest (raygen,
+    keys' bounds, gamma: elementwise kernels); the traced call's host wall
+    time (the profiler slows the host) and the device's idle share of
+    ``frame_ms``, the frame's time without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    parts = {"segments_ms": 0.0, "sorts_ms": 0.0, "gathers_ms": 0.0,
+             "other_ms": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms, k = e.self_device_time_total / 1e3, e.key.lower()
+        if "segment_kernel" in k or "refill_kernel" in k:
+            parts["segments_ms"] += ms
+        elif "sort" in k or "radix" in k or "scan" in k:
+            parts["sorts_ms"] += ms
+        elif "index" in k or "gather" in k or "scatter" in k:
+            parts["gathers_ms"] += ms
+        else:
+            parts["other_ms"] += ms
+    busy = sum(parts.values())
+    return dict(parts, device_ms=busy, traced_wall_ms=wall,
+                frame_ms=frame_ms, idle_share=max(0.0, 1.0 - busy / frame_ms))
+
+
+def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
+    """Phases 8a-8d (see the module docstring) -> the kernel table's
+    entries K1e, K5/{brute,dense,bvh,walk} and K6/bvh, each with its
+    launches on its main path.  ``rv2_img``: phase 3's REFERENCE_V2
+    render()."""
+    import raytpu_torch as rt
+    from raytpu_torch import bvh as tbvh, golden, io
+    from raytpu_torch.config import CONFIG2, CONFIG4, REFERENCE_V2, \
+        RenderConfig
+    from raytpu_torch.kernels import gradkernel, megakernel
+    from raytpu_torch.kernels import wavefront as kwf
+    mods = (megakernel, gradkernel, kwf)
+    entries = {}
+
+    # -- 8a: K1e against K1a forced and its plain version, REFERENCE_V2
+    cfg = REFERENCE_V2
+    rv2 = rt.random_world(device=dev)
+    cam_rv2 = rt.reference_camera_v2(cfg.aspect, device=dev)
+    cp, sp = megakernel.pack_camera(cam_rv2), megakernel.pack_scene(rv2)
+    k1e = megakernel.launch(cp, sp, cfg)
+    k1a = megakernel.launch(cp, sp, cfg, brute=True)
+    cfg2 = cfg.replace(spp=2, chunk_pixels=PLAIN_CHUNK)
+    k1e2 = megakernel.launch(cp, sp, cfg2)
+    want, plain_ms = once_ms(lambda: golden.render_golden(rv2, cam_rv2,
+                                                          cfg2))
+    res = compare(k1e2, want)
+    t = {"k1e_ms": cuda_ms(lambda: megakernel.launch(cp, sp, cfg), 3),
+         "k1a_ms": cuda_ms(lambda: megakernel.launch(cp, sp, cfg,
+                                                     brute=True), 3),
+         "k1e_spp2_ms": cuda_ms(lambda: megakernel.launch(cp, sp, cfg2), 5),
+         "k1a_spp2_ms": cuda_ms(lambda: megakernel.launch(
+             cp, sp, cfg2, brute=True), 5)}
+    c2, cf = slab_census(rv2, cam_rv2, cfg2, None), \
+        slab_census(rv2, cam_rv2, cfg, None)
+    row = {"k1e_vs_k1a_full_frame_pixels_differ": int(
+        (k1e != k1a).any(-1).sum()),
+        "k1e_bit_equal_render": torch.equal(k1e, rv2_img), **res,
+        "plain_ms": plain_ms, "card": card, **t,
+        "bound_full_ms": bound(forward_ops(cf), frame_bytes(cfg, rv2.count,
+                                                            1))["bound_ms"]}
+    ok = (row["k1e_vs_k1a_full_frame_pixels_differ"] == 0
+          and row["k1e_bit_equal_render"]
+          and res["share_above_budget"] <= BUDGET_SHARE)
+    phase("k1e_vs_k1a", frame="1024x576 spp60 d50 random_world (plain: "
+          "spp2)", ok=ok, tolerance="0 pixels differ from K1a; plain: share "
+          f"|d| > {BUDGET_DELTA} <= {BUDGET_SHARE}", **row)
+    if not ok:
+        fail(f"K1e disagrees with K1a or its plain version: {row}")
+    entries["K1e"] = dict(
+        max_abs_err=res["max_abs_err"], ms=t["k1e_spp2_ms"],
+        plain_ms=plain_ms, k1a_ms=t["k1a_spp2_ms"],
+        **bound(forward_ops(c2), frame_bytes(cfg2, rv2.count, 1)),
+        main_path_ms=t["k1e_ms"], main_path_k1a_ms=t["k1a_ms"],
+        main_path_bound_ms=row["bound_full_ms"])
+    del k1e, k1a, k1e2, want
+
+    # the other scenes: config 2 (4 spheres), config 4 over its BVH (flat),
+    # the 10k scene over its BVH (the walk)
+    c2w = rt.config2_world(device=dev)
+    cam2 = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                          aspect=CONFIG2.aspect, device=dev)
+    s4 = rt.final_world(device=dev)
+    cam4 = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                          aspect=CONFIG4.aspect, device=dev)
+    b4 = rt.build_bvh(s4, leaf_size=LEAF)
+    s10 = rt.make_scene(big_world(BIG_SPHERES), dev)
+    b10 = rt.build_bvh(s10, leaf_size=LEAF)
+    if (tbvh.sweep_of(b4), tbvh.sweep_of(b10)) != ("flat", "walk"):
+        fail("config 4's BVH must take the flat sweep, the 10k scene's the "
+             "walk")
+
+    # -- 8b: K5 and K6 against their plain versions, launch by launch
+    cases = (("brute", c2w, cam2, CONFIG2.replace(width=200, height=100,
+                                                  spp=2), None),
+             ("dense", rv2, cam_rv2, cfg.replace(width=256, height=144,
+                                                 spp=2), None),
+             ("bvh", s4, cam4, CONFIG4.replace(width=200, height=100,
+                                               spp=2), b4),
+             ("walk", s10, cam4, CONFIG4.replace(width=128, height=64,
+                                                 spp=2), b10))
+    seg_rows = {}
+    for label, scene, cam, c, b in cases:
+        for mode in ("sequential", "parallel"):
+            cm = c.replace(rng_mode=mode, chunk_pixels=PLAIN_CHUNK)
+            seg_rows[(label, mode, 0)] = segments_vs_plain(
+                label, scene, cam, cm, b, 0, card)
+        seg_rows[(label, "parallel", 2)] = segments_vs_plain(
+            label, scene, cam, cm, b, 2, card)
+
+    # -- 8c: the main path at full width, through the entry points
+    cfg4, cfg4p = CONFIG4, CONFIG4.replace(rng_mode="parallel")
+    cfg10 = RenderConfig(width=800, height=400, spp=20, depth=12,
+                         rng_mode="parallel")
+    runs = (("reference_v2", rv2, cam_rv2, cfg, None, {}, rv2_img),
+            ("config2", c2w, cam2, CONFIG2, None, {}, None),
+            ("config4", s4, cam4, cfg4, b4, {}, None),
+            ("config4_refill2", s4, cam4, cfg4p, b4, {"refill": 2}, None),
+            ("config4_refill2_spp_batch4", s4, cam4, cfg4p, b4,
+             {"refill": 2, "spp_batch": 4}, None),
+            ("10k", s10, cam4, cfg10, b10, {}, None))
+    launches, main, frames = {}, {}, {}
+    for label, scene, cam, c, b, kw, ref in runs:
+        reset_counts(*mods)
+        img = rt.render(scene, cam, c, backend="wavefront", bvh=b, **kw)
+        torch.cuda.synchronize()
+        launches[label] = variant_counts(*mods)
+        if ref is None:
+            ref = rt.render(scene, cam, c, bvh=b)
+        d = float((img - ref).abs().max())
+        main[label] = {"bit_equal_render": torch.equal(img, ref),
+                       "max_abs_vs_render": d, "mean": float(img.mean()),
+                       "finite": bool(torch.isfinite(img).all())}
+        frames[label] = img
+    # render_grad through the wavefront backend: the kernel path
+    gen = torch.Generator().manual_seed(7)
+    target = torch.rand((cfg4.height, cfg4.width, 3), generator=gen).to(dev)
+    reset_counts(*mods)
+    got = rt.render_grad(s4, cam4, cfg4p, target, backend="wavefront",
+                         bvh=b4)
+    torch.cuda.synchronize()
+    launches["render_grad"] = variant_counts(*mods)
+    want = rt.render_grad(s4, cam4, cfg4p, target, bvh=b4)
+    # the same kernels twice: K3's f64 atomics add in no fixed order
+    rg_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                  1e-12)
+                 for a, b in zip(flat_grads((got[1], *got[2])),
+                                 flat_grads((want[1], *want[2]))))
+    rg_img_equal = torch.equal(got[1], want[1])
+    # a wavefront image under autograd: its backward is K3 (PASS 1 elided)
+    small = cfg4p.replace(spp=2)
+    leaves = [x.detach().requires_grad_() for x in
+              (s4.center, s4.radius, s4.albedo, s4.mat_param, *cam4)]
+    ws = rt.Scene(leaves[0], leaves[1], s4.mat_type, leaves[2], leaves[3])
+    reset_counts(*mods)
+    wimg = rt.render(ws, rt.Camera(*leaves[4:]), small, backend="wavefront",
+                     bvh=b4)
+    ct = 2.0 * (wimg.detach() - target) / wimg.numel()
+    wg = torch.autograd.grad(wimg, leaves, ct)
+    torch.cuda.synchronize()
+    launches["wavefront_autograd"] = variant_counts(*mods)
+    fimg = megakernel.render_fwd(ws, rt.Camera(*leaves[4:]), small, bvh=b4)
+    fg = torch.autograd.grad(fimg, leaves, ct)
+    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-12)
+                   for a, b in zip(wg, fg))
+    del leaves, ws, wg, fg, wimg, fimg
+    tmp = tempfile.mkdtemp()
+    try:
+        png = os.path.join(tmp, "wavefront.png")
+        cmd = [sys.executable, "-m", "raytpu_torch.cli", "render", "--scene",
+               "final", "--bvh", "--width", str(cfg4p.width), "--height",
+               str(cfg4p.height), "--spp", str(cfg4p.spp), "--depth",
+               str(cfg4p.depth), "--rng-mode", "parallel", "--backend",
+               "wavefront", "--refill", "2", "--device", "cuda", "--out", png]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            fail(f"CLI --backend wavefront exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        ref = os.path.join(tmp, "in_process.png")
+        io.save_png(ref, frames["config4_refill2"].cpu().numpy())
+        with open(png, "rb") as f, open(ref, "rb") as g:
+            cli_same = f.read() == g.read()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_launches = {
+        "reference_v2": {"K5/dense": cfg.spp * 3},
+        "config2": {"K5/brute": CONFIG2.spp * 2},
+        "config4": {"K5/bvh": cfg4.spp * 2},
+        "10k": {"K5/walk": cfg10.spp * 2},
+        "render_grad": {"K4/bvh": 1, "K3/bvh+tape": 1},
+        "wavefront_autograd": {"K5/bvh": small.spp * 2, "K3/bvh": 1}}
+    rounds = {k: launches[k].get("K6/bvh", 0) for k in
+              ("config4_refill2", "config4_refill2_spp_batch4")}
+    row = {"launches": launches, "runs": main,
+           "render_grad_vs_auto_rel": rg_rel,
+           "render_grad_img_bit_equal": rg_img_equal,
+           "wavefront_autograd_vs_render_fwd_grads_rel": grad_rel,
+           "cli_png_identical_to_render": cli_same,
+           "command": " ".join(cmd[1:-1])}
+    ok = (all(launches[k] == v for k, v in want_launches.items())
+          and all(launches[k] == {"K6/bvh": rounds[k]} and rounds[k] > 0
+                  for k in rounds)
+          and all(r["finite"] for r in main.values())
+          and all(main[k]["bit_equal_render"] for k in main
+                  if "spp_batch" not in k)
+          and main["config4_refill2_spp_batch4"]["max_abs_vs_render"] <= 1e-6
+          and rg_img_equal and rg_rel <= 1e-6 and grad_rel <= 1e-6
+          and cli_same)
+    phase("main_path_wavefront", ok=ok, card=card,
+          tolerance="images bit-equal to render() at one slot a pixel, "
+                    "within 1e-6 with 4; render_grad(backend='wavefront') "
+                    "and a wavefront image's K3 gradients within 1e-6 of "
+                    "each leaf's largest against the kernel path's", **row)
+    if not ok:
+        fail(f"the wavefront's main path: {row}")
+    del frames
+
+    # -- 8d: times, the wavefront against the megakernel
+    t = {"card": card}
+    for label, scene, cam, c, b, kw, _ in runs:
+        _, t[f"{label}_wavefront_ms"] = once_ms(lambda: rt.render(
+            scene, cam, c, backend="wavefront", bvh=b, **kw))
+        t[f"{label}_megakernel_ms"] = cuda_ms(lambda: rt.render(
+            scene, cam, c, bvh=b), 2)
+        t[f"{label}_ratio"] = (t[f"{label}_wavefront_ms"]
+                               / t[f"{label}_megakernel_ms"])
+    for label, scene, cam, c, b, kw, _ in runs[:4] + runs[5:]:
+        t[f"{label}_breakdown"] = wavefront_breakdown(lambda: rt.render(
+            scene, cam, c, backend="wavefront", bvh=b, **kw),
+            t[f"{label}_wavefront_ms"])
+    t.update(k1e_ms=entries["K1e"]["main_path_ms"],
+             k1a_ms=entries["K1e"]["main_path_k1a_ms"])
+    phase("timing_wavefront", frame="REFERENCE_V2, config 2, config 4 "
+          "(sequential; parallel for refill), the 10k scene (parallel)", **t)
+
+    for policy, main_run in (("brute", "config2"), ("dense", "reference_v2"),
+                             ("bvh", "config4"), ("walk", "10k")):
+        r = seg_rows[(policy, "parallel", 0)]
+        err = max(seg_rows[(policy, m, 0)]["max_abs_err"]
+                  for m in ("sequential", "parallel"))
+        entries[f"K5/{policy}"] = dict(
+            cell=f"{r['frame']}, all {r['launches']} launches of a frame "
+                 f"summed (error: both RNG modes); main path: {main_run}",
+            launches=launches[main_run][f"K5/{policy}"], max_abs_err=err,
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"],
+            main_path_frame_ms=t[f"{main_run}_wavefront_ms"])
+    r = seg_rows[("bvh", "parallel", 2)]
+    entries["K6/bvh"] = dict(
+        cell=f"{r['frame']}, refill 2, all {r['launches']} launches of a "
+             "frame summed; main path: config 4 parallel, refill 2",
+        launches=rounds["config4_refill2"], max_abs_err=r["max_abs_err"],
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"],
+        other_policies_bit_equal={p: seg_rows[(p, "parallel", 2)][
+            "bit_equal_plain"] for p in ("brute", "dense", "walk")},
+        main_path_frame_ms=t["config4_refill2_wavefront_ms"])
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -1942,16 +2309,17 @@ def main() -> None:
     from raytpu_torch.config import CONFIG2, CONFIG3, REFERENCE_V1, \
         REFERENCE_V2, RenderConfig
     from raytpu_torch.kernels import _build, gradkernel, megakernel
+    from raytpu_torch.kernels import wavefront as kwf
 
     dev = torch.device("cuda", 0)
     card = card_line()
     phase("setup", card=card, torch=torch.__version__,
           cuda=torch.version.cuda, capability=torch.cuda.get_device_capability(0))
     t0 = time.perf_counter()
-    _build.load_all([megakernel.SOURCE, gradkernel.SOURCE])
+    sources = [megakernel.SOURCE, gradkernel.SOURCE, kwf.SOURCE]
+    _build.load_all(sources)
     phase("build", seconds=time.perf_counter() - t0,
-          ptxas={src: _build.build_log[src]["ptxas"]
-                 for src in (megakernel.SOURCE, gradkernel.SOURCE)})
+          ptxas={src: _build.build_log[src]["ptxas"] for src in sources})
 
     def v2_cam(cfg):
         return rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
@@ -1983,7 +2351,7 @@ def main() -> None:
     worst = 0.0
     for name, cfg, scene, cam, tol in cases:
         got = megakernel.launch(megakernel.pack_camera(cam),
-                                megakernel.pack_scene(scene), cfg)
+                                megakernel.pack_scene(scene), cfg, brute=True)
         want = golden.render_golden(scene, cam,
                                     cfg.replace(chunk_pixels=PLAIN_CHUNK))
         torch.cuda.synchronize()
@@ -2025,7 +2393,7 @@ def main() -> None:
     k3_worst_rel, k3_worst_abs = 0.0, 0.0
     for name, cfg, scene, cam, vis_w, target in vjp_cases:
         img = megakernel.launch(megakernel.pack_camera(cam),
-                                megakernel.pack_scene(scene), cfg)
+                                megakernel.pack_scene(scene), cfg, brute=True)
         if target is None:  # a fixed target from a seed
             gen = torch.Generator().manual_seed(7)
             target = torch.rand(img.shape, generator=gen).to(dev)
@@ -2090,22 +2458,25 @@ def main() -> None:
     cfg = REFERENCE_V2
     scene = rt.random_world(device=dev)
     cam = rt.reference_camera_v2(cfg.aspect, device=dev)
-    megakernel.launches = 0
-    gradkernel.launches = 0
+    reset_counts(megakernel, gradkernel)
     img = rt.render(scene, cam, cfg, backend="auto")
     torch.cuda.synchronize()
     fwd_launches = (megakernel.launches, gradkernel.launches)
+    fwd_variants = variant_counts(megakernel, gradkernel)
+    rv2_img = img
     band = (0.45, 0.75)  # mean of this frame (plain version, 128x72 4 spp: 0.61)
     mean = float(img.mean())
     share_over_1 = float((img > 1).float().mean())
     phase("main_path", frame="1024x576 spp60 d50 random_world",
           spheres=scene.count, launches=fwd_launches[0],
-          vjp_launches=fwd_launches[1], mean=mean, mean_band=band,
+          vjp_launches=fwd_launches[1], variants=fwd_variants, mean=mean,
+          mean_band=band,
           min=float(img.min()), max=float(img.max()),
           share_above_1=share_over_1)
-    if fwd_launches != (1, 0):
+    if fwd_launches != (1, 0) or fwd_variants != {"K1e": 1}:
         fail(f"render(backend='auto') on CUDA tensors made {fwd_launches} "
-             "(K1a, K3) launches, want (1, 0)")
+             f"(forward, K3) launches, {fwd_variants}, want (1, 0), one K1e "
+             "(327 spheres, no BVH: the dense stage)")
     if tuple(img.shape) != (cfg.height, cfg.width, 3) or not img.is_cuda:
         fail(f"main path image has shape {tuple(img.shape)} on {img.device}")
     if not bool(torch.isfinite(img).all()) or float(img.min()) < 0:
@@ -2193,7 +2564,8 @@ def main() -> None:
         rays = cfg_t.width * cfg_t.height * cfg_t.spp
         row = {"frame": f"{cfg_t.width}x{cfg_t.height} spp{cfg_t.spp} "
                         f"d{cfg_t.depth}", "card": card}
-        ms = cuda_ms(lambda: megakernel.launch(cp, sp, cfg_t), iters_k)
+        ms = cuda_ms(lambda: megakernel.launch(cp, sp, cfg_t, brute=True),
+                     iters_k)
         row.update(kernel_ms=ms, kernel_mrays_s=rays / ms / 1e3)
         if iters_p:
             pms = cuda_ms(lambda: golden.render_golden(
@@ -2259,6 +2631,9 @@ def main() -> None:
     # -- phase 7: the 10,000-sphere scene over the skip-pointer walk
     entries7 = large_scene_phases(dev, card)
 
+    # -- phase 8: the dense stage K1e and the sorted wavefront (K5, K6)
+    entries8 = wavefront_phases(dev, card, rv2_img)
+
     # bounds of K1a and K3 in the cells their times come from
     from raytpu_torch import profiling
     c_k1a = profiling.census(c2_scene, c2_cam, CONFIG2)
@@ -2269,8 +2644,7 @@ def main() -> None:
     table = [dict(
         name="render_fwd_kernel (K1a, brute sweep)", route="cuda",
         source=fwd_src, replaces="raytpu/kernels/megakernel.py:1456",
-        cell="config 2", launches=grad_launches[0],
-        launches_forward_path=fwd_launches[0], max_abs_err=worst,
+        cell="config 2", launches=grad_launches[0], max_abs_err=worst,
         ms=timings["config2"]["kernel_ms"],
         plain_ms=timings["config2"]["plain_ms"],
         **bound(forward_ops(c_k1a), frame_bytes(CONFIG2, 4, 1)),
@@ -2367,6 +2741,26 @@ def main() -> None:
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces, cell=cell,
                           launches=e.pop("launches"), library_ms=None, **e))
+    wf_src = src + "wavefront.cu"
+    e = entries8["K1e"]
+    table.append(dict(
+        name="render_fwd_kernel<dense> (K1e, the dense stage)", route="cuda",
+        source=fwd_src, replaces="raytpu/kernels/megakernel.py:1456 (dense "
+        "branch :1497-1506, body :462-527)",
+        cell="REFERENCE_V2 at 2 spp (plain version; K1a forced beside it); "
+             "main path: REFERENCE_V2 render(), phase 3",
+        launches=fwd_variants.get("K1e", 0), library_ms=None, **e))
+    for key in ("K5/brute", "K5/dense", "K5/bvh", "K5/walk"):
+        table.append(dict(
+            name=f"render_segment_kernel<{key[3:]}> (K5, wavefront segment)",
+            route="cuda", source=wf_src,
+            replaces="raytpu/wavefront.py:94 (_make_segment_kernel; "
+                     "pallas_call :465)", library_ms=None, **entries8[key]))
+    table.append(dict(
+        name="render_refill_kernel<bvh> (K6, refill segment)", route="cuda",
+        source=wf_src, replaces="raytpu/wavefront.py:192 "
+        "(_make_refill_segment_kernel; pallas_call :546)", library_ms=None,
+        **entries8["K6/bvh"]))
     missing = [e["name"] for e in table if not e["launches"]]
     if missing:
         fail(f"kernels not launched on their main path: {missing}")

@@ -16,13 +16,16 @@ in parallel RNG the gradient path tapes each bounce's winner in the
 forward and replays the tape in the backward.  ``progressive`` renders in
 checkpointed sample batches (the carry-state kernel K2 on a card) and
 ``shard`` splits the frame into row slabs over a ``torch.distributed``
-group (every kernel's slab mode).  ``scene_io`` reads and writes raytpu's
-JSON scene files, ``debug`` holds the scene lint, the checked render and
-the kernel-against-plain check behind ``cli validate``.  This package
-never imports jax.
+group (every kernel's slab mode).  Scenes of 96 to 4096 spheres without a
+BVH take the dense stage K1e (raytpu's rule), bit-equal to the brute
+sweep.  ``wavefront`` is raytpu's sorted-wavefront engine
+(``render(backend="wavefront")``: the segment kernels K5 and K6 on a
+card).  ``scene_io`` reads and writes raytpu's JSON scene files, ``debug``
+holds the scene lint, the checked render and the kernel-against-plain
+check behind ``cli validate``.  This package never imports jax.
 
-Not ported yet (see ROADMAP.md): the dense stage, the windowed-refill
-PASS 2, the wavefront engine and the v1 fract-sin RNG mode.
+Not ported yet (see ROADMAP.md): K3's windowed-refill PASS 2 and the v1
+fract-sin RNG mode.
 """
 
 from raytpu_torch.config import RenderConfig

@@ -10,6 +10,9 @@
         --scene final --bvh --device cuda --out final.png
     python -m raytpu_torch.cli render --scene-file big.json --bvh \
         --device cuda --log runs.jsonl --out big.png
+    python -m raytpu_torch.cli render --scene final --bvh --width 800 \
+        --height 400 --spp 100 --rng-mode parallel --backend wavefront \
+        --refill 2 --device cuda --out wavefront.png
     python -m raytpu_torch.cli gradcheck --device cuda
     python -m raytpu_torch.cli validate --scene-file big.json --bvh \
         --device cuda
@@ -19,8 +22,9 @@ Every subcommand of raytpu's is ported: ``render`` with ``--bvh`` (and
 ``--bvh-builder``), ``--scene-file`` (a JSON scene,
 :mod:`raytpu_torch.scene_io`), ``--log`` (one JSON line a run),
 ``--progressive`` (with ``--checkpoint``, ``--resume`` and
-``--preview-every``) and ``--devices``; ``gradcheck``; ``validate`` (the
-scene lint and the kernel against its plain version on the device,
+``--preview-every``) and ``--devices``, and the wavefront's ``--backend wavefront`` with
+``--spp-batch`` and ``--refill``; ``gradcheck``; ``validate`` (the scene
+lint and the kernel against its plain version on the device,
 :mod:`raytpu_torch.debug`; exit 0 iff it passes); ``info``.  Every backend
 of the port's ``render`` sweeps the BVH it is given, by the flat sweep or
 the skip-pointer walk as raytpu's rule picks (raytpu refuses ``--bvh`` on
@@ -32,8 +36,10 @@ such a launch it exits with an error that says how to launch it; it never
 renders on one device instead.  An option that would be ignored
 (``--bvh-builder`` without ``--bvh``, ``--checkpoint`` or
 ``--preview-every`` without ``--progressive``, ``--resume`` without
-``--checkpoint``, ``--log`` with ``--progressive``) is refused; raytpu's
-wavefront options (``--refill``, ``--spp-batch``) are not accepted.
+``--checkpoint``, ``--log`` with ``--progressive``) is refused, and so are
+raytpu's refusals of the wavefront's knobs: ``--refill`` and ``--spp-batch``
+without ``--backend wavefront``, and the wavefront with ``--devices`` > 1
+or ``--progressive``.
 """
 
 from __future__ import annotations
@@ -93,13 +99,28 @@ def _distributed(args):
 def cmd_render(args) -> int:
     if args.bvh_builder is not None and not args.bvh:
         raise SystemExit("--bvh-builder needs --bvh")
+    if args.devices == 1:
+        return _render(args, None, 0, args.device)
+    import torch.distributed as dist
+    group, rank, device = _distributed(args)
+    try:
+        rc = _render(args, group, rank, device)
+        # every rank has finished its collectives before any tears down
+        # its connections: a rank that destroys the group while a peer
+        # still holds it can abort that peer at exit
+        dist.barrier(group)
+        return rc
+    finally:
+        dist.destroy_process_group()
+
+
+def _render(args, group, rank: int, device) -> int:
+    """The render of ``cmd_render`` on this process (``rank`` of ``group``,
+    or the only one when ``group`` is None)."""
     import raytpu_torch as rt
     from raytpu_torch import bvh as tbvh, io, profiling, progressive, shard
     from raytpu_torch.config import RenderConfig
 
-    group, rank, device = None, 0, args.device
-    if args.devices != 1:
-        group, rank, device = _distributed(args)
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        depth=args.depth, rng_mode=args.rng_mode,
                        scatter_mode=args.scatter_mode, gamma=args.gamma)
@@ -107,55 +128,50 @@ def cmd_render(args) -> int:
     cam = _build_camera(args, cfg.aspect, device)
     bvh = (rt.build_bvh(scene, builder=args.bvh_builder or "median")
            if args.bvh else None)
-    try:
-        if args.progressive:
-            img = None
-            for state, img in progressive.render_progressive(
-                    scene, cam, cfg, batch=args.progressive,
-                    checkpoint_path=args.checkpoint, resume=args.resume,
-                    backend=args.backend, bvh=bvh, group=group):
-                batches = state.samples // args.progressive
-                if rank:
-                    continue
-                print(f"samples {state.samples}/{cfg.spp}", file=sys.stderr)
-                if args.preview_every and batches % args.preview_every == 0:
-                    io.save_image(args.out, img.cpu().numpy())
-                    print(f"preview @ {state.samples} spp -> {args.out}",
-                          file=sys.stderr)
-            if img is None:  # resumed from a completed checkpoint
-                state, _ = progressive.load_checkpoint(args.checkpoint,
-                                                       device=device)
-                img = progressive.image(state, cfg)
-            if not rank:
+    if args.progressive:
+        img = None
+        for state, img in progressive.render_progressive(
+                scene, cam, cfg, batch=args.progressive,
+                checkpoint_path=args.checkpoint, resume=args.resume,
+                backend=args.backend, bvh=bvh, group=group):
+            batches = state.samples // args.progressive
+            if rank:
+                continue
+            print(f"samples {state.samples}/{cfg.spp}", file=sys.stderr)
+            if args.preview_every and batches % args.preview_every == 0:
                 io.save_image(args.out, img.cpu().numpy())
-                print(f"wrote {args.out}")
-            return 0
-        if group is not None:
-            def fn():
-                return shard.render_sharded(scene, cam, cfg, group=group,
-                                            bvh=bvh, backend=args.backend)
-        else:
-            def fn():
-                return rt.render(scene, cam, cfg, backend=args.backend,
-                                 bvh=bvh)
-        img, stats = profiling.timed(fn, cfg, label="render")
+                print(f"preview @ {state.samples} spp -> {args.out}",
+                      file=sys.stderr)
+        if img is None:  # resumed from a completed checkpoint
+            state, _ = progressive.load_checkpoint(args.checkpoint,
+                                                   device=device)
+            img = progressive.image(state, cfg)
         if not rank:
             io.save_image(args.out, img.cpu().numpy())
-            print(f"wrote {args.out}  ({stats.rays_per_sec / 1e6:.2f} "
-                  f"Mrays/s, {stats.wall_s * 1e3:.1f} ms on {stats.device}"
-                  + (f", {shard.world(group)[1]} processes)" if group
-                     else ")"))
-            if args.log:
-                profiling.log_run(args.log, stats,
-                                  scene=args.scene_file or args.scene,
-                                  backend=args.backend,
-                                  sweep=None if bvh is None else
-                                  tbvh.sweep_of(bvh))
+            print(f"wrote {args.out}")
         return 0
-    finally:
-        if group is not None:
-            import torch.distributed as dist
-            dist.destroy_process_group()
+    if group is not None:
+        def fn():
+            return shard.render_sharded(scene, cam, cfg, group=group,
+                                        bvh=bvh, backend=args.backend)
+    else:
+        def fn():
+            return rt.render(scene, cam, cfg, backend=args.backend, bvh=bvh,
+                             spp_batch=args.spp_batch, refill=args.refill)
+    img, stats = profiling.timed(fn, cfg, label="render")
+    if not rank:
+        io.save_image(args.out, img.cpu().numpy())
+        print(f"wrote {args.out}  ({stats.rays_per_sec / 1e6:.2f} "
+              f"Mrays/s, {stats.wall_s * 1e3:.1f} ms on {stats.device}"
+              + (f", {shard.world(group)[1]} processes)" if group
+                 else ")"))
+        if args.log:
+            profiling.log_run(args.log, stats,
+                              scene=args.scene_file or args.scene,
+                              backend=args.backend,
+                              sweep=None if bvh is None else
+                              tbvh.sweep_of(bvh))
+    return 0
 
 
 def cmd_gradcheck(args) -> int:
@@ -269,10 +285,12 @@ def main(argv=None) -> int:
     r.add_argument("--device", required=True,
                    help="where the scene is built and rendered: cpu, cuda, "
                         "cuda:N")
-    r.add_argument("--backend", choices=("auto", "golden", "cuda"),
+    r.add_argument("--backend", choices=("auto", "golden", "cuda",
+                                         "wavefront"),
                    default="auto",
                    help="auto = the CUDA kernel on a cuda device, the plain "
-                        "PyTorch version on cpu")
+                        "PyTorch version on cpu; wavefront = the sorted "
+                        "wavefront (never picked by auto)")
     r.add_argument("--gamma", type=float, default=2.2,
                    help="output gamma: 2.2 = v2's pow(1/2.2), 2.0 = v1's sqrt")
     r.add_argument("--scatter-mode", choices=("v2", "v1"), default="v2",
@@ -289,6 +307,13 @@ def main(argv=None) -> int:
     r.add_argument("--bvh-builder", choices=("median", "sah"), default=None,
                    help="BVH build heuristic (default median; sah = the "
                         "native binned surface-area heuristic)")
+    r.add_argument("--spp-batch", type=int, default=1, metavar="B",
+                   help="--backend wavefront + --rng-mode parallel: B "
+                        "samples of a pixel in flight")
+    r.add_argument("--refill", type=int, default=0, metavar="K",
+                   help="--backend wavefront + --rng-mode parallel: the "
+                        "persistent-refill schedule (in-kernel sample "
+                        "respawn, a sort every K bounces)")
     r.add_argument("--progressive", type=int, default=0, metavar="BATCH",
                    help="render progressively in BATCH-sample steps")
     r.add_argument("--preview-every", type=int, default=0, metavar="K",
@@ -351,7 +376,16 @@ def main(argv=None) -> int:
                 (args.log and args.progressive,
                  "--log needs a one-shot render (not --progressive)"),
                 (args.progressive < 0 or args.devices < 1,
-                 "--progressive and --devices take positive counts")):
+                 "--progressive and --devices take positive counts"),
+                ((args.spp_batch != 1 or args.refill)
+                 and args.backend != "wavefront",
+                 "--refill/--spp-batch are wavefront-only knobs; pass "
+                 "--backend wavefront"),
+                (args.backend == "wavefront" and args.devices > 1,
+                 "--backend wavefront is not supported with --devices > 1"),
+                (args.backend == "wavefront" and args.progressive,
+                 "--progressive supports the auto, golden and cuda "
+                 "backends")):
             if bad:
                 p.error(msg)
     return args.fn(args)

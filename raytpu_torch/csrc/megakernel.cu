@@ -9,6 +9,9 @@
 //                              octant pick)
 //   K1d  skip-pointer walk     the same function past 64 leaves a copy or
 //                              unpadded (megakernel.py:531-696)
+//   K1e  dense stage           the same function's dense branch
+//                              (megakernel.py:1497-1506, body :462-527):
+//                              no BVH, 96 <= n <= 4096 spheres
 //   K1'  census                the same function with count_leaves=True
 //                              (brute, flat or walk)
 //   K2   carry-state batch     raytpu/kernels/megakernel.py
@@ -47,8 +50,14 @@
 // The census (K1') keeps three per-thread counters in registers (four for
 // the walk: the nodes visited) and adds them once per warp at the end (a
 // warp reduction, then one 64-bit atomic per counter); without it the
-// counting code is not compiled.  Staging the scene
-// in shared memory and regrouping rays against divergence are later work.
+// counting code is not compiled.  K1e is the brute sweep over the scene's
+// rows (cx, cy, cz, r^2) staged in shared memory once per block (see
+// stage_dense in render_common.cuh): the same tests in the same order, so
+// its image is K1a's bit for bit; what it changes is where the sweep's
+// loads come from (a shared-memory broadcast instead of four L1 reads a
+// sphere).  It is a plain forward only, full frame or slab: K2, K4, K1'
+// and K3 keep the brute sweep, as raytpu's do.  Regrouping rays against
+// divergence is later work.
 //
 // Slab mode (K1b, and every variant): the launch covers rows [row0, row0 +
 // rows) of the cfg-sized frame and its buffers (image, tape, carried state)
@@ -78,6 +87,9 @@ using namespace rt;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 // leaves entered, bounce steps, samples, nodes visited (the walk's only)
 constexpr int kCensus = 4;
+// the dense stage's largest scene: 64 KB of staged rows (raytpu's
+// _DENSE_MAX; raytpu_torch.kernels.megakernel.DENSE_MAX)
+constexpr int kDenseMax = 4096;
 
 struct Params {
   const CamPack* cam;
@@ -107,6 +119,8 @@ render_fwd_kernel(Params p) {
   // adds per warp, with all 32 lanes
   const bool valid = x < p.width && ly < p.rows;
   const bool live = valid && y < p.height;
+  // K1e stages the scene before any thread of the block returns
+  if (kHit == kDense) stage_dense(p.scene, p.n);
   if (!kCount && !valid) return;
 
   const CamPack cam = *p.cam;
@@ -178,8 +192,16 @@ int launch(const Params& p, cudaStream_t stream) {
   dim3 block(32, 8);
   dim3 grid((p.width + block.x - 1) / block.x,
             (p.rows + block.y - 1) / block.y);
-  render_fwd_kernel<kHit, kTape, kCount, kCarry><<<grid, block, 0, stream>>>(
-      p);
+  // the dense stage's rows; past 48 KB only after the kernel opts in
+  const size_t shmem = kHit == kDense ? sizeof(float4) * p.n : 0;
+  if (shmem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        render_fwd_kernel<kHit, kTape, kCount, kCarry>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  render_fwd_kernel<kHit, kTape, kCount, kCarry>
+      <<<grid, block, shmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -208,7 +230,7 @@ int launch_hit(int hit, const Params& p, cudaStream_t stream) {
 // and the carry exclude one another.  The block's x extent is one warp, so
 // threadIdx.x is the lane.
 extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
-                                 const void* flat, int n_leaves,
+                                 int dense, const void* flat, int n_leaves,
                                  int leaf_size, const void* nodes,
                                  int n_trav, int copies, int out_base,
                                  int out_cnt, int taping, void* tape,
@@ -225,7 +247,9 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
       row0 < 0 || (flat != nullptr && nodes != nullptr) ||
       (nodes != nullptr && (n_trav < 1 || (copies != 1 && copies != 8))) ||
       (carry && (acc_in == nullptr || seed_in == nullptr ||
-                 seed_out == nullptr)))
+                 seed_out == nullptr)) ||
+      (dense && (flat != nullptr || nodes != nullptr || taping ||
+                 census != nullptr || carry || n > kDenseMax)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.cam = static_cast<const CamPack*>(cam);
@@ -259,6 +283,7 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   p.v1 = v1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hit = flat != nullptr ? kFlat : (nodes != nullptr ? kWalk : kBrute);
+  if (dense) return launch<kDense, kNoTape, false, false>(p, st);
   if (taping) return launch_hit<kTapeWrite, false, false>(hit, p, st);
   if (census != nullptr) return launch_hit<kNoTape, true, false>(hit, p, st);
   if (carry) return launch_hit<kNoTape, false, true>(hit, p, st);

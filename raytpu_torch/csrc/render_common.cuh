@@ -1,10 +1,13 @@
 // Device code shared by the forward megakernels (megakernel.cu: K1a, K1c,
-// K1d, K1', K2, K4's write side) and the fused VJP kernel (gradkernel.cu:
-// K3 and its BVH and tape-read variants): the counter-based RNG, the
-// jittered thin-lens ray, the closest-hit policies (brute sweep, flat BVH
-// sweep, skip-pointer BVH walk, tape read), the v2 / v1 materials, the sky
-// and the gamma.  K3's passes must give the forward's image bit for bit, so
-// every kernel traces a sample through trace_path() below and nothing else.
+// K1d, K1e, K1', K2, K4's write side), the fused VJP kernel (gradkernel.cu:
+// K3 and its BVH and tape-read variants) and the wavefront's segment kernels
+// (wavefront.cu: K5, K6): the counter-based RNG, the jittered thin-lens ray,
+// the closest-hit policies (brute sweep, flat BVH sweep, skip-pointer BVH
+// walk, the dense stage, tape read), the v2 / v1 materials, the sky and the
+// gamma.  K3's passes must give the forward's image bit for bit, and the
+// wavefront the same samples, so every kernel takes a bounce through
+// bounce_step() below and nothing else (the megakernels through
+// trace_path(), its loop over a sample's bounces).
 //
 // The skip-pointer walk (K1d) replaces raytpu/kernels/megakernel.py:640-696
 // and its VJP twin gradkernel.py:544-594, the path raytpu takes past 64
@@ -72,6 +75,27 @@ __device__ __forceinline__ SceneView scene_view(const float* pack, int n) {
   return SceneView{pack,         pack + n,     pack + 2 * n,
                    pack + 3 * n, pack + 4 * n, pack + 5 * n,
                    pack + 6 * n, pack + 7 * n, pack + 8 * n, n};
+}
+
+// The dense stage (K1e, and K5 / K6 on the same scenes): the scene's rows
+// (cx, cy, cz, rad * rad) staged once per block in the kernel's dynamic
+// shared memory, 16 bytes a sphere (327 spheres 5.2 KB, the policy's cap of
+// 4096 64 KB).  rad * rad is the f32 product sphere_root() forms, so the
+// root test is the brute sweep's to the bit.  Every thread of the block
+// calls stage_dense() before any thread returns (threads past the frame
+// included): it ends with the block's one barrier, and the sweeps after it
+// read the rows with no other, since threads of a block sit at different
+// samples and bounces.
+extern __shared__ float4 dense_rows[];
+
+__device__ __forceinline__ void stage_dense(const float* pack, int n) {
+  const int nt = blockDim.x * blockDim.y;
+  for (int j = threadIdx.x + blockDim.x * threadIdx.y; j < n; j += nt) {
+    const float rad = pack[3 * n + j];
+    dense_rows[j] = make_float4(pack[j], pack[n + j], pack[2 * n + j],
+                                rad * rad);
+  }
+  __syncthreads();
 }
 
 __device__ __forceinline__ uint32_t base_hash(uint32_t px, uint32_t py) {
@@ -209,7 +233,11 @@ __device__ __forceinline__ Ray gen_ray(const CamPack& cam, float fx, float fy,
 
 // ---- the closest hit: a compile-time policy of trace_path ---------------
 //
-// Brute (K1a, K3): every sphere, in index order.  Flat BVH (K1c, K3's BVH
+// Brute (K1a, K3): every sphere, in index order.  Dense (K1e): every
+// sphere in index order from the rows stage_dense() put in shared memory
+// (raytpu's dense MXU stage, megakernel.py:462-527, is a TPU layout of this
+// same min / argmin: its bf16x3 one-hot extraction is this sweep reading the
+// winner's attributes once, in scatter()).  Flat BVH (K1c, K3's BVH
 // variant): the outlier tail, then the leaf rows of the octant copy the
 // ray's own direction picks.  Walk (K1d, K3's walk variant): the outlier
 // tail, then the skip-pointer walk of that copy's nodes.  Tape read (K3's
@@ -220,7 +248,7 @@ __device__ __forceinline__ Ray gen_ray(const CamPack& cam, float fx, float fy,
 // ties of distinct spheres).  The flat sweep and the walk enter the same
 // leaves in the same order: an interior box is the exact hull of its
 // children's, and the rounded slab bounds are monotone in the box.
-enum HitPolicy { kBrute = 0, kFlat = 1, kWalk = 2 };
+enum HitPolicy { kBrute = 0, kFlat = 1, kWalk = 2, kDense = 3 };
 
 // The flat leaf list of a BVH (raytpu_torch/bvh.py): `flat` (8 * n_leaves,
 // 9) f32 rows [min xyz, max xyz, start, count, skip], copy o's leaves in
@@ -248,23 +276,50 @@ struct Census {
   unsigned leaves, steps, samples, nodes;
 };
 
+// Where a sweep reads sphere j's centre and squared radius: the scene pack
+// (the brute sweep, the BVH sweeps, the tape's one sphere) or the rows
+// stage_dense() staged (the dense stage).  r2 is the f32 product rad * rad
+// either way.
+struct SceneRows {
+  const SceneView& s;
+  __device__ __forceinline__ float x(int j) const { return s.cx[j]; }
+  __device__ __forceinline__ float y(int j) const { return s.cy[j]; }
+  __device__ __forceinline__ float z(int j) const { return s.cz[j]; }
+  __device__ __forceinline__ float r2(int j) const {
+    return s.rad[j] * s.rad[j];
+  }
+};
+struct DenseRows {
+  __device__ __forceinline__ float x(int j) const { return dense_rows[j].x; }
+  __device__ __forceinline__ float y(int j) const { return dense_rows[j].y; }
+  __device__ __forceinline__ float z(int j) const { return dense_rows[j].z; }
+  __device__ __forceinline__ float r2(int j) const { return dense_rows[j].w; }
+};
+
 // The root test of ray r against sphere j (golden.hit_world's arithmetic,
 // op for op): the t the sweeps compare, NaN or < t_min on a miss.  The NaN
 // form of the root test: disc < 0 -> sqrtf gives NaN -> compares false.
-__device__ __forceinline__ float sphere_root(const SceneView& s, const Ray& r,
-                                             float a, float inv_a,
-                                             float t_min, int j) {
-  float ocx = r.ox - s.cx[j];
-  float ocy = r.oy - s.cy[j];
-  float ocz = r.oz - s.cz[j];
-  float rad = s.rad[j];
+template <class Rows>
+__device__ __forceinline__ float root_at(const Rows& rows, const Ray& r,
+                                         float a, float inv_a, float t_min,
+                                         int j) {
+  float ocx = r.ox - rows.x(j);
+  float ocy = r.oy - rows.y(j);
+  float ocz = r.oz - rows.z(j);
+  float rad2 = rows.r2(j);
   float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-  float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad;
+  float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad2;
   float disc = half_b * half_b - a * c;
   float sqrtd = sqrtf(disc);
   float root1 = (-half_b - sqrtd) * inv_a;
   float root2 = (-half_b + sqrtd) * inv_a;
   return root1 >= t_min ? root1 : root2;
+}
+
+__device__ __forceinline__ float sphere_root(const SceneView& s, const Ray& r,
+                                             float a, float inv_a,
+                                             float t_min, int j) {
+  return root_at(SceneRows{s}, r, a, inv_a, t_min, j);
 }
 
 // Spheres [j0, j1) into the running best: strict <, so among equal t the
@@ -311,9 +366,10 @@ __device__ __forceinline__ bool box_enter(const float* row, const Ray& r,
   return !(tnear > tfar);
 }
 
-// Closest hit (golden.hit_world; golden.hit_world_bvh over the scene in
-// leaf order for kFlat, golden.hit_world_walk for kWalk).  Returns the
-// winner or -1; tb = its t.  `bvh` is read by kFlat, `walk` by kWalk.
+// Closest hit (golden.hit_world for kBrute and kDense; golden.hit_world_bvh
+// over the scene in leaf order for kFlat, golden.hit_world_walk for kWalk).
+// Returns the winner or -1; tb = its t.  `bvh` is read by kFlat, `walk` by
+// kWalk, dense_rows by kDense.
 template <int kHit, bool kCount>
 __device__ __forceinline__ int closest_hit(const SceneView& s,
                                            const FlatBvh& bvh,
@@ -326,6 +382,16 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
   int win = -1;
   if (kHit == kBrute) {
     sweep_range(s, r, a, inv_a, t_min, 0, s.n, tb, win);
+    return win;
+  }
+  if (kHit == kDense) {  // sweep_range over the staged rows
+    for (int j = 0; j < s.n; ++j) {
+      const float root = root_at(DenseRows{}, r, a, inv_a, t_min, j);
+      if (root >= t_min && root < tb) {
+        tb = root;
+        win = j;
+      }
+    }
     return win;
   }
   // outliers first: a giant ground sphere seeds tb, so far leaves cull
@@ -536,6 +602,53 @@ struct Residual {
   uint32_t seed;
 };
 
+// One bounce of a ray slot (golden.bounce_step; raytpu's make_bounce_body):
+// the closest hit of ray r under step_hit's policy (kHit, kTape, kCount),
+// then on a miss the sky of the pre-scatter direction, on the hit of an
+// unknown material absorption (black, seed kept), else the scatter, which
+// moves r, multiplies the throughput (cr, cg, cb) in and advances sd by its
+// one draw.  Returns whether the ray scattered (lives on).  On a miss the
+// slot's radiance (rr, rg, rb) gains c * sky, raytpu's add-once rule
+// (megakernel.py:734: a sample misses once, so a radiance carried across a
+// slot's samples sums them, as the wavefront's does); with kAddSky false it
+// is set to c * sky instead, for trace_path, whose radiance is 0 there: the
+// same value, one add fewer.  kStore writes the step's Residual (the
+// incoming ray and throughput, the winner, the seed) to *res.
+template <bool kStore, bool kAddSky, int kHit, int kTape, bool kCount>
+__device__ __forceinline__ bool bounce_step(const SceneView& s,
+                                            const FlatBvh& bvh,
+                                            const NodeBvh& walk, Ray& r,
+                                            uint32_t& sd, float t_min, bool v1,
+                                            float& cr, float& cg, float& cb,
+                                            float& rr, float& rg, float& rb,
+                                            Residual* res, TapeCursor& tc,
+                                            Census& cn) {
+  float tb;
+  int win = step_hit<kHit, kTape, kCount>(s, bvh, walk, r, t_min, tb, tc, cn);
+  if (kStore) {
+    *res = Residual{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, cr, cg, cb, win, sd};
+  }
+  if (win < 0) {  // miss: sky of the pre-scatter direction
+    float kr, kg, kb;
+    sky(r.dx, r.dy, r.dz, kr, kg, kb);
+    if (kAddSky) {
+      rr = rr + cr * kr;
+      rg = rg + cg * kg;
+      rb = rb + cb * kb;
+    } else {
+      rr = cr * kr;
+      rg = cg * kg;
+      rb = cb * kb;
+    }
+    return false;
+  }
+  float mt = s.mt[win];
+  bool is_d = mt == 0.0f, is_m = mt == 1.0f, is_g = mt == 2.0f;
+  if (!(is_d || is_m || is_g)) return false;  // absorbed: black, seed kept
+  scatter(s, win, tb, is_g, v1, sd, r, cr, cg, cb);
+  return true;
+}
+
 // Trace one sample for at most `depth` bounces, stopping at the first
 // miss, absorption or the depth cap (black).  Returns the number of
 // bounces taken (rows of `res` written when kStore); `sd` ends as the
@@ -557,25 +670,10 @@ __device__ __forceinline__ int trace_path(const SceneView& s,
   rb = 0.0f;
   if (kCount) ++cn.samples;
   for (int d = 0; d < depth; ++d) {
-    float tb;
-    int win = step_hit<kHit, kTape, kCount>(s, bvh, walk, r, t_min, tb, tc,
-                                            cn);
-    if (kStore) {
-      res[d] = Residual{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
-                        cr,   cg,   cb,   win,  sd};
-    }
-    if (win < 0) {  // miss: sky of the pre-scatter direction
-      float kr, kg, kb;
-      sky(r.dx, r.dy, r.dz, kr, kg, kb);
-      rr = cr * kr;
-      rg = cg * kg;
-      rb = cb * kb;
+    if (!bounce_step<kStore, false, kHit, kTape, kCount>(
+            s, bvh, walk, r, sd, t_min, v1, cr, cg, cb, rr, rg, rb,
+            kStore ? res + d : nullptr, tc, cn))
       return d + 1;
-    }
-    float mt = s.mt[win];
-    bool is_d = mt == 0.0f, is_m = mt == 1.0f, is_g = mt == 2.0f;
-    if (!(is_d || is_m || is_g)) return d + 1;  // absorbed: black, seed kept
-    scatter(s, win, tb, is_g, v1, sd, r, cr, cg, cb);
   }
   return depth;  // depth cap: rr, rg, rb are still 0 (black)
 }

@@ -97,6 +97,11 @@ def hit_world(scene: Scene, ro, rd, t_min):
     An argmin over per-sphere nearest valid roots; ties go to the lowest
     index (``argmin`` returns the first minimum, as the kernel's strict
     ``<`` update keeps the first winner).
+
+    It is the plain version of both brute sweeps of the kernels, K1a's and
+    the dense stage K1e's: a pixels x spheres min / argmin on the same
+    ``fl(o - c)`` values, which is what raytpu's dense MXU stage computes
+    op for op (tests/test_dense.py).
     """
     rox, roy, roz = ro
     rdx, rdy, rdz = rd
@@ -496,10 +501,75 @@ def _sky(rdx, rdy, rdz):
     return 1.0 - 0.5 * t, 1.0 - 0.3 * t, 1.0  # lerp(white, (.5,.7,1.))
 
 
+def bounce_step(scene: Scene, ro, rd, c, r, alive, sd, t_min: float,
+                scatter_mode: str = "v2", bvh: BVH | None = None, tape=None,
+                census=None):
+    """One bounce of a batch of ray slots (ref: the body of sample_color's
+    loop, hlsl:255-287; raytpu's ``make_bounce_body``): the plain version
+    of the kernels' ``bounce_step`` (csrc/render_common.cuh), which the
+    megakernels and the wavefront's segment kernels K5 / K6 share.
+
+    ``ro``, ``rd``, ``c`` (throughput) and ``r`` (radiance) are tuples of 3
+    tensors of a common shape, ``alive`` a bool mask, ``sd`` the int64 u32
+    seeds.  The live lanes take the closest hit (:func:`hit_world`, or
+    :func:`hit_bvh` over the scene in leaf order with ``bvh``); a miss adds
+    ``c * sky`` of the pre-scatter direction to ``r`` (raytpu's add-once
+    rule, raytpu/kernels/megakernel.py:734: a sample misses once, so a
+    radiance carried across a slot's samples sums them) and dies; the hit
+    of an unknown material dies (black); the rest scatter, which moves the
+    ray, multiplies the attenuation into ``c`` and advances the seed by its
+    one draw.  Dead lanes keep their state.  ``tape`` and ``census`` as in
+    :func:`trace`.  Returns ``(ro, rd, c, r, alive, sd, seen)``, ``seen`` =
+    (winner, t, normal, attenuation, new direction) of every lane, for
+    :func:`trace`'s ``check``."""
+    ox, oy, oz = ro
+    dx, dy, dz = rd
+    cr, cg, cb = c
+    rr, rg, rb = r
+    if census is not None:
+        census["bounce_steps"] += int(alive.sum())
+    if bvh is None:
+        hit_any, t, idx, normal, front = hit_world(scene, ro, rd, t_min)
+    else:
+        hit_any, t, idx, normal, front = hit_bvh(scene, bvh, ro, rd, t_min,
+                                                 census, alive)
+    if tape is not None:
+        log_winners(tape, alive, torch.where(hit_any, idx, -1))
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
+    ok, (ar, ag, ab), (sx, sy, sz), sd_new = scatter(
+        scene, rd, (px, py, pz), normal, front, idx, sd, scatter_mode)
+
+    scat = alive & hit_any & ok
+    absorbed = alive & hit_any & ~ok
+    missed = alive & ~hit_any
+
+    skr, skg, skb = _sky(dx, dy, dz)
+    rr = torch.where(missed, rr + cr * skr, rr)
+    rg = torch.where(missed, rg + cg * skg, rg)
+    rb = torch.where(missed, rb + cb * skb, rb)
+
+    cr = torch.where(scat, cr * ar, cr)
+    cg = torch.where(scat, cg * ag, cg)
+    cb = torch.where(scat, cb * ab, cb)
+    ox = torch.where(scat, px, ox)
+    oy = torch.where(scat, py, oy)
+    oz = torch.where(scat, pz, oz)
+    dx = torch.where(scat, sx, dx)
+    dy = torch.where(scat, sy, dy)
+    dz = torch.where(scat, sz, dz)
+    sd = torch.where(scat, sd_new, sd)
+    alive = alive & ~(missed | absorbed)
+    return ((ox, oy, oz), (dx, dy, dz), (cr, cg, cb), (rr, rg, rb), alive,
+            sd, (idx, t, normal, (ar, ag, ab), (sx, sy, sz)))
+
+
 def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
           scatter_mode: str = "v2", bvh: BVH | None = None, tape=None,
           census=None, check=None):
-    """Iterative bounce loop (ref: sample_color, hlsl:255-287).
+    """Iterative bounce loop (ref: sample_color, hlsl:255-287): up to
+    ``depth`` :func:`bounce_step` calls from throughput 1 and radiance 0.
 
     SoA over pixel shape S; returns ((r,g,b), seed).  Dead lanes are
     masked; the seed advances only on live scattering lanes.  The loop
@@ -515,64 +585,36 @@ def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
     bounce's values (t, normal, attenuation, new direction, throughput,
     radiance), for :func:`raytpu_torch.debug.checked_render`.
     """
-    ox, oy, oz = ro
-    dx, dy, dz = rd
-    cr = torch.ones_like(ox)
-    cg = torch.ones_like(ox)
-    cb = torch.ones_like(ox)
-    rr = torch.zeros_like(ox)
-    rg = torch.zeros_like(ox)
-    rb = torch.zeros_like(ox)
-    alive = torch.ones_like(ox, dtype=torch.bool)
+    ones = torch.ones_like(ro[0])
+    zeros = torch.zeros_like(ro[0])
+    c, r = (ones, ones, ones), (zeros, zeros, zeros)
+    alive = torch.ones_like(ro[0], dtype=torch.bool)
     sd = seed
     if census is not None:
-        census["samples"] += ox.numel()
+        census["samples"] += ro[0].numel()
     for bounce in range(depth):
         if not bool(alive.any()):
             break
-        if census is not None:
-            census["bounce_steps"] += int(alive.sum())
-        if bvh is None:
-            hit_any, t, idx, normal, front = hit_world(
-                scene, (ox, oy, oz), (dx, dy, dz), t_min)
-        else:
-            hit_any, t, idx, normal, front = hit_bvh(
-                scene, bvh, (ox, oy, oz), (dx, dy, dz), t_min, census,
-                alive)
-        if tape is not None:
-            log_winners(tape, alive, torch.where(hit_any, idx, -1))
-        px = ox + t * dx
-        py = oy + t * dy
-        pz = oz + t * dz
-        ok, (ar, ag, ab), (sx, sy, sz), sd_new = scatter(
-            scene, (dx, dy, dz), (px, py, pz), normal, front, idx, sd,
-            scatter_mode)
-
-        scat = alive & hit_any & ok
-        absorbed = alive & hit_any & ~ok
-        missed = alive & ~hit_any
-
-        skr, skg, skb = _sky(dx, dy, dz)
-        rr = torch.where(missed, cr * skr, rr)
-        rg = torch.where(missed, cg * skg, rg)
-        rb = torch.where(missed, cb * skb, rb)
-
-        cr = torch.where(scat, cr * ar, cr)
-        cg = torch.where(scat, cg * ag, cg)
-        cb = torch.where(scat, cb * ab, cb)
-        ox = torch.where(scat, px, ox)
-        oy = torch.where(scat, py, oy)
-        oz = torch.where(scat, pz, oz)
-        dx = torch.where(scat, sx, dx)
-        dy = torch.where(scat, sy, dy)
-        dz = torch.where(scat, sz, dz)
-        sd = torch.where(scat, sd_new, sd)
-        alive = alive & ~(missed | absorbed)
+        ro, rd, c, r, alive, sd, (idx, t, normal, att, new_dir) = \
+            bounce_step(scene, ro, rd, c, r, alive, sd, t_min, scatter_mode,
+                        bvh, tape, census)
         if check is not None:
-            check(bounce, idx, (t, *normal, ar, ag, ab, sx, sy, sz, cr, cg,
-                                cb, rr, rg, rb))
-    # depth exhausted while alive -> black (rr init is already 0)
-    return (rr, rg, rb), sd
+            check(bounce, idx, (t, *normal, *att, *new_dir, *c, *r))
+    # depth exhausted while alive -> black (r is still 0)
+    return r, sd
+
+
+def gen_ray(cam: Camera, fx, fy, inv_w, inv_h, sd):
+    """One sample's jittered camera ray (the kernels' ``gen_ray``): two
+    jitter draws, then :func:`raytpu_torch.camera.get_ray` (a lens draw
+    for a thin lens) -> (ro, rd, sd').  ``fx``, ``fy``: the pixels' f32
+    coordinates; ``inv_w``, ``inv_h``: f32 ``1 / (W - 1)``, ``1 / (H -
+    1)`` of the frame."""
+    (j1a, _), sd = rng.hash2(sd)
+    (_, j2b), sd = rng.hash2(sd)
+    u = (fx + j1a * 1.1) * inv_w
+    v = (fy + j2b * 1.1) * inv_h
+    return get_ray(cam, u, v, sd)
 
 
 def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
@@ -606,11 +648,7 @@ def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
     sd = seed
     for s in range(spp):
         smp = rng.fold_in(seed, s + s0) if parallel else sd
-        (j1a, _), smp = rng.hash2(smp)
-        (_, j2b), smp = rng.hash2(smp)
-        u = (fx + j1a * 1.1) * inv_w
-        v = (fy + j2b * 1.1) * inv_h
-        ro, rd, smp = get_ray(cam, u, v, smp)
+        ro, rd, smp = gen_ray(cam, fx, fy, inv_w, inv_h, smp)
         (r, g, b), smp = trace(scene, ro, rd, smp, cfg.depth, cfg.t_min,
                                cfg.scatter_mode, bvh, tape, census, check)
         acc_r = acc_r + r

@@ -1,10 +1,12 @@
 """Forward render megakernels: wrapper of ``csrc/megakernel.cu``.
 
 Counterpart of ``raytpu/kernels/megakernel.py::render_pallas`` and
-``_render_pallas_fwd_impl`` (no dense stage), of ``accumulate_pallas``
-and of the write side of ``raytpu/kernels/gradkernel.py::render_tape_fwd``.
-One kernel template, variants by operand: K1a (the brute-force sphere
-sweep), K1c and K1d (``bvh=``: over the scene in leaf order, the flat
+``_render_pallas_fwd_impl``, of ``accumulate_pallas`` and of the write side
+of ``raytpu/kernels/gradkernel.py::render_tape_fwd``.  One kernel
+template, variants by operand: K1a (the brute-force sphere sweep), K1e (the
+dense stage: the same sweep over the scene staged in shared memory, taken
+by raytpu's rule, :func:`use_dense`, bit-equal to K1a), K1c and K1d
+(``bvh=``: over the scene in leaf order, the flat
 leaf-list sweep or the skip-pointer walk by raytpu's rule,
 :func:`raytpu_torch.bvh.sweep_of`: the walk past
 :data:`raytpu_torch.bvh.FLAT_MAX_LEAVES` leaves a copy and for unpadded
@@ -68,15 +70,20 @@ from raytpu_torch.scene import Scene
 SOURCE = "megakernel.cu"
 CAM_PACK = 19   # origin, horizontal, vertical, lower_left, u, v, lens_radius
 SCENE_ROWS = 9  # cx, cy, cz, radius, mat_type, ar, ag, ab, mat_param
+# the dense stage's scene sizes (raytpu's _DENSE_MIN / _DENSE_MAX): from 96
+# spheres the sweep's loads are worth staging; up to 4096, 64 KB of shared
+# memory a block (csrc/megakernel.cu kDenseMax)
+DENSE_MIN = 96
+DENSE_MAX = 4096
 
 launches = 0    # kernel launches through launch(); a run resets and reads it
 # the same launches by variant: K1a brute, K1c flat BVH, K1d the walk,
-# K1b a slab (by sweep), K1' census, K2 carry-state batch and K4 taping
-# forward (by sweep, "+slab" for a slab); the sweeps are "brute", "bvh"
-# (flat) and "walk"; a run resets and reads them
+# K1e the dense stage, K1b a slab (by sweep), K1' census, K2 carry-state
+# batch and K4 taping forward (by sweep, "+slab" for a slab); the sweeps
+# are "brute", "bvh" (flat) and "walk"; a run resets and reads them
 SWEEP_TAGS = ("brute", "bvh", "walk")
 variants = dict.fromkeys(
-    ("K1a", "K1c", "K1d")
+    ("K1a", "K1c", "K1d", "K1e", "K1b/dense")
     + tuple(f"{k}/{sweep}" for k in ("K1b", "K1'") for sweep in SWEEP_TAGS)
     + tuple(f"{k}/{sweep}{slab}" for k in ("K2", "K4")
             for sweep in SWEEP_TAGS for slab in ("", "+slab")), 0)
@@ -90,11 +97,20 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raytpu_render_fwd
-    fn.argtypes = [ptr, ptr, i, ptr, i, i, ptr, i, i, i, i, i, ptr, i, i,
+    fn.argtypes = [ptr, ptr, i, i, ptr, i, i, ptr, i, i, i, i, i, ptr, i, i,
                    ptr, i, ptr, ptr, ptr, ctypes.c_uint, ptr,
                    i, i, i, i, i, i, f, f, f, f, f, i, i, ptr]
     fn.restype = ctypes.c_int
     return lib
+
+
+def use_dense(n: int, bvh: BVH | None) -> bool:
+    """The dense stage's policy, raytpu's ``_use_dense(n, interpret=False,
+    has_bvh)`` (raytpu/kernels/megakernel.py:1415-1430): no BVH and
+    ``DENSE_MIN <= n <= DENSE_MAX`` spheres.  The forward (K1e, full frame
+    or slab) and the wavefront's segment kernels take it; K2, K4, K1' and
+    K3 keep the brute sweep, as raytpu's do."""
+    return bvh is None and DENSE_MIN <= n <= DENSE_MAX
 
 
 def slab(cfg: RenderConfig, row0: int = 0,
@@ -299,9 +315,9 @@ def bvh_args(bvh: BVH | None) -> tuple:
 
 def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
             rows: int, spp: int, out: torch.Tensor, *, tape=None,
-            census=None, carry=None) -> None:
+            census=None, carry=None, dense: bool = False) -> None:
     """Run the C entry point once; ``carry`` = (acc_in, seed_in, seed_out,
-    s0) for K2, the seeds as int32 bits."""
+    s0) for K2, the seeds as int32 bits; ``dense`` the dense stage."""
     global launches
     n = scene_pack.shape[1]
     acc_in, seed_in, seed_out, s0 = carry if carry else (None,) * 3 + (0,)
@@ -310,7 +326,8 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_fwd(
-            cam_pack.data_ptr(), scene_pack.data_ptr(), n, *bvh_args(bvh),
+            cam_pack.data_ptr(), scene_pack.data_ptr(), n, int(dense),
+            *bvh_args(bvh),
             int(tape is not None),
             None if tape is None or tape.numel() == 0 else tape.data_ptr(),
             0 if tape is None else tape.shape[0],
@@ -345,7 +362,7 @@ def sweep_tag(bvh: BVH | None) -> str:
 def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
            cfg: RenderConfig, bvh: BVH | None = None,
            tape: torch.Tensor | None = None, count: bool = False,
-           row0: int = 0, rows: int | None = None):
+           row0: int = 0, rows: int | None = None, brute: bool = False):
     """Launch the kernel on the packed operands -> (rows, W, 3) f32 image
     (rows = H without a slab), or (image, census) with ``count``:
     ``census`` (4,) int64 on the device, the frame's ``golden.CENSUS``
@@ -357,6 +374,9 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     (g_cap, rows*W): the taping forward (K4's write side) writes each
     pixel's first g_cap winners (-1 for a miss) into it; other slots keep
     their value.  ``row0`` / ``rows``: the slab (K1b; see :func:`slab`).
+    A plain forward (no tape, no census) of a scene :func:`use_dense`
+    takes is the dense stage (K1e, or ``K1b/dense`` on a slab), unless
+    ``brute`` forces the brute sweep (K1a): the same image bit for bit.
     Runs on the current stream of the operands' device and does not
     synchronise.  ``inv_w``, ``inv_h`` and ``inv_spp`` are computed in f64
     here and rounded to f32, as raytpu's kernel and both goldens do."""
@@ -376,9 +396,11 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     census = (torch.zeros(len(golden.CENSUS), dtype=torch.int64,
                           device=device)
               if count else None)
+    dense = (tape is None and not count and not brute
+             and use_dense(n, bvh))
     _launch(cam_pack, scene_pack, cfg, bvh, row0, rows, cfg.spp, out,
-            tape=tape, census=census)
-    tag = sweep_tag(bvh)
+            tape=tape, census=census, dense=dense)
+    tag = "dense" if dense else sweep_tag(bvh)
     if tape is not None:
         variants[f"K4/{tag}" + ("+slab" if slabbed else "")] += 1
     elif count:
@@ -386,7 +408,8 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     elif slabbed:
         variants[f"K1b/{tag}"] += 1
     else:
-        variants[{"brute": "K1a", "bvh": "K1c", "walk": "K1d"}[tag]] += 1
+        variants[{"brute": "K1a", "bvh": "K1c", "walk": "K1d",
+                  "dense": "K1e"}[tag]] += 1
     return (out, census) if count else out
 
 
@@ -520,8 +543,9 @@ def render_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
     device (row 0 = bottom scanline), or with ``rows`` the (rows, W, 3)
     slab from absolute row ``row0`` (K1b; rows past the frame are 0).  CPU
     tensors take the plain PyTorch version; CUDA tensors launch the kernel
-    (K1a, or with ``bvh``, a :func:`raytpu_torch.bvh.build_bvh` of this
-    scene on its device, K1c or K1d by raytpu's rule).  When autograd is
+    (K1a, or K1e by :func:`use_dense`, or with ``bvh``, a
+    :func:`raytpu_torch.bvh.build_bvh` of this scene on its device, K1c or
+    K1d by raytpu's rule).  When autograd is
     on and a continuous leaf of the scene or camera requires grad, the
     image carries a backward: K3 on CUDA tensors, the adjoint on CPU
     tensors (``vis_w > 0`` adds silhouette gradients)."""

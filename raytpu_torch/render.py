@@ -8,6 +8,11 @@ Build a Scene and a Camera on a device, call :func:`render`.  Backends:
   (raytpu_torch/kernels/megakernel.py); CUDA tensors only.
 - ``"auto"``   — the kernel for CUDA tensors, the plain version for CPU
   tensors.
+- ``"wavefront"`` — the sorted-wavefront engine
+  (raytpu_torch/wavefront.py: the segment kernels K5 / K6 on CUDA tensors,
+  their plain versions on CPU tensors), with its knobs ``spp_batch`` and
+  ``refill``.  raytpu demoted it on a TPU; it runs only when asked for by
+  name, never under ``"auto"``.
 
 Gradients: :func:`render` on inputs that require grad returns an image with
 a backward (on CUDA tensors the forward kernel K1a and the fused VJP kernel
@@ -39,14 +44,18 @@ from raytpu_torch.kernels import megakernel
 from raytpu_torch.scene import Scene
 
 BACKENDS = ("auto", "golden", "cuda")
+# render() and render_grad() also take the wavefront
+RENDER_BACKENDS = BACKENDS + ("wavefront",)
 
 
-def check_backend(backend: str, scene: Scene) -> None:
-    """Raise on an unknown backend, and on ``"cuda"`` for a scene that is
-    not on a card (``"auto"`` takes the plain version there instead)."""
-    if backend not in BACKENDS:
+def check_backend(backend: str, scene: Scene,
+                  allowed: tuple = BACKENDS) -> None:
+    """Raise on a backend not in ``allowed``, and on ``"cuda"`` for a scene
+    that is not on a card (``"auto"`` takes the plain version there
+    instead)."""
+    if backend not in allowed:
         raise ValueError(f"unknown backend: {backend!r} (choose from "
-                         f"{BACKENDS})")
+                         f"{allowed})")
     if backend == "cuda" and not scene.center.is_cuda:
         raise ValueError("backend='cuda' needs CUDA tensors; the scene is on "
                          f"{scene.center.device}")
@@ -54,7 +63,8 @@ def check_backend(backend: str, scene: Scene) -> None:
 
 def render(scene: Scene, cam: Camera, cfg: RenderConfig,
            backend: str = "auto", device=None,
-           vis_w: float = 0.0, bvh=None) -> torch.Tensor:
+           vis_w: float = 0.0, bvh=None, spp_batch: int = 1,
+           refill: int = 0) -> torch.Tensor:
     """Render -> (H, W, 3) f32 image in [0, 1] on the inputs' device.
 
     Row 0 is the bottom scanline (v = 0); use :func:`raytpu_torch.io.save_image`
@@ -67,15 +77,27 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig,
     does not depend on ``vis_w``).  ``bvh`` (built for this scene; moved
     with it when ``device`` is given) makes every backend sweep it, by the
     flat leaf list or the skip-pointer walk: the same image up to exact
-    ties of t between spheres.
+    ties of t between spheres.  ``spp_batch`` and ``refill`` are the
+    wavefront's knobs (:func:`raytpu_torch.wavefront.render_wavefront`),
+    refused on the other backends as raytpu refuses them.
     """
     if device is not None:
         scene = Scene(*(t.to(device) for t in scene))
         cam = Camera(*(t.to(device) for t in cam))
         bvh = None if bvh is None else bvh.to(device)
-    check_backend(backend, scene)
+    check_backend(backend, scene, RENDER_BACKENDS)
+    if (spp_batch > 1 or refill) and backend != "wavefront":
+        raise ValueError(
+            "spp_batch > 1 / refill are wavefront-only knobs; pass "
+            "backend='wavefront' explicitly (the wavefront is never picked "
+            "by 'auto')")
     if backend == "golden":
         return golden.render_golden(scene, cam, cfg, bvh)
+    if backend == "wavefront":
+        from raytpu_torch import wavefront
+        return wavefront.render_wavefront(scene, cam, cfg, bvh=bvh,
+                                          vis_w=vis_w, spp_batch=spp_batch,
+                                          refill=refill)
     # "auto" and "cuda": the wrapper launches the kernel on CUDA tensors
     # and runs the plain version on CPU tensors
     return megakernel.render_fwd(scene, cam, cfg, vis_w=vis_w, bvh=bvh)
@@ -96,10 +118,14 @@ def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
     parallel RNG, the taping forward K4; K3's BVH variant or its tape
     replay backward);
     ``"golden"`` ignores it, as raytpu's adjoint is the brute-force oracle
-    (raytpu/render.py:139).  An optimisation loop that moves spheres keeps
-    the BVH's boxes around them with :func:`raytpu_torch.bvh.refit`.
+    (raytpu/render.py:139).  ``"wavefront"`` takes the kernel path, as
+    raytpu's does (raytpu/render.py:136-137): its gradients are K3's.  An
+    optimisation loop that moves spheres keeps the BVH's boxes around them
+    with :func:`raytpu_torch.bvh.refit`.
     """
-    check_backend(backend, scene)
+    check_backend(backend, scene, RENDER_BACKENDS)
+    if backend == "wavefront":
+        backend = "auto"
     adjoint.check_cfg(cfg)
     leaves = [t.detach().requires_grad_()
               for t in (scene.center, scene.radius, scene.albedo,

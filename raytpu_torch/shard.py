@@ -20,6 +20,9 @@ from the same seed.
   stands for raytpu's golden ``make_train_step``.
 - :func:`raytpu_torch.progressive.accumulate` with ``group=`` runs K2 on
   each slab through :func:`run_slabs`.
+- :func:`render_wavefront_sharded` runs one wavefront a slab (K5 / K6), its
+  slabs ``ceil(H / (32 * world)) * 32`` rows as raytpu's, and gathers them:
+  bit-identical to the one-process wavefront for every world size.
 
 ``group=None`` means the default process group when ``torch.distributed``
 is initialized, else a world of one process.  Collectives run whenever
@@ -134,6 +137,33 @@ def render_sharded(scene: Scene, cam: Camera, cfg: RenderConfig, *,
     with torch.no_grad():
         return run_slabs(cfg, group, lambda row0, rows: (fwd(
             scene, cam, cfg, bvh=bvh, row0=row0, rows=rows),))[0]
+
+
+def render_wavefront_sharded(scene: Scene, cam: Camera, cfg: RenderConfig,
+                             *, group=None, bvh=None, segments=None,
+                             sort_every: int = 1, spp_batch: int = 1,
+                             sort_chunk: int = 65536,
+                             refill: int = 0) -> torch.Tensor:
+    """Sorted-wavefront render with the rows sharded over ``group``
+    (raytpu's ``render_wavefront_sharded``, raytpu/shard.py:166-206) ->
+    (H, W, 3) on every process.  Each process runs its own wavefront over
+    the slab of ``ceil(H / (32 * world)) * 32`` rows from absolute row
+    ``rank * slab`` (sorts and segment kernels stay on its device) and the
+    slabs are gathered.  Seeds and sort keys come from absolute pixel
+    coordinates, so the image equals the one-process wavefront's bit for
+    bit.  The options as in :func:`raytpu_torch.wavefront.render_wavefront`;
+    no autograd."""
+    from raytpu_torch import wavefront as wf
+    megakernel._check_scene_bvh(scene, cam, cfg, bvh)
+    segments = wf.check_options(cfg, segments, None, sort_every, spp_batch,
+                                sort_chunk, refill)
+    rank, n = world(group)
+    rows = -(-cfg.height // (wf.BLOCK * n)) * wf.BLOCK
+    with torch.no_grad():
+        img = wf._render(scene, cam, cfg, bvh, segments, sort_every,
+                         spp_batch, sort_chunk, refill, row0=rank * rows,
+                         rows=rows)
+    return gather_rows(img, cfg.height, group)
 
 
 class TrainStep:

@@ -136,11 +136,13 @@ def test_cli_progressive_resumes_an_interrupted_render(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--refill", "2"], ["--checkpoint", "c"]],
                          ids=["refill", "checkpoint"])
-def test_cli_rejects_other_raytpu_options(tmp_path, flag):
-    """Usage errors (exit 2): raytpu's --refill is not an option of the
-    port; --checkpoint without --progressive would be ignored, and so are
-    --resume without --checkpoint, --preview-every without --progressive
-    and a checkpoint name numpy would change."""
+def test_cli_rejects_other_raytpu_options(tmp_path, flag, capsys):
+    """Usage errors (exit 2): --refill without --backend wavefront (raytpu's
+    refusal of the wavefront's knobs on another backend); --checkpoint
+    without --progressive would be ignored, and so are --resume without
+    --checkpoint, --preview-every without --progressive and a checkpoint
+    name numpy would change.  The wavefront's knobs are refused with
+    --devices > 1 and with --progressive, as raytpu refuses them."""
     out = tmp_path / "never.png"
     for extra in (["--resume"], ["--preview-every", "2"],
                   ["--progressive", "2", "--checkpoint", "c"]):
@@ -152,6 +154,34 @@ def test_cli_rejects_other_raytpu_options(tmp_path, flag):
         cli.main(["render", *SMALL, "--device", "cpu", *flag,
                   "--out", str(out)])
     assert e.value.code == 2 and not out.exists()
+    if flag[0] == "--refill":
+        assert "wavefront-only knobs" in capsys.readouterr().err
+        for extra in (["--devices", "2"], ["--progressive", "2"]):
+            with pytest.raises(SystemExit) as e:
+                cli.main(["render", *SMALL, "--device", "cpu", "--backend",
+                          "wavefront", "--rng-mode", "parallel", *flag,
+                          *extra, "--out", str(out)])
+            assert e.value.code == 2 and not out.exists()
+
+
+def test_cli_renders_the_wavefront(tmp_path):
+    """render --backend wavefront --rng-mode parallel --refill 2 on the CPU
+    writes the PNG of render(backend="wavefront", refill=2), byte for
+    byte."""
+    out = tmp_path / "wf.png"
+    assert cli.main(["render", "--scene", "final", *SMALL, "--device", "cpu",
+                     "--backend", "wavefront", "--rng-mode", "parallel",
+                     "--refill", "2", "--out", str(out)]) == 0
+    cfg = RenderConfig(width=32, height=16, spp=1, depth=3,
+                       rng_mode="parallel")
+    img = rt.render(rt.final_world(device="cpu"),
+                    rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0),
+                                   vfov=20.0, aspect=cfg.aspect,
+                                   device="cpu"),
+                    cfg, backend="wavefront", refill=2)
+    ref = tmp_path / "ref.png"
+    io.save_image(str(ref), img.numpy())
+    assert out.read_bytes() == ref.read_bytes()
 
 
 @pytest.mark.parametrize("cmd", ["gradcheck", "validate", "info"])

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-forward megakernel K1a, its BVH variants K1c (the flat sweep) and K1d (the
-skip-pointer walk) and census K1', the taping forward K4, the fused VJP
-kernel K3 with its BVH, walk and tape-replay variants, the carry-state
-kernel K2 and the slab mode of every one of them (K1b).
+forward megakernel K1a, its dense stage K1e, its BVH variants K1c (the flat
+sweep) and K1d (the skip-pointer walk) and census K1', the taping forward
+K4, the fused VJP kernel K3 with its BVH, walk and tape-replay variants,
+the carry-state kernel K2, the slab mode of every one of them (K1b) and the
+wavefront's segment kernels K5 and K6.
 
 These tests need a CUDA card and nvcc; without a card they skip (the
 condition is a string, so pytest evaluates it at setup, not at import).
@@ -31,7 +32,12 @@ reciprocal rounds apart); slabs stitched give the full frame bit for bit
 (image, state, tape), and K3's slab sums, added in f64, its full-frame sums
 within 1e-6 of each leaf's largest entry.  The walk's image equals the
 flat sweep's on the same BVH bit for bit (the same leaves in the same
-order), and its census counts the flat sweep's leaves and steps.
+order), and its census counts the flat sweep's leaves and steps.  K1e
+traces K1a's sweep over the same values from shared memory: its image
+equals K1a's and the plain version's bit for bit.  K5 and K6 equal their
+plain versions (torch on the same CUDA tensors, the same op order) bit for
+bit, planes and keys, launch by launch; the wavefront's image equals
+render()'s bit for bit with one slot a pixel.
 """
 
 import pytest
@@ -39,8 +45,10 @@ import torch
 
 import raytpu_torch as rt
 from raytpu_torch import bvh as tbvh, golden, profiling, progressive, shard
+from raytpu_torch import wavefront as wf
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import gradkernel, megakernel
+from raytpu_torch.kernels import wavefront as kwf
 
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs a CUDA card")
@@ -212,8 +220,8 @@ def test_bvh_kernel_matches_plain_and_brute(rng_mode):
     scene, cam, bvh = _bvh_world(cfg)
     _reset_counts()
     got = rt.render(scene, cam, cfg, bvh=bvh)
-    brute = rt.render(scene, cam, cfg)
-    assert megakernel.variants["K1c"] == 1 == megakernel.variants["K1a"]
+    brute = rt.render(scene, cam, cfg)  # 120 spheres: the dense stage
+    assert megakernel.variants["K1c"] == 1 == megakernel.variants["K1e"]
     _agree(got, golden.render_golden(scene, cam, cfg, bvh))
     assert torch.equal(got, brute)
 
@@ -570,3 +578,103 @@ def test_device_ms_reads_the_kernels_time():
     rt.render(scene, cam, cfg)
     ms = profiling.device_ms(lambda: rt.render(scene, cam, cfg))
     assert 0 < ms < 1000
+
+
+@needs_card
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_dense_stage_bit_equal_k1a_and_plain(rng_mode):
+    """K1e (random_world, 327 spheres, by the policy) against K1a forced
+    and the plain version, bit for bit; on a slab (K1b/dense) the frame's
+    rows; at 4096 spheres (64 KB of staged rows, past the 48 KB default)
+    K1a's image."""
+    cfg = RenderConfig(width=96, height=48, spp=2, depth=8,
+                       rng_mode=rng_mode)
+    scene = rt.random_world(device="cuda")
+    cam = _cam(cfg, aperture=0.1, focus_dist=10.0)
+    cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
+    _reset_counts()
+    dense = megakernel.launch(cp, sp, cfg)
+    brute = megakernel.launch(cp, sp, cfg, brute=True)
+    part = megakernel.launch(cp, sp, cfg, row0=20, rows=40)
+    assert (megakernel.variants["K1e"], megakernel.variants["K1a"],
+            megakernel.variants["K1b/dense"]) == (1, 1, 1)
+    assert torch.equal(dense, brute)
+    assert torch.equal(dense, golden.render_golden(scene, cam, cfg))
+    assert torch.equal(part[:28], dense[20:]) and not bool(part[28:].any())
+    g = torch.Generator().manual_seed(5)
+    n = megakernel.DENSE_MAX
+    big = rt.Scene(
+        (torch.rand(n, 3, generator=g) * 20 - 10).cuda(),
+        (torch.rand(n, generator=g) * 0.3 + 0.05).cuda(),
+        torch.randint(0, 3, (n,), generator=g, dtype=torch.int32).cuda(),
+        torch.rand(n, 3, generator=g).cuda(),
+        (torch.rand(n, generator=g) + 1.0).cuda())
+    small = cfg.replace(width=32, height=16, spp=1, depth=4)
+    bp = megakernel.pack_scene(big)
+    assert torch.equal(megakernel.launch(cp, bp, small),
+                       megakernel.launch(cp, bp, small, brute=True))
+
+
+def _same(a, b):
+    """Equal values, or equal bits where a plane holds u32 seed bits (some
+    of which read as NaN)."""
+    return bool(((a == b) | (a.view(torch.int32) == b.view(torch.int32)))
+                .all())
+
+
+def _record(monkeypatch, name):
+    """kwf.<name> wrapped: each call's arguments and a copy of its
+    output."""
+    calls, fn = [], getattr(kwf, name)
+
+    def rec(*args):
+        out = fn(*args)
+        calls.append((args, out.clone()))
+        return out
+    monkeypatch.setattr(kwf, name, rec)
+    return calls
+
+
+def _wavefront_world(policy, cfg):
+    if policy == "dense":
+        return rt.random_world(device="cuda"), _cam(cfg), None
+    if policy == "brute":
+        return rt.test_world(device="cuda"), _cam(cfg), None
+    if policy == "bvh":
+        return _bvh_world(cfg)
+    return _walk_world(cfg)
+
+
+@needs_card
+@pytest.mark.parametrize("policy", ["brute", "dense", "bvh", "walk"])
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_segment_kernels_match_plain(monkeypatch, policy, rng_mode):
+    """Every K5 launch of a wavefront render (and, in parallel RNG, every
+    K6 launch of a refill render) against its plain version on the same
+    planes, bit for bit; the images equal render()'s bit for bit (one slot
+    a pixel) and, two samples in flight, within an ulp."""
+    cfg = RenderConfig(width=64, height=32, spp=2, depth=6,
+                       rng_mode=rng_mode)
+    scene, cam, bvh = _wavefront_world(policy, cfg)
+    seg = _record(monkeypatch, "launch_segment")
+    ref = rt.render(scene, cam, cfg, bvh=bvh)
+    kwf.variants[f"K5/{policy}"] = 0
+    img = rt.render(scene, cam, cfg, backend="wavefront", bvh=bvh)
+    assert kwf.variants[f"K5/{policy}"] == len(seg) == 2 * 2
+    assert torch.equal(img, ref)
+    for (ops, planes, c, k), out in seg:
+        assert _same(out, wf.segment_plain(ops, planes, c, k))
+    if rng_mode == "sequential":
+        return
+    rides = _record(monkeypatch, "launch_refill_segment")
+    kwf.variants[f"K6/{policy}"] = 0
+    for B in (1, 2):
+        img = rt.render(scene, cam, cfg, backend="wavefront", bvh=bvh,
+                        spp_batch=B, refill=2)
+        if B == 1:
+            assert torch.equal(img, ref)
+        else:
+            assert float((img - ref).abs().max()) <= 2.5e-7
+    assert kwf.variants[f"K6/{policy}"] == len(rides) > 2
+    for (ops, ride, aux, c, k, B), out in rides:
+        assert _same(out, wf.refill_segment_plain(ops, ride, aux, c, k, B))

@@ -160,6 +160,8 @@ if rank == 0:
              loss=loss.numpy(), acc=state.acc.numpy(),
              **{k: getattr(s2, k).numpy() for k in s2._fields},
              **{"cam_" + k: getattr(c2, k).numpy() for k in c2._fields})
+# every rank is done with the group before any tears its pairs down
+dist.barrier()
 dist.destroy_process_group()
 """
 
