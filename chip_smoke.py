@@ -102,18 +102,23 @@ card 0 without it).  Phases, one JSON line each:
     8b. every K5 launch of a ``render(backend="wavefront")`` frame against
         its plain version, bit for bit, brute (config 2's scene), dense
         (REFERENCE_V2's), flat BVH (config 4's) and walk (the 10k scene),
-        both RNG modes, and every K6 launch of a ``refill=2`` frame
-        (parallel RNG), at frames where the plain calls take seconds;
+        and every K6 launch of a ``refill=2`` frame (config 4's), each at
+        its main path's full frame and RNG mode at 2 spp (the slots do not
+        depend on spp); the other RNG mode and K6 under the other policies
+        at frames a few hundred pixels wide;
     8c. the main path at full width: ``render(backend="wavefront")`` at
         REFERENCE_V2, config 2, config 4 (sequential; parallel with
         ``refill=2`` at 1 and 4 samples in flight) and the 10k scene,
         against ``render()`` (bit-equal at one slot a pixel), with their
-        launches by variant; ``render_grad(backend="wavefront")``; a
-        wavefront image's K3 gradients; ``cli render --backend wavefront
-        --refill 2`` (PNG byte-equal);
-    8d. times: K1e against K1a, the wavefront against the megakernel per
-        frame, and where a wavefront frame's device time goes (segments,
-        sorts, gathers, the rest) with the device's idle share.
+        launches by variant; ``render_grad(backend="wavefront")`` and a
+        wavefront image's K3 gradients in sequential RNG, both refused in
+        parallel RNG (raytpu's backward there is K3's windowed refill, not
+        ported yet); ``cli render --backend wavefront --refill 2`` (PNG
+        byte-equal);
+    8d. times (CUDA events, a warm-up call, then each call's time): K1e
+        against K1a, the wavefront against the megakernel per frame, and
+        where a traced wavefront frame's device time goes (segments, sorts,
+        gathers, the rest) with the device's idle share of that call.
 
 It exits non-zero at the first failure.  The line before the last is the
 kernel table as JSON, the line before it the card's name and power limit,
@@ -170,6 +175,7 @@ ADAM_STEPS = 20
 ADAM_LR = 0.005        # at 0.01 the loss bottomed at step 14 and rose again
 LEAF = 64              # build_bvh's default leaf size (raytpu's)
 TAPE_PAIRS = 10        # taped / untaped pairs a scene in phase 4c
+TIMED_FRAMES = 3       # wavefront and megakernel frames timed a run (8d)
 # The least time the card could take (the roofline bound): the larger
 # of the bytes a kernel must move over 3.35 TB/s and its f32 operations over
 # 67 TFLOP/s, the H100 SXM's published peaks at 700 W (an FMA counts two
@@ -209,18 +215,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean ms per call from CUDA events, after one warm-up call."""
+def cuda_ms_each(fn, iters: int) -> list[float]:
+    """Each call's ms from CUDA events, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, stop in events:
+        start.record()
         fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
+        stop.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(stop) for start, stop in events]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean ms per call from CUDA events, after one warm-up call."""
+    each = cuda_ms_each(fn, iters)
+    return sum(each) / iters
 
 
 def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -2025,18 +2037,19 @@ def segments_vs_plain(label, scene, cam, cfg, bvh, refill: int,
     return row
 
 
-def wavefront_breakdown(fn, frame_ms: float) -> dict:
+def wavefront_breakdown(fn) -> dict:
     """Where one wavefront frame's device time goes, from a torch.profiler
     trace of ``fn()``: the segment kernels, the sorts (torch.sort's radix
     kernels), the gathers and scatters of the planes, the rest (raygen,
-    keys' bounds, gamma: elementwise kernels); the traced call's host wall
-    time (the profiler slows the host) and the device's idle share of
-    ``frame_ms``, the frame's time without the profiler."""
+    keys' bounds, gamma: elementwise kernels); the traced call's wall time
+    and the device's idle share of it.  Only the device is traced: host
+    tracing slowed a REFERENCE_V2 frame 2.8x, so the share would measure
+    the profiler; what is left of its cost still makes the share an upper
+    bound on the untraced frame's."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
@@ -2055,8 +2068,10 @@ def wavefront_breakdown(fn, frame_ms: float) -> dict:
         else:
             parts["other_ms"] += ms
     busy = sum(parts.values())
+    if busy <= 0:
+        fail("the profiler saw no device time in a wavefront frame")
     return dict(parts, device_ms=busy, traced_wall_ms=wall,
-                frame_ms=frame_ms, idle_share=max(0.0, 1.0 - busy / frame_ms))
+                idle_share=1.0 - busy / wall)
 
 
 def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
@@ -2130,28 +2145,33 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         fail("config 4's BVH must take the flat sweep, the 10k scene's the "
              "walk")
 
-    # -- 8b: K5 and K6 against their plain versions, launch by launch
-    cases = (("brute", c2w, cam2, CONFIG2.replace(width=200, height=100,
-                                                  spp=2), None),
-             ("dense", rv2, cam_rv2, cfg.replace(width=256, height=144,
-                                                 spp=2), None),
-             ("bvh", s4, cam4, CONFIG4.replace(width=200, height=100,
-                                               spp=2), b4),
-             ("walk", s10, cam4, CONFIG4.replace(width=128, height=64,
-                                                 spp=2), b10))
-    seg_rows = {}
-    for label, scene, cam, c, b in cases:
-        for mode in ("sequential", "parallel"):
-            cm = c.replace(rng_mode=mode, chunk_pixels=PLAIN_CHUNK)
-            seg_rows[(label, mode, 0)] = segments_vs_plain(
-                label, scene, cam, cm, b, 0, card)
-        seg_rows[(label, "parallel", 2)] = segments_vs_plain(
-            label, scene, cam, cm, b, 2, card)
-
-    # -- 8c: the main path at full width, through the entry points
+    # -- 8b: K5 and K6 against their plain versions, launch by launch: at
+    # each main path's full frame and RNG mode (8c), 2 spp; the other RNG
+    # mode and K6 under the other policies on smaller frames
     cfg4, cfg4p = CONFIG4, CONFIG4.replace(rng_mode="parallel")
     cfg10 = RenderConfig(width=800, height=400, spp=20, depth=12,
                          rng_mode="parallel")
+    scenes = {"brute": (c2w, cam2, None), "dense": (rv2, cam_rv2, None),
+              "bvh": (s4, cam4, b4), "walk": (s10, cam4, b10)}
+    cases = (("brute", CONFIG2, (("sequential", 0),)),
+             ("dense", cfg, (("sequential", 0),)),
+             ("bvh", cfg4, (("sequential", 0), ("parallel", 2))),
+             ("walk", cfg10, (("parallel", 0),)),
+             ("brute", CONFIG2.replace(width=200, height=100),
+              (("parallel", 0), ("parallel", 2))),
+             ("dense", cfg.replace(width=256, height=144),
+              (("parallel", 0), ("parallel", 2))),
+             ("bvh", cfg4.replace(width=200, height=100), (("parallel", 0),)),
+             ("walk", cfg10.replace(width=128, height=64),
+              (("sequential", 0), ("parallel", 2))))
+    seg_rows = {}
+    for label, c, modes in cases:
+        for mode, refill in modes:
+            cm = c.replace(spp=2, rng_mode=mode, chunk_pixels=PLAIN_CHUNK)
+            seg_rows[(label, mode, refill)] = segments_vs_plain(
+                label, *scenes[label][:2], cm, scenes[label][2], refill, card)
+
+    # -- 8c: the main path at full width, through the entry points
     runs = (("reference_v2", rv2, cam_rv2, cfg, None, {}, rv2_img),
             ("config2", c2w, cam2, CONFIG2, None, {}, None),
             ("config4", s4, cam4, cfg4, b4, {}, None),
@@ -2172,23 +2192,25 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
                        "max_abs_vs_render": d, "mean": float(img.mean()),
                        "finite": bool(torch.isfinite(img).all())}
         frames[label] = img
-    # render_grad through the wavefront backend: the kernel path
+    # render_grad through the wavefront backend: the kernel path, in
+    # sequential RNG (in parallel RNG raytpu's backward is K3's windowed
+    # refill, not ported yet: refused below)
     gen = torch.Generator().manual_seed(7)
     target = torch.rand((cfg4.height, cfg4.width, 3), generator=gen).to(dev)
     reset_counts(*mods)
-    got = rt.render_grad(s4, cam4, cfg4p, target, backend="wavefront",
+    got = rt.render_grad(s4, cam4, cfg4, target, backend="wavefront",
                          bvh=b4)
     torch.cuda.synchronize()
     launches["render_grad"] = variant_counts(*mods)
-    want = rt.render_grad(s4, cam4, cfg4p, target, bvh=b4)
+    want = rt.render_grad(s4, cam4, cfg4, target, bvh=b4)
     # the same kernels twice: K3's f64 atomics add in no fixed order
     rg_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
                                                   1e-12)
                  for a, b in zip(flat_grads((got[1], *got[2])),
                                  flat_grads((want[1], *want[2]))))
     rg_img_equal = torch.equal(got[1], want[1])
-    # a wavefront image under autograd: its backward is K3 (PASS 1 elided)
-    small = cfg4p.replace(spp=2)
+    # a wavefront image under autograd: its backward is K3
+    small = cfg4.replace(spp=2)
     leaves = [x.detach().requires_grad_() for x in
               (s4.center, s4.radius, s4.albedo, s4.mat_param, *cam4)]
     ws = rt.Scene(leaves[0], leaves[1], s4.mat_type, leaves[2], leaves[3])
@@ -2204,6 +2226,20 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
     grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
                                                     1e-12)
                    for a, b in zip(wg, fg))
+    refused = {}
+    for name, call in (
+            ("render_grad", lambda: rt.render_grad(
+                s4, cam4, cfg4p, target, backend="wavefront", bvh=b4)),
+            ("autograd", lambda: rt.render(
+                ws, rt.Camera(*leaves[4:]), small.replace(
+                    rng_mode="parallel"), backend="wavefront", bvh=b4))):
+        reset_counts(*mods)
+        try:
+            call()
+            refused[name] = False
+        except NotImplementedError as e:
+            refused[name] = "windowed-refill" in str(e)
+        refused[name] = refused[name] and not any(variant_counts(*mods))
     del leaves, ws, wg, fg, wimg, fimg
     tmp = tempfile.mkdtemp()
     try:
@@ -2229,7 +2265,7 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         "config2": {"K5/brute": CONFIG2.spp * 2},
         "config4": {"K5/bvh": cfg4.spp * 2},
         "10k": {"K5/walk": cfg10.spp * 2},
-        "render_grad": {"K4/bvh": 1, "K3/bvh+tape": 1},
+        "render_grad": {"K1c": 1, "K3/bvh": 1},
         "wavefront_autograd": {"K5/bvh": small.spp * 2, "K3/bvh": 1}}
     rounds = {k: launches[k].get("K6/bvh", 0) for k in
               ("config4_refill2", "config4_refill2_spp_batch4")}
@@ -2237,6 +2273,7 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
            "render_grad_vs_auto_rel": rg_rel,
            "render_grad_img_bit_equal": rg_img_equal,
            "wavefront_autograd_vs_render_fwd_grads_rel": grad_rel,
+           "parallel_backward_refused": refused,
            "cli_png_identical_to_render": cli_same,
            "command": " ".join(cmd[1:-1])}
     ok = (all(launches[k] == v for k, v in want_launches.items())
@@ -2247,42 +2284,48 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
                   if "spp_batch" not in k)
           and main["config4_refill2_spp_batch4"]["max_abs_vs_render"] <= 1e-6
           and rg_img_equal and rg_rel <= 1e-6 and grad_rel <= 1e-6
-          and cli_same)
+          and all(refused.values()) and cli_same)
     phase("main_path_wavefront", ok=ok, card=card,
           tolerance="images bit-equal to render() at one slot a pixel, "
                     "within 1e-6 with 4; render_grad(backend='wavefront') "
-                    "and a wavefront image's K3 gradients within 1e-6 of "
-                    "each leaf's largest against the kernel path's", **row)
+                    "and a wavefront image's K3 gradients (sequential RNG) "
+                    "within 1e-6 of each leaf's largest against the kernel "
+                    "path's; both refused in parallel RNG", **row)
     if not ok:
         fail(f"the wavefront's main path: {row}")
     del frames
 
-    # -- 8d: times, the wavefront against the megakernel
+    # -- 8d: times, the wavefront against the megakernel: the mean of
+    # TIMED_FRAMES calls after a warm-up, each call's time beside it
     t = {"card": card}
     for label, scene, cam, c, b, kw, _ in runs:
-        _, t[f"{label}_wavefront_ms"] = once_ms(lambda: rt.render(
-            scene, cam, c, backend="wavefront", bvh=b, **kw))
-        t[f"{label}_megakernel_ms"] = cuda_ms(lambda: rt.render(
-            scene, cam, c, bvh=b), 2)
+        for engine, extra in (("wavefront", dict(backend="wavefront", **kw)),
+                              ("megakernel", {})):
+            each = cuda_ms_each(lambda: rt.render(scene, cam, c, bvh=b,
+                                                  **extra), TIMED_FRAMES)
+            t[f"{label}_{engine}_ms"] = sum(each) / TIMED_FRAMES
+            t[f"{label}_{engine}_ms_each"] = each
         t[f"{label}_ratio"] = (t[f"{label}_wavefront_ms"]
                                / t[f"{label}_megakernel_ms"])
     for label, scene, cam, c, b, kw, _ in runs[:4] + runs[5:]:
         t[f"{label}_breakdown"] = wavefront_breakdown(lambda: rt.render(
-            scene, cam, c, backend="wavefront", bvh=b, **kw),
-            t[f"{label}_wavefront_ms"])
+            scene, cam, c, backend="wavefront", bvh=b, **kw))
     t.update(k1e_ms=entries["K1e"]["main_path_ms"],
              k1a_ms=entries["K1e"]["main_path_k1a_ms"])
     phase("timing_wavefront", frame="REFERENCE_V2, config 2, config 4 "
           "(sequential; parallel for refill), the 10k scene (parallel)", **t)
 
-    for policy, main_run in (("brute", "config2"), ("dense", "reference_v2"),
-                             ("bvh", "config4"), ("walk", "10k")):
-        r = seg_rows[(policy, "parallel", 0)]
+    for policy, main_run, mode in (
+            ("brute", "config2", "sequential"),
+            ("dense", "reference_v2", "sequential"),
+            ("bvh", "config4", "sequential"), ("walk", "10k", "parallel")):
+        r = seg_rows[(policy, mode, 0)]
         err = max(seg_rows[(policy, m, 0)]["max_abs_err"]
                   for m in ("sequential", "parallel"))
         entries[f"K5/{policy}"] = dict(
             cell=f"{r['frame']}, all {r['launches']} launches of a frame "
-                 f"summed (error: both RNG modes); main path: {main_run}",
+                 f"summed (error: also the other RNG mode); main path: "
+                 f"{main_run}",
             launches=launches[main_run][f"K5/{policy}"], max_abs_err=err,
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"],

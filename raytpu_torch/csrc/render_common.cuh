@@ -610,11 +610,10 @@ struct Residual {
 // one draw.  Returns whether the ray scattered (lives on).  On a miss the
 // slot's radiance (rr, rg, rb) gains c * sky, raytpu's add-once rule
 // (megakernel.py:734: a sample misses once, so a radiance carried across a
-// slot's samples sums them, as the wavefront's does); with kAddSky false it
-// is set to c * sky instead, for trace_path, whose radiance is 0 there: the
-// same value, one add fewer.  kStore writes the step's Residual (the
-// incoming ray and throughput, the winner, the seed) to *res.
-template <bool kStore, bool kAddSky, int kHit, int kTape, bool kCount>
+// slot's samples sums them, as the wavefront's does; trace_path's radiance
+// is +0 there, so it ends as c * sky).  kStore writes the step's Residual
+// (the incoming ray and throughput, the winner, the seed) to *res.
+template <bool kStore, int kHit, int kTape, bool kCount>
 __device__ __forceinline__ bool bounce_step(const SceneView& s,
                                             const FlatBvh& bvh,
                                             const NodeBvh& walk, Ray& r,
@@ -631,15 +630,9 @@ __device__ __forceinline__ bool bounce_step(const SceneView& s,
   if (win < 0) {  // miss: sky of the pre-scatter direction
     float kr, kg, kb;
     sky(r.dx, r.dy, r.dz, kr, kg, kb);
-    if (kAddSky) {
-      rr = rr + cr * kr;
-      rg = rg + cg * kg;
-      rb = rb + cb * kb;
-    } else {
-      rr = cr * kr;
-      rg = cg * kg;
-      rb = cb * kb;
-    }
+    rr = rr + cr * kr;
+    rg = rg + cg * kg;
+    rb = rb + cb * kb;
     return false;
   }
   float mt = s.mt[win];
@@ -670,7 +663,7 @@ __device__ __forceinline__ int trace_path(const SceneView& s,
   rb = 0.0f;
   if (kCount) ++cn.samples;
   for (int d = 0; d < depth; ++d) {
-    if (!bounce_step<kStore, false, kHit, kTape, kCount>(
+    if (!bounce_step<kStore, kHit, kTape, kCount>(
             s, bvh, walk, r, sd, t_min, v1, cr, cg, cb, rr, rg, rb,
             kStore ? res + d : nullptr, tc, cn))
       return d + 1;

@@ -133,7 +133,7 @@ __global__ void __launch_bounds__(kBlock) render_segment_kernel(SegParams p) {
     TapeCursor tc{nullptr, 0, 0, 0, 0, 0};
     Census cn{0u, 0u, 0u, 0u};
     for (int b = 0; b < c.n_bounces; ++b) {
-      if (!bounce_step<false, true, kHit, kNoTape, false>(
+      if (!bounce_step<false, kHit, kNoTape, false>(
               s, c.bvh, c.walk, r, sd, c.t_min, c.v1 != 0, cr, cg, cb, rr,
               rg, rb, nullptr, tc, cn)) {
         alive = 0.0f;
@@ -197,7 +197,7 @@ __global__ void __launch_bounds__(kBlock) render_refill_kernel(RefillParams p) {
   TapeCursor tc{nullptr, 0, 0, 0, 0, 0};
   Census cn{0u, 0u, 0u, 0u};
   for (int b = 0; b < c.n_bounces && alive; ++b) {
-    const bool scattered = bounce_step<false, true, kHit, kNoTape, false>(
+    const bool scattered = bounce_step<false, kHit, kNoTape, false>(
         s, c.bvh, c.walk, r, sd, c.t_min, c.v1 != 0, cr, cg, cb, rr, rg, rb,
         nullptr, tc, cn);
     ++d;

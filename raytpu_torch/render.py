@@ -119,12 +119,16 @@ def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
     replay backward);
     ``"golden"`` ignores it, as raytpu's adjoint is the brute-force oracle
     (raytpu/render.py:139).  ``"wavefront"`` takes the kernel path, as
-    raytpu's does (raytpu/render.py:136-137): its gradients are K3's.  An
+    raytpu's does (raytpu/render.py:136-137): its gradients are K3's; in
+    parallel RNG on CUDA tensors it raises, as the wavefront's backward
+    does (:func:`raytpu_torch.wavefront.check_backward`).  An
     optimisation loop that moves spheres keeps the BVH's boxes around them
     with :func:`raytpu_torch.bvh.refit`.
     """
     check_backend(backend, scene, RENDER_BACKENDS)
     if backend == "wavefront":
+        from raytpu_torch import wavefront
+        wavefront.check_backward(cfg, scene.center.device)
         backend = "auto"
     adjoint.check_cfg(cfg)
     leaves = [t.detach().requires_grad_()

@@ -220,8 +220,10 @@ def test_bvh_kernel_matches_plain_and_brute(rng_mode):
     scene, cam, bvh = _bvh_world(cfg)
     _reset_counts()
     got = rt.render(scene, cam, cfg, bvh=bvh)
-    brute = rt.render(scene, cam, cfg)  # 120 spheres: the dense stage
-    assert megakernel.variants["K1c"] == 1 == megakernel.variants["K1e"]
+    # 120 spheres would take the dense stage: force the brute sweep K1a
+    brute = megakernel.launch(megakernel.pack_camera(cam),
+                              megakernel.pack_scene(scene), cfg, brute=True)
+    assert megakernel.variants["K1c"] == 1 == megakernel.variants["K1a"]
     _agree(got, golden.render_golden(scene, cam, cfg, bvh))
     assert torch.equal(got, brute)
 
@@ -678,3 +680,41 @@ def test_segment_kernels_match_plain(monkeypatch, policy, rng_mode):
     assert kwf.variants[f"K6/{policy}"] == len(rides) > 2
     for (ops, ride, aux, c, k, B), out in rides:
         assert _same(out, wf.refill_segment_plain(ops, ride, aux, c, k, B))
+
+
+@needs_card
+def test_wavefront_backward_sequential_and_parallel_refusal():
+    """A wavefront image's K3 gradients in sequential RNG equal the kernel
+    path's (K1c + K3/bvh) within f64-atomic order; in parallel RNG the
+    wavefront's autograd and render_grad(backend="wavefront") refuse (K3's
+    windowed-refill PASS 2 is raytpu's backward there, not ported yet)."""
+    cfg = RenderConfig(width=64, height=32, spp=2, depth=6)
+    scene, cam, bvh = _bvh_world(cfg)
+    target = torch.full((32, 64, 3), 0.5, device="cuda")
+    grads = []
+    for fn in (wf.render_wavefront, megakernel.render_fwd):
+        leaves = [t.detach().requires_grad_() for t in
+                  (scene.center, scene.radius, scene.albedo, scene.mat_param,
+                   *cam)]
+        s = rt.Scene(leaves[0], leaves[1], scene.mat_type, leaves[2],
+                     leaves[3])
+        _reset_counts()
+        img = fn(s, rt.Camera(*leaves[4:]), cfg, bvh=bvh)
+        grads.append([img, *torch.autograd.grad(img, leaves,
+                                                 img.detach() - target)])
+        assert gradkernel.variants["K3/bvh"] == 1
+    assert torch.equal(grads[0][0], grads[1][0])
+    for a, b in zip(grads[0][1:], grads[1][1:]):
+        assert float((a - b).abs().max()) <= 1e-6 * max(
+            float(b.abs().max()), 1e-8)
+    got = rt.render_grad(scene, cam, cfg, target, backend="wavefront",
+                         bvh=bvh)
+    assert torch.equal(got[1], rt.render(scene, cam, cfg, bvh=bvh))
+    par = cfg.replace(rng_mode="parallel")
+    with pytest.raises(NotImplementedError, match="windowed-refill"):
+        rt.render_grad(scene, cam, par, target, backend="wavefront", bvh=bvh)
+    leaf = scene.center.detach().requires_grad_()
+    with pytest.raises(NotImplementedError, match="windowed-refill"):
+        rt.render(rt.Scene(leaf, scene.radius, scene.mat_type, scene.albedo,
+                           scene.mat_param), cam, par, backend="wavefront",
+                  bvh=bvh)

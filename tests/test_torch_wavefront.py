@@ -232,6 +232,21 @@ def test_gradients_equal_render_fwd(case):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def test_backward_refused_on_a_card_in_parallel_rng():
+    """raytpu's backward of a parallel-RNG wavefront image is K3's
+    windowed-refill PASS 2, which the port does not have yet: a card in
+    parallel RNG is refused (no tensor needed to ask); sequential RNG and
+    CPU tensors are not."""
+    par = RenderConfig(width=16, height=8, spp=2, depth=2,
+                       rng_mode="parallel")
+    with pytest.raises(NotImplementedError, match="windowed-refill"):
+        wf.check_backward(par, "cuda")
+    with pytest.raises(NotImplementedError, match="windowed-refill"):
+        wf.check_backward(par, torch.device("cuda", 0))
+    wf.check_backward(par.replace(rng_mode="sequential"), "cuda")
+    wf.check_backward(par, "cpu")
+
+
 def test_render_backend_and_refusals():
     """render(backend="wavefront") is the wavefront; "auto" never picks
     it, and its knobs elsewhere, a sequential spp_batch or refill, a
