@@ -4,7 +4,8 @@
 
 Needs a CUDA card and nvcc; builds the port's CUDA kernels from
 ``raytpu_torch/csrc/`` (the forward megakernels K1a / K1b / K1c / K1d / K1e /
-K1' / K2 / K4-write, the fused VJP kernel K3 with its BVH (flat and walk),
+K1' / K2 / K4-write, the fused VJP kernel K3 on both PASS 2 schedules (the
+per-sample pass and the windowed refill) with its BVH (flat and walk),
 tape-replay and slab variants and the wavefront's segment kernels K5 / K6,
 one nvcc a source, in parallel) and the host BVH builder (g++), and drives
 ``raytpu_torch``'s paths: the forward render and the gradient path
@@ -44,11 +45,13 @@ card 0 without it).  Phases, one JSON line each:
     5d. K3's BVH variant against K3 brute (both RNG modes, ``vis_w`` 0 and
         0.005) and against the plain adjoint;
     5e. K4: the taping forward's image against K1a's and K1c's, taped K3
-        against untaped K3 (brute and BVH, full and partial tapes), and
+        against untaped K3 on each PASS 2 schedule (brute and BVH, full and
+        partial tapes), both schedules against the plain version, and
         ``tape_plan``'s decisions;
     5f. the main path at full size: ``render(..., bvh=)``, ``render_grad``
-        with the BVH in both RNG modes and brute in parallel RNG, each
-        with its launches by variant checked, and ``cli render --bvh``;
+        with the BVH in both RNG modes and brute in parallel RNG (the
+        parallel ones also on K3's per-sample pass), each with its launches
+        by variant checked, and ``cli render --bvh``;
     5g. times at full size (forward, fwd+bwd, K3 with and without the
         tape) and the tape's coverage rule on REFERENCE_V2;
 6.  config 5 (BASELINE: ``final_world()``, 1920x1080, 500 spp, depth 12,
@@ -69,10 +72,11 @@ card 0 without it).  Phases, one JSON line each:
     6d. the sharded path on one card, a world-size-1 NCCL group:
         ``render_sharded``, ``accumulate(group=)`` and three
         ``make_train_step`` steps at 1920x1080, 20 spp, parallel RNG, BVH
-        with refit, taped, against ``render`` and ``render_grad``; then
-        three steps of raytpu's falling-loss problem at the same frame;
-        then K1b, K2, K4 and K3 on that path's slab (rows 0-1079) against
-        their plain versions at 2 spp.
+        with refit, taped, against ``render`` and ``render_grad``, and the
+        same steps on K3's per-sample pass; then three steps of raytpu's
+        falling-loss problem at the same frame; then K1b, K2, K4 and K3
+        (both schedules) on that path's slab (rows 0-1079) against their
+        plain versions at 2 spp, and the step's time on each schedule.
 7.  raytpu's 10,000-sphere scene (scripts/probe_10k_r5.py's recipe, built
     here with numpy, written with ``scene_io.save_scene`` and loaded from
     that file), 800x400, 20 spp, depth 12, over the skip-pointer walk K1d:
@@ -80,18 +84,19 @@ card 0 without it).  Phases, one JSON line each:
         64, so raytpu's rule picks the walk;
     7b. K1d, K1b/walk (a slab of all 400 rows), K2/walk (1 + 1 batches),
         K1'/walk and K4/walk bit-equal to their plain versions on the whole
-        frame at 2 spp, both RNG modes, K3/walk and K3/walk+tape within the
-        gradient budget; K1d against its plain version on config 4's
-        unpadded BVH;
+        frame at 2 spp, both RNG modes, K3/walk and K3/walk+tape (both
+        schedules) within the gradient budget; K1d against its plain
+        version on config 4's unpadded BVH;
     7c. at full size, both RNG modes: K1d against K1c forced on the same
         BVH and against K1a (pixels that differ: exact ties only), K3/walk
         against K3 over the flat sweep (f64 sums), the progressive render
         in 4 batches of 5 against the one-shot render;
     7d. the main path: ``cli render --scene-file --bvh --log`` (PNG
         byte-equal to ``render()``'s, one log line naming the card),
-        ``render``, ``render_sharded`` and ``render_grad`` with their
-        launches by variant, the taped ``render_grad``'s K3 sums against
-        K3/walk untaped on the same operands (f64);
+        ``render``, ``render_sharded`` and ``render_grad`` (parallel RNG:
+        taped, untaped and on K3's per-sample pass) with their launches by
+        variant, the taped ``render_grad``'s K3 sums against K3/walk
+        untaped on the same operands (f64);
     7e. ``cli validate --scene-file --bvh --device cuda`` and ``cli info``;
     7f. times: K1d, K1c forced, K1a, fwd+bwd taped and untaped, the walk's
         census (nodes and leaves a step), and the walk forced on config 4's
@@ -111,14 +116,30 @@ card 0 without it).  Phases, one JSON line each:
         ``refill=2`` at 1 and 4 samples in flight) and the 10k scene,
         against ``render()`` (bit-equal at one slot a pixel), with their
         launches by variant; ``render_grad(backend="wavefront")`` and a
-        wavefront image's K3 gradients in sequential RNG, both refused in
-        parallel RNG (raytpu's backward there is K3's windowed refill, not
-        ported yet); ``cli render --backend wavefront --refill 2`` (PNG
+        wavefront image's K3 gradients against the megakernel path's, in
+        sequential RNG and in parallel RNG (``refill=2``; K3 on its windowed
+        refill); ``cli render --backend wavefront --refill 2`` (PNG
         byte-equal);
     8d. times (CUDA events, a warm-up call, then each call's time): K1e
         against K1a, the wavefront against the megakernel per frame, and
         where a traced wavefront frame's device time goes (segments, sorts,
         gathers, the rest) with the device's idle share of that call.
+9.  K3's windowed refill (raytpu's parallel-RNG backward):
+    9a. the refill against the per-sample pass on the same operands (image
+        bit-equal, every leaf within raytpu's 3e-5) and against the plain
+        version (within the gradient budget): config 2 and config 3's
+        thin lens with ``vis_w`` at 2 spp; config 4 over the BVH with a
+        window of depth steps (the budget set to 0: every lane parks after
+        each sample), untaped and taped against untaped for every g_cap of
+        5e (the BVH, walk, tape and slab variants against their plain
+        versions: phases 5e, 6b / 6d and 7b);
+    9b. the main paths in parallel RNG through the entry points, on the
+        refill and on the per-sample pass (launches by variant, gradients
+        within 3e-5, each call's time in turns): config 4 ``render_grad``
+        taped and with ``vis_w`` (untaped), config 2 ``render_grad``, the
+        wavefront at config 4 (``render_grad(backend="wavefront")`` and the
+        autograd of a ``refill=2`` frame); config 5's train step is timed
+        in 6d, the 10k scene's in 7f.
 
 It exits non-zero at the first failure.  The line before the last is the
 kernel table as JSON, the line before it the card's name and power limit,
@@ -170,6 +191,11 @@ FRAME_CHUNK = 1 << 18
 # its TPU kernel to 1e-4 against autodiff at 32x16, 5e-4 for defocus with
 # parallel RNG.)
 GRAD_BUDGET = 5e-3
+# K3's windowed refill against its per-sample pass on the same operands, per
+# leaf (as GRAD_BUDGET): raytpu's bound for its refill (tests/test_gradkernel.py
+# :155-225).  Both schedules sum the same f32 terms in f64, in another
+# order, so they differ by little more than the f32 cast.
+REFILL_TOL = 3e-5
 VIS_W = 0.005          # the config-3 problem's silhouette weight
 ADAM_STEPS = 20
 ADAM_LR = 0.005        # at 0.01 the loss bottomed at step 14 and rose again
@@ -380,6 +406,31 @@ def variant_counts(*modules) -> dict:
     return {k: v for m in modules for k, v in m.variants.items() if v}
 
 
+@contextlib.contextmanager
+def per_sample():
+    """K3's per-sample PASS 2 on every path inside the block (the
+    wrapper's P2_REFILL off), where the windowed refill runs by default."""
+    from raytpu_torch.kernels import gradkernel
+    gradkernel.P2_REFILL = False
+    try:
+        yield
+    finally:
+        gradkernel.P2_REFILL = True
+
+
+def schedule_times(fn, iters: int = 3) -> dict:
+    """``fn``'s ms on the windowed refill and on the per-sample pass, in
+    turns (refill, per-sample, per-sample, refill): each turn a warm-up
+    call, then ``iters`` calls timed one by one from CUDA events."""
+    refill = cuda_ms_each(fn, iters)
+    with per_sample():
+        each = cuda_ms_each(fn, iters)
+        each += cuda_ms_each(fn, iters)
+    refill += cuda_ms_each(fn, iters)
+    return {"refill_ms": sum(refill) / len(refill), "refill_each_ms": refill,
+            "per_sample_ms": sum(each) / len(each), "per_sample_each_ms": each}
+
+
 def tape_pairs(dev, card: str) -> dict:
     """Phase 4c: where the tape starts to pay (``tape_plan``'s
     TAPE_MIN_SPHERES).  ``render_grad`` at the config-2 frame in parallel
@@ -427,6 +478,39 @@ def tape_pairs(dev, card: str) -> dict:
               frame=f"{cfg.width}x{cfg.height} spp{cfg.spp} d{cfg.depth} "
                     "parallel", card=card, pairs=TAPE_PAIRS, **row)
     return out
+
+
+def taped_vs_untaped(scene, cam, cfg, ct, img, bvh, tape, label: str,
+                     p2_refill=None) -> dict:
+    """Taped K3 against untaped on the same operands (parallel RNG, the
+    image given) for g_cap in (full, 0, 1, 2, depth + 3), by phase 5's
+    rule: the image (output 0) and the camera cotangents (5-11), summed in
+    a fixed order, bit-equal; a sphere leaf (1-4) within untaped K3's own
+    spread over three runs (f64 atomics add in no fixed order) -> {g_cap:
+    what differed}; fails otherwise."""
+    from raytpu_torch.kernels import gradkernel
+    full = cfg.spp * cfg.depth
+    untaped = [flat_grads(gradkernel.render_vjp(
+        scene, cam, cfg, ct, img=img, bvh=bvh, p2_refill=p2_refill))
+        for _ in range(3)]
+    spread = [max(float((r[i] - untaped[0][i]).abs().max())
+                  for r in untaped[1:]) for i in range(len(untaped[0]))]
+    caps = {}
+    for g_cap in (full, 0, 1, 2, cfg.depth + 3):
+        taped = flat_grads(gradkernel.render_vjp(
+            scene, cam, cfg, ct, img=img, bvh=bvh, tape=tape[:g_cap],
+            tape_partial=g_cap < full, p2_refill=p2_refill))
+        diffs = {i: float((a - u).abs().max()) for i, (a, u) in
+                 enumerate(zip(taped, untaped[0])) if not torch.equal(a, u)}
+        bad = {i: d for i, d in diffs.items()
+               if not 1 <= i <= 4 or d > spread[i]}
+        caps[g_cap] = {"bit_equal": not diffs, "differing": diffs,
+                       "untaped_spread": {i: spread[i] for i in diffs}}
+        if bad:
+            phase("k4_taped_vs_untaped", ok=False, schedule=label,
+                  g_cap=g_cap, differing=diffs, untaped_spread=spread)
+            fail(f"taped K3 ({label}, g_cap {g_cap}) differs from untaped")
+    return caps
 
 
 def config4_phases(dev, card: str) -> list:
@@ -614,33 +698,18 @@ def config4_phases(dev, card: str) -> list:
                               ("bvh", bvh, spv, c2p)):
         img2, tape2 = gradkernel.render_tape_fwd(scene, cam, cfg2p, full2, b)
         ct = 2.0 * (img2 - target) / img2.numel()
-        untaped = [flat_grads(gradkernel.render_vjp(
-            scene, cam, cfg2p, ct, img=img2, bvh=b)) for _ in range(3)]
-        spread = [max(float((r[i] - untaped[0][i]).abs().max())
-                      for r in untaped[1:]) for i in range(len(untaped[0]))]
-        caps = {}
-        for g_cap in (full2, 0, 1, 2, cfg2p.depth + 3):
-            taped = flat_grads(gradkernel.render_vjp(
-                scene, cam, cfg2p, ct, img=img2, bvh=b,
-                tape=tape2[:g_cap], tape_partial=g_cap < full2))
-            diffs = {i: float((a - u).abs().max()) for i, (a, u) in
-                     enumerate(zip(taped, untaped[0])) if not torch.equal(a, u)}
-            # image (0) and camera sums (5-11) have a fixed order: bit-equal;
-            # a sphere leaf (1-4) may differ within untaped K3's own spread
-            bad = {i: d for i, d in diffs.items()
-                   if not 1 <= i <= 4 or d > spread[i]}
-            caps[g_cap] = {"bit_equal": not diffs, "differing": diffs,
-                           "untaped_spread": {i: spread[i] for i in diffs}}
-            if bad:
-                phase("k4_taped_vs_untaped", ok=False, sweep=sweep,
-                      g_cap=g_cap, differing=diffs, untaped_spread=spread)
-                fail(f"taped K3 ({sweep}, g_cap {g_cap}) differs from untaped")
+        # taped against untaped K3 on each PASS 2 schedule: the per-sample
+        # pass and the windowed refill
+        caps, k3t_ms, k3u_ms = {}, {}, {}
+        for sched, p2 in (("per_sample", False), ("refill", True)):
+            caps[sched] = taped_vs_untaped(scene, cam, cfg2p, ct, img2, b,
+                                           tape2, f"{sweep}, {sched}", p2)
+            k3t_ms[sched] = cuda_ms(lambda: gradkernel.launch(
+                cp, pack, cfg2p, ct, img2, 0.0, b, tape2, p2_refill=p2), 3)
+            k3u_ms[sched] = cuda_ms(lambda: gradkernel.launch(
+                cp, pack, cfg2p, ct, img2, 0.0, b, p2_refill=p2), 3)
         k4_ms = cuda_ms(lambda: megakernel.launch(cp, pack, cfg2p, b,
                                                   tape=tape2), 5)
-        k3t_ms = cuda_ms(lambda: gradkernel.launch(
-            cp, pack, cfg2p, ct, img2, 0.0, b, tape2), 3)
-        k3u_ms = cuda_ms(lambda: gradkernel.launch(
-            cp, pack, cfg2p, ct, img2, 0.0, b), 3)
         (pimg, ptape), k4_plain_ms = once_ms(lambda: golden.render_golden_tape(
             scene, cam, cfg2p.replace(**plain), full2, b))
         k4_err = float((pimg - img2).abs().max())
@@ -648,21 +717,25 @@ def config4_phases(dev, card: str) -> list:
         tape_share = float((ptape == tape2)[written].float().mean())
         want, k3t_plain_ms = once_ms(lambda: gradkernel.render_vjp_plain(
             scene, cam, cfg2p.replace(**plain), ct, 0.0, b, tape2))
-        got = gradkernel.render_vjp(scene, cam, cfg2p, ct, img=img2, bvh=b,
-                                    tape=tape2)
-        prel, k3t_err = leaf_errors(got, want, rt.Camera._fields)
-        ok = (tape_share >= 1 - BUDGET_SHARE and max(prel.values())
-              <= GRAD_BUDGET and compare(img2, pimg)["share_above_budget"]
-              <= BUDGET_SHARE)
+        # both schedules against the one plain version (the same function)
+        prel, k3t_err = {}, {}
+        for sched, p2 in (("per_sample", False), ("refill", True)):
+            got = gradkernel.render_vjp(scene, cam, cfg2p, ct, img=img2,
+                                        bvh=b, tape=tape2, p2_refill=p2)
+            prel[sched], k3t_err[sched] = leaf_errors(got, want,
+                                                      rt.Camera._fields)
+        worst_rel = max(max(r.values()) for r in prel.values())
+        ok = (tape_share >= 1 - BUDGET_SHARE and worst_rel <= GRAD_BUDGET
+              and compare(img2, pimg)["share_above_budget"] <= BUDGET_SHARE)
         phase("k4_taped_vs_untaped", ok=ok, sweep=sweep,
               frame="800x400 spp2 d12 parallel", g_caps=caps,
               plain_tape_share_equal=tape_share, write_vs_plain_img=k4_err,
-              replay_vs_plain_worst_rel=max(prel.values()),
-              k4_write_ms=k4_ms, k3_taped_ms=k3t_ms, k3_untaped_ms=k3u_ms,
+              replay_vs_plain_rel=prel, k4_write_ms=k4_ms,
+              k3_taped_ms=k3t_ms, k3_untaped_ms=k3u_ms,
               plain_write_ms=k4_plain_ms, plain_replay_ms=k3t_plain_ms,
               card=card)
         if not ok:
-            fail(f"K4 ({sweep}) disagrees with its plain version")
+            fail(f"K4 or taped K3 ({sweep}) disagrees with its plain version")
         # the tape bytes moved: one slot a step this run took, written by
         # K4 and read by the replay (the slots past a pixel's last step
         # are neither)
@@ -672,12 +745,35 @@ def config4_phases(dev, card: str) -> list:
             max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms,
             **bound(forward_ops(c), frame_bytes(cfg2p, nk, 1) + tbytes
                     + (flat_bytes if b is not None else 0)))
-        entries["K3/bvh+tape" if b is not None else "K3/tape"] = dict(
-            max_abs_err=k3t_err, ms=k3t_ms, plain_ms=k3t_plain_ms,
-            untaped_ms=k3u_ms,
-            **bound(k3_ops(c, 1, c["bounce_steps"]),
-                    frame_bytes(cfg2p, nk, 3) + tbytes + 8 * 8 * nk))
-        del untaped, want, got, tape2, ptape
+        k3t_bound = bound(k3_ops(c, 1, c["bounce_steps"]),
+                          frame_bytes(cfg2p, nk, 3) + tbytes + 8 * 8 * nk)
+        keys = ({"per_sample": "K3/bvh+tape", "refill": "K3/bvh+refill+tape"}
+                if b is not None else
+                {"per_sample": "K3/tape", "refill": "K3/refill+tape"})
+        for sched, key in keys.items():
+            entries[key] = dict(
+                max_abs_err=k3t_err[sched], max_rel_err=max(
+                    prel[sched].values()), ms=k3t_ms[sched],
+                plain_ms=k3t_plain_ms, untaped_ms=k3u_ms[sched], **k3t_bound)
+        if b is not None:  # the untaped refill against the untaped plain
+            want_u, k3u_plain_ms = once_ms(lambda: gradkernel.render_vjp_plain(
+                scene, cam, cfg2p.replace(**plain), ct, 0.0, b))
+            got = gradkernel.render_vjp(scene, cam, cfg2p, ct, img=img2,
+                                        bvh=b)
+            urel, uerr = leaf_errors(got, want_u, rt.Camera._fields)
+            phase("k3_bvh_refill_vs_plain", ok=max(urel.values())
+                  <= GRAD_BUDGET, frame="800x400 spp2 d12 parallel",
+                  rel_err=urel, budget=GRAD_BUDGET, plain_ms=k3u_plain_ms)
+            if max(urel.values()) > GRAD_BUDGET:
+                fail("K3's untaped refill over the BVH disagrees with its "
+                     "plain version")
+            entries["K3/bvh+refill"] = dict(
+                max_abs_err=uerr, max_rel_err=max(urel.values()),
+                ms=k3u_ms["refill"], plain_ms=k3u_plain_ms,
+                **bound(k3_ops(c, 1), frame_bytes(cfg2p, nk, 3) + flat_bytes
+                        + 8 * 8 * nk))
+            del want_u
+        del want, got, tape2, ptape
 
     entries["K1c"] = dict(max_abs_err=res["max_abs_err"],
                           ms=cuda_ms(lambda: megakernel.launch(
@@ -706,20 +802,30 @@ def config4_phases(dev, card: str) -> list:
     launches["render"] = variant_counts(megakernel, gradkernel)
     mean = float(img.mean())
     runs = {}
+    # parallel RNG: K3 on the windowed refill, and on the per-sample pass
+    # where the label says so (P2_REFILL off)
     for label, cfg, b in (("parallel_bvh", cfg4p, bvh),
                           ("sequential_bvh", cfg4, bvh),
-                          ("parallel_brute", cfg4p, None)):
+                          ("parallel_brute", cfg4p, None),
+                          ("parallel_bvh_per_sample", cfg4p, bvh),
+                          ("parallel_brute_per_sample", cfg4p, None)):
         reset_counts(megakernel, gradkernel)
-        runs[label] = rt.render_grad(scene, cam, cfg, target, bvh=b)
+        with (per_sample() if label.endswith("per_sample")
+              else contextlib.nullcontext()):
+            runs[label] = rt.render_grad(scene, cam, cfg, target, bvh=b)
         torch.cuda.synchronize()
         launches[label] = variant_counts(megakernel, gradkernel)
     reset_counts(megakernel, gradkernel)
     profiling.census(scene, cam, cfg4, bvh)
     launches["census"] = variant_counts(megakernel, gradkernel)
     want_launches = {"render": {"K1c": 1},
-                     "parallel_bvh": {"K4/bvh": 1, "K3/bvh+tape": 1},
+                     "parallel_bvh": {"K4/bvh": 1, "K3/bvh+refill+tape": 1},
                      "sequential_bvh": {"K1c": 1, "K3/bvh": 1},
-                     "parallel_brute": {"K4/brute": 1, "K3/tape": 1},
+                     "parallel_brute": {"K4/brute": 1, "K3/refill+tape": 1},
+                     "parallel_bvh_per_sample": {"K4/bvh": 1,
+                                                 "K3/bvh+tape": 1},
+                     "parallel_brute_per_sample": {"K4/brute": 1,
+                                                   "K3/tape": 1},
                      "census": {"K1'/bvh": 1}}
     finite = {k: all(bool(torch.isfinite(g).all()) for g in
                      flat_grads((r[1], *r[2]))) for k, r in runs.items()}
@@ -746,6 +852,20 @@ def config4_phases(dev, card: str) -> list:
     if not (torch.equal(runs["parallel_bvh"][1], k1c4p)
             and torch.equal(runs["sequential_bvh"][1], img)):
         fail("render_grad's image is not the forward kernel's")
+    # the two schedules' gradients at full size (f32, within 3e-5 of each
+    # leaf's largest entry: raytpu's bound for its refill)
+    sched_rel = {}
+    for label in ("parallel_bvh", "parallel_brute"):
+        rel, _ = leaf_errors((None, *runs[label][2]),
+                             (None, *runs[label + "_per_sample"][2]),
+                             rt.Camera._fields)
+        sched_rel[label] = max(rel.values())
+    phase("config4_refill_vs_per_sample", frame="800x400 spp100 d12 "
+          "parallel, render_grad", ok=max(sched_rel.values()) <= REFILL_TOL,
+          worst_rel=sched_rel, tolerance=REFILL_TOL)
+    if max(sched_rel.values()) > REFILL_TOL:
+        fail(f"config 4's refill gradients differ from the per-sample "
+             f"pass's: {sched_rel}")
     del runs
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -858,8 +978,14 @@ def config4_phases(dev, card: str) -> list:
                  ("K4/bvh", launches["parallel_bvh"]["K4/bvh"]),
                  ("K4/brute", launches["parallel_brute"]["K4/brute"]),
                  ("K3/bvh", launches["sequential_bvh"]["K3/bvh"]),
-                 ("K3/bvh+tape", launches["parallel_bvh"]["K3/bvh+tape"]),
-                 ("K3/tape", launches["parallel_brute"]["K3/tape"])):
+                 ("K3/bvh+tape",
+                  launches["parallel_bvh_per_sample"]["K3/bvh+tape"]),
+                 ("K3/tape",
+                  launches["parallel_brute_per_sample"]["K3/tape"]),
+                 ("K3/bvh+refill+tape",
+                  launches["parallel_bvh"]["K3/bvh+refill+tape"]),
+                 ("K3/refill+tape",
+                  launches["parallel_brute"]["K3/refill+tape"])):
         entries[k]["launches"] = n
     return entries
 
@@ -1101,22 +1227,30 @@ def slab_vs_plain(card: str, bvh, scene, cam, cfg, row0: int,
     del pimg, ptape, written
     ct_s = 2.0 * (img_t - 0.5) / (cfg.height * cfg.width * 3)
     ct_s[live:] = 0.0
-    got3 = gradkernel.render_vjp(scene, cam, cfg, ct_s, img=img_t, bvh=bvh,
-                                 tape=tape_s, row0=row0, rows=rows)
     want3, k3_plain_ms = once_ms(lambda: gradkernel.render_vjp_plain(
         scene, cam, cfg, ct_s, 0.0, bvh, tape_s, row0, rows))
-    prel, k3_err = leaf_errors(got3, want3, rt.Camera._fields)
-    entries["K3/bvh+tape+slab"] = dict(
-        max_abs_err=k3_err, max_rel_err=max(prel.values()),
-        plain_ms=k3_plain_ms,
-        ms=cuda_ms(lambda: gradkernel.launch(
-            cp, spv, cfg, ct_s, img_t, 0.0, bvh, tape_s, row0, rows), 3),
-        **bound(k3_ops(c, 1, c["bounce_steps"]),
-                frame_bytes(cfg.replace(height=rows), n, 3) + flat_bytes
-                + c["bounce_steps"] * tape_elt + 8 * 8 * n))
+    # the per-sample pass and the windowed refill against the one plain
+    # version (the same function)
+    prel = {}
+    for key, p2 in (("K3/bvh+tape+slab", False),
+                    ("K3/bvh+refill+tape+slab", True)):
+        got3 = gradkernel.render_vjp(scene, cam, cfg, ct_s, img=img_t,
+                                     bvh=bvh, tape=tape_s, row0=row0,
+                                     rows=rows, p2_refill=p2)
+        prel[key], k3_err = leaf_errors(got3, want3, rt.Camera._fields)
+        entries[key] = dict(
+            max_abs_err=k3_err, max_rel_err=max(prel[key].values()),
+            plain_ms=k3_plain_ms,
+            ms=cuda_ms(lambda: gradkernel.launch(
+                cp, spv, cfg, ct_s, img_t, 0.0, bvh, tape_s, row0, rows,
+                p2_refill=p2), 3),
+            **bound(k3_ops(c, 1, c["bounce_steps"]),
+                    frame_bytes(cfg.replace(height=rows), n, 3) + flat_bytes
+                    + c["bounce_steps"] * tape_elt + 8 * 8 * n))
+        del got3
     ok = (res["share_above_budget"] <= BUDGET_SHARE and k2_bit
           and tape_share >= 1 - BUDGET_SHARE
-          and max(prel.values()) <= GRAD_BUDGET)
+          and max(max(r.values()) for r in prel.values()) <= GRAD_BUDGET)
     phase("slab_vs_plain", frame=f"{cfg.width}x{cfg.height} spp{cfg.spp} "
           f"d{cfg.depth} {cfg.rng_mode} bvh", slab=[row0, rows],
           live_rows=live, ok=ok, k1b=res, k2_bit_equal_plain=k2_bit,
@@ -1186,11 +1320,13 @@ def slab_main_times(cfg, scene, cam, bvh, card: str) -> dict:
         "K4/bvh+slab": (cuda_ms(lambda: megakernel.launch(
             cp, spv, cfg, bvh, tape=tape, row0=0, rows=h), 3),
             bound(forward_ops(c), fwd + c["bounce_steps"] * elt)),
-        "K3/bvh+tape+slab": (cuda_ms(lambda: gradkernel.launch(
-            cp, spv, cfg, ct, img, 0.0, bvh, tape, 0, h), 3),
+        **{key: (cuda_ms(lambda: gradkernel.launch(
+            cp, spv, cfg, ct, img, 0.0, bvh, tape, 0, h, p2_refill=p2), 3),
             bound(k3_ops(c, 1, c["bounce_steps"]),
                   frame_bytes(cfg, n, 3) + extra + c["bounce_steps"] * elt
-                  + 8 * 8 * n))}
+                  + 8 * 8 * n))
+           for key, p2 in (("K3/bvh+tape+slab", False),
+                           ("K3/bvh+refill+tape+slab", True))}}
     phase("slab_kernels_main_path", frame="1920x1080 spp20 d12 parallel "
           "bvh, one slab of 1080 rows", card=card, census=c,
           times={k: {"ms": ms, **b} for k, (ms, b) in out.items()})
@@ -1399,7 +1535,13 @@ def config5_phases(dev, card: str) -> dict:
             hlosses, hstep_ms, hlaunches, _ = train_steps(
                 cfg, group, hbvh, hero._replace(albedo=alb), hcam, htarget,
                 2.0)
-            want_step = {"K4/bvh+slab": 1, "K3/bvh+tape+slab": 1}
+            want_step = {"K4/bvh+slab": 1, "K3/bvh+refill+tape+slab": 1}
+            # the same steps with K3's per-sample pass
+            with per_sample():
+                ps_losses, _, ps_launches, ps_first = train_steps(
+                    cfg, group, bvh, scene, cam, target, 1e-2)
+            ps_rel, _ = leaf_errors((None, *grads0), (None, *ps_first[0]),
+                                    rt.Camera._fields)
             row = {"render_sharded_bit_equal_render": torch.equal(img, ref),
                    "render_launches": render_launches,
                    "accumulate_image_bit_equal_render": torch.equal(shown,
@@ -1413,12 +1555,18 @@ def config5_phases(dev, card: str) -> dict:
                    "step_launches": step_launches, "step_ms": step_ms,
                    "hero_losses": hlosses, "hero_step_ms": hstep_ms,
                    "hero_step_launches": hlaunches,
+                   "per_sample_losses": ps_losses,
+                   "per_sample_step_launches": ps_launches,
+                   "refill_vs_per_sample_rel": ps_rel,
                    "backend": dist.get_backend(group)}
             ok = (row["render_sharded_bit_equal_render"]
                   and row["accumulate_image_bit_equal_render"]
                   and render_launches == {"K1b/bvh": 1}
                   and acc_launches == {"K2/bvh+slab": 2}
                   and all(x == want_step for x in step_launches + hlaunches)
+                  and all(x == {"K4/bvh+slab": 1, "K3/bvh+tape+slab": 1}
+                          for x in ps_launches)
+                  and max(ps_rel.values()) <= REFILL_TOL
                   and max(rel.values()) <= GRAD_BUDGET
                   and np.isfinite(losses + hlosses).all()
                   and hlosses[-1] < hlosses[0]
@@ -1433,6 +1581,16 @@ def config5_phases(dev, card: str) -> dict:
             if not ok:
                 fail(f"the sharded path on one card: {row}")
             main_times = slab_main_times(cfg, scene, cam, bvh, card)
+            # the main path's step on each PASS 2 schedule (phase 9's
+            # record of the refill's main paths)
+            step = shard.make_train_step(cfg, group=group, lr=1e-2, bvh=bvh)
+            step_times = dict(schedule_times(
+                lambda: step(scene, cam, target)),
+                plan=gradkernel.refill_plan(cfg, cfg.height,
+                                            gradkernel.refill_lanes(dev)))
+            phase("main_path_refill", path="config 5 train step",
+                  frame="1920x1080 spp20 d12 parallel bvh, world-1 NCCL, "
+                        "taped", card=card, **step_times)
             dist.barrier()  # every rank done before the teardown
         finally:
             dist.destroy_process_group()
@@ -1454,7 +1612,10 @@ def config5_phases(dev, card: str) -> dict:
     entries["K4/bvh+slab"]["launches"] = sum(
         x["K4/bvh+slab"] for x in step_launches + hlaunches)
     entries["K3/bvh+tape+slab"]["launches"] = sum(
-        x["K3/bvh+tape+slab"] for x in step_launches + hlaunches)
+        x["K3/bvh+tape+slab"] for x in ps_launches)
+    entries["K3/bvh+refill+tape+slab"]["launches"] = sum(
+        x["K3/bvh+refill+tape+slab"] for x in step_launches + hlaunches)
+    entries["K3/bvh+refill+tape+slab"]["main_path_schedules"] = step_times
     return entries
 
 
@@ -1557,6 +1718,14 @@ def walk_vs_plain(scene, cam, cfg, bvh, card: str) -> dict:
         want3, k3_plain_ms = once_ms(lambda: gradkernel.render_vjp_plain(
             scene, cam, cfg2, ct, 0.0, bvh, None, row0, rows))
         rel, err = leaf_errors(k3, want3, rt.Camera._fields)
+        if rng_mode == "parallel":  # the untaped refill, the same function
+            k3r = gradkernel.render_vjp(scene, cam, cfg2, ct, img=got,
+                                        bvh=bvh, row0=row0, rows=rows)
+            relr, worst["K3/walk+refill"] = leaf_errors(k3r, want3,
+                                                        rt.Camera._fields)
+            worst_rel["K3/walk+refill"] = max(relr.values())
+            row["k3_refill_rel"] = relr
+            del k3r
         del want3
         row["k3_rel"] = rel
         row["k3_img_bit_equal"] = torch.equal(k3[0], got)
@@ -1574,24 +1743,39 @@ def walk_vs_plain(scene, cam, cfg, bvh, card: str) -> dict:
                                     and torch.equal(want_k1d, want))
             worst["K1d"] = float((k1d - want_k1d).abs().max())
             del k1d, want_k1d
-            k3t = gradkernel.render_vjp(scene, cam, cfg2, ct, img=got,
-                                        bvh=bvh, tape=tape, row0=row0,
-                                        rows=rows)
             want3t, k3t_plain_ms = once_ms(lambda: gradkernel.render_vjp_plain(
                 scene, cam, cfg2, ct, 0.0, bvh, tape, row0, rows))
-            relt, errt = leaf_errors(k3t, want3t, rt.Camera._fields)
-            del k3t, want3t
-            row["k3_tape_rel"] = relt
-            worst["K3/walk+tape"] = errt
-            worst_rel["K3/walk+tape"] = max(relt.values())
-            ok_par = row["k1d_bit_equal"] and max(relt.values()) <= GRAD_BUDGET
             tb = c["bounce_steps"] * tape.element_size()
-            entries["K3/walk+tape"] = dict(
-                plain_ms=k3t_plain_ms,
+            # the per-sample pass and the windowed refill against the one
+            # plain version (the same function)
+            for key, p2 in (("K3/walk+tape", False),
+                            ("K3/walk+refill+tape", True)):
+                k3t = gradkernel.render_vjp(scene, cam, cfg2, ct, img=got,
+                                            bvh=bvh, tape=tape, row0=row0,
+                                            rows=rows, p2_refill=p2)
+                relt, worst[key] = leaf_errors(k3t, want3t,
+                                               rt.Camera._fields)
+                del k3t
+                row[f"{key}_rel"] = relt
+                worst_rel[key] = max(relt.values())
+                entries[key] = dict(
+                    plain_ms=k3t_plain_ms,
+                    ms=cuda_ms(lambda: gradkernel.launch(
+                        cp, spv, cfg2, ct, got, 0.0, bvh, tape, row0, rows,
+                        p2_refill=p2), 3),
+                    **bound(k3_ops(c, 1, c["bounce_steps"]),
+                            frame_bytes(cfg2, n, 3) + node_bytes + tb
+                            + 8 * 8 * n))
+            del want3t
+            entries["K3/walk+refill"] = dict(
+                plain_ms=k3_plain_ms,
                 ms=cuda_ms(lambda: gradkernel.launch(
-                    cp, spv, cfg2, ct, got, 0.0, bvh, tape, row0, rows), 3),
-                **bound(k3_ops(c, 1, c["bounce_steps"]),
-                        frame_bytes(cfg2, n, 3) + node_bytes + tb + 8 * 8 * n))
+                    cp, spv, cfg2, ct, got, 0.0, bvh, None, row0, rows), 3),
+                **bound(k3_ops(c, 1), frame_bytes(cfg2, n, 3) + node_bytes
+                        + 8 * 8 * n))
+            ok_par = (row["k1d_bit_equal"] and max(
+                worst_rel[k] for k in ("K3/walk+tape", "K3/walk+refill+tape",
+                                       "K3/walk+refill")) <= GRAD_BUDGET)
             acc2 = torch.zeros((rows, cfg2.width, 3), device=spv.device)
             times = {
                 "K1d": (k1_plain_ms, lambda: megakernel.launch(
@@ -1789,9 +1973,34 @@ def large_scene_phases(dev, card: str) -> dict:
         taped_rel = k3_sums_rel(k3_sums(untaped), k3_sums(taped), n)
         taped_img_equal = torch.equal(untaped[0], taped[0])
         del k3_calls, k3_args, taped, untaped
+        # parallel RNG untaped (a tape that does not fit its budget) and
+        # on K3's per-sample pass
+        budget = gradkernel.TAPE_BUDGET
+        for label in ("parallel_untaped", "parallel_per_sample"):
+            reset_counts(megakernel, gradkernel)
+            try:
+                if label == "parallel_untaped":
+                    gradkernel.TAPE_BUDGET = 0
+                with (per_sample() if label == "parallel_per_sample"
+                      else contextlib.nullcontext()):
+                    runs[label] = rt.render_grad(scene, cam, cfgp, target,
+                                                 bvh=bvh)
+            finally:
+                gradkernel.TAPE_BUDGET = budget
+            torch.cuda.synchronize()
+            launches[label] = variant_counts(megakernel, gradkernel)
+        sched_rel = {}
+        for label in ("parallel_untaped", "parallel_per_sample"):
+            rel, _ = leaf_errors((None, *runs[label][2]),
+                                 (None, *runs["parallel"][2]),
+                                 rt.Camera._fields)
+            sched_rel[label] = max(rel.values())
         want_launches = {"render": {"K1d": 1}, "render_sharded": {
-            "K1b/walk": 1}, "parallel": {"K4/walk": 1, "K3/walk+tape": 1},
-            "sequential": {"K1d": 1, "K3/walk": 1}}
+            "K1b/walk": 1}, "parallel": {"K4/walk": 1,
+                                         "K3/walk+refill+tape": 1},
+            "sequential": {"K1d": 1, "K3/walk": 1},
+            "parallel_untaped": {"K1d": 1, "K3/walk+refill": 1},
+            "parallel_per_sample": {"K4/walk": 1, "K3/walk+tape": 1}}
         finite = {k: all(bool(torch.isfinite(g).all()) for g in
                          flat_grads((r[1], *r[2]))) for k, r in runs.items()}
         log = os.path.join(tmp, "runs.jsonl")
@@ -1819,6 +2028,7 @@ def large_scene_phases(dev, card: str) -> dict:
                    runs["parallel"][1], img),
                "render_grad_taped_k3_vs_untaped_sums_rel": taped_rel,
                "render_grad_taped_k3_img_bit_equal_untaped": taped_img_equal,
+               "refill_taped_vs_others_rel": sched_rel,
                "cli_png_identical_to_render": same, "cli_log": logged,
                "cli_stdout": proc.stdout.strip(),
                "command": " ".join(cmd[1:]).replace(tmp, "<tmp>")}
@@ -1826,6 +2036,7 @@ def large_scene_phases(dev, card: str) -> dict:
               and row["render_sharded_bit_equal_render"]
               and row["render_grad_img_bit_equal_render"]
               and max(taped_rel.values()) <= 1e-9 and taped_img_equal
+              and max(sched_rel.values()) <= REFILL_TOL
               and len(logged) == 1
               and logged[0]["device"] == torch.cuda.get_device_name(0)
               and logged[0]["sweep"] == "walk")
@@ -1840,8 +2051,12 @@ def large_scene_phases(dev, card: str) -> dict:
         entries["K2/walk"]["launches"] = k2_launches
         entries["K4/walk"]["launches"] = launches["parallel"]["K4/walk"]
         entries["K3/walk"]["launches"] = launches["sequential"]["K3/walk"]
-        entries["K3/walk+tape"]["launches"] = launches["parallel"][
+        entries["K3/walk+tape"]["launches"] = launches["parallel_per_sample"][
             "K3/walk+tape"]
+        entries["K3/walk+refill+tape"]["launches"] = launches["parallel"][
+            "K3/walk+refill+tape"]
+        entries["K3/walk+refill"]["launches"] = launches["parallel_untaped"][
+            "K3/walk+refill"]
         del runs, sharded
 
         # -- 7e: the tools
@@ -1904,7 +2119,11 @@ def large_scene_phases(dev, card: str) -> dict:
         t["k4_walk_ms"] = cuda_ms(lambda: megakernel.launch(
             cp, spv, cfgp, bvh, tape=tape), 3)
         t["k3_walk_tape_ms"] = cuda_ms(lambda: gradkernel.launch(
+            cp, spv, cfgp, ct, img_t, 0.0, bvh, tape, p2_refill=False), 3)
+        t["k3_walk_refill_tape_ms"] = cuda_ms(lambda: gradkernel.launch(
             cp, spv, cfgp, ct, img_t, 0.0, bvh, tape), 3)
+        t["k3_walk_refill_ms"] = cuda_ms(lambda: gradkernel.launch(
+            cp, spv, cfgp, ct, img_t, 0.0, bvh), 3)
         t["k3_walk_seq_ms"] = cuda_ms(lambda: gradkernel.launch(
             cp, spv, cfg, ct, None, 0.0, bvh), 2)
         init = progressive.init_state(cfgp, device=dev)
@@ -1958,7 +2177,12 @@ def large_scene_phases(dev, card: str) -> dict:
                 k3_ops(c20, 2), frame_bytes(cfg, n, 2) + nb + 8 * 8 * n)),
             "K3/walk+tape": (t["k3_walk_tape_ms"], bound(
                 k3_ops(c20p, 1, c20p["bounce_steps"]),
-                frame_bytes(cfgp, n, 3) + nb + tbytes + 8 * 8 * n))}
+                frame_bytes(cfgp, n, 3) + nb + tbytes + 8 * 8 * n)),
+            "K3/walk+refill+tape": (t["k3_walk_refill_tape_ms"], bound(
+                k3_ops(c20p, 1, c20p["bounce_steps"]),
+                frame_bytes(cfgp, n, 3) + nb + tbytes + 8 * 8 * n)),
+            "K3/walk+refill": (t["k3_walk_refill_ms"], bound(
+                k3_ops(c20p, 1), frame_bytes(cfgp, n, 3) + nb + 8 * 8 * n))}
         for key, (ms, b) in main.items():
             entries[key].update(main_path_ms=ms,
                                 main_path_bound_ms=b["bound_ms"],
@@ -2192,55 +2416,47 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
                        "max_abs_vs_render": d, "mean": float(img.mean()),
                        "finite": bool(torch.isfinite(img).all())}
         frames[label] = img
-    # render_grad through the wavefront backend: the kernel path, in
-    # sequential RNG (in parallel RNG raytpu's backward is K3's windowed
-    # refill, not ported yet: refused below)
+    # render_grad through the wavefront backend: the kernel path (K3, on
+    # its windowed refill in parallel RNG), against render_grad's
     gen = torch.Generator().manual_seed(7)
     target = torch.rand((cfg4.height, cfg4.width, 3), generator=gen).to(dev)
-    reset_counts(*mods)
-    got = rt.render_grad(s4, cam4, cfg4, target, backend="wavefront",
-                         bvh=b4)
-    torch.cuda.synchronize()
-    launches["render_grad"] = variant_counts(*mods)
-    want = rt.render_grad(s4, cam4, cfg4, target, bvh=b4)
-    # the same kernels twice: K3's f64 atomics add in no fixed order
-    rg_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
-                                                  1e-12)
-                 for a, b in zip(flat_grads((got[1], *got[2])),
-                                 flat_grads((want[1], *want[2]))))
-    rg_img_equal = torch.equal(got[1], want[1])
-    # a wavefront image under autograd: its backward is K3
-    small = cfg4.replace(spp=2)
-    leaves = [x.detach().requires_grad_() for x in
-              (s4.center, s4.radius, s4.albedo, s4.mat_param, *cam4)]
-    ws = rt.Scene(leaves[0], leaves[1], s4.mat_type, leaves[2], leaves[3])
-    reset_counts(*mods)
-    wimg = rt.render(ws, rt.Camera(*leaves[4:]), small, backend="wavefront",
-                     bvh=b4)
-    ct = 2.0 * (wimg.detach() - target) / wimg.numel()
-    wg = torch.autograd.grad(wimg, leaves, ct)
-    torch.cuda.synchronize()
-    launches["wavefront_autograd"] = variant_counts(*mods)
-    fimg = megakernel.render_fwd(ws, rt.Camera(*leaves[4:]), small, bvh=b4)
-    fg = torch.autograd.grad(fimg, leaves, ct)
-    grad_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
-                                                    1e-12)
-                   for a, b in zip(wg, fg))
-    refused = {}
-    for name, call in (
-            ("render_grad", lambda: rt.render_grad(
-                s4, cam4, cfg4p, target, backend="wavefront", bvh=b4)),
-            ("autograd", lambda: rt.render(
-                ws, rt.Camera(*leaves[4:]), small.replace(
-                    rng_mode="parallel"), backend="wavefront", bvh=b4))):
+    rg_rel, rg_img_equal, grad_rel = {}, {}, {}
+    for label, c in (("render_grad", cfg4), ("render_grad_parallel", cfg4p)):
         reset_counts(*mods)
-        try:
-            call()
-            refused[name] = False
-        except NotImplementedError as e:
-            refused[name] = "windowed-refill" in str(e)
-        refused[name] = refused[name] and not any(variant_counts(*mods))
-    del leaves, ws, wg, fg, wimg, fimg
+        got = rt.render_grad(s4, cam4, c, target, backend="wavefront",
+                             bvh=b4)
+        torch.cuda.synchronize()
+        launches[label] = variant_counts(*mods)
+        want = rt.render_grad(s4, cam4, c, target, bvh=b4)
+        # the same kernels twice: K3's f64 atomics add in no fixed order
+        rg_rel[label] = max(
+            float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+            for a, b in zip(flat_grads((got[1], *got[2])),
+                            flat_grads((want[1], *want[2]))))
+        rg_img_equal[label] = torch.equal(got[1], want[1])
+    del got, want
+    # a wavefront image under autograd: its backward is K3 (the windowed
+    # refill in parallel RNG, against the megakernel path's taped refill)
+    for label, c, kw in (("wavefront_autograd", cfg4.replace(spp=2), {}),
+                         ("wavefront_autograd_parallel", cfg4p.replace(spp=2),
+                          {"refill": 2})):
+        leaves = [x.detach().requires_grad_() for x in
+                  (s4.center, s4.radius, s4.albedo, s4.mat_param, *cam4)]
+        ws = rt.Scene(leaves[0], leaves[1], s4.mat_type, leaves[2],
+                      leaves[3])
+        reset_counts(*mods)
+        wimg = rt.render(ws, rt.Camera(*leaves[4:]), c, backend="wavefront",
+                         bvh=b4, **kw)
+        ct = 2.0 * (wimg.detach() - target) / wimg.numel()
+        wg = torch.autograd.grad(wimg, leaves, ct)
+        torch.cuda.synchronize()
+        launches[label] = variant_counts(*mods)
+        fimg = megakernel.render_fwd(ws, rt.Camera(*leaves[4:]), c, bvh=b4)
+        fg = torch.autograd.grad(fimg, leaves, ct)
+        grad_rel[label] = max(
+            float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+            for a, b in zip(wg, fg))
+        del leaves, ws, wg, fg, wimg, fimg
     tmp = tempfile.mkdtemp()
     try:
         png = os.path.join(tmp, "wavefront.png")
@@ -2266,14 +2482,15 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         "config4": {"K5/bvh": cfg4.spp * 2},
         "10k": {"K5/walk": cfg10.spp * 2},
         "render_grad": {"K1c": 1, "K3/bvh": 1},
-        "wavefront_autograd": {"K5/bvh": small.spp * 2, "K3/bvh": 1}}
+        "render_grad_parallel": {"K4/bvh": 1, "K3/bvh+refill+tape": 1},
+        "wavefront_autograd": {"K5/bvh": 2 * 2, "K3/bvh": 1}}
     rounds = {k: launches[k].get("K6/bvh", 0) for k in
               ("config4_refill2", "config4_refill2_spp_batch4")}
+    wf_par = launches["wavefront_autograd_parallel"]
     row = {"launches": launches, "runs": main,
            "render_grad_vs_auto_rel": rg_rel,
            "render_grad_img_bit_equal": rg_img_equal,
            "wavefront_autograd_vs_render_fwd_grads_rel": grad_rel,
-           "parallel_backward_refused": refused,
            "cli_png_identical_to_render": cli_same,
            "command": " ".join(cmd[1:-1])}
     ok = (all(launches[k] == v for k, v in want_launches.items())
@@ -2283,14 +2500,17 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
           and all(main[k]["bit_equal_render"] for k in main
                   if "spp_batch" not in k)
           and main["config4_refill2_spp_batch4"]["max_abs_vs_render"] <= 1e-6
-          and rg_img_equal and rg_rel <= 1e-6 and grad_rel <= 1e-6
-          and all(refused.values()) and cli_same)
+          and all(rg_img_equal.values()) and max(rg_rel.values()) <= 1e-6
+          and max(grad_rel.values()) <= 1e-6 and cli_same
+          and wf_par.get("K6/bvh", 0) > 0
+          and wf_par == {"K6/bvh": wf_par["K6/bvh"], "K3/bvh+refill": 1})
     phase("main_path_wavefront", ok=ok, card=card,
           tolerance="images bit-equal to render() at one slot a pixel, "
                     "within 1e-6 with 4; render_grad(backend='wavefront') "
-                    "and a wavefront image's K3 gradients (sequential RNG) "
-                    "within 1e-6 of each leaf's largest against the kernel "
-                    "path's; both refused in parallel RNG", **row)
+                    "and a wavefront image's K3 gradients (sequential RNG; "
+                    "parallel RNG, refill=2, on K3's windowed refill) within "
+                    "1e-6 of each leaf's largest against the kernel path's",
+          **row)
     if not ok:
         fail(f"the wavefront's main path: {row}")
     del frames
@@ -2343,6 +2563,205 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
     return entries
 
 
+# Phase 9: K3's windowed refill (raytpu's parallel-RNG backward)
+def refill_vs(label, card, scene, cam, cfg, bvh, vis_w, target,
+              plain=True):
+    """K3 given the forward image in parallel RNG, on the windowed refill
+    and on the per-sample pass, and (``plain``) the plain version, all on
+    the same CUDA tensors -> the phase line's row: the images bit-equal to
+    the given one, every leaf of the refill within REFILL_TOL of the
+    per-sample pass's and within GRAD_BUDGET of the plain version's, with
+    the refill's plan (lanes, pixels a lane, window, scratch bytes)."""
+    import raytpu_torch as rt
+    from raytpu_torch.kernels import gradkernel
+    img = rt.render(scene, cam, cfg, bvh=bvh)
+    ct = 2.0 * (img - target) / img.numel()
+    kw = dict(img=img, vis_w=vis_w, bvh=bvh)
+    got = gradkernel.render_vjp(scene, cam, cfg, ct, **kw)
+    ref = gradkernel.render_vjp(scene, cam, cfg, ct, p2_refill=False, **kw)
+    rel, _ = leaf_errors(got, ref, rt.Camera._fields)
+    row = {"case": label, "frame": f"{cfg.width}x{cfg.height} spp{cfg.spp} "
+           f"d{cfg.depth} parallel", "spheres": scene.count, "vis_w": vis_w,
+           "plan": gradkernel.refill_plan(cfg, cfg.height,
+                                          gradkernel.refill_lanes(
+                                              img.device)),
+           "img_bit_equal": torch.equal(got[0], img)
+           and torch.equal(ref[0], img),
+           "vs_per_sample_rel": rel, "vs_per_sample_worst": max(rel.values())}
+    ok = row["img_bit_equal"] and row["vs_per_sample_worst"] <= REFILL_TOL
+    if plain:
+        want, row["plain_ms"] = once_ms(lambda: gradkernel.render_vjp_plain(
+            scene, cam, cfg.replace(chunk_pixels=PLAIN_CHUNK), ct, vis_w,
+            bvh))
+        prel, row["max_abs_err"] = leaf_errors(got, want, rt.Camera._fields)
+        row["vs_plain_rel"] = prel
+        row["vs_plain_worst"] = max(prel.values())
+        ok = ok and row["vs_plain_worst"] <= GRAD_BUDGET
+        row["ms"] = cuda_ms(lambda: gradkernel.render_vjp(
+            scene, cam, cfg, ct, **kw), 3)
+    phase("k3_refill_vs", ok=ok, card=card, tolerance=(
+        f"images bit-equal; per leaf {REFILL_TOL} of the per-sample pass's "
+        f"largest entry, {GRAD_BUDGET} of the plain version's"), **row)
+    if not ok:
+        fail(f"K3's windowed refill disagrees ({label}): {row}")
+    return row
+
+
+def refill_phases(dev, card: str) -> dict:
+    """Phase 9 (see the module docstring) -> the kernel table's entry of
+    K3/refill, and the launches of K3/bvh+refill on its main path."""
+    import raytpu_torch as rt
+    from raytpu_torch import optim, profiling
+    from raytpu_torch.config import CONFIG2, CONFIG3, CONFIG4
+    from raytpu_torch.kernels import gradkernel, megakernel
+    from raytpu_torch.kernels import wavefront as kwf
+
+    mods = (megakernel, gradkernel, kwf)
+    c2p = CONFIG2.replace(rng_mode="parallel")
+    c4p = CONFIG4.replace(rng_mode="parallel")
+    scene2 = rt.config2_world(device=dev)
+    cam2 = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                          aspect=c2p.aspect, device=dev)
+    scene4 = rt.final_world(device=dev)
+    bvh4 = rt.build_bvh(scene4, leaf_size=LEAF)
+    cam4 = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                          aspect=c4p.aspect, device=dev)
+    _, scene3, cam3, target3, _ = optim.inverse_render_problem(
+        CONFIG3, device=dev)
+    gen = torch.Generator().manual_seed(17)
+
+    def target(cfg):
+        return torch.rand((cfg.height, cfg.width, 3), generator=gen).to(dev)
+
+    # -- 9a: against the plain version and the per-sample pass (2 spp),
+    # then a window of depth steps (every lane parks after each sample)
+    rows = [refill_vs("config2", card, scene2, cam2, c2p.replace(spp=2), None,
+                      0.0, target(c2p)),
+            refill_vs("config3_defocus_vis_w", card, scene3, cam3,
+                      CONFIG3.replace(spp=2, rng_mode="parallel"), None,
+                      VIS_W, target3)]
+    budget = gradkernel.REFILL_BUDGET
+    gradkernel.REFILL_BUDGET = 0
+    try:
+        c4s = c4p.replace(spp=2)
+        refill_vs("config4_window_of_depth", card, scene4, cam4, c4s, bvh4,
+                  0.0, target(c4p), plain=False)
+        # and replaying tapes, taped against untaped under phase 5's rule
+        full = c4s.spp * c4s.depth
+        img, tape = gradkernel.render_tape_fwd(scene4, cam4, c4s, full, bvh4)
+        ct = 2.0 * (img - target(c4p)) / img.numel()
+        caps = taped_vs_untaped(scene4, cam4, c4s, ct, img, bvh4, tape,
+                                "refill, window of depth")
+        phase("k4_taped_vs_untaped", ok=True, sweep="bvh",
+              schedule="refill, window of depth",
+              frame="800x400 spp2 d12 parallel", g_caps=caps,
+              plan=gradkernel.refill_plan(c4s, c4s.height,
+                                          gradkernel.refill_lanes(dev)))
+        del img, tape
+    finally:
+        gradkernel.REFILL_BUDGET = budget
+
+    # -- 9b: the main paths, through the entry points, on the refill and
+    # on the per-sample pass: launches by variant (counts reset just before
+    # each, read just after), gradients, each call's time
+    from raytpu_torch.render import render_grad
+    t4, t2 = target(c4p), target(c2p)
+
+    def wf_autograd():
+        leaves = [x.detach().requires_grad_() for x in
+                  (scene4.center, scene4.radius, scene4.albedo,
+                   scene4.mat_param, *cam4)]
+        img = rt.render(rt.Scene(leaves[0], leaves[1], scene4.mat_type,
+                                 leaves[2], leaves[3]),
+                        rt.Camera(*leaves[4:]), c4p, backend="wavefront",
+                        bvh=bvh4, refill=2)
+        grads = torch.autograd.grad(torch.mean((img - t4) ** 2), leaves)
+        return (None, img.detach(), (rt.Scene(grads[0], grads[1], None,
+                                              grads[2], grads[3]),
+                                     rt.Camera(*grads[4:])))
+
+    paths = (
+        ("config4_taped", c4p, lambda: render_grad(scene4, cam4, c4p, t4,
+                                                   bvh=bvh4)),
+        ("config4_vis_w", c4p, lambda: render_grad(
+            scene4, cam4, c4p, t4, vis_w=VIS_W, bvh=bvh4)),
+        ("config2", c2p, lambda: render_grad(scene2, cam2, c2p, t2)),
+        ("wavefront_config4_render_grad", c4p, lambda: render_grad(
+            scene4, cam4, c4p, t4, backend="wavefront", bvh=bvh4)),
+        ("wavefront_config4_refill2_autograd", c4p, wf_autograd))
+    main, launches = {}, {}
+    lanes = gradkernel.refill_lanes(dev)
+    for label, cfg, fn in paths:
+        out, calls = {}, []
+        for sched in ("refill", "per_sample"):
+            reset_counts(*mods)
+            with (per_sample() if sched == "per_sample"
+                  else recording(gradkernel, "launch", calls)):
+                out[sched] = fn()
+            torch.cuda.synchronize()
+            launches[f"{label}/{sched}"] = variant_counts(*mods)
+        rel, _ = leaf_errors((None, *out["refill"][2]),
+                             (None, *out["per_sample"][2]), rt.Camera._fields)
+        (k3_args, _), = calls  # K3 alone, on the path's own operands
+        k3 = schedule_times(lambda: gradkernel.launch(*k3_args.args,
+                                                      **k3_args.kwargs))
+        if label == "config4_taped":  # the refill's machinery without its
+            # schedule: a window of depth steps, one sample a lane a window
+            budget = gradkernel.REFILL_BUDGET
+            gradkernel.REFILL_BUDGET = 0
+            try:
+                k3["refill_window_of_depth_each_ms"] = cuda_ms_each(
+                    lambda: gradkernel.launch(*k3_args.args,
+                                              **k3_args.kwargs), 3)
+            finally:
+                gradkernel.REFILL_BUDGET = budget
+        row = dict(schedule_times(fn), k3=k3,
+                   plan=gradkernel.refill_plan(cfg, cfg.height, lanes),
+                   launches={s: launches[f"{label}/{s}"]
+                             for s in ("refill", "per_sample")},
+                   refill_vs_per_sample_worst=max(rel.values()),
+                   img_bit_equal=torch.equal(out["refill"][1],
+                                             out["per_sample"][1]))
+        main[label] = row
+        phase("main_path_refill", path=label,
+              frame=f"{cfg.width}x{cfg.height} spp{cfg.spp} d{cfg.depth} "
+                    "parallel", card=card, **row)
+        del out
+    k3 = {s: {p: [k for k in launches[f"{p}/{s}"] if k.startswith("K3")]
+              for p, _, _ in paths} for s in ("refill", "per_sample")}
+    want = {"refill": {"config4_taped": ["K3/bvh+refill+tape"],
+                       "config4_vis_w": ["K3/bvh+refill"],
+                       "config2": ["K3/refill"],
+                       "wavefront_config4_render_grad": ["K3/bvh+refill+tape"],
+                       "wavefront_config4_refill2_autograd": [
+                           "K3/bvh+refill"]},
+            "per_sample": {"config4_taped": ["K3/bvh+tape"],
+                           "config4_vis_w": ["K3/bvh"], "config2": ["K3"],
+                           "wavefront_config4_render_grad": ["K3/bvh+tape"],
+                           "wavefront_config4_refill2_autograd": ["K3/bvh"]}}
+    ok = (k3 == want
+          and all(r["refill_vs_per_sample_worst"] <= REFILL_TOL
+                  and r["img_bit_equal"] for r in main.values()))
+    phase("main_path_refill_checks", ok=ok, k3_launches=k3,
+          tolerance=f"per leaf {REFILL_TOL} of the per-sample pass's largest")
+    if not ok:
+        fail(f"the refill's main paths: {k3}")
+    c2 = profiling.census(scene2, cam2, c2p.replace(spp=2))
+    r2 = rows[0]
+    entries = {"K3/refill": dict(
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        max_rel_err=max(r["vs_plain_worst"] for r in rows),
+        ms=r2["ms"], plain_ms=r2["plain_ms"],
+        launches=launches["config2/refill"]["K3/refill"],
+        main_path_schedules=main["config2"],
+        **bound(k3_ops(c2, 1), frame_bytes(c2p, scene2.count, 3)
+                + 8 * 8 * scene2.count))}
+    bvh_refill = sum(launches[f"{p}/refill"].get("K3/bvh+refill", 0)
+                     for p in ("config4_vis_w",
+                               "wavefront_config4_refill2_autograd"))
+    return entries, bvh_refill, main
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -2362,7 +2781,8 @@ def main() -> None:
     sources = [megakernel.SOURCE, gradkernel.SOURCE, kwf.SOURCE]
     _build.load_all(sources)
     phase("build", seconds=time.perf_counter() - t0,
-          ptxas={src: _build.build_log[src]["ptxas"] for src in sources})
+          ptxas={src: _build.build_log[src]["ptxas"] for src in sources},
+          refill_lanes=gradkernel.refill_lanes(dev))
 
     def v2_cam(cfg):
         return rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
@@ -2463,8 +2883,10 @@ def main() -> None:
                "budget": GRAD_BUDGET, "plain_s": plain_s,
                "plain_vs_plain_worst": max(self_rel.values())}
         if cfg.rng_mode == "parallel":  # PASS 1 elided: bit-equal grads
+            # (p2_refill=False isolates the elision: the image alone also
+            # engages the windowed refill, phase 9)
             elided = gradkernel.render_vjp(scene, cam, cfg, ct, img=img,
-                                           vis_w=vis_w)
+                                           vis_w=vis_w, p2_refill=False)
             row["pass1_elision_bit_equal"] = all(
                 torch.equal(a, b) for a, b in
                 zip((got[0], *[getattr(got[1], k) for k in
@@ -2677,6 +3099,10 @@ def main() -> None:
     # -- phase 8: the dense stage K1e and the sorted wavefront (K5, K6)
     entries8 = wavefront_phases(dev, card, rv2_img)
 
+    # -- phase 9: K3's windowed refill
+    entries9, entries["K3/bvh+refill"]["launches"], _ = refill_phases(dev,
+                                                                      card)
+
     # bounds of K1a and K3 in the cells their times come from
     from raytpu_torch import profiling
     c_k1a = profiling.census(c2_scene, c2_cam, CONFIG2)
@@ -2804,6 +3230,36 @@ def main() -> None:
         source=wf_src, replaces="raytpu/wavefront.py:192 "
         "(_make_refill_segment_kernel; pallas_call :546)", library_ms=None,
         **entries8["K6/bvh"]))
+    refill_ref = ("raytpu/kernels/gradkernel.py:1519 (p2_refill: PASS 2 "
+                  ":999-1518, engaged :1557-1563)")
+    c4_cell = "config 4 at 2 spp, parallel"
+    for key, name, found, cell in (
+            ("K3/refill", "render_vjp_kernel<refill> (K3 windowed refill, "
+             "brute)", entries9, "config 2 at 2 spp, parallel (error also "
+             "config 3's thin lens with vis_w 0.005); main path: config 2 "
+             "render_grad"),
+            ("K3/refill+tape", "render_vjp_kernel<tape read, refill> (K3 "
+             "windowed refill replaying K4, brute)", entries,
+             c4_cell + ", full tape; main path: config 4 render_grad, brute"),
+            ("K3/bvh+refill", "render_vjp_kernel<bvh, refill> (K3 windowed "
+             "refill, flat BVH)", entries, c4_cell + ", untaped; main path: "
+             "config 4 render_grad with vis_w, the wavefront's autograd"),
+            ("K3/bvh+refill+tape", "render_vjp_kernel<bvh, tape read, "
+             "refill> (K3 windowed refill replaying K4, BVH)", entries,
+             c4_cell + ", full tape; main path: config 4 render_grad"),
+            ("K3/bvh+refill+tape+slab", "render_vjp_kernel<bvh, tape read, "
+             "refill> on a row slab (K3 windowed refill, slab)", entries5,
+             SLAB_CELL + ", full tape; main path: the config 5 train step"),
+            ("K3/walk+refill", "render_vjp_kernel<walk, refill> (K3 "
+             "windowed refill, skip-pointer walk)", entries7,
+             big + ", parallel, untaped"),
+            ("K3/walk+refill+tape", "render_vjp_kernel<walk, tape read, "
+             "refill> (K3 windowed refill replaying K4, walk)", entries7,
+             big + ", parallel, full tape")):
+        e = found[key]
+        table.append(dict(name=name, route="cuda", source=grad_src,
+                          replaces=refill_ref, cell=cell,
+                          launches=e.pop("launches"), library_ms=None, **e))
     missing = [e["name"] for e in table if not e["launches"]]
     if missing:
         fail(f"kernels not launched on their main path: {missing}")

@@ -24,8 +24,7 @@ card).  ``scene_io`` reads and writes raytpu's JSON scene files, ``debug``
 holds the scene lint, the checked render and the kernel-against-plain
 check behind ``cli validate``.  This package never imports jax.
 
-Not ported yet (see ROADMAP.md): K3's windowed-refill PASS 2 and the v1
-fract-sin RNG mode.
+Not ported yet (see ROADMAP.md): the v1 fract-sin RNG mode.
 """
 
 from raytpu_torch.config import RenderConfig

@@ -1,7 +1,8 @@
-// Fused image + VJP kernel K3 for Hopper (sm_90a): one thread per pixel.
+// Fused image + VJP kernel K3 for Hopper (sm_90a).
 //
 // Replaces the TPU kernel raytpu/kernels/gradkernel.py::render_pallas_vjp
-// (kernel body _make_grad_kernel with the per-sample PASS 2; the bounce
+// (kernel body _make_grad_kernel, both of its PASS 2 schedules: the
+// per-sample pass and the windowed refill, p2_refill, :999-1518; the bounce
 // transpose is _bounce_f's, the silhouette terms silhouette_terms'), with
 // the brute sweep, the flat BVH sweep (bvh=), the skip-pointer walk
 // (gradkernel.py:544-594, past 64 leaves a copy or unpadded) and the tape
@@ -9,10 +10,10 @@
 // g_cap on a walk BVH).  Given an image cotangent ct it returns the
 // image, the cotangent of every sphere's continuous leaves (center, radius,
 // albedo, mat_param) and the 18 raygen sums from which the host assembles
-// the camera cotangent.  It computes what the TPU kernel computes, not its
-// schedule: the (8, 128) tiles, the VMEM residual scratch, the one-hot MXU
-// scatter, the block_w scramble, the windowed refill and its tape layout
-// and the SMEM Kahan slots are TPU mechanisms with no counterpart.
+// the camera cotangent.  The (8, 128) tiles, the VMEM residual scratch, the
+// one-hot MXU scatter, the block_w scramble, the multi-tile grouping and
+// the SMEM Kahan slots are TPU mechanisms with no counterpart here; the
+// refill schedule is not one (below).
 //
 //   PASS 1 (skipped when the image is given, parallel RNG only): the
 //          pixel's spp samples through trace_path(), the very code the
@@ -20,17 +21,42 @@
 //          forward's bit for bit; then the cotangent of the linear sample
 //          sum, d_acc = ct * exp(log(img)*(1-gamma))/gamma * inv_spp (0
 //          where img <= 0), in gradkernel.py:878-888's order.
-//   PASS 2 per sample, in order: re-run the forward, keeping per bounce the
-//          incoming ray, throughput, winner and pre-bounce seed (11 words)
-//          in per-thread local memory; walk the bounces in reverse through
-//          a hand-written transpose of _bounce_f; then transpose raygen
-//          into the 18 camera sums.  Sequential RNG needs no stored seeds:
-//          each re-run sample's final seed is the next one's start.  With
-//          a tape (parallel RNG, image given), each of the pixel's first
-//          g_cap bounce steps takes its winner from the tape and recomputes
-//          that one sphere's t instead of sweeping; later steps sweep.  The
-//          winner decides the bounce, so the residuals, and the gradients,
-//          are those of the untaped kernel bit for bit.
+//   PASS 2, per sample (sequential RNG, or asked for): one thread a pixel
+//          (32 x 8 blocks); per sample, in order, re-run the forward,
+//          keeping per bounce the incoming ray, throughput, winner and
+//          pre-bounce seed (11 words) in per-thread local memory; walk the
+//          bounces in reverse through a hand-written transpose of _bounce_f
+//          (step_vjp); then transpose raygen into the 18 camera sums.
+//          Sequential RNG needs no stored seeds: each re-run sample's final
+//          seed is the next one's start.
+//   PASS 2, windowed refill (parallel RNG with the image given: raytpu's
+//          rule, gradkernel.py:1557-1563): a persistent 1-D grid of `lanes`
+//          threads, as many as the card keeps resident; lane l takes pixels
+//          l, l + lanes, ... in turn (raytpu's multi-tile hop) and each
+//          pixel's samples in order, sample s seeded fold_in(base_hash(x,
+//          y), s).  A window re-runs the forward one bounce step a row, the
+//          row (12 words: ray, throughput, winner, seed, flags and the hop
+//          and sample) in a device-memory scratch laid out [step][word]
+//          [lane], so a warp's lanes store and load one step coalesced.
+//          When a sample ends the lane spawns the pixel's next sample, or
+//          hops to its next pixel, at once, while a full-depth sample still
+//          fits the window (raytpu's can = g + 1 + depth <= g_cap); else it
+//          parks.  The reverse then walks the window's rows newest first
+//          through the same step_vjp: a FIN row recomputes the sample's
+//          radiance (it misses at most once, at its last step: missed ?
+//          c * sky : 0), a FRESH row re-derives the sample's raygen draws
+//          with gen_ray, folds the raygen transpose into the camera sums
+//          and cuts the carry.  The next window resumes the parked lanes.
+//          It computes the per-sample pass's terms and sums them in another
+//          order: its cotangents are allclose to that pass's, not
+//          bit-equal (raytpu's gradkernel.py:1541-1547).
+//   Either PASS 2 replays a tape (parallel RNG, image given): each of the
+//          pixel's first g_cap bounce steps takes its winner from the tape
+//          and recomputes that one sphere's t instead of sweeping; later
+//          steps sweep.  The tape is tape[k, pix], k the pixel's step
+//          across its samples in order, which does not depend on the
+//          schedule.  The winner decides the bounce, so the residuals, and
+//          the gradients, are those of the untaped kernel bit for bit.
 //
 // Slab mode (raytpu's row0 / rows): the launch covers rows [row0, row0 +
 // rows) of the cfg-sized frame; ct, the image and the tape hold those rows.
@@ -55,15 +81,18 @@
 // root, TIR / Schlick coin, v1 flip and near-zero guard and every draw.
 // max / min against a constant pass half the gradient at a tie, as
 // jnp.maximum does.  A thread reads back only the rows it wrote in this
-// sample, so dead lanes cannot feed 0 * inf into the reverse, and a miss's
-// winner (-1) never addresses a sphere.
+// sample (window), so dead or parked lanes cannot feed 0 * inf into the
+// reverse, and a miss's winner (-1) never addresses a sphere.
 //
 // Accumulation is in f64 and cast to f32 once, by the wrapper.  The camera
 // sums are deterministic: each warp sums its lanes' per-thread f64 sums
 // with a fixed butterfly and writes one row of an (n_warps, 18) buffer,
 // which the wrapper reduces in a fixed order.  That matters most for the
 // origin cotangent, a difference of sums that cancel about 800x
-// (gradkernel.py:970-973, where the TPU kernel Kahan-compensates f32).
+// (gradkernel.py:970-973, where the TPU kernel Kahan-compensates f32).  The
+// refill's lanes are one number for every policy and tape mode
+// (raytpu_render_vjp_refill_lanes), so a taped launch's camera sums equal
+// the untaped one's bit for bit.
 // Sphere cotangents go through atomicAdd(double*) (native on sm_90): lanes
 // of a warp with the same winner are first summed in a fixed lane order,
 // but the atomics of different warps land in whatever order the card runs
@@ -77,15 +106,26 @@
 // the image given, none for the steps a tape holds; one more with vis_w,
 // whose near-miss sweep runs over every sphere at every miss), warp
 // divergence (paths end at different depths, materials branch per lane),
-// local-memory traffic for the residuals (44 bytes per bounce per thread,
-// cached in L1/L2, up to kMaxDepth rows), and atomic contention on the
-// ground sphere, which almost every diffuse ray hits.  This design answers
-// the sweep with the BVH and the tape, and the rest only simply: the reverse
-// loop runs to the warp's longest path so that every lane joins the
-// warp-level sums; lanes with the same winner are summed with shuffles (a
-// full-warp butterfly when all 32 agree) before one lane issues the
-// atomics.  Staging the scene in shared memory and per-block partial sums
-// are later work.
+// the residual traffic, and atomic contention on the ground sphere, which
+// almost every diffuse ray hits.  The per-sample pass runs each warp's
+// forward and reverse of a sample to its longest path (every lane joins
+// the warp-level sums), while config 4's paths take 2.56 bounce steps on
+// average (chip_smoke.py's census, NVIDIA H100 80GB HBM3, 700.00 W); the
+// refill keeps every lane on a live step in both sweeps, and pays for it
+// with 48 bytes of rows a step through device memory (written once, read
+// once; a window of rows is far larger than L2, where the per-sample
+// pass's local rows mostly stay), with every step type of the warp (scatter,
+// miss, spawn; in the reverse the near-miss sweep of vis_w) in every
+// iteration, and with a persistent grid of what stays resident: two blocks
+// an SM at 128 registers.  It keeps its camera sums in shared memory (one
+// column of 18 doubles a thread) rather than in 36 registers, and loads the
+// next row while it transposes this one.  The window W is sized from the
+// wrapper's byte budget (refill_plan): a lane parks when a full-depth
+// sample no longer fits, so the last steps of a window run with fewer
+// lanes, a share of about depth / (2 W).  Lanes with the same winner are
+// summed with shuffles (a full-warp butterfly when all 32 agree) before one
+// lane issues the atomics.  Staging the scene in shared memory and
+// per-block partial sums are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -99,6 +139,7 @@ using namespace rt;
 constexpr int kMaxDepth = 64;   // local residual rows; the wrapper refuses more
 constexpr int kLeaves = 8;      // cx cy cz rad ar ag ab mp
 constexpr int kCamSums = 18;
+constexpr int kRefillBlock = 256;  // threads a block of the refill grid
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct Params {
@@ -109,10 +150,12 @@ struct Params {
   const void* tape;     // (g_cap, rows * width) int16 / int32 (kTape)
   const float* ct;      // (rows, width, 3) image cotangent
   const float* img_in;  // (rows, width, 3) forward image, or null (PASS 1)
+  uint32_t* rows_buf;   // the refill's residual rows (window, 12, lanes)
   float* img_out;       // (rows, width, 3)
   double* gsc;          // (kLeaves, n) sphere cotangents, zeroed by the caller
   double* gcam;         // (n_warps, kCamSums) camera sums, one row a warp
   int n, width, height, row0, rows, spp, depth, g_cap, tape_wide;
+  int lanes, window;    // the refill's lanes and window of steps
   float t_min, inv_w, inv_h, inv_spp, gamma, vis_w;
   int parallel, v1;
 };
@@ -464,9 +507,84 @@ __device__ __forceinline__ void add_by_key(double* acc, int n, int key,
   }
 }
 
+// The cotangent of a pixel's linear sample sum from its image `img` and
+// the image cotangent at element `pix` (gradkernel.py:878-888's order):
+// d_acc = ct * exp(log(img) * (1 - gamma)) / gamma * inv_spp, 0 where
+// img <= 0.
+__device__ __forceinline__ void sum_cotangent(const Params& p, size_t pix,
+                                              const float img[3],
+                                              float dacc[3]) {
+  const float one_m_g = 1.0f - p.gamma;
+  for (int k = 0; k < 3; ++k) {
+    float dd = img[k] > 0.0f ? expf(logf(img[k]) * one_m_g) / p.gamma : 0.0f;
+    dacc[k] = p.ct[pix + k] * dd * p.inv_spp;
+  }
+}
+
+// The transpose of one bounce step, residual r, of a sample whose radiance
+// is v (used by the silhouette terms only).  g carries the cotangent of the
+// step's outgoing (origin, direction, throughput) on entry and of its
+// incoming one on exit.  The winner's leaf cotangents land in ga under key
+// and the silhouette terms' near-miss sphere's in gb under key_nm (-1: no
+// sphere); an absorbing step passes g through and adds nothing.
+__device__ __forceinline__ void step_vjp(const SceneView& s, const Residual& r,
+                                         float t_min, bool v1, float vis_w,
+                                         const float v[3],
+                                         const float dacc[3], float g[9],
+                                         int& key, float ga[kLeaves],
+                                         int& key_nm, float gb[4]) {
+  if (r.win < 0) {  // miss: radiance c * sky(d); the state passes
+    const float dv[3] = {r.dx, r.dy, r.dz};
+    const float cv[3] = {r.cr, r.cg, r.cb};
+    float gd[3] = {g[3], g[4], g[5]}, gc[3] = {g[6], g[7], g[8]};
+    sky_vjp(dv, cv, dacc, gd, gc);
+    for (int k = 0; k < 3; ++k) {
+      g[3 + k] = gd[k];
+      g[6 + k] = gc[k];
+    }
+    if (vis_w > 0.0f) key_nm = near_miss(s, r, v, dacc, vis_w, gb);
+    return;
+  }
+  const float mt = s.mt[r.win];
+  if (!(mt == 0.0f || mt == 1.0f || mt == 2.0f)) return;  // absorbed
+  bounce_vjp(s, r, t_min, v1, g, ga);
+  key = r.win;
+  if (vis_w > 0.0f) {  // hit side: v turns into thr * sky
+    const float o3[3] = {r.ox, r.oy, r.oz};
+    const float d3[3] = {r.dx, r.dy, r.dz};
+    const float C[3] = {s.cx[key], s.cy[key], s.cz[key]};
+    float kr, kg, kb;
+    sky(r.dx, r.dy, r.dz, kr, kg, kb);
+    const float jump[3] = {v[0] - r.cr * kr, v[1] - r.cg * kg,
+                           v[2] - r.cb * kb};
+    float gh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    boundary(o3, d3, dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz), C, s.rad[key],
+             jump, dacc, vis_w, gh);
+    for (int k = 0; k < 4; ++k) ga[k] += gh[k];
+  }
+}
+
+// The raygen transpose of a sample whose first step's incoming cotangent
+// is g: d = L + uH + vV - o consumes o with weight -1, so everything the
+// origin feeds (camera origin, lens offset) sees d_o - d_d.
+__device__ __forceinline__ void raygen_vjp(const float g[9], const RayGen& gr,
+                                           double cam_acc[kCamSums]) {
+  const float eo[3] = {g[0] - g[3], g[1] - g[4], g[2] - g[5]};
+  for (int k = 0; k < 3; ++k) {
+    cam_acc[k] += eo[k];
+    cam_acc[3 + k] += g[3 + k];
+    cam_acc[6 + k] += gr.u * g[3 + k];
+    cam_acc[9 + k] += gr.v * g[3 + k];
+    cam_acc[12 + k] += gr.ldx * eo[k];
+    cam_acc[15 + k] += gr.ldy * eo[k];
+  }
+}
+
+// PASS 1 and the per-sample PASS 2 of the thread's pixel (a 2-D grid of
+// 32 x 8 blocks over the slab); the raygen sums land in cam_acc.
 template <int kHit, bool kTape>
-__global__ void __launch_bounds__(256)
-render_vjp_kernel(Params p) {
+__device__ __forceinline__ void per_sample_pass(const Params& p,
+                                                double cam_acc[kCamSums]) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int ly = blockIdx.y * blockDim.y + threadIdx.y;  // row in the slab
   const int y = p.row0 + ly;                              // row in the frame
@@ -516,20 +634,12 @@ render_vjp_kernel(Params p) {
   }
   float dacc[3] = {0.0f, 0.0f, 0.0f};
   if (valid) {
-    const float one_m_g = 1.0f - p.gamma;
-    for (int k = 0; k < 3; ++k) {
-      p.img_out[pix + k] = img[k];  // 0 on a row past the frame
-      float dd = img[k] > 0.0f ? expf(logf(img[k]) * one_m_g) / p.gamma
-                               : 0.0f;
-      if (live) dacc[k] = p.ct[pix + k] * dd * p.inv_spp;
-    }
+    for (int k = 0; k < 3; ++k) p.img_out[pix + k] = img[k];  // 0 past the frame
+    if (live) sum_cotangent(p, pix, img, dacc);
   }
 
   // -- PASS 2: per sample, re-forward with residuals, then reverse
   Residual res[kMaxDepth];
-  double cam_acc[kCamSums];
-#pragma unroll
-  for (int i = 0; i < kCamSums; ++i) cam_acc[i] = 0.0;
   uint32_t chain = seed0;
   // the pixel's tape: step k of its samples in order, as the forward wrote
   TapeCursor tc{const_cast<void*>(p.tape),
@@ -554,60 +664,257 @@ render_vjp_kernel(Params p) {
       const int d = len - 1 - it;
       int key = -1, key_nm = -1;
       float ga[kLeaves] = {}, gb[4] = {};
-      if (d >= 0) {
-        const Residual& r = res[d];
-        if (r.win < 0) {  // miss: radiance c * sky(d); the state passes
-          const float dv[3] = {r.dx, r.dy, r.dz};
-          const float cv[3] = {r.cr, r.cg, r.cb};
-          float gd[3] = {g[3], g[4], g[5]}, gc[3] = {g[6], g[7], g[8]};
-          sky_vjp(dv, cv, dacc, gd, gc);
-          for (int k = 0; k < 3; ++k) {
-            g[3 + k] = gd[k];
-            g[6 + k] = gc[k];
-          }
-          if (p.vis_w > 0.0f) key_nm = near_miss(s, r, v, dacc, p.vis_w, gb);
-        } else {
-          const float mt = s.mt[r.win];
-          if (mt == 0.0f || mt == 1.0f || mt == 2.0f) {  // else absorbed
-            bounce_vjp(s, r, p.t_min, v1, g, ga);
-            key = r.win;
-            if (p.vis_w > 0.0f) {  // hit side: v turns into thr * sky
-              const float o3[3] = {r.ox, r.oy, r.oz};
-              const float d3[3] = {r.dx, r.dy, r.dz};
-              const float C[3] = {s.cx[key], s.cy[key], s.cz[key]};
-              float kr, kg, kb;
-              sky(r.dx, r.dy, r.dz, kr, kg, kb);
-              const float jump[3] = {v[0] - r.cr * kr, v[1] - r.cg * kg,
-                                     v[2] - r.cb * kb};
-              float gh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-              boundary(o3, d3, dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz), C,
-                       s.rad[key], jump, dacc, p.vis_w, gh);
-              for (int k = 0; k < 4; ++k) ga[k] += gh[k];
-            }
-          }
+      if (d >= 0)
+        step_vjp(s, res[d], p.t_min, v1, p.vis_w, v, dacc, g, key, ga, key_nm,
+                 gb);
+      add_by_key<kLeaves>(p.gsc, p.n, key, ga);
+      if (p.vis_w > 0.0f) add_by_key<4>(p.gsc, p.n, key_nm, gb);
+    }
+    raygen_vjp(g, gr, cam_acc);
+  }
+}
+
+// ---- the windowed refill (parallel RNG, the image given) -----------------
+
+// One pixel of a refill lane: its element in the slab's buffers (pixel
+// index q, image and ct at 3q), its screen coordinates and RNG key.
+struct LanePixel {
+  size_t q;
+  float fx, fy;
+  uint32_t seed0;
+};
+
+__device__ __forceinline__ LanePixel pixel_of(const Params& p, size_t q) {
+  const int ly = static_cast<int>(q / p.width);
+  const int x = static_cast<int>(q % p.width);
+  const int y = p.row0 + ly;
+  return LanePixel{q, static_cast<float>(x), static_cast<float>(y),
+                   base_hash(static_cast<uint32_t>(x),
+                             static_cast<uint32_t>(y))};
+}
+
+// Lane `lane`'s pixel of hop m is lane + m * lanes.  Advances m to the
+// lane's first hop from m on whose pixel lies in the frame and returns
+// true, or false when the lane has none left; writes each passed pixel's
+// output (the given image; 0 on a row past the frame, which adds nothing).
+__device__ __forceinline__ bool take_pixel(const Params& p, size_t n_pix,
+                                           size_t lane, int& m,
+                                           LanePixel& px) {
+  for (;; ++m) {
+    const size_t q = lane + static_cast<size_t>(m) * p.lanes;
+    if (q >= n_pix) return false;
+    const bool live = p.row0 + static_cast<int>(q / p.width) < p.height;
+    for (int k = 0; k < 3; ++k)
+      p.img_out[3 * q + k] = live ? p.img_in[3 * q + k] : 0.0f;
+    if (live) {
+      px = pixel_of(p, q);
+      return true;
+    }
+  }
+}
+
+// The residual rows of the refill: word w of step g of lane l at
+// buf[(g * kRowWords + w) * lanes + l].  The lanes of a warp store and
+// load the same step together, so they touch consecutive words.  A row:
+// the incoming ray and throughput, the winner (-1 on a miss), the
+// pre-bounce seed, and meta = flags | (m * spp + s) << 4, the hop and
+// sample the step belongs to (the wrapper keeps hops * spp < 2^28).
+constexpr int kRowWords = 12;
+constexpr uint32_t kFScat = 1u, kFMiss = 2u, kFFresh = 4u, kFFin = 8u;
+
+struct RowStore {
+  uint32_t* buf;
+  size_t lanes, lane;
+
+  __device__ __forceinline__ uint32_t* at(int g, int w) const {
+    return buf + (static_cast<size_t>(g) * kRowWords + w) * lanes + lane;
+  }
+  __device__ __forceinline__ void put(int g, const Residual& r,
+                                      uint32_t meta) const {
+    const float f[9] = {r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.cr, r.cg, r.cb};
+#pragma unroll
+    for (int w = 0; w < 9; ++w) *at(g, w) = __float_as_uint(f[w]);
+    *at(g, 9) = static_cast<uint32_t>(r.win);
+    *at(g, 10) = r.seed;
+    *at(g, 11) = meta;
+  }
+  __device__ __forceinline__ void load(int g, uint32_t w[kRowWords]) const {
+#pragma unroll
+    for (int i = 0; i < kRowWords; ++i) w[i] = *at(g, i);
+  }
+};
+
+__device__ __forceinline__ Residual row_residual(const uint32_t w[kRowWords]) {
+  return Residual{__uint_as_float(w[0]), __uint_as_float(w[1]),
+                  __uint_as_float(w[2]), __uint_as_float(w[3]),
+                  __uint_as_float(w[4]), __uint_as_float(w[5]),
+                  __uint_as_float(w[6]), __uint_as_float(w[7]),
+                  __uint_as_float(w[8]), static_cast<int>(w[9]), w[10]};
+}
+
+// PASS 2 on the windowed-refill schedule (raytpu's p2_refill branch,
+// gradkernel.py:999-1518), one persistent lane a thread of a 1-D grid of
+// p.lanes threads.  The lane takes its pixels in turn and each pixel's
+// samples in order (sample s seeded fold_in(base_hash(x, y), s)).  A window
+// re-runs the forward one bounce step a row for at most p.window steps:
+// when a sample ends the lane spawns its pixel's next sample, or hops to
+// its next pixel, at once, while a full-depth sample still fits the window
+// (raytpu's can = g + 1 + depth <= g_cap); else it parks until the next
+// window.  The reverse then walks the window's rows newest first: a FIN
+// row's radiance is recomputed (a sample misses at most once, at its last
+// step), a FRESH row folds the raygen transpose into cam_acc and cuts the
+// carry.  The reverse's trip count is the warp's most rows, so every lane
+// joins add_by_key's shuffles; a lane reads back only rows it wrote in
+// this window.
+template <int kHit, bool kTape>
+__device__ __forceinline__ void refill_pass(const Params& p,
+                                            double cam_acc[kCamSums]) {
+  // the lane's raygen sums live in shared memory (one column a thread), not
+  // in 36 registers, for the whole launch
+  __shared__ double cam_sh[kCamSums][kRefillBlock];
+#pragma unroll
+  for (int i = 0; i < kCamSums; ++i) cam_sh[i][threadIdx.x] = 0.0;
+  const size_t lane = static_cast<size_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const size_t n_pix = static_cast<size_t>(p.rows) * p.width;
+  const CamPack cam = *p.cam;
+  const SceneView s = scene_view(p.scene, p.n);
+  const bool v1 = p.v1 != 0;
+  const RowStore store{p.rows_buf, static_cast<size_t>(p.lanes), lane};
+  Census cn{0u, 0u, 0u, 0u};  // unused: K3 does not count
+
+  // the sample in flight, or the next to spawn: sample smp of hop m
+  int m = 0, smp = 0;
+  LanePixel px{0, 0.0f, 0.0f, 0u};
+  bool done = !take_pixel(p, n_pix, lane, m, px);
+  // the pixel's tape: step k of its samples in order; k runs on across
+  // windows and restarts at a hop
+  TapeCursor tc{const_cast<void*>(p.tape), n_pix, px.q, p.g_cap, 0,
+                p.tape_wide};
+  Ray r{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  uint32_t sd = 0u;
+  float cr = 1.0f, cg = 1.0f, cb = 1.0f;
+  int d = 0;
+  bool alive = false, fresh = false;
+  auto spawn = [&]() {
+    sd = fold_in(px.seed0, static_cast<uint32_t>(smp));
+    RayGen gr;
+    r = gen_ray(cam, px.fx, px.fy, p.inv_w, p.inv_h, sd, gr);
+    cr = cg = cb = 1.0f;
+    d = 0;
+    alive = fresh = true;
+  };
+
+  while (!__all_sync(kFull, done)) {
+    // -- the window's forward: one bounce step a row
+    if (!done) spawn();
+    int used = 0;
+    for (int g = 0; g < p.window && __any_sync(kFull, alive); ++g) {
+      if (!alive) continue;
+      Residual res;
+      float rr = 0.0f, rg = 0.0f, rb = 0.0f;  // the reverse recomputes it
+      const bool scat = bounce_step<true, kHit, kTape ? kTapeRead : kNoTape,
+                                    false>(s, p.bvh, p.walk, r, sd, p.t_min,
+                                           v1, cr, cg, cb, rr, rg, rb, &res,
+                                           tc, cn);
+      ++d;
+      const bool fin = !scat || d >= p.depth;
+      const uint32_t flags = (scat ? kFScat : 0u) |
+                             (res.win < 0 ? kFMiss : 0u) |
+                             (fresh ? kFFresh : 0u) | (fin ? kFFin : 0u);
+      store.put(g, res,
+                flags | (static_cast<uint32_t>(m * p.spp + smp) << 4));
+      used = g + 1;
+      fresh = false;
+      if (fin) {
+        alive = false;
+        if (++smp == p.spp) {  // the pixel's samples are done: hop
+          smp = 0;
+          ++m;
+          done = !take_pixel(p, n_pix, lane, m, px);
+          tc.pix = px.q;
+          tc.k = 0;
+        }
+        if (!done && g + 1 + p.depth <= p.window) spawn();
+      }
+    }
+
+    // -- the window's reverse, newest row first, the next row's load in
+    // flight while this one is transposed
+    const int warp_used = __reduce_max_sync(kFull, used);
+    float g9[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float v[3] = {0.0f, 0.0f, 0.0f}, dacc[3] = {0.0f, 0.0f, 0.0f};
+    int dacc_m = -1;
+    uint32_t next[kRowWords];
+    if (used > 0 && used == warp_used) store.load(used - 1, next);
+    for (int g = warp_used - 1; g >= 0; --g) {
+      int key = -1, key_nm = -1;
+      float ga[kLeaves] = {}, gb[4] = {};
+      uint32_t row[kRowWords];
+#pragma unroll
+      for (int i = 0; i < kRowWords; ++i) row[i] = next[i];
+      if (g >= 1 && g - 1 < used) store.load(g - 1, next);
+      if (g < used) {
+        const uint32_t meta = row[11];
+        const Residual res = row_residual(row);
+        const uint32_t ord = meta >> 4;  // hop * spp + sample
+        const int hm = static_cast<int>(ord / static_cast<uint32_t>(p.spp));
+        const size_t q = lane + static_cast<size_t>(hm) * p.lanes;
+        if (hm != dacc_m) {  // the row's pixel: its cotangent scale
+          const float img[3] = {p.img_in[3 * q], p.img_in[3 * q + 1],
+                                p.img_in[3 * q + 2]};
+          sum_cotangent(p, 3 * q, img, dacc);
+          dacc_m = hm;
+        }
+        if (meta & kFFin) {  // the sample's radiance, c * sky at its miss
+          float kr, kg, kb;
+          sky(res.dx, res.dy, res.dz, kr, kg, kb);
+          const bool missed = (meta & kFMiss) != 0u;
+          v[0] = missed ? res.cr * kr : 0.0f;
+          v[1] = missed ? res.cg * kg : 0.0f;
+          v[2] = missed ? res.cb * kb : 0.0f;
+        }
+        step_vjp(s, res, p.t_min, v1, p.vis_w, v, dacc, g9, key, ga, key_nm,
+                 gb);
+        if (meta & kFFresh) {  // the sample's first step: raygen, cut
+          const LanePixel hp = pixel_of(p, q);
+          uint32_t sd0 = fold_in(hp.seed0, ord % static_cast<uint32_t>(p.spp));
+          RayGen gr;
+          gen_ray(cam, hp.fx, hp.fy, p.inv_w, p.inv_h, sd0, gr);
+          double terms[kCamSums];
+#pragma unroll
+          for (int i = 0; i < kCamSums; ++i) terms[i] = 0.0;
+          raygen_vjp(g9, gr, terms);
+#pragma unroll
+          for (int i = 0; i < kCamSums; ++i) cam_sh[i][threadIdx.x] += terms[i];
+          for (int k = 0; k < 9; ++k) g9[k] = 0.0f;
         }
       }
       add_by_key<kLeaves>(p.gsc, p.n, key, ga);
       if (p.vis_w > 0.0f) add_by_key<4>(p.gsc, p.n, key_nm, gb);
     }
-
-    // -- raygen transpose: d = L + uH + vV - o consumes o with weight -1,
-    // so everything the origin feeds (camera origin, lens offset) sees
-    // d_o - d_d
-    const float eo[3] = {g[0] - g[3], g[1] - g[4], g[2] - g[5]};
-    for (int k = 0; k < 3; ++k) {
-      cam_acc[k] += eo[k];
-      cam_acc[3 + k] += g[3 + k];
-      cam_acc[6 + k] += gr.u * g[3 + k];
-      cam_acc[9 + k] += gr.v * g[3 + k];
-      cam_acc[12 + k] += gr.ldx * eo[k];
-      cam_acc[15 + k] += gr.ldy * eo[k];
-    }
   }
+#pragma unroll
+  for (int i = 0; i < kCamSums; ++i) cam_acc[i] = cam_sh[i][threadIdx.x];
+}
+
+// The kernel body under either schedule: PASS 1 and PASS 2, then the
+// warp's row of camera sums.
+template <int kHit, bool kTape, bool kRefill>
+__device__ __forceinline__ void render_vjp(const Params& p) {
+  double cam_acc[kCamSums];
+#pragma unroll
+  for (int i = 0; i < kCamSums; ++i) cam_acc[i] = 0.0;
+  if constexpr (kRefill)
+    refill_pass<kHit, kTape>(p, cam_acc);
+  else
+    per_sample_pass<kHit, kTape>(p, cam_acc);
 
   // camera sums: one f64 butterfly per warp, lane 0 writes the warp's row
-  const size_t warp = (static_cast<size_t>(blockIdx.y) * gridDim.x +
-                       blockIdx.x) * blockDim.y + threadIdx.y;
+  const size_t warp =
+      (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+          (blockDim.x * blockDim.y / 32) +
+      (threadIdx.y * blockDim.x + threadIdx.x) / 32;
 #pragma unroll
   for (int i = 0; i < kCamSums; ++i) {
     double xs = cam_acc[i];
@@ -616,21 +923,51 @@ render_vjp_kernel(Params p) {
   }
 }
 
+// The per-sample grid: one thread a pixel, blocks streamed through the SMs.
 template <int kHit, bool kTape>
+__global__ void __launch_bounds__(256) render_vjp_kernel(Params p) {
+  render_vjp<kHit, kTape, false>(p);
+}
+
+// The refill's persistent grid keeps its lanes resident for the whole
+// launch, so it asks for two blocks an SM (128 registers, some spills).
+template <int kHit, bool kTape>
+__global__ void __launch_bounds__(kRefillBlock, 2)
+render_vjp_refill_kernel(Params p) {
+  render_vjp<kHit, kTape, true>(p);
+}
+
+template <int kHit, bool kTape, bool kRefill>
 int launch(const Params& p, cudaStream_t stream) {
-  dim3 block(32, 8);
-  dim3 grid((p.width + block.x - 1) / block.x,
-            (p.rows + block.y - 1) / block.y);
-  render_vjp_kernel<kHit, kTape><<<grid, block, 0, stream>>>(p);
+  if constexpr (kRefill) {
+    render_vjp_refill_kernel<kHit, kTape><<<p.lanes / kRefillBlock,
+                                            kRefillBlock, 0, stream>>>(p);
+  } else {
+    dim3 block(32, 8);
+    dim3 grid((p.width + block.x - 1) / block.x,
+              (p.rows + block.y - 1) / block.y);
+    render_vjp_kernel<kHit, kTape><<<grid, block, 0, stream>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instantiation of the closest-hit policy `hit` for one variant.
-template <bool kTape>
+template <bool kTape, bool kRefill>
 int launch_hit(int hit, const Params& p, cudaStream_t stream) {
-  if (hit == kFlat) return launch<kFlat, kTape>(p, stream);
-  if (hit == kWalk) return launch<kWalk, kTape>(p, stream);
-  return launch<kBrute, kTape>(p, stream);
+  if (hit == kFlat) return launch<kFlat, kTape, kRefill>(p, stream);
+  if (hit == kWalk) return launch<kWalk, kTape, kRefill>(p, stream);
+  return launch<kBrute, kTape, kRefill>(p, stream);
+}
+
+// Blocks of the refill instantiation (kHit, kTape) one SM keeps resident.
+template <int kHit, bool kTape>
+int refill_blocks_per_sm() {
+  int nb = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &nb, render_vjp_refill_kernel<kHit, kTape>, kRefillBlock, 0) !=
+      cudaSuccess)
+    return 0;
+  return nb;
 }
 
 }  // namespace
@@ -640,14 +977,17 @@ int launch_hit(int hit, const Params& p, cudaStream_t stream) {
 // It covers rows [row0, row0 + rows) of the width x height frame; ct,
 // img_in, img_out and the tape hold those rows.  img_in may be null: PASS 1
 // then renders the image.  gsc is a zeroed f64 (8, n) buffer; gcam an f64
-// (n_warps, 18) buffer, n_warps the grid's blocks times 8
-// (raytpu_render_vjp_warps of width and rows).  `flat` non-null: the flat
+// (n_warps, 18) buffer: the per-sample grid's raytpu_render_vjp_warps of
+// width and rows, or lanes / 32 with the refill.  `flat` non-null: the flat
 // BVH sweep over the scene in leaf order (n permuted rows); `nodes`
 // non-null: the skip-pointer walk of its `copies` copies of n_trav nodes,
-// likewise; both: refused.  `tape_read`:
-// the replay of a winner-index tape of g_cap steps a pixel (int32 when
-// tape_wide; null only when g_cap is 0); it needs parallel RNG and img_in.
-// The block's x extent is one warp, so threadIdx.x is the lane.
+// likewise; both: refused.  `tape_read`: the replay of a winner-index tape
+// of g_cap steps a pixel (int32 when tape_wide; null only when g_cap is 0);
+// it needs parallel RNG and img_in.  `refill`: PASS 2 on the windowed
+// refill schedule, `lanes` threads (a multiple of 256) and a window of
+// `window` >= depth steps, residual rows in `rows_buf` (window * 12 * lanes
+// words); it needs parallel RNG and img_in, and hops * spp < 2^28, hops
+// the pixels a lane takes.
 extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
                                  const void* flat, int n_leaves,
                                  int leaf_size, const void* nodes,
@@ -661,14 +1001,24 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
                                  int depth, float t_min,
                                  float inv_w, float inv_h, float inv_spp,
                                  float gamma, float vis_w, int parallel,
-                                 int v1, void* stream) {
+                                 int v1, int refill, int lanes, int window,
+                                 void* rows_buf, void* stream) {
   if (depth > kMaxDepth || rows < 1 || row0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (tape_read && (!parallel || img_in == nullptr))
+  if ((tape_read || refill) && (!parallel || img_in == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((flat != nullptr && nodes != nullptr) ||
       (nodes != nullptr && (n_trav < 1 || (copies != 1 && copies != 8))))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (refill) {
+    if (lanes < kRefillBlock || lanes % kRefillBlock != 0 ||
+        window < depth || rows_buf == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long hops =
+        (static_cast<long long>(rows) * width + lanes - 1) / lanes;
+    if (hops * spp >= (1LL << 28))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
   p.cam = static_cast<const CamPack*>(cam);
   p.scene = static_cast<const float*>(scene);
@@ -679,6 +1029,7 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.tape = tape;
   p.ct = static_cast<const float*>(ct);
   p.img_in = static_cast<const float*>(img_in);
+  p.rows_buf = static_cast<uint32_t*>(rows_buf);
   p.img_out = static_cast<float*>(img_out);
   p.gsc = static_cast<double*>(gsc);
   p.gcam = static_cast<double*>(gcam);
@@ -691,6 +1042,8 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.depth = depth;
   p.g_cap = g_cap;
   p.tape_wide = tape_wide;
+  p.lanes = lanes;
+  p.window = window;
   p.t_min = t_min;
   p.inv_w = inv_w;
   p.inv_h = inv_h;
@@ -701,12 +1054,34 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.v1 = v1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hit = flat != nullptr ? kFlat : (nodes != nullptr ? kWalk : kBrute);
-  return tape_read ? launch_hit<true>(hit, p, st)
-                   : launch_hit<false>(hit, p, st);
+  if (refill)
+    return tape_read ? launch_hit<true, true>(hit, p, st)
+                     : launch_hit<false, true>(hit, p, st);
+  return tape_read ? launch_hit<true, false>(hit, p, st)
+                   : launch_hit<false, false>(hit, p, st);
 }
 
-// Rows of the camera-sum buffer raytpu_render_vjp needs for a launch of
-// `rows` rows of this width.
+// Rows of the camera-sum buffer raytpu_render_vjp needs for a per-sample
+// launch of `rows` rows of this width.
 extern "C" int raytpu_render_vjp_warps(int width, int rows) {
   return ((width + 31) / 32) * ((rows + 7) / 8) * 8;
+}
+
+// The refill's lane cap on the current device: its SMs times the blocks of
+// 256 threads one SM keeps resident of the refill instantiation that keeps
+// the fewest (every policy and tape mode gets the same lanes, so a taped
+// launch sums the camera terms in the untaped one's order); 0 on an error.
+extern "C" int raytpu_render_vjp_refill_lanes() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  const int per_sm[6] = {
+      refill_blocks_per_sm<kBrute, false>(), refill_blocks_per_sm<kFlat, false>(),
+      refill_blocks_per_sm<kWalk, false>(), refill_blocks_per_sm<kBrute, true>(),
+      refill_blocks_per_sm<kFlat, true>(), refill_blocks_per_sm<kWalk, true>()};
+  int least = per_sm[0];
+  for (int i = 1; i < 6; ++i) least = per_sm[i] < least ? per_sm[i] : least;
+  return sms * least * kRefillBlock;
 }

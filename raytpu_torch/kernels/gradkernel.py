@@ -1,12 +1,12 @@
 """Fused image + VJP kernel K3 and the winner-index tape K4: wrapper of
 ``csrc/gradkernel.cu`` (and of the taping forward in ``csrc/megakernel.cu``).
 
-Counterpart of ``raytpu/kernels/gradkernel.py::render_pallas_vjp`` with the
-per-sample PASS 2, the brute-force sweep, the flat BVH sweep or the
-skip-pointer walk (by raytpu's rule, :func:`raytpu_torch.bvh.sweep_of`),
-the tape replay and the slab mode ``row0`` / ``rows`` (no windowed
-refill), and of its ``tape_plan`` and ``render_tape_fwd``.  See the notes
-at the top of the ``.cu`` files.
+Counterpart of ``raytpu/kernels/gradkernel.py::render_pallas_vjp`` with both
+of its PASS 2 schedules, the per-sample pass and the windowed refill, the
+brute-force sweep, the flat BVH sweep or the skip-pointer walk (by raytpu's
+rule, :func:`raytpu_torch.bvh.sweep_of`), the tape replay and the slab mode
+``row0`` / ``rows``, and of its ``tape_plan`` and ``render_tape_fwd``.  See
+the notes at the top of the ``.cu`` files.
 
 :func:`render_vjp` takes the scene and camera as the package's NamedTuples
 and an image cotangent ``ct``.  For CPU tensors it runs the plain PyTorch
@@ -17,16 +17,26 @@ raises, never falling back.  :func:`launch` is the kernel wrapper proper, on
 packed operands.  ``launches`` counts the kernel launches made through it,
 ``variants`` the same launches by variant.
 
+The windowed refill (raytpu's ``p2_refill``).  Given the forward image in
+parallel RNG, PASS 2 runs on raytpu's refill schedule by raytpu's rule
+(:func:`uses_refill`): persistent lanes, each taking its pixels in turn, a
+finished sample's lane spawning the next one at once, one residual row per
+bounce step in a window of steps that is reversed whole.  Its image is the
+given one and its cotangents those of the per-sample pass, summed in
+another order (allclose, not bit-equal).  :func:`refill_plan` sizes the
+lanes and the window from :data:`REFILL_BUDGET`; ``p2_refill=False`` (or
+:data:`P2_REFILL` set to False) forces the per-sample pass.
+
 The tape (K4).  The taping forward (:func:`render_tape_fwd`) renders the
 forward's image and logs, per pixel, the closest-hit winner of each bounce
 step, counted across the pixel's samples in order: ``tape[k, pix]``, int16
 below 32767 kernel-side spheres, else int32, -1 for a miss.  K3 replays it
-in parallel RNG (the image given, so PASS 1 is elided): each of the first
-``g_cap`` steps takes its winner from the tape and recomputes that one
-sphere's t, and the steps past the cap sweep.  The winner alone decides a
-bounce, so taped gradients are bit-equal to untaped ones for every
-``g_cap`` from 0 to ``spp * depth``.  :func:`tape_plan` decides when the
-autograd path tapes.
+in parallel RNG (the image given, so PASS 1 is elided), on either schedule:
+each of the first ``g_cap`` steps takes its winner from the tape and
+recomputes that one sphere's t, and the steps past the cap sweep.  The
+winner alone decides a bounce, so taped gradients are bit-equal to untaped
+ones for every ``g_cap`` from 0 to ``spp * depth``.  :func:`tape_plan`
+decides when the autograd path tapes.
 """
 
 from __future__ import annotations
@@ -49,13 +59,23 @@ LEAVES = 8      # sphere cotangent rows: cx cy cz rad ar ag ab mp
 CAM_SUMS = 18   # raygen cotangent sums (raytpu gradkernel.py:960-969)
 
 launches = 0    # kernel launches through launch(); a run resets and reads it
-# the same launches by variant (the sweep: "bvh" for the flat one, "walk";
-# "+tape" for the tape replay, "+slab" for a launch given rows); a run
-# resets and reads them
+
+
+def _variant(sweep: str | None, refill: bool, tape: bool, slab: bool) -> str:
+    """A launch's key in ``variants``: the sweep ("bvh" for the flat one,
+    "walk"), "+refill" for the windowed refill, "+tape" for the tape
+    replay, "+slab" for a launch given rows."""
+    tags = "+".join(t for t, on in ((sweep, sweep is not None),
+                                    ("refill", refill), ("tape", tape),
+                                    ("slab", slab)) if on)
+    return "K3/" + tags if tags else "K3"
+
+
+# the launches by variant; a run resets and reads them
 variants = dict.fromkeys(
-    ("K3", "K3/bvh", "K3/walk", "K3/tape", "K3/bvh+tape", "K3/walk+tape",
-     "K3/slab", "K3/bvh+slab", "K3/walk+slab", "K3/tape+slab",
-     "K3/bvh+tape+slab", "K3/walk+tape+slab"), 0)
+    (_variant(sweep, refill, tape, slab) for sweep in (None, "bvh", "walk")
+     for refill in (False, True) for tape in (False, True)
+     for slab in (False, True)), 0)
 
 # The tape's device-memory budget in bytes; a module constant (tests may
 # monkeypatch it).  raytpu's default, 4 GiB: CONFIG4's full tape takes
@@ -76,6 +96,21 @@ PARTIAL_MIN_COVERAGE = 0.05
 # 10 of 10 from 32 (chip_smoke.py phase 4c).
 TAPE_MIN_SPHERES = 8
 
+# The windowed refill's residual scratch in bytes, the counterpart of
+# raytpu's _P2_VMEM_BUDGET; a module constant (tests may monkeypatch it).
+# It sizes the window (refill_plan).  The lanes are what the card keeps
+# resident and do not grow with the frame (a lane hops over pixels), so the
+# scratch stays within the budget on every frame: on an NVIDIA H100 80GB
+# HBM3 (700.00 W power limit) 67584 lanes at most, and config 4 (64000
+# lanes) gets a window of 174 steps, 14 samples of depth 12 (chip_smoke.py
+# phase 9).
+REFILL_BUDGET = 512 * 2**20
+ROW_BYTES = 48       # a residual row: o, d, c, winner, seed, flags | sample
+REFILL_BLOCK = 256   # threads a block of the refill grid (kRefillBlock)
+# Whether p2_refill=None engages the refill where raytpu's rule does; False
+# forces the per-sample pass on every path (raytpu's RAYTPU_GRAD_REFILL=0).
+P2_REFILL = True
+
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
@@ -83,11 +118,66 @@ def _lib() -> ctypes.CDLL:
     fn = lib.raytpu_render_vjp
     fn.argtypes = [ptr, ptr, i, ptr, i, i, ptr, i, i, i, i, i, ptr, i, i,
                    ptr, ptr, ptr, ptr, ptr,
-                   i, i, i, i, i, i, f, f, f, f, f, f, i, i, ptr]
+                   i, i, i, i, i, i, f, f, f, f, f, f, i, i, i, i, i, ptr,
+                   ptr]
     fn.restype = ctypes.c_int
     lib.raytpu_render_vjp_warps.argtypes = [i, i]
     lib.raytpu_render_vjp_warps.restype = ctypes.c_int
+    lib.raytpu_render_vjp_refill_lanes.argtypes = []
+    lib.raytpu_render_vjp_refill_lanes.restype = ctypes.c_int
     return lib
+
+
+_lanes_cap: dict[int, int] = {}  # device index -> refill_lanes()
+
+
+def refill_lanes(device) -> int:
+    """The refill's lane cap on a CUDA device: its SMs times the threads
+    one SM keeps resident of the refill instantiation that keeps the
+    fewest (the same for every policy and tape mode)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _lanes_cap:
+        with torch.cuda.device(index):
+            cap = _lib().raytpu_render_vjp_refill_lanes()
+        if cap < REFILL_BLOCK:
+            raise RuntimeError("the refill kernel keeps no block resident "
+                               f"on cuda:{index}")
+        _lanes_cap[index] = cap
+    return _lanes_cap[index]
+
+
+def uses_refill(cfg: RenderConfig, img, p2_refill: bool | None = None
+                ) -> bool:
+    """raytpu's rule (gradkernel.py:1557-1563): PASS 2 runs on the windowed
+    refill when the forward image is given in parallel RNG (PASS 1 elided)
+    and ``p2_refill`` is True, or None and :data:`P2_REFILL` holds;
+    otherwise on the per-sample pass (sequential RNG always)."""
+    skip_p1 = img is not None and cfg.rng_mode == "parallel"
+    return bool(P2_REFILL if p2_refill is None else p2_refill) and skip_p1
+
+
+def refill_plan(cfg: RenderConfig, rows: int, lanes_cap: int) -> dict:
+    """The windowed refill's layout for a launch of ``rows`` rows (raytpu's
+    ``_p2_plan``) -> ``{"lanes", "hops", "window", "bytes"}``.
+
+    ``lanes_cap`` (a multiple of :data:`REFILL_BLOCK`): the lanes the card
+    keeps resident (:func:`refill_lanes`).  A lane takes ``hops`` pixels,
+    lane ``l``'s pixel of hop ``m`` being ``l + m * lanes``: ``hops =
+    ceil(pixels / lanes_cap)`` and ``lanes`` = ``ceil(pixels / hops)``
+    rounded up to a block, so every lane has ``hops`` pixels or one fewer
+    and no block waits for a free SM.  ``window`` = ``max(depth, min(spp *
+    depth, REFILL_BUDGET // (lanes * ROW_BYTES)))`` steps (raytpu's
+    ``p2_steps``); ``bytes``, the residual scratch, exceeds the budget only
+    where one full-depth sample a lane does not fit it."""
+    pixels = rows * cfg.width
+    hops = -(-pixels // lanes_cap)
+    lanes = -(-pixels // hops)
+    lanes = -(-lanes // REFILL_BLOCK) * REFILL_BLOCK
+    window = max(cfg.depth, min(cfg.spp * cfg.depth,
+                                REFILL_BUDGET // (lanes * ROW_BYTES)))
+    return {"lanes": lanes, "hops": hops, "window": window,
+            "bytes": lanes * window * ROW_BYTES}
 
 
 def _scene_grads(center, radius, albedo, mat_param) -> Scene:
@@ -135,12 +225,15 @@ def _check_frame(cfg: RenderConfig, ct: torch.Tensor, img, device,
 def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
            cfg: RenderConfig, ct: torch.Tensor, img=None, vis_w: float = 0.0,
            bvh: BVH | None = None, tape: torch.Tensor | None = None,
-           row0: int = 0, rows: int | None = None):
+           row0: int = 0, rows: int | None = None,
+           p2_refill: bool | None = None):
     """Launch K3 on packed operands -> (image, (8, P) sphere cotangents,
     (18,) camera sums), the sums in f64 as the kernel accumulates them
     (the caller casts them to f32, after a sharded step's all-reduce).
 
-    ``img`` (parallel RNG only) is the forward image: it elides PASS 1.
+    ``img`` (parallel RNG only) is the forward image: it elides PASS 1, and
+    PASS 2 then runs on the windowed refill unless ``p2_refill`` says
+    otherwise (:func:`uses_refill`, :func:`refill_plan`).
     Sequential RNG chains each pixel's seed through its samples, so PASS 1
     must run and ``img`` is ignored there, as in raytpu.  ``bvh``: the flat
     BVH sweep or the walk (:func:`raytpu_torch.bvh.sweep_of`);
@@ -161,6 +254,7 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     device = scene_pack.device
     n = scene_pack.shape[1]
     skip_p1 = img is not None and cfg.rng_mode == "parallel"
+    refill = uses_refill(cfg, img, p2_refill)
     img_in = img if skip_p1 else None
     _check_frame(cfg, ct, img_in, device, rows)
     if bvh is not None:
@@ -176,8 +270,17 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     out = torch.empty((rows, cfg.width, 3), dtype=torch.float32,
                       device=device)
     gsc = torch.zeros((LEAVES, n), dtype=torch.float64, device=device)
+    plan, scratch = None, None
+    if refill:
+        plan = refill_plan(cfg, rows, refill_lanes(device))
+        if plan["hops"] * cfg.spp >= 2**28:
+            raise ValueError(f"{plan['hops']} pixels a lane at {cfg.spp} spp: "
+                             "the refill numbers a lane's samples below 2^28")
+        scratch = torch.empty(plan["bytes"] // 4, dtype=torch.int32,
+                              device=device)
     # one row of camera sums per warp, summed below in a fixed order
-    n_warps = lib.raytpu_render_vjp_warps(cfg.width, rows)
+    n_warps = (plan["lanes"] // 32 if refill
+               else lib.raytpu_render_vjp_warps(cfg.width, rows))
     gcam = torch.empty((n_warps, CAM_SUMS), dtype=torch.float64,
                        device=device)
     with torch.cuda.device(device):
@@ -197,14 +300,14 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
             float(np.float32(1.0 / cfg.spp)),
             float(np.float32(cfg.gamma)), float(np.float32(vis_w)),
             int(cfg.rng_mode == "parallel"), int(cfg.scatter_mode == "v1"),
-            stream)
+            int(refill), plan["lanes"] if refill else 0,
+            plan["window"] if refill else 0,
+            None if scratch is None else scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"render_vjp_kernel launch failed: CUDA error {err}")
     launches += 1
-    tags = "+".join(t for t, on in (
-        (megakernel.sweep_tag(bvh), bvh is not None),
-        ("tape", tape is not None), ("slab", slabbed)) if on)
-    variants["K3/" + tags if tags else "K3"] += 1
+    variants[_variant(None if bvh is None else megakernel.sweep_tag(bvh),
+                      refill, tape is not None, slabbed)] += 1
     return out, gsc, gcam.sum(dim=0)
 
 
@@ -225,6 +328,9 @@ def render_vjp_plain(scene: Scene, cam: Camera, cfg: RenderConfig, ct,
                      row0: int = 0, rows: int | None = None, reduce=None):
     """The plain version of K3 on any device: the VJP of the adjoint
     renderer for the image cotangent ``ct`` -> (img, d_scene, d_cam).
+    It is the plain version of both PASS 2 schedules, the per-sample pass
+    and the windowed refill: they compute this one function and differ only
+    in the order their cotangent terms are summed.
     ``bvh`` sweeps the BVH by its sweep; ``tape`` replays a winner-index tape
     (the plain version of K3's tape read); ``row0`` / ``rows`` take the
     slab; ``reduce`` sums the f32 cotangents across processes (see
@@ -255,7 +361,8 @@ def _kernel_rows(scene: Scene, bvh: BVH | None) -> int:
 def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
                vis_w: float = 0.0, bvh: BVH | None = None, tape=None,
                tape_partial: bool = False, row0: int = 0,
-               rows: int | None = None, reduce=None):
+               rows: int | None = None, reduce=None,
+               p2_refill: bool | None = None):
     """Fused image + VJP -> (img, d_scene, d_cam) for the image cotangent
     ``ct`` (H, W, 3), the counterpart of raytpu's ``render_pallas_vjp``.
     ``row0`` / ``rows``: the slab (``ct``, ``img`` and the tape of its
@@ -267,8 +374,10 @@ def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
     ``d_scene.mat_type`` is None (a discrete leaf); ``d_scene`` is in the
     input order of the spheres, also with ``bvh`` (the kernel accumulates
     in leaf order and the cotangents are scattered back by ``perm``,
-    dummies dropped).  ``img`` (parallel RNG) elides the kernel's PASS 1;
-    the plain version ignores it.  ``vis_w > 0`` adds raytpu's silhouette
+    dummies dropped).  ``img`` (parallel RNG) elides the kernel's PASS 1,
+    and its PASS 2 then runs on the windowed refill by raytpu's rule
+    (:func:`uses_refill`; ``p2_refill=False`` forces the per-sample pass);
+    the plain version ignores both.  ``vis_w > 0`` adds raytpu's silhouette
     (boundary) gradients.  ``tape`` (from :func:`render_tape_fwd` with the
     same ``bvh``, parallel RNG, ``img`` given) is replayed instead of
     sweeping its steps; ``tape_partial`` says whether it holds fewer than
@@ -302,7 +411,7 @@ def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
                                    permute_scene(scene, bvh.perm))
     out, gsc, gcam = launch(megakernel.pack_camera(cam), packed, cfg, ct,
                             img, vis_w, bvh, tape, row0,
-                            rows if slabbed else None)
+                            rows if slabbed else None, p2_refill)
     if reduce is not None:
         gsc, gcam = _reduced([gsc, gcam], reduce)
     gsc, gcam = gsc.to(torch.float32), gcam.to(torch.float32)

@@ -112,23 +112,21 @@ def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
     silhouette (boundary) gradients for geometry optimization; the forward
     stays the exact hard render.  ``backend="golden"`` runs the adjoint
     renderer (raytpu_torch/adjoint.py) on any device; ``"auto"`` and
-    ``"cuda"`` the kernels on CUDA tensors (K1a forward, K3 backward) and
-    the plain versions on CPU tensors.  ``bvh`` makes ``"auto"`` and
+    ``"cuda"`` the kernels on CUDA tensors (K1a forward, K3 backward: on
+    its windowed refill in parallel RNG, where it is given the forward's
+    image) and the plain versions on CPU tensors.  ``bvh`` makes ``"auto"`` and
     ``"cuda"`` sweep it, flat or by the walk (K1c / K1d forward or, in
     parallel RNG, the taping forward K4; K3's BVH variant or its tape
     replay backward);
     ``"golden"`` ignores it, as raytpu's adjoint is the brute-force oracle
     (raytpu/render.py:139).  ``"wavefront"`` takes the kernel path, as
-    raytpu's does (raytpu/render.py:136-137): its gradients are K3's; in
-    parallel RNG on CUDA tensors it raises, as the wavefront's backward
-    does (:func:`raytpu_torch.wavefront.check_backward`).  An
-    optimisation loop that moves spheres keeps the BVH's boxes around them
-    with :func:`raytpu_torch.bvh.refit`.
+    raytpu's does (raytpu/render.py:136-137): its gradients are K3's, on
+    its windowed refill in parallel RNG.  An optimisation loop that moves
+    spheres keeps the BVH's boxes around them with
+    :func:`raytpu_torch.bvh.refit`.
     """
     check_backend(backend, scene, RENDER_BACKENDS)
     if backend == "wavefront":
-        from raytpu_torch import wavefront
-        wavefront.check_backward(cfg, scene.center.device)
         backend = "auto"
     adjoint.check_cfg(cfg)
     leaves = [t.detach().requires_grad_()

@@ -386,28 +386,13 @@ def check_options(cfg: RenderConfig, segments, tile_rows, sort_every: int,
     return segments
 
 
-def check_backward(cfg: RenderConfig, device) -> None:
-    """Raise NotImplementedError where a wavefront image's backward needs a
-    kernel the port does not have yet: on a card in parallel RNG, where
-    raytpu's backward (``_wf_bwd``, raytpu/wavefront.py:705-727, and
-    ``render_grad(backend="wavefront")``) hands the image to
-    ``render_pallas_vjp``, which then runs K3's windowed-refill PASS 2
-    (raytpu/kernels/gradkernel.py:999-, engaged at :1557-1563).  Sequential
-    RNG runs K3's per-sample pass there, as the port does; CPU tensors take
-    the adjoint's VJP."""
-    if torch.device(device).type == "cuda" and cfg.rng_mode == "parallel":
-        raise NotImplementedError(
-            "the wavefront's backward in parallel RNG is raytpu's "
-            "windowed-refill PASS 2 of K3 (raytpu/kernels/gradkernel.py:999), "
-            "not ported yet (ROADMAP queue 2); use rng_mode='sequential'")
-
-
 class _Wavefront(torch.autograd.Function):
     """The wavefront forward with the fused VJP kernel K3 as its backward
     (raytpu's ``custom_vjp``, raytpu/wavefront.py:682-730): the wavefront
-    changes the forward's schedule only, so the per-pixel reverse sweep
-    applies.  :func:`check_backward` refuses a card in parallel RNG before
-    the forward runs; on CPU tensors the backward is the adjoint's VJP.
+    changes the forward's schedule only, so K3 takes its image as given.
+    As in raytpu, that engages K3's windowed refill in parallel RNG and its
+    per-sample pass in sequential RNG; on CPU tensors the backward is the
+    adjoint's VJP.
 
     apply(cfg, vis_w, bvh, options, mat_type, center, radius, albedo,
     mat_param, *camera) -> image; ``options`` = (segments, sort_every,
@@ -459,9 +444,8 @@ def render_wavefront(scene: Scene, cam: Camera, cfg: RenderConfig,
     CUDA tensors run K5 / K6, CPU tensors their plain versions; the image
     equals ``render()``'s bit for bit at ``spp_batch`` 1.  Differentiable:
     with a continuous leaf that requires grad the backward is K3 on CUDA
-    tensors in sequential RNG (``vis_w > 0`` adds silhouette gradients;
-    parallel RNG raises, :func:`check_backward`), the adjoint's VJP on CPU
-    tensors."""
+    tensors, its windowed refill in parallel RNG (``vis_w > 0`` adds
+    silhouette gradients), the adjoint's VJP on CPU tensors."""
     _check_scene_bvh(scene, cam, cfg, bvh)
     options = (check_options(cfg, segments, tile_rows, int(sort_every),
                              int(spp_batch), int(sort_chunk), int(refill)),
@@ -469,7 +453,6 @@ def render_wavefront(scene: Scene, cam: Camera, cfg: RenderConfig,
     leaves = (scene.center, scene.radius, scene.albedo, scene.mat_param,
               *cam)
     if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-        check_backward(cfg, scene.center.device)
         return _Wavefront.apply(cfg, float(vis_w), bvh, options,
                                 scene.mat_type, scene.center, scene.radius,
                                 scene.albedo, scene.mat_param, *cam)

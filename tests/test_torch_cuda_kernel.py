@@ -150,7 +150,9 @@ def test_vjp_kernel_matches_plain(cfg, kw, vis_w):
 def test_vjp_pass1_elision_bit_equal():
     """Parallel RNG: passing the forward image skips PASS 1 and leaves the
     gradients bit-equal (tests/test_gradkernel.py demands the same of the
-    TPU kernel)."""
+    TPU kernel).  p2_refill=False isolates the elision, as raytpu's test
+    does: the image alone would also engage the windowed refill, whose sums
+    run in another order (tested below)."""
     cfg = RenderConfig(width=64, height=16, spp=2, depth=3,
                        rng_mode="parallel")
     scene = rt.test_world(device="cuda")
@@ -158,7 +160,7 @@ def test_vjp_pass1_elision_bit_equal():
     img = rt.render(scene, cam, cfg)
     ct = 2.0 * (img - 0.25) / img.numel()
     a = gradkernel.render_vjp(scene, cam, cfg, ct)
-    b = gradkernel.render_vjp(scene, cam, cfg, ct, img=img)
+    b = gradkernel.render_vjp(scene, cam, cfg, ct, img=img, p2_refill=False)
     assert torch.equal(a[0], b[0])
     for x, y in zip((*a[1][:2], *a[1][3:], *a[2]), (*b[1][:2], *b[1][3:],
                                                     *b[2])):
@@ -277,16 +279,19 @@ def test_tape_write_and_replay_bit_equal(sweep):
     written = want_tape != golden.TAPE_UNWRITTEN  # the rest is never read
     assert float((tape == want_tape)[written].float().mean()) >= 0.999
     ct = 2.0 * (img - 0.25) / img.numel()
-    base = _grads(gradkernel.render_vjp(scene, cam, cfg, ct, img=img,
-                                        bvh=bvh))
-    for g_cap in (full, 0, 1, 2, cfg.depth + 3):
-        _reset_counts()
-        out = gradkernel.render_vjp(scene, cam, cfg, ct, img=img, bvh=bvh,
-                                    tape=tape[:g_cap].contiguous(),
-                                    tape_partial=g_cap < full)
-        assert gradkernel.variants["K3/bvh+tape" if bvh else "K3/tape"] == 1
-        for a, b in zip(_grads(out), base):
-            assert torch.equal(a, b), g_cap
+    for p2_refill in (False, None):  # the per-sample pass, the refill
+        base = _grads(gradkernel.render_vjp(scene, cam, cfg, ct, img=img,
+                                            bvh=bvh, p2_refill=p2_refill))
+        for g_cap in (full, 0, 1, 2, cfg.depth + 3):
+            _reset_counts()
+            out = gradkernel.render_vjp(scene, cam, cfg, ct, img=img, bvh=bvh,
+                                        tape=tape[:g_cap].contiguous(),
+                                        tape_partial=g_cap < full,
+                                        p2_refill=p2_refill)
+            assert gradkernel.variants[gradkernel._variant(
+                "bvh" if bvh else None, p2_refill is None, True, False)] == 1
+            for a, b in zip(_grads(out), base):
+                assert torch.equal(a, b), (p2_refill, g_cap)
 
 
 @needs_card
@@ -314,7 +319,8 @@ def test_bvh_vjp_kernel_matches_plain(rng_mode, vis_w):
 @needs_card
 def test_bvh_autograd_launches():
     """render_grad(bvh=): parallel RNG runs the taping forward and K3's
-    tape replay; sequential RNG K1c and K3's BVH variant, and no tape."""
+    tape replay on the windowed refill; sequential RNG K1c and K3's BVH
+    variant, and no tape."""
     cfg = RenderConfig(width=64, height=32, spp=2, depth=4,
                        rng_mode="parallel")
     scene, cam, bvh = _bvh_world(cfg, n=48)
@@ -322,7 +328,7 @@ def test_bvh_autograd_launches():
     _reset_counts()
     _, _, (sg, _) = rt.render_grad(scene, cam, cfg, target, bvh=bvh)
     assert megakernel.variants["K4/bvh"] == 1
-    assert gradkernel.variants["K3/bvh+tape"] == 1
+    assert gradkernel.variants["K3/bvh+refill+tape"] == 1
     assert sum(megakernel.variants.values()) == 1
     assert sum(gradkernel.variants.values()) == 1
     _reset_counts()
@@ -456,7 +462,7 @@ def test_slabs_stitch_to_the_frame(rng_mode):
                                                20)
     assert torch.equal(img_w, img_t[13:33]) and tape_w.shape == (g, 20 * 96)
     assert megakernel.variants["K4/bvh+slab"] == 5
-    assert gradkernel.variants["K3/bvh+tape+slab"] == 4
+    assert gradkernel.variants["K3/bvh+refill+tape+slab"] == 4
 
 
 def _walk_world(cfg, padded=True):
@@ -518,7 +524,7 @@ def test_walk_kernels_match_plain(padded, rng_mode):
                                     tape_partial=g_cap < full)
         for a, b in zip(_grads(out), base):
             assert torch.equal(a, b), g_cap
-    assert gradkernel.variants["K3/walk+tape"] == 2
+    assert gradkernel.variants["K3/walk+refill+tape"] == 2
 
 
 @needs_card
@@ -557,7 +563,8 @@ def test_walk_against_forced_flat_census_and_slabs():
     _reset_counts()
     a = gradkernel.launch(cp, sp, cfg, ct, walk, 0.0, bvh)
     b = gradkernel.launch(cp, sp, cfg, ct, walk, 0.0, forced)
-    assert gradkernel.variants["K3/walk"] == 1 == gradkernel.variants["K3/bvh"]
+    assert gradkernel.variants["K3/walk+refill"] == 1 == gradkernel.variants[
+        "K3/bvh+refill"]
     assert torch.equal(a[0], b[0])
     for x, y in ((a[1], b[1]), (a[2], b[2])):
         assert float((x - y).abs().max()) <= 1e-9 * float(y.abs().max())
@@ -566,7 +573,7 @@ def test_walk_against_forced_flat_census_and_slabs():
     assert torch.equal(part[:28], walk[20:]) and not bool(part[28:].any())
     part_k3 = gradkernel.launch(cp, sp, cfg, ct[20:], walk[20:], 0.0, bvh,
                                 row0=20, rows=28)
-    assert gradkernel.variants["K3/walk+slab"] == 1
+    assert gradkernel.variants["K3/walk+refill+slab"] == 1
     assert torch.equal(part_k3[0], walk[20:])
 
 
@@ -684,37 +691,162 @@ def test_segment_kernels_match_plain(monkeypatch, policy, rng_mode):
 
 @needs_card
 def test_wavefront_backward_sequential_and_parallel_refusal():
-    """A wavefront image's K3 gradients in sequential RNG equal the kernel
-    path's (K1c + K3/bvh) within f64-atomic order; in parallel RNG the
-    wavefront's autograd and render_grad(backend="wavefront") refuse (K3's
-    windowed-refill PASS 2 is raytpu's backward there, not ported yet)."""
+    """A wavefront image's K3 gradients equal the kernel path's within
+    f64-atomic order: in sequential RNG (K1c + K3/bvh) and, once refused,
+    in parallel RNG, where the wavefront's autograd (refill=2) runs K3's
+    windowed refill (K3/bvh+refill) against render_grad's taped refill
+    (K4/bvh + K3/bvh+refill+tape), and render_grad(backend="wavefront") is
+    render_grad's."""
     cfg = RenderConfig(width=64, height=32, spp=2, depth=6)
     scene, cam, bvh = _bvh_world(cfg)
     target = torch.full((32, 64, 3), 0.5, device="cuda")
-    grads = []
-    for fn in (wf.render_wavefront, megakernel.render_fwd):
-        leaves = [t.detach().requires_grad_() for t in
-                  (scene.center, scene.radius, scene.albedo, scene.mat_param,
-                   *cam)]
-        s = rt.Scene(leaves[0], leaves[1], scene.mat_type, leaves[2],
-                     leaves[3])
-        _reset_counts()
-        img = fn(s, rt.Camera(*leaves[4:]), cfg, bvh=bvh)
-        grads.append([img, *torch.autograd.grad(img, leaves,
-                                                 img.detach() - target)])
-        assert gradkernel.variants["K3/bvh"] == 1
-    assert torch.equal(grads[0][0], grads[1][0])
-    for a, b in zip(grads[0][1:], grads[1][1:]):
+    for rng_mode in ("sequential", "parallel"):
+        c = cfg.replace(rng_mode=rng_mode)
+        par = rng_mode == "parallel"
+        grads = []
+        for fn in (wf.render_wavefront, megakernel.render_fwd):
+            leaves = [t.detach().requires_grad_() for t in
+                      (scene.center, scene.radius, scene.albedo,
+                       scene.mat_param, *cam)]
+            s = rt.Scene(leaves[0], leaves[1], scene.mat_type, leaves[2],
+                         leaves[3])
+            _reset_counts()
+            kw = {"refill": 2} if par and fn is wf.render_wavefront else {}
+            img = fn(s, rt.Camera(*leaves[4:]), c, bvh=bvh, **kw)
+            grads.append([img, *torch.autograd.grad(img, leaves,
+                                                     img.detach() - target)])
+            want = ("K3/bvh" if not par else "K3/bvh+refill+tape"
+                    if fn is megakernel.render_fwd else "K3/bvh+refill")
+            assert gradkernel.variants[want] == 1 == sum(
+                gradkernel.variants.values()), want
+        assert torch.equal(grads[0][0], grads[1][0])
+        for a, b in zip(grads[0][1:], grads[1][1:]):
+            assert float((a - b).abs().max()) <= 1e-6 * max(
+                float(b.abs().max()), 1e-8)
+        got = rt.render_grad(scene, cam, c, target, backend="wavefront",
+                             bvh=bvh)
+        want = rt.render_grad(scene, cam, c, target, bvh=bvh)
+        assert torch.equal(got[1], rt.render(scene, cam, c, bvh=bvh))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for a, b in zip((*got[2][0][:2], *got[2][0][3:], *got[2][1]),
+                        (*want[2][0][:2], *want[2][0][3:], *want[2][1])):
+            assert float((a - b).abs().max()) <= 1e-6 * max(
+                float(b.abs().max()), 1e-8)
+
+
+def _refill_case(case, cfg):
+    """(scene, camera, bvh, vis_w) of a refill test case."""
+    if case == "bvh":
+        return (*_bvh_world(cfg), 0.0)
+    if case == "walk":
+        return (*_walk_world(cfg), 0.0)
+    scene = rt.test_world(device="cuda")
+    if case == "vis_w":  # silhouette terms under a thin lens
+        return scene, _cam(cfg, aperture=0.3, focus_dist=12.0), None, 0.005
+    return scene, _cam(cfg), None, 0.0
+
+
+def _refill_vs_per_sample(scene, cam, cfg, bvh, vis_w, tape=None):
+    """K3 given the image in parallel RNG, on the refill and on the
+    per-sample pass: the refill's launch counted by its variant, both
+    images the given one bit for bit, every leaf within raytpu's 3e-5 of
+    its largest entry (the same terms summed in another order).  Returns
+    the refill's result and the image cotangent."""
+    img = rt.render(scene, cam, cfg, bvh=bvh)
+    ct = 2.0 * (img - 0.5) / img.numel()
+    kw = dict(img=img, vis_w=vis_w, bvh=bvh, tape=tape,
+              tape_partial=tape is not None
+              and tape.shape[0] < cfg.spp * cfg.depth)
+    _reset_counts()
+    got = gradkernel.render_vjp(scene, cam, cfg, ct, **kw)
+    tag = gradkernel._variant(
+        None if bvh is None else megakernel.sweep_tag(bvh), True,
+        tape is not None, False)
+    assert gradkernel.variants[tag] == 1 == sum(gradkernel.variants.values())
+    ref = gradkernel.render_vjp(scene, cam, cfg, ct, p2_refill=False, **kw)
+    assert torch.equal(got[0], img) and torch.equal(ref[0], img)
+    errs = _vjp_errors(got, ref)
+    assert max(errs.values()) <= 3e-5, errs
+    return got, ct
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["brute", "bvh", "walk", "vis_w"])
+def test_refill_matches_per_sample_and_plain(case):
+    """K3's windowed refill against its per-sample pass (3e-5) and against
+    the plain version (1e-3, as test_vjp_kernel_matches_plain), brute,
+    over the flat sweep, over the walk and with silhouette terms."""
+    cfg = RenderConfig(width=96, height=48, spp=3, depth=5,
+                       rng_mode="parallel")
+    scene, cam, bvh, vis_w = _refill_case(case, cfg)
+    got, ct = _refill_vs_per_sample(scene, cam, cfg, bvh, vis_w)
+    want = gradkernel.render_vjp_plain(scene, cam, cfg, ct, vis_w, bvh)
+    errs = _vjp_errors(got, want)
+    assert max(errs.values()) <= 1e-3, errs
+
+
+@needs_card
+@pytest.mark.parametrize("force", ["window", "hops", "both"])
+def test_refill_parks_and_hops(monkeypatch, force):
+    """A window of depth steps (REFILL_BUDGET 0: every lane parks after
+    each sample and the next window resumes it) and lanes that hop over 9
+    pixels each (a lane cap of 512): still the per-sample pass's
+    cotangents, untaped and replaying a full and a partial tape."""
+    cfg = RenderConfig(width=96, height=48, spp=4, depth=5,
+                       rng_mode="parallel")
+    scene, cam, bvh = _bvh_world(cfg)
+    if force in ("window", "both"):
+        monkeypatch.setattr(gradkernel, "REFILL_BUDGET", 0)
+    if force in ("hops", "both"):
+        monkeypatch.setattr(gradkernel, "refill_lanes", lambda device: 512)
+    plan = gradkernel.refill_plan(cfg, cfg.height,
+                                  gradkernel.refill_lanes("cuda"))
+    assert (plan["window"] == cfg.depth) == (force != "hops")
+    assert (plan["hops"] == 9) == (force != "window")
+    _refill_vs_per_sample(scene, cam, cfg, bvh, 0.0)
+    full = cfg.spp * cfg.depth
+    _, tape = gradkernel.render_tape_fwd(scene, cam, cfg, full, bvh)
+    for g_cap in (full, cfg.depth + 3):
+        _refill_vs_per_sample(scene, cam, cfg, bvh, 0.0,
+                              tape[:g_cap].contiguous())
+
+
+@needs_card
+def test_refill_slabs_stitch_to_the_frame():
+    """K3's refill on uneven slabs and one past the frame: each slab's
+    image the given rows (0 past the frame) and the slab sums, added in
+    f64, the full frame's within 1e-6 of each leaf's largest."""
+    cfg = RenderConfig(width=96, height=45, spp=2, depth=5,
+                       rng_mode="parallel")
+    h = cfg.height
+    scene, cam, bvh = _bvh_world(cfg)
+    full = rt.render(scene, cam, cfg, bvh=bvh)
+    ct = 2.0 * (full - 0.5) / full.numel()
+    cp = megakernel.pack_camera(cam)
+    sp = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+
+    def sums(out):  # K3's f64 sums, before the cast to f32, as one row
+        return torch.cat([out[1].reshape(-1), out[2]])
+
+    _reset_counts()
+    want, total = sums(gradkernel.launch(cp, sp, cfg, ct, full, 0.0, bvh)), 0.0
+    assert gradkernel.variants["K3/bvh+refill"] == 1
+    for row0, rows in _SLABS:
+        live = max(0, min(rows, h - row0))
+        ct_s = torch.ones((rows, cfg.width, 3), device="cuda")  # past: ignored
+        img_s = torch.ones((rows, cfg.width, 3), device="cuda")
+        ct_s[:live] = ct[row0:row0 + live]
+        img_s[:live] = full[row0:row0 + live]
+        got = gradkernel.launch(cp, sp, cfg, ct_s, img_s, 0.0, bvh,
+                                row0=row0, rows=rows)
+        assert torch.equal(got[0][:live], full[row0:row0 + live])
+        assert not bool(got[0][live:].any())
+        total = total + sums(got)
+    assert gradkernel.variants["K3/bvh+refill+slab"] == len(_SLABS)
+    n = int(bvh.perm.shape[0])
+    i = 0
+    for size in (3 * n, n, 3 * n, n, 3, 3, 3, 3, 6):
+        a, b = total[i:i + size], want[i:i + size]
         assert float((a - b).abs().max()) <= 1e-6 * max(
-            float(b.abs().max()), 1e-8)
-    got = rt.render_grad(scene, cam, cfg, target, backend="wavefront",
-                         bvh=bvh)
-    assert torch.equal(got[1], rt.render(scene, cam, cfg, bvh=bvh))
-    par = cfg.replace(rng_mode="parallel")
-    with pytest.raises(NotImplementedError, match="windowed-refill"):
-        rt.render_grad(scene, cam, par, target, backend="wavefront", bvh=bvh)
-    leaf = scene.center.detach().requires_grad_()
-    with pytest.raises(NotImplementedError, match="windowed-refill"):
-        rt.render(rt.Scene(leaf, scene.radius, scene.mat_type, scene.albedo,
-                           scene.mat_param), cam, par, backend="wavefront",
-                  bvh=bvh)
+            float(b.abs().max()), 1e-12), i
+        i += size

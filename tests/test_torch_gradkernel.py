@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import raytpu
+from raytpu import bvh as jbvh
 from raytpu.config import RenderConfig
 from raytpu.kernels import gradkernel as jgk
 from raytpu.render import render_grad as j_render_grad
@@ -75,6 +76,78 @@ def test_render_vjp_matches_pallas_interpret(name):
     assert float((d > 3e-4).mean()) <= 0.01, float(d.max())
     errs = leaf_errors(ds, dc, want[1], want[2])
     assert max(errs.values()) <= GRAD_BUDGET, errs
+
+
+@pytest.mark.parametrize("name", ["parallel_pinhole", "parking",
+                                  "defocus_vis_w", "config2_bvh"])
+def test_render_vjp_matches_pallas_refill(monkeypatch, name):
+    """Given the image in parallel RNG, raytpu's backward runs its
+    windowed-refill PASS 2: the port's render_vjp on the same inputs
+    (CPU tensors: the plain version of both PASS 2 schedules) against
+    ``render_pallas_vjp(..., interpret=True, img=, p2_refill=True)`` in
+    tests/test_gradkernel.py:155-225's cases: a pinhole, a window of about
+    one sample (lanes park and resume), defocus with silhouette terms, and
+    config 2's scene over a BVH."""
+    cfg = RenderConfig(width=64, height=16, spp=3, depth=4,
+                       rng_mode="parallel")
+    scene, cam_kw, vis_w, use_bvh = raytpu.test_world(), {}, 0.0, False
+    if name == "parking":
+        monkeypatch.setattr(jgk, "_P2_VMEM_BUDGET", 5 * 13 * 4096)
+        cfg = cfg.replace(spp=6)
+    elif name == "defocus_vis_w":
+        cfg = cfg.replace(spp=2, depth=3)
+        cam_kw, vis_w = dict(aperture=0.3, focus_dist=12.0), 1e-3
+    elif name == "config2_bvh":
+        cfg = cfg.replace(spp=2, depth=3)
+        scene, use_bvh = raytpu.config2_world(), True
+    cam = raytpu.make_camera(*LOOK, vfov=20.0, aspect=cfg.aspect, **cam_kw)
+    img = raytpu.render(scene, cam, cfg, backend="golden")
+    ct = cotangent(img, seed=5)
+    want = jgk.render_pallas_vjp(
+        scene, cam, cfg, jnp.asarray(ct), interpret=True, img=img,
+        p2_refill=True, vis_w=vis_w,
+        bvh=jbvh.build_bvh(scene) if use_bvh else None)
+    s, c = _to_port(scene, cam)
+    img_t = torch.from_numpy(np.array(img))
+    img_p, ds, dc = tgk.render_vjp(
+        s, c, cfg, torch.from_numpy(ct), img=img_t, vis_w=vis_w,
+        bvh=rt.build_bvh(s) if use_bvh else None, p2_refill=True)
+    d = np.abs(img_p.numpy() - np.asarray(want[0])).max(axis=-1)
+    assert float((d > 3e-4).mean()) <= 0.01, float(d.max())
+    errs = leaf_errors(ds, dc, want[1], want[2])
+    assert max(errs.values()) <= GRAD_BUDGET, errs
+
+
+def test_refill_plan_and_rule(monkeypatch):
+    """raytpu's rule: the refill runs when the image is given in parallel
+    RNG and p2_refill is True or None (P2_REFILL on); the plan's lanes
+    split the pixels evenly in blocks no more than the cap, and its window
+    lies in [depth, spp * depth] within REFILL_BUDGET."""
+    par = RenderConfig(width=800, height=400, spp=100, depth=12,
+                       rng_mode="parallel")
+    img = torch.zeros(1)
+    assert tgk.uses_refill(par, img) and tgk.uses_refill(par, img, True)
+    assert not tgk.uses_refill(par, img, False)
+    assert not tgk.uses_refill(par, None, True)
+    assert not tgk.uses_refill(par.replace(rng_mode="sequential"), img, True)
+    monkeypatch.setattr(tgk, "P2_REFILL", False)
+    assert not tgk.uses_refill(par, img) and tgk.uses_refill(par, img, True)
+    cap = 132 * 512
+    for cfg, rows in ((par, 400), (par.replace(width=1920, height=1080,
+                                               spp=20), 1080),
+                      (par.replace(width=400, height=200, spp=20), 200),
+                      (par.replace(width=50, height=21, spp=3), 7)):
+        plan = tgk.refill_plan(cfg, rows, cap)
+        lanes, hops, window = plan["lanes"], plan["hops"], plan["window"]
+        pixels = rows * cfg.width
+        assert lanes % tgk.REFILL_BLOCK == 0 and lanes <= cap
+        assert (hops - 1) * lanes < pixels <= hops * lanes
+        assert cfg.depth <= window <= cfg.spp * cfg.depth
+        assert plan["bytes"] == lanes * window * tgk.ROW_BYTES
+        assert plan["bytes"] <= tgk.REFILL_BUDGET
+    assert tgk.refill_plan(par, 400, cap)["window"] == 174
+    monkeypatch.setattr(tgk, "REFILL_BUDGET", 0)
+    assert tgk.refill_plan(par, 400, cap)["window"] == par.depth
 
 
 @pytest.mark.parametrize("aperture", [0.0, 0.3], ids=["pinhole", "defocus"])

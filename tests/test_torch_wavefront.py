@@ -233,18 +233,44 @@ def test_gradients_equal_render_fwd(case):
 
 
 def test_backward_refused_on_a_card_in_parallel_rng():
-    """raytpu's backward of a parallel-RNG wavefront image is K3's
-    windowed-refill PASS 2, which the port does not have yet: a card in
-    parallel RNG is refused (no tensor needed to ask); sequential RNG and
-    CPU tensors are not."""
-    par = RenderConfig(width=16, height=8, spp=2, depth=2,
+    """Once a refusal, now a run: raytpu's backward of a parallel-RNG
+    wavefront image is K3's windowed refill, which the port has (its kernel
+    runs on a card: tests/test_torch_cuda_kernel.py), so no check refuses
+    it.  On CPU tensors the refill schedule's autograd (``refill=2``, one
+    and two samples in flight, with silhouette terms) gives render_grad's
+    gradients, bit for bit at one sample in flight, and
+    render_grad(backend="wavefront") is render_grad's."""
+    assert not hasattr(wf, "check_backward")
+    cfg = RenderConfig(width=16, height=8, spp=2, depth=3,
                        rng_mode="parallel")
-    with pytest.raises(NotImplementedError, match="windowed-refill"):
-        wf.check_backward(par, "cuda")
-    with pytest.raises(NotImplementedError, match="windowed-refill"):
-        wf.check_backward(par, torch.device("cuda", 0))
-    wf.check_backward(par.replace(rng_mode="sequential"), "cuda")
-    wf.check_backward(par, "cpu")
+    scene = rt.test_world(device="cpu")
+    cam = rt.make_camera(*LOOK, vfov=20.0, aspect=cfg.aspect, device="cpu")
+    target = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (8, 16, 3)).astype(np.float32))
+    loss, img, (gs, gc) = rt.render_grad(scene, cam, cfg, target,
+                                         vis_w=1e-3)
+    want = [img, gs.center, gs.radius, gs.albedo, gs.mat_param, *gc]
+    got = rt.render_grad(scene, cam, cfg, target, backend="wavefront",
+                         vis_w=1e-3)
+    for a, b in zip([got[1], *got[2][0][:2], *got[2][0][3:], *got[2][1]],
+                    want):
+        assert torch.equal(a, b)
+    for B in (1, 2):
+        leaves = [t.detach().requires_grad_() for t in
+                  (scene.center, scene.radius, scene.albedo, scene.mat_param,
+                   *cam)]
+        s = rt.Scene(leaves[0], leaves[1], scene.mat_type, leaves[2],
+                     leaves[3])
+        img_w = wf.render_wavefront(s, rt.Camera(*leaves[4:]), cfg,
+                                    vis_w=1e-3, refill=2, spp_batch=B)
+        grads = torch.autograd.grad(torch.mean((img_w - target) ** 2),
+                                    leaves)
+        for a, b in zip([img_w.detach(), *grads], want):
+            if B == 1:
+                assert torch.equal(a, b)
+            else:  # a pixel's two slots add in another order
+                assert float((a - b).abs().max()) <= 1e-5 * max(
+                    float(b.abs().max()), 1e-6)
 
 
 def test_render_backend_and_refusals():
