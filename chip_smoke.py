@@ -203,13 +203,16 @@ LEAF = 64              # build_bvh's default leaf size (raytpu's)
 TAPE_PAIRS = 10        # taped / untaped pairs a scene in phase 4c
 TIMED_FRAMES = 3       # wavefront and megakernel frames timed a run (8d)
 # The least time the card could take (the roofline bound): the larger
-# of the bytes a kernel must move over 3.35 TB/s and its f32 operations over
-# 67 TFLOP/s, the H100 SXM's published peaks at 700 W (an FMA counts two
-# operations there; the kernels are built with -fmad=false, so this bound is
-# twice as loose as the instruction count makes it).  Operations are counted
-# by hand from csrc/render_common.cuh and gradkernel.cu and rounded down:
-# the census of this run's data gives how many of each.
-PEAK_F32 = 67e12
+# of the bytes a kernel must move over 3.35 TB/s (the H100 SXM's published
+# rate at 700 W) and its f32 operations over the rate the card issues them
+# (ops_peak(): 128 FP32 lanes an SM at the SM's top clock).  The kernels are
+# built with -fmad=false, so each counted operation is one instruction; the
+# published 67 TFLOP/s counts an FMA as two and is out of reach here.
+# Operations are counted by hand from csrc/render_common.cuh and
+# gradkernel.cu and rounded down: the census of this run's data gives how
+# many of each.
+FP32_LANES_PER_SM = 128  # Hopper
+PEAK_OPS = None          # ops_peak()'s rate, read at the first bound()
 PEAK_BYTES = 3.35e12
 OPS_SPHERE_TEST = 24   # sphere_root: 3 sub, dot 5, c 7, disc 3, sqrt, 2 roots 5
 OPS_BOX_TEST = 24      # 6 sub, 6 mul, 6 min/max, 3 max (tnear), 3 min (tfar)
@@ -297,10 +300,25 @@ def once_ms(fn):
     return out, start.elapsed_time(stop)
 
 
+def ops_peak() -> float:
+    """f32 operations a second the card can issue: its SMs x
+    FP32_LANES_PER_SM x its top SM clock (``nvidia-smi`` clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * FP32_LANES_PER_SM * mhz * 1e6
+
+
 def bound(ops: float, nbytes: float) -> dict:
     """bound_ms and bound_by for ``ops`` f32 operations and ``nbytes``
-    bytes (PEAK_F32, PEAK_BYTES)."""
-    t_ops = ops / PEAK_F32 * 1e3
+    bytes (PEAK_OPS, PEAK_BYTES)."""
+    global PEAK_OPS
+    if PEAK_OPS is None:
+        PEAK_OPS = ops_peak()
+    t_ops = ops / PEAK_OPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -2775,8 +2793,11 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     card = card_line()
+    global PEAK_OPS
+    PEAK_OPS = ops_peak()
     phase("setup", card=card, torch=torch.__version__,
-          cuda=torch.version.cuda, capability=torch.cuda.get_device_capability(0))
+          cuda=torch.version.cuda, capability=torch.cuda.get_device_capability(0),
+          ops_peak=PEAK_OPS, bytes_peak=PEAK_BYTES)
     t0 = time.perf_counter()
     sources = [megakernel.SOURCE, gradkernel.SOURCE, kwf.SOURCE]
     _build.load_all(sources)

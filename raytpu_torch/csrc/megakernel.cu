@@ -132,7 +132,7 @@ render_fwd_kernel(Params p) {
   const size_t pix = static_cast<size_t>(ly) * p.width + x;
   TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.rows, pix,
                 p.g_cap, 0, p.tape_wide};
-  Census cn{0u, 0u, 0u, 0u};
+  Census cn{0u, 0u, 0u, 0u, 0u, 0u};
 
   uint32_t chain = seed0;  // the sequential mode's carried seed
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -184,6 +184,16 @@ render_fwd_kernel(Params p) {
       if ((threadIdx.x & 31) == 0 && sum)
         atomicAdd(p.census + i, static_cast<unsigned long long>(sum));
     }
+    if (kHit == kFlat) {  // the warp counters, after the kCensus counts
+      const unsigned w[2] = {cn.warp_steps, cn.warp_tests};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const unsigned sum = __reduce_add_sync(kFull, w[i]);
+        if ((threadIdx.x & 31) == 0 && sum)
+          atomicAdd(p.census + kCensus + i,
+                    static_cast<unsigned long long>(sum));
+      }
+    }
   }
 }
 
@@ -224,7 +234,8 @@ int launch_hit(int hit, const Params& p, cudaStream_t stream) {
 // leaf order), neither -> the brute sweep, both -> refused; `taping` ->
 // the taping forward into `tape` (g_cap steps a pixel, int32 when
 // tape_wide; null only when g_cap is 0); `census` non-null -> the counting
-// variant (kCensus counters); `carry` -> K2, which reads acc_in / seed_in and
+// variant (kCensus + 2 counters: the flat sweep adds its warp counters);
+// `carry` -> K2, which reads acc_in / seed_in and
 // writes `out` / seed_out (either pair may alias: a thread reads its own
 // pixel before it writes it) from sample index s0 on.  A tape, the census
 // and the carry exclude one another.  The block's x extent is one warp, so

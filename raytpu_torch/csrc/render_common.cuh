@@ -271,10 +271,20 @@ struct NodeBvh {
 };
 
 // Per-thread counts of the census (K1'): leaves entered, closest-hit
-// steps, samples, nodes the walk visits (the other policies leave it 0).
+// steps, samples, nodes the walk visits (the other policies leave it 0);
+// under the flat sweep also the warp's bounce-loop iterations and
+// sphere-test iterations, each counted by one lane of the lanes that run it
+// (warp_tick).
 struct Census {
-  unsigned leaves, steps, samples, nodes;
+  unsigned leaves, steps, samples, nodes, warp_steps, warp_tests;
 };
+
+// Adds k to c in the lowest active lane only: summed over the warp, one k
+// for each time the warp runs the code, whichever of its lanes take part.
+__device__ __forceinline__ void warp_tick(unsigned& c, unsigned k) {
+  const unsigned m = __activemask();
+  if ((threadIdx.x & 31) == static_cast<unsigned>(__ffs(m) - 1)) c += k;
+}
 
 // Where a sweep reads sphere j's centre and squared radius: the scene pack
 // (the brute sweep, the BVH sweeps, the tape's one sphere) or the rows
@@ -397,6 +407,7 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
   // outliers first: a giant ground sphere seeds tb, so far leaves cull
   const int out_base = kHit == kFlat ? bvh.out_base : walk.out_base;
   const int out_cnt = kHit == kFlat ? bvh.out_cnt : walk.out_cnt;
+  if (kCount && kHit == kFlat) warp_tick(cn.warp_tests, out_cnt);
   sweep_range(s, r, a, inv_a, t_min, out_base, out_base + out_cnt, tb, win);
   const float inv_dx = 1.0f / r.dx, inv_dy = 1.0f / r.dy,
               inv_dz = 1.0f / r.dz;
@@ -407,7 +418,10 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
         bvh.flat + static_cast<size_t>(octant) * bvh.n_leaves * 9;
     for (int k = 0; k < bvh.n_leaves; ++k, row += 9) {
       if (!box_enter(row, r, inv_dx, inv_dy, inv_dz, t_min, tb)) continue;
-      if (kCount) ++cn.leaves;
+      if (kCount) {
+        ++cn.leaves;
+        warp_tick(cn.warp_tests, bvh.leaf_size);
+      }
       const int start = static_cast<int>(row[6]);
       sweep_range(s, r, a, inv_a, t_min, start, start + bvh.leaf_size, tb,
                   win);
@@ -663,6 +677,7 @@ __device__ __forceinline__ int trace_path(const SceneView& s,
   rb = 0.0f;
   if (kCount) ++cn.samples;
   for (int d = 0; d < depth; ++d) {
+    if (kCount && kHit == kFlat) warp_tick(cn.warp_steps, 1u);
     if (!bounce_step<kStore, kHit, kTape, kCount>(
             s, bvh, walk, r, sd, t_min, v1, cr, cg, cb, rr, rg, rb,
             kStore ? res + d : nullptr, tc, cn))

@@ -82,6 +82,9 @@ launches = 0    # kernel launches through launch(); a run resets and reads it
 # batch and K4 taping forward (by sweep, "+slab" for a slab); the sweeps
 # are "brute", "bvh" (flat) and "walk"; a run resets and reads them
 SWEEP_TAGS = ("brute", "bvh", "walk")
+# the flat sweep's warp counters, which the census kernel adds after
+# golden.CENSUS's counts (see warp_census)
+WARP_CENSUS = ("warp_steps", "warp_sphere_tests")
 variants = dict.fromkeys(
     ("K1a", "K1c", "K1d", "K1e", "K1b/dense")
     + tuple(f"{k}/{sweep}" for k in ("K1b", "K1'") for sweep in SWEEP_TAGS)
@@ -380,6 +383,15 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     Runs on the current stream of the operands' device and does not
     synchronise.  ``inv_w``, ``inv_h`` and ``inv_spp`` are computed in f64
     here and rounded to f32, as raytpu's kernel and both goldens do."""
+    out, census = _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count,
+                              row0, rows, brute)
+    return (out, census[:len(golden.CENSUS)]) if count else out
+
+
+def _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count, row0, rows,
+                brute):
+    """:func:`launch`'s body -> (image, the census buffer: the
+    ``golden.CENSUS`` counts, then :data:`WARP_CENSUS`'s, or None)."""
     check_packs(cam_pack, scene_pack)
     slabbed = rows is not None
     row0, rows = slab(cfg, row0, rows)
@@ -393,8 +405,8 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
             raise ValueError("the census does not count a taping forward")
     out = torch.empty((rows, cfg.width, 3), dtype=torch.float32,
                       device=device)
-    census = (torch.zeros(len(golden.CENSUS), dtype=torch.int64,
-                          device=device)
+    census = (torch.zeros(len(golden.CENSUS) + len(WARP_CENSUS),
+                          dtype=torch.int64, device=device)
               if count else None)
     dense = (tape is None and not count and not brute
              and use_dense(n, bvh))
@@ -410,7 +422,32 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     else:
         variants[{"brute": "K1a", "bvh": "K1c", "walk": "K1d",
                   "dense": "K1e"}[tag]] += 1
-    return (out, census) if count else out
+    return out, census
+
+
+def warp_census(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
+                cfg: RenderConfig, bvh: BVH, row0: int = 0,
+                rows: int | None = None) -> dict:
+    """K1' over the flat sweep with its warp counters -> the frame's
+    ``golden.CENSUS`` counts, :data:`WARP_CENSUS`'s and two shares:
+    ``loop_efficiency``, bounce steps over (warp_steps x 32), and
+    ``sweep_efficiency``, the lanes' sphere tests (leaves entered x
+    leaf_size + steps x outliers) over (warp_sphere_tests x 32).
+    ``warp_steps`` counts one for each iteration of the bounce loop that
+    any lane of a warp runs, ``warp_sphere_tests`` one for each
+    sphere-test iteration likewise: what a warp issues, whichever of its
+    lanes take part.  Warps exist on the card only, and the flat sweep's
+    kernel alone counts them: CUDA tensors and a flat BVH only."""
+    if sweep_of(bvh) != "flat":
+        raise ValueError("warp_census counts the flat sweep's kernel only")
+    _, census = _launch_fwd(cam_pack, scene_pack, cfg, bvh, None, True,
+                            row0, rows, False)
+    c = dict(zip(golden.CENSUS + WARP_CENSUS, map(int, census.tolist())))
+    tests = (c["leaves_entered"] * bvh.leaf_size
+             + c["bounce_steps"] * bvh.n_outliers)
+    c["loop_efficiency"] = c["bounce_steps"] / max(32 * c["warp_steps"], 1)
+    c["sweep_efficiency"] = tests / max(32 * c["warp_sphere_tests"], 1)
+    return c
 
 
 def launch_accumulate(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
