@@ -76,7 +76,14 @@ card 0 without it).  Phases, one JSON line each:
         same steps on K3's per-sample pass; then three steps of raytpu's
         falling-loss problem at the same frame; then K1b, K2, K4 and K3
         (both schedules) on that path's slab (rows 0-1079) against their
-        plain versions at 2 spp, and the step's time on each schedule.
+        plain versions at 2 spp, and the step's time on each schedule;
+    6e. flat_forward_redesign: the flat sweep's warp counters (the census
+        kernel's bounce-loop and sphere-test iterations a warp runs) and
+        both efficiencies on config 5's batch frame (50 spp, sequential),
+        on 6d's slab (20 spp, parallel) and on config 4 at 2 spp, whose
+        census must equal the plain census exactly; K2/bvh's, K4/bvh+slab's
+        and K1c's main-path times beside their bounds; ptxas's registers
+        and spills of the flat instantiations.
 7.  raytpu's 10,000-sphere scene (scripts/probe_10k_r5.py's recipe, built
     here with numpy, written with ``scene_io.save_scene`` and loaded from
     that file), 800x400, 20 spp, depth 12, over the skip-pointer walk K1d:
@@ -142,8 +149,10 @@ card 0 without it).  Phases, one JSON line each:
         in 6d, the 10k scene's in 7f.
 
 It exits non-zero at the first failure.  The line before the last is the
-kernel table as JSON, the line before it the card's name and power limit,
-the last line ``{"ok": true, "device": {...}}``.
+card's name and power limit, the line before it the kernel table as JSON
+(the flat rows with their warp efficiencies; each bound the larger of the
+bytes over 3.35 TB/s and the f32 operations over the card's issue rate,
+``ops_peak()``), the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -152,6 +161,7 @@ import contextlib
 import inspect
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -943,6 +953,10 @@ def config4_phases(dev, card: str) -> list:
     t.update(bound_k1a_ms=bound(forward_ops(c4_brute), 0)["bound_ms"],
              bound_k1c_ms=bound(forward_ops(c4), 0)["bound_ms"])
     phase("timing_config4", frame="800x400 spp100 d12", **t)
+    b4 = bound(forward_ops(c4), frame_bytes(cfg4, rows, 1) + flat_bytes)
+    entries["K1c"].update(main_path_ms=t["fwd_k1c_ms"],
+                          main_path_bound_ms=b4["bound_ms"],
+                          main_path_bound_by=b4["bound_by"])
     del tape4, tape4_b
 
     # the tape's coverage rule: REFERENCE_V2 in parallel RNG at 8 spp, K3
@@ -1018,6 +1032,110 @@ def state_bytes(cfg, rows: int) -> int:
     """K2's carried state of ``rows`` rows, read once and written once:
     f32 sums (3 a pixel) and u32 seeds."""
     return 2 * rows * cfg.width * (3 * 4 + 4)
+
+
+# the flat sweep's forward instantiations, by their template arguments in
+# the mangled names: render_fwd_kernel<kHit = kFlat, kTape, kCount, kCarry>
+FLAT_KERNELS = {"K1c, K1b/bvh": "ILi1ELi0ELb0ELb0E",
+                "K1'/bvh": "ILi1ELi0ELb1ELb0E",
+                "K2/bvh": "ILi1ELi0ELb0ELb1E", "K4/bvh": "ILi1ELi1ELb0ELb0E"}
+
+
+def flat_ptxas(lines: list) -> dict:
+    """{kernel: {"registers", "spill_store_bytes", "spill_load_bytes"}} of
+    the flat sweep's forward instantiations, from ptxas -v's lines
+    (``_build.build_log[source]["ptxas"]``)."""
+    out, name = {}, None
+    for ln in lines:
+        m = re.search(r"entry function '(\S+)'", ln)
+        if m:
+            name = next((k for k, v in FLAT_KERNELS.items()
+                         if "render_fwd_kernel" + v in m.group(1)), None)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out.setdefault(name, {}).update(
+                spill_store_bytes=int(m.group(1)),
+                spill_load_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+            name = None
+    return out
+
+
+def flat_phase(dev, card: str, entries4: dict, entries5: dict) -> None:
+    """The flat sweep's forward on its main paths (flat_forward_redesign):
+    the warp counters and both efficiencies of K1'/bvh on config 5's batch
+    frame (1920x1080, 50 spp, sequential), on the train step's 1080-row
+    slab (20 spp, parallel) and on config 4 at 2 spp (both RNG modes; the
+    sequential census held to the plain census exactly); the K2/bvh,
+    K4/bvh+slab and K1c times of this run beside their bounds; ptxas's
+    registers and spills.  Adds the efficiencies to the flat rows of the
+    kernel table."""
+    import raytpu_torch as rt
+    from raytpu_torch import bvh as tbvh, golden
+    from raytpu_torch.config import CONFIG4, CONFIG5
+    from raytpu_torch.kernels import _build, megakernel
+
+    scene = rt.final_world(device=dev)
+    bvh = rt.build_bvh(scene, leaf_size=LEAF)
+    spv = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+
+    def cp(cfg):
+        return megakernel.pack_camera(rt.make_camera(
+            (13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0, aspect=cfg.aspect,
+            device=dev))
+
+    cfg_b = CONFIG5.replace(spp=50)
+    cfg_s = CONFIG5.replace(spp=20, rng_mode="parallel")
+    cfg4 = CONFIG4.replace(spp=2)
+    cfg4p = cfg4.replace(rng_mode="parallel")
+    warps = {
+        "config5_batch": megakernel.warp_census(cp(cfg_b), spv, cfg_b, bvh),
+        "config5_slab": megakernel.warp_census(cp(cfg_s), spv, cfg_s, bvh, 0,
+                                               cfg_s.height),
+        "config4_spp2": megakernel.warp_census(cp(cfg4), spv, cfg4, bvh),
+        "config4_spp2_parallel": megakernel.warp_census(cp(cfg4p), spv,
+                                                        cfg4p, bvh)}
+    plain = dict.fromkeys(golden.CENSUS, 0)
+    golden.render_golden(scene, rt.make_camera(
+        (13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0, aspect=cfg4.aspect,
+        device=dev), cfg4.replace(chunk_pixels=PLAIN_CHUNK), bvh,
+        census=plain)
+    counted = ("leaves_entered", "bounce_steps", "samples")
+    census_equal = all(warps["config4_spp2"][k] == plain[k] for k in counted)
+    times = {key: {"ms": e[ms], "bound_ms": e[b]} for key, e, ms, b in (
+        ("K2/bvh", entries5["K2/bvh"], "main_path_ms", "main_path_bound_ms"),
+        ("K4/bvh+slab", entries5["K4/bvh+slab"], "main_path_ms",
+         "main_path_bound_ms"),
+        ("K1c", entries4["K1c"], "main_path_ms", "main_path_bound_ms"))}
+    ptxas = flat_ptxas(_build.build_log[megakernel.SOURCE]["ptxas"])
+    phase("flat_forward_redesign", ok=census_equal, card=card,
+          frames={"config5_batch": "1920x1080 spp50 d12 sequential",
+                  "config5_slab": "1920x1080 rows 0-1079 spp20 d12 parallel",
+                  "config4_spp2": "800x400 spp2 d12 sequential",
+                  "config4_spp2_parallel": "800x400 spp2 d12 parallel"},
+          warps=warps, census_plain_config4_spp2=plain,
+          census_equal_plain=census_equal,
+          times_main_path=times, ptxas=ptxas)
+    if not census_equal:
+        fail(f"K1'/bvh's census on config 4 at 2 spp {warps['config4_spp2']}"
+             f" differs from the plain census {plain}")
+    for key, entry, cell in (
+            ("K1c", entries4["K1c"], "config4_spp2"),
+            ("K1'", entries4["K1'"], "config4_spp2"),
+            ("K4/bvh", entries4["K4/bvh"], "config4_spp2_parallel"),
+            ("K2/bvh", entries5["K2/bvh"], "config5_batch"),
+            ("K2/bvh+slab", entries5["K2/bvh+slab"], "config5_slab"),
+            ("K1b/bvh", entries5["K1b/bvh"], "config5_slab"),
+            ("K4/bvh+slab", entries5["K4/bvh+slab"], "config5_slab")):
+        entry.update(loop_efficiency=warps[cell]["loop_efficiency"],
+                     sweep_efficiency=warps[cell]["sweep_efficiency"],
+                     efficiency_cell=cell)
 
 
 def k2_phase(dev, card: str) -> dict:
@@ -3113,6 +3231,9 @@ def main() -> None:
 
     # -- phase 6: config 5, progressive (K2) and sharded (slab mode)
     entries5 = config5_phases(dev, card)
+
+    # -- phase 6e: the flat sweep's forward, warp counters and efficiencies
+    flat_phase(dev, card, entries, entries5)
 
     # -- phase 7: the 10,000-sphere scene over the skip-pointer walk
     entries7 = large_scene_phases(dev, card)

@@ -31,33 +31,41 @@
 // and it gives both of the JAX kernel's loop forms, which are bit-identical.
 //
 // What bounds it on this card: FP32 ALU work in the closest-hit sweep (about
-// 24 flops per ray and sphere test), and warp divergence, because paths end
-// at different depths and the material branches differ per lane.  K1a tests
-// every sphere for every ray.  K1c tests the outliers, then walks the L leaf
-// boxes of the ray's own octant copy front to back (about 30 flops each) and
-// enters a leaf, leaf_size sphere tests, only if the ray's own slab test
-// passes within its best t so far: a thread enters what its ray needs, not
-// what its warp needs (divergent, but a skipped leaf costs a lane nothing
-// it would have used).  K1d walks the octant copy's nodes instead (see
-// render_common.cuh): box tests for the subtrees the ray enters rather than
-// for all L leaves.  The winner's attributes are read once, by index,
-// after the sweep.  Scene rows and leaf rows are read from global memory at
-// warp-uniform (K1a) or octant-uniform (K1c) addresses, broadcasts from L1;
-// K1d's node rows at per-lane addresses once the lanes' walks part.
+// 24 operations per ray and sphere test), and warp divergence, because
+// paths end at different depths, rays enter different leaves and the
+// material branches differ per lane.  K1a tests every sphere for every ray.
+// The flat BVH sweep (K1c and the flat K1b, K1', K2 and K4) tests the
+// outliers, then walks the L leaf boxes of the ray's own octant copy front
+// to back (about 24 operations each) and sweeps a leaf, leaf_size sphere
+// tests, only where the ray's own slab test passes within its best t so
+// far.  Its design is for SIMT (render_refill below): raytpu's persistent
+// sample refill, so that a warp pays its busiest lane's bounce steps rather
+// than each sample's longest path; a sweep that lets each lane advance to
+// its own next leaf and sweeps the warp's leaves together
+// (closest_hit_staged), so that a warp pays its busiest lane's leaves
+// rather than every leaf position any lane enters; and the sweep's rows
+// and boxes staged in shared memory once per block (stage_flat), since
+// after one bounce a warp's lanes read up to 32 different rows a load.
+// K1d walks the octant copy's nodes instead (see render_common.cuh): box
+// tests for the subtrees the ray enters rather than for all L leaves, node
+// rows from global memory at per-lane addresses once the lanes' walks
+// part.  The winner's attributes are read once, by index, after the sweep.
 // K4 adds one 2- or 4-byte store per bounce step, tape[k][pix]: threads of a
 // warp are neighbouring pixels and write neighbouring addresses at the same
-// k, so the stores coalesce whenever the warp's lanes are at the same step.
-// The census (K1') keeps three per-thread counters in registers (four for
-// the walk: the nodes visited) and adds them once per warp at the end (a
-// warp reduction, then one 64-bit atomic per counter); without it the
-// counting code is not compiled.  K1e is the brute sweep over the scene's
-// rows (cx, cy, cz, r^2) staged in shared memory once per block (see
-// stage_dense in render_common.cuh): the same tests in the same order, so
-// its image is K1a's bit for bit; what it changes is where the sweep's
-// loads come from (a shared-memory broadcast instead of four L1 reads a
-// sphere).  It is a plain forward only, full frame or slab: K2, K4, K1'
-// and K3 keep the brute sweep, as raytpu's do.  Regrouping rays against
-// divergence is later work.
+// k, so the stores coalesce whenever the warp's lanes are at the same step
+// (under the refill, lanes part after their first sample).  The census
+// (K1') keeps three per-thread counters in registers (four for the walk:
+// the nodes visited; two more for the flat sweep: the warp's bounce-loop
+// and sphere-test iterations, counted by one of the lanes that run them)
+// and adds them once per warp at the end (a warp reduction, then one 64-bit
+// atomic per counter); without it the counting code is not compiled.  K1e
+// is the brute sweep over the scene's rows (cx, cy, cz, r^2) staged in
+// shared memory once per block (see stage_dense in render_common.cuh): the
+// same tests in the same order, so its image is K1a's bit for bit; what it
+// changes is where the sweep's loads come from (a shared-memory broadcast
+// instead of four L1 reads a sphere).  It is a plain forward only, full
+// frame or slab: K2, K4, K1' and K3 keep the brute sweep, as raytpu's do.
+// The brute, dense and walk sweeps keep the per-sample loop.
 //
 // Slab mode (K1b, and every variant): the launch covers rows [row0, row0 +
 // rows) of the cfg-sized frame and its buffers (image, tape, carried state)
@@ -97,7 +105,7 @@ struct Params {
   FlatBvh bvh;         // kFlat's leaf list
   NodeBvh walk;        // kWalk's node list
   void* tape;          // (g_cap, rows * width) int16 / int32, or null
-  unsigned long long* census;  // (kCensus,) counters, or null
+  unsigned long long* census;  // (kCensus + 2,) counters, or null
   const float* acc_in;      // K2: (rows, width, 3) linear sums carried in
   const uint32_t* seed_in;  // K2: (rows, width) seeds carried in
   float* out;          // (rows, width, 3): the image, or K2's linear sums
@@ -108,9 +116,130 @@ struct Params {
   int parallel, v1;
 };
 
+// Adds the census counts v[0, kN) of the block's threads into
+// counters[0, kN): a warp reduction, then one 64-bit atomic a counter.
+// Every lane of the warp calls it.
+template <int kN>
+__device__ __forceinline__ void add_census(const unsigned (&v)[kN],
+                                           unsigned long long* counters) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const unsigned sum = __reduce_add_sync(kFull, v[i]);
+    if ((threadIdx.x & 31) == 0 && sum)
+      atomicAdd(counters + i, static_cast<unsigned long long>(sum));
+  }
+}
+
+// The flat sweep's forward (K1c, K1b/bvh, K1'/bvh, K2/bvh, K4/bvh and
+// their slabs): raytpu's persistent sample refill (make_refill_step,
+// raytpu/kernels/megakernel.py:881-1000) on SIMT.  A thread runs one loop of
+// bounce steps; when its sample ends (a miss, an absorption or the depth
+// cap) it folds the sample's radiance into its pixel's sums, in sample
+// order, and generates its pixel's next sample in place, until its spp
+// samples are done.  Each lane keeps the sequential loop's draws, tests and
+// sums, so every output is the per-sample loop's bit for bit; what changes
+// is the warp's schedule: a warp runs as many bounce steps as its busiest
+// lane takes over all its samples, where the nested loops ran the longest
+// path of each sample.  The closest hit is closest_hit_staged() over the
+// rows stage_flat() puts in shared memory.  The tape cursor runs across
+// samples as before; K2's carry is read first and written last.
+template <int kTape, bool kCount, bool kCarry>
+__device__ __forceinline__ void render_refill(const Params& p) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ly = blockIdx.y * blockDim.y + threadIdx.y;
+  const int y = p.row0 + ly;
+  const bool valid = x < p.width && ly < p.rows;
+  const bool live = valid && y < p.height;
+  stage_flat(p.scene, p.n, p.bvh);
+  if (!kCount && !valid) return;
+
+  const CamPack& cam = *p.cam;  // read where a sample starts, not held
+  const SceneView s = scene_view(p.scene, p.n);
+  const float fx = static_cast<float>(x);
+  const float fy = static_cast<float>(y);
+  const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
+                                   static_cast<uint32_t>(y));
+  const size_t pix = static_cast<size_t>(ly) * p.width + x;
+  TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.rows, pix,
+                p.g_cap, 0, p.tape_wide};
+  Census cn{0u, 0u, 0u, 0u, 0u, 0u};
+
+  uint32_t chain = seed0;  // the sequential mode's carried seed
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  if (kCarry && live) {
+    if (!p.parallel) chain = p.seed_in[pix];
+    acc_r = p.acc_in[pix * 3];
+    acc_g = p.acc_in[pix * 3 + 1];
+    acc_b = p.acc_in[pix * 3 + 2];
+  }
+  const int spp = live ? p.spp : 0;
+  if (spp > 0) {
+    const bool v1 = p.v1 != 0;
+    uint32_t sd = p.parallel ? fold_in(seed0, p.s0) : chain;
+    RayGen g;
+    Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
+    float cr = 1.0f, cg = 1.0f, cb = 1.0f;  // the sample's throughput
+    float rr = 0.0f, rg = 0.0f, rb = 0.0f;  // and radiance
+    int smp = 0, d = 0;                     // its index and bounce
+    if (kCount) ++cn.samples;
+    for (;;) {
+      if (d < p.depth) {  // one bounce step (bounce_step's)
+        if (kCount) warp_tick(cn.warp_steps, 1u);
+        float tb;
+        const int win = closest_hit_staged<kCount>(p.bvh, r, p.t_min, tb, cn);
+        if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
+        if (kTape != kNoTape) ++tc.k;
+        if (kCount) ++cn.steps;
+        const bool scattered = shade(s, win, tb, v1, sd, r, cr, cg, cb, rr,
+                                     rg, rb);
+        if (scattered && ++d < p.depth) continue;
+      }
+      // the sample ended (at the depth cap its radiance is still 0: black)
+      acc_r = acc_r + rr;
+      acc_g = acc_g + rg;
+      acc_b = acc_b + rb;
+      if (!p.parallel) chain = sd;
+      if (++smp == spp) break;
+      // the pixel's next sample, in place
+      sd = p.parallel ? fold_in(seed0, p.s0 + static_cast<uint32_t>(smp))
+                      : chain;
+      r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
+      cr = cg = cb = 1.0f;
+      rr = rg = rb = 0.0f;
+      d = 0;
+      if (kCount) ++cn.samples;
+    }
+  }
+
+  if (valid) {
+    float* o = p.out + pix * 3;
+    if (kCarry) {
+      o[0] = acc_r;
+      o[1] = acc_g;
+      o[2] = acc_b;
+      p.seed_out[pix] = live ? (p.parallel ? seed0 : chain) : 0u;
+    } else {
+      o[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
+      o[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
+      o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
+    }
+  }
+  if (kCount) {  // leaves, steps, samples; the warp counters after kCensus
+    const unsigned counts[3] = {cn.leaves, cn.steps, cn.samples};
+    const unsigned warps[2] = {cn.warp_steps, cn.warp_tests};
+    add_census(counts, p.census);
+    add_census(warps, p.census + kCensus);
+  }
+}
+
 template <int kHit, int kTape, bool kCount, bool kCarry>
 __global__ void __launch_bounds__(256)
 render_fwd_kernel(Params p) {
+  if constexpr (kHit == kFlat) {
+    render_refill<kTape, kCount, kCarry>(p);
+    return;
+  }
+  // the other sweeps: each thread runs its pixel's samples one by one
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int ly = blockIdx.y * blockDim.y + threadIdx.y;  // row in the slab
   const int y = p.row0 + ly;                              // row in the frame
@@ -132,7 +261,7 @@ render_fwd_kernel(Params p) {
   const size_t pix = static_cast<size_t>(ly) * p.width + x;
   TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.rows, pix,
                 p.g_cap, 0, p.tape_wide};
-  Census cn{0u, 0u, 0u, 0u, 0u, 0u};
+  Census cn{0u, 0u, 0u, 0u};
 
   uint32_t chain = seed0;  // the sequential mode's carried seed
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -184,16 +313,6 @@ render_fwd_kernel(Params p) {
       if ((threadIdx.x & 31) == 0 && sum)
         atomicAdd(p.census + i, static_cast<unsigned long long>(sum));
     }
-    if (kHit == kFlat) {  // the warp counters, after the kCensus counts
-      const unsigned w[2] = {cn.warp_steps, cn.warp_tests};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const unsigned sum = __reduce_add_sync(kFull, w[i]);
-        if ((threadIdx.x & 31) == 0 && sum)
-          atomicAdd(p.census + kCensus + i,
-                    static_cast<unsigned long long>(sum));
-      }
-    }
   }
 }
 
@@ -202,8 +321,14 @@ int launch(const Params& p, cudaStream_t stream) {
   dim3 block(32, 8);
   dim3 grid((p.width + block.x - 1) / block.x,
             (p.rows + block.y - 1) / block.y);
-  // the dense stage's rows; past 48 KB only after the kernel opts in
-  const size_t shmem = kHit == kDense ? sizeof(float4) * p.n : 0;
+  // the dense stage's rows or the flat sweep's; past 48 KB only after the
+  // kernel opts in
+  const size_t shmem =
+      kHit == kDense ? sizeof(float4) * p.n
+      : kHit == kFlat
+          ? sizeof(float4) * flat_stage_rows(p.bvh.n_leaves,
+                                             p.bvh.leaf_size, p.bvh.out_cnt)
+          : 0;
   if (shmem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         render_fwd_kernel<kHit, kTape, kCount, kCarry>,

@@ -407,7 +407,6 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
   // outliers first: a giant ground sphere seeds tb, so far leaves cull
   const int out_base = kHit == kFlat ? bvh.out_base : walk.out_base;
   const int out_cnt = kHit == kFlat ? bvh.out_cnt : walk.out_cnt;
-  if (kCount && kHit == kFlat) warp_tick(cn.warp_tests, out_cnt);
   sweep_range(s, r, a, inv_a, t_min, out_base, out_base + out_cnt, tb, win);
   const float inv_dx = 1.0f / r.dx, inv_dy = 1.0f / r.dy,
               inv_dz = 1.0f / r.dz;
@@ -418,10 +417,7 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
         bvh.flat + static_cast<size_t>(octant) * bvh.n_leaves * 9;
     for (int k = 0; k < bvh.n_leaves; ++k, row += 9) {
       if (!box_enter(row, r, inv_dx, inv_dy, inv_dz, t_min, tb)) continue;
-      if (kCount) {
-        ++cn.leaves;
-        warp_tick(cn.warp_tests, bvh.leaf_size);
-      }
+      if (kCount) ++cn.leaves;
       const int start = static_cast<int>(row[6]);
       sweep_range(s, r, a, inv_a, t_min, start, start + bvh.leaf_size, tb,
                   win);
@@ -447,6 +443,132 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
     rel = (enter && count == 0) ? rel + 1 : static_cast<int>(row[8]);
   }
   return win;
+}
+
+// ---- the flat sweep from shared memory (the forward's K1c, K1b/bvh, K1',
+// K2 and K4 over a flat BVH; K3 and K5 / K6 keep closest_hit<kFlat>) -------
+//
+// The same tests as closest_hit<kFlat>, in the same order for each lane, so
+// the same winner, t and census; what changes is where the operands come
+// from and which lanes run a leaf's sweep together.  stage_flat() puts the
+// sweep's operands in the kernel's dynamic shared memory once per block:
+// the permuted scene's rows (cx, cy, cz, rad * rad) leaf by leaf, one
+// unused row after each leaf, then the outliers' rows; then each octant
+// copy's leaf boxes as two rows, (min xyz, the leaf's first staged row) and
+// (max xyz, its first permuted row), the row indices as int bits.  rad * rad
+// is the f32 product sphere_root() forms.  The unused row shifts leaf i's
+// rows by i x 16 bytes across the banks: a 64-row leaf is 1 KB, a multiple
+// of the banks' 128-byte cycle, so without it lanes sweeping different
+// leaves at the same slot would read one bank group (an 8-way conflict in
+// each quarter-warp phase of a 16-byte load).  config 4's BVH (8 leaves of
+// 64, one outlier) stages 10.4 KB; 64 leaves of 64 with 4 outliers, the
+// flat sweep's largest at that leaf size, 83.0 KB.
+extern __shared__ float4 flat_rows[];
+
+// float4 rows stage_flat() writes for a BVH of n_leaves leaves a copy of
+// leaf_size rows and out_cnt outliers (the launch's shared memory / 16).
+__host__ __device__ constexpr int flat_stage_rows(int n_leaves, int leaf_size,
+                                                  int out_cnt) {
+  return n_leaves * (leaf_size + 1) + out_cnt + 16 * n_leaves;
+}
+
+// Every thread of the block calls it before any thread returns (threads
+// past the frame included): it ends with the block's one barrier, as
+// stage_dense() does.
+__device__ __forceinline__ void stage_flat(const float* pack, int n,
+                                           const FlatBvh& bvh) {
+  const int nt = blockDim.x * blockDim.y;
+  const int tid = threadIdx.x + blockDim.x * threadIdx.y;
+  const int ls = bvh.leaf_size;
+  const int leaf_rows = bvh.n_leaves * (ls + 1);
+  const int rows = leaf_rows + bvh.out_cnt;
+  for (int t = tid; t < rows; t += nt) {
+    int j = bvh.out_base + (t - leaf_rows);  // an outlier's permuted row
+    if (t < leaf_rows) {
+      const int leaf = t / (ls + 1), slot = t - leaf * (ls + 1);
+      if (slot == ls) continue;  // the unused row
+      j = leaf * ls + slot;
+    }
+    const float rad = pack[3 * n + j];
+    flat_rows[t] = make_float4(pack[j], pack[n + j], pack[2 * n + j],
+                               rad * rad);
+  }
+  float4* boxes = flat_rows + rows;
+  for (int b = tid; b < 8 * bvh.n_leaves; b += nt) {
+    const float* row = bvh.flat + static_cast<size_t>(b) * 9;
+    const int start = static_cast<int>(row[6]);
+    boxes[2 * b] = make_float4(row[0], row[1], row[2],
+                               __int_as_float(start + start / ls));
+    boxes[2 * b + 1] = make_float4(row[3], row[4], row[5],
+                                   __int_as_float(start));
+  }
+  __syncthreads();
+}
+
+// One staged row as root_at()'s Rows: the row is loaded once, 16 bytes.
+struct StagedRow {
+  float4 q;
+  __device__ __forceinline__ float x(int) const { return q.x; }
+  __device__ __forceinline__ float y(int) const { return q.y; }
+  __device__ __forceinline__ float z(int) const { return q.z; }
+  __device__ __forceinline__ float r2(int) const { return q.w; }
+};
+
+// Staged rows [0, count) into the running best as permuted rows first,
+// first + 1, ...: strict <, as sweep_range().
+template <bool kCount>
+__device__ __forceinline__ void sweep_staged(const float4* rows, int count,
+                                             int first, const Ray& r,
+                                             float a, float inv_a,
+                                             float t_min, float& tb, int& win,
+                                             Census& cn) {
+  if (kCount) warp_tick(cn.warp_tests, count);
+  for (int i = 0; i < count; ++i) {
+    const float root = root_at(StagedRow{rows[i]}, r, a, inv_a, t_min, 0);
+    if (root >= t_min && root < tb) {
+      tb = root;
+      win = first + i;
+    }
+  }
+}
+
+// closest_hit<kFlat> over the rows stage_flat() staged.  A lane walks its
+// own octant copy's boxes front to back up to the next leaf it enters (the
+// cheap box tests, run apart), then every lane that found one sweeps its
+// leaf together: a warp runs as many leaf sweeps a step as its busiest lane
+// enters, where the loop over leaf positions ran one for every position any
+// lane entered.  The outliers come first, at warp-uniform rows.
+template <bool kCount>
+__device__ __forceinline__ int closest_hit_staged(const FlatBvh& bvh,
+                                                  const Ray& r, float t_min,
+                                                  float& tb, Census& cn) {
+  const float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  const float inv_a = 1.0f / a;
+  tb = kInf;
+  int win = -1;
+  const int n_leaves = bvh.n_leaves;
+  const float4* outliers = flat_rows + n_leaves * (bvh.leaf_size + 1);
+  sweep_staged<kCount>(outliers, bvh.out_cnt, bvh.out_base, r, a, inv_a,
+                       t_min, tb, win, cn);
+  const float inv_dx = 1.0f / r.dx, inv_dy = 1.0f / r.dy,
+              inv_dz = 1.0f / r.dz;
+  const int octant = (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
+                     (r.dz < 0.0f ? 1 : 0);
+  const float4* box = outliers + bvh.out_cnt + 2 * octant * n_leaves;
+  for (int k = 0;; ++k) {
+    float4 lo, hi;
+    for (; k < n_leaves; ++k) {
+      lo = box[2 * k];
+      hi = box[2 * k + 1];
+      const float row[6] = {lo.x, lo.y, lo.z, hi.x, hi.y, hi.z};
+      if (box_enter(row, r, inv_dx, inv_dy, inv_dz, t_min, tb)) break;
+    }
+    if (k == n_leaves) return win;
+    if (kCount) ++cn.leaves;
+    sweep_staged<kCount>(flat_rows + __float_as_int(lo.w), bvh.leaf_size,
+                         __float_as_int(hi.w), r, a, inv_a, t_min, tb, win,
+                         cn);
+  }
 }
 
 // The winner-index tape of one pixel (K4): tape[k * stride + pix], k the
@@ -616,6 +738,29 @@ struct Residual {
   uint32_t seed;
 };
 
+// A bounce past its closest hit `win` at t = tb (-1: a miss): on a miss
+// the sky of the pre-scatter direction, on the hit of an unknown material
+// absorption (black, seed kept), else the scatter.  Returns whether the ray
+// scattered; see bounce_step().
+__device__ __forceinline__ bool shade(const SceneView& s, int win, float tb,
+                                      bool v1, uint32_t& sd, Ray& r,
+                                      float& cr, float& cg, float& cb,
+                                      float& rr, float& rg, float& rb) {
+  if (win < 0) {  // miss: sky of the pre-scatter direction
+    float kr, kg, kb;
+    sky(r.dx, r.dy, r.dz, kr, kg, kb);
+    rr = rr + cr * kr;
+    rg = rg + cg * kg;
+    rb = rb + cb * kb;
+    return false;
+  }
+  float mt = s.mt[win];
+  bool is_d = mt == 0.0f, is_m = mt == 1.0f, is_g = mt == 2.0f;
+  if (!(is_d || is_m || is_g)) return false;  // absorbed: black, seed kept
+  scatter(s, win, tb, is_g, v1, sd, r, cr, cg, cb);
+  return true;
+}
+
 // One bounce of a ray slot (golden.bounce_step; raytpu's make_bounce_body):
 // the closest hit of ray r under step_hit's policy (kHit, kTape, kCount),
 // then on a miss the sky of the pre-scatter direction, on the hit of an
@@ -641,19 +786,7 @@ __device__ __forceinline__ bool bounce_step(const SceneView& s,
   if (kStore) {
     *res = Residual{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, cr, cg, cb, win, sd};
   }
-  if (win < 0) {  // miss: sky of the pre-scatter direction
-    float kr, kg, kb;
-    sky(r.dx, r.dy, r.dz, kr, kg, kb);
-    rr = rr + cr * kr;
-    rg = rg + cg * kg;
-    rb = rb + cb * kb;
-    return false;
-  }
-  float mt = s.mt[win];
-  bool is_d = mt == 0.0f, is_m = mt == 1.0f, is_g = mt == 2.0f;
-  if (!(is_d || is_m || is_g)) return false;  // absorbed: black, seed kept
-  scatter(s, win, tb, is_g, v1, sd, r, cr, cg, cb);
-  return true;
+  return shade(s, win, tb, v1, sd, r, cr, cg, cb, rr, rg, rb);
 }
 
 // Trace one sample for at most `depth` bounces, stopping at the first
@@ -677,7 +810,6 @@ __device__ __forceinline__ int trace_path(const SceneView& s,
   rb = 0.0f;
   if (kCount) ++cn.samples;
   for (int d = 0; d < depth; ++d) {
-    if (kCount && kHit == kFlat) warp_tick(cn.warp_steps, 1u);
     if (!bounce_step<kStore, kHit, kTape, kCount>(
             s, bvh, walk, r, sd, t_min, v1, cr, cg, cb, rr, rg, rb,
             kStore ? res + d : nullptr, tc, cn))

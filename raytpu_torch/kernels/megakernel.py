@@ -75,6 +75,9 @@ SCENE_ROWS = 9  # cx, cy, cz, radius, mat_type, ar, ag, ab, mat_param
 # memory a block (csrc/megakernel.cu kDenseMax)
 DENSE_MIN = 96
 DENSE_MAX = 4096
+# shared memory a block may opt in to on an H100 (227 KB): the flat sweep's
+# staged operands (flat_stage_bytes) must fit
+SMEM_MAX = 232448
 
 launches = 0    # kernel launches through launch(); a run resets and reads it
 # the same launches by variant: K1a brute, K1c flat BVH, K1d the walk,
@@ -316,6 +319,16 @@ def bvh_args(bvh: BVH | None) -> tuple:
     return (None, 0, 0, bvh.nodes.data_ptr(), bvh.n_trav, bvh.copies, *tail)
 
 
+def flat_stage_bytes(bvh: BVH) -> int:
+    """Shared memory the forward kernel stages for the flat sweep of
+    ``bvh`` (csrc/render_common.cuh ``stage_flat``): 16 bytes a permuted
+    row, one unused row a leaf, and 32 bytes a leaf box of each of the 8
+    octant copies."""
+    out_cnt = (outlier_tail(bvh.perm, bvh.flat, bvh.leaf_size) or (0, 0))[1]
+    return 16 * (bvh.n_leaves * (int(bvh.leaf_size) + 1) + out_cnt
+                 + 16 * bvh.n_leaves)
+
+
 def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
             rows: int, spp: int, out: torch.Tensor, *, tape=None,
             census=None, carry=None, dense: bool = False) -> None:
@@ -323,6 +336,13 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
     s0) for K2, the seeds as int32 bits; ``dense`` the dense stage."""
     global launches
     n = scene_pack.shape[1]
+    if (bvh is not None and sweep_of(bvh) == "flat"
+            and flat_stage_bytes(bvh) > SMEM_MAX):
+        raise ValueError(
+            f"the flat sweep stages {flat_stage_bytes(bvh)} bytes of this "
+            f"BVH in shared memory, past a block's {SMEM_MAX}: build it "
+            "with a smaller leaf_size or sweep it with the walk "
+            "(bvh.with_sweep(bvh, 'walk'))")
     acc_in, seed_in, seed_out, s0 = carry if carry else (None,) * 3 + (0,)
     lib = _lib()
     device = scene_pack.device

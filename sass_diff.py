@@ -26,7 +26,7 @@ from pathlib import Path
 from raytpu_torch.kernels import _build  # this checkout's: sys.path[0]
 
 ROOT = Path(__file__).resolve().parent
-SOURCES = ("megakernel.cu", "gradkernel.cu")
+SOURCES = ("megakernel.cu", "gradkernel.cu", "wavefront.cu")
 # builds a checkout's kernels and prints their libraries' paths
 _BUILD = ("import json; from raytpu_torch.kernels import _build; "
           f"_build.load_all({list(SOURCES)!r}); "

@@ -850,3 +850,74 @@ def test_refill_slabs_stitch_to_the_frame():
         assert float((a - b).abs().max()) <= 1e-6 * max(
             float(b.abs().max()), 1e-12), i
         i += size
+
+
+_FLAT_CASES = ("frame", "k2_from_s0", "k4_tape", "slab_past_frame")
+
+
+@needs_card
+@pytest.mark.parametrize("case", _FLAT_CASES)
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_flat_refill_bit_equal_plain(rng_mode, case):
+    """The flat sweep's forward (one loop of bounce steps a thread, each
+    sample refilled in place; the sweep staged in shared memory, a warp's
+    leaves swept together) against the plain versions on the same CUDA
+    tensors, bit for bit: the frame (K1c), a K2 batch from s0 > 0 (sums and
+    seeds), the taping forward (image and every tape slot) and a slab whose
+    last rows lie past the frame (K1b, K2 and K4 on it).  Diffuse, metal
+    and glass spheres at depth 4: lanes of a warp end their samples at
+    different steps, many at the depth cap.  The census kernel K1' counts
+    the plain census's leaves, steps and samples, and its warp counters no
+    fewer iterations than the busiest lane's share."""
+    cfg = RenderConfig(width=96, height=40, spp=3, depth=4,
+                       rng_mode=rng_mode)
+    scene, cam, bvh = _bvh_world(cfg)
+    assert tbvh.sweep_of(bvh) == "flat" and bvh.n_outliers == 1
+    assert {0, 1, 2} <= set(scene.mat_type.tolist())
+    cp = megakernel.pack_camera(cam)
+    sp = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    row0, rows = (30, 16) if case == "slab_past_frame" else (0, None)
+    g = cfg.spp * cfg.depth
+    _reset_counts()
+    if case in ("frame", "slab_past_frame"):
+        got = megakernel.launch(cp, sp, cfg, bvh, row0=row0, rows=rows)
+        assert torch.equal(got, golden.render_golden(scene, cam, cfg, bvh,
+                                                     row0=row0, rows=rows))
+    if case in ("k2_from_s0", "slab_past_frame"):
+        st = progressive.init_state(cfg, device="cuda")
+        s0 = 0
+        if case == "k2_from_s0":
+            s0 = 2
+            st = progressive.accumulate(scene, cam, cfg, st, s0,
+                                        backend="golden", bvh=bvh)
+        acc, seed = (shard.slab_of(st.acc, row0, rows or cfg.height),
+                     shard.slab_of(st.seed, row0, rows or cfg.height))
+        got = megakernel.accumulate(scene, cam, cfg, acc, seed, s0, 3, bvh,
+                                    row0, rows)
+        want = golden.accumulate_golden(scene, cam, cfg, acc, seed, s0, 3,
+                                        bvh, row0, rows)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case in ("k4_tape", "slab_past_frame"):
+        tape = torch.full((g, (rows or cfg.height) * cfg.width),
+                          golden.TAPE_UNWRITTEN,
+                          dtype=golden.tape_dtype(sp.shape[1]),
+                          device="cuda")
+        img = megakernel.launch(cp, sp, cfg, bvh, tape=tape, row0=row0,
+                                rows=rows)
+        pimg, ptape = golden.render_golden_tape(scene, cam, cfg, g, bvh,
+                                                row0, rows)
+        assert torch.equal(img, pimg) and torch.equal(tape, ptape)
+    want_launches = {
+        "frame": {"K1c": 1}, "k2_from_s0": {"K2/bvh": 1},
+        "k4_tape": {"K4/bvh": 1},
+        "slab_past_frame": {"K1b/bvh": 1, "K2/bvh+slab": 1,
+                            "K4/bvh+slab": 1}}[case]
+    assert {k: v for k, v in megakernel.variants.items() if v} == \
+        want_launches
+    c = megakernel.warp_census(cp, sp, cfg, bvh, row0, rows)
+    plain = dict.fromkeys(golden.CENSUS, 0)
+    golden.render_golden(scene, cam, cfg, bvh, census=plain, row0=row0,
+                         rows=rows)
+    assert [c[k] for k in golden.CENSUS] == [plain[k] for k in golden.CENSUS]
+    assert 0.0 < c["loop_efficiency"] <= 1.0
+    assert 0.0 < c["sweep_efficiency"] <= 1.0

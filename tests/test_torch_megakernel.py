@@ -152,6 +152,32 @@ def test_kernel_launch_needs_cuda_tensors():
         rt.render(scene, cam, cfg, backend="pallas")
 
 
+@pytest.mark.parametrize("n,leaf,want", [
+    (500, 64, 16 * (8 * 65 + 1 + 16 * 8)),    # config 4: 10,384 bytes
+    (120, 16, 16 * (8 * 17 + 1 + 16 * 8)),
+    (4000, 64, 16 * (63 * 65 + 1 + 16 * 63)),  # 63 leaves: near the limit
+])
+def test_flat_stage_bytes(n, leaf, want):
+    """The flat sweep's shared memory (csrc stage_flat): a row a permuted
+    sphere, one unused row a leaf, the outliers, two rows a box of each of
+    the 8 octant copies; 16 bytes a row.  warp_census counts the card's
+    flat sweep only."""
+    from raytpu_torch import bvh as tbvh
+    scene = rt.final_world(n=n, device="cpu")
+    bvh = tbvh.build_bvh(scene, leaf_size=leaf)
+    assert tbvh.sweep_of(bvh) == "flat" and bvh.n_outliers == 1
+    assert tmk.flat_stage_bytes(bvh) == want <= tmk.SMEM_MAX
+    cfg = rt.RenderConfig(width=8, height=4, spp=1, depth=2)
+    cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                         aspect=cfg.aspect, device="cpu")
+    sp = tmk.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    with pytest.raises(ValueError, match="CUDA"):
+        tmk.warp_census(tmk.pack_camera(cam), sp, cfg, bvh)
+    with pytest.raises(ValueError, match="flat"):
+        tmk.warp_census(tmk.pack_camera(cam), sp, cfg,
+                        tbvh.with_sweep(bvh, "walk"))
+
+
 def test_render_grad_not_ported():
     """render_grad is ported: an MSE loss, the image and finite gradients
     of every continuous leaf (mat_type's is None)."""

@@ -28,47 +28,19 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ITERS = 5
-# the flat instantiations' template arguments in the mangled names:
-# <kHit = kFlat, kTape, kCount, kCarry>
-FLAT_KERNELS = {"K1c/K1b": "ILi1ELi0ELb0ELb0E", "K1'": "ILi1ELi0ELb1ELb0E",
-                "K2": "ILi1ELi0ELb0ELb1E", "K4": "ILi1ELi1ELb0ELb0E"}
-
-
-def ptxas_of(lines: list[str]) -> dict:
-    """{kernel: "N registers, S bytes spill stores"} of the flat
-    instantiations, from ``_build.build_log``'s ptxas lines."""
-    out, name = {}, None
-    for ln in lines:
-        m = re.search(r"entry function '(\S+)'", ln)
-        if m:
-            name = next((k for k, v in FLAT_KERNELS.items()
-                         if v in m.group(1) and "render_fwd_kernel"
-                         in m.group(1)), None)
-            continue
-        if name is None:
-            continue
-        spill = re.search(r"(\d+) bytes spill stores", ln)
-        regs = re.search(r"Used (\d+) registers", ln)
-        if spill:
-            out.setdefault(name, {})["spill_store_bytes"] = int(spill.group(1))
-        if regs:
-            out.setdefault(name, {})["registers"] = int(regs.group(1))
-            name = None
-    return out
 
 
 def one(root: str) -> dict:
     """Build ``root``'s forward kernels and time them -> one JSON row."""
-    sys.path.insert(0, os.path.abspath(root))
     import torch
 
     import chip_smoke as cs  # this checkout's bound() and byte counts
+    sys.path.insert(0, os.path.abspath(root))  # and root's raytpu_torch
     import raytpu_torch as rt
     from raytpu_torch import bvh as tbvh, golden, profiling, progressive
     from raytpu_torch.config import CONFIG4, CONFIG5
@@ -89,7 +61,8 @@ def one(root: str) -> dict:
 
     def timed(fn, ops_cfg, cam_t, nbytes, row0=0, rows=None):
         each = cs.cuda_ms_each(fn, ITERS)
-        c = profiling.census(scene, cam_t, ops_cfg, bvh, row0=row0, rows=rows)
+        c = profiling.census(scene, cam_t, ops_cfg, bvh, row0=row0,
+                             rows=rows)
         return {"ms": sorted(each)[len(each) // 2], "each_ms": each,
                 **cs.bound(cs.forward_ops(c), nbytes)}
 
@@ -144,9 +117,9 @@ def one(root: str) -> dict:
             "config5_slab_20spp_parallel": megakernel.warp_census(
                 cp5, spv, cfg_s, bvh, 0, h),
             "config4": megakernel.warp_census(cp4, spv, cfg4, bvh)}
+    ptxas = _build.build_log[megakernel.SOURCE]["ptxas"]
     return {"root": root, "card": cs.card_line(), "ops_peak": cs.PEAK_OPS,
-            "times": rows, "warps": warps,
-            "ptxas": ptxas_of(_build.build_log[megakernel.SOURCE]["ptxas"])}
+            "times": rows, "warps": warps, "ptxas": cs.flat_ptxas(ptxas)}
 
 
 def main(roots: list[str]) -> int:
