@@ -505,17 +505,13 @@ __device__ __forceinline__ void stage_flat(const float* pack, int n,
   __syncthreads();
 }
 
-// One staged row as root_at()'s Rows: the row is loaded once, 16 bytes.
-struct StagedRow {
-  float4 q;
-  __device__ __forceinline__ float x(int) const { return q.x; }
-  __device__ __forceinline__ float y(int) const { return q.y; }
-  __device__ __forceinline__ float z(int) const { return q.z; }
-  __device__ __forceinline__ float r2(int) const { return q.w; }
-};
-
 // Staged rows [0, count) into the running best as permuted rows first,
-// first + 1, ...: strict <, as sweep_range().
+// first + 1, ...: strict <, as sweep_range().  Each test is root_at()'s
+// arithmetic op for op on the row loaded once (16 bytes), except that a
+// negative or NaN discriminant (a miss, or a padding row) ends the test
+// before the square root: root_at()'s sqrtf gives NaN there and no root
+// passes, so the outcome is the same, and sqrtf takes its slow path
+// (a call) for every such argument, most of a sweep's tests.
 template <bool kCount>
 __device__ __forceinline__ void sweep_staged(const float4* rows, int count,
                                              int first, const Ray& r,
@@ -524,7 +520,18 @@ __device__ __forceinline__ void sweep_staged(const float4* rows, int count,
                                              Census& cn) {
   if (kCount) warp_tick(cn.warp_tests, count);
   for (int i = 0; i < count; ++i) {
-    const float root = root_at(StagedRow{rows[i]}, r, a, inv_a, t_min, 0);
+    const float4 q = rows[i];
+    const float ocx = r.ox - q.x;
+    const float ocy = r.oy - q.y;
+    const float ocz = r.oz - q.z;
+    const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+    const float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - q.w;
+    const float disc = half_b * half_b - a * c;
+    if (!(disc >= 0.0f)) continue;
+    const float sqrtd = sqrtf(disc);
+    const float root1 = (-half_b - sqrtd) * inv_a;
+    const float root2 = (-half_b + sqrtd) * inv_a;
+    const float root = root1 >= t_min ? root1 : root2;
     if (root >= t_min && root < tb) {
       tb = root;
       win = first + i;

@@ -66,10 +66,11 @@ def main(other_root: str) -> int:
             got = new.get(key)
             same = got == ins
             differ += not same
-            print(f"{src} {key[1]}: {len(ins)} -> "
+            print(f"{src} {key[0]}<{key[1]}>: {len(ins)} -> "
                   f"{None if got is None else len(got)} instructions, "
                   f"{'identical' if same else 'DIFFERENT'}")
-        print(f"{src} new: {sorted(k[1] for k in set(new) - set(old))}")
+        print(f"{src} new: "
+              f"{sorted(f'{k[0]}<{k[1]}>' for k in set(new) - set(old))}")
     return 1 if differ else 0
 
 
