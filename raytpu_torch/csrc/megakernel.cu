@@ -39,8 +39,10 @@
 // to back (about 24 operations each) and sweeps a leaf, leaf_size sphere
 // tests, only where the ray's own slab test passes within its best t so
 // far.  Its design is for SIMT (render_refill below): raytpu's persistent
-// sample refill, so that a warp pays its busiest lane's bounce steps rather
-// than each sample's longest path; a sweep that lets each lane advance to
+// sample refill with its multi-tile tail grouping (a persistent grid whose
+// lanes take their next pixel from a counter), so that a warp pays its
+// busiest lane's bounce steps once a launch rather than each sample's
+// longest path; a sweep that lets each lane advance to
 // its own next leaf and sweeps the warp's leaves together
 // (closest_hit_staged), so that a warp pays its busiest lane's leaves
 // rather than every leaf position any lane enters; and the sweep's rows
@@ -53,7 +55,8 @@
 // K4 adds one 2- or 4-byte store per bounce step, tape[k][pix]: threads of a
 // warp are neighbouring pixels and write neighbouring addresses at the same
 // k, so the stores coalesce whenever the warp's lanes are at the same step
-// (under the refill, lanes part after their first sample).  The census
+// (under the flat sweep's refill, lanes part after their first sample and
+// their first pixel).  The census
 // (K1') keeps three per-thread counters in registers (four for the walk:
 // the nodes visited; two more for the flat sweep: the warp's bounce-loop
 // and sphere-test iterations, counted by one of the lanes that run them)
@@ -83,6 +86,7 @@
 // kernel K3 (gradkernel.cu) shares, so that its passes reproduce this image
 // bit for bit.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -110,6 +114,7 @@ struct Params {
   const uint32_t* seed_in;  // K2: (rows, width) seeds carried in
   float* out;          // (rows, width, 3): the image, or K2's linear sums
   uint32_t* seed_out;  // K2: (rows, width) seeds carried out
+  unsigned* pixel_next;  // the flat sweep's pixel counter, 0 at launch
   int n, width, height, row0, rows, spp, depth, g_cap, tape_wide;
   uint32_t s0;         // index of the batch's first sample (0 but for K2)
   float t_min, inv_w, inv_h, inv_spp, gamma;
@@ -130,99 +135,138 @@ __device__ __forceinline__ void add_census(const unsigned (&v)[kN],
   }
 }
 
+// The next pixel of a lane whose pixel is done: the lanes that ask
+// together take consecutive pixels past the grid's first ones, one atomic
+// a warp.
+__device__ __forceinline__ int next_pixel(unsigned* counter, int first) {
+  const unsigned m = __activemask();
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  unsigned base = 0;
+  if (lane == leader) base = atomicAdd(counter, __popc(m));
+  base = __shfl_sync(m, base, leader);
+  return first + static_cast<int>(base + __popc(m & ((1u << lane) - 1u)));
+}
+
 // The flat sweep's forward (K1c, K1b/bvh, K1'/bvh, K2/bvh, K4/bvh and
 // their slabs): raytpu's persistent sample refill (make_refill_step,
-// raytpu/kernels/megakernel.py:881-1000) on SIMT.  A thread runs one loop of
-// bounce steps; when its sample ends (a miss, an absorption or the depth
-// cap) it folds the sample's radiance into its pixel's sums, in sample
-// order, and generates its pixel's next sample in place, until its spp
-// samples are done.  Each lane keeps the sequential loop's draws, tests and
-// sums, so every output is the per-sample loop's bit for bit; what changes
-// is the warp's schedule: a warp runs as many bounce steps as its busiest
-// lane takes over all its samples, where the nested loops ran the longest
-// path of each sample.  The closest hit is closest_hit_staged() over the
-// rows stage_flat() puts in shared memory.  The tape cursor runs across
-// samples as before; K2's carry is read first and written last.
+// raytpu/kernels/megakernel.py:881-1000) on SIMT, with its multi-tile tail
+// grouping.  A persistent grid (as many blocks as the card holds at once)
+// runs one loop of bounce steps a thread.  When a lane's sample ends (a
+// miss, an absorption or the depth cap) it folds the sample's radiance into
+// its pixel's sums, in sample order, and generates the pixel's next sample
+// in place; when its pixel's spp samples are done it writes the pixel and
+// takes the next one from the launch's counter.  Each pixel keeps the
+// sequential loop's draws, tests and sums, so every output is the
+// per-sample loop's bit for bit; what changes is the warp's schedule: a
+// warp waits for its busiest lane once a launch, where the nested loops
+// waited for the longest path of each sample.  The closest hit is
+// closest_hit_staged() over the rows stage_flat() puts in shared memory.
+// The tape cursor runs across a pixel's samples as before; K2's carry is
+// read when a pixel starts and written when it is done.
 template <int kTape, bool kCount, bool kCarry>
 __device__ __forceinline__ void render_refill(const Params& p) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int ly = blockIdx.y * blockDim.y + threadIdx.y;
-  const int y = p.row0 + ly;
-  const bool valid = x < p.width && ly < p.rows;
-  const bool live = valid && y < p.height;
   stage_flat(p.scene, p.n, p.bvh);
-  if (!kCount && !valid) return;
-
   const CamPack& cam = *p.cam;  // read where a sample starts, not held
   const SceneView s = scene_view(p.scene, p.n);
-  const float fx = static_cast<float>(x);
-  const float fy = static_cast<float>(y);
-  const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
-                                   static_cast<uint32_t>(y));
-  const size_t pix = static_cast<size_t>(ly) * p.width + x;
-  TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.rows, pix,
-                p.g_cap, 0, p.tape_wide};
+  const bool v1 = p.v1 != 0;
+  const int pixels = p.rows * p.width;  // the slab's buffers
+  const int threads = gridDim.x * blockDim.x * blockDim.y;
   Census cn{0u, 0u, 0u, 0u, 0u, 0u};
+  TapeCursor tc{p.tape, static_cast<size_t>(pixels), 0, p.g_cap, 0,
+                p.tape_wide};
 
-  uint32_t chain = seed0;  // the sequential mode's carried seed
+  // the pixel's place, seeds and sums; its sample's ray, throughput,
+  // radiance, index and bounce
+  float fx = 0.0f, fy = 0.0f;
+  uint32_t seed0 = 0u, chain = 0u, sd = 0u;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  if (kCarry && live) {
-    if (!p.parallel) chain = p.seed_in[pix];
-    acc_r = p.acc_in[pix * 3];
-    acc_g = p.acc_in[pix * 3 + 1];
-    acc_b = p.acc_in[pix * 3 + 2];
-  }
-  const int spp = live ? p.spp : 0;
-  if (spp > 0) {
-    const bool v1 = p.v1 != 0;
-    uint32_t sd = p.parallel ? fold_in(seed0, p.s0) : chain;
+  Ray r{};
+  float cr = 1.0f, cg = 1.0f, cb = 1.0f;
+  float rr = 0.0f, rg = 0.0f, rb = 0.0f;
+  int smp = 0, d = 0;
+
+  // Sets up pixel px and its first sample's seed; a row past the frame
+  // traces nothing and is written 0 at once (false).
+  auto begin = [&](int px) -> bool {
+    const int x = px % p.width;
+    const int y = p.row0 + px / p.width;
+    if (y >= p.height) {
+      float* o = p.out + static_cast<size_t>(px) * 3;
+      o[0] = o[1] = o[2] = 0.0f;
+      if (kCarry) p.seed_out[px] = 0u;
+      return false;
+    }
+    fx = static_cast<float>(x);
+    fy = static_cast<float>(y);
+    seed0 = base_hash(static_cast<uint32_t>(x), static_cast<uint32_t>(y));
+    chain = kCarry && !p.parallel ? p.seed_in[px] : seed0;
+    acc_r = acc_g = acc_b = 0.0f;
+    if (kCarry) {
+      const float* a = p.acc_in + static_cast<size_t>(px) * 3;
+      acc_r = a[0];
+      acc_g = a[1];
+      acc_b = a[2];
+    }
+    tc.pix = static_cast<size_t>(px);
+    tc.k = 0;
+    smp = 0;
+    sd = p.parallel ? fold_in(seed0, p.s0) : chain;
+    return true;
+  };
+  // The sample's ray from seed sd (gen_ray advances it), throughput 1.
+  auto sample = [&]() {
     RayGen g;
-    Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
-    float cr = 1.0f, cg = 1.0f, cb = 1.0f;  // the sample's throughput
-    float rr = 0.0f, rg = 0.0f, rb = 0.0f;  // and radiance
-    int smp = 0, d = 0;                     // its index and bounce
+    r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
+    cr = cg = cb = 1.0f;
+    rr = rg = rb = 0.0f;
+    d = 0;
     if (kCount) ++cn.samples;
-    for (;;) {
-      if (d < p.depth) {  // one bounce step (bounce_step's)
-        if (kCount) warp_tick(cn.warp_steps, 1u);
-        float tb;
-        const int win = closest_hit_staged<kCount>(p.bvh, r, p.t_min, tb, cn);
-        if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
-        if (kTape != kNoTape) ++tc.k;
-        if (kCount) ++cn.steps;
-        const bool scattered = shade(s, win, tb, v1, sd, r, cr, cg, cb, rr,
-                                     rg, rb);
-        if (scattered && ++d < p.depth) continue;
-      }
-      // the sample ended (at the depth cap its radiance is still 0: black)
-      acc_r = acc_r + rr;
-      acc_g = acc_g + rg;
-      acc_b = acc_b + rb;
-      if (!p.parallel) chain = sd;
-      if (++smp == spp) break;
-      // the pixel's next sample, in place
+  };
+
+  int pixel = blockIdx.x * blockDim.x * blockDim.y + threadIdx.x +
+              blockDim.x * threadIdx.y;
+  while (pixel < pixels && !begin(pixel))
+    pixel = next_pixel(p.pixel_next, threads);
+  if (pixel < pixels) sample();
+  while (pixel < pixels) {
+    if (d < p.depth) {  // one bounce step (bounce_step's)
+      if (kCount) warp_tick(cn.warp_steps, 1u);
+      float tb;
+      const int win = closest_hit_staged<kCount>(p.bvh, r, p.t_min, tb, cn);
+      if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
+      if (kTape != kNoTape) ++tc.k;
+      if (kCount) ++cn.steps;
+      const bool scattered = shade(s, win, tb, v1, sd, r, cr, cg, cb, rr,
+                                   rg, rb);
+      if (scattered && ++d < p.depth) continue;
+    }
+    // the sample ended (at the depth cap its radiance is still 0: black)
+    acc_r = acc_r + rr;
+    acc_g = acc_g + rg;
+    acc_b = acc_b + rb;
+    if (!p.parallel) chain = sd;
+    if (++smp < p.spp) {
       sd = p.parallel ? fold_in(seed0, p.s0 + static_cast<uint32_t>(smp))
                       : chain;
-      r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
-      cr = cg = cb = 1.0f;
-      rr = rg = rb = 0.0f;
-      d = 0;
-      if (kCount) ++cn.samples;
+    } else {  // the pixel is done: write it, take the next one
+      float* o = p.out + tc.pix * 3;
+      if (kCarry) {
+        o[0] = acc_r;
+        o[1] = acc_g;
+        o[2] = acc_b;
+        p.seed_out[tc.pix] = p.parallel ? seed0 : chain;
+      } else {
+        o[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
+        o[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
+        o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
+      }
+      do {
+        pixel = next_pixel(p.pixel_next, threads);
+      } while (pixel < pixels && !begin(pixel));
+      if (pixel >= pixels) break;
     }
-  }
-
-  if (valid) {
-    float* o = p.out + pix * 3;
-    if (kCarry) {
-      o[0] = acc_r;
-      o[1] = acc_g;
-      o[2] = acc_b;
-      p.seed_out[pix] = live ? (p.parallel ? seed0 : chain) : 0u;
-    } else {
-      o[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
-      o[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
-      o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
-    }
+    sample();
   }
   if (kCount) {  // leaves, steps, samples; the warp counters after kCensus
     const unsigned counts[3] = {cn.leaves, cn.steps, cn.samples};
@@ -318,6 +362,7 @@ render_fwd_kernel(Params p) {
 
 template <int kHit, int kTape, bool kCount, bool kCarry>
 int launch(const Params& p, cudaStream_t stream) {
+  auto kernel = render_fwd_kernel<kHit, kTape, kCount, kCarry>;
   dim3 block(32, 8);
   dim3 grid((p.width + block.x - 1) / block.x,
             (p.rows + block.y - 1) / block.y);
@@ -331,12 +376,26 @@ int launch(const Params& p, cudaStream_t stream) {
           : 0;
   if (shmem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        render_fwd_kernel<kHit, kTape, kCount, kCarry>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  render_fwd_kernel<kHit, kTape, kCount, kCarry>
-      <<<grid, block, shmem, stream>>>(p);
+  if (kHit == kFlat) {  // a persistent grid: the blocks the card holds
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, block.x * block.y, shmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long pixels = static_cast<long long>(p.width) * p.rows;
+    const long long need = (pixels + block.x * block.y - 1) /
+                           (block.x * block.y);
+    grid = dim3(static_cast<unsigned>(
+        std::max(1LL, std::min(need, static_cast<long long>(sms) * per_sm))));
+  }
+  kernel<<<grid, block, shmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -363,8 +422,10 @@ int launch_hit(int hit, const Params& p, cudaStream_t stream) {
 // `carry` -> K2, which reads acc_in / seed_in and
 // writes `out` / seed_out (either pair may alias: a thread reads its own
 // pixel before it writes it) from sample index s0 on.  A tape, the census
-// and the carry exclude one another.  The block's x extent is one warp, so
-// threadIdx.x is the lane.
+// and the carry exclude one another.  The flat sweep hands out the pixels
+// past its persistent grid's first ones from `pixel_next`, one u32 that is
+// 0 at launch.  spp >= 1.  The block's x extent is one warp, so threadIdx.x
+// is the lane.
 extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                                  int dense, const void* flat, int n_leaves,
                                  int leaf_size, const void* nodes,
@@ -373,7 +434,8 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                                  int g_cap, int tape_wide, void* census,
                                  int carry,
                                  const void* acc_in, const void* seed_in,
-                                 void* seed_out, unsigned s0, void* out,
+                                 void* seed_out, void* pixel_next,
+                                 unsigned s0, void* out,
                                  int width, int height, int row0, int rows,
                                  int spp, int depth, float t_min,
                                  float inv_w, float inv_h, float inv_spp,
@@ -384,6 +446,7 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
       (nodes != nullptr && (n_trav < 1 || (copies != 1 && copies != 8))) ||
       (carry && (acc_in == nullptr || seed_in == nullptr ||
                  seed_out == nullptr)) ||
+      (flat != nullptr && pixel_next == nullptr) || spp < 1 ||
       (dense && (flat != nullptr || nodes != nullptr || taping ||
                  census != nullptr || carry || n > kDenseMax)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -400,6 +463,7 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   p.seed_in = static_cast<const uint32_t*>(seed_in);
   p.out = static_cast<float*>(out);
   p.seed_out = static_cast<uint32_t*>(seed_out);
+  p.pixel_next = static_cast<unsigned*>(pixel_next);
   p.s0 = s0;
   p.n = n;
   p.width = width;

@@ -104,7 +104,7 @@ def _lib() -> ctypes.CDLL:
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raytpu_render_fwd
     fn.argtypes = [ptr, ptr, i, i, ptr, i, i, ptr, i, i, i, i, i, ptr, i, i,
-                   ptr, i, ptr, ptr, ptr, ctypes.c_uint, ptr,
+                   ptr, i, ptr, ptr, ptr, ptr, ctypes.c_uint, ptr,
                    i, i, i, i, i, i, f, f, f, f, f, i, i, ptr]
     fn.restype = ctypes.c_int
     return lib
@@ -346,6 +346,9 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
     acc_in, seed_in, seed_out, s0 = carry if carry else (None,) * 3 + (0,)
     lib = _lib()
     device = scene_pack.device
+    # the flat sweep's persistent grid takes its pixels from this counter
+    pixel_next = (torch.zeros(1, dtype=torch.int32, device=device)
+                  if bvh is not None and sweep_of(bvh) == "flat" else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_fwd(
@@ -360,6 +363,7 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
             None if acc_in is None else acc_in.data_ptr(),
             None if seed_in is None else seed_in.data_ptr(),
             None if seed_out is None else seed_out.data_ptr(),
+            None if pixel_next is None else pixel_next.data_ptr(),
             int(s0) & 0xFFFFFFFF, out.data_ptr(),
             cfg.width, cfg.height, row0, rows, spp, cfg.depth,
             float(np.float32(cfg.t_min)),
