@@ -281,81 +281,81 @@ __global__ void __launch_bounds__(256)
 render_fwd_kernel(Params p) {
   if constexpr (kHit == kFlat) {
     render_refill<kTape, kCount, kCarry>(p);
-    return;
-  }
-  // the other sweeps: each thread runs its pixel's samples one by one
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int ly = blockIdx.y * blockDim.y + threadIdx.y;  // row in the slab
-  const int y = p.row0 + ly;                              // row in the frame
-  // valid: a pixel of the slab's buffers; live: one the frame holds.
-  // Lanes outside the buffers stay to the end when counting: the census
-  // adds per warp, with all 32 lanes
-  const bool valid = x < p.width && ly < p.rows;
-  const bool live = valid && y < p.height;
-  // K1e stages the scene before any thread of the block returns
-  if (kHit == kDense) stage_dense(p.scene, p.n);
-  if (!kCount && !valid) return;
+  } else {
+    // the other sweeps: each thread runs its pixel's samples one by one
+    const int x = blockIdx.x * blockDim.x + threadIdx.x;
+    const int ly = blockIdx.y * blockDim.y + threadIdx.y;  // row in the slab
+    const int y = p.row0 + ly;                              // row in the frame
+    // valid: a pixel of the slab's buffers; live: one the frame holds.
+    // Lanes outside the buffers stay to the end when counting: the census
+    // adds per warp, with all 32 lanes
+    const bool valid = x < p.width && ly < p.rows;
+    const bool live = valid && y < p.height;
+    // K1e stages the scene before any thread of the block returns
+    if (kHit == kDense) stage_dense(p.scene, p.n);
+    if (!kCount && !valid) return;
 
-  const CamPack cam = *p.cam;
-  const SceneView s = scene_view(p.scene, p.n);
-  const float fx = static_cast<float>(x);
-  const float fy = static_cast<float>(y);
-  const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
-                                   static_cast<uint32_t>(y));
-  const size_t pix = static_cast<size_t>(ly) * p.width + x;
-  TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.rows, pix,
-                p.g_cap, 0, p.tape_wide};
-  Census cn{0u, 0u, 0u, 0u};
+    const CamPack cam = *p.cam;
+    const SceneView s = scene_view(p.scene, p.n);
+    const float fx = static_cast<float>(x);
+    const float fy = static_cast<float>(y);
+    const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
+                                     static_cast<uint32_t>(y));
+    const size_t pix = static_cast<size_t>(ly) * p.width + x;
+    TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.rows, pix,
+                  p.g_cap, 0, p.tape_wide};
+    Census cn{0u, 0u, 0u, 0u};
 
-  uint32_t chain = seed0;  // the sequential mode's carried seed
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  if (kCarry && live) {
-    if (!p.parallel) chain = p.seed_in[pix];
-    acc_r = p.acc_in[pix * 3];
-    acc_g = p.acc_in[pix * 3 + 1];
-    acc_b = p.acc_in[pix * 3 + 2];
-  }
-  const int spp = live ? p.spp : 0;
-  for (int smp = 0; smp < spp; ++smp) {
-    uint32_t sd = p.parallel
-                      ? fold_in(seed0, p.s0 + static_cast<uint32_t>(smp))
-                      : chain;
-    RayGen g;
-    Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
-    float rr, rg, rb;
-    trace_path<false, kHit, kTape, kCount>(s, p.bvh, p.walk, r, sd,
-                                           p.depth, p.t_min, p.v1 != 0, rr,
-                                           rg, rb, nullptr, tc, cn);
-    acc_r = acc_r + rr;
-    acc_g = acc_g + rg;
-    acc_b = acc_b + rb;
-    if (!p.parallel) chain = sd;
-  }
-
-  if (valid) {
-    // a row past the frame traced nothing: its sums are 0, and so is the
-    // gamma image of 0
-    float* o = p.out + pix * 3;
-    if (kCarry) {
-      o[0] = acc_r;
-      o[1] = acc_g;
-      o[2] = acc_b;
-      p.seed_out[pix] = live ? (p.parallel ? seed0 : chain) : 0u;
-    } else {
-      o[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
-      o[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
-      o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
+    uint32_t chain = seed0;  // the sequential mode's carried seed
+    float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+    if (kCarry && live) {
+      if (!p.parallel) chain = p.seed_in[pix];
+      acc_r = p.acc_in[pix * 3];
+      acc_g = p.acc_in[pix * 3 + 1];
+      acc_b = p.acc_in[pix * 3 + 2];
     }
-  }
-  if (kCount) {
-    const unsigned v[kCensus] = {cn.leaves, cn.steps, cn.samples,
-                                 cn.nodes};
-    constexpr int kCounted = kHit == kWalk ? kCensus : kCensus - 1;
+    const int spp = live ? p.spp : 0;
+    for (int smp = 0; smp < spp; ++smp) {
+      uint32_t sd = p.parallel
+                        ? fold_in(seed0, p.s0 + static_cast<uint32_t>(smp))
+                        : chain;
+      RayGen g;
+      Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
+      float rr, rg, rb;
+      trace_path<false, kHit, kTape, kCount>(s, p.bvh, p.walk, r, sd,
+                                             p.depth, p.t_min, p.v1 != 0, rr,
+                                             rg, rb, nullptr, tc, cn);
+      acc_r = acc_r + rr;
+      acc_g = acc_g + rg;
+      acc_b = acc_b + rb;
+      if (!p.parallel) chain = sd;
+    }
+
+    if (valid) {
+      // a row past the frame traced nothing: its sums are 0, and so is the
+      // gamma image of 0
+      float* o = p.out + pix * 3;
+      if (kCarry) {
+        o[0] = acc_r;
+        o[1] = acc_g;
+        o[2] = acc_b;
+        p.seed_out[pix] = live ? (p.parallel ? seed0 : chain) : 0u;
+      } else {
+        o[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
+        o[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
+        o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
+      }
+    }
+    if (kCount) {
+      const unsigned v[kCensus] = {cn.leaves, cn.steps, cn.samples,
+                                   cn.nodes};
+      constexpr int kCounted = kHit == kWalk ? kCensus : kCensus - 1;
 #pragma unroll
-    for (int i = 0; i < kCounted; ++i) {
-      const unsigned sum = __reduce_add_sync(kFull, v[i]);
-      if ((threadIdx.x & 31) == 0 && sum)
-        atomicAdd(p.census + i, static_cast<unsigned long long>(sum));
+      for (int i = 0; i < kCounted; ++i) {
+        const unsigned sum = __reduce_add_sync(kFull, v[i]);
+        if ((threadIdx.x & 31) == 0 && sum)
+          atomicAdd(p.census + i, static_cast<unsigned long long>(sum));
+      }
     }
   }
 }

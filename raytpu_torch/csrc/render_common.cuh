@@ -7,7 +7,9 @@
 // gamma.  K3's passes must give the forward's image bit for bit, and the
 // wavefront the same samples, so every kernel takes a bounce through
 // bounce_step() below and nothing else (the megakernels through
-// trace_path(), its loop over a sample's bounces).
+// trace_path(), its loop over a sample's bounces), or through its two
+// halves: the flat sweep's forward runs closest_hit_staged(), the same
+// tests as closest_hit<kFlat>, then shade().
 //
 // The skip-pointer walk (K1d) replaces raytpu/kernels/megakernel.py:640-696
 // and its VJP twin gradkernel.py:544-594, the path raytpu takes past 64

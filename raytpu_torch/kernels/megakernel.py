@@ -336,8 +336,8 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
     s0) for K2, the seeds as int32 bits; ``dense`` the dense stage."""
     global launches
     n = scene_pack.shape[1]
-    if (bvh is not None and sweep_of(bvh) == "flat"
-            and flat_stage_bytes(bvh) > SMEM_MAX):
+    flat = bvh is not None and sweep_of(bvh) == "flat"
+    if flat and flat_stage_bytes(bvh) > SMEM_MAX:
         raise ValueError(
             f"the flat sweep stages {flat_stage_bytes(bvh)} bytes of this "
             f"BVH in shared memory, past a block's {SMEM_MAX}: build it "
@@ -348,7 +348,7 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
     device = scene_pack.device
     # the flat sweep's persistent grid takes its pixels from this counter
     pixel_next = (torch.zeros(1, dtype=torch.int32, device=device)
-                  if bvh is not None and sweep_of(bvh) == "flat" else None)
+                  if flat else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_fwd(
