@@ -151,7 +151,7 @@ card 0 without it).  Phases, one JSON line each:
 It exits non-zero at the first failure.  The line before the last is the
 card's name and power limit, the line before it the kernel table as JSON
 (the flat rows with their warp efficiencies; each bound the larger of the
-bytes over 3.35 TB/s and the f32 operations over the card's issue rate,
+bytes over 3.35 TB/s and the f32 operations over the card's f32 rate,
 ``ops_peak()``), the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -214,7 +214,7 @@ TAPE_PAIRS = 10        # taped / untaped pairs a scene in phase 4c
 TIMED_FRAMES = 3       # wavefront and megakernel frames timed a run (8d)
 # The least time the card could take (the roofline bound): the larger
 # of the bytes a kernel must move over 3.35 TB/s (the H100 SXM's published
-# rate at 700 W) and its f32 operations over the rate the card issues them
+# rate at 700 W) and its f32 operations over the rate the card runs them
 # (ops_peak(): 128 FP32 lanes an SM at the SM's top clock).  The kernels are
 # built with -fmad=false, so each counted operation is one instruction; the
 # published 67 TFLOP/s counts an FMA as two and is out of reach here.
@@ -311,7 +311,7 @@ def once_ms(fn):
 
 
 def ops_peak() -> float:
-    """f32 operations a second the card can issue: its SMs x
+    """f32 operations a second the card can run: its SMs x
     FP32_LANES_PER_SM x its top SM clock (``nvidia-smi`` clocks.max.sm)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",

@@ -459,7 +459,7 @@ def warp_census(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     leaf_size + steps x outliers) over (warp_sphere_tests x 32).
     ``warp_steps`` counts one for each iteration of the bounce loop that
     any lane of a warp runs, ``warp_sphere_tests`` one for each
-    sphere-test iteration likewise: what a warp issues, whichever of its
+    sphere-test iteration likewise: what a warp runs, whichever of its
     lanes take part.  Warps exist on the card only, and the flat sweep's
     kernel alone counts them: CUDA tensors and a flat BVH only."""
     if sweep_of(bvh) != "flat":
