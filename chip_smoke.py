@@ -83,7 +83,8 @@ card 0 without it).  Phases, one JSON line each:
         on 6d's slab (20 spp, parallel) and on config 4 at 2 spp, whose
         census must equal the plain census exactly; K2/bvh's, K4/bvh+slab's
         and K1c's main-path times beside their bounds; ptxas's registers
-        and spills of the flat instantiations.
+        and spills of the flat instantiations; the shared memory they
+        stage at config 4 and the blocks an SM holds.
 7.  raytpu's 10,000-sphere scene (scripts/probe_10k_r5.py's recipe, built
     here with numpy, written with ``scene_io.save_scene`` and loaded from
     that file), 800x400, 20 spp, depth 12, over the skip-pointer walk K1d:
@@ -105,7 +106,8 @@ card 0 without it).  Phases, one JSON line each:
         variant, the taped ``render_grad``'s K3 sums against K3/walk
         untaped on the same operands (f64);
     7e. ``cli validate --scene-file --bvh --device cuda`` and ``cli info``;
-    7f. times: K1d, K1c forced, K1a, fwd+bwd taped and untaped, the walk's
+    7f. times: K1d, K1c forced (with its staging and the blocks an SM
+        holds), K1a, fwd+bwd taped and untaped, the walk's
         census (nodes and leaves a step), and the walk forced on config 4's
         8-leaf BVH against K1c there (where raytpu's 64-leaf rule stands).
 8.  the dense stage K1e and the sorted wavefront (K5, K6):
@@ -219,12 +221,16 @@ TIMED_FRAMES = 3       # wavefront and megakernel frames timed a run (8d)
 # built with -fmad=false, so each counted operation is one instruction; the
 # published 67 TFLOP/s counts an FMA as two and is out of reach here.
 # Operations are counted by hand from csrc/render_common.cuh and
-# gradkernel.cu and rounded down: the census of this run's data gives how
-# many of each.
+# gradkernel.cu, each no more than the work needs: a sphere test counts
+# what a miss needs, since a miss may end at the discriminant's sign (the
+# flat forward's does), and the census of this run's data gives how many
+# of each.
 FP32_LANES_PER_SM = 128  # Hopper
 PEAK_OPS = None          # ops_peak()'s rate, read at the first bound()
 PEAK_BYTES = 3.35e12
-OPS_SPHERE_TEST = 24   # sphere_root: 3 sub, dot 5, c 7, disc 3, sqrt, 2 roots 5
+OPS_SPHERE_TEST = 18   # a miss: 3 sub, half_b 5, c 6 (r^2 once a sphere),
+#                        disc 3, its sign 1
+OPS_SPHERE_ROOT = 23   # a hit (the tape replay's winner): + sqrt, 2 roots 4
 OPS_BOX_TEST = 24      # 6 sub, 6 mul, 6 min/max, 3 max (tnear), 3 min (tfar)
 OPS_STEP = 50          # hit point, normal, the material's new direction
 OPS_SAMPLE = 30        # raygen, the sample's sum (the gamma is per pixel)
@@ -346,13 +352,13 @@ def forward_ops(c: dict) -> float:
 def k3_ops(c: dict, sweeps: int, taped_steps: int = 0) -> float:
     """K3's f32 operations over the census ``c``: ``sweeps`` forwards
     (PASS 2's, and PASS 1's in sequential RNG), less the sweep of each of
-    the ``taped_steps`` a tape holds (one sphere test each instead), plus
+    the ``taped_steps`` a tape holds (the winner's root each instead), plus
     the reverse of every step.  The vis_w near-miss sweep is not counted."""
     sweep = (c["sphere_tests"] * OPS_SPHERE_TEST
              + c["box_tests"] * OPS_BOX_TEST)
     saved = sweep * taped_steps / max(c["bounce_steps"], 1)
     return (sweeps * forward_ops(c) - saved
-            + taped_steps * OPS_SPHERE_TEST
+            + taped_steps * OPS_SPHERE_ROOT
             + c["bounce_steps"] * OPS_STEP_REVERSE)
 
 
@@ -1067,6 +1073,17 @@ def flat_ptxas(lines: list) -> dict:
     return out
 
 
+def stage_info(bvh, dev) -> dict:
+    """What the flat sweep's forward stages of ``bvh`` in shared memory on
+    this card (``megakernel.flat_stage_on``), the card's opt-in limit and
+    the blocks of K1c an SM holds with it (the persistent grid's)."""
+    from raytpu_torch.kernels import megakernel
+    st = megakernel.flat_stage_on(bvh, dev)
+    optin, blocks = megakernel.flat_device(dev, st["bytes"])
+    return {"n_leaves": bvh.n_leaves, **st, "optin_bytes": optin,
+            "blocks_per_sm": blocks}
+
+
 def flat_phase(dev, card: str, entries4: dict, entries5: dict) -> None:
     """The flat sweep's forward on its main paths (flat_forward_redesign):
     the warp counters and both efficiencies of K1'/bvh on config 5's batch
@@ -1074,7 +1091,8 @@ def flat_phase(dev, card: str, entries4: dict, entries5: dict) -> None:
     slab (20 spp, parallel) and on config 4 at 2 spp (both RNG modes; the
     sequential census held to the plain census exactly); the K2/bvh,
     K4/bvh+slab and K1c times of this run beside their bounds; ptxas's
-    registers and spills.  Adds the efficiencies to the flat rows of the
+    registers and spills; the shared memory staged and the blocks an SM
+    holds.  Adds the efficiencies to the flat rows of the
     kernel table."""
     import raytpu_torch as rt
     from raytpu_torch import bvh as tbvh, golden
@@ -1121,7 +1139,7 @@ def flat_phase(dev, card: str, entries4: dict, entries5: dict) -> None:
                   "config4_spp2_parallel": "800x400 spp2 d12 parallel"},
           warps=warps, census_plain_config4_spp2=plain,
           census_equal_plain=census_equal,
-          times_main_path=times, ptxas=ptxas)
+          times_main_path=times, ptxas=ptxas, stage=stage_info(bvh, dev))
     if not census_equal:
         fail(f"K1'/bvh's census on config 4 at 2 spp {warps['config4_spp2']}"
              f" differs from the plain census {plain}")
@@ -2273,6 +2291,7 @@ def large_scene_phases(dev, card: str) -> dict:
         t["nodes_per_step"] = c20p["nodes_visited"] / c20p["bounce_steps"]
         t["leaves_per_step"] = c20p["leaves_entered"] / c20p["bounce_steps"]
         t["census_flat_forced"] = c20f
+        t["k1c_forced_stage"] = stage_info(flat, dev)
         t.update(bound_k1d_ms=bound(forward_ops(c20p), 0)["bound_ms"],
                  bound_k1c_forced_ms=bound(forward_ops(c20f), 0)["bound_ms"],
                  bound_k1a_ms=bound(forward_ops(c20b), 0)["bound_ms"])

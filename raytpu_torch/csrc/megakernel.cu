@@ -46,8 +46,9 @@
 // its own next leaf and sweeps the warp's leaves together
 // (closest_hit_staged), so that a warp pays its busiest lane's leaves
 // rather than every leaf position any lane enters; and the sweep's rows
-// and boxes staged in shared memory once per block (stage_flat), since
-// after one bounce a warp's lanes read up to 32 different rows a load.
+// and boxes staged in shared memory once per block (stage_flat, as much
+// of them as a block may hold), since after one bounce a warp's lanes read
+// up to 32 different rows a load.
 // K1d walks the octant copy's nodes instead (see render_common.cuh): box
 // tests for the subtrees the ray enters rather than for all L leaves, node
 // rows from global memory at per-lane addresses once the lanes' walks
@@ -107,6 +108,7 @@ struct Params {
   const CamPack* cam;
   const float* scene;  // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
   FlatBvh bvh;         // kFlat's leaf list
+  FlatStage stage;     // what of it kFlat stages in shared memory
   NodeBvh walk;        // kWalk's node list
   void* tape;          // (g_cap, rows * width) int16 / int32, or null
   unsigned long long* census;  // (kCensus + 2,) counters, or null
@@ -161,12 +163,12 @@ __device__ __forceinline__ int next_pixel(unsigned* counter, int first) {
 // per-sample loop's bit for bit; what changes is the warp's schedule: a
 // warp waits for its busiest lane once a launch, where the nested loops
 // waited for the longest path of each sample.  The closest hit is
-// closest_hit_staged() over the rows stage_flat() puts in shared memory.
+// closest_hit_staged() over what stage_flat() puts in shared memory.
 // The tape cursor runs across a pixel's samples as before; K2's carry is
 // read when a pixel starts and written when it is done.
 template <int kTape, bool kCount, bool kCarry>
 __device__ __forceinline__ void render_refill(const Params& p) {
-  stage_flat(p.scene, p.n, p.bvh);
+  stage_flat(p.scene, p.n, p.bvh, p.stage);
   const CamPack& cam = *p.cam;  // read where a sample starts, not held
   const SceneView s = scene_view(p.scene, p.n);
   const bool v1 = p.v1 != 0;
@@ -233,7 +235,8 @@ __device__ __forceinline__ void render_refill(const Params& p) {
     if (d < p.depth) {  // one bounce step (bounce_step's)
       if (kCount) warp_tick(cn.warp_steps, 1u);
       float tb;
-      const int win = closest_hit_staged<kCount>(p.bvh, r, p.t_min, tb, cn);
+      const int win =
+          closest_hit_staged<kCount>(s, p.bvh, p.stage, r, p.t_min, tb, cn);
       if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
       if (kTape != kNoTape) ++tc.k;
       if (kCount) ++cn.steps;
@@ -370,10 +373,9 @@ int launch(const Params& p, cudaStream_t stream) {
   // kernel opts in
   const size_t shmem =
       kHit == kDense ? sizeof(float4) * p.n
-      : kHit == kFlat
-          ? sizeof(float4) * flat_stage_rows(p.bvh.n_leaves,
-                                             p.bvh.leaf_size, p.bvh.out_cnt)
-          : 0;
+      : kHit == kFlat ? sizeof(float4) * flat_stage_rows(p.stage,
+                                                         p.bvh.leaf_size)
+                      : 0;
   if (shmem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -415,7 +417,10 @@ int launch_hit(int hit, const Params& p, cudaStream_t stream) {
 // buffers of `rows` rows.  The variant follows the operands: `flat`
 // non-null -> the flat BVH sweep (scene in leaf order), `nodes` non-null ->
 // the skip-pointer walk of its `copies` copies of n_trav nodes (scene in
-// leaf order), neither -> the brute sweep, both -> refused; `taping` ->
+// leaf order), neither -> the brute sweep, both -> refused; the flat sweep
+// stages stage_leaves leaves, stage_outliers outlier rows (0 or out_cnt)
+// and stage_boxes box rows (0 or 16 n_leaves) in shared memory (FlatStage:
+// the wrapper plans it within raytpu_flat_device's opt-in limit); `taping` ->
 // the taping forward into `tape` (g_cap steps a pixel, int32 when
 // tape_wide; null only when g_cap is 0); `census` non-null -> the counting
 // variant (kCensus + 2 counters: the flat sweep adds its warp counters);
@@ -430,7 +435,9 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                                  int dense, const void* flat, int n_leaves,
                                  int leaf_size, const void* nodes,
                                  int n_trav, int copies, int out_base,
-                                 int out_cnt, int taping, void* tape,
+                                 int out_cnt, int stage_leaves,
+                                 int stage_outliers, int stage_boxes,
+                                 int taping, void* tape,
                                  int g_cap, int tape_wide, void* census,
                                  int carry,
                                  const void* acc_in, const void* seed_in,
@@ -446,7 +453,12 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
       (nodes != nullptr && (n_trav < 1 || (copies != 1 && copies != 8))) ||
       (carry && (acc_in == nullptr || seed_in == nullptr ||
                  seed_out == nullptr)) ||
-      (flat != nullptr && pixel_next == nullptr) || spp < 1 ||
+      (flat != nullptr &&
+       (pixel_next == nullptr || stage_leaves < 0 ||
+        stage_leaves > n_leaves ||
+        (stage_outliers != 0 && stage_outliers != out_cnt) ||
+        (stage_boxes != 0 && stage_boxes != 16 * n_leaves))) ||
+      spp < 1 ||
       (dense && (flat != nullptr || nodes != nullptr || taping ||
                  census != nullptr || carry || n > kDenseMax)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -455,6 +467,7 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   p.scene = static_cast<const float*>(scene);
   p.bvh = FlatBvh{static_cast<const float*>(flat), n_leaves, leaf_size,
                   out_base, out_cnt};
+  p.stage = FlatStage{stage_leaves, stage_outliers, stage_boxes};
   p.walk = NodeBvh{static_cast<const float*>(nodes), n_trav, copies,
                    out_base, out_cnt};
   p.tape = tape;
@@ -488,4 +501,24 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   if (census != nullptr) return launch_hit<kNoTape, true, false>(hit, p, st);
   if (carry) return launch_hit<kNoTape, false, true>(hit, p, st);
   return launch_hit<kNoTape, false, false>(hit, p, st);
+}
+
+// The current device's opt-in shared memory a block (the flat sweep's
+// staging limit) into *optin, and into *blocks how many blocks of K1c's
+// instantiation an SM holds with `shmem` bytes of it staged (launch()'s
+// block of 256 threads; the persistent grid's blocks per SM).
+extern "C" int raytpu_flat_device(int shmem, int* optin, int* blocks) {
+  auto kernel = render_fwd_kernel<kFlat, kNoTape, false, false>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess && shmem > 48 * 1024)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, 32 * 8,
+                                                      shmem);
+  return static_cast<int>(e);
 }

@@ -307,25 +307,49 @@ struct DenseRows {
   __device__ __forceinline__ float z(int j) const { return dense_rows[j].z; }
   __device__ __forceinline__ float r2(int j) const { return dense_rows[j].w; }
 };
+// Rows (cx, cy, cz, rad * rad) from shared memory at q: the flat sweep's
+// rows stage_flat() staged.
+struct StagedRows {
+  const float4* q;
+  __device__ __forceinline__ float x(int j) const { return q[j].x; }
+  __device__ __forceinline__ float y(int j) const { return q[j].y; }
+  __device__ __forceinline__ float z(int j) const { return q[j].z; }
+  __device__ __forceinline__ float r2(int j) const { return q[j].w; }
+};
 
 // The root test of ray r against sphere j (golden.hit_world's arithmetic,
 // op for op): the t the sweeps compare, NaN or < t_min on a miss.  The NaN
 // form of the root test: disc < 0 -> sqrtf gives NaN -> compares false.
+// In two halves: disc_at(), the discriminant (and half_b), then root_of(),
+// the roots; the flat sweep's forward ends a test between them when the
+// discriminant is negative or NaN (see sweep_rows).
 template <class Rows>
-__device__ __forceinline__ float root_at(const Rows& rows, const Ray& r,
-                                         float a, float inv_a, float t_min,
-                                         int j) {
+__device__ __forceinline__ float disc_at(const Rows& rows, const Ray& r,
+                                         float a, int j, float& half_b) {
   float ocx = r.ox - rows.x(j);
   float ocy = r.oy - rows.y(j);
   float ocz = r.oz - rows.z(j);
   float rad2 = rows.r2(j);
-  float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
   float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad2;
-  float disc = half_b * half_b - a * c;
+  return half_b * half_b - a * c;
+}
+
+__device__ __forceinline__ float root_of(float half_b, float disc,
+                                         float inv_a, float t_min) {
   float sqrtd = sqrtf(disc);
   float root1 = (-half_b - sqrtd) * inv_a;
   float root2 = (-half_b + sqrtd) * inv_a;
   return root1 >= t_min ? root1 : root2;
+}
+
+template <class Rows>
+__device__ __forceinline__ float root_at(const Rows& rows, const Ray& r,
+                                         float a, float inv_a, float t_min,
+                                         int j) {
+  float half_b;
+  const float disc = disc_at(rows, r, a, j, half_b);
+  return root_of(half_b, disc, inv_a, t_min);
 }
 
 __device__ __forceinline__ float sphere_root(const SceneView& s, const Ray& r,
@@ -453,37 +477,47 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
 // The same tests as closest_hit<kFlat>, in the same order for each lane, so
 // the same winner, t and census; what changes is where the operands come
 // from and which lanes run a leaf's sweep together.  stage_flat() puts the
-// sweep's operands in the kernel's dynamic shared memory once per block:
-// the permuted scene's rows (cx, cy, cz, rad * rad) leaf by leaf, one
-// unused row after each leaf, then the outliers' rows; then each octant
-// copy's leaf boxes as two rows, (min xyz, the leaf's first staged row) and
-// (max xyz, its first permuted row), the row indices as int bits.  rad * rad
-// is the f32 product sphere_root() forms.  The unused row shifts leaf i's
-// rows by i x 16 bytes across the banks: a 64-row leaf is 1 KB, a multiple
-// of the banks' 128-byte cycle, so without it lanes sweeping different
-// leaves at the same slot would read one bank group (an 8-way conflict in
-// each quarter-warp phase of a 16-byte load).  config 4's BVH (8 leaves of
-// 64, one outlier) stages 10.4 KB; 64 leaves of 64 with 4 outliers, the
-// flat sweep's largest at that leaf size, 83.0 KB.
+// sweep's operands in the kernel's dynamic shared memory once per block, as
+// much of them as the block may hold (FlatStage, planned by the wrapper
+// from the device's opt-in limit): first the leaves' rows (cx, cy, cz,
+// rad * rad) of leaves [0, leaves), leaf by leaf with one unused row after
+// each, then the outliers' rows, then each octant copy's leaf boxes as two
+// rows, (min xyz, the leaf's first staged row or -1) and (max xyz, its
+// first permuted row).  The plan stages the boxes first (every lane tests
+// all of its copy's), then the outliers (every step sweeps them), then the
+// leaves that still fit; what is not staged is read from the scene pack
+// and bvh.flat with the same arithmetic.  rad * rad is the f32 product
+// sphere_root() forms.  The unused row shifts leaf i's rows by i x 16
+// bytes across the banks: a 64-row leaf is 1 KB, a multiple of the banks'
+// 128-byte cycle, so without it lanes sweeping different leaves at the same
+// slot would read one bank group (an 8-way conflict in each quarter-warp
+// phase of a 16-byte load).  config 4's BVH (8 leaves of 64, one outlier)
+// stages 10.4 KB; 64 leaves of 64 with 4 outliers 83.0 KB.
 extern __shared__ float4 flat_rows[];
 
-// float4 rows stage_flat() writes for a BVH of n_leaves leaves a copy of
-// leaf_size rows and out_cnt outliers (the launch's shared memory / 16).
-__host__ __device__ constexpr int flat_stage_rows(int n_leaves, int leaf_size,
-                                                  int out_cnt) {
-  return n_leaves * (leaf_size + 1) + out_cnt + 16 * n_leaves;
+// What stage_flat() stages: leaves [0, leaves) of the BVH's leaf rows,
+// `outliers` rows (0 or all of them) and `boxes` rows (0 or 16 a leaf).
+struct FlatStage {
+  int leaves, outliers, boxes;
+};
+
+// float4 rows stage_flat() writes (the launch's shared memory / 16).
+__host__ __device__ constexpr int flat_stage_rows(const FlatStage& st,
+                                                  int leaf_size) {
+  return st.leaves * (leaf_size + 1) + st.outliers + st.boxes;
 }
 
 // Every thread of the block calls it before any thread returns (threads
 // past the frame included): it ends with the block's one barrier, as
 // stage_dense() does.
 __device__ __forceinline__ void stage_flat(const float* pack, int n,
-                                           const FlatBvh& bvh) {
+                                           const FlatBvh& bvh,
+                                           const FlatStage& st) {
   const int nt = blockDim.x * blockDim.y;
   const int tid = threadIdx.x + blockDim.x * threadIdx.y;
   const int ls = bvh.leaf_size;
-  const int leaf_rows = bvh.n_leaves * (ls + 1);
-  const int rows = leaf_rows + bvh.out_cnt;
+  const int leaf_rows = st.leaves * (ls + 1);
+  const int rows = leaf_rows + st.outliers;
   for (int t = tid; t < rows; t += nt) {
     int j = bvh.out_base + (t - leaf_rows);  // an outlier's permuted row
     if (t < leaf_rows) {
@@ -496,44 +530,34 @@ __device__ __forceinline__ void stage_flat(const float* pack, int n,
                                rad * rad);
   }
   float4* boxes = flat_rows + rows;
-  for (int b = tid; b < 8 * bvh.n_leaves; b += nt) {
+  for (int b = tid; 2 * b < st.boxes; b += nt) {
     const float* row = bvh.flat + static_cast<size_t>(b) * 9;
-    const int start = static_cast<int>(row[6]);
-    boxes[2 * b] = make_float4(row[0], row[1], row[2],
-                               __int_as_float(start + start / ls));
-    boxes[2 * b + 1] = make_float4(row[3], row[4], row[5],
-                                   __int_as_float(start));
+    const int start = static_cast<int>(row[6]), leaf = start / ls;
+    boxes[2 * b] = make_float4(
+        row[0], row[1], row[2],
+        static_cast<float>(leaf < st.leaves ? start + leaf : -1));
+    boxes[2 * b + 1] = make_float4(row[3], row[4], row[5], row[6]);
   }
   __syncthreads();
 }
 
-// Staged rows [0, count) into the running best as permuted rows first,
-// first + 1, ...: strict <, as sweep_range().  Each test is root_at()'s
-// arithmetic op for op on the row loaded once (16 bytes), except that a
-// negative or NaN discriminant (a miss, or a padding row) ends the test
-// before the square root: root_at()'s sqrtf gives NaN there and no root
-// passes, so the outcome is the same, and sqrtf takes its slow path
-// (a call) for every such argument, most of a sweep's tests.
-template <bool kCount>
-__device__ __forceinline__ void sweep_staged(const float4* rows, int count,
-                                             int first, const Ray& r,
-                                             float a, float inv_a,
-                                             float t_min, float& tb, int& win,
-                                             Census& cn) {
+// Rows [j0, j0 + count) of `rows` into the running best, as spheres first,
+// first + 1, ...: sweep_range()'s loop (strict <) over root_at()'s halves.
+// A negative or NaN discriminant (a miss, or a padding row) ends the test
+// before the square root: root_of()'s sqrtf gives NaN there and no root
+// passes, so the outcome is the same, and sqrtf takes its slow path (a
+// call) for every such argument, most of a sweep's tests.
+template <bool kCount, class Rows>
+__device__ __forceinline__ void sweep_rows(const Rows& rows, int j0,
+                                           int count, int first, const Ray& r,
+                                           float a, float inv_a, float t_min,
+                                           float& tb, int& win, Census& cn) {
   if (kCount) warp_tick(cn.warp_tests, count);
   for (int i = 0; i < count; ++i) {
-    const float4 q = rows[i];
-    const float ocx = r.ox - q.x;
-    const float ocy = r.oy - q.y;
-    const float ocz = r.oz - q.z;
-    const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-    const float c = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - q.w;
-    const float disc = half_b * half_b - a * c;
+    float half_b;
+    const float disc = disc_at(rows, r, a, j0 + i, half_b);
     if (!(disc >= 0.0f)) continue;
-    const float sqrtd = sqrtf(disc);
-    const float root1 = (-half_b - sqrtd) * inv_a;
-    const float root2 = (-half_b + sqrtd) * inv_a;
-    const float root = root1 >= t_min ? root1 : root2;
+    const float root = root_of(half_b, disc, inv_a, t_min);
     if (root >= t_min && root < tb) {
       tb = root;
       win = first + i;
@@ -541,42 +565,66 @@ __device__ __forceinline__ void sweep_staged(const float4* rows, int count,
   }
 }
 
-// closest_hit<kFlat> over the rows stage_flat() staged.  A lane walks its
-// own octant copy's boxes front to back up to the next leaf it enters (the
-// cheap box tests, run apart), then every lane that found one sweeps its
-// leaf together: a warp runs as many leaf sweeps a step as its busiest lane
-// enters, where the loop over leaf positions ran one for every position any
-// lane entered.  The outliers come first, at warp-uniform rows.
+// closest_hit<kFlat> over what stage_flat() staged (the rest from the
+// scene pack and bvh.flat).  A lane walks its own octant copy's boxes front
+// to back up to the next leaf it enters (the cheap box tests, run apart),
+// then every lane that found one sweeps its leaf together: a warp runs as
+// many leaf sweeps a step as its busiest lane enters, where the loop over
+// leaf positions ran one for every position any lane entered.  The
+// outliers come first, at warp-uniform rows.
 template <bool kCount>
-__device__ __forceinline__ int closest_hit_staged(const FlatBvh& bvh,
+__device__ __forceinline__ int closest_hit_staged(const SceneView& s,
+                                                  const FlatBvh& bvh,
+                                                  const FlatStage& st,
                                                   const Ray& r, float t_min,
                                                   float& tb, Census& cn) {
   const float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
   const float inv_a = 1.0f / a;
   tb = kInf;
   int win = -1;
-  const int n_leaves = bvh.n_leaves;
-  const float4* outliers = flat_rows + n_leaves * (bvh.leaf_size + 1);
-  sweep_staged<kCount>(outliers, bvh.out_cnt, bvh.out_base, r, a, inv_a,
-                       t_min, tb, win, cn);
+  const int n_leaves = bvh.n_leaves, ls = bvh.leaf_size;
+  const int out_row = st.leaves * (ls + 1);
+  if (st.outliers)
+    sweep_rows<kCount>(StagedRows{flat_rows}, out_row, bvh.out_cnt,
+                       bvh.out_base, r, a, inv_a, t_min, tb, win, cn);
+  else
+    sweep_rows<kCount>(SceneRows{s}, bvh.out_base, bvh.out_cnt,
+                       bvh.out_base, r, a, inv_a, t_min, tb, win, cn);
   const float inv_dx = 1.0f / r.dx, inv_dy = 1.0f / r.dy,
               inv_dz = 1.0f / r.dz;
   const int octant = (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
                      (r.dz < 0.0f ? 1 : 0);
-  const float4* box = outliers + bvh.out_cnt + 2 * octant * n_leaves;
+  const float4* box =
+      flat_rows + out_row + st.outliers + 2 * octant * n_leaves;
+  const float* row = bvh.flat + static_cast<size_t>(octant) * n_leaves * 9;
+  const int staged_boxes = st.boxes ? n_leaves : 0;
   for (int k = 0;; ++k) {
     float4 lo, hi;
-    for (; k < n_leaves; ++k) {
+    for (; k < staged_boxes; ++k) {
       lo = box[2 * k];
       hi = box[2 * k + 1];
-      const float row[6] = {lo.x, lo.y, lo.z, hi.x, hi.y, hi.z};
-      if (box_enter(row, r, inv_dx, inv_dy, inv_dz, t_min, tb)) break;
+      const float b[6] = {lo.x, lo.y, lo.z, hi.x, hi.y, hi.z};
+      if (box_enter(b, r, inv_dx, inv_dy, inv_dz, t_min, tb)) break;
+    }
+    for (; k >= staged_boxes && k < n_leaves; ++k) {  // boxes not staged
+      const float* g = row + 9 * k;
+      lo = make_float4(g[0], g[1], g[2], 0.0f);
+      hi = make_float4(g[3], g[4], g[5], g[6]);
+      const float b[6] = {lo.x, lo.y, lo.z, hi.x, hi.y, hi.z};
+      if (box_enter(b, r, inv_dx, inv_dy, inv_dz, t_min, tb)) break;
     }
     if (k == n_leaves) return win;
     if (kCount) ++cn.leaves;
-    sweep_staged<kCount>(flat_rows + __float_as_int(lo.w), bvh.leaf_size,
-                         __float_as_int(hi.w), r, a, inv_a, t_min, tb, win,
-                         cn);
+    const int start = static_cast<int>(hi.w);
+    int staged = static_cast<int>(lo.w);
+    if (!st.boxes)
+      staged = start / ls < st.leaves ? start + start / ls : -1;
+    if (staged >= 0)
+      sweep_rows<kCount>(StagedRows{flat_rows}, staged, ls, start, r, a,
+                         inv_a, t_min, tb, win, cn);
+    else
+      sweep_rows<kCount>(SceneRows{s}, start, ls, start, r, a, inv_a, t_min,
+                         tb, win, cn);
   }
 }
 

@@ -75,9 +75,6 @@ SCENE_ROWS = 9  # cx, cy, cz, radius, mat_type, ar, ag, ab, mat_param
 # memory a block (csrc/megakernel.cu kDenseMax)
 DENSE_MIN = 96
 DENSE_MAX = 4096
-# shared memory a block may opt in to on an H100 (227 KB): the flat sweep's
-# staged operands (flat_stage_bytes) must fit
-SMEM_MAX = 232448
 
 launches = 0    # kernel launches through launch(); a run resets and reads it
 # the same launches by variant: K1a brute, K1c flat BVH, K1d the walk,
@@ -103,10 +100,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raytpu_render_fwd
-    fn.argtypes = [ptr, ptr, i, i, ptr, i, i, ptr, i, i, i, i, i, ptr, i, i,
-                   ptr, i, ptr, ptr, ptr, ptr, ctypes.c_uint, ptr,
+    fn.argtypes = [ptr, ptr, i, i, ptr, i, i, ptr, i, i, i, i, i, i, i, i,
+                   ptr, i, i, ptr, i, ptr, ptr, ptr, ptr, ctypes.c_uint, ptr,
                    i, i, i, i, i, i, f, f, f, f, f, i, i, ptr]
     fn.restype = ctypes.c_int
+    pi = ctypes.POINTER(ctypes.c_int)
+    lib.raytpu_flat_device.argtypes = [i, pi, pi]
+    lib.raytpu_flat_device.restype = ctypes.c_int
     return lib
 
 
@@ -319,14 +319,49 @@ def bvh_args(bvh: BVH | None) -> tuple:
     return (None, 0, 0, bvh.nodes.data_ptr(), bvh.n_trav, bvh.copies, *tail)
 
 
-def flat_stage_bytes(bvh: BVH) -> int:
-    """Shared memory the forward kernel stages for the flat sweep of
-    ``bvh`` (csrc/render_common.cuh ``stage_flat``): 16 bytes a permuted
-    row, one unused row a leaf, and 32 bytes a leaf box of each of the 8
-    octant copies."""
-    out_cnt = (outlier_tail(bvh.perm, bvh.flat, bvh.leaf_size) or (0, 0))[1]
-    return 16 * (bvh.n_leaves * (int(bvh.leaf_size) + 1) + out_cnt
-                 + 16 * bvh.n_leaves)
+def flat_stage(bvh: BVH, limit: int) -> dict:
+    """What the flat sweep's forward stages of ``bvh`` in shared memory
+    within ``limit`` bytes a block (csrc/render_common.cuh ``FlatStage``,
+    ``stage_flat``), in 16-byte rows: the 8 octant copies' leaf boxes, two
+    rows each, if they fit (``boxes`` rows, else 0); then the outliers'
+    rows if they fit (``outliers``); then leaves ``[0, leaves)``, leaf_size
+    rows and one unused row each.  The kernel reads what is not staged from
+    the scene pack and ``bvh.flat`` with the same arithmetic.  ``bytes``:
+    the launch's shared memory."""
+    n_leaves, ls = bvh.n_leaves, int(bvh.leaf_size)
+    cap = limit // 16
+    boxes = 16 * n_leaves if 16 * n_leaves <= cap else 0
+    outliers = bvh.n_outliers if bvh.n_outliers <= cap - boxes else 0
+    leaves = min(n_leaves, (cap - boxes - outliers) // (ls + 1))
+    return {"leaves": leaves, "outliers": outliers, "boxes": boxes,
+            "bytes": 16 * (leaves * (ls + 1) + outliers + boxes)}
+
+
+_smem_optin: dict = {}  # device index -> its opt-in shared memory a block
+
+
+def flat_device(device, shmem: int = 0) -> tuple[int, int]:
+    """(the CUDA ``device``'s opt-in shared memory a block, the blocks of
+    K1c's instantiation an SM holds with ``shmem`` bytes staged: the flat
+    sweep's persistent grid has that many a SM)."""
+    optin, blocks = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _lib().raytpu_flat_device(int(shmem), ctypes.byref(optin),
+                                        ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"raytpu_flat_device failed: CUDA error {err}")
+    return optin.value, blocks.value
+
+
+def flat_stage_on(bvh: BVH, device) -> dict:
+    """:func:`flat_stage` of ``bvh`` within the opt-in limit of the CUDA
+    ``device``."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index not in _smem_optin:
+        _smem_optin[index] = flat_device(torch.device("cuda", index))[0]
+    return flat_stage(bvh, _smem_optin[index])
 
 
 def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
@@ -337,24 +372,21 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
     global launches
     n = scene_pack.shape[1]
     flat = bvh is not None and sweep_of(bvh) == "flat"
-    if flat and flat_stage_bytes(bvh) > SMEM_MAX:
-        raise ValueError(
-            f"the flat sweep stages {flat_stage_bytes(bvh)} bytes of this "
-            f"BVH in shared memory, past a block's {SMEM_MAX}: build it "
-            "with a smaller leaf_size or sweep it with the walk "
-            "(bvh.with_sweep(bvh, 'walk'))")
     acc_in, seed_in, seed_out, s0 = carry if carry else (None,) * 3 + (0,)
     lib = _lib()
     device = scene_pack.device
-    # the flat sweep's persistent grid takes its pixels from this counter
+    # the flat sweep's staging, and the counter its persistent grid takes
+    # its pixels from
+    stage = flat_stage_on(bvh, device) if flat else dict.fromkeys(
+        ("leaves", "outliers", "boxes"), 0)
     pixel_next = (torch.zeros(1, dtype=torch.int32, device=device)
                   if flat else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_fwd(
             cam_pack.data_ptr(), scene_pack.data_ptr(), n, int(dense),
-            *bvh_args(bvh),
-            int(tape is not None),
+            *bvh_args(bvh), stage["leaves"], stage["outliers"],
+            stage["boxes"], int(tape is not None),
             None if tape is None or tape.numel() == 0 else tape.data_ptr(),
             0 if tape is None else tape.shape[0],
             int(tape is not None and tape.dtype == torch.int32),

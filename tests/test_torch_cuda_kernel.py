@@ -921,3 +921,38 @@ def test_flat_refill_bit_equal_plain(rng_mode, case):
     assert [c[k] for k in golden.CENSUS] == [plain[k] for k in golden.CENSUS]
     assert 0.0 < c["loop_efficiency"] <= 1.0
     assert 0.0 < c["sweep_efficiency"] <= 1.0
+
+
+@needs_card
+@pytest.mark.parametrize("n,leaf,sweep", [
+    (16000, 256, None),   # raytpu's rule: 63 leaves, 11 not staged
+    (8000, 4, "flat"),    # forced: 2000 leaves, their boxes not staged
+], ids=["leaves_past_limit", "boxes_past_limit"])
+def test_flat_partial_stage_bit_equal_plain(n, leaf, sweep):
+    """A flat BVH whose sweep operands outgrow a block's shared memory:
+    the kernel reads what it could not stage (leaf rows from the scene
+    pack, boxes from bvh.flat) with the same arithmetic, so its image
+    equals the plain version's and the walk's bit for bit, and its census
+    the plain census."""
+    cfg = RenderConfig(width=48, height=24, spp=2, depth=4,
+                       rng_mode="parallel")
+    scene = rt.final_world(n=n, device="cuda")
+    cam = _cam(cfg)
+    bvh = tbvh.build_bvh(scene, leaf_size=leaf)
+    if sweep is not None:
+        bvh = tbvh.with_sweep(bvh, sweep)
+    st = megakernel.flat_stage_on(bvh, "cuda")
+    assert st["bytes"] <= megakernel.flat_device("cuda")[0]
+    assert st["leaves"] < bvh.n_leaves or st["boxes"] == 0
+    cp = megakernel.pack_camera(cam)
+    sp = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    _reset_counts()
+    got = megakernel.launch(cp, sp, cfg, bvh)
+    assert megakernel.variants["K1c"] == 1
+    assert torch.equal(got, golden.render_golden(scene, cam, cfg, bvh))
+    assert torch.equal(got, megakernel.launch(
+        cp, sp, cfg, tbvh.with_sweep(bvh, "walk")))
+    c = megakernel.warp_census(cp, sp, cfg, bvh)
+    plain = dict.fromkeys(golden.CENSUS, 0)
+    golden.render_golden(scene, cam, cfg, bvh, census=plain)
+    assert [c[k] for k in golden.CENSUS] == [plain[k] for k in golden.CENSUS]

@@ -152,21 +152,38 @@ def test_kernel_launch_needs_cuda_tensors():
         rt.render(scene, cam, cfg, backend="pallas")
 
 
-@pytest.mark.parametrize("n,leaf,want", [
-    (500, 64, 16 * (8 * 65 + 1 + 16 * 8)),    # config 4: 10,384 bytes
-    (120, 16, 16 * (8 * 17 + 1 + 16 * 8)),
-    (4000, 64, 16 * (63 * 65 + 1 + 16 * 63)),  # 63 leaves: near the limit
+# an H100's opt-in shared memory a block (the device attribute
+# cudaDevAttrMaxSharedMemoryPerBlockOptin)
+H100_SMEM_OPTIN = 232448
+
+
+@pytest.mark.parametrize("n,leaf,sweep,want", [
+    (500, 64, None, (8, 128, 10_384)),       # config 4: all of it
+    (120, 16, None, (8, 128, 4_240)),
+    (4000, 64, None, (63, 1008, 81_664)),    # 63 leaves of 64: all of it
+    # raytpu's rule (63 leaves) past the limit: 52 leaves staged, 11 read
+    # from the scene pack
+    (16000, 256, None, (52, 1008, 229_968)),
+    # 2000 leaves forced flat: the boxes (500 KB) read from bvh.flat
+    (8000, 4, "flat", (2000, 0, 160_016)),
 ])
-def test_flat_stage_bytes(n, leaf, want):
-    """The flat sweep's shared memory (csrc stage_flat): a row a permuted
-    sphere, one unused row a leaf, the outliers, two rows a box of each of
-    the 8 octant copies; 16 bytes a row.  warp_census counts the card's
-    flat sweep only."""
+def test_flat_stage_bytes(n, leaf, sweep, want):
+    """The flat sweep's shared memory (csrc stage_flat) within a block's
+    opt-in limit: two 16-byte rows a box of each of the 8 octant copies if
+    they fit, the outliers' rows, then leaf_size rows and one unused row a
+    leaf for as many leaves as fit.  warp_census counts the card's flat
+    sweep only."""
     from raytpu_torch import bvh as tbvh
     scene = rt.final_world(n=n, device="cpu")
     bvh = tbvh.build_bvh(scene, leaf_size=leaf)
+    if sweep is not None:
+        bvh = tbvh.with_sweep(bvh, sweep)
     assert tbvh.sweep_of(bvh) == "flat" and bvh.n_outliers == 1
-    assert tmk.flat_stage_bytes(bvh) == want <= tmk.SMEM_MAX
+    st = tmk.flat_stage(bvh, H100_SMEM_OPTIN)
+    assert (st["leaves"], st["boxes"], st["bytes"]) == want
+    assert st["outliers"] == 1 and st["bytes"] <= H100_SMEM_OPTIN
+    assert st["bytes"] == 16 * (st["leaves"] * (leaf + 1) + st["outliers"]
+                                + st["boxes"])
     cfg = rt.RenderConfig(width=8, height=4, spp=1, depth=2)
     cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
                          aspect=cfg.aspect, device="cpu")
