@@ -112,14 +112,21 @@ card 0 without it).  Phases, one JSON line each:
         8-leaf BVH against K1c there (where raytpu's 64-leaf rule stands).
 8.  the dense stage K1e and the sorted wavefront (K5, K6):
     8a. K1e against K1a forced at the full REFERENCE_V2 frame (0 pixels
-        differ) and against its plain version at 2 spp;
+        differ) and against its plain version at 2 spp; its warp counters
+        and efficiencies there (the census kernel K1'/dense, counting
+        K1'/brute's steps and samples) and on 4x the pixels at a quarter
+        of the spp (the launch's tail), beside the loop efficiency of the
+        per-sample loop it replaced (from the frame's K4 tape); ptxas's
+        registers and spills of the dense instantiations;
     8b. every K5 launch of a ``render(backend="wavefront")`` frame against
         its plain version, bit for bit, brute (config 2's scene), dense
         (REFERENCE_V2's), flat BVH (config 4's) and walk (the 10k scene),
         and every K6 launch of a ``refill=2`` frame (config 4's), each at
         its main path's full frame and RNG mode at 2 spp (the slots do not
         depend on spp); the other RNG mode and K6 under the other policies
-        at frames a few hundred pixels wide;
+        at frames a few hundred pixels wide; K5/dense's launches at
+        REFERENCE_V2 timed by segment on its persistent slot grid and on
+        one slot a thread, in turns;
     8c. the main path at full width: ``render(backend="wavefront")`` at
         REFERENCE_V2, config 2, config 4 (sequential; parallel with
         ``refill=2`` at 1 and 4 samples in flight) and the 10k scene,
@@ -148,13 +155,15 @@ card 0 without it).  Phases, one JSON line each:
         taped and with ``vis_w`` (untaped), config 2 ``render_grad``, the
         wavefront at config 4 (``render_grad(backend="wavefront")`` and the
         autograd of a ``refill=2`` frame); config 5's train step is timed
-        in 6d, the 10k scene's in 7f.
+        in 6d, the 10k scene's in 7f; K3's bound on the ``vis_w`` path
+        with its near-miss sweep (every sphere at every step that misses,
+        the misses counted from the frame's K4 tape).
 
 It exits non-zero at the first failure.  The line before the last is the
 card's name and power limit, the line before it the kernel table as JSON
-(the flat rows with their warp efficiencies; each bound the larger of the
-bytes over 3.35 TB/s and the f32 operations over the card's f32 rate,
-``ops_peak()``), the last line ``{"ok": true, "device": {...}}``.
+(the flat rows and K1e with their warp efficiencies; each bound the larger
+of the bytes over 3.35 TB/s and the f32 operations over the card's f32
+rate, ``ops_peak()``), the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -349,17 +358,82 @@ def forward_ops(c: dict) -> float:
             + c["bounce_steps"] * OPS_STEP + c["samples"] * OPS_SAMPLE)
 
 
-def k3_ops(c: dict, sweeps: int, taped_steps: int = 0) -> float:
+def k3_ops(c: dict, sweeps: int, taped_steps: int = 0,
+           near_miss_tests: int = 0) -> float:
     """K3's f32 operations over the census ``c``: ``sweeps`` forwards
     (PASS 2's, and PASS 1's in sequential RNG), less the sweep of each of
     the ``taped_steps`` a tape holds (the winner's root each instead), plus
-    the reverse of every step.  The vis_w near-miss sweep is not counted."""
+    the reverse of every step, plus with ``vis_w > 0`` the near-miss sweep
+    (gradkernel.cu ``near_miss``): ``near_miss_tests`` sphere tests, every
+    sphere at every step that misses (:func:`near_miss_tests`)."""
     sweep = (c["sphere_tests"] * OPS_SPHERE_TEST
              + c["box_tests"] * OPS_BOX_TEST)
     saved = sweep * taped_steps / max(c["bounce_steps"], 1)
     return (sweeps * forward_ops(c) - saved
             + taped_steps * OPS_SPHERE_ROOT
-            + c["bounce_steps"] * OPS_STEP_REVERSE)
+            + c["bounce_steps"] * OPS_STEP_REVERSE
+            + near_miss_tests * OPS_SPHERE_TEST)
+
+
+def frame_tape(scene, cam, cfg, bvh=None) -> torch.Tensor:
+    """The frame's full winner-index tape from K4's taping forward, (spp x
+    depth, H x W), filled with ``golden.TAPE_UNWRITTEN`` first: a pixel's
+    steps in order across its samples, -1 for a miss, unwritten past its
+    last step.  Its launch counts as a K4 launch."""
+    from raytpu_torch import bvh as tbvh
+    from raytpu_torch.kernels import megakernel
+    sp = megakernel.pack_scene(scene if bvh is None
+                               else tbvh.permute_scene(scene, bvh.perm))
+    tape = marked_tape(cfg, sp.shape[1], cfg.spp * cfg.depth,
+                       scene.center.device)
+    megakernel.launch(megakernel.pack_camera(cam), sp, cfg, bvh, tape=tape)
+    return tape
+
+
+def near_miss_tests(scene, cam, cfg, bvh=None) -> int:
+    """The sphere tests of K3's near-miss sweep on this frame with ``vis_w
+    > 0``: every sphere at every step that misses, the misses counted from
+    the frame's tape (:func:`frame_tape`)."""
+    return int((frame_tape(scene, cam, cfg, bvh) == -1).sum()) * scene.count
+
+
+def per_sample_efficiency(tape: torch.Tensor, mat_type: torch.Tensor,
+                          cfg) -> dict:
+    """The loop efficiency the per-sample loop (one thread a pixel, its
+    samples one by one; a warp is 32 pixels of a row) has on a frame: the
+    bounce steps over 32 x the warp's bounce-loop iterations, which are,
+    sample by sample, its longest lane's steps (the lanes reconverge after
+    each sample).  Each sample's length comes from the frame's ``tape``
+    (:func:`frame_tape`): it ends at a miss, an absorption (a winner whose
+    ``mat_type`` is not 0-2) or the depth cap.  Under the dense stage the
+    sweep efficiency is the same share (every step of a warp sweeps every
+    sphere)."""
+    from raytpu_torch import golden
+    pixels, dev = tape.shape[1], tape.device
+    absorbs = ~((mat_type >= 0) & (mat_type <= 2))
+    length = torch.zeros(pixels, dtype=torch.int32, device=dev)
+    smp = torch.zeros(pixels, dtype=torch.int64, device=dev)
+    lengths = torch.zeros(pixels * cfg.spp, dtype=torch.int32, device=dev)
+    base = torch.arange(pixels, device=dev) * cfg.spp
+    for k in range(tape.shape[0]):
+        w = tape[k].to(torch.int64)
+        written = w != golden.TAPE_UNWRITTEN
+        length += written.to(torch.int32)
+        end = written & ((w == -1) | absorbs[w.clamp(min=0)]
+                         | (length == cfg.depth))
+        lengths[base[end] + smp[end]] = length[end]
+        smp += end.to(torch.int64)
+        length[end] = 0
+    wp = -(-cfg.width // 32) * 32
+    per = torch.zeros((cfg.height, wp, cfg.spp), dtype=torch.int32,
+                      device=dev)
+    per[:, :cfg.width] = lengths.reshape(cfg.height, cfg.width, cfg.spp)
+    steps = int(per.sum())
+    warp_steps = int(per.reshape(cfg.height, wp // 32, 32, cfg.spp)
+                     .amax(dim=2).sum())
+    return {"bounce_steps": steps, "warp_steps": warp_steps,
+            "samples_ended": int(smp.sum()),
+            "loop_efficiency": steps / max(32 * warp_steps, 1)}
 
 
 def frame_bytes(cfg, spheres: int, images: int) -> int:
@@ -1040,23 +1114,31 @@ def state_bytes(cfg, rows: int) -> int:
     return 2 * rows * cfg.width * (3 * 4 + 4)
 
 
-# the flat sweep's forward instantiations, by their template arguments in
-# the mangled names: render_fwd_kernel<kHit = kFlat, kTape, kCount, kCarry>
-FLAT_KERNELS = {"K1c, K1b/bvh": "ILi1ELi0ELb0ELb0E",
-                "K1'/bvh": "ILi1ELi0ELb1ELb0E",
-                "K2/bvh": "ILi1ELi0ELb0ELb1E", "K4/bvh": "ILi1ELi1ELb0ELb0E"}
+# the flat sweep's forward instantiations and the dense stage's, by their
+# template arguments in the mangled names: render_fwd_kernel<kHit (kFlat 1,
+# kDense 3), kTape, kCount, kCarry>, render_segment_kernel<kHit> (K5) and
+# render_refill_kernel<kHit> (K6)
+FLAT_KERNELS = {"K1c, K1b/bvh": "render_fwd_kernelILi1ELi0ELb0ELb0E",
+                "K1'/bvh": "render_fwd_kernelILi1ELi0ELb1ELb0E",
+                "K2/bvh": "render_fwd_kernelILi1ELi0ELb0ELb1E",
+                "K4/bvh": "render_fwd_kernelILi1ELi1ELb0ELb0E"}
+DENSE_KERNELS = {"K1e, K1b/dense": "render_fwd_kernelILi3ELi0ELb0ELb0E",
+                 "K1'/dense": "render_fwd_kernelILi3ELi0ELb1ELb0E",
+                 "K5/dense": "render_segment_kernelILi3EE",
+                 "K6/dense": "render_refill_kernelILi3EE"}
 
 
-def flat_ptxas(lines: list) -> dict:
+def flat_ptxas(lines: list, kernels: dict = FLAT_KERNELS) -> dict:
     """{kernel: {"registers", "spill_store_bytes", "spill_load_bytes"}} of
-    the flat sweep's forward instantiations, from ptxas -v's lines
+    the instantiations ``kernels`` names (by default the flat sweep's
+    forward), from ptxas -v's lines
     (``_build.build_log[source]["ptxas"]``)."""
     out, name = {}, None
     for ln in lines:
         m = re.search(r"entry function '(\S+)'", ln)
         if m:
-            name = next((k for k, v in FLAT_KERNELS.items()
-                         if "render_fwd_kernel" + v in m.group(1)), None)
+            name = next((k for k, v in kernels.items() if v in m.group(1)),
+                        None)
             continue
         if name is None:
             continue
@@ -2367,12 +2449,14 @@ def planes_vs_plain(kernel: str, got: torch.Tensor,
 
 
 def segments_vs_plain(label, scene, cam, cfg, bvh, refill: int,
-                      card: str) -> dict:
+                      card: str, by_segment: bool = False) -> dict:
     """Phase 8b, one case: every K5 (or, with ``refill``, K6) launch of
     ``render(backend="wavefront")`` against its plain version on the same
     planes; the image against ``render()``'s -> a row with the launches'
     summed kernel and plain times and their bound (the frame's census, the
-    planes' bytes)."""
+    planes' bytes).  ``by_segment`` (K5 under the dense stage): the
+    launches' times also summed by segment, on the persistent slot grid
+    and on one slot a thread (``kwf.PERSISTENT_DENSE``), in turns."""
     import raytpu_torch as rt
     from raytpu_torch import profiling, wavefront as wf
     from raytpu_torch.kernels import wavefront as kwf
@@ -2393,6 +2477,19 @@ def segments_vs_plain(label, scene, cam, cfg, bvh, refill: int,
         same, worst, p_ms = same and eq, max(worst, err), p_ms + ms
         k_ms += cuda_ms(lambda: fn(*b.args), 2)
         del want
+    by = {}
+    if by_segment:
+        try:
+            for persistent in (False, True, True, False):
+                kwf.PERSISTENT_DENSE = persistent
+                d = by.setdefault("persistent" if persistent else "one_slot",
+                                  {})
+                for b, _ in calls:
+                    seg = str(b.args[3])
+                    d[seg] = d.get(seg, 0.0) + cuda_ms(
+                        lambda: fn(*b.args), 2) / 2
+        finally:
+            kwf.PERSISTENT_DENSE = True
     c = profiling.census(scene, cam, cfg, bvh)
     slots = calls[0][0].args[1].shape[1]
     ops = (c["sphere_tests"] * OPS_SPHERE_TEST + c["box_tests"] * OPS_BOX_TEST
@@ -2407,6 +2504,8 @@ def segments_vs_plain(label, scene, cam, cfg, bvh, refill: int,
            "slots": slots, "bit_equal_plain": same, "max_abs_err": worst,
            "image_bit_equal_render": torch.equal(img, ref), "ms": k_ms,
            "plain_ms": p_ms, "card": card, **bound(ops, nbytes)}
+    if by:
+        row["ms_by_segment"] = by
     ok = same and row["image_bit_equal_render"]
     phase("segment_vs_plain", ok=ok, tolerance="bit-equal planes and keys "
           "(the seed plane's bits); image bit-equal to render()", **row)
@@ -2462,7 +2561,7 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
     from raytpu_torch import bvh as tbvh, golden, io
     from raytpu_torch.config import CONFIG2, CONFIG4, REFERENCE_V2, \
         RenderConfig
-    from raytpu_torch.kernels import gradkernel, megakernel
+    from raytpu_torch.kernels import _build, gradkernel, megakernel
     from raytpu_torch.kernels import wavefront as kwf
     mods = (megakernel, gradkernel, kwf)
     entries = {}
@@ -2487,18 +2586,37 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
              cp, sp, cfg2, brute=True), 5)}
     c2, cf = slab_census(rv2, cam_rv2, cfg2, None), \
         slab_census(rv2, cam_rv2, cfg, None)
+    # the warps of the dense stage's refill (its census kernel, K1'/dense)
+    # and of the per-sample loop it replaced (from the frame's tape)
+    warps = megakernel.warp_census(cp, sp, cfg, None)
+    before = per_sample_efficiency(frame_tape(rv2, cam_rv2, cfg),
+                                   rv2.mat_type, cfg)
+    # the launch's tail: the same samples over 4x the pixels (the aspect
+    # and camera unchanged), 4x the pixels a thread of the persistent grid
+    wide = megakernel.warp_census(cp, sp, cfg.replace(
+        width=2 * cfg.width, height=2 * cfg.height, spp=cfg.spp // 4), None)
+    counted = ("leaves_entered", "bounce_steps", "samples")
     row = {"k1e_vs_k1a_full_frame_pixels_differ": int(
         (k1e != k1a).any(-1).sum()),
         "k1e_bit_equal_render": torch.equal(k1e, rv2_img), **res,
         "plain_ms": plain_ms, "card": card, **t,
         "bound_full_ms": bound(forward_ops(cf), frame_bytes(cfg, rv2.count,
-                                                            1))["bound_ms"]}
+                                                            1))["bound_ms"],
+        "warp_census": warps, "per_sample_loop": before,
+        "warp_census_4x_pixels_quarter_spp": wide,
+        "ptxas": {**flat_ptxas(_build.build_log[megakernel.SOURCE]["ptxas"],
+                               DENSE_KERNELS),
+                  **flat_ptxas(_build.build_log[kwf.SOURCE]["ptxas"],
+                               DENSE_KERNELS)},
+        "census_equal_k1_brute": all(warps[k] == cf[k] for k in counted)
+        and before["bounce_steps"] == cf["bounce_steps"]}
     ok = (row["k1e_vs_k1a_full_frame_pixels_differ"] == 0
-          and row["k1e_bit_equal_render"]
+          and row["k1e_bit_equal_render"] and row["census_equal_k1_brute"]
           and res["share_above_budget"] <= BUDGET_SHARE)
     phase("k1e_vs_k1a", frame="1024x576 spp60 d50 random_world (plain: "
           "spp2)", ok=ok, tolerance="0 pixels differ from K1a; plain: share "
-          f"|d| > {BUDGET_DELTA} <= {BUDGET_SHARE}", **row)
+          f"|d| > {BUDGET_DELTA} <= {BUDGET_SHARE}; K1'/dense's and the "
+          "tape's counts equal K1'/brute's", **row)
     if not ok:
         fail(f"K1e disagrees with K1a or its plain version: {row}")
     entries["K1e"] = dict(
@@ -2506,7 +2624,11 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         plain_ms=plain_ms, k1a_ms=t["k1a_spp2_ms"],
         **bound(forward_ops(c2), frame_bytes(cfg2, rv2.count, 1)),
         main_path_ms=t["k1e_ms"], main_path_k1a_ms=t["k1a_ms"],
-        main_path_bound_ms=row["bound_full_ms"])
+        main_path_bound_ms=row["bound_full_ms"],
+        loop_efficiency=warps["loop_efficiency"],
+        sweep_efficiency=warps["sweep_efficiency"],
+        per_sample_loop_efficiency=before["loop_efficiency"],
+        efficiency_cell="REFERENCE_V2, the main path's frame")
     del k1e, k1a, k1e2, want
 
     # the other scenes: config 2 (4 spheres), config 4 over its BVH (flat),
@@ -2548,7 +2670,8 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         for mode, refill in modes:
             cm = c.replace(spp=2, rng_mode=mode, chunk_pixels=PLAIN_CHUNK)
             seg_rows[(label, mode, refill)] = segments_vs_plain(
-                label, *scenes[label][:2], cm, scenes[label][2], refill, card)
+                label, *scenes[label][:2], cm, scenes[label][2], refill, card,
+                by_segment=label == "dense" and c is cfg)
 
     # -- 8c: the main path at full width, through the entry points
     runs = (("reference_v2", rv2, cam_rv2, cfg, None, {}, rv2_img),
@@ -2704,7 +2827,10 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
             launches=launches[main_run][f"K5/{policy}"], max_abs_err=err,
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"],
-            main_path_frame_ms=t[f"{main_run}_wavefront_ms"])
+            main_path_frame_ms=t[f"{main_run}_wavefront_ms"],
+            main_path_segments_ms=t[f"{main_run}_breakdown"]["segments_ms"])
+        if "ms_by_segment" in r:
+            entries[f"K5/{policy}"]["ms_by_segment"] = r["ms_by_segment"]
     r = seg_rows[("bvh", "parallel", 2)]
     entries["K6/bvh"] = dict(
         cell=f"{r['frame']}, refill 2, all {r['launches']} launches of a "
@@ -2897,8 +3023,21 @@ def refill_phases(dev, card: str) -> dict:
     ok = (k3 == want
           and all(r["refill_vs_per_sample_worst"] <= REFILL_TOL
                   and r["img_bit_equal"] for r in main.values()))
+    # K3's bound on the vis_w path: its census, and the near-miss sweep at
+    # every step that misses (counted from the frame's tape)
+    c4 = profiling.census(scene4, cam4, c4p, bvh4)
+    nm = near_miss_tests(scene4, cam4, c4p, bvh4)
+    nbytes = (frame_bytes(c4p, scene4.count, 3) + bvh4.flat.numel() * 4
+              + 8 * 8 * scene4.count)
+    vis = main["config4_vis_w"]
+    vis.update(near_miss_tests=nm, k3_bound=bound(
+        k3_ops(c4, 1, near_miss_tests=nm), nbytes),
+        k3_bound_without_near_miss=bound(k3_ops(c4, 1), nbytes))
     phase("main_path_refill_checks", ok=ok, k3_launches=k3,
-          tolerance=f"per leaf {REFILL_TOL} of the per-sample pass's largest")
+          tolerance=f"per leaf {REFILL_TOL} of the per-sample pass's largest",
+          config4_vis_w_k3_ms=vis["k3"]["refill_ms"], census=c4,
+          near_miss_tests=nm, k3_bound=vis["k3_bound"],
+          k3_bound_without_near_miss=vis["k3_bound_without_near_miss"])
     if not ok:
         fail(f"the refill's main paths: {k3}")
     c2 = profiling.census(scene2, cam2, c2p.replace(spp=2))
@@ -3261,8 +3400,13 @@ def main() -> None:
     entries8 = wavefront_phases(dev, card, rv2_img)
 
     # -- phase 9: K3's windowed refill
-    entries9, entries["K3/bvh+refill"]["launches"], _ = refill_phases(dev,
-                                                                      card)
+    entries9, entries["K3/bvh+refill"]["launches"], main9 = refill_phases(
+        dev, card)
+    vis = main9["config4_vis_w"]
+    entries["K3/bvh+refill"].update(
+        main_path_vis_w_ms=vis["k3"]["refill_ms"],
+        main_path_vis_w_bound_ms=vis["k3_bound"]["bound_ms"],
+        main_path_vis_w_bound_by=vis["k3_bound"]["bound_by"])
 
     # bounds of K1a and K3 in the cells their times come from
     from raytpu_torch import profiling
@@ -3281,12 +3425,12 @@ def main() -> None:
         library_ms=None), dict(
         name="render_vjp_kernel (K3, brute sweep)", route="cuda",
         source=grad_src, replaces="raytpu/kernels/gradkernel.py:1519",
-        cell="config 3, vis_w 0.005 (near-miss sweep not in the bound)",
-        launches=grad_launches[1], max_abs_err=k3_worst_abs,
-        max_rel_err=k3_worst_rel,
+        cell="config 3, vis_w 0.005", launches=grad_launches[1],
+        max_abs_err=k3_worst_abs, max_rel_err=k3_worst_rel,
         ms=grad_timings["config3_vis_w"]["k3_ms"],
         plain_ms=grad_timings["config3_vis_w"]["plain_vjp_ms"],
-        **bound(k3_ops(c_k3, 2), frame_bytes(CONFIG3, n3, 2) + 64 * n3),
+        **bound(k3_ops(c_k3, 2, near_miss_tests=near_miss_tests(
+            scene0, cam3, CONFIG3)), frame_bytes(CONFIG3, n3, 2) + 64 * n3),
         library_ms=None)]
     for key, name, source, replaces, cell in (
             ("K1c", "render_fwd_kernel<bvh> (K1c, flat BVH sweep)", fwd_src,

@@ -57,19 +57,24 @@
 // warp are neighbouring pixels and write neighbouring addresses at the same
 // k, so the stores coalesce whenever the warp's lanes are at the same step
 // (under the flat sweep's refill, lanes part after their first sample and
-// their first pixel).  The census
-// (K1') keeps three per-thread counters in registers (four for the walk:
-// the nodes visited; two more for the flat sweep: the warp's bounce-loop
-// and sphere-test iterations, counted by one of the lanes that run them)
-// and adds them once per warp at the end (a warp reduction, then one 64-bit
-// atomic per counter); without it the counting code is not compiled.  K1e
+// their first pixel).  The census (K1') keeps three per-thread counters in
+// registers (four for the walk: the nodes visited; two more for the flat
+// sweep and the dense stage: the warp's bounce-loop and sphere-test
+// iterations, counted by one of the lanes that run them) and adds them
+// once per warp at the end (a warp reduction, then one 64-bit atomic per
+// counter); without it the counting code is not compiled.  K1e
 // is the brute sweep over the scene's rows (cx, cy, cz, r^2) staged in
 // shared memory once per block (see stage_dense in render_common.cuh): the
-// same tests in the same order, so its image is K1a's bit for bit; what it
-// changes is where the sweep's loads come from (a shared-memory broadcast
-// instead of four L1 reads a sphere).  It is a plain forward only, full
-// frame or slab: K2, K4, K1' and K3 keep the brute sweep, as raytpu's do.
-// The brute, dense and walk sweeps keep the per-sample loop.
+// same tests in the same order, so its image is K1a's bit for bit.  Its
+// design for SIMT is the flat sweep's: render_refill's persistent sample
+// refill (at REFERENCE_V2's depth 50 through glass and metal a warp's
+// lanes end their samples far apart), the rows read from shared memory (a
+// broadcast instead of four L1 reads a sphere) and each missed test ended
+// at the sign of its discriminant, before sqrtf's slow path (sweep_rows).
+// It is a plain forward only, full frame or slab, plus the counting
+// variant megakernel.warp_census launches (K1'/dense): K2, K4, the
+// census and K3 keep the brute sweep, as raytpu's do.  The brute and walk
+// sweeps keep the per-sample loop.
 //
 // Slab mode (K1b, and every variant): the launch covers rows [row0, row0 +
 // rows) of the cfg-sized frame and its buffers (image, tape, carried state)
@@ -137,21 +142,9 @@ __device__ __forceinline__ void add_census(const unsigned (&v)[kN],
   }
 }
 
-// The next pixel of a lane whose pixel is done: the lanes that ask
-// together take consecutive pixels past the grid's first ones, one atomic
-// a warp.
-__device__ __forceinline__ int next_pixel(unsigned* counter, int first) {
-  const unsigned m = __activemask();
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(m) - 1;
-  unsigned base = 0;
-  if (lane == leader) base = atomicAdd(counter, __popc(m));
-  base = __shfl_sync(m, base, leader);
-  return first + static_cast<int>(base + __popc(m & ((1u << lane) - 1u)));
-}
-
 // The flat sweep's forward (K1c, K1b/bvh, K1'/bvh, K2/bvh, K4/bvh and
-// their slabs): raytpu's persistent sample refill (make_refill_step,
+// their slabs) and the dense stage's (K1e, K1b/dense and its census
+// K1'/dense): raytpu's persistent sample refill (make_refill_step,
 // raytpu/kernels/megakernel.py:881-1000) on SIMT, with its multi-tile tail
 // grouping.  A persistent grid (as many blocks as the card holds at once)
 // runs one loop of bounce steps a thread.  When a lane's sample ends (a
@@ -163,12 +156,16 @@ __device__ __forceinline__ int next_pixel(unsigned* counter, int first) {
 // per-sample loop's bit for bit; what changes is the warp's schedule: a
 // warp waits for its busiest lane once a launch, where the nested loops
 // waited for the longest path of each sample.  The closest hit is
-// closest_hit_staged() over what stage_flat() puts in shared memory.
-// The tape cursor runs across a pixel's samples as before; K2's carry is
-// read when a pixel starts and written when it is done.
-template <int kTape, bool kCount, bool kCarry>
+// closest_hit_staged() over what stage_flat() puts in shared memory
+// (kFlat), or the dense sweep over the rows stage_dense() puts there
+// (kDense).  The tape cursor runs across a pixel's samples as before; K2's
+// carry is read when a pixel starts and written when it is done.
+template <int kHit, int kTape, bool kCount, bool kCarry>
 __device__ __forceinline__ void render_refill(const Params& p) {
-  stage_flat(p.scene, p.n, p.bvh, p.stage);
+  if constexpr (kHit == kFlat)
+    stage_flat(p.scene, p.n, p.bvh, p.stage);
+  else
+    stage_dense(p.scene, p.n);
   const CamPack& cam = *p.cam;  // read where a sample starts, not held
   const SceneView s = scene_view(p.scene, p.n);
   const bool v1 = p.v1 != 0;
@@ -229,14 +226,18 @@ __device__ __forceinline__ void render_refill(const Params& p) {
   int pixel = blockIdx.x * blockDim.x * blockDim.y + threadIdx.x +
               blockDim.x * threadIdx.y;
   while (pixel < pixels && !begin(pixel))
-    pixel = next_pixel(p.pixel_next, threads);
+    pixel = next_item(p.pixel_next, threads);
   if (pixel < pixels) sample();
   while (pixel < pixels) {
     if (d < p.depth) {  // one bounce step (bounce_step's)
       if (kCount) warp_tick(cn.warp_steps, 1u);
       float tb;
-      const int win =
-          closest_hit_staged<kCount>(s, p.bvh, p.stage, r, p.t_min, tb, cn);
+      int win;
+      if constexpr (kHit == kFlat)
+        win = closest_hit_staged<kCount>(s, p.bvh, p.stage, r, p.t_min, tb,
+                                         cn);
+      else
+        win = closest_hit<kHit, kCount>(s, p.bvh, p.walk, r, p.t_min, tb, cn);
       if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
       if (kTape != kNoTape) ++tc.k;
       if (kCount) ++cn.steps;
@@ -265,7 +266,7 @@ __device__ __forceinline__ void render_refill(const Params& p) {
         o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
       }
       do {
-        pixel = next_pixel(p.pixel_next, threads);
+        pixel = next_item(p.pixel_next, threads);
       } while (pixel < pixels && !begin(pixel));
       if (pixel >= pixels) break;
     }
@@ -282,10 +283,11 @@ __device__ __forceinline__ void render_refill(const Params& p) {
 template <int kHit, int kTape, bool kCount, bool kCarry>
 __global__ void __launch_bounds__(256)
 render_fwd_kernel(Params p) {
-  if constexpr (kHit == kFlat) {
-    render_refill<kTape, kCount, kCarry>(p);
+  if constexpr (kHit == kFlat || kHit == kDense) {
+    render_refill<kHit, kTape, kCount, kCarry>(p);
   } else {
-    // the other sweeps: each thread runs its pixel's samples one by one
+    // the brute sweep and the walk: each thread runs its pixel's samples
+    // one by one
     const int x = blockIdx.x * blockDim.x + threadIdx.x;
     const int ly = blockIdx.y * blockDim.y + threadIdx.y;  // row in the slab
     const int y = p.row0 + ly;                              // row in the frame
@@ -294,8 +296,6 @@ render_fwd_kernel(Params p) {
     // adds per warp, with all 32 lanes
     const bool valid = x < p.width && ly < p.rows;
     const bool live = valid && y < p.height;
-    // K1e stages the scene before any thread of the block returns
-    if (kHit == kDense) stage_dense(p.scene, p.n);
     if (!kCount && !valid) return;
 
     const CamPack cam = *p.cam;
@@ -382,7 +382,9 @@ int launch(const Params& p, cudaStream_t stream) {
         static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (kHit == kFlat) {  // a persistent grid: the blocks the card holds
+  // the flat sweep and the dense stage: a persistent grid, the blocks the
+  // card holds at once
+  if (kHit == kFlat || kHit == kDense) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -423,13 +425,16 @@ int launch_hit(int hit, const Params& p, cudaStream_t stream) {
 // the wrapper plans it within raytpu_flat_device's opt-in limit); `taping` ->
 // the taping forward into `tape` (g_cap steps a pixel, int32 when
 // tape_wide; null only when g_cap is 0); `census` non-null -> the counting
-// variant (kCensus + 2 counters: the flat sweep adds its warp counters);
+// variant (kCensus + 2 counters: the flat sweep and the dense stage add
+// their warp counters);
 // `carry` -> K2, which reads acc_in / seed_in and
 // writes `out` / seed_out (either pair may alias: a thread reads its own
 // pixel before it writes it) from sample index s0 on.  A tape, the census
-// and the carry exclude one another.  The flat sweep hands out the pixels
-// past its persistent grid's first ones from `pixel_next`, one u32 that is
-// 0 at launch.  spp >= 1.  The block's x extent is one warp, so threadIdx.x
+// and the carry exclude one another.  `dense` (no BVH, n <= kDenseMax) ->
+// the dense stage, a plain forward or (`census`) its counting variant.  The
+// flat sweep and the dense stage hand out the pixels past their persistent
+// grid's first ones from `pixel_next`, one u32 that is 0 at launch.
+// spp >= 1.  The block's x extent is one warp, so threadIdx.x
 // is the lane.
 extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                                  int dense, const void* flat, int n_leaves,
@@ -459,8 +464,8 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
         (stage_outliers != 0 && stage_outliers != out_cnt) ||
         (stage_boxes != 0 && stage_boxes != 16 * n_leaves))) ||
       spp < 1 ||
-      (dense && (flat != nullptr || nodes != nullptr || taping ||
-                 census != nullptr || carry || n > kDenseMax)))
+      (dense && (flat != nullptr || nodes != nullptr || taping || carry ||
+                 pixel_next == nullptr || n > kDenseMax)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.cam = static_cast<const CamPack*>(cam);
@@ -496,7 +501,9 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   p.v1 = v1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int hit = flat != nullptr ? kFlat : (nodes != nullptr ? kWalk : kBrute);
-  if (dense) return launch<kDense, kNoTape, false, false>(p, st);
+  if (dense)
+    return census != nullptr ? launch<kDense, kNoTape, true, false>(p, st)
+                             : launch<kDense, kNoTape, false, false>(p, st);
   if (taping) return launch_hit<kTapeWrite, false, false>(hit, p, st);
   if (census != nullptr) return launch_hit<kNoTape, true, false>(hit, p, st);
   if (carry) return launch_hit<kNoTape, false, true>(hit, p, st);

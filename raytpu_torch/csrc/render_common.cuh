@@ -235,11 +235,12 @@ __device__ __forceinline__ Ray gen_ray(const CamPack& cam, float fx, float fy,
 
 // ---- the closest hit: a compile-time policy of trace_path ---------------
 //
-// Brute (K1a, K3): every sphere, in index order.  Dense (K1e): every
-// sphere in index order from the rows stage_dense() put in shared memory
-// (raytpu's dense MXU stage, megakernel.py:462-527, is a TPU layout of this
-// same min / argmin: its bf16x3 one-hot extraction is this sweep reading the
-// winner's attributes once, in scatter()).  Flat BVH (K1c, K3's BVH
+// Brute (K1a, K3): every sphere, in index order.  Dense (K1e, K5 / K6 on
+// the same scenes): every sphere in index order from the rows
+// stage_dense() put in shared memory, each missed test ended before the
+// square root (sweep_rows); raytpu's dense MXU stage, megakernel.py:462-527,
+// is a TPU layout of this same min / argmin: its bf16x3 one-hot extraction
+// is this sweep reading the winner's attributes once, in scatter().  Flat BVH (K1c, K3's BVH
 // variant): the outlier tail, then the leaf rows of the octant copy the
 // ray's own direction picks.  Walk (K1d, K3's walk variant): the outlier
 // tail, then the skip-pointer walk of that copy's nodes.  Tape read (K3's
@@ -288,6 +289,20 @@ __device__ __forceinline__ void warp_tick(unsigned& c, unsigned k) {
   if ((threadIdx.x & 31) == static_cast<unsigned>(__ffs(m) - 1)) c += k;
 }
 
+// The next item (a pixel, a ray slot) of a lane whose item is done, on a
+// persistent grid of `first` threads that took items [0, first) first:
+// the lanes that ask together take consecutive items from *counter (0 at
+// launch), one atomic a warp.  The block's x extent is a multiple of 32.
+__device__ __forceinline__ int next_item(unsigned* counter, int first) {
+  const unsigned m = __activemask();
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  unsigned base = 0;
+  if (lane == leader) base = atomicAdd(counter, __popc(m));
+  base = __shfl_sync(m, base, leader);
+  return first + static_cast<int>(base + __popc(m & ((1u << lane) - 1u)));
+}
+
 // Where a sweep reads sphere j's centre and squared radius: the scene pack
 // (the brute sweep, the BVH sweeps, the tape's one sphere) or the rows
 // stage_dense() staged (the dense stage).  r2 is the f32 product rad * rad
@@ -321,8 +336,8 @@ struct StagedRows {
 // op for op): the t the sweeps compare, NaN or < t_min on a miss.  The NaN
 // form of the root test: disc < 0 -> sqrtf gives NaN -> compares false.
 // In two halves: disc_at(), the discriminant (and half_b), then root_of(),
-// the roots; the flat sweep's forward ends a test between them when the
-// discriminant is negative or NaN (see sweep_rows).
+// the roots; the flat sweep's forward and the dense stage end a test
+// between them when the discriminant is negative or NaN (see sweep_rows).
 template <class Rows>
 __device__ __forceinline__ float disc_at(const Rows& rows, const Ray& r,
                                          float a, int j, float& half_b) {
@@ -369,6 +384,30 @@ __device__ __forceinline__ void sweep_range(const SceneView& s, const Ray& r,
     if (root >= t_min && root < tb) {
       tb = root;
       win = j;
+    }
+  }
+}
+
+// Rows [j0, j0 + count) of `rows` into the running best, as spheres first,
+// first + 1, ...: sweep_range()'s loop (strict <) over root_at()'s halves.
+// A negative or NaN discriminant (a miss, or a padding row) ends the test
+// before the square root: root_of()'s sqrtf gives NaN there and no root
+// passes, so the outcome is the same, and sqrtf takes its slow path (a
+// call) for every such argument, most of a sweep's tests.
+template <bool kCount, class Rows>
+__device__ __forceinline__ void sweep_rows(const Rows& rows, int j0,
+                                           int count, int first, const Ray& r,
+                                           float a, float inv_a, float t_min,
+                                           float& tb, int& win, Census& cn) {
+  if (kCount) warp_tick(cn.warp_tests, count);
+  for (int i = 0; i < count; ++i) {
+    float half_b;
+    const float disc = disc_at(rows, r, a, j0 + i, half_b);
+    if (!(disc >= 0.0f)) continue;
+    const float root = root_of(half_b, disc, inv_a, t_min);
+    if (root >= t_min && root < tb) {
+      tb = root;
+      win = first + i;
     }
   }
 }
@@ -420,14 +459,9 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
     sweep_range(s, r, a, inv_a, t_min, 0, s.n, tb, win);
     return win;
   }
-  if (kHit == kDense) {  // sweep_range over the staged rows
-    for (int j = 0; j < s.n; ++j) {
-      const float root = root_at(DenseRows{}, r, a, inv_a, t_min, j);
-      if (root >= t_min && root < tb) {
-        tb = root;
-        win = j;
-      }
-    }
+  if (kHit == kDense) {  // the staged rows, each missed test ended early
+    sweep_rows<kCount>(DenseRows{}, 0, s.n, 0, r, a, inv_a, t_min, tb, win,
+                       cn);
     return win;
   }
   // outliers first: a giant ground sphere seeds tb, so far leaves cull
@@ -539,30 +573,6 @@ __device__ __forceinline__ void stage_flat(const float* pack, int n,
     boxes[2 * b + 1] = make_float4(row[3], row[4], row[5], row[6]);
   }
   __syncthreads();
-}
-
-// Rows [j0, j0 + count) of `rows` into the running best, as spheres first,
-// first + 1, ...: sweep_range()'s loop (strict <) over root_at()'s halves.
-// A negative or NaN discriminant (a miss, or a padding row) ends the test
-// before the square root: root_of()'s sqrtf gives NaN there and no root
-// passes, so the outcome is the same, and sqrtf takes its slow path (a
-// call) for every such argument, most of a sweep's tests.
-template <bool kCount, class Rows>
-__device__ __forceinline__ void sweep_rows(const Rows& rows, int j0,
-                                           int count, int first, const Ray& r,
-                                           float a, float inv_a, float t_min,
-                                           float& tb, int& win, Census& cn) {
-  if (kCount) warp_tick(cn.warp_tests, count);
-  for (int i = 0; i < count; ++i) {
-    float half_b;
-    const float disc = disc_at(rows, r, a, j0 + i, half_b);
-    if (!(disc >= 0.0f)) continue;
-    const float root = root_of(half_b, disc, inv_a, t_min);
-    if (root >= t_min && root < tb) {
-      tb = root;
-      win = first + i;
-    }
-  }
 }
 
 // closest_hit<kFlat> over what stage_flat() staged (the rest from the

@@ -1,5 +1,5 @@
 // The sorted wavefront's segment kernels for Hopper (sm_90a): one thread
-// per ray slot.
+// per ray slot, but K5 under the dense stage, on a persistent slot grid.
 //
 //   K5  segment          raytpu/wavefront.py::_make_segment_kernel (:94),
 //                        launched by _render_wavefront_impl (:465)
@@ -25,7 +25,12 @@
 // through, and each thread sweeps its own ray.  What the sort buys on this
 // card is warp coherence: after a sort, neighbouring threads hold rays of
 // one direction octant leaving one cell of the scene, so a warp's lanes
-// enter the same leaves and end at similar depths.
+// enter the same leaves and end at similar depths.  Under the dense stage
+// (REFERENCE_V2's 327 spheres, 3 + 9 + 38 bounces a wave) a warp still
+// waits for its longest slot: there K5 runs on a persistent grid whose
+// lanes take their next slot from a counter when theirs is done
+// (dense_segment), at the price of plane loads and stores that no longer
+// coalesce once the lanes part.
 //
 // What bounds it: the bounce's f32 operations (the sweep, as in K1), plus
 // the planes: K5 reads 14 f32 planes and writes 15 (58 + 60 bytes a slot),
@@ -42,6 +47,7 @@
 // below 2^24, exact in f32.  The quantizer clamps before it truncates, which
 // is raytpu's clip(trunc(x)) for every finite x.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -73,6 +79,7 @@ struct Common {
 
 struct SegParams {
   Common c;
+  unsigned* slot_next;  // K5/dense: the slot counter, 0 at launch, or null
 };
 
 struct RefillParams {
@@ -112,50 +119,123 @@ __device__ __forceinline__ float primary_key(const Ray& r) {
   return kPrimaryBase + static_cast<float>((sz * kQdir + qdx) * kQdir + qdy);
 }
 
-// K5: up to n_bounces bounces of a live slot, then its key.
+// K5 under the dense stage: a persistent grid whose lanes each run one
+// loop of bounce steps.  A lane writes its slot when the slot is done (dead
+// on entry, died, or ran n_bounces), then takes the next slot from
+// *slot_next (next_item: one atomic a warp), so a warp waits for its
+// busiest lane once a launch rather than for the longest slot of each
+// round; slots are independent within a segment, so each slot's planes and
+// key are the one-slot kernel's bit for bit.  The sort puts coherent rays
+// and the dead tail in consecutive slots, and lanes that ask together take
+// consecutive slots.  slot_next null: one slot a thread (a grid of all R).
+__device__ __forceinline__ void dense_segment(const SegParams& p,
+                                              const SceneView& s) {
+  const Common& c = p.c;
+  const size_t R = static_cast<size_t>(c.R);
+  const int threads = gridDim.x * blockDim.x;
+  const bool v1 = c.v1 != 0;
+  Ray r{};
+  float cr = 0.0f, cg = 0.0f, cb = 0.0f, rr = 0.0f, rg = 0.0f, rb = 0.0f;
+  float alive = 0.0f;
+  uint32_t sd = 0u;
+  int b = 0;
+  TapeCursor tc{nullptr, 0, 0, 0, 0, 0};
+  Census cn{0u, 0u, 0u, 0u};
+  auto load = [&](int i) {
+    const float* in = c.in + i;
+    r = Ray{in[0], in[R], in[2 * R], in[3 * R], in[4 * R], in[5 * R]};
+    cr = in[6 * R];
+    cg = in[7 * R];
+    cb = in[8 * R];
+    rr = in[9 * R];
+    rg = in[10 * R];
+    rb = in[11 * R];
+    alive = in[12 * R];
+    sd = __float_as_uint(in[13 * R]);
+    b = 0;
+  };
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < c.R) load(i);
+  while (i < c.R) {
+    if (alive > 0.0f && b < c.n_bounces) {
+      if (bounce_step<false, kDense, kNoTape, false>(
+              s, c.bvh, c.walk, r, sd, c.t_min, v1, cr, cg, cb, rr, rg, rb,
+              nullptr, tc, cn)) {
+        ++b;
+        continue;
+      }
+      alive = 0.0f;
+    }
+    float* out = c.out + i;
+    out[0] = r.ox;
+    out[R] = r.oy;
+    out[2 * R] = r.oz;
+    out[3 * R] = r.dx;
+    out[4 * R] = r.dy;
+    out[5 * R] = r.dz;
+    out[6 * R] = cr;
+    out[7 * R] = cg;
+    out[8 * R] = cb;
+    out[9 * R] = rr;
+    out[10 * R] = rg;
+    out[11 * R] = rb;
+    out[12 * R] = alive;
+    out[13 * R] = __uint_as_float(sd);
+    out[14 * R] = alive > 0.0f ? cell_key(c.box, r) : kDeadKey;
+    i = p.slot_next != nullptr ? next_item(p.slot_next, threads) : c.R;
+    if (i < c.R) load(i);
+  }
+}
+
+// K5: up to n_bounces bounces of a live slot, then its key; one slot a
+// thread but under the dense stage (dense_segment).
 template <int kHit>
 __global__ void __launch_bounds__(kBlock) render_segment_kernel(SegParams p) {
   const Common& c = p.c;
   const SceneView s = scene_view(c.scene, c.n);
-  // the dense stage stages the scene before any thread of the block returns
-  if (kHit == kDense) stage_dense(c.scene, c.n);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c.R) return;
-  const size_t R = static_cast<size_t>(c.R);
-  const float* in = c.in + i;
-  float* out = c.out + i;
-  Ray r{in[0], in[R], in[2 * R], in[3 * R], in[4 * R], in[5 * R]};
-  float cr = in[6 * R], cg = in[7 * R], cb = in[8 * R];
-  float rr = in[9 * R], rg = in[10 * R], rb = in[11 * R];
-  float alive = in[12 * R];
-  uint32_t sd = __float_as_uint(in[13 * R]);
-  if (alive > 0.0f) {
-    TapeCursor tc{nullptr, 0, 0, 0, 0, 0};
-    Census cn{0u, 0u, 0u, 0u};
-    for (int b = 0; b < c.n_bounces; ++b) {
-      if (!bounce_step<false, kHit, kNoTape, false>(
-              s, c.bvh, c.walk, r, sd, c.t_min, c.v1 != 0, cr, cg, cb, rr,
-              rg, rb, nullptr, tc, cn)) {
-        alive = 0.0f;
-        break;
+  if constexpr (kHit == kDense) {
+    // the scene is staged before any thread of the block returns
+    stage_dense(c.scene, c.n);
+    dense_segment(p, s);
+  } else {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= c.R) return;
+    const size_t R = static_cast<size_t>(c.R);
+    const float* in = c.in + i;
+    float* out = c.out + i;
+    Ray r{in[0], in[R], in[2 * R], in[3 * R], in[4 * R], in[5 * R]};
+    float cr = in[6 * R], cg = in[7 * R], cb = in[8 * R];
+    float rr = in[9 * R], rg = in[10 * R], rb = in[11 * R];
+    float alive = in[12 * R];
+    uint32_t sd = __float_as_uint(in[13 * R]);
+    if (alive > 0.0f) {
+      TapeCursor tc{nullptr, 0, 0, 0, 0, 0};
+      Census cn{0u, 0u, 0u, 0u};
+      for (int b = 0; b < c.n_bounces; ++b) {
+        if (!bounce_step<false, kHit, kNoTape, false>(
+                s, c.bvh, c.walk, r, sd, c.t_min, c.v1 != 0, cr, cg, cb, rr,
+                rg, rb, nullptr, tc, cn)) {
+          alive = 0.0f;
+          break;
+        }
       }
     }
+    out[0] = r.ox;
+    out[R] = r.oy;
+    out[2 * R] = r.oz;
+    out[3 * R] = r.dx;
+    out[4 * R] = r.dy;
+    out[5 * R] = r.dz;
+    out[6 * R] = cr;
+    out[7 * R] = cg;
+    out[8 * R] = cb;
+    out[9 * R] = rr;
+    out[10 * R] = rg;
+    out[11 * R] = rb;
+    out[12 * R] = alive;
+    out[13 * R] = __uint_as_float(sd);
+    out[14 * R] = alive > 0.0f ? cell_key(c.box, r) : kDeadKey;
   }
-  out[0] = r.ox;
-  out[R] = r.oy;
-  out[2 * R] = r.oz;
-  out[3 * R] = r.dx;
-  out[4 * R] = r.dy;
-  out[5 * R] = r.dz;
-  out[6 * R] = cr;
-  out[7 * R] = cg;
-  out[8 * R] = cb;
-  out[9 * R] = rr;
-  out[10 * R] = rg;
-  out[11 * R] = rb;
-  out[12 * R] = alive;
-  out[13 * R] = __uint_as_float(sd);
-  out[14 * R] = alive > 0.0f ? cell_key(c.box, r) : kDeadKey;
 }
 
 // K6: up to n_bounces refill steps of a live slot (raytpu's
@@ -262,9 +342,11 @@ void set_common(P& p, const void* scene, int n, const void* flat, int n_leaves,
 }
 
 // One launch of `kernel` over R slots; the dense stage's rows in dynamic
-// shared memory, past 48 KB after the kernel opts in.
+// shared memory, past 48 KB after the kernel opts in.  `persistent`: a
+// persistent grid, the blocks the card holds at once (at most R / kBlock).
 template <typename P>
-int launch(void (*kernel)(P), bool dense, const P& p, cudaStream_t stream) {
+int launch(void (*kernel)(P), bool dense, bool persistent, const P& p,
+           cudaStream_t stream) {
   const size_t shmem = dense ? sizeof(float4) * p.c.n : 0;
   if (shmem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -272,10 +354,22 @@ int launch(void (*kernel)(P), bool dense, const P& p, cudaStream_t stream) {
         static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  int blocks = (p.c.R + kBlock - 1) / kBlock;
+  if (persistent) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, reinterpret_cast<const void*>(kernel), kBlock, shmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    blocks = std::max(1, std::min(blocks, sms * per_sm));
+  }
   void* args[] = {const_cast<P*>(&p)};
   cudaError_t e = cudaLaunchKernel(
-      reinterpret_cast<const void*>(kernel),
-      dim3((p.c.R + kBlock - 1) / kBlock), dim3(kBlock), args, shmem, stream);
+      reinterpret_cast<const void*>(kernel), dim3(blocks), dim3(kBlock),
+      args, shmem, stream);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -302,25 +396,30 @@ bool bad_operands(int n, int dense, const void* flat, const void* nodes,
 //
 // K5: in = the 14 planes ox oy oz dx dy dz cr cg cb rr rg rb alive seed
 // (the u32 bits), out = the same 14 after up to n_bounces bounces, then the
-// key.
+// key.  Under the dense stage `slot_next` (one u32, 0 at launch) puts the
+// launch on its persistent grid, which takes the slots past its first ones
+// from it; null there: one slot a thread.  The other policies take none.
 extern "C" int raytpu_wavefront_segment(
     const void* scene, int n, int dense, const void* flat, int n_leaves,
     int leaf_size, const void* nodes, int n_trav, int copies, int out_base,
     int out_cnt, const void* box, const void* in, void* out, int R,
-    int n_bounces, float t_min, int v1, void* stream) {
+    int n_bounces, float t_min, int v1, void* slot_next, void* stream) {
   if (bad_operands(n, dense, flat, nodes, n_trav, copies, R) ||
-      n_bounces < 0)
+      n_bounces < 0 || (slot_next != nullptr && !dense))
     return static_cast<int>(cudaErrorInvalidValue);
   SegParams p;
   set_common(p, scene, n, flat, n_leaves, leaf_size, nodes, n_trav, copies,
              out_base, out_cnt, box, in, out, R, n_bounces, t_min, v1);
+  p.slot_next = static_cast<unsigned*>(slot_next);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (flat != nullptr)
-    return launch(render_segment_kernel<kFlat>, false, p, st);
+    return launch(render_segment_kernel<kFlat>, false, false, p, st);
   if (nodes != nullptr)
-    return launch(render_segment_kernel<kWalk>, false, p, st);
-  if (dense) return launch(render_segment_kernel<kDense>, true, p, st);
-  return launch(render_segment_kernel<kBrute>, false, p, st);
+    return launch(render_segment_kernel<kWalk>, false, false, p, st);
+  if (dense)
+    return launch(render_segment_kernel<kDense>, true, slot_next != nullptr,
+                  p, st);
+  return launch(render_segment_kernel<kBrute>, false, false, p, st);
 }
 
 // K6: in = the 16 ride planes key pid sdpk ox oy oz dx dy dz cr cg cb seed
@@ -350,9 +449,9 @@ extern "C" int raytpu_wavefront_refill(
   p.inv_h = inv_h;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (flat != nullptr)
-    return launch(render_refill_kernel<kFlat>, false, p, st);
+    return launch(render_refill_kernel<kFlat>, false, false, p, st);
   if (nodes != nullptr)
-    return launch(render_refill_kernel<kWalk>, false, p, st);
-  if (dense) return launch(render_refill_kernel<kDense>, true, p, st);
-  return launch(render_refill_kernel<kBrute>, false, p, st);
+    return launch(render_refill_kernel<kWalk>, false, false, p, st);
+  if (dense) return launch(render_refill_kernel<kDense>, true, false, p, st);
+  return launch(render_refill_kernel<kBrute>, false, false, p, st);
 }

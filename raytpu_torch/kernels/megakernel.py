@@ -18,7 +18,9 @@ raytpu's slab mode, ``row0`` / ``rows``: rows ``[row0, row0 + rows)`` of
 the cfg-sized frame, with the image, the tape and the carried state
 ``(rows, W, ...)`` (K1b is the forward in slab mode).  A slab may run
 past the frame's last row; those rows trace nothing and come out 0.  The
-CUDA kernel is one thread per pixel; see the note at the top of the ``.cu``
+CUDA kernel is one thread per pixel, but the flat sweep and the dense stage
+run on a persistent grid whose lanes take their next pixel from a counter
+the wrapper zeroes each launch; see the note at the top of the ``.cu``
 file.
 
 :func:`render_fwd` and :func:`accumulate` take the scene and camera as the
@@ -78,15 +80,16 @@ DENSE_MAX = 4096
 
 launches = 0    # kernel launches through launch(); a run resets and reads it
 # the same launches by variant: K1a brute, K1c flat BVH, K1d the walk,
-# K1e the dense stage, K1b a slab (by sweep), K1' census, K2 carry-state
-# batch and K4 taping forward (by sweep, "+slab" for a slab); the sweeps
-# are "brute", "bvh" (flat) and "walk"; a run resets and reads them
+# K1e the dense stage, K1b a slab (by sweep), K1' census (K1'/dense:
+# warp_census over the dense stage), K2 carry-state batch and K4 taping
+# forward (by sweep, "+slab" for a slab); the sweeps are "brute", "bvh"
+# (flat) and "walk"; a run resets and reads them
 SWEEP_TAGS = ("brute", "bvh", "walk")
-# the flat sweep's warp counters, which the census kernel adds after
-# golden.CENSUS's counts (see warp_census)
+# the warp counters the census kernel of the flat sweep and of the dense
+# stage adds after golden.CENSUS's counts (see warp_census)
 WARP_CENSUS = ("warp_steps", "warp_sphere_tests")
 variants = dict.fromkeys(
-    ("K1a", "K1c", "K1d", "K1e", "K1b/dense")
+    ("K1a", "K1c", "K1d", "K1e", "K1b/dense", "K1'/dense")
     + tuple(f"{k}/{sweep}" for k in ("K1b", "K1'") for sweep in SWEEP_TAGS)
     + tuple(f"{k}/{sweep}{slab}" for k in ("K2", "K4")
             for sweep in SWEEP_TAGS for slab in ("", "+slab")), 0)
@@ -114,8 +117,9 @@ def use_dense(n: int, bvh: BVH | None) -> bool:
     """The dense stage's policy, raytpu's ``_use_dense(n, interpret=False,
     has_bvh)`` (raytpu/kernels/megakernel.py:1415-1430): no BVH and
     ``DENSE_MIN <= n <= DENSE_MAX`` spheres.  The forward (K1e, full frame
-    or slab) and the wavefront's segment kernels take it; K2, K4, K1' and
-    K3 keep the brute sweep, as raytpu's do."""
+    or slab) and the wavefront's segment kernels take it; K2, K4, the
+    census K1' (but :func:`warp_census`'s) and K3 keep the brute sweep, as
+    raytpu's do."""
     return bvh is None and DENSE_MIN <= n <= DENSE_MAX
 
 
@@ -375,12 +379,12 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
     acc_in, seed_in, seed_out, s0 = carry if carry else (None,) * 3 + (0,)
     lib = _lib()
     device = scene_pack.device
-    # the flat sweep's staging, and the counter its persistent grid takes
-    # its pixels from
+    # the flat sweep's staging, and the counter the persistent grid of the
+    # flat sweep and of the dense stage takes its pixels from
     stage = flat_stage_on(bvh, device) if flat else dict.fromkeys(
         ("leaves", "outliers", "boxes"), 0)
     pixel_next = (torch.zeros(1, dtype=torch.int32, device=device)
-                  if flat else None)
+                  if flat or dense else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_fwd(
@@ -436,11 +440,12 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     A plain forward (no tape, no census) of a scene :func:`use_dense`
     takes is the dense stage (K1e, or ``K1b/dense`` on a slab), unless
     ``brute`` forces the brute sweep (K1a): the same image bit for bit.
+    The census keeps the brute sweep there (K1'/brute), as raytpu's does.
     Runs on the current stream of the operands' device and does not
     synchronise.  ``inv_w``, ``inv_h`` and ``inv_spp`` are computed in f64
     here and rounded to f32, as raytpu's kernel and both goldens do."""
     out, census = _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count,
-                              row0, rows, brute)
+                              row0, rows, brute or count)
     return (out, census[:len(golden.CENSUS)]) if count else out
 
 
@@ -464,8 +469,7 @@ def _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count, row0, rows,
     census = (torch.zeros(len(golden.CENSUS) + len(WARP_CENSUS),
                           dtype=torch.int64, device=device)
               if count else None)
-    dense = (tape is None and not count and not brute
-             and use_dense(n, bvh))
+    dense = tape is None and not brute and use_dense(n, bvh)
     _launch(cam_pack, scene_pack, cfg, bvh, row0, rows, cfg.spp, out,
             tape=tape, census=census, dense=dense)
     tag = "dense" if dense else sweep_tag(bvh)
@@ -482,24 +486,29 @@ def _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count, row0, rows,
 
 
 def warp_census(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
-                cfg: RenderConfig, bvh: BVH, row0: int = 0,
+                cfg: RenderConfig, bvh: BVH | None, row0: int = 0,
                 rows: int | None = None) -> dict:
-    """K1' over the flat sweep with its warp counters -> the frame's
-    ``golden.CENSUS`` counts, :data:`WARP_CENSUS`'s and two shares:
-    ``loop_efficiency``, bounce steps over (warp_steps x 32), and
+    """K1' over the flat sweep (``bvh``) or the dense stage (``bvh`` None,
+    a scene :func:`use_dense` takes: K1'/dense) with its warp counters ->
+    the frame's ``golden.CENSUS`` counts, :data:`WARP_CENSUS`'s and two
+    shares: ``loop_efficiency``, bounce steps over (warp_steps x 32), and
     ``sweep_efficiency``, the lanes' sphere tests (leaves entered x
-    leaf_size + steps x outliers) over (warp_sphere_tests x 32).
-    ``warp_steps`` counts one for each iteration of the bounce loop that
-    any lane of a warp runs, ``warp_sphere_tests`` one for each
-    sphere-test iteration likewise: what a warp runs, whichever of its
-    lanes take part.  Warps exist on the card only, and the flat sweep's
-    kernel alone counts them: CUDA tensors and a flat BVH only."""
-    if sweep_of(bvh) != "flat":
-        raise ValueError("warp_census counts the flat sweep's kernel only")
+    leaf_size + steps x outliers; the dense stage: steps x spheres) over
+    (warp_sphere_tests x 32).  ``warp_steps`` counts one for each
+    iteration of the bounce loop that any lane of a warp runs,
+    ``warp_sphere_tests`` one for each sphere-test iteration likewise: what
+    a warp runs, whichever of its lanes take part.  Warps exist on the card
+    only, and only these two kernels count them: CUDA tensors only."""
+    n = scene_pack.shape[-1]
+    dense = bvh is None and use_dense(n, None)
+    if not dense and (bvh is None or sweep_of(bvh) != "flat"):
+        raise ValueError("warp_census counts the flat sweep's and the dense "
+                         "stage's kernels only")
     _, census = _launch_fwd(cam_pack, scene_pack, cfg, bvh, None, True,
                             row0, rows, False)
     c = dict(zip(golden.CENSUS + WARP_CENSUS, map(int, census.tolist())))
-    tests = (c["leaves_entered"] * bvh.leaf_size
+    tests = (c["bounce_steps"] * n if bvh is None else
+             c["leaves_entered"] * bvh.leaf_size
              + c["bounce_steps"] * bvh.n_outliers)
     c["loop_efficiency"] = c["bounce_steps"] / max(32 * c["warp_steps"], 1)
     c["sweep_efficiency"] = tests / max(32 * c["warp_sphere_tests"], 1)

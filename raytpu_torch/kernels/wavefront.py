@@ -8,6 +8,9 @@ one thread a slot, and take their bounces through the megakernels' device
 function under the closest-hit policy the scene takes: the brute sweep, the
 dense stage (:func:`raytpu_torch.kernels.megakernel.use_dense`), the flat
 BVH sweep or the skip-pointer walk (:func:`raytpu_torch.bvh.sweep_of`).
+K5 under the dense stage runs on a persistent grid instead, its lanes
+taking their next slot from a counter the wrapper zeroes each launch
+(:data:`PERSISTENT_DENSE`).
 
 :func:`prepare` packs a render's operands once (:class:`SceneOps`);
 :func:`launch_segment` and :func:`launch_refill_segment` check the planes,
@@ -40,6 +43,10 @@ AUX_PLANES = 3    # px py bidx
 MAX_SLOTS = 1 << 24  # slot ids ride an f32 plane: exact below 2^24
 
 launches = 0    # kernel launches through the wrappers; a run resets and reads it
+# K5 under the dense stage runs on a persistent grid whose lanes take their
+# next slot from a counter (csrc/wavefront.cu dense_segment); False: one
+# slot a thread, the other policies' grid (chip_smoke.py times both)
+PERSISTENT_DENSE = True
 # the same launches by kernel and closest-hit policy
 POLICIES = ("brute", "dense", "bvh", "walk")
 variants = dict.fromkeys(
@@ -77,7 +84,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     hit = [ptr, i, i, ptr, i, i, ptr, i, i, i, i, ptr]  # scene .. box
-    lib.raytpu_wavefront_segment.argtypes = hit + [ptr, ptr, i, i, f, i, ptr]
+    lib.raytpu_wavefront_segment.argtypes = hit + [ptr, ptr, i, i, f, i, ptr,
+                                                    ptr]
     lib.raytpu_wavefront_segment.restype = ctypes.c_int
     lib.raytpu_wavefront_refill.argtypes = [ptr] + hit + [
         ptr, ptr, ptr, i, i, i, i, i, f, f, f, i, ptr]
@@ -132,12 +140,16 @@ def launch_segment(ops: SceneOps, planes: torch.Tensor, cfg: RenderConfig,
         raise ValueError(f"unsupported device {planes.device}")
     out = torch.empty((SEG_PLANES + 1, R), dtype=torch.float32,
                       device=planes.device)
+    # the dense stage's persistent grid takes its slots from this counter
+    slot_next = (torch.zeros(1, dtype=torch.int32, device=planes.device)
+                 if ops.policy == "dense" and PERSISTENT_DENSE else None)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = _lib().raytpu_wavefront_segment(
             *_hit_args(ops), planes.data_ptr(), out.data_ptr(), R,
             int(n_bounces), float(np.float32(cfg.t_min)),
-            int(cfg.scatter_mode == "v1"), stream)
+            int(cfg.scatter_mode == "v1"),
+            None if slot_next is None else slot_next.data_ptr(), stream)
     _count("K5", err, ops)
     return out
 

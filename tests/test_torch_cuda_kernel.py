@@ -592,13 +592,20 @@ def test_device_ms_reads_the_kernels_time():
 @needs_card
 @pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
 def test_dense_stage_bit_equal_k1a_and_plain(rng_mode):
-    """K1e (random_world, 327 spheres, by the policy) against K1a forced
-    and the plain version, bit for bit; on a slab (K1b/dense) the frame's
-    rows; at 4096 spheres (64 KB of staged rows, past the 48 KB default)
-    K1a's image."""
+    """K1e (random_world, 327 spheres, by the policy; the persistent sample
+    refill) against K1a forced and the plain version, bit for bit: a frame
+    at depth 8 and one at depth 50 through glass and metal; on a slab
+    ending past the frame (K1b/dense) the frame's rows; a ragged frame
+    (1003 wide) at 1 spp with more pixels than the persistent grid holds
+    (at most 2048 threads an SM); the smallest frame the entry points take
+    (2x2; 1/(W - 1) rules out one pixel a row) and a 1-row slab of it; at
+    4096 spheres (64 KB of staged rows, past the 48 KB default).  The
+    dense census kernel (warp_census, K1'/dense) counts the plain census's
+    steps and samples."""
     cfg = RenderConfig(width=96, height=48, spp=2, depth=8,
                        rng_mode=rng_mode)
     scene = rt.random_world(device="cuda")
+    assert {0, 1, 2} <= set(scene.mat_type.tolist())
     cam = _cam(cfg, aperture=0.1, focus_dist=10.0)
     cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
     _reset_counts()
@@ -610,6 +617,29 @@ def test_dense_stage_bit_equal_k1a_and_plain(rng_mode):
     assert torch.equal(dense, brute)
     assert torch.equal(dense, golden.render_golden(scene, cam, cfg))
     assert torch.equal(part[:28], dense[20:]) and not bool(part[28:].any())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c, row0, rows in (
+            (cfg.replace(depth=50), 0, None),
+            (cfg.replace(width=1003, height=301, spp=1), 0, None),
+            (cfg.replace(width=2, height=2, spp=3, depth=50), 0, None),
+            (cfg.replace(width=2, height=2, spp=3, depth=50), 1, 1)):
+        cam_c = _cam(c, aperture=0.1, focus_dist=10.0)
+        cp_c = megakernel.pack_camera(cam_c)
+        got = megakernel.launch(cp_c, sp, c, row0=row0, rows=rows)
+        assert torch.equal(got, megakernel.launch(cp_c, sp, c, brute=True,
+                                                  row0=row0, rows=rows))
+        assert torch.equal(got, golden.render_golden(scene, cam_c, c,
+                                                     row0=row0, rows=rows))
+        if c.width == 1003:
+            assert c.width * c.height > sms * 2048
+    cn = megakernel.warp_census(cp, sp, cfg, None)
+    assert megakernel.variants["K1'/dense"] == 1
+    plain = dict.fromkeys(golden.CENSUS, 0)
+    golden.render_golden(scene, cam, cfg, census=plain)
+    assert [cn[k] for k in golden.CENSUS] == [plain[k]
+                                              for k in golden.CENSUS]
+    assert 0.0 < cn["loop_efficiency"] <= 1.0
+    assert 0.0 < cn["sweep_efficiency"] <= 1.0
     g = torch.Generator().manual_seed(5)
     n = megakernel.DENSE_MAX
     big = rt.Scene(
@@ -620,8 +650,9 @@ def test_dense_stage_bit_equal_k1a_and_plain(rng_mode):
         (torch.rand(n, generator=g) + 1.0).cuda())
     small = cfg.replace(width=32, height=16, spp=1, depth=4)
     bp = megakernel.pack_scene(big)
-    assert torch.equal(megakernel.launch(cp, bp, small),
-                       megakernel.launch(cp, bp, small, brute=True))
+    got = megakernel.launch(cp, bp, small)
+    assert torch.equal(got, megakernel.launch(cp, bp, small, brute=True))
+    assert torch.equal(got, golden.render_golden(big, cam, small))
 
 
 def _same(a, b):
@@ -654,6 +685,28 @@ def _wavefront_world(policy, cfg):
     return _walk_world(cfg)
 
 
+def _dense_slot_grid(monkeypatch, ops, planes, cfg, _):
+    """K5/dense's persistent slot grid against the plain version, bit for
+    bit, on planes a frame's launches do not give: R not a multiple of 256
+    (1000 slots, fewer than the grid holds), every slot dead, the
+    38-bounce segment of a depth-50 frame, and more slots than the grid
+    holds (the frame's slots tiled 160 times, past 2048 threads an SM);
+    the last also on one slot a thread (kwf.PERSISTENT_DENSE off), which
+    chip_smoke.py times beside it."""
+    dead = planes.clone()
+    dead[12] = 0.0
+    deep = cfg.replace(depth=50)
+    many = planes.repeat(1, 160)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert many.shape[1] > sms * 2048
+    for p, c, k in ((planes[:, :1000].contiguous(), cfg, 3), (dead, cfg, 9),
+                    (planes, deep, 38), (many, deep, 38)):
+        got = kwf.launch_segment(ops, p, c, k)
+        assert _same(got, wf.segment_plain(ops, p, c, k))
+    monkeypatch.setattr(kwf, "PERSISTENT_DENSE", False)
+    assert _same(kwf.launch_segment(ops, many, deep, 38), got)
+
+
 @needs_card
 @pytest.mark.parametrize("policy", ["brute", "dense", "bvh", "walk"])
 @pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
@@ -661,7 +714,8 @@ def test_segment_kernels_match_plain(monkeypatch, policy, rng_mode):
     """Every K5 launch of a wavefront render (and, in parallel RNG, every
     K6 launch of a refill render) against its plain version on the same
     planes, bit for bit; the images equal render()'s bit for bit (one slot
-    a pixel) and, two samples in flight, within an ulp."""
+    a pixel) and, two samples in flight, within an ulp.  K5/dense also on
+    the planes of _dense_slot_grid."""
     cfg = RenderConfig(width=64, height=32, spp=2, depth=6,
                        rng_mode=rng_mode)
     scene, cam, bvh = _wavefront_world(policy, cfg)
@@ -673,6 +727,8 @@ def test_segment_kernels_match_plain(monkeypatch, policy, rng_mode):
     assert torch.equal(img, ref)
     for (ops, planes, c, k), out in seg:
         assert _same(out, wf.segment_plain(ops, planes, c, k))
+    if policy == "dense":
+        _dense_slot_grid(monkeypatch, *seg[0][0])
     if rng_mode == "sequential":
         return
     rides = _record(monkeypatch, "launch_refill_segment")

@@ -9,6 +9,10 @@ budget tests/test_torch_golden.py holds the port's golden to (|d| <= 3e-4
 on at least 99% of pixels).
 """
 
+import contextlib
+import ctypes
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -43,9 +47,14 @@ def test_dense_policy_matches_raytpu(n, small_bvh):
 def test_launch_routes_the_dense_stage(monkeypatch, small_bvh):
     """A plain forward of a scene the policy takes launches K1e (K1b/dense
     on a slab); ``brute=True`` forces K1a; the census, the taping forward,
-    a BVH and scenes outside 96-4096 spheres keep their sweeps.  The C
-    entry point is replaced by a recorder: no card here."""
+    a BVH and scenes outside 96-4096 spheres keep their sweeps.  At the C
+    entry point the dense launch gets a zeroed pixel counter (its
+    persistent grid's), and ``warp_census`` sends a dense scene to the
+    counting dense launch (K1'/dense), which the census keeps off.  The
+    launch and then the C entry point are replaced by recorders: no card
+    here."""
     calls = []
+    launch_c = megakernel._launch
     monkeypatch.setattr(megakernel, "check_packs", lambda cp, sp: None)
     monkeypatch.setattr(megakernel, "check_bvh", lambda b, n, d: None)
     monkeypatch.setattr(megakernel, "_launch",
@@ -70,6 +79,38 @@ def test_launch_routes_the_dense_stage(monkeypatch, small_bvh):
     assert routed(327, bvh=small_bvh) == ("K1c", False)
     assert routed(95) == ("K1a", False)
     assert routed(4097) == ("K1a", False)
+
+    def entry(*args):
+        """raytpu_render_fwd's recorder: (dense, census given, the pixel
+        counter's value at the launch or None)."""
+        counter = args[24]
+        calls.append((args[3], args[19] is not None, None if counter is None
+                      else ctypes.c_int32.from_address(counter).value))
+        return 0
+
+    monkeypatch.setattr(megakernel, "_launch", launch_c)
+    monkeypatch.setattr(megakernel, "_lib", lambda: types.SimpleNamespace(
+        raytpu_render_fwd=entry))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    assert routed(327) == ("K1e", (1, False, 0))
+    assert routed(327, row0=2, rows=2) == ("K1b/dense", (1, False, 0))
+    assert routed(327, count=True) == ("K1'/brute", (0, True, None))
+    assert routed(327, brute=True) == ("K1a", (0, False, None))
+    for d in megakernel.variants:
+        megakernel.variants[d] = 0
+    c = megakernel.warp_census(cp, torch.zeros(megakernel.SCENE_ROWS, 327),
+                               cfg, None)
+    assert calls.pop() == (1, True, 0)
+    assert {k: v for k, v in megakernel.variants.items() if v} == {
+        "K1'/dense": 1}
+    assert set(megakernel.WARP_CENSUS) <= set(c) and "loop_efficiency" in c
+    with pytest.raises(ValueError, match="dense"):
+        megakernel.warp_census(cp, torch.zeros(megakernel.SCENE_ROWS, 95),
+                               cfg, None)
+    assert not calls
 
 
 def test_wavefront_takes_the_same_policy(small_bvh):

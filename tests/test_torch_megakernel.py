@@ -172,7 +172,7 @@ def test_flat_stage_bytes(n, leaf, sweep, want):
     opt-in limit: two 16-byte rows a box of each of the 8 octant copies if
     they fit, the outliers' rows, then leaf_size rows and one unused row a
     leaf for as many leaves as fit.  warp_census counts the card's flat
-    sweep only."""
+    sweep and dense stage only, not the walk."""
     from raytpu_torch import bvh as tbvh
     scene = rt.final_world(n=n, device="cpu")
     bvh = tbvh.build_bvh(scene, leaf_size=leaf)
