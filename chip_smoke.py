@@ -125,8 +125,7 @@ card 0 without it).  Phases, one JSON line each:
         its main path's full frame and RNG mode at 2 spp (the slots do not
         depend on spp); the other RNG mode and K6 under the other policies
         at frames a few hundred pixels wide; K5/dense's launches at
-        REFERENCE_V2 timed by segment on its persistent slot grid and on
-        one slot a thread, in turns;
+        REFERENCE_V2 also summed by segment;
     8c. the main path at full width: ``render(backend="wavefront")`` at
         REFERENCE_V2, config 2, config 4 (sequential; parallel with
         ``refill=2`` at 1 and 4 samples in flight) and the 10k scene,
@@ -399,15 +398,16 @@ def near_miss_tests(scene, cam, cfg, bvh=None) -> int:
 
 def per_sample_efficiency(tape: torch.Tensor, mat_type: torch.Tensor,
                           cfg) -> dict:
-    """The loop efficiency the per-sample loop (one thread a pixel, its
-    samples one by one; a warp is 32 pixels of a row) has on a frame: the
-    bounce steps over 32 x the warp's bounce-loop iterations, which are,
-    sample by sample, its longest lane's steps (the lanes reconverge after
-    each sample).  Each sample's length comes from the frame's ``tape``
-    (:func:`frame_tape`): it ends at a miss, an absorption (a winner whose
-    ``mat_type`` is not 0-2) or the depth cap.  Under the dense stage the
-    sweep efficiency is the same share (every step of a warp sweeps every
-    sphere)."""
+    """An estimate, not a count: the loop efficiency the per-sample loop
+    (one thread a pixel, its samples one by one; a warp is 32 pixels of a
+    row; no kernel runs it under the dense stage) would have on a frame,
+    modelled as the bounce steps over 32 x the warp's bounce-loop
+    iterations, which are, sample by sample, its longest lane's steps (the
+    lanes reconverge after each sample).  Each sample's length comes from
+    the frame's ``tape`` (:func:`frame_tape`): it ends at a miss, an
+    absorption (a winner whose ``mat_type`` is not 0-2) or the depth cap.
+    Under the dense stage the sweep efficiency is the same share (every
+    step of a warp sweeps every sphere)."""
     from raytpu_torch import golden
     pixels, dev = tape.shape[1], tape.device
     absorbs = ~((mat_type >= 0) & (mat_type <= 2))
@@ -2455,8 +2455,7 @@ def segments_vs_plain(label, scene, cam, cfg, bvh, refill: int,
     planes; the image against ``render()``'s -> a row with the launches'
     summed kernel and plain times and their bound (the frame's census, the
     planes' bytes).  ``by_segment`` (K5 under the dense stage): the
-    launches' times also summed by segment, on the persistent slot grid
-    and on one slot a thread (``kwf.PERSISTENT_DENSE``), in turns."""
+    launches' times also summed by segment (``n_bounces``)."""
     import raytpu_torch as rt
     from raytpu_torch import profiling, wavefront as wf
     from raytpu_torch.kernels import wavefront as kwf
@@ -2470,26 +2469,16 @@ def segments_vs_plain(label, scene, cam, cfg, bvh, refill: int,
     torch.cuda.synchronize()
     ref = rt.render(scene, cam, cfg, bvh=bvh)
     fn = getattr(kwf, name)
-    same, worst, k_ms, p_ms = True, 0.0, 0.0, 0.0
+    same, worst, k_ms, p_ms, by = True, 0.0, 0.0, 0.0, {}
     for b, out in calls:
         want, ms = once_ms(lambda: plain(*b.args))
         eq, err = planes_vs_plain(kernel, out, want)
         same, worst, p_ms = same and eq, max(worst, err), p_ms + ms
-        k_ms += cuda_ms(lambda: fn(*b.args), 2)
+        ms = cuda_ms(lambda: fn(*b.args), 2)
+        k_ms += ms
+        if by_segment:
+            by[str(b.args[3])] = by.get(str(b.args[3]), 0.0) + ms
         del want
-    by = {}
-    if by_segment:
-        try:
-            for persistent in (False, True, True, False):
-                kwf.PERSISTENT_DENSE = persistent
-                d = by.setdefault("persistent" if persistent else "one_slot",
-                                  {})
-                for b, _ in calls:
-                    seg = str(b.args[3])
-                    d[seg] = d.get(seg, 0.0) + cuda_ms(
-                        lambda: fn(*b.args), 2) / 2
-        finally:
-            kwf.PERSISTENT_DENSE = True
     c = profiling.census(scene, cam, cfg, bvh)
     slots = calls[0][0].args[1].shape[1]
     ops = (c["sphere_tests"] * OPS_SPHERE_TEST + c["box_tests"] * OPS_BOX_TEST
@@ -2587,7 +2576,7 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
     c2, cf = slab_census(rv2, cam_rv2, cfg2, None), \
         slab_census(rv2, cam_rv2, cfg, None)
     # the warps of the dense stage's refill (its census kernel, K1'/dense)
-    # and of the per-sample loop it replaced (from the frame's tape)
+    # and an estimate, from the frame's tape, of the per-sample loop's
     warps = megakernel.warp_census(cp, sp, cfg, None)
     before = per_sample_efficiency(frame_tape(rv2, cam_rv2, cfg),
                                    rv2.mat_type, cfg)
@@ -2627,7 +2616,6 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         main_path_bound_ms=row["bound_full_ms"],
         loop_efficiency=warps["loop_efficiency"],
         sweep_efficiency=warps["sweep_efficiency"],
-        per_sample_loop_efficiency=before["loop_efficiency"],
         efficiency_cell="REFERENCE_V2, the main path's frame")
     del k1e, k1a, k1e2, want
 

@@ -79,7 +79,7 @@ struct Common {
 
 struct SegParams {
   Common c;
-  unsigned* slot_next;  // K5/dense: the slot counter, 0 at launch, or null
+  unsigned* slot_next;  // K5/dense: the slot counter, 0 at launch; else null
 };
 
 struct RefillParams {
@@ -127,7 +127,7 @@ __device__ __forceinline__ float primary_key(const Ray& r) {
 // round; slots are independent within a segment, so each slot's planes and
 // key are the one-slot kernel's bit for bit.  The sort puts coherent rays
 // and the dead tail in consecutive slots, and lanes that ask together take
-// consecutive slots.  slot_next null: one slot a thread (a grid of all R).
+// consecutive slots.
 __device__ __forceinline__ void dense_segment(const SegParams& p,
                                               const SceneView& s) {
   const Common& c = p.c;
@@ -182,7 +182,7 @@ __device__ __forceinline__ void dense_segment(const SegParams& p,
     out[12 * R] = alive;
     out[13 * R] = __uint_as_float(sd);
     out[14 * R] = alive > 0.0f ? cell_key(c.box, r) : kDeadKey;
-    i = p.slot_next != nullptr ? next_item(p.slot_next, threads) : c.R;
+    i = next_item(p.slot_next, threads);
     if (i < c.R) load(i);
   }
 }
@@ -396,16 +396,16 @@ bool bad_operands(int n, int dense, const void* flat, const void* nodes,
 //
 // K5: in = the 14 planes ox oy oz dx dy dz cr cg cb rr rg rb alive seed
 // (the u32 bits), out = the same 14 after up to n_bounces bounces, then the
-// key.  Under the dense stage `slot_next` (one u32, 0 at launch) puts the
-// launch on its persistent grid, which takes the slots past its first ones
-// from it; null there: one slot a thread.  The other policies take none.
+// key.  Under the dense stage `slot_next` (one u32, 0 at launch) is the
+// counter from which its persistent grid takes the slots past its first
+// ones; the other policies take none (null).
 extern "C" int raytpu_wavefront_segment(
     const void* scene, int n, int dense, const void* flat, int n_leaves,
     int leaf_size, const void* nodes, int n_trav, int copies, int out_base,
     int out_cnt, const void* box, const void* in, void* out, int R,
     int n_bounces, float t_min, int v1, void* slot_next, void* stream) {
   if (bad_operands(n, dense, flat, nodes, n_trav, copies, R) ||
-      n_bounces < 0 || (slot_next != nullptr && !dense))
+      n_bounces < 0 || (slot_next != nullptr) != (dense != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   SegParams p;
   set_common(p, scene, n, flat, n_leaves, leaf_size, nodes, n_trav, copies,
@@ -416,9 +416,7 @@ extern "C" int raytpu_wavefront_segment(
     return launch(render_segment_kernel<kFlat>, false, false, p, st);
   if (nodes != nullptr)
     return launch(render_segment_kernel<kWalk>, false, false, p, st);
-  if (dense)
-    return launch(render_segment_kernel<kDense>, true, slot_next != nullptr,
-                  p, st);
+  if (dense) return launch(render_segment_kernel<kDense>, true, true, p, st);
   return launch(render_segment_kernel<kBrute>, false, false, p, st);
 }
 

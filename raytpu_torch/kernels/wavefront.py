@@ -9,8 +9,7 @@ function under the closest-hit policy the scene takes: the brute sweep, the
 dense stage (:func:`raytpu_torch.kernels.megakernel.use_dense`), the flat
 BVH sweep or the skip-pointer walk (:func:`raytpu_torch.bvh.sweep_of`).
 K5 under the dense stage runs on a persistent grid instead, its lanes
-taking their next slot from a counter the wrapper zeroes each launch
-(:data:`PERSISTENT_DENSE`).
+taking their next slot from a counter the wrapper zeroes each launch.
 
 :func:`prepare` packs a render's operands once (:class:`SceneOps`);
 :func:`launch_segment` and :func:`launch_refill_segment` check the planes,
@@ -43,10 +42,6 @@ AUX_PLANES = 3    # px py bidx
 MAX_SLOTS = 1 << 24  # slot ids ride an f32 plane: exact below 2^24
 
 launches = 0    # kernel launches through the wrappers; a run resets and reads it
-# K5 under the dense stage runs on a persistent grid whose lanes take their
-# next slot from a counter (csrc/wavefront.cu dense_segment); False: one
-# slot a thread, the other policies' grid (chip_smoke.py times both)
-PERSISTENT_DENSE = True
 # the same launches by kernel and closest-hit policy
 POLICIES = ("brute", "dense", "bvh", "walk")
 variants = dict.fromkeys(
@@ -142,7 +137,7 @@ def launch_segment(ops: SceneOps, planes: torch.Tensor, cfg: RenderConfig,
                       device=planes.device)
     # the dense stage's persistent grid takes its slots from this counter
     slot_next = (torch.zeros(1, dtype=torch.int32, device=planes.device)
-                 if ops.policy == "dense" and PERSISTENT_DENSE else None)
+                 if ops.policy == "dense" else None)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = _lib().raytpu_wavefront_segment(

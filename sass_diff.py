@@ -10,11 +10,7 @@ whether the instructions are the same; it exits 1 if any differs.  Where
 a checkout's census kernel counts the flat sweep's warps
 (``megakernel.warp_census``), it then prints that checkout's loop and
 sweep efficiencies on config 5's 50-spp batch frame, on its train step's
-1080-row slab (20 spp, parallel RNG) and on config 4 at 2 spp.  Last, the
-dense stage's times in each checkout, in turns (the other, this, this,
-the other; a process each): K1e at the full REFERENCE_V2 frame and K5's
-launches of a 2-spp REFERENCE_V2 wavefront frame summed by segment (3, 9
-and 38 bounces), CUDA events after a warm-up call.
+1080-row slab (20 spp, parallel RNG) and on config 4 at 2 spp.
 Kernel-parameter offsets (``c[0x0][...]``) are masked: a parameter struct
 that grew moves them without changing the code.  A first template argument
 that was a bool (``kBvh`` before the walk: 0 brute, 1 flat) is matched to
@@ -65,35 +61,6 @@ if hasattr(mk, "warp_census"):
                                        "sweep_efficiency")}
 print(json.dumps(out))
 """
-# a checkout's dense-stage times (JSON): K1e at REFERENCE_V2, and K5's
-# launches of a 2-spp REFERENCE_V2 wavefront frame summed by segment
-_DENSE = """
-import json, torch, raytpu_torch as rt
-from raytpu_torch.config import REFERENCE_V2 as cfg
-from raytpu_torch.kernels import megakernel as mk, wavefront as kwf
-scene = rt.random_world(device="cuda")
-cam = rt.reference_camera_v2(cfg.aspect, device="cuda")
-cp, sp = mk.pack_camera(cam), mk.pack_scene(scene)
-def ms(fn, iters):
-    fn()
-    torch.cuda.synchronize()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
-calls, launch = [], kwf.launch_segment
-kwf.launch_segment = lambda *a: calls.append(a) or launch(*a)
-rt.render(scene, cam, cfg.replace(spp=2), backend="wavefront")
-kwf.launch_segment = launch
-seg = {}
-for a in calls:
-    seg[a[3]] = seg.get(a[3], 0.0) + ms(lambda: launch(*a), 3)
-print(json.dumps({"k1e_ms": ms(lambda: mk.launch(cp, sp, cfg), 3),
-                  "k5_dense_ms_by_segment": seg}))
-"""
 
 
 def functions(lib: Path) -> dict:
@@ -138,11 +105,6 @@ def main(other_root: str) -> int:
                                capture_output=True, text=True, check=True)
         print(f"warp efficiencies {root}: "
               f"{warps.stdout.strip().splitlines()[-1]}")
-    for root in (*roots, *roots[::-1]):
-        times = subprocess.run([sys.executable, "-c", _DENSE], cwd=root,
-                               capture_output=True, text=True, check=True)
-        print(f"dense-stage times {root}: "
-              f"{times.stdout.strip().splitlines()[-1]}")
     return 1 if differ else 0
 
 

@@ -685,14 +685,12 @@ def _wavefront_world(policy, cfg):
     return _walk_world(cfg)
 
 
-def _dense_slot_grid(monkeypatch, ops, planes, cfg, _):
+def _dense_slot_grid(ops, planes, cfg, _):
     """K5/dense's persistent slot grid against the plain version, bit for
     bit, on planes a frame's launches do not give: R not a multiple of 256
     (1000 slots, fewer than the grid holds), every slot dead, the
     38-bounce segment of a depth-50 frame, and more slots than the grid
-    holds (the frame's slots tiled 160 times, past 2048 threads an SM);
-    the last also on one slot a thread (kwf.PERSISTENT_DENSE off), which
-    chip_smoke.py times beside it."""
+    holds (the frame's slots tiled 160 times, past 2048 threads an SM)."""
     dead = planes.clone()
     dead[12] = 0.0
     deep = cfg.replace(depth=50)
@@ -703,8 +701,6 @@ def _dense_slot_grid(monkeypatch, ops, planes, cfg, _):
                     (planes, deep, 38), (many, deep, 38)):
         got = kwf.launch_segment(ops, p, c, k)
         assert _same(got, wf.segment_plain(ops, p, c, k))
-    monkeypatch.setattr(kwf, "PERSISTENT_DENSE", False)
-    assert _same(kwf.launch_segment(ops, many, deep, 38), got)
 
 
 @needs_card
@@ -728,7 +724,7 @@ def test_segment_kernels_match_plain(monkeypatch, policy, rng_mode):
     for (ops, planes, c, k), out in seg:
         assert _same(out, wf.segment_plain(ops, planes, c, k))
     if policy == "dense":
-        _dense_slot_grid(monkeypatch, *seg[0][0])
+        _dense_slot_grid(*seg[0][0])
     if rng_mode == "sequential":
         return
     rides = _record(monkeypatch, "launch_refill_segment")
