@@ -53,7 +53,8 @@ card 0 without it).  Phases, one JSON line each:
         parallel ones also on K3's per-sample pass), each with its launches
         by variant checked, and ``cli render --bvh``;
     5g. times at full size (forward, fwd+bwd, K3 with and without the
-        tape) and the tape's coverage rule on REFERENCE_V2;
+        tape, K3 over the BVH on the sequential per-sample pass alone) and
+        the tape's coverage rule on REFERENCE_V2;
 6.  config 5 (BASELINE: ``final_world()``, 1920x1080, 500 spp, depth 12,
     sequential RNG) progressive and sharded:
     6a. K2, the carry-state kernel, against its plain version at 480x270,
@@ -156,7 +157,12 @@ card 0 without it).  Phases, one JSON line each:
         autograd of a ``refill=2`` frame); config 5's train step is timed
         in 6d, the 10k scene's in 7f; K3's bound on the ``vis_w`` path
         with its near-miss sweep (every sphere at every step that misses,
-        the misses counted from the frame's K4 tape).
+        the misses counted from the frame's K4 tape), and the sweep's
+        share of its time (the same launch with ``vis_w`` 0, in turns);
+    9c. k3_flat_redesign: K3 over the flat BVH on its main paths beside
+        their bounds, ptxas's registers and spills of every K3
+        instantiation, what K3 stages of config 4's BVH in shared memory
+        within this card's limits, and the refill's lanes with it.
 
 It exits non-zero at the first failure.  The line before the last is the
 card's name and power limit, the line before it the kernel table as JSON
@@ -512,6 +518,15 @@ def reset_counts(*modules) -> None:
 def variant_counts(*modules) -> dict:
     """The launches by variant since the last reset_counts, nonzero only."""
     return {k: v for m in modules for k, v in m.variants.items() if v}
+
+
+def k3_plan(cfg, bvh, dev) -> dict:
+    """K3's windowed-refill plan of a full-frame launch (lanes, pixels a
+    lane, window, scratch bytes) and the bytes it stages over a flat BVH
+    (``gradkernel.launch_plan``: the lanes count them)."""
+    from raytpu_torch.kernels import gradkernel
+    stage, plan = gradkernel.launch_plan(cfg, cfg.height, bvh, True, dev)
+    return {**plan, "stage_bytes": stage["bytes"]}
 
 
 @contextlib.contextmanager
@@ -1024,6 +1039,17 @@ def config4_phases(dev, card: str) -> list:
             cp, pack, cfg4p, ct, img_f, 0.0, b), 2)
         t[f"k3_{label}_tape_ms"] = cuda_ms(lambda: gradkernel.launch(
             cp, pack, cfg4p, ct, img_f, 0.0, b, tp), 2)
+    # K3 over the flat BVH on the sequential per-sample pass alone: the
+    # launch config 4's own render_grad makes (PASS 1 and PASS 2)
+    ct_seq = 2.0 * (img - target) / img.numel()
+    t["k3_seq_bvh_ms"] = cuda_ms(lambda: gradkernel.launch(
+        cp, spv, cfg4, ct_seq, None, 0.0, bvh), 3)
+    b3 = bound(k3_ops(c4, 2), frame_bytes(cfg4, rows, 2) + flat_bytes
+               + 8 * 8 * rows)
+    t["bound_k3_seq_bvh_ms"] = b3["bound_ms"]
+    entries["K3/bvh"].update(main_path_ms=t["k3_seq_bvh_ms"],
+                             main_path_bound_ms=b3["bound_ms"],
+                             main_path_bound_by=b3["bound_by"])
     t["tape_bytes"] = tape4.numel() * tape_elt
     rays = cfg4.width * cfg4.height * cfg4.spp
     t["fwd_k1c_mrays_s"] = rays / t["fwd_k1c_ms"] / 1e3
@@ -1822,8 +1848,7 @@ def config5_phases(dev, card: str) -> dict:
             step = shard.make_train_step(cfg, group=group, lr=1e-2, bvh=bvh)
             step_times = dict(schedule_times(
                 lambda: step(scene, cam, target)),
-                plan=gradkernel.refill_plan(cfg, cfg.height,
-                                            gradkernel.refill_lanes(dev)))
+                plan=k3_plan(cfg, bvh, dev))
             phase("main_path_refill", path="config 5 train step",
                   frame="1920x1080 spp20 d12 parallel bvh, world-1 NCCL, "
                         "taped", card=card, **step_times)
@@ -2851,9 +2876,7 @@ def refill_vs(label, card, scene, cam, cfg, bvh, vis_w, target,
     rel, _ = leaf_errors(got, ref, rt.Camera._fields)
     row = {"case": label, "frame": f"{cfg.width}x{cfg.height} spp{cfg.spp} "
            f"d{cfg.depth} parallel", "spheres": scene.count, "vis_w": vis_w,
-           "plan": gradkernel.refill_plan(cfg, cfg.height,
-                                          gradkernel.refill_lanes(
-                                              img.device)),
+           "plan": k3_plan(cfg, bvh, img.device),
            "img_bit_equal": torch.equal(got[0], img)
            and torch.equal(ref[0], img),
            "vs_per_sample_rel": rel, "vs_per_sample_worst": max(rel.values())}
@@ -2874,6 +2897,74 @@ def refill_vs(label, card, scene, cam, cfg, bvh, vis_w, target,
     if not ok:
         fail(f"K3's windowed refill disagrees ({label}): {row}")
     return row
+
+
+# K3's instantiations by their template arguments in the mangled names:
+# render_vjp_kernel<kHit (kBrute 0, kFlat 1, kWalk 2), kTape> (the
+# per-sample pass) and render_vjp_refill_kernel<kHit, kTape>
+K3_KERNELS = {f"K3/{sweep}{'+refill' if r else ''}{'+tape' if t else ''}":
+              f"render_vjp{'_refill' if r else ''}_kernelILi{h}ELb{int(t)}E"
+              for h, sweep in ((0, "brute"), (1, "bvh"), (2, "walk"))
+              for r in (False, True) for t in (False, True)}
+
+
+def k3_phase(dev, card: str, entries: dict, vis: dict) -> None:
+    """Phase 9c (k3_flat_redesign): K3 over the flat BVH on its main paths
+    (config 4: the sequential per-sample pass, the refill with ``vis_w``
+    and the near-miss sweep's share of it, beside their bounds), ptxas's
+    registers and spills of every K3 instantiation, what K3 stages of
+    config 4's BVH in shared memory within this card's limits and the
+    refill's lanes with and without it.  Adds the staged bytes to the K3
+    flat rows of the kernel table."""
+    import raytpu_torch as rt
+    from raytpu_torch.kernels import _build, gradkernel
+    bvh = rt.build_bvh(rt.final_world(device=dev), leaf_size=LEAF)
+    stage = gradkernel.k3_stage(bvh, dev)
+    limits = dict(zip(("optin", "per_sm", "reserved", "blocks_per_sm",
+                       "refill_static"), gradkernel.device_limits(dev)))
+    ptxas = flat_ptxas(_build.build_log[gradkernel.SOURCE]["ptxas"],
+                       K3_KERNELS)
+    k3 = entries["K3/bvh"]
+    phase("k3_flat_redesign", card=card, ok=len(ptxas) == len(K3_KERNELS),
+          frame="800x400 spp100 d12 final_world, BVH leaf 64",
+          seq_bvh={"ms": k3["main_path_ms"],
+                   "bound_ms": k3["main_path_bound_ms"]},
+          refill_bvh_vis_w={"ms": vis["k3"]["refill_ms"],
+                            "bound_ms": vis["k3_bound"]["bound_ms"]},
+          near_miss=vis["k3"]["near_miss"], ptxas=ptxas, stage=stage,
+          stage_limit=gradkernel.stage_limit(*gradkernel.device_limits(dev)),
+          limits=limits, refill_lanes_staged=gradkernel.refill_lanes(
+              dev, stage["bytes"]),
+          refill_lanes_unstaged=gradkernel.refill_lanes(dev))
+    if len(ptxas) != len(K3_KERNELS):
+        fail(f"ptxas reported {sorted(ptxas)} of K3's instantiations")
+    for key in ("K3/bvh", "K3/bvh+tape", "K3/bvh+refill",
+                "K3/bvh+refill+tape"):
+        entries[key].update(stage_bytes=stage["bytes"],
+                            registers=ptxas[key]["registers"])
+
+
+def near_miss_share(args: dict) -> dict:
+    """K3's ``vis_w`` launch ``args`` (``gradkernel.launch``'s arguments)
+    less the same launch with ``vis_w`` 0, on each PASS 2 schedule, in
+    turns (with, without, without, with; a warm-up call and 3 timed calls
+    each): the near-miss sweep's share, with the hit side's silhouette
+    terms (small beside it)."""
+    from raytpu_torch.kernels import gradkernel
+    off_args = {**args, "vis_w": 0.0}
+    out = {}
+    for sched in ("refill", "per_sample"):
+        with (per_sample() if sched == "per_sample"
+              else contextlib.nullcontext()):
+            on = cuda_ms_each(lambda: gradkernel.launch(**args), 3)
+            off = cuda_ms_each(lambda: gradkernel.launch(**off_args), 3)
+            off += cuda_ms_each(lambda: gradkernel.launch(**off_args), 3)
+            on += cuda_ms_each(lambda: gradkernel.launch(**args), 3)
+        on_ms, off_ms = sum(on) / len(on), sum(off) / len(off)
+        out[sched] = {"vis_w_ms": on_ms, "vis_w_0_ms": off_ms,
+                      "share_ms": on_ms - off_ms, "vis_w_each_ms": on,
+                      "vis_w_0_each_ms": off}
+    return out
 
 
 def refill_phases(dev, card: str) -> dict:
@@ -2924,8 +3015,7 @@ def refill_phases(dev, card: str) -> dict:
         phase("k4_taped_vs_untaped", ok=True, sweep="bvh",
               schedule="refill, window of depth",
               frame="800x400 spp2 d12 parallel", g_caps=caps,
-              plan=gradkernel.refill_plan(c4s, c4s.height,
-                                          gradkernel.refill_lanes(dev)))
+              plan=k3_plan(c4s, bvh4, dev))
         del img, tape
     finally:
         gradkernel.REFILL_BUDGET = budget
@@ -2959,7 +3049,6 @@ def refill_phases(dev, card: str) -> dict:
             scene4, cam4, c4p, t4, backend="wavefront", bvh=bvh4)),
         ("wavefront_config4_refill2_autograd", c4p, wf_autograd))
     main, launches = {}, {}
-    lanes = gradkernel.refill_lanes(dev)
     for label, cfg, fn in paths:
         out, calls = {}, []
         for sched in ("refill", "per_sample"):
@@ -2984,8 +3073,10 @@ def refill_phases(dev, card: str) -> dict:
                                               **k3_args.kwargs), 3)
             finally:
                 gradkernel.REFILL_BUDGET = budget
+        if label == "config4_vis_w":  # the near-miss sweep's share
+            k3["near_miss"] = near_miss_share(k3_args.arguments)
         row = dict(schedule_times(fn), k3=k3,
-                   plan=gradkernel.refill_plan(cfg, cfg.height, lanes),
+                   plan=k3_plan(cfg, k3_args.arguments.get("bvh"), dev),
                    launches={s: launches[f"{label}/{s}"]
                              for s in ("refill", "per_sample")},
                    refill_vs_per_sample_worst=max(rel.values()),
@@ -3023,7 +3114,8 @@ def refill_phases(dev, card: str) -> dict:
         k3_bound_without_near_miss=bound(k3_ops(c4, 1), nbytes))
     phase("main_path_refill_checks", ok=ok, k3_launches=k3,
           tolerance=f"per leaf {REFILL_TOL} of the per-sample pass's largest",
-          config4_vis_w_k3_ms=vis["k3"]["refill_ms"], census=c4,
+          config4_vis_w_k3_ms=vis["k3"]["refill_ms"],
+          config4_vis_w_near_miss=vis["k3"]["near_miss"], census=c4,
           near_miss_tests=nm, k3_bound=vis["k3_bound"],
           k3_bound_without_near_miss=vis["k3_bound_without_near_miss"])
     if not ok:
@@ -3393,8 +3485,13 @@ def main() -> None:
     vis = main9["config4_vis_w"]
     entries["K3/bvh+refill"].update(
         main_path_vis_w_ms=vis["k3"]["refill_ms"],
+        main_path_vis_w_near_miss_ms=vis["k3"]["near_miss"]["refill"][
+            "share_ms"],
         main_path_vis_w_bound_ms=vis["k3_bound"]["bound_ms"],
         main_path_vis_w_bound_by=vis["k3_bound"]["bound_by"])
+
+    # -- phase 9c: K3 over the flat BVH redesigned, registers and staging
+    k3_phase(dev, card, entries, vis)
 
     # bounds of K1a and K3 in the cells their times come from
     from raytpu_torch import profiling

@@ -16,8 +16,8 @@
 // refill schedule is not one (below).
 //
 //   PASS 1 (skipped when the image is given, parallel RNG only): the
-//          pixel's spp samples through trace_path(), the very code the
-//          forward (K1a, or K1c / K1d with a BVH) runs, so the image is the
+//          pixel's spp samples through k3_trace(), the forward's sweep
+//          (K1a's, K1c's or K1d's) and shade(), so the image is the
 //          forward's bit for bit; then the cotangent of the linear sample
 //          sum, d_acc = ct * exp(log(img)*(1-gamma))/gamma * inv_spp (0
 //          where img <= 0), in gradkernel.py:878-888's order.
@@ -65,10 +65,12 @@
 // nothing, add nothing (their cotangent is ignored) and write 0.
 //
 // With a BVH the scene arrives in leaf order (padded with NaN dummies that
-// never win): the sweeps are K1c's or K1d's, the sphere cotangents
+// never win): the sweeps are K1c's (closest_hit_staged over the rows
+// stage_flat() puts in shared memory) or K1d's, the sphere cotangents
 // accumulate in that order, dummies included, and the wrapper scatters them
-// back to input order.  The near-miss sweep of vis_w runs over every permuted row (NaN
-// rows fail its test), as gradkernel.py:1671 bounds it by nk.
+// back to input order.  The near-miss sweep of vis_w runs over every
+// permuted row (NaN rows fail its test), as gradkernel.py:1671 bounds it by
+// nk, reading each row where the closest hit does.
 //
 // The transpose is derived by hand, piece by piece (bounce_vjp below): the
 // quadratic root with the straight-through sqrt (value from sqrtf(disc),
@@ -90,9 +92,9 @@
 // which the wrapper reduces in a fixed order.  That matters most for the
 // origin cotangent, a difference of sums that cancel about 800x
 // (gradkernel.py:970-973, where the TPU kernel Kahan-compensates f32).  The
-// refill's lanes are one number for every policy and tape mode
-// (raytpu_render_vjp_refill_lanes), so a taped launch's camera sums equal
-// the untaped one's bit for bit.
+// refill's lanes are one number for every tape mode of a launch's policy
+// and stage (raytpu_render_vjp_refill_lanes), so a taped launch's camera
+// sums equal the untaped one's bit for bit.
 // Sphere cotangents go through atomicAdd(double*) (native on sm_90): lanes
 // of a warp with the same winner are first summed in a fixed lane order,
 // but the atomics of different warps land in whatever order the card runs
@@ -103,29 +105,47 @@
 //
 // What bounds it on this card: the closest-hit sweeps (two per sample in
 // sequential RNG, the PASS-1 and the PASS-2 one; one in parallel RNG with
-// the image given, none for the steps a tape holds; one more with vis_w,
-// whose near-miss sweep runs over every sphere at every miss), warp
-// divergence (paths end at different depths, materials branch per lane),
-// the residual traffic, and atomic contention on the ground sphere, which
-// almost every diffuse ray hits.  The per-sample pass runs each warp's
-// forward and reverse of a sample to its longest path (every lane joins
-// the warp-level sums), while config 4's paths take 2.56 bounce steps on
-// average (chip_smoke.py's census, NVIDIA H100 80GB HBM3, 700.00 W); the
-// refill keeps every lane on a live step in both sweeps, and pays for it
-// with 48 bytes of rows a step through device memory (written once, read
-// once; a window of rows is far larger than L2, where the per-sample
-// pass's local rows mostly stay), with every step type of the warp (scatter,
-// miss, spawn; in the reverse the near-miss sweep of vis_w) in every
-// iteration, and with a persistent grid of what stays resident: two blocks
-// an SM at 128 registers.  It keeps its camera sums in shared memory (one
-// column of 18 doubles a thread) rather than in 36 registers, and loads the
-// next row while it transposes this one.  The window W is sized from the
-// wrapper's byte budget (refill_plan): a lane parks when a full-depth
-// sample no longer fits, so the last steps of a window run with fewer
-// lanes, a share of about depth / (2 W).  Lanes with the same winner are
-// summed with shuffles (a full-warp butterfly when all 32 agree) before one
-// lane issues the atomics.  Staging the scene in shared memory and
-// per-block partial sums are later work.
+// the image given, none for the steps a tape holds), with vis_w the
+// near-miss sweep (every sphere at every miss), warp divergence (paths end
+// at different depths, materials branch per lane), the residual traffic,
+// and atomic contention on the ground sphere, which almost every diffuse
+// ray hits.  Its design for SIMT:
+// - Over a flat BVH every sweep (PASS 1, PASS 2's re-forward on either
+//   schedule, a replay's steps past g_cap) is the forward's K1c sweep,
+//   closest_hit_staged(): the leaf boxes, the outliers and as many leaves'
+//   rows as fit staged in shared memory once a block (stage_flat(), planned
+//   by the wrapper, k3_stage, within what keeps two blocks an SM resident
+//   beside the refill's cam_sh; the rest read from the pack), a missed test
+//   ended before sqrtf's slow path, each lane walking its own octant's
+//   boxes and the lanes that entered a leaf sweeping it together.  Its
+//   winner and t are closest_hit<kFlat>'s, so the image and residuals are.
+// - The near-miss sweep is the warp's (near_miss_sweep), called once a
+//   reverse iteration by all 32 lanes, as add_by_key: the lanes whose row
+//   is a miss are taken one by one, each lane testing every 32nd sphere of
+//   the broadcast ray (over a flat BVH the staged rows as one run) and two
+//   warp reductions picking the winner.  A warp pays
+//   500 / 32 tests a miss where it paid 500 at every iteration any lane
+//   missed, which on the refill, whose lanes sit at different samples, was
+//   nearly every one.
+// - The per-sample pass runs each warp's forward and reverse of a sample to
+//   its longest path (every lane joins the warp-level sums), while config
+//   4's paths take 2.56 bounce steps on average (chip_smoke.py's census,
+//   NVIDIA H100 80GB HBM3, 700.00 W); the refill keeps every lane on a live
+//   step in both sweeps, and pays for it with 48 bytes of rows a step
+//   through device memory (written once, read once; a window of rows is far
+//   larger than L2, where the per-sample pass's local rows mostly stay),
+//   with every step type of the warp (scatter, miss, spawn) in every
+//   iteration, and with a persistent grid of what stays resident: two
+//   blocks an SM at 128 registers.  It keeps its camera sums in shared
+//   memory (one column of 18 doubles a thread) rather than in 36 registers,
+//   and loads the next row while it transposes this one.  The window W is
+//   sized from the wrapper's byte budget (refill_plan): a lane parks when a
+//   full-depth sample no longer fits, so the last steps of a window run
+//   with fewer lanes, a share of about depth / (2 W).
+// - Lanes with the same winner are summed with shuffles (a full-warp
+//   butterfly when all 32 agree) before one lane issues the atomics.
+// The refill's rows through device memory and per-block partial sums are
+// later work, as are the brute sweep's and the walk's early exit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -146,6 +166,7 @@ struct Params {
   const CamPack* cam;
   const float* scene;   // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
   FlatBvh bvh;          // kFlat's leaf list
+  FlatStage stage;      // what of it kFlat stages in shared memory
   NodeBvh walk;         // kWalk's node list
   const void* tape;     // (g_cap, rows * width) int16 / int32 (kTape)
   const float* ct;      // (rows, width, 3) image cotangent
@@ -158,6 +179,14 @@ struct Params {
   int lanes, window;    // the refill's lanes and window of steps
   float t_min, inv_w, inv_h, inv_spp, gamma, vis_w;
   int parallel, v1;
+};
+
+// One bounce's state as the reverse sweep needs it: the incoming ray and
+// throughput, the winner (-1 on a miss) and the pre-bounce seed.
+struct Residual {
+  float ox, oy, oz, dx, dy, dz, cr, cg, cb;
+  int win;
+  uint32_t seed;
 };
 
 // d max(x, c)/dx and d min(x, c)/dx with jnp's tie rule: half at a tie.
@@ -417,33 +446,104 @@ __device__ __forceinline__ void boundary(const float o[3], const float d[3],
   gb[3] += f * (2.0f * a * R);
 }
 
-// The miss side of the silhouette terms: the nearest forward-facing
-// near-miss sphere (argmax of the negative discriminant, the first on
-// ties) gaining coverage, with raytpu's one-bounce radiance estimate by
-// material.  Returns its index or -1, and its (cx cy cz rad) cotangent.
-__device__ int near_miss(const SceneView& s, const Residual& r,
-                         const float v[3], const float dacc[3], float vis_w,
-                         float gb[4]) {
+// The near-miss test of sphere j, read from row q of `rows` (the scene
+// pack, or the rows stage_flat() staged), against ray r into the lane's
+// running best: a forward-facing miss (hb < 0, disc < 0; a NaN row fails
+// both) with the largest discriminant, strict >, so among equal ones the
+// first tested wins.  disc_at()'s arithmetic, golden's.
+template <class Rows>
+__device__ __forceinline__ void near_miss_test(const Rows& rows, const Ray& r,
+                                               float a, int q, int j,
+                                               float& best, int& m) {
+  float hb;
+  const float disc = disc_at(rows, r, a, q, hb);
+  if (hb < 0.0f && disc < 0.0f && disc > best) {
+    best = disc;
+    m = j;
+  }
+}
+
+// Lane `lane`'s share of the near-miss sweep of ray r over the kernel's n
+// spheres, each tested once by one lane of the warp and read where the
+// closest hit reads it, a lane's spheres in increasing order.  Under the
+// flat BVH: the staged leaves' rows lane, lane + 32, ... as one run (leaf
+// i's row of sphere j is j + i; the unused row after each leaf is NaN, see
+// render_vjp), then spheres from the first unstaged one on, the staged
+// outliers from their rows and the rest from the pack; else spheres lane,
+// lane + 32, ... from the pack.
+template <int kHit>
+__device__ __forceinline__ void near_miss_share(const Params& p,
+                                                const SceneView& s,
+                                                const Ray& r, float a,
+                                                int lane, float& best,
+                                                int& m) {
+  int j = lane;
+  if constexpr (kHit == kFlat) {
+    const int ls = p.bvh.leaf_size, rows = p.stage.leaves * (ls + 1);
+    const StagedRows staged{flat_rows};
+    for (int q = lane; q < rows; q += 32)
+      near_miss_test(staged, r, a, q, q, best, m);
+    if (m >= 0) m -= m / (ls + 1);  // the winning row's sphere
+    j = p.stage.leaves * ls + lane;
+    if (p.stage.outliers) {
+      for (; j < p.bvh.out_base; j += 32)
+        near_miss_test(SceneRows{s}, r, a, j, j, best, m);
+      const int out_row = rows - p.bvh.out_base;
+      for (; j < s.n; j += 32)
+        near_miss_test(staged, r, a, out_row + j, j, best, m);
+      return;
+    }
+  }
+  for (; j < s.n; j += 32) near_miss_test(SceneRows{s}, r, a, j, j, best, m);
+}
+
+// The near-miss sphere of every lane of the warp whose row is a miss
+// (`miss`; r its residual row): the nearest forward-facing near miss,
+// argmax of the negative discriminant over all n spheres, the first on
+// ties (the sequential strict-> loop's, torch.max's and jnp.argmax's).
+// All 32 lanes call it together.  The misses go one after another: the
+// lane's ray is broadcast,
+// each lane tests every 32nd sphere (near_miss_share), and two warp
+// reductions take the largest discriminant, then the lowest index among
+// the lanes that hold it (-inf: none).  A lane's best is -inf or negative,
+// and complementing the bits of such floats orders them as their values,
+// so the first reduction is an unsigned max; equal values have equal bits.
+// Returns the lane's own sphere, or -1 (none, or not a miss).
+template <int kHit>
+__device__ __forceinline__ int near_miss_sweep(const Params& p,
+                                               const SceneView& s, bool miss,
+                                               const Residual& r) {
+  const int lane = threadIdx.x & 31;
+  int mine = -1;
+  for (unsigned todo = __ballot_sync(kFull, miss); todo; todo &= todo - 1) {
+    const int src = __ffs(todo) - 1;
+    const Ray q{__shfl_sync(kFull, r.ox, src), __shfl_sync(kFull, r.oy, src),
+                __shfl_sync(kFull, r.oz, src), __shfl_sync(kFull, r.dx, src),
+                __shfl_sync(kFull, r.dy, src), __shfl_sync(kFull, r.dz, src)};
+    const float a = dot3(q.dx, q.dy, q.dz, q.dx, q.dy, q.dz);
+    float best = __int_as_float(0xff800000);  // -inf
+    int m = -1;
+    near_miss_share<kHit>(p, s, q, a, lane, best, m);
+    const unsigned key = ~__float_as_uint(best);
+    const unsigned top = __reduce_max_sync(kFull, key);
+    const unsigned first = __reduce_min_sync(
+        kFull, key == top ? static_cast<unsigned>(m) : 0xFFFFFFFFu);
+    if (lane == src) mine = static_cast<int>(first);  // -1 for none
+  }
+  return mine;
+}
+
+// The miss side of the silhouette terms for a missed row r whose near-miss
+// sphere is m: m gaining coverage, with raytpu's one-bounce radiance
+// estimate by material.  Adds m's (cx cy cz rad) cotangent into gb.
+__device__ void near_miss_boundary(const SceneView& s, const Residual& r,
+                                   int m, const float v[3],
+                                   const float dacc[3], float vis_w,
+                                   float gb[4]) {
   const float o[3] = {r.ox, r.oy, r.oz};
   const float d[3] = {r.dx, r.dy, r.dz};
   const float c[3] = {r.cr, r.cg, r.cb};
-  float a = dot3(d[0], d[1], d[2], d[0], d[1], d[2]);
-  float best = __int_as_float(0xff800000);  // -inf
-  int m = -1;
-  for (int j = 0; j < s.n; ++j) {
-    float ocx = o[0] - s.cx[j];
-    float ocy = o[1] - s.cy[j];
-    float ocz = o[2] - s.cz[j];
-    float rad = s.rad[j];
-    float hb = ocx * d[0] + ocy * d[1] + ocz * d[2];
-    float cc = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - rad * rad;
-    float disc = hb * hb - a * cc;
-    if (hb < 0.0f && disc < 0.0f && disc > best) {
-      best = disc;
-      m = j;
-    }
-  }
-  if (m < 0) return -1;
+  const float a = dot3(d[0], d[1], d[2], d[0], d[1], d[2]);
   const float C[3] = {s.cx[m], s.cy[m], s.cz[m]};
   const float alb[3] = {s.ar[m], s.ag[m], s.ab[m]};
   const float mt = s.mt[m];
@@ -467,7 +567,6 @@ __device__ int near_miss(const SceneView& s, const Residual& r,
     jump[k] = c[k] * est - v[k];
   }
   boundary(o, d, a, C, s.rad[m], jump, dacc, vis_w, gb);
-  return m;
 }
 
 // Adds k values per lane into acc[i * n + key] for every lane whose key is
@@ -521,18 +620,33 @@ __device__ __forceinline__ void sum_cotangent(const Params& p, size_t pix,
   }
 }
 
+// The silhouette terms' miss side for the warp's rows of one reverse
+// iteration: each missed row's (`miss`) near-miss sphere (near_miss_sweep)
+// gains its coverage cotangent (near_miss_boundary), added by key.  All 32
+// lanes call it together, as add_by_key.
+template <int kHit>
+__device__ __forceinline__ void add_near_miss(const Params& p,
+                                              const SceneView& s, bool miss,
+                                              const Residual& r,
+                                              const float v[3],
+                                              const float dacc[3]) {
+  const int m = near_miss_sweep<kHit>(p, s, miss, r);
+  float gb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (m >= 0) near_miss_boundary(s, r, m, v, dacc, p.vis_w, gb);
+  add_by_key<4>(p.gsc, p.n, m, gb);
+}
+
 // The transpose of one bounce step, residual r, of a sample whose radiance
 // is v (used by the silhouette terms only).  g carries the cotangent of the
 // step's outgoing (origin, direction, throughput) on entry and of its
 // incoming one on exit.  The winner's leaf cotangents land in ga under key
-// and the silhouette terms' near-miss sphere's in gb under key_nm (-1: no
-// sphere); an absorbing step passes g through and adds nothing.
+// (-1: no sphere); an absorbing step passes g through and adds nothing.  A
+// miss's silhouette term is the warp's (add_near_miss).
 __device__ __forceinline__ void step_vjp(const SceneView& s, const Residual& r,
                                          float t_min, bool v1, float vis_w,
                                          const float v[3],
                                          const float dacc[3], float g[9],
-                                         int& key, float ga[kLeaves],
-                                         int& key_nm, float gb[4]) {
+                                         int& key, float ga[kLeaves]) {
   if (r.win < 0) {  // miss: radiance c * sky(d); the state passes
     const float dv[3] = {r.dx, r.dy, r.dz};
     const float cv[3] = {r.cr, r.cg, r.cb};
@@ -542,7 +656,6 @@ __device__ __forceinline__ void step_vjp(const SceneView& s, const Residual& r,
       g[3 + k] = gd[k];
       g[6 + k] = gc[k];
     }
-    if (vis_w > 0.0f) key_nm = near_miss(s, r, v, dacc, vis_w, gb);
     return;
   }
   const float mt = s.mt[r.win];
@@ -580,6 +693,62 @@ __device__ __forceinline__ void raygen_vjp(const float g[9], const RayGen& gr,
   }
 }
 
+// One bounce step of K3 (bounce_step()'s, render_common.cuh, with K3's
+// closest hit): the winner from the tape while it holds the step (kTape),
+// its t recomputed for that one sphere; else swept, over the flat BVH by
+// closest_hit_staged() on the rows stage_flat() put in shared memory (the
+// forward's K1c sweep: closest_hit<kFlat>'s winner and t), else by
+// closest_hit(); then shade().  kStore writes the step's Residual to *res.
+template <bool kStore, int kHit, bool kTape>
+__device__ __forceinline__ bool k3_step(const Params& p, const SceneView& s,
+                                        Ray& r, uint32_t& sd, bool v1,
+                                        float& cr, float& cg, float& cb,
+                                        float& rr, float& rg, float& rb,
+                                        Residual* res, TapeCursor& tc) {
+  float tb;
+  int win;
+  Census cn{0u, 0u, 0u, 0u, 0u, 0u};  // unused: K3 does not count
+  if (kTape && tc.k < tc.g_cap) {
+    win = tc.get();
+    if (win >= 0) {
+      const float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+      tb = sphere_root(s, r, a, 1.0f / a, p.t_min, win);
+    } else {
+      tb = kInf;
+    }
+  } else if constexpr (kHit == kFlat) {
+    win = closest_hit_staged<false>(s, p.bvh, p.stage, r, p.t_min, tb, cn);
+  } else {
+    win = closest_hit<kHit, false>(s, p.bvh, p.walk, r, p.t_min, tb, cn);
+  }
+  if (kTape) ++tc.k;
+  if (kStore) {
+    *res = Residual{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, cr, cg, cb, win, sd};
+  }
+  return shade(s, win, tb, v1, sd, r, cr, cg, cb, rr, rg, rb);
+}
+
+// One sample of K3 for at most p.depth bounces through k3_step()
+// (trace_path()'s loop): returns the bounces taken (rows of res written
+// when kStore); sd ends as the sample's final seed, (rr, rg, rb) as its
+// radiance; tc advances one step a bounce.
+template <bool kStore, int kHit, bool kTape>
+__device__ __forceinline__ int k3_trace(const Params& p, const SceneView& s,
+                                        Ray r, uint32_t& sd, bool v1,
+                                        float& rr, float& rg, float& rb,
+                                        Residual* res, TapeCursor& tc) {
+  float cr = 1.0f, cg = 1.0f, cb = 1.0f;
+  rr = 0.0f;
+  rg = 0.0f;
+  rb = 0.0f;
+  for (int d = 0; d < p.depth; ++d) {
+    if (!k3_step<kStore, kHit, kTape>(p, s, r, sd, v1, cr, cg, cb, rr, rg,
+                                      rb, kStore ? res + d : nullptr, tc))
+      return d + 1;
+  }
+  return p.depth;  // depth cap: rr, rg, rb are still 0 (black)
+}
+
 // PASS 1 and the per-sample PASS 2 of the thread's pixel (a 2-D grid of
 // 32 x 8 blocks over the slab); the raygen sums land in cam_acc.
 template <int kHit, bool kTape>
@@ -603,7 +772,6 @@ __device__ __forceinline__ void per_sample_pass(const Params& p,
   const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
                                    static_cast<uint32_t>(y));
   const size_t pix = valid ? (static_cast<size_t>(ly) * p.width + x) * 3 : 0;
-  Census cn{0u, 0u, 0u, 0u};  // unused: K3 does not count
 
   // -- PASS 1: the image (K1a's samples), or the given one
   float img[3] = {0.0f, 0.0f, 0.0f};
@@ -620,9 +788,8 @@ __device__ __forceinline__ void per_sample_pass(const Params& p,
       Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, gr);
       float rr, rg, rb;
       TapeCursor none{nullptr, 0, 0, 0, 0, 0};
-      trace_path<false, kHit, kNoTape, false>(s, p.bvh, p.walk, r, sd,
-                                              p.depth, p.t_min, v1, rr, rg,
-                                              rb, nullptr, none, cn);
+      k3_trace<false, kHit, false>(p, s, r, sd, v1, rr, rg, rb, nullptr,
+                                   none);
       acc_r = acc_r + rr;
       acc_g = acc_g + rg;
       acc_b = acc_b + rb;
@@ -653,22 +820,22 @@ __device__ __forceinline__ void per_sample_pass(const Params& p,
       uint32_t sd = p.parallel ? fold_in(seed0, static_cast<uint32_t>(smp))
                                : chain;
       Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, gr);
-      len = trace_path<true, kHit, kTape ? kTapeRead : kNoTape, false>(
-          s, p.bvh, p.walk, r, sd, p.depth, p.t_min, v1, v[0], v[1], v[2],
-          res, tc, cn);
+      len = k3_trace<true, kHit, kTape>(p, s, r, sd, v1, v[0], v[1], v[2],
+                                        res, tc);
       if (!p.parallel) chain = sd;
     }
     float g[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     const int warp_len = __reduce_max_sync(kFull, len);
     for (int it = 0; it < warp_len; ++it) {
       const int d = len - 1 - it;
-      int key = -1, key_nm = -1;
-      float ga[kLeaves] = {}, gb[4] = {};
+      const Residual& rd = res[d >= 0 ? d : 0];  // read only where d >= 0
+      int key = -1;
+      float ga[kLeaves] = {};
       if (d >= 0)
-        step_vjp(s, res[d], p.t_min, v1, p.vis_w, v, dacc, g, key, ga, key_nm,
-                 gb);
+        step_vjp(s, rd, p.t_min, v1, p.vis_w, v, dacc, g, key, ga);
       add_by_key<kLeaves>(p.gsc, p.n, key, ga);
-      if (p.vis_w > 0.0f) add_by_key<4>(p.gsc, p.n, key_nm, gb);
+      if (p.vis_w > 0.0f)
+        add_near_miss<kHit>(p, s, d >= 0 && rd.win < 0, rd, v, dacc);
     }
     raygen_vjp(g, gr, cam_acc);
   }
@@ -781,7 +948,6 @@ __device__ __forceinline__ void refill_pass(const Params& p,
   const SceneView s = scene_view(p.scene, p.n);
   const bool v1 = p.v1 != 0;
   const RowStore store{p.rows_buf, static_cast<size_t>(p.lanes), lane};
-  Census cn{0u, 0u, 0u, 0u};  // unused: K3 does not count
 
   // the sample in flight, or the next to spawn: sample smp of hop m
   int m = 0, smp = 0;
@@ -813,10 +979,8 @@ __device__ __forceinline__ void refill_pass(const Params& p,
       if (!alive) continue;
       Residual res;
       float rr = 0.0f, rg = 0.0f, rb = 0.0f;  // the reverse recomputes it
-      const bool scat = bounce_step<true, kHit, kTape ? kTapeRead : kNoTape,
-                                    false>(s, p.bvh, p.walk, r, sd, p.t_min,
-                                           v1, cr, cg, cb, rr, rg, rb, &res,
-                                           tc, cn);
+      const bool scat = k3_step<true, kHit, kTape>(p, s, r, sd, v1, cr, cg,
+                                                   cb, rr, rg, rb, &res, tc);
       ++d;
       const bool fin = !scat || d >= p.depth;
       const uint32_t flags = (scat ? kFScat : 0u) |
@@ -848,15 +1012,15 @@ __device__ __forceinline__ void refill_pass(const Params& p,
     uint32_t next[kRowWords];
     if (used > 0 && used == warp_used) store.load(used - 1, next);
     for (int g = warp_used - 1; g >= 0; --g) {
-      int key = -1, key_nm = -1;
-      float ga[kLeaves] = {}, gb[4] = {};
+      int key = -1;
+      float ga[kLeaves] = {};
       uint32_t row[kRowWords];
 #pragma unroll
       for (int i = 0; i < kRowWords; ++i) row[i] = next[i];
       if (g >= 1 && g - 1 < used) store.load(g - 1, next);
+      const Residual res = row_residual(row);  // read only where g < used
       if (g < used) {
         const uint32_t meta = row[11];
-        const Residual res = row_residual(row);
         const uint32_t ord = meta >> 4;  // hop * spp + sample
         const int hm = static_cast<int>(ord / static_cast<uint32_t>(p.spp));
         const size_t q = lane + static_cast<size_t>(hm) * p.lanes;
@@ -874,8 +1038,7 @@ __device__ __forceinline__ void refill_pass(const Params& p,
           v[1] = missed ? res.cg * kg : 0.0f;
           v[2] = missed ? res.cb * kb : 0.0f;
         }
-        step_vjp(s, res, p.t_min, v1, p.vis_w, v, dacc, g9, key, ga, key_nm,
-                 gb);
+        step_vjp(s, res, p.t_min, v1, p.vis_w, v, dacc, g9, key, ga);
         if (meta & kFFresh) {  // the sample's first step: raygen, cut
           const LanePixel hp = pixel_of(p, q);
           uint32_t sd0 = fold_in(hp.seed0, ord % static_cast<uint32_t>(p.spp));
@@ -891,7 +1054,8 @@ __device__ __forceinline__ void refill_pass(const Params& p,
         }
       }
       add_by_key<kLeaves>(p.gsc, p.n, key, ga);
-      if (p.vis_w > 0.0f) add_by_key<4>(p.gsc, p.n, key_nm, gb);
+      if (p.vis_w > 0.0f)
+        add_near_miss<kHit>(p, s, g < used && res.win < 0, res, v, dacc);
     }
   }
 #pragma unroll
@@ -902,6 +1066,18 @@ __device__ __forceinline__ void refill_pass(const Params& p,
 // warp's row of camera sums.
 template <int kHit, bool kTape, bool kRefill>
 __device__ __forceinline__ void render_vjp(const Params& p) {
+  // over a flat BVH every sweep reads what stage_flat() stages; every
+  // thread of the block reaches its barrier (none returns early).  Before
+  // it, the row stage_flat() leaves unused after each staged leaf is set to
+  // NaN, so the near-miss sweep reads the staged leaves' rows as one run.
+  if constexpr (kHit == kFlat) {
+    const int ls = p.bvh.leaf_size;
+    const float nan = __int_as_float(0x7fc00000);
+    for (int i = threadIdx.x + blockDim.x * threadIdx.y; i < p.stage.leaves;
+         i += blockDim.x * blockDim.y)
+      flat_rows[i * (ls + 1) + ls] = make_float4(nan, nan, nan, nan);
+    stage_flat(p.scene, p.n, p.bvh, p.stage);
+  }
   double cam_acc[kCamSums];
 #pragma unroll
   for (int i = 0; i < kCamSums; ++i) cam_acc[i] = 0.0;
@@ -937,16 +1113,51 @@ render_vjp_refill_kernel(Params p) {
   render_vjp<kHit, kTape, true>(p);
 }
 
+// The refill's static shared memory a block (cam_sh).
+constexpr size_t kCamShBytes = sizeof(double) * kCamSums * kRefillBlock;
+
+// Lets `kernel` take `shmem` bytes of dynamic shared memory beside its
+// `fixed` static bytes: past 48 KB a block only after it opts in.
+template <class Kernel>
+cudaError_t allow_shmem(Kernel kernel, size_t shmem, size_t fixed) {
+  if (shmem + fixed <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(shmem));
+}
+
+// Blocks of `threads` threads of `kernel` one SM keeps resident with
+// `shmem` dynamic bytes beside `fixed` static ones; 0 on an error.
+template <class Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t shmem, size_t fixed) {
+  int nb = 0;
+  if (allow_shmem(kernel, shmem, fixed) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, threads,
+                                                    shmem) != cudaSuccess)
+    return 0;
+  return nb;
+}
+
 template <int kHit, bool kTape, bool kRefill>
 int launch(const Params& p, cudaStream_t stream) {
+  // the flat sweep's staged rows (stage_flat)
+  const size_t shmem =
+      kHit == kFlat
+          ? sizeof(float4) * flat_stage_rows(p.stage, p.bvh.leaf_size)
+          : 0;
   if constexpr (kRefill) {
-    render_vjp_refill_kernel<kHit, kTape><<<p.lanes / kRefillBlock,
-                                            kRefillBlock, 0, stream>>>(p);
+    auto kernel = render_vjp_refill_kernel<kHit, kTape>;
+    const cudaError_t e = allow_shmem(kernel, shmem, kCamShBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<p.lanes / kRefillBlock, kRefillBlock, shmem, stream>>>(p);
   } else {
+    auto kernel = render_vjp_kernel<kHit, kTape>;
+    const cudaError_t e = allow_shmem(kernel, shmem, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
     dim3 block(32, 8);
     dim3 grid((p.width + block.x - 1) / block.x,
               (p.rows + block.y - 1) / block.y);
-    render_vjp_kernel<kHit, kTape><<<grid, block, 0, stream>>>(p);
+    kernel<<<grid, block, shmem, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -959,15 +1170,12 @@ int launch_hit(int hit, const Params& p, cudaStream_t stream) {
   return launch<kBrute, kTape, kRefill>(p, stream);
 }
 
-// Blocks of the refill instantiation (kHit, kTape) one SM keeps resident.
+// Blocks of the refill instantiation (kHit, kTape) one SM keeps resident,
+// kFlat's with `shmem` bytes staged.
 template <int kHit, bool kTape>
-int refill_blocks_per_sm() {
-  int nb = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &nb, render_vjp_refill_kernel<kHit, kTape>, kRefillBlock, 0) !=
-      cudaSuccess)
-    return 0;
-  return nb;
+int refill_blocks_per_sm(int shmem) {
+  return blocks_per_sm(render_vjp_refill_kernel<kHit, kTape>, kRefillBlock,
+                       kHit == kFlat ? shmem : 0, kCamShBytes);
 }
 
 }  // namespace
@@ -987,12 +1195,18 @@ int refill_blocks_per_sm() {
 // refill schedule, `lanes` threads (a multiple of 256) and a window of
 // `window` >= depth steps, residual rows in `rows_buf` (window * 12 * lanes
 // words); it needs parallel RNG and img_in, and hops * spp < 2^28, hops
-// the pixels a lane takes.
+// the pixels a lane takes.  The flat sweep stages stage_leaves leaves,
+// stage_outliers outlier rows (0 or out_cnt) and stage_boxes box rows (0
+// or 16 n_leaves) in shared memory (FlatStage: the wrapper plans it within
+// raytpu_render_vjp_device's limits, the refill's lanes from
+// raytpu_render_vjp_refill_lanes of its bytes).
 extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
                                  const void* flat, int n_leaves,
                                  int leaf_size, const void* nodes,
                                  int n_trav, int copies, int out_base,
-                                 int out_cnt, int tape_read,
+                                 int out_cnt, int stage_leaves,
+                                 int stage_outliers, int stage_boxes,
+                                 int tape_read,
                                  const void* tape, int g_cap,
                                  int tape_wide, const void* ct,
                                  const void* img_in, void* img_out,
@@ -1008,7 +1222,11 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   if ((tape_read || refill) && (!parallel || img_in == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((flat != nullptr && nodes != nullptr) ||
-      (nodes != nullptr && (n_trav < 1 || (copies != 1 && copies != 8))))
+      (nodes != nullptr && (n_trav < 1 || (copies != 1 && copies != 8))) ||
+      (flat != nullptr &&
+       (stage_leaves < 0 || stage_leaves > n_leaves ||
+        (stage_outliers != 0 && stage_outliers != out_cnt) ||
+        (stage_boxes != 0 && stage_boxes != 16 * n_leaves))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (refill) {
     if (lanes < kRefillBlock || lanes % kRefillBlock != 0 ||
@@ -1024,6 +1242,7 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.scene = static_cast<const float*>(scene);
   p.bvh = FlatBvh{static_cast<const float*>(flat), n_leaves, leaf_size,
                   out_base, out_cnt};
+  p.stage = FlatStage{stage_leaves, stage_outliers, stage_boxes};
   p.walk = NodeBvh{static_cast<const float*>(nodes), n_trav, copies,
                    out_base, out_cnt};
   p.tape = tape;
@@ -1069,19 +1288,56 @@ extern "C" int raytpu_render_vjp_warps(int width, int rows) {
 
 // The refill's lane cap on the current device: its SMs times the blocks of
 // 256 threads one SM keeps resident of the refill instantiation that keeps
-// the fewest (every policy and tape mode gets the same lanes, so a taped
-// launch sums the camera terms in the untaped one's order); 0 on an error.
-extern "C" int raytpu_render_vjp_refill_lanes() {
+// the fewest, the flat sweep's with `shmem` bytes staged (a taped and an
+// untaped launch of one scene get the same lanes, so the taped one sums
+// the camera terms in the untaped one's order); 0 on an error.
+extern "C" int raytpu_render_vjp_refill_lanes(int shmem) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     return 0;
-  const int per_sm[6] = {
-      refill_blocks_per_sm<kBrute, false>(), refill_blocks_per_sm<kFlat, false>(),
-      refill_blocks_per_sm<kWalk, false>(), refill_blocks_per_sm<kBrute, true>(),
-      refill_blocks_per_sm<kFlat, true>(), refill_blocks_per_sm<kWalk, true>()};
+  const int per_sm[6] = {refill_blocks_per_sm<kBrute, false>(shmem),
+                         refill_blocks_per_sm<kFlat, false>(shmem),
+                         refill_blocks_per_sm<kWalk, false>(shmem),
+                         refill_blocks_per_sm<kBrute, true>(shmem),
+                         refill_blocks_per_sm<kFlat, true>(shmem),
+                         refill_blocks_per_sm<kWalk, true>(shmem)};
   int least = per_sm[0];
   for (int i = 1; i < 6; ++i) least = per_sm[i] < least ? per_sm[i] : least;
   return sms * least * kRefillBlock;
+}
+
+// What bounds the stage of a K3 launch over a flat BVH on the current
+// device: the opt-in shared memory a block (*optin), an SM's shared memory
+// (*per_sm), what the runtime reserves of it a block (*reserved), the
+// blocks of K3's flat instantiations an SM keeps resident with nothing
+// staged (*blocks: the fewest of the four; registers bound them) and the
+// refill's static shared memory a block (*fixed, cam_sh).  Returns a CUDA
+// error code.
+extern "C" int raytpu_render_vjp_device(int* optin, int* per_sm,
+                                        int* reserved, int* blocks,
+                                        int* fixed) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(reserved,
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int per_sm_blocks[4] = {
+      blocks_per_sm(render_vjp_kernel<kFlat, false>, 256, 0, 0),
+      blocks_per_sm(render_vjp_kernel<kFlat, true>, 256, 0, 0),
+      refill_blocks_per_sm<kFlat, false>(0),
+      refill_blocks_per_sm<kFlat, true>(0)};
+  *blocks = per_sm_blocks[0];
+  for (int i = 1; i < 4; ++i)
+    *blocks = per_sm_blocks[i] < *blocks ? per_sm_blocks[i] : *blocks;
+  *fixed = static_cast<int>(kCamShBytes);
+  return *blocks > 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -325,9 +325,9 @@ render_fwd_kernel(Params p) {
       RayGen g;
       Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
       float rr, rg, rb;
-      trace_path<false, kHit, kTape, kCount>(s, p.bvh, p.walk, r, sd,
-                                             p.depth, p.t_min, p.v1 != 0, rr,
-                                             rg, rb, nullptr, tc, cn);
+      trace_path<kHit, kTape, kCount>(s, p.bvh, p.walk, r, sd, p.depth,
+                                      p.t_min, p.v1 != 0, rr, rg, rb, tc,
+                                      cn);
       acc_r = acc_r + rr;
       acc_g = acc_g + rg;
       acc_b = acc_b + rb;

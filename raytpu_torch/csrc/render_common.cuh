@@ -9,7 +9,9 @@
 // bounce_step() below and nothing else (the megakernels through
 // trace_path(), its loop over a sample's bounces), or through its two
 // halves: the flat sweep's forward runs closest_hit_staged(), the same
-// tests as closest_hit<kFlat>, then shade().
+// tests as closest_hit<kFlat>, then shade(); K3 (gradkernel.cu, k3_step)
+// takes its closest hit from the tape, closest_hit_staged() over a flat
+// BVH or closest_hit(), then shade().
 //
 // The skip-pointer walk (K1d) replaces raytpu/kernels/megakernel.py:640-696
 // and its VJP twin gradkernel.py:544-594, the path raytpu takes past 64
@@ -506,7 +508,8 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
 }
 
 // ---- the flat sweep from shared memory (the forward's K1c, K1b/bvh, K1',
-// K2 and K4 over a flat BVH; K3 and K5 / K6 keep closest_hit<kFlat>) -------
+// K2 and K4 over a flat BVH, and K3's every sweep over one; K5 / K6 keep
+// closest_hit<kFlat>) -----------------------------------------------------
 //
 // The same tests as closest_hit<kFlat>, in the same order for each lane, so
 // the same winner, t and census; what changes is where the operands come
@@ -526,7 +529,10 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
 // 128-byte cycle, so without it lanes sweeping different leaves at the same
 // slot would read one bank group (an 8-way conflict in each quarter-warp
 // phase of a 16-byte load).  config 4's BVH (8 leaves of 64, one outlier)
-// stages 10.4 KB; 64 leaves of 64 with 4 outliers 83.0 KB.
+// stages 10.4 KB; 64 leaves of 64 with 4 outliers 83.0 KB.  K3 plans its
+// stage within what leaves its blocks resident beside its refill's static
+// shared memory (raytpu_torch.kernels.gradkernel.k3_stage), so a large BVH
+// may stage part of itself there.
 extern __shared__ float4 flat_rows[];
 
 // What stage_flat() stages: leaves [0, leaves) of the BVH's leaf rows,
@@ -641,7 +647,8 @@ __device__ __forceinline__ int closest_hit_staged(const SceneView& s,
 // The winner-index tape of one pixel (K4): tape[k * stride + pix], k the
 // pixel's global bounce step counted across its samples in order; int16
 // (wide == 0) or int32 elements; g_cap steps are kept, later ones are not.
-enum TapeMode { kNoTape = 0, kTapeWrite = 1, kTapeRead = 2 };
+// K4 writes it through step_hit(); K3 reads it in its own step (k3_step).
+enum TapeMode { kNoTape = 0, kTapeWrite = 1 };
 
 struct TapeCursor {
   void* buf;
@@ -662,25 +669,14 @@ struct TapeCursor {
   }
 };
 
-// One bounce step's closest hit under the policy: read from the tape while
-// it holds the step, else swept; written to the tape when kTape is write.
+// One bounce step's closest hit under the policy, written to the tape when
+// kTape is write.
 template <int kHit, int kTape, bool kCount>
 __device__ __forceinline__ int step_hit(const SceneView& s, const FlatBvh& bvh,
                                         const NodeBvh& walk, const Ray& r,
                                         float t_min, float& tb,
                                         TapeCursor& tc, Census& cn) {
-  int win;
-  if (kTape == kTapeRead && tc.k < tc.g_cap) {
-    win = tc.get();
-    if (win >= 0) {
-      float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
-      tb = sphere_root(s, r, a, 1.0f / a, t_min, win);
-    } else {
-      tb = kInf;
-    }
-  } else {
-    win = closest_hit<kHit, kCount>(s, bvh, walk, r, t_min, tb, cn);
-  }
+  const int win = closest_hit<kHit, kCount>(s, bvh, walk, r, t_min, tb, cn);
   if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
   if (kTape != kNoTape) ++tc.k;
   if (kCount) ++cn.steps;
@@ -797,14 +793,6 @@ __device__ __forceinline__ void scatter(const SceneView& s, int win, float tb,
   r.dz = odz;
 }
 
-// One bounce's state as the reverse sweep of K3 needs it: the incoming ray
-// and throughput, the winner (-1 on a miss) and the pre-bounce seed.
-struct Residual {
-  float ox, oy, oz, dx, dy, dz, cr, cg, cb;
-  int win;
-  uint32_t seed;
-};
-
 // A bounce past its closest hit `win` at t = tb (-1: a miss): on a miss
 // the sky of the pre-scatter direction, on the hit of an unknown material
 // absorption (black, seed kept), else the scatter.  Returns whether the ray
@@ -837,49 +825,41 @@ __device__ __forceinline__ bool shade(const SceneView& s, int win, float tb,
 // slot's radiance (rr, rg, rb) gains c * sky, raytpu's add-once rule
 // (megakernel.py:734: a sample misses once, so a radiance carried across a
 // slot's samples sums them, as the wavefront's does; trace_path's radiance
-// is +0 there, so it ends as c * sky).  kStore writes the step's Residual
-// (the incoming ray and throughput, the winner, the seed) to *res.
-template <bool kStore, int kHit, int kTape, bool kCount>
+// is +0 there, so it ends as c * sky).
+template <int kHit, int kTape, bool kCount>
 __device__ __forceinline__ bool bounce_step(const SceneView& s,
                                             const FlatBvh& bvh,
                                             const NodeBvh& walk, Ray& r,
                                             uint32_t& sd, float t_min, bool v1,
                                             float& cr, float& cg, float& cb,
                                             float& rr, float& rg, float& rb,
-                                            Residual* res, TapeCursor& tc,
-                                            Census& cn) {
+                                            TapeCursor& tc, Census& cn) {
   float tb;
   int win = step_hit<kHit, kTape, kCount>(s, bvh, walk, r, t_min, tb, tc, cn);
-  if (kStore) {
-    *res = Residual{r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, cr, cg, cb, win, sd};
-  }
   return shade(s, win, tb, v1, sd, r, cr, cg, cb, rr, rg, rb);
 }
 
 // Trace one sample for at most `depth` bounces, stopping at the first
 // miss, absorption or the depth cap (black).  Returns the number of
-// bounces taken (rows of `res` written when kStore); `sd` ends as the
-// sample's final seed and (rr, rg, rb) as its radiance.  The closest hit
-// of each step is step_hit's policy (kHit, kTape, kCount); `tc` advances
-// one step per bounce taken.
-template <bool kStore, int kHit, int kTape, bool kCount>
+// bounces taken; `sd` ends as the sample's final seed and (rr, rg, rb) as
+// its radiance.  The closest hit of each step is step_hit's policy (kHit,
+// kTape, kCount); `tc` advances one step per bounce taken.
+template <int kHit, int kTape, bool kCount>
 __device__ __forceinline__ int trace_path(const SceneView& s,
                                           const FlatBvh& bvh,
                                           const NodeBvh& walk, Ray r,
                                           uint32_t& sd, int depth,
                                           float t_min, bool v1, float& rr,
                                           float& rg, float& rb,
-                                          Residual* res, TapeCursor& tc,
-                                          Census& cn) {
+                                          TapeCursor& tc, Census& cn) {
   float cr = 1.0f, cg = 1.0f, cb = 1.0f;
   rr = 0.0f;
   rg = 0.0f;
   rb = 0.0f;
   if (kCount) ++cn.samples;
   for (int d = 0; d < depth; ++d) {
-    if (!bounce_step<kStore, kHit, kTape, kCount>(
-            s, bvh, walk, r, sd, t_min, v1, cr, cg, cb, rr, rg, rb,
-            kStore ? res + d : nullptr, tc, cn))
+    if (!bounce_step<kHit, kTape, kCount>(s, bvh, walk, r, sd, t_min, v1, cr,
+                                          cg, cb, rr, rg, rb, tc, cn))
       return d + 1;
   }
   return depth;  // depth cap: rr, rg, rb are still 0 (black)

@@ -158,9 +158,9 @@ __device__ __forceinline__ void dense_segment(const SegParams& p,
   if (i < c.R) load(i);
   while (i < c.R) {
     if (alive > 0.0f && b < c.n_bounces) {
-      if (bounce_step<false, kDense, kNoTape, false>(
-              s, c.bvh, c.walk, r, sd, c.t_min, v1, cr, cg, cb, rr, rg, rb,
-              nullptr, tc, cn)) {
+      if (bounce_step<kDense, kNoTape, false>(s, c.bvh, c.walk, r, sd,
+                                              c.t_min, v1, cr, cg, cb, rr,
+                                              rg, rb, tc, cn)) {
         ++b;
         continue;
       }
@@ -212,9 +212,9 @@ __global__ void __launch_bounds__(kBlock) render_segment_kernel(SegParams p) {
       TapeCursor tc{nullptr, 0, 0, 0, 0, 0};
       Census cn{0u, 0u, 0u, 0u};
       for (int b = 0; b < c.n_bounces; ++b) {
-        if (!bounce_step<false, kHit, kNoTape, false>(
+        if (!bounce_step<kHit, kNoTape, false>(
                 s, c.bvh, c.walk, r, sd, c.t_min, c.v1 != 0, cr, cg, cb, rr,
-                rg, rb, nullptr, tc, cn)) {
+                rg, rb, tc, cn)) {
           alive = 0.0f;
           break;
         }
@@ -277,9 +277,9 @@ __global__ void __launch_bounds__(kBlock) render_refill_kernel(RefillParams p) {
   TapeCursor tc{nullptr, 0, 0, 0, 0, 0};
   Census cn{0u, 0u, 0u, 0u};
   for (int b = 0; b < c.n_bounces && alive; ++b) {
-    const bool scattered = bounce_step<false, kHit, kNoTape, false>(
+    const bool scattered = bounce_step<kHit, kNoTape, false>(
         s, c.bvh, c.walk, r, sd, c.t_min, c.v1 != 0, cr, cg, cb, rr, rg, rb,
-        nullptr, tc, cn);
+        tc, cn);
     ++d;
     if (scattered && d < p.depth) continue;
     // the sample ended: fold it in, respawn while the pixel has samples

@@ -27,6 +27,13 @@ another order (allclose, not bit-equal).  :func:`refill_plan` sizes the
 lanes and the window from :data:`REFILL_BUDGET`; ``p2_refill=False`` (or
 :data:`P2_REFILL` set to False) forces the per-sample pass.
 
+Over a flat BVH every K3 sweep is the forward's K1c sweep, over the rows
+:func:`k3_stage` plans to stage in shared memory (within what keeps the
+kernel's blocks resident beside the refill's camera sums: a large BVH may
+stage part of itself, the rest read from the scene pack); the refill's
+lanes count the staged bytes (:func:`refill_lanes`), the same for a taped
+and an untaped launch of one scene.
+
 The tape (K4).  The taping forward (:func:`render_tape_fwd`) renders the
 forward's image and logs, per pixel, the closest-hit winner of each bounce
 step, counted across the pixel's samples in order: ``tape[k, pix]``, int16
@@ -47,7 +54,7 @@ import numpy as np
 import torch
 
 from raytpu_torch import adjoint, golden
-from raytpu_torch.bvh import BVH, permute_scene
+from raytpu_torch.bvh import BVH, permute_scene, sweep_of
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import _build, megakernel
@@ -116,35 +123,95 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raytpu_render_vjp
-    fn.argtypes = [ptr, ptr, i, ptr, i, i, ptr, i, i, i, i, i, ptr, i, i,
-                   ptr, ptr, ptr, ptr, ptr,
+    fn.argtypes = [ptr, ptr, i, ptr, i, i, ptr, i, i, i, i, i, i, i, i, ptr,
+                   i, i, ptr, ptr, ptr, ptr, ptr,
                    i, i, i, i, i, i, f, f, f, f, f, f, i, i, i, i, i, ptr,
                    ptr]
     fn.restype = ctypes.c_int
     lib.raytpu_render_vjp_warps.argtypes = [i, i]
     lib.raytpu_render_vjp_warps.restype = ctypes.c_int
-    lib.raytpu_render_vjp_refill_lanes.argtypes = []
+    lib.raytpu_render_vjp_refill_lanes.argtypes = [i]
     lib.raytpu_render_vjp_refill_lanes.restype = ctypes.c_int
+    pi = ctypes.POINTER(ctypes.c_int)
+    lib.raytpu_render_vjp_device.argtypes = [pi] * 5
+    lib.raytpu_render_vjp_device.restype = ctypes.c_int
     return lib
 
 
-_lanes_cap: dict[int, int] = {}  # device index -> refill_lanes()
+def _index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
 
 
-def refill_lanes(device) -> int:
+_lanes_cap: dict[tuple, int] = {}  # (device index, shmem) -> refill_lanes()
+
+
+def refill_lanes(device, shmem: int = 0) -> int:
     """The refill's lane cap on a CUDA device: its SMs times the threads
     one SM keeps resident of the refill instantiation that keeps the
-    fewest (the same for every policy and tape mode)."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    if index not in _lanes_cap:
-        with torch.cuda.device(index):
-            cap = _lib().raytpu_render_vjp_refill_lanes()
+    fewest, the flat sweep's with ``shmem`` bytes staged (the same for a
+    taped and an untaped launch of one stage)."""
+    key = (_index(device), int(shmem))
+    if key not in _lanes_cap:
+        with torch.cuda.device(key[0]):
+            cap = _lib().raytpu_render_vjp_refill_lanes(key[1])
         if cap < REFILL_BLOCK:
             raise RuntimeError("the refill kernel keeps no block resident "
-                               f"on cuda:{index}")
-        _lanes_cap[index] = cap
-    return _lanes_cap[index]
+                               f"on cuda:{key[0]} with {key[1]} bytes staged")
+        _lanes_cap[key] = cap
+    return _lanes_cap[key]
+
+
+_limits: dict[int, tuple] = {}  # device index -> device_limits()
+
+
+def device_limits(device) -> tuple[int, int, int, int, int]:
+    """(opt-in shared memory a block, an SM's shared memory, what a block
+    reserves of it, blocks of K3's flat instantiations an SM keeps resident
+    with nothing staged, the refill's static shared memory a block) on a
+    CUDA device: what bounds K3's stage (:func:`stage_limit`)."""
+    index = _index(device)
+    if index not in _limits:
+        vals = [ctypes.c_int() for _ in range(5)]
+        with torch.cuda.device(index):
+            err = _lib().raytpu_render_vjp_device(*map(ctypes.byref, vals))
+        if err != 0:
+            raise RuntimeError(f"raytpu_render_vjp_device failed: CUDA error "
+                               f"{err}")
+        _limits[index] = tuple(v.value for v in vals)
+    return _limits[index]
+
+
+def stage_limit(optin: int, per_sm: int, reserved: int, blocks: int,
+                fixed: int) -> int:
+    """The bytes K3 stages a block at most: within the opt-in limit and
+    small enough that ``blocks`` blocks an SM (what K3's registers allow)
+    stay resident, each beside ``fixed`` static bytes (the refill's camera
+    sums, 18 f64 a thread).  On an H100: min(232448, 233472 // 2 - 1024) -
+    36864 = 78848."""
+    return max(0, min(optin, per_sm // blocks - reserved) - fixed)
+
+
+def k3_stage(bvh: BVH, device) -> dict:
+    """What K3 stages of the flat ``bvh`` in shared memory on a CUDA
+    device (:func:`megakernel.flat_stage` within :func:`stage_limit`)."""
+    return megakernel.flat_stage(bvh, stage_limit(*device_limits(device)))
+
+
+_NO_STAGE = {"leaves": 0, "outliers": 0, "boxes": 0, "bytes": 0}
+
+
+def launch_plan(cfg: RenderConfig, rows: int, bvh: BVH | None, refill: bool,
+                device) -> tuple[dict, dict | None]:
+    """A launch's (stage, refill plan): over a flat BVH its
+    :func:`k3_stage` (else nothing staged), and on the refill
+    :func:`refill_plan` of the lanes with those bytes staged, so a taped
+    and an untaped launch of one scene get the same lanes."""
+    flat = bvh is not None and sweep_of(bvh) == "flat"
+    stage = k3_stage(bvh, device) if flat else _NO_STAGE
+    plan = (refill_plan(cfg, rows, refill_lanes(device, stage["bytes"]))
+            if refill else None)
+    return stage, plan
 
 
 def uses_refill(cfg: RenderConfig, img, p2_refill: bool | None = None
@@ -270,9 +337,9 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     out = torch.empty((rows, cfg.width, 3), dtype=torch.float32,
                       device=device)
     gsc = torch.zeros((LEAVES, n), dtype=torch.float64, device=device)
-    plan, scratch = None, None
+    stage, plan = launch_plan(cfg, rows, bvh, refill, device)
+    scratch = None
     if refill:
-        plan = refill_plan(cfg, rows, refill_lanes(device))
         if plan["hops"] * cfg.spp >= 2**28:
             raise ValueError(f"{plan['hops']} pixels a lane at {cfg.spp} spp: "
                              "the refill numbers a lane's samples below 2^28")
@@ -287,7 +354,8 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_vjp(
             cam_pack.data_ptr(), scene_pack.data_ptr(), n,
-            *megakernel.bvh_args(bvh), int(tape is not None),
+            *megakernel.bvh_args(bvh), stage["leaves"], stage["outliers"],
+            stage["boxes"], int(tape is not None),
             None if tape is None or tape.numel() == 0 else tape.data_ptr(),
             0 if tape is None else tape.shape[0],
             int(tape is not None and tape.dtype == torch.int32),

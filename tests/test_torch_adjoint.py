@@ -208,6 +208,37 @@ def test_vis_w_changes_only_the_geometry_gradients():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("order", ["a_first", "b_first"])
+def test_near_miss_tie_takes_the_lower_index(order):
+    """The silhouette terms' near-miss sphere: argmax of the negative
+    discriminant over forward-facing misses, the first maximum on ties (the
+    rule K3's warp-wide sweep keeps: the largest discriminant, among equal
+    ones the lowest index), never a NaN padding row.  Two spheres mirrored
+    about the ray have bit-equal discriminants; both packages take the
+    lower index of the two.  A third, farther sphere has a smaller
+    discriminant; a ray pointing away from all of them has no near miss."""
+    nan = float("nan")
+    a, b = ((1.5, 0.0, 5.0), 1.0), ((-1.5, 0.0, 5.0), 1.0)
+    pair = (a, b) if order == "a_first" else (b, a)
+    rows = [((nan, nan, nan), nan), *pair, ((0.0, 2.5, 9.0), 1.0)]
+    center = np.array([c for c, _ in rows], np.float32)
+    radius = np.array([r for _, r in rows], np.float32)
+    ro = [np.zeros(2, np.float32) for _ in range(3)]
+    rd = [np.zeros(2, np.float32), np.zeros(2, np.float32),
+          np.array([1.0, -1.0], np.float32)]
+    j_idx, j_has = jadj._near_miss_sweep(
+        raytpu.Scene(center=jnp.asarray(center), radius=jnp.asarray(radius),
+                     mat_type=None, albedo=None, mat_param=None),
+        tuple(map(jnp.asarray, ro)), tuple(map(jnp.asarray, rd)))
+    t_idx, t_has = tadj._near_miss_sweep(
+        Scene(center=torch.from_numpy(center),
+              radius=torch.from_numpy(radius), mat_type=None, albedo=None,
+              mat_param=None),
+        tuple(map(torch.from_numpy, ro)), tuple(map(torch.from_numpy, rd)))
+    assert np.asarray(j_has).tolist() == t_has.tolist() == [True, False]
+    assert int(j_idx[0]) == int(t_idx[0]) == 1
+
+
 def test_rejects_fractsin_rng():
     scene, cam, cfg, _ = case("sequential_pinhole")
     s = convert.scene_from_numpy(_np(scene), "cpu")

@@ -34,7 +34,11 @@ within 1e-6 of each leaf's largest entry.  The walk's image equals the
 flat sweep's on the same BVH bit for bit (the same leaves in the same
 order), and its census counts the flat sweep's leaves and steps.  K1e
 traces K1a's sweep over the same values from shared memory: its image
-equals K1a's and the plain version's bit for bit.  K5 and K6 equal their
+equals K1a's and the plain version's bit for bit.  K3 over a flat BVH
+sweeps the rows it stages in shared memory, and its warp-wide near-miss
+sweep picks the sequential loop's sphere: staged in part or not at all,
+its image and f32 cotangents are bit for bit the same where the refill's
+lanes are.  K5 and K6 equal their
 plain versions (torch on the same CUDA tensors, the same op order) bit for
 bit, planes and keys, launch by launch; the wavefront's image equals
 render()'s bit for bit with one slot a pixel.
@@ -850,7 +854,8 @@ def test_refill_parks_and_hops(monkeypatch, force):
     if force in ("window", "both"):
         monkeypatch.setattr(gradkernel, "REFILL_BUDGET", 0)
     if force in ("hops", "both"):
-        monkeypatch.setattr(gradkernel, "refill_lanes", lambda device: 512)
+        monkeypatch.setattr(gradkernel, "refill_lanes",
+                            lambda device, shmem=0: 512)
     plan = gradkernel.refill_plan(cfg, cfg.height,
                                   gradkernel.refill_lanes("cuda"))
     assert (plan["window"] == cfg.depth) == (force != "hops")
@@ -1008,3 +1013,171 @@ def test_flat_partial_stage_bit_equal_plain(n, leaf, sweep):
     plain = dict.fromkeys(golden.CENSUS, 0)
     golden.render_golden(scene, cam, cfg, bvh, census=plain)
     assert [c[k] for k in golden.CENSUS] == [plain[k] for k in golden.CENSUS]
+
+
+def _nothing_staged(monkeypatch):
+    """K3's stage limit forced to 0 inside a test: every row read from the
+    scene pack, where the sweep read them before K3 staged any."""
+    limits = gradkernel.device_limits("cuda")
+    monkeypatch.setattr(gradkernel, "device_limits",
+                        lambda device: (*limits[:4], limits[0]))
+
+
+@needs_card
+@pytest.mark.parametrize("rng_mode,p2_refill", [
+    ("sequential", None), ("parallel", False), ("parallel", None)],
+    ids=["sequential", "parallel_per_sample", "parallel_refill"])
+def test_k3_partial_stage_bit_equal_unstaged(monkeypatch, rng_mode,
+                                             p2_refill):
+    """K3 over a flat BVH that stages only part of itself
+    (final_world(n=4000) at leaf 64: 63 leaves, 83 KB, past what keeps two
+    blocks an SM resident beside the refill's cam_sh) against the same
+    launch with nothing staged: image and f32 cotangents bit for bit (the
+    refill's lanes are the same), untaped and, in parallel RNG, replaying a
+    full and a partial tape; and against its plain version (1e-3)."""
+    cfg = RenderConfig(width=64, height=32, spp=2, depth=4,
+                       rng_mode=rng_mode)
+    scene, cam, bvh = _bvh_world(cfg, n=4000, leaf=64)
+    st = gradkernel.k3_stage(bvh, "cuda")
+    assert tbvh.sweep_of(bvh) == "flat"
+    assert 0 < st["leaves"] < bvh.n_leaves and st["boxes"] > 0
+    assert gradkernel.refill_lanes("cuda", st["bytes"]) == \
+        gradkernel.refill_lanes("cuda", 0)
+    img = rt.render(scene, cam, cfg, bvh=bvh)
+    ct = 2.0 * (img - 0.5) / img.numel()
+    given = img if rng_mode == "parallel" else None
+    tapes = [None]
+    if rng_mode == "parallel":
+        full = cfg.spp * cfg.depth
+        tapes += [gradkernel.render_tape_fwd(scene, cam, cfg, g, bvh)[1]
+                  for g in (full, cfg.depth + 3)]
+
+    def runs():
+        out = []
+        for tape in tapes:
+            _reset_counts()
+            out.append(_grads(gradkernel.render_vjp(
+                scene, cam, cfg, ct, img=given, bvh=bvh, tape=tape,
+                tape_partial=tape is not None
+                and tape.shape[0] < cfg.spp * cfg.depth,
+                p2_refill=p2_refill)))
+            assert gradkernel.variants[gradkernel._variant(
+                "bvh", gradkernel.uses_refill(cfg, given, p2_refill),
+                tape is not None, False)] == 1
+        return out
+
+    staged = runs()
+    _nothing_staged(monkeypatch)
+    assert gradkernel.k3_stage(bvh, "cuda")["bytes"] == 0
+    for got, want in zip(staged, runs()):
+        assert torch.equal(got[0], img)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    plain = gradkernel.render_vjp_plain(scene, cam, cfg, ct, 0.0, bvh)
+    got = gradkernel.render_vjp(scene, cam, cfg, ct, img=given, bvh=bvh,
+                                p2_refill=p2_refill)
+    errs = _vjp_errors(got, plain)
+    assert max(errs.values()) <= 1e-3, errs
+
+
+def _near_miss_world(case):
+    """(scene, camera) of a near-miss case: "all_miss", eight spheres in
+    mirrored pairs around the view, every primary ray a miss with a near
+    miss; "none_miss", one sphere filling the view (four more behind the
+    camera), every primary ray a hit."""
+    if case == "none_miss":
+        scene = rt.make_scene(
+            [((0.0, 0.0, -105.0), 100.0, 0, (0.5, 0.5, 0.5), 0.0)]
+            + [((x, 0.0, 10.0), 0.5, 0, (0.5, 0.5, 0.5), 0.0)
+               for x in (-3.0, -1.0, 1.0, 3.0)], device="cuda")
+    else:
+        scene = rt.make_scene(
+            [((sx * x, y, -12.0), 1.0, m, (0.6, 0.4, 0.3), 0.2)
+             for x, y, m in ((5.5, 0.0, 0), (5.6, 1.6, 1), (1.5, 3.4, 2),
+                             (4.0, -3.4, 0)) for sx in (1.0, -1.0)],
+            device="cuda")
+    cam = rt.make_camera((0.0, 0.0, 0.0), (0.0, 0.0, -1.0), vfov=20.0,
+                         aspect=2.0, device="cuda")
+    return scene, cam
+
+
+@needs_card
+@pytest.mark.parametrize("case", ["all_miss", "none_miss"])
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_k3_near_miss_warp_all_or_no_lanes(case, rng_mode):
+    """The warp-wide near-miss sweep where every lane of a warp misses at
+    its first step (all 32 take their turn; the spheres lie just outside
+    the view, so with vis_w 0.05 the coverage terms are well above 0) and
+    where none does (depth 1, every ray a hit: the sweep takes no turn):
+    brute and over a flat BVH, on the per-sample pass and the refill,
+    against the plain version (1e-3), the refill against the per-sample
+    pass (3e-5), images bit for bit."""
+    cfg = RenderConfig(width=64, height=32, spp=2,
+                       depth=1 if case == "none_miss" else 3,
+                       rng_mode=rng_mode)
+    scene, cam = _near_miss_world(case)
+    target, vis_w = 0.3, 0.05
+    for bvh in (None, tbvh.build_bvh(scene, leaf_size=4)):
+        img = rt.render(scene, cam, cfg, bvh=bvh)
+        c = profiling.census(scene, cam, cfg, bvh)
+        assert c["bounce_steps"] == c["samples"]  # one step a sample
+        if case == "all_miss":  # the sky everywhere
+            assert float(img.min()) > 0.0
+        else:  # every ray a hit, black at the depth cap
+            assert not bool(img.any())
+        ct = 2.0 * (img - target) / img.numel()
+        want = gradkernel.render_vjp_plain(scene, cam, cfg, ct, vis_w, bvh)
+        got = gradkernel.render_vjp(scene, cam, cfg, ct, vis_w=vis_w,
+                                    bvh=bvh)
+        assert torch.equal(got[0], img)
+        errs = _vjp_errors(got, want)
+        assert max(errs.values()) <= 1e-3, errs
+        if case == "all_miss":  # the boundary terms are there
+            assert float(got[1].center.abs().max()) > 1e-5
+        if rng_mode == "parallel":
+            _refill_vs_per_sample(scene, cam, cfg, bvh, vis_w)
+
+
+@needs_card
+@pytest.mark.parametrize("p2_refill", [False, None],
+                         ids=["per_sample", "refill"])
+def test_k3_vis_w_slabs_stitch_over_flat_bvh(p2_refill):
+    """K3 with silhouette terms over a flat BVH on uneven slabs and one past
+    the frame, parallel RNG: each slab's image the given rows and its f64
+    sums, added, the full frame's within 1e-6 of each leaf's largest; the
+    full frame against its plain version (1e-3)."""
+    cfg = RenderConfig(width=96, height=45, spp=2, depth=4,
+                       rng_mode="parallel")
+    scene, cam, bvh = _bvh_world(cfg)
+    full = rt.render(scene, cam, cfg, bvh=bvh)
+    ct = 2.0 * (full - 0.5) / full.numel()
+    cp = megakernel.pack_camera(cam)
+    sp = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+
+    def sums(out):
+        return torch.cat([out[1].reshape(-1), out[2]])
+
+    want = sums(gradkernel.launch(cp, sp, cfg, ct, full, 0.005, bvh,
+                                  p2_refill=p2_refill))
+    total = 0.0
+    for row0, rows in _SLABS:
+        live = max(0, min(rows, cfg.height - row0))
+        ct_s = torch.ones((rows, cfg.width, 3), device="cuda")
+        img_s = torch.ones((rows, cfg.width, 3), device="cuda")
+        ct_s[:live] = ct[row0:row0 + live]
+        img_s[:live] = full[row0:row0 + live]
+        got = gradkernel.launch(cp, sp, cfg, ct_s, img_s, 0.005, bvh,
+                                row0=row0, rows=rows, p2_refill=p2_refill)
+        assert torch.equal(got[0][:live], full[row0:row0 + live])
+        total = total + sums(got)
+    n, i = int(bvh.perm.shape[0]), 0
+    for size in (3 * n, n, 3 * n, n, 3, 3, 3, 3, 6):
+        a, b = total[i:i + size], want[i:i + size]
+        assert float((a - b).abs().max()) <= 1e-6 * max(
+            float(b.abs().max()), 1e-12), i
+        i += size
+    got = gradkernel.render_vjp(scene, cam, cfg, ct, img=full, vis_w=0.005,
+                                bvh=bvh, p2_refill=p2_refill)
+    errs = _vjp_errors(got, gradkernel.render_vjp_plain(scene, cam, cfg, ct,
+                                                        0.005, bvh))
+    assert max(errs.values()) <= 1e-3, errs

@@ -29,7 +29,7 @@ from raytpu.config import RenderConfig
 from raytpu.kernels import gradkernel as jgk
 from raytpu.render import render_grad as j_render_grad
 import raytpu_torch as rt
-from raytpu_torch import convert, optim
+from raytpu_torch import bvh as tbvh, convert, optim
 from raytpu_torch.kernels import gradkernel as tgk, megakernel as tmk
 from test_torch_adjoint import GRAD_BUDGET, cotangent, leaf_errors
 
@@ -148,6 +148,80 @@ def test_refill_plan_and_rule(monkeypatch):
     assert tgk.refill_plan(par, 400, cap)["window"] == 174
     monkeypatch.setattr(tgk, "REFILL_BUDGET", 0)
     assert tgk.refill_plan(par, 400, cap)["window"] == par.depth
+
+
+# an NVIDIA H100's shared memory (opt-in a block, an SM's, reserved a
+# block), the blocks of K3's flat instantiations an SM keeps resident (two:
+# 128 registers) and the refill's cam_sh (18 f64 a thread of 256)
+CAM_SH = 18 * 256 * 8
+H100_LIMITS = (232448, 233472, 1024, 2, CAM_SH)
+
+
+@pytest.mark.parametrize("limits,want", [
+    (H100_LIMITS, "full"),
+    ((232448, 233472, 1024, 1, CAM_SH), "full"),
+    ((49152, 233472, 1024, 2, CAM_SH), "no_boxes"),
+], ids=["h100", "one_block", "small"])
+def test_k3_stage_within_limit(monkeypatch, limits, want):
+    """K3's stage over a flat BVH (k3_stage): within the opt-in limit less
+    the refill's cam_sh, and small enough for the blocks an SM keeps
+    resident (78,848 bytes on an H100); all of config 4's scene at small
+    leaves (final_world(n=48), 3 leaves of 16), part of a 63-leaf BVH at
+    leaf 64, whose 83 KB outgrow an H100's two-block share and whose boxes
+    outgrow a 48 KB opt-in limit."""
+    optin, per_sm, reserved, blocks, fixed = limits
+    limit = tgk.stage_limit(*limits)
+    assert limit == min(optin, per_sm // blocks - reserved) - fixed
+    if limits == H100_LIMITS:
+        assert limit == 78848
+    monkeypatch.setattr(tgk, "device_limits", lambda device: limits)
+    small = rt.build_bvh(rt.final_world(n=48, device="cpu"), leaf_size=16)
+    big = rt.build_bvh(rt.final_world(n=4000, device="cpu"), leaf_size=64)
+    assert (small.n_leaves, big.n_leaves) == (3, 63)
+    for bvh in (small, big):
+        st = tgk.k3_stage(bvh, "cpu")
+        assert st == tmk.flat_stage(bvh, limit)
+        assert st["bytes"] <= limit
+        assert st["bytes"] + fixed <= optin
+        assert blocks * (st["bytes"] + fixed + reserved) <= per_sm
+    st = tgk.k3_stage(small, "cpu")
+    assert (st["leaves"], st["outliers"], st["boxes"]) == (
+        3, small.n_outliers, 16 * 3)
+    st = tgk.k3_stage(big, "cpu")
+    if want == "full":
+        assert 0 < st["leaves"] <= big.n_leaves
+        assert (st["leaves"] < big.n_leaves) == (blocks == 2)
+        assert st["boxes"] == 16 * big.n_leaves
+    else:  # the boxes do not fit: leaves from the rest
+        assert st["boxes"] == 0 and 0 < st["leaves"] < big.n_leaves
+    assert st["outliers"] == big.n_outliers
+
+
+def test_k3_launch_plan_lanes(monkeypatch):
+    """A launch's plan (launch_plan): over a flat BVH its stage, elsewhere
+    nothing staged; the refill's lanes are those of the staged bytes, one
+    plan whether or not the launch replays a tape (the tape is no input of
+    it), so a taped and an untaped launch sum the camera terms alike."""
+    monkeypatch.setattr(tgk, "device_limits", lambda device: H100_LIMITS)
+    asked = []
+
+    def lanes(device, shmem=0):
+        asked.append(shmem)
+        return 132 * 512 - (256 if shmem > 40000 else 0)
+    monkeypatch.setattr(tgk, "refill_lanes", lanes)
+    cfg = RenderConfig(width=800, height=400, spp=100, depth=12,
+                       rng_mode="parallel")
+    scene = rt.final_world(n=4000, device="cpu")
+    bvh = rt.build_bvh(scene, leaf_size=64)
+    stage, plan = tgk.launch_plan(cfg, 400, bvh, True, "cpu")
+    assert stage == tgk.k3_stage(bvh, "cpu") and asked == [stage["bytes"]]
+    assert plan == tgk.refill_plan(cfg, 400, lanes("cpu", stage["bytes"]))
+    assert tgk.launch_plan(cfg, 400, bvh, True, "cpu") == (stage, plan)
+    assert tgk.launch_plan(cfg, 400, bvh, False, "cpu") == (stage, None)
+    for other in (None, tbvh.with_sweep(bvh, "walk")):
+        st, pl = tgk.launch_plan(cfg, 400, other, True, "cpu")
+        assert st["bytes"] == 0 and asked[-1] == 0
+        assert pl == tgk.refill_plan(cfg, 400, 132 * 512)
 
 
 @pytest.mark.parametrize("aperture", [0.0, 0.3], ids=["pinhole", "defocus"])
