@@ -92,9 +92,10 @@ card 0 without it).  Phases, one JSON line each:
     7a. ``build_bvh`` at leaf 64: 157 leaves a copy, past the flat sweep's
         64, so raytpu's rule picks the walk;
     7b. K1d, K1b/walk (a slab of all 400 rows), K2/walk (1 + 1 batches),
-        K1'/walk and K4/walk bit-equal to their plain versions on the whole
-        frame at 2 spp, both RNG modes, K3/walk and K3/walk+tape (both
-        schedules) within the gradient budget; K1d against its plain
+        K1'/walk (the four census counts) and K4/walk bit-equal to their
+        plain versions on the whole frame at 2 spp, both RNG modes,
+        K3/walk and K3/walk+tape (both schedules) within the gradient
+        budget; K1d against its plain
         version on config 4's unpadded BVH;
     7c. at full size, both RNG modes: K1d against K1c forced on the same
         BVH and against K1a (pixels that differ: exact ties only), K3/walk
@@ -110,7 +111,16 @@ card 0 without it).  Phases, one JSON line each:
     7f. times: K1d, K1c forced (with its staging and the blocks an SM
         holds), K1a, fwd+bwd taped and untaped, the walk's
         census (nodes and leaves a step), and the walk forced on config 4's
-        8-leaf BVH against K1c there (where raytpu's 64-leaf rule stands).
+        8-leaf BVH against K1c there (where raytpu's 64-leaf rule stands);
+        end to end, ``render()`` and the progressive frame in 4 batches of
+        5;
+    7g. walk_redesign: the walk's counted warp efficiencies on the 10k
+        frame (loop, sweep, node walk; K1'/walk) beside the per-sample
+        loop's loop efficiency estimated from a K4 tape (the schedule the
+        refill replaced); K1d's and the taped K3's own device time (a
+        profiler trace) beside their launches', and the time of the sphere
+        rows the wrappers build each launch; ptxas's registers and spills
+        of every walk instantiation (the forward's, K3's, K5's and K6's).
 8.  the dense stage K1e and the sorted wavefront (K5, K6):
     8a. K1e against K1a forced at the full REFERENCE_V2 frame (0 pixels
         differ) and against its plain version at 2 spp; its warp counters
@@ -166,7 +176,8 @@ card 0 without it).  Phases, one JSON line each:
 
 It exits non-zero at the first failure.  The line before the last is the
 card's name and power limit, the line before it the kernel table as JSON
-(the flat rows and K1e with their warp efficiencies; each bound the larger
+(the flat rows, the walk's forward rows and K1e with their warp
+efficiencies; each bound the larger
 of the bytes over 3.35 TB/s and the f32 operations over the card's f32
 rate, ``ops_peak()``), the last line ``{"ok": true, "device": {...}}``.
 """
@@ -286,6 +297,25 @@ def cuda_ms_each(fn, iters: int) -> list[float]:
         stop.record()
     torch.cuda.synchronize()
     return [start.elapsed_time(stop) for start, stop in events]
+
+
+def kernel_ms(fn, kernel: str) -> float:
+    """The device time, in ms, of the kernels whose name holds ``kernel``
+    in one ``fn()`` call, from a ``torch.profiler`` trace after a warm-up
+    call (the other kernels the call launches are left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.key)
+    if us <= 0:
+        fail(f"the profiler trace holds no device time of {kernel}")
+    return us / 1e3
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -2082,8 +2112,79 @@ def walk_vs_plain(scene, cam, cfg, bvh, card: str) -> dict:
     return entries
 
 
+# the walk's instantiations, by their template arguments in the mangled
+# names (kWalk 2): the forward's render_fwd_kernel<kHit, kTape, kCount,
+# kCarry>, K3's (K3_KERNELS), K5's and K6's
+WALK_KERNELS = {"K1d": "render_fwd_kernelILi2ELi0ELb0ELb0E",
+                "K1'/walk": "render_fwd_kernelILi2ELi0ELb1ELb0E",
+                "K2/walk": "render_fwd_kernelILi2ELi0ELb0ELb1E",
+                "K4/walk": "render_fwd_kernelILi2ELi1ELb0ELb0E",
+                "K5/walk": "render_segment_kernelILi2EE",
+                "K6/walk": "render_refill_kernelILi2EE"}
+
+
+def walk_phase(dev, card: str, scene, cam, cfg, bvh, img, ct) -> dict:
+    """Phase 7g (walk_redesign): the walk's forward and K3 on the 10k frame
+    (``cfg``, parallel RNG, 20 spp): the counted warp efficiencies of
+    K1'/walk (loop, sweep, node walk) beside the per-sample loop's loop
+    efficiency, estimated from the frame's K4 tape (the schedule the
+    refill replaced); the kernel's own device time beside its launch's for
+    K1d and the taped K3 (a full tape: no sweep), and what the sphere rows
+    the wrappers build each launch (``megakernel.sphere_rows``) take of
+    it; ptxas's registers and spills of every walk instantiation ->
+    {"warps", "ptxas"}."""
+    from raytpu_torch import bvh as tbvh, golden
+    from raytpu_torch.kernels import _build, gradkernel, megakernel
+    from raytpu_torch.kernels import wavefront as kwf
+    sp = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
+    cp = megakernel.pack_camera(cam)
+    warps = megakernel.warp_census(cp, sp, cfg, bvh)
+    # the tape holds permuted rows: their materials (a dummy's is 0)
+    per_sample = per_sample_efficiency(
+        frame_tape(scene, cam, cfg, bvh),
+        tbvh.permute_scene(scene, bvh.perm).mat_type, cfg)
+    # the kernel's own device time beside its launch's (the wrapper's
+    # packing and the gaps between them included): the taped replay
+    # sweeps no step of a full tape
+    tape = torch.empty((cfg.spp * cfg.depth, cfg.height * cfg.width),
+                       dtype=golden.tape_dtype(sp.shape[1]), device=dev)
+    megakernel.launch(cp, sp, cfg, bvh, tape=tape)
+    own = {}
+    for key, kernel, fn in (
+            ("K1d", "render_fwd_kernel", lambda: megakernel.launch(
+                cp, sp, cfg, bvh)),
+            ("K3/walk+tape", "render_vjp_kernel", lambda: gradkernel.launch(
+                cp, sp, cfg, ct, img, 0.0, bvh, tape, p2_refill=False)),
+            ("K3/walk+refill+tape", "render_vjp_refill_kernel",
+             lambda: gradkernel.launch(cp, sp, cfg, ct, img, 0.0, bvh,
+                                       tape))):
+        own[key] = {"kernel_ms": kernel_ms(fn, kernel),
+                    "launch_ms": cuda_ms(fn, 3)}
+    del tape
+    sphere_rows_ms = cuda_ms(lambda: megakernel.sphere_rows(sp), 20)
+    ptxas = {**flat_ptxas(_build.build_log[megakernel.SOURCE]["ptxas"],
+                          {k: v for k, v in WALK_KERNELS.items()
+                           if v.startswith("render_fwd")}),
+             **flat_ptxas(_build.build_log[kwf.SOURCE]["ptxas"],
+                          {k: v for k, v in WALK_KERNELS.items()
+                           if not v.startswith("render_fwd")}),
+             **flat_ptxas(_build.build_log[gradkernel.SOURCE]["ptxas"],
+                          {k: v for k, v in K3_KERNELS.items()
+                           if "walk" in k})}
+    ptxas["K1b/walk"] = ptxas.get("K1d")  # the same instantiation
+    ok = (len([k for k in ptxas if ptxas[k]]) == 11
+          and 0 < warps["walk_efficiency"] <= 1.0)
+    phase("walk_redesign", ok=ok, card=card, frame="800x400 spp20 d12 "
+          f"parallel, {scene.count} spheres, BVH leaf {LEAF}",
+          warps=warps, per_sample_loop_estimate=per_sample, ptxas=ptxas,
+          kernel_vs_launch=own, sphere_rows_ms=sphere_rows_ms)
+    if not ok:
+        fail(f"the walk's redesign phase: ptxas={ptxas}, warps={warps}")
+    return {"warps": warps, "ptxas": ptxas}
+
+
 def large_scene_phases(dev, card: str) -> dict:
-    """Phases 7a-7f (see the module docstring) -> the kernel table's
+    """Phases 7a-7g (see the module docstring) -> the kernel table's
     entries K1d, K1b/walk, K2/walk, K4/walk, K3/walk and K3/walk+tape,
     each with its launches on its main path."""
     import raytpu_torch as rt
@@ -2417,10 +2518,20 @@ def large_scene_phases(dev, card: str) -> dict:
             cp4f, spv4, c4, b4), 3)
         t["config4_k1d_forced_ms"] = cuda_ms(lambda: megakernel.launch(
             cp4f, spv4, c4, b4w), 3)
+        # end to end: render(), the progressive frame in 4 batches of 5
+        t["render_ms"] = cuda_ms(lambda: rt.render(scene, cam, cfgp,
+                                                   bvh=bvh), 3)
+
+        def progressive_frame():
+            for _ in progressive.render_progressive(scene, cam, cfgp,
+                                                    batch=5, bvh=bvh):
+                pass
+        t["progressive_frame_ms"] = cuda_ms(progressive_frame, 2)
         phase("timing_10k", frame="800x400 spp20 d12 parallel (sequential "
               "where named)", **t)
         if not t["config4_walk_bit_equal_flat"]:
             fail("the walk forced on config 4's BVH differs from K1c")
+        walk = walk_phase(dev, card, scene, cam, cfgp, bvh, img_t, ct)
         del tape, img_t
 
         # the table's main-path times and bounds (full frame, 20 spp)
@@ -2449,6 +2560,16 @@ def large_scene_phases(dev, card: str) -> dict:
             entries[key].update(main_path_ms=ms,
                                 main_path_bound_ms=b["bound_ms"],
                                 main_path_bound_by=b["bound_by"])
+        # counted by K1'/walk on K1d's own frame; the other rows' launches
+        # were not counted
+        entries["K1d"].update(
+            {k: walk["warps"][k] for k in ("loop_efficiency",
+                                           "sweep_efficiency",
+                                           "walk_efficiency")},
+            efficiency_cell="800x400 spp20 d12 parallel, K1'/walk")
+        for key in ("K1d", "K1b/walk", "K2/walk", "K4/walk", "K3/walk",
+                    "K3/walk+tape", "K3/walk+refill", "K3/walk+refill+tape"):
+            entries[key].update(registers=walk["ptxas"][key]["registers"])
         return entries
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

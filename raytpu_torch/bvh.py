@@ -34,6 +34,7 @@ slower).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -103,6 +104,14 @@ class BVH:
     def device(self) -> torch.device:
         return self.perm.device
 
+    @functools.cached_property
+    def walk_rows(self) -> torch.Tensor:
+        """:func:`pack_walk_rows` of this BVH, the node rows the card's
+        forward and K3 read, packed at the first use and kept: a BVH's
+        arrays are not changed in place (``refit`` and ``with_sweep`` make
+        new ones)."""
+        return pack_walk_rows(self)
+
     @property
     def copies(self) -> int:
         """Octant copies of ``nodes``: 8 with padded leaves, else 1."""
@@ -136,6 +145,52 @@ def with_sweep(bvh: BVH, sweep: str) -> BVH:
         raise ValueError("the flat sweep needs a BVH with padded leaves and "
                          "a flat leaf list (build_bvh(pad_leaves=True))")
     return dataclasses.replace(bvh, sweep=sweep)
+
+
+# The walk's node rows in the 16-byte layout (pack_walk_rows) hold a
+# node's start and count in 20 bits each: BVHs of fewer permuted rows
+WALK_MAX_ROWS = 2**20
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as int32 tensors with the same bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def pack_walk_rows(bvh: BVH) -> torch.Tensor:
+    """The walk's node rows in the 16-byte layout the card's forward and K3
+    read (csrc/render_common.cuh ``WalkRow``) -> (copies * n_trav, 8) int32
+    on the BVH's device, each row the bits of two float4: (min x, min y,
+    min z, w0) and (max x, max y, max z, w1), ``w0 = skip | (start & 0xFF)
+    << 24`` and ``w1 = start >> 8 | count << 12``.  skip takes 24 bits,
+    start and count 20 each: a BVH of 2^24 or more nodes a copy, or of
+    :data:`WALK_MAX_ROWS` or more permuted rows (a leaf's start and count
+    lie below them), is refused.  The boxes' bits are copied as they are;
+    :func:`walk_nodes` unpacks the rows."""
+    rows = int(bvh.perm.shape[0])
+    if rows >= WALK_MAX_ROWS or bvh.n_trav >= 2**24:
+        raise ValueError(f"bvh: {rows} permuted rows, {bvh.n_trav} nodes a "
+                         f"copy; the walk's 16-byte node rows hold starts "
+                         f"and counts below {WALK_MAX_ROWS}, skips below "
+                         f"2^24")
+    nodes = bvh.nodes.contiguous()
+    box = nodes[:, :6].view(torch.int32)
+    start, count, skip = (nodes[:, k].to(torch.int64) for k in (6, 7, 8))
+    w0 = _u32(skip | (start & 0xFF) << 24)
+    w1 = _u32(start >> 8 | count << 12)
+    return torch.stack([box[:, 0], box[:, 1], box[:, 2], w0,
+                        box[:, 3], box[:, 4], box[:, 5], w1], dim=1)
+
+
+def walk_nodes(rows: torch.Tensor) -> torch.Tensor:
+    """The plain version of the kernels' unpacking of
+    :func:`pack_walk_rows`: (N, 8) int32 rows -> (N, 9) f32 node rows
+    [min xyz, max xyz, start, count, skip]."""
+    box = rows[:, [0, 1, 2, 4, 5, 6]].contiguous().view(torch.float32)
+    w0 = rows[:, 3].to(torch.int64) & 0xFFFFFFFF
+    w1 = rows[:, 7].to(torch.int64) & 0xFFFFFFFF
+    fields = (w0 >> 24 | (w1 & 0xFFF) << 8, w1 >> 12, w0 & 0xFFFFFF)
+    return torch.cat([box, torch.stack(fields, dim=1).to(torch.float32)], 1)
 
 
 def _pad_leaf_nodes(nodes: np.ndarray, perm: np.ndarray, leaf_size: int):

@@ -66,9 +66,10 @@
 //
 // With a BVH the scene arrives in leaf order (padded with NaN dummies that
 // never win): the sweeps are K1c's (closest_hit_staged over the rows
-// stage_flat() puts in shared memory) or K1d's, the sphere cotangents
-// accumulate in that order, dummies included, and the wrapper scatters them
-// back to input order.  The near-miss sweep of vis_w runs over every
+// stage_flat() puts in shared memory) or K1d's (closest_hit_walk over the
+// node rows in device memory), the sphere cotangents accumulate in that
+// order, dummies included, and the wrapper scatters them back to input
+// order.  The near-miss sweep of vis_w runs over every
 // permuted row (NaN rows fail its test), as gradkernel.py:1671 bounds it by
 // nk, reading each row where the closest hit does.
 //
@@ -119,6 +120,11 @@
 //   ended before sqrtf's slow path, each lane walking its own octant's
 //   boxes and the lanes that entered a leaf sweeping it together.  Its
 //   winner and t are closest_hit<kFlat>'s, so the image and residuals are.
+//   Over the walk every sweep is the forward's K1d sweep, closest_hit_walk():
+//   the node rows in the 16-byte layout and the spheres as 16-byte rows,
+//   both read through L1, the same early exit, each lane walking to its
+//   next entered leaf and the lanes sweeping their leaves together; its
+//   winner and t are closest_hit<kWalk>'s.
 // - The near-miss sweep is the warp's (near_miss_sweep), called once a
 //   reverse iteration by all 32 lanes, as add_by_key: the lanes whose row
 //   is a miss are taken one by one, each lane testing every 32nd sphere of
@@ -145,7 +151,7 @@
 // - Lanes with the same winner are summed with shuffles (a full-warp
 //   butterfly when all 32 agree) before one lane issues the atomics.
 // The refill's rows through device memory and per-block partial sums are
-// later work, as are the brute sweep's and the walk's early exit.
+// later work, as is the brute sweep's early exit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -167,7 +173,7 @@ struct Params {
   const float* scene;   // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
   FlatBvh bvh;          // kFlat's leaf list
   FlatStage stage;      // what of it kFlat stages in shared memory
-  NodeBvh walk;         // kWalk's node list
+  NodeBvh walk;         // kWalk's node rows (walk.rows)
   const void* tape;     // (g_cap, rows * width) int16 / int32 (kTape)
   const float* ct;      // (rows, width, 3) image cotangent
   const float* img_in;  // (rows, width, 3) forward image, or null (PASS 1)
@@ -697,8 +703,10 @@ __device__ __forceinline__ void raygen_vjp(const float g[9], const RayGen& gr,
 // closest hit): the winner from the tape while it holds the step (kTape),
 // its t recomputed for that one sphere; else swept, over the flat BVH by
 // closest_hit_staged() on the rows stage_flat() put in shared memory (the
-// forward's K1c sweep: closest_hit<kFlat>'s winner and t), else by
-// closest_hit(); then shade().  kStore writes the step's Residual to *res.
+// forward's K1c sweep: closest_hit<kFlat>'s winner and t), over the walk by
+// closest_hit_walk() (K1d's sweep: closest_hit<kWalk>'s winner and t),
+// else by closest_hit(); then shade().
+// kStore writes the step's Residual to *res.
 template <bool kStore, int kHit, bool kTape>
 __device__ __forceinline__ bool k3_step(const Params& p, const SceneView& s,
                                         Ray& r, uint32_t& sd, bool v1,
@@ -707,7 +715,7 @@ __device__ __forceinline__ bool k3_step(const Params& p, const SceneView& s,
                                         Residual* res, TapeCursor& tc) {
   float tb;
   int win;
-  Census cn{0u, 0u, 0u, 0u, 0u, 0u};  // unused: K3 does not count
+  Census cn{};  // unused: K3 does not count
   if (kTape && tc.k < tc.g_cap) {
     win = tc.get();
     if (win >= 0) {
@@ -718,6 +726,8 @@ __device__ __forceinline__ bool k3_step(const Params& p, const SceneView& s,
     }
   } else if constexpr (kHit == kFlat) {
     win = closest_hit_staged<false>(s, p.bvh, p.stage, r, p.t_min, tb, cn);
+  } else if constexpr (kHit == kWalk) {
+    win = closest_hit_walk<false>(p.walk, r, p.t_min, tb, cn);
   } else {
     win = closest_hit<kHit, false>(s, p.bvh, p.walk, r, p.t_min, tb, cn);
   }
@@ -1199,7 +1209,9 @@ int refill_blocks_per_sm(int shmem) {
 // stage_outliers outlier rows (0 or out_cnt) and stage_boxes box rows (0
 // or 16 n_leaves) in shared memory (FlatStage: the wrapper plans it within
 // raytpu_render_vjp_device's limits, the refill's lanes from
-// raytpu_render_vjp_refill_lanes of its bytes).
+// raytpu_render_vjp_refill_lanes of its bytes).  The walk's `nodes` are in
+// the 16-byte layout (WalkRow in render_common.cuh), over the permuted
+// scene's rows (cx, cy, cz, rad * rad) in `spheres`.
 extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
                                  const void* flat, int n_leaves,
                                  int leaf_size, const void* nodes,
@@ -1216,13 +1228,16 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
                                  float inv_w, float inv_h, float inv_spp,
                                  float gamma, float vis_w, int parallel,
                                  int v1, int refill, int lanes, int window,
-                                 void* rows_buf, void* stream) {
+                                 void* rows_buf, const void* spheres,
+                                 void* stream) {
   if (depth > kMaxDepth || rows < 1 || row0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((tape_read || refill) && (!parallel || img_in == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((flat != nullptr && nodes != nullptr) ||
-      (nodes != nullptr && (n_trav < 1 || (copies != 1 && copies != 8))) ||
+      (nodes != nullptr &&
+       (n_trav < 1 || (copies != 1 && copies != 8) ||
+        spheres == nullptr)) ||
       (flat != nullptr &&
        (stage_leaves < 0 || stage_leaves > n_leaves ||
         (stage_outliers != 0 && stage_outliers != out_cnt) ||
@@ -1243,8 +1258,9 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.bvh = FlatBvh{static_cast<const float*>(flat), n_leaves, leaf_size,
                   out_base, out_cnt};
   p.stage = FlatStage{stage_leaves, stage_outliers, stage_boxes};
-  p.walk = NodeBvh{static_cast<const float*>(nodes), n_trav, copies,
-                   out_base, out_cnt};
+  p.walk = NodeBvh{nullptr, n_trav, copies, out_base, out_cnt,
+                   static_cast<const float4*>(nodes),
+                   static_cast<const float4*>(spheres)};
   p.tape = tape;
   p.ct = static_cast<const float*>(ct);
   p.img_in = static_cast<const float*>(img_in);

@@ -49,18 +49,25 @@
 // and boxes staged in shared memory once per block (stage_flat, as much
 // of them as a block may hold), since after one bounce a warp's lanes read
 // up to 32 different rows a load.
-// K1d walks the octant copy's nodes instead (see render_common.cuh): box
-// tests for the subtrees the ray enters rather than for all L leaves, node
-// rows from global memory at per-lane addresses once the lanes' walks
-// part.  The winner's attributes are read once, by index, after the sweep.
+// K1d (and the walk's K1b, K1', K2 and K4) walks the octant copy's nodes
+// instead (see render_common.cuh): box tests for the subtrees the ray
+// enters rather than for all L leaves.  Its design is the flat sweep's:
+// render_refill's persistent sample refill, a sweep that lets each lane
+// advance to its own next entered leaf and sweeps the warp's leaves together
+// (closest_hit_walk), each missed sphere test ended before sqrtf, the
+// spheres read as 16-byte rows (cx, cy, cz, rad * rad), one load a test,
+// and the node rows in a 16-byte layout read through L1 (after one bounce
+// a warp's lanes walk up to 32 different nodes, each row's address the
+// last row's skip).
+// The winner's attributes are read once, by index, after the sweep.
 // K4 adds one 2- or 4-byte store per bounce step, tape[k][pix]: threads of a
 // warp are neighbouring pixels and write neighbouring addresses at the same
 // k, so the stores coalesce whenever the warp's lanes are at the same step
-// (under the flat sweep's refill, lanes part after their first sample and
-// their first pixel).  The census (K1') keeps three per-thread counters in
-// registers (four for the walk: the nodes visited; two more for the flat
-// sweep and the dense stage: the warp's bounce-loop and sphere-test
-// iterations, counted by one of the lanes that run them) and adds them
+// (under the refill, lanes part after their first sample and their first
+// pixel).  The census (K1') keeps three per-thread counters in registers
+// (four for the walk: the nodes visited; four more under the refill: the
+// warp's bounce-loop, sphere-test and node-loop iterations, counted by one
+// of the lanes that run them, and the lane's sphere tests) and adds them
 // once per warp at the end (a warp reduction, then one 64-bit atomic per
 // counter); without it the counting code is not compiled.  K1e
 // is the brute sweep over the scene's rows (cx, cy, cz, r^2) staged in
@@ -73,8 +80,8 @@
 // at the sign of its discriminant, before sqrtf's slow path (sweep_rows).
 // It is a plain forward only, full frame or slab, plus the counting
 // variant megakernel.warp_census launches (K1'/dense): K2, K4, the
-// census and K3 keep the brute sweep, as raytpu's do.  The brute and walk
-// sweeps keep the per-sample loop.
+// census and K3 keep the brute sweep, as raytpu's do.  The brute sweep
+// keeps the per-sample loop.
 //
 // Slab mode (K1b, and every variant): the launch covers rows [row0, row0 +
 // rows) of the cfg-sized frame and its buffers (image, tape, carried state)
@@ -105,6 +112,9 @@ using namespace rt;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 // leaves entered, bounce steps, samples, nodes visited (the walk's only)
 constexpr int kCensus = 4;
+// the refill's warp counters after them: the warp's bounce-loop,
+// sphere-test and node-loop iterations, the lanes' sphere tests
+constexpr int kWarpCensus = 4;
 // the dense stage's largest scene: 64 KB of staged rows (raytpu's
 // _DENSE_MAX; raytpu_torch.kernels.megakernel.DENSE_MAX)
 constexpr int kDenseMax = 4096;
@@ -114,14 +124,14 @@ struct Params {
   const float* scene;  // (9, n) rows: cx cy cz rad mat_type ar ag ab mat_param
   FlatBvh bvh;         // kFlat's leaf list
   FlatStage stage;     // what of it kFlat stages in shared memory
-  NodeBvh walk;        // kWalk's node list
+  NodeBvh walk;        // kWalk's node rows (walk.rows)
   void* tape;          // (g_cap, rows * width) int16 / int32, or null
-  unsigned long long* census;  // (kCensus + 2,) counters, or null
+  unsigned long long* census;  // (kCensus + kWarpCensus,) counters, or null
   const float* acc_in;      // K2: (rows, width, 3) linear sums carried in
   const uint32_t* seed_in;  // K2: (rows, width) seeds carried in
   float* out;          // (rows, width, 3): the image, or K2's linear sums
   uint32_t* seed_out;  // K2: (rows, width) seeds carried out
-  unsigned* pixel_next;  // the flat sweep's pixel counter, 0 at launch
+  unsigned* pixel_next;  // the refill's pixel counter, 0 at launch
   int n, width, height, row0, rows, spp, depth, g_cap, tape_wide;
   uint32_t s0;         // index of the batch's first sample (0 but for K2)
   float t_min, inv_w, inv_h, inv_spp, gamma;
@@ -143,6 +153,7 @@ __device__ __forceinline__ void add_census(const unsigned (&v)[kN],
 }
 
 // The flat sweep's forward (K1c, K1b/bvh, K1'/bvh, K2/bvh, K4/bvh and
+// their slabs), the walk's (K1d, K1b/walk, K1'/walk, K2/walk, K4/walk and
 // their slabs) and the dense stage's (K1e, K1b/dense and its census
 // K1'/dense): raytpu's persistent sample refill (make_refill_step,
 // raytpu/kernels/megakernel.py:881-1000) on SIMT, with its multi-tile tail
@@ -157,21 +168,22 @@ __device__ __forceinline__ void add_census(const unsigned (&v)[kN],
 // warp waits for its busiest lane once a launch, where the nested loops
 // waited for the longest path of each sample.  The closest hit is
 // closest_hit_staged() over what stage_flat() puts in shared memory
-// (kFlat), or the dense sweep over the rows stage_dense() puts there
-// (kDense).  The tape cursor runs across a pixel's samples as before; K2's
-// carry is read when a pixel starts and written when it is done.
+// (kFlat), closest_hit_walk() over the node rows in device memory (kWalk),
+// or the dense sweep over the rows stage_dense() puts there (kDense).  The
+// tape cursor runs across a pixel's samples as before; K2's carry is read
+// when a pixel starts and written when it is done.
 template <int kHit, int kTape, bool kCount, bool kCarry>
 __device__ __forceinline__ void render_refill(const Params& p) {
   if constexpr (kHit == kFlat)
     stage_flat(p.scene, p.n, p.bvh, p.stage);
-  else
+  else if constexpr (kHit == kDense)
     stage_dense(p.scene, p.n);
   const CamPack& cam = *p.cam;  // read where a sample starts, not held
   const SceneView s = scene_view(p.scene, p.n);
   const bool v1 = p.v1 != 0;
   const int pixels = p.rows * p.width;  // the slab's buffers
   const int threads = gridDim.x * blockDim.x * blockDim.y;
-  Census cn{0u, 0u, 0u, 0u, 0u, 0u};
+  Census cn{};
   TapeCursor tc{p.tape, static_cast<size_t>(pixels), 0, p.g_cap, 0,
                 p.tape_wide};
 
@@ -236,6 +248,8 @@ __device__ __forceinline__ void render_refill(const Params& p) {
       if constexpr (kHit == kFlat)
         win = closest_hit_staged<kCount>(s, p.bvh, p.stage, r, p.t_min, tb,
                                          cn);
+      else if constexpr (kHit == kWalk)
+        win = closest_hit_walk<kCount>(p.walk, r, p.t_min, tb, cn);
       else
         win = closest_hit<kHit, kCount>(s, p.bvh, p.walk, r, p.t_min, tb, cn);
       if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
@@ -272,9 +286,11 @@ __device__ __forceinline__ void render_refill(const Params& p) {
     }
     sample();
   }
-  if (kCount) {  // leaves, steps, samples; the warp counters after kCensus
-    const unsigned counts[3] = {cn.leaves, cn.steps, cn.samples};
-    const unsigned warps[2] = {cn.warp_steps, cn.warp_tests};
+  if (kCount) {  // the census; the warp counters after kCensus
+    const unsigned counts[kCensus] = {cn.leaves, cn.steps, cn.samples,
+                                      cn.nodes};
+    const unsigned warps[kWarpCensus] = {cn.warp_steps, cn.warp_tests,
+                                         cn.warp_nodes, cn.tests};
     add_census(counts, p.census);
     add_census(warps, p.census + kCensus);
   }
@@ -283,11 +299,10 @@ __device__ __forceinline__ void render_refill(const Params& p) {
 template <int kHit, int kTape, bool kCount, bool kCarry>
 __global__ void __launch_bounds__(256)
 render_fwd_kernel(Params p) {
-  if constexpr (kHit == kFlat || kHit == kDense) {
+  if constexpr (kHit != kBrute) {
     render_refill<kHit, kTape, kCount, kCarry>(p);
   } else {
-    // the brute sweep and the walk: each thread runs its pixel's samples
-    // one by one
+    // the brute sweep: each thread runs its pixel's samples one by one
     const int x = blockIdx.x * blockDim.x + threadIdx.x;
     const int ly = blockIdx.y * blockDim.y + threadIdx.y;  // row in the slab
     const int y = p.row0 + ly;                              // row in the frame
@@ -307,7 +322,7 @@ render_fwd_kernel(Params p) {
     const size_t pix = static_cast<size_t>(ly) * p.width + x;
     TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.rows, pix,
                   p.g_cap, 0, p.tape_wide};
-    Census cn{0u, 0u, 0u, 0u};
+    Census cn{};
 
     uint32_t chain = seed0;  // the sequential mode's carried seed
     float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
@@ -349,16 +364,9 @@ render_fwd_kernel(Params p) {
         o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
       }
     }
-    if (kCount) {
-      const unsigned v[kCensus] = {cn.leaves, cn.steps, cn.samples,
-                                   cn.nodes};
-      constexpr int kCounted = kHit == kWalk ? kCensus : kCensus - 1;
-#pragma unroll
-      for (int i = 0; i < kCounted; ++i) {
-        const unsigned sum = __reduce_add_sync(kFull, v[i]);
-        if ((threadIdx.x & 31) == 0 && sum)
-          atomicAdd(p.census + i, static_cast<unsigned long long>(sum));
-      }
+    if (kCount) {  // leaves (none), steps, samples
+      const unsigned v[3] = {cn.leaves, cn.steps, cn.samples};
+      add_census(v, p.census);
     }
   }
 }
@@ -382,9 +390,9 @@ int launch(const Params& p, cudaStream_t stream) {
         static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  // the flat sweep and the dense stage: a persistent grid, the blocks the
+  // the refill (all but the brute sweep): a persistent grid, the blocks the
   // card holds at once
-  if (kHit == kFlat || kHit == kDense) {
+  if (kHit != kBrute) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -418,23 +426,24 @@ int launch_hit(int hit, const Params& p, cudaStream_t stream) {
 // It renders rows [row0, row0 + rows) of the width x height frame into
 // buffers of `rows` rows.  The variant follows the operands: `flat`
 // non-null -> the flat BVH sweep (scene in leaf order), `nodes` non-null ->
-// the skip-pointer walk of its `copies` copies of n_trav nodes (scene in
-// leaf order), neither -> the brute sweep, both -> refused; the flat sweep
-// stages stage_leaves leaves, stage_outliers outlier rows (0 or out_cnt)
-// and stage_boxes box rows (0 or 16 n_leaves) in shared memory (FlatStage:
-// the wrapper plans it within raytpu_flat_device's opt-in limit); `taping` ->
+// the skip-pointer walk of its `copies` copies of n_trav node rows in the
+// 16-byte layout (WalkRow, render_common.cuh) over the permuted scene's
+// rows (cx, cy, cz, rad * rad) in `spheres` (scene in leaf order),
+// neither -> the brute sweep, both -> refused; the flat sweep stages
+// stage_leaves leaves, stage_outliers outlier rows (0 or out_cnt) and
+// stage_boxes box rows (0 or 16 n_leaves) in shared memory (FlatStage: the
+// wrapper plans it within raytpu_flat_device's opt-in limit); `taping` ->
 // the taping forward into `tape` (g_cap steps a pixel, int32 when
 // tape_wide; null only when g_cap is 0); `census` non-null -> the counting
-// variant (kCensus + 2 counters: the flat sweep and the dense stage add
-// their warp counters);
-// `carry` -> K2, which reads acc_in / seed_in and
-// writes `out` / seed_out (either pair may alias: a thread reads its own
-// pixel before it writes it) from sample index s0 on.  A tape, the census
-// and the carry exclude one another.  `dense` (no BVH, n <= kDenseMax) ->
+// variant (kCensus + kWarpCensus counters: the refill adds its warp
+// counters); `carry` -> K2, which reads acc_in / seed_in and writes `out` /
+// seed_out (either pair may alias: a thread reads its own pixel before it
+// writes it) from sample index s0 on.  A tape, the census and the carry
+// exclude one another.  `dense` (no BVH, n <= kDenseMax) ->
 // the dense stage, a plain forward or (`census`) its counting variant.  The
-// flat sweep and the dense stage hand out the pixels past their persistent
-// grid's first ones from `pixel_next`, one u32 that is 0 at launch.
-// spp >= 1.  The block's x extent is one warp, so threadIdx.x
+// refill (the flat sweep, the walk, the dense stage) hands out the pixels
+// past its persistent grid's first ones from `pixel_next`, one u32 that is
+// 0 at launch.  spp >= 1.  The block's x extent is one warp, so threadIdx.x
 // is the lane.
 extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                                  int dense, const void* flat, int n_leaves,
@@ -452,10 +461,12 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                                  int spp, int depth, float t_min,
                                  float inv_w, float inv_h, float inv_spp,
                                  float gamma, int parallel, int v1,
-                                 void* stream) {
+                                 const void* spheres, void* stream) {
   if ((taping != 0) + (census != nullptr) + (carry != 0) > 1 || rows < 1 ||
       row0 < 0 || (flat != nullptr && nodes != nullptr) ||
-      (nodes != nullptr && (n_trav < 1 || (copies != 1 && copies != 8))) ||
+      (nodes != nullptr &&
+       (n_trav < 1 || (copies != 1 && copies != 8) || spheres == nullptr ||
+        pixel_next == nullptr)) ||
       (carry && (acc_in == nullptr || seed_in == nullptr ||
                  seed_out == nullptr)) ||
       (flat != nullptr &&
@@ -473,8 +484,9 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   p.bvh = FlatBvh{static_cast<const float*>(flat), n_leaves, leaf_size,
                   out_base, out_cnt};
   p.stage = FlatStage{stage_leaves, stage_outliers, stage_boxes};
-  p.walk = NodeBvh{static_cast<const float*>(nodes), n_trav, copies,
-                   out_base, out_cnt};
+  p.walk = NodeBvh{nullptr, n_trav, copies, out_base, out_cnt,
+                   static_cast<const float4*>(nodes),
+                   static_cast<const float4*>(spheres)};
   p.tape = tape;
   p.census = static_cast<unsigned long long*>(census);
   p.acc_in = static_cast<const float*>(acc_in);

@@ -21,12 +21,16 @@
 // dependent load per node (the next row's address is the last row's skip).
 // Where the flat sweep tests all L leaf boxes of a copy, the walk tests the
 // nodes whose ancestors the ray enters within its best t so far: O(log L)
-// per leaf reached, so it wins where L is large.  The design stays simple:
-// one thread walks its own ray through its own octant's copy with no stack
-// (the skip pointers are the stack); node rows are read from global memory
-// through L1.  raytpu's tile rule (a node is entered when any lane of the
-// (8, 128) tile hits it) is a TPU mechanism for its vector unit, not
-// semantics: the closest hit does not depend on which nodes a ray visits.
+// per leaf reached, so it wins where L is large.  One thread walks its own
+// ray through its own octant's copy with no stack (the skip pointers are
+// the stack).  The forward and K3 walk through closest_hit_walk() below:
+// node rows in a 16-byte layout (two float4 a node) read through L1,
+// spheres as 16-byte rows, each lane advancing to its next entered leaf
+// before the lanes sweep their leaves together, each missed sphere test
+// ended before the square root.  raytpu's tile rule (a
+// node is entered when any lane of the (8, 128) tile hits it) is a TPU
+// mechanism for its vector unit, not semantics: the closest hit does not
+// depend on which nodes a ray visits.
 //
 // Numerics (both kernels are built with -fmad=false and without fast math):
 // the op order is raytpu/golden.py's (and raytpu_torch/golden.py's), so no
@@ -244,8 +248,9 @@ __device__ __forceinline__ Ray gen_ray(const CamPack& cam, float fx, float fy,
 // is a TPU layout of this same min / argmin: its bf16x3 one-hot extraction
 // is this sweep reading the winner's attributes once, in scatter().  Flat BVH (K1c, K3's BVH
 // variant): the outlier tail, then the leaf rows of the octant copy the
-// ray's own direction picks.  Walk (K1d, K3's walk variant): the outlier
-// tail, then the skip-pointer walk of that copy's nodes.  Tape read (K3's
+// ray's own direction picks.  Walk (K5 / K6; the forward and K3 take the
+// same tests through closest_hit_walk()): the outlier tail, then the
+// skip-pointer walk of that copy's nodes.  Tape read (K3's
 // replay of K4's tape): the winner from the tape, its t recomputed for that
 // one sphere.  All of them compute a sphere's t with sphere_root(), so a
 // winner's t is one number wherever it comes from, and the images and
@@ -269,19 +274,27 @@ struct FlatBvh {
 // interior node, skip the row after the node's subtree, relative within
 // its copy.  copies is 8 (padded leaves: copy o ordered front to back for
 // octant o) or 1 (raytpu's unpadded variable leaves); the outliers as in
-// FlatBvh (none without padding).
+// FlatBvh (none without padding).  closest_hit<kWalk> (K5, K6) reads
+// `nodes` and the scene pack; closest_hit_walk() (the forward, K3) reads
+// the same node rows in the 16-byte layout, `rows` (see WalkRow), and the
+// permuted scene's rows (cx, cy, cz, rad * rad), `spheres`, and leaves
+// `nodes` null.
 struct NodeBvh {
   const float* __restrict__ nodes;
   int n_trav, copies, out_base, out_cnt;
+  const float4* __restrict__ rows;
+  const float4* __restrict__ spheres;
 };
 
 // Per-thread counts of the census (K1'): leaves entered, closest-hit
 // steps, samples, nodes the walk visits (the other policies leave it 0);
-// under the flat sweep also the warp's bounce-loop iterations and
-// sphere-test iterations, each counted by one lane of the lanes that run it
-// (warp_tick).
+// under the persistent sample refill (the flat sweep, the walk, the dense
+// stage) also the warp's bounce-loop, sphere-test and node-loop iterations,
+// each counted by one lane of the lanes that run it (warp_tick), and the
+// lane's own sphere tests.
 struct Census {
-  unsigned leaves, steps, samples, nodes, warp_steps, warp_tests;
+  unsigned leaves, steps, samples, nodes, warp_steps, warp_tests,
+      warp_nodes, tests;
 };
 
 // Adds k to c in the lowest active lane only: summed over the warp, one k
@@ -323,6 +336,15 @@ struct DenseRows {
   __device__ __forceinline__ float y(int j) const { return dense_rows[j].y; }
   __device__ __forceinline__ float z(int j) const { return dense_rows[j].z; }
   __device__ __forceinline__ float r2(int j) const { return dense_rows[j].w; }
+};
+// Rows (cx, cy, cz, rad * rad) from device memory at q: the walk's sphere
+// rows, one 16-byte load a test where the scene pack takes four.
+struct GlobalRows {
+  const float4* __restrict__ q;
+  __device__ __forceinline__ float x(int j) const { return q[j].x; }
+  __device__ __forceinline__ float y(int j) const { return q[j].y; }
+  __device__ __forceinline__ float z(int j) const { return q[j].z; }
+  __device__ __forceinline__ float r2(int j) const { return q[j].w; }
 };
 // Rows (cx, cy, cz, rad * rad) from shared memory at q: the flat sweep's
 // rows stage_flat() staged.
@@ -395,13 +417,19 @@ __device__ __forceinline__ void sweep_range(const SceneView& s, const Ray& r,
 // A negative or NaN discriminant (a miss, or a padding row) ends the test
 // before the square root: root_of()'s sqrtf gives NaN there and no root
 // passes, so the outcome is the same, and sqrtf takes its slow path (a
-// call) for every such argument, most of a sweep's tests.
+// call) for every such argument, most of a sweep's tests.  Counting, the
+// warp runs as many iterations as the largest count of the lanes that
+// sweep together (the walk's unpadded leaves differ).
 template <bool kCount, class Rows>
 __device__ __forceinline__ void sweep_rows(const Rows& rows, int j0,
                                            int count, int first, const Ray& r,
                                            float a, float inv_a, float t_min,
                                            float& tb, int& win, Census& cn) {
-  if (kCount) warp_tick(cn.warp_tests, count);
+  if (kCount) {
+    warp_tick(cn.warp_tests, __reduce_max_sync(__activemask(),
+                                               static_cast<unsigned>(count)));
+    cn.tests += count;
+  }
   for (int i = 0; i < count; ++i) {
     float half_b;
     const float disc = disc_at(rows, r, a, j0 + i, half_b);
@@ -469,7 +497,11 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
   // outliers first: a giant ground sphere seeds tb, so far leaves cull
   const int out_base = kHit == kFlat ? bvh.out_base : walk.out_base;
   const int out_cnt = kHit == kFlat ? bvh.out_cnt : walk.out_cnt;
-  sweep_range(s, r, a, inv_a, t_min, out_base, out_base + out_cnt, tb, win);
+  if (kHit == kFlat)
+    sweep_range(s, r, a, inv_a, t_min, out_base, out_base + out_cnt, tb, win);
+  else  // the walk's, each missed test ended before sqrtf
+    sweep_rows<kCount>(SceneRows{s}, out_base, out_cnt, out_base, r, a, inv_a,
+                       t_min, tb, win, cn);
   const float inv_dx = 1.0f / r.dx, inv_dy = 1.0f / r.dy,
               inv_dz = 1.0f / r.dz;
   const int octant = (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
@@ -500,7 +532,8 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
     if (enter && count > 0) {
       if (kCount) ++cn.leaves;
       const int start = static_cast<int>(row[6]);
-      sweep_range(s, r, a, inv_a, t_min, start, start + count, tb, win);
+      sweep_rows<kCount>(SceneRows{s}, start, count, start, r, a, inv_a,
+                         t_min, tb, win, cn);
     }
     rel = (enter && count == 0) ? rel + 1 : static_cast<int>(row[8]);
   }
@@ -641,6 +674,100 @@ __device__ __forceinline__ int closest_hit_staged(const SceneView& s,
     else
       sweep_rows<kCount>(SceneRows{s}, start, ls, start, r, a, inv_a, t_min,
                          tb, win, cn);
+  }
+}
+
+// ---- the walk over 16-byte rows (the forward's K1d, K1b/walk, K1', K2
+// and K4 over the walk, and K3's every sweep over it; K5 / K6 keep
+// closest_hit<kWalk>) -------------------------------------------------------
+//
+// The same tests as closest_hit<kWalk>, in the same order for each lane,
+// with the same tb at each box test, so the same winner, t and census.
+// The two must stay test for test the same until K5 / K6 move onto this
+// one: the CUDA tests test_walk_kernels_match_plain and
+// test_walk_refill_bit_equal_plain hold this one, and
+// test_segment_kernels_match_plain[walk] and chip_smoke.py's phase 8
+// closest_hit<kWalk>, each bit for bit against one plain version,
+// raytpu_torch.golden.hit_world_walk.
+// A node row in the 16-byte layout (WalkRow; written by
+// raytpu_torch.bvh.pack_walk_rows, which refuses a BVH whose values it
+// cannot hold): two float4, lo = (min xyz, w0) and hi = (max xyz, w1), the
+// bits of
+//     w0 = skip | (start & 0xFF) << 24,    w1 = start >> 8 | count << 12,
+// skip in 24 bits (n_trav < 2^24), start and count in 20 (fewer than 2^20
+// permuted rows).  A node's count and skip take one operation each, its
+// start (a leaf's only) three.  The rows are read from `walk.rows` in
+// device memory, the node's two float4 side by side; the spheres' rows
+// (outliers and leaves) from `walk.spheres`, one 16-byte load a test, the
+// outliers at warp-uniform rows (a broadcast).  The node rows are not
+// staged in shared memory: on an H100 a stage of the whole list, or of its
+// first rows, was no faster than L1 (PERF.md, section 6).
+
+// A node row's fields (see above).
+struct WalkRow {
+  float4 lo, hi;
+  __device__ __forceinline__ int count() const {
+    return static_cast<int>(__float_as_uint(hi.w) >> 12);
+  }
+  __device__ __forceinline__ int skip() const {
+    return static_cast<int>(__float_as_uint(lo.w) & 0xFFFFFFu);
+  }
+  __device__ __forceinline__ int start() const {
+    return static_cast<int>((__float_as_uint(lo.w) >> 24) |
+                            ((__float_as_uint(hi.w) & 0xFFFu) << 8));
+  }
+};
+
+// closest_hit<kWalk> over the node rows walk.rows and the sphere rows
+// walk.spheres.  A lane walks its own octant copy's nodes, box tests only,
+// up to the next leaf it enters (the cheap tests, run apart), then every
+// lane that found one sweeps its leaf together: a warp runs as many leaf
+// sweeps a step as its busiest lane enters, where the loop over nodes ran
+// a sweep at every node position any lane entered a leaf.  The outliers
+// come first.  Counting, one warp_nodes tick for each node-loop iteration
+// any lane of the warp runs.
+template <bool kCount>
+__device__ __forceinline__ int closest_hit_walk(const NodeBvh& walk,
+                                                const Ray& r, float t_min,
+                                                float& tb, Census& cn) {
+  const float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+  const float inv_a = 1.0f / a;
+  tb = kInf;
+  int win = -1;
+  const GlobalRows spheres{walk.spheres};
+  sweep_rows<kCount>(spheres, walk.out_base, walk.out_cnt, walk.out_base, r,
+                     a, inv_a, t_min, tb, win, cn);
+  const float inv_dx = 1.0f / r.dx, inv_dy = 1.0f / r.dy,
+              inv_dz = 1.0f / r.dz;
+  const int octant = (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
+                     (r.dz < 0.0f ? 1 : 0);
+  const int copy = walk.copies == 8 ? octant : 0;
+  const float4* g = walk.rows + 2 * static_cast<size_t>(copy) * walk.n_trav;
+  int rel = 0;
+  for (;;) {
+    // box tests up to the next entered leaf (rel stays on it): an entered
+    // interior node falls through to rel + 1, anything else jumps to its
+    // skip
+    WalkRow row;
+    bool leaf = false;
+    while (!leaf && rel < walk.n_trav) {
+      row = WalkRow{g[2 * rel], g[2 * rel + 1]};
+      const float b[6] = {row.lo.x, row.lo.y, row.lo.z,
+                          row.hi.x, row.hi.y, row.hi.z};
+      const bool enter = box_enter(b, r, inv_dx, inv_dy, inv_dz, t_min, tb);
+      if (kCount) {
+        ++cn.nodes;
+        warp_tick(cn.warp_nodes, 1u);
+      }
+      leaf = enter && row.count() > 0;
+      if (!leaf) rel = enter ? rel + 1 : row.skip();
+    }
+    if (!leaf) return win;
+    if (kCount) ++cn.leaves;
+    const int start = row.start();
+    sweep_rows<kCount>(spheres, start, row.count(), start, r, a, inv_a,
+                       t_min, tb, win, cn);
+    rel = row.skip();
   }
 }
 

@@ -32,7 +32,9 @@ Over a flat BVH every K3 sweep is the forward's K1c sweep, over the rows
 kernel's blocks resident beside the refill's camera sums: a large BVH may
 stage part of itself, the rest read from the scene pack); the refill's
 lanes count the staged bytes (:func:`refill_lanes`), the same for a taped
-and an untaped launch of one scene.
+and an untaped launch of one scene.  Over the walk every K3 sweep is the
+forward's K1d sweep, over the node rows ``BVH.walk_rows`` and the sphere
+rows :func:`megakernel.sphere_rows` in device memory.
 
 The tape (K4).  The taping forward (:func:`render_tape_fwd`) renders the
 forward's image and logs, per pixel, the closest-hit winner of each bounce
@@ -126,7 +128,7 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ptr, ptr, i, ptr, i, i, ptr, i, i, i, i, i, i, i, i, ptr,
                    i, i, ptr, ptr, ptr, ptr, ptr,
                    i, i, i, i, i, i, f, f, f, f, f, f, i, i, i, i, i, ptr,
-                   ptr]
+                   ptr, ptr]
     fn.restype = ctypes.c_int
     lib.raytpu_render_vjp_warps.argtypes = [i, i]
     lib.raytpu_render_vjp_warps.restype = ctypes.c_int
@@ -338,6 +340,9 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
                       device=device)
     gsc = torch.zeros((LEAVES, n), dtype=torch.float64, device=device)
     stage, plan = launch_plan(cfg, rows, bvh, refill, device)
+    walk = bvh is not None and sweep_of(bvh) == "walk"
+    node_rows = bvh.walk_rows if walk else None
+    spheres = megakernel.sphere_rows(scene_pack) if walk else None
     scratch = None
     if refill:
         if plan["hops"] * cfg.spp >= 2**28:
@@ -354,8 +359,8 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_vjp(
             cam_pack.data_ptr(), scene_pack.data_ptr(), n,
-            *megakernel.bvh_args(bvh), stage["leaves"], stage["outliers"],
-            stage["boxes"], int(tape is not None),
+            *megakernel.bvh_args(bvh, node_rows), stage["leaves"],
+            stage["outliers"], stage["boxes"], int(tape is not None),
             None if tape is None or tape.numel() == 0 else tape.data_ptr(),
             0 if tape is None else tape.shape[0],
             int(tape is not None and tape.dtype == torch.int32),
@@ -370,7 +375,8 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
             int(cfg.rng_mode == "parallel"), int(cfg.scatter_mode == "v1"),
             int(refill), plan["lanes"] if refill else 0,
             plan["window"] if refill else 0,
-            None if scratch is None else scratch.data_ptr(), stream)
+            None if scratch is None else scratch.data_ptr(),
+            None if spheres is None else spheres.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"render_vjp_kernel launch failed: CUDA error {err}")
     launches += 1

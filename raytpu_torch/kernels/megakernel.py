@@ -18,10 +18,12 @@ raytpu's slab mode, ``row0`` / ``rows``: rows ``[row0, row0 + rows)`` of
 the cfg-sized frame, with the image, the tape and the carried state
 ``(rows, W, ...)`` (K1b is the forward in slab mode).  A slab may run
 past the frame's last row; those rows trace nothing and come out 0.  The
-CUDA kernel is one thread per pixel, but the flat sweep and the dense stage
-run on a persistent grid whose lanes take their next pixel from a counter
-the wrapper zeroes each launch; see the note at the top of the ``.cu``
-file.
+CUDA kernel is one thread per pixel, but the flat sweep, the walk and the
+dense stage run on a persistent grid whose lanes take their next pixel from
+a counter the wrapper zeroes each launch; see the note at the top of the
+``.cu`` file.  The walk reads its node rows in the 16-byte layout of
+:func:`raytpu_torch.bvh.pack_walk_rows` (``BVH.walk_rows``) and the
+spheres as 16-byte rows (:func:`sphere_rows`).
 
 :func:`render_fwd` and :func:`accumulate` take the scene and camera as the
 package's NamedTuples.  For CPU tensors they run the plain PyTorch versions
@@ -85,9 +87,10 @@ launches = 0    # kernel launches through launch(); a run resets and reads it
 # forward (by sweep, "+slab" for a slab); the sweeps are "brute", "bvh"
 # (flat) and "walk"; a run resets and reads them
 SWEEP_TAGS = ("brute", "bvh", "walk")
-# the warp counters the census kernel of the flat sweep and of the dense
-# stage adds after golden.CENSUS's counts (see warp_census)
-WARP_CENSUS = ("warp_steps", "warp_sphere_tests")
+# the counters the census kernel of the refill (the flat sweep, the walk,
+# the dense stage) adds after golden.CENSUS's counts (see warp_census)
+WARP_CENSUS = ("warp_steps", "warp_sphere_tests", "warp_node_steps",
+               "lane_sphere_tests")
 variants = dict.fromkeys(
     ("K1a", "K1c", "K1d", "K1e", "K1b/dense", "K1'/dense")
     + tuple(f"{k}/{sweep}" for k in ("K1b", "K1'") for sweep in SWEEP_TAGS)
@@ -105,7 +108,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.raytpu_render_fwd
     fn.argtypes = [ptr, ptr, i, i, ptr, i, i, ptr, i, i, i, i, i, i, i, i,
                    ptr, i, i, ptr, i, ptr, ptr, ptr, ptr, ctypes.c_uint, ptr,
-                   i, i, i, i, i, i, f, f, f, f, f, i, i, ptr]
+                   i, i, i, i, i, i, f, f, f, f, f, i, i, ptr, ptr]
     fn.restype = ctypes.c_int
     pi = ctypes.POINTER(ctypes.c_int)
     lib.raytpu_flat_device.argtypes = [i, pi, pi]
@@ -310,17 +313,26 @@ def _check_state(cfg: RenderConfig, rows: int, acc: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, the scene on {device}")
 
 
-def bvh_args(bvh: BVH | None) -> tuple:
+def bvh_args(bvh: BVH | None, nodes: torch.Tensor | None = None) -> tuple:
     """The C entry points' BVH operands: (flat, n_leaves, leaf_size, nodes,
     n_trav, copies, out_base, out_cnt), ``flat`` set for the flat sweep,
-    ``nodes`` for the walk, neither for the brute sweep."""
+    ``nodes`` for the walk (``bvh.nodes``, or the given rows: the forward's
+    and K3's ``bvh.walk_rows``), neither for the brute sweep."""
     if bvh is None:
         return (None, 0, 0, None, 0, 0, 0, 0)
     tail = outlier_tail(bvh.perm, bvh.flat, bvh.leaf_size) or (0, 0)
     if sweep_of(bvh) == "flat":
         return (bvh.flat.data_ptr(), bvh.n_leaves, int(bvh.leaf_size), None,
                 0, 0, *tail)
-    return (None, 0, 0, bvh.nodes.data_ptr(), bvh.n_trav, bvh.copies, *tail)
+    rows = bvh.nodes if nodes is None else nodes
+    return (None, 0, 0, rows.data_ptr(), bvh.n_trav, bvh.copies, *tail)
+
+
+def sphere_rows(scene_pack: torch.Tensor) -> torch.Tensor:
+    """The walk's sphere rows: (n, 4) f32 (cx, cy, cz, rad * rad) of a
+    (9, n) scene pack, rad * rad the f32 product the sweeps form."""
+    return torch.stack([scene_pack[0], scene_pack[1], scene_pack[2],
+                        scene_pack[3] * scene_pack[3]], dim=1).contiguous()
 
 
 def flat_stage(bvh: BVH, limit: int) -> dict:
@@ -375,21 +387,25 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
     s0) for K2, the seeds as int32 bits; ``dense`` the dense stage."""
     global launches
     n = scene_pack.shape[1]
-    flat = bvh is not None and sweep_of(bvh) == "flat"
+    sweep = None if bvh is None else sweep_of(bvh)
     acc_in, seed_in, seed_out, s0 = carry if carry else (None,) * 3 + (0,)
     lib = _lib()
     device = scene_pack.device
-    # the flat sweep's staging, and the counter the persistent grid of the
-    # flat sweep and of the dense stage takes its pixels from
-    stage = flat_stage_on(bvh, device) if flat else dict.fromkeys(
-        ("leaves", "outliers", "boxes"), 0)
+    # the flat sweep's staging, the walk's node and sphere rows, and the
+    # counter the persistent grid of the refill (all but the brute sweep)
+    # takes its pixels from
+    stage = (flat_stage_on(bvh, device) if sweep == "flat"
+             else dict.fromkeys(("leaves", "outliers", "boxes"), 0))
+    node_rows = spheres = None
+    if sweep == "walk":
+        node_rows, spheres = bvh.walk_rows, sphere_rows(scene_pack)
     pixel_next = (torch.zeros(1, dtype=torch.int32, device=device)
-                  if flat or dense else None)
+                  if sweep is not None or dense else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_fwd(
             cam_pack.data_ptr(), scene_pack.data_ptr(), n, int(dense),
-            *bvh_args(bvh), stage["leaves"], stage["outliers"],
+            *bvh_args(bvh, node_rows), stage["leaves"], stage["outliers"],
             stage["boxes"], int(tape is not None),
             None if tape is None or tape.numel() == 0 else tape.data_ptr(),
             0 if tape is None else tape.shape[0],
@@ -408,7 +424,7 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
             float(np.float32(1.0 / cfg.spp)),
             float(np.float32(cfg.gamma)),
             int(cfg.rng_mode == "parallel"), int(cfg.scatter_mode == "v1"),
-            stream)
+            None if spheres is None else spheres.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"render_fwd_kernel launch failed: CUDA error {err}")
     launches += 1
@@ -488,30 +504,33 @@ def _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count, row0, rows,
 def warp_census(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
                 cfg: RenderConfig, bvh: BVH | None, row0: int = 0,
                 rows: int | None = None) -> dict:
-    """K1' over the flat sweep (``bvh``) or the dense stage (``bvh`` None,
-    a scene :func:`use_dense` takes: K1'/dense) with its warp counters ->
-    the frame's ``golden.CENSUS`` counts, :data:`WARP_CENSUS`'s and two
-    shares: ``loop_efficiency``, bounce steps over (warp_steps x 32), and
-    ``sweep_efficiency``, the lanes' sphere tests (leaves entered x
-    leaf_size + steps x outliers; the dense stage: steps x spheres) over
-    (warp_sphere_tests x 32).  ``warp_steps`` counts one for each
-    iteration of the bounce loop that any lane of a warp runs,
-    ``warp_sphere_tests`` one for each sphere-test iteration likewise: what
-    a warp runs, whichever of its lanes take part.  Warps exist on the card
-    only, and only these two kernels count them: CUDA tensors only."""
+    """K1' over a BVH (the flat sweep or the walk) or the dense stage
+    (``bvh`` None, a scene :func:`use_dense` takes: K1'/dense) with its
+    warp counters -> the frame's ``golden.CENSUS`` counts,
+    :data:`WARP_CENSUS`'s and the shares ``loop_efficiency``, bounce steps
+    over (warp_steps x 32), and ``sweep_efficiency``, the lanes' sphere
+    tests over (warp_sphere_tests x 32); over the walk also
+    ``walk_efficiency``, the nodes visited over (warp_node_steps x 32).
+    ``warp_steps`` counts one for each iteration of the bounce loop that any
+    lane of a warp runs, ``warp_sphere_tests`` and ``warp_node_steps`` one
+    for each sphere-test and node-loop iteration likewise: what a warp runs,
+    whichever of its lanes take part.  ``lane_sphere_tests`` counts each
+    lane's own tests (the walk's unpadded leaves hold different counts).
+    Warps exist on the card only, and only the refill's census kernels count
+    them: CUDA tensors only."""
     n = scene_pack.shape[-1]
-    dense = bvh is None and use_dense(n, None)
-    if not dense and (bvh is None or sweep_of(bvh) != "flat"):
-        raise ValueError("warp_census counts the flat sweep's and the dense "
-                         "stage's kernels only")
+    if bvh is None and not use_dense(n, None):
+        raise ValueError("warp_census counts the refill's kernels only: the "
+                         "flat sweep, the walk and the dense stage")
     _, census = _launch_fwd(cam_pack, scene_pack, cfg, bvh, None, True,
                             row0, rows, False)
     c = dict(zip(golden.CENSUS + WARP_CENSUS, map(int, census.tolist())))
-    tests = (c["bounce_steps"] * n if bvh is None else
-             c["leaves_entered"] * bvh.leaf_size
-             + c["bounce_steps"] * bvh.n_outliers)
     c["loop_efficiency"] = c["bounce_steps"] / max(32 * c["warp_steps"], 1)
-    c["sweep_efficiency"] = tests / max(32 * c["warp_sphere_tests"], 1)
+    c["sweep_efficiency"] = (c["lane_sphere_tests"]
+                             / max(32 * c["warp_sphere_tests"], 1))
+    if bvh is not None and sweep_of(bvh) == "walk":
+        c["walk_efficiency"] = (c["nodes_visited"]
+                                / max(32 * c["warp_node_steps"], 1))
     return c
 
 

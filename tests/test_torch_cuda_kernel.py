@@ -32,7 +32,9 @@ reciprocal rounds apart); slabs stitched give the full frame bit for bit
 (image, state, tape), and K3's slab sums, added in f64, its full-frame sums
 within 1e-6 of each leaf's largest entry.  The walk's image equals the
 flat sweep's on the same BVH bit for bit (the same leaves in the same
-order), and its census counts the flat sweep's leaves and steps.  K1e
+order), and its census counts the flat sweep's leaves and steps; on the
+refill (K1d, K2, K4 and their slabs) the walk equals its plain versions
+bit for bit.  K1e
 traces K1a's sweep over the same values from shared memory: its image
 equals K1a's and the plain version's bit for bit.  K3 over a flat BVH
 sweeps the rows it stages in shared memory, and its warp-wide near-miss
@@ -912,25 +914,12 @@ def test_refill_slabs_stitch_to_the_frame():
 _FLAT_CASES = ("frame", "k2_from_s0", "k4_tape", "slab_past_frame")
 
 
-@needs_card
-@pytest.mark.parametrize("case", _FLAT_CASES)
-@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
-def test_flat_refill_bit_equal_plain(rng_mode, case):
-    """The flat sweep's forward (one loop of bounce steps a thread, each
-    sample refilled in place; the sweep staged in shared memory, a warp's
-    leaves swept together) against the plain versions on the same CUDA
-    tensors, bit for bit: the frame (K1c), a K2 batch from s0 > 0 (sums and
-    seeds), the taping forward (image and every tape slot) and a slab whose
-    last rows lie past the frame (K1b, K2 and K4 on it).  Diffuse, metal
-    and glass spheres at depth 4: lanes of a warp end their samples at
-    different steps, many at the depth cap.  The census kernel K1' counts
-    the plain census's leaves, steps and samples, and its warp counters no
-    fewer iterations than the busiest lane's share."""
-    cfg = RenderConfig(width=96, height=40, spp=3, depth=4,
-                       rng_mode=rng_mode)
-    scene, cam, bvh = _bvh_world(cfg)
-    assert tbvh.sweep_of(bvh) == "flat" and bvh.n_outliers == 1
-    assert {0, 1, 2} <= set(scene.mat_type.tolist())
+def _refill_vs_plain(scene, cam, cfg, bvh, case):
+    """One case of the refill's forward over a BVH (the flat sweep or the
+    walk) against the plain versions on the same CUDA tensors, bit for bit
+    (see test_flat_refill_bit_equal_plain), with the launches by variant;
+    the census kernel K1' against the plain census -> its warp census."""
+    tag = megakernel.sweep_tag(bvh)
     cp = megakernel.pack_camera(cam)
     sp = megakernel.pack_scene(tbvh.permute_scene(scene, bvh.perm))
     row0, rows = (30, 16) if case == "slab_past_frame" else (0, None)
@@ -965,10 +954,10 @@ def test_flat_refill_bit_equal_plain(rng_mode, case):
                                                 row0, rows)
         assert torch.equal(img, pimg) and torch.equal(tape, ptape)
     want_launches = {
-        "frame": {"K1c": 1}, "k2_from_s0": {"K2/bvh": 1},
-        "k4_tape": {"K4/bvh": 1},
-        "slab_past_frame": {"K1b/bvh": 1, "K2/bvh+slab": 1,
-                            "K4/bvh+slab": 1}}[case]
+        "frame": {{"bvh": "K1c", "walk": "K1d"}[tag]: 1},
+        "k2_from_s0": {f"K2/{tag}": 1}, "k4_tape": {f"K4/{tag}": 1},
+        "slab_past_frame": {f"K1b/{tag}": 1, f"K2/{tag}+slab": 1,
+                            f"K4/{tag}+slab": 1}}[case]
     assert {k: v for k, v in megakernel.variants.items() if v} == \
         want_launches
     c = megakernel.warp_census(cp, sp, cfg, bvh, row0, rows)
@@ -978,6 +967,53 @@ def test_flat_refill_bit_equal_plain(rng_mode, case):
     assert [c[k] for k in golden.CENSUS] == [plain[k] for k in golden.CENSUS]
     assert 0.0 < c["loop_efficiency"] <= 1.0
     assert 0.0 < c["sweep_efficiency"] <= 1.0
+    return c
+
+
+@needs_card
+@pytest.mark.parametrize("case", _FLAT_CASES)
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_flat_refill_bit_equal_plain(rng_mode, case):
+    """The flat sweep's forward (one loop of bounce steps a thread, each
+    sample refilled in place; the sweep staged in shared memory, a warp's
+    leaves swept together) against the plain versions on the same CUDA
+    tensors, bit for bit: the frame (K1c), a K2 batch from s0 > 0 (sums and
+    seeds), the taping forward (image and every tape slot) and a slab whose
+    last rows lie past the frame (K1b, K2 and K4 on it).  Diffuse, metal
+    and glass spheres at depth 4: lanes of a warp end their samples at
+    different steps, many at the depth cap.  The census kernel K1' counts
+    the plain census's leaves, steps and samples, and its warp counters no
+    fewer iterations than the busiest lane's share."""
+    cfg = RenderConfig(width=96, height=40, spp=3, depth=4,
+                       rng_mode=rng_mode)
+    scene, cam, bvh = _bvh_world(cfg)
+    assert tbvh.sweep_of(bvh) == "flat" and bvh.n_outliers == 1
+    assert {0, 1, 2} <= set(scene.mat_type.tolist())
+    _refill_vs_plain(scene, cam, cfg, bvh, case)
+
+
+@needs_card
+@pytest.mark.parametrize("case", _FLAT_CASES)
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+def test_walk_refill_bit_equal_plain(padded, rng_mode, case):
+    """The walk's forward on the refill (K1d, K1b/walk, K2/walk, K4/walk:
+    16-byte node and sphere rows, each lane walking to its next entered
+    leaf, the warp's leaves swept together) against the plain
+    versions on the same CUDA tensors, bit for bit, as the flat sweep's
+    (test_flat_refill_bit_equal_plain), padded (8 copies, one outlier) and
+    unpadded (one copy, leaves of up to 7 spheres, not all full); the census
+    kernel K1'/walk counts the plain census's four counts, nodes visited
+    included, and its node loop no fewer iterations than a lane's share."""
+    cfg = RenderConfig(width=96, height=40, spp=3, depth=4,
+                       rng_mode=rng_mode)
+    scene = rt.final_world(n=300, device="cuda")
+    bvh = tbvh.build_bvh(scene, leaf_size=4 if padded else 7,
+                         pad_leaves=padded)
+    assert tbvh.sweep_of(bvh) == "walk"
+    c = _refill_vs_plain(scene, _cam(cfg), cfg, bvh, case)
+    assert 0.0 < c["walk_efficiency"] <= 1.0
+    assert c["lane_sphere_tests"] <= 32 * c["warp_sphere_tests"]
 
 
 @needs_card

@@ -35,7 +35,10 @@ Tolerances:
   walk and the brute sweep in both packages; with it zeroed, by at most
   1.3e-3 (seed 4) and 9.7e-4 (seed 9).  World seeds 1 and 2 have no such
   pixel: at most 4.4e-3 and 1.5e-3 (seed 4);
-- progressive batches, slabs and the tape replay: bit-equal.
+- progressive batches, slabs and the tape replay: bit-equal;
+- the walk's 16-byte node rows (``bvh.pack_walk_rows``, what the card's
+  forward and K3 read): unpacked by their plain version, every node's box,
+  start, count and skip bit for bit.
 """
 
 import dataclasses
@@ -321,3 +324,140 @@ def test_walk_reaches_sharded_progressive_and_train_step():
         runs.append([loss, *s[:2], *s[3:], *c])
     for a, w in zip(*runs):
         assert torch.equal(a, w)
+
+
+def _big_world(n=10_000, seed=0, extent=60.0):
+    """raytpu's large-scene recipe (scripts/probe_10k_r5.py big_world, as
+    chip_smoke.py's phase 7 builds it) on the CPU."""
+    rg = np.random.default_rng(seed)
+    spheres = [((0.0, -1000.0, 0.0), 1000.0, 0, (0.5, 0.5, 0.5), 0.0),
+               ((0.0, 1.0, 0.0), 1.0, 2, (1.0, 1.0, 1.0), 1.5),
+               ((-4.0, 1.0, 0.0), 1.0, 0, (0.4, 0.2, 0.1), 0.0),
+               ((4.0, 1.0, 0.0), 1.0, 1, (0.7, 0.6, 0.5), 0.0)]
+    while len(spheres) < n:
+        center = (rg.uniform(-extent, extent), 0.2,
+                  rg.uniform(-extent, extent))
+        m = rg.random()
+        if m < 0.8:
+            mat, alb, mp = 0, tuple(rg.random(3) * rg.random(3)), 0.0
+        elif m < 0.95:
+            mat, alb, mp = 1, tuple(0.5 + 0.5 * rg.random(3)), \
+                0.5 * rg.random()
+        else:
+            mat, alb, mp = 2, (1.0, 1.0, 1.0), 1.5
+        spheres.append((center, 0.2, mat, alb, mp))
+    return rt.make_scene(spheres, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["padded", "unpadded"])
+def test_sphere_rows(kind):
+    """The walk's sphere rows: (cx, cy, cz, rad * rad) of the scene pack,
+    rad * rad the f32 product, NaN dummies kept (padded leaves; an
+    unpadded BVH has none)."""
+    cfg = RenderConfig(width=16, height=8, spp=1, depth=1)
+    _, _, scene, _ = _world(48, cfg)
+    b = tbvh.build_bvh(scene, leaf_size=16, pad_leaves=kind == "padded")
+    sp = tmk.pack_scene(tbvh.permute_scene(scene, b.perm))
+    rows = tmk.sphere_rows(sp)
+    assert tuple(rows.shape) == (sp.shape[1], 4) and rows.is_contiguous()
+    assert torch.equal(rows[:, :3].contiguous().view(torch.int32),
+                       sp[:3].T.contiguous().view(torch.int32))
+    want = (sp[3].double() ** 2).float()  # one f32 rounding of the product
+    real = ~torch.isnan(sp[3])
+    assert torch.equal(rows[real, 3], want[real])
+    assert bool(torch.isnan(rows[~real]).all())
+    assert bool((~real).any()) == (kind == "padded")
+
+
+def _walk_bvh(kind):
+    """A BVH the walk sweeps: final_world(n=300) at leaf 4 padded (75
+    leaves a copy), unpadded at leaf 7 (one copy, leaves of up to 7
+    spheres, not all full), refit (interior boxes voided), a flat BVH
+    forced to the walk, and the 10k scene's at leaf 64 (8 x 313 nodes)."""
+    cfg = RenderConfig(width=16, height=8, spp=1, depth=1)
+    if kind == "10k":
+        b = tbvh.build_bvh(_big_world(), leaf_size=64)
+        assert (b.n_leaves, b.n_trav, b.n_outliers) == (157, 313, 1)
+        return b, 64
+    if kind == "forced":
+        _, _, scene, _ = _world(48, cfg)
+        b = tbvh.with_sweep(tbvh.build_bvh(scene, leaf_size=16), "walk")
+        return b, 16
+    _, _, scene, _ = _world(300, cfg)
+    leaf_size = 7 if kind == "unpadded" else 4
+    b = tbvh.build_bvh(scene, leaf_size=leaf_size,
+                       pad_leaves=kind != "unpadded")
+    if kind == "refit":
+        b = tbvh.refit(b, scene)
+        assert bool((b.nodes[b.nodes[:, 7] == 0, 0] == -3.0e38).all())
+    return b, leaf_size
+
+
+@pytest.mark.parametrize("kind", ["padded", "unpadded", "refit", "forced",
+                                  "10k"])
+def test_walk_rows_round_trip(kind):
+    """pack_walk_rows packs every node into two 16-byte rows (the 10k
+    scene's 8 x 313 nodes into 80,128 bytes); walk_nodes, the plain version
+    of the kernels' unpacking, gives back each node's box (its bits),
+    start, count and skip exactly."""
+    b, leaf_size = _walk_bvh(kind)
+    assert tbvh.sweep_of(b) == "walk"
+    rows = tbvh.pack_walk_rows(b)
+    assert rows.dtype == torch.int32 and rows.is_contiguous()
+    assert tuple(rows.shape) == (b.copies * b.n_trav, 8)
+    assert rows.numel() * 4 == 32 * b.copies * b.n_trav
+    if kind == "10k":
+        assert rows.numel() * 4 == 80_128
+    got = tbvh.walk_nodes(rows)
+    assert torch.equal(got.view(torch.int32), b.nodes.view(torch.int32))
+    # what the wrappers pass: packed once a BVH, anew for a new one
+    assert b.walk_rows is b.walk_rows and torch.equal(b.walk_rows, rows)
+    assert tbvh.with_sweep(b, "walk").walk_rows is not b.walk_rows
+    counts = b.nodes[:, 7]
+    assert int(counts.max()) == leaf_size and bool((counts >= 0).all())
+    if kind == "unpadded":
+        assert int(counts[counts > 0].min()) < leaf_size
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
+def test_bvh_args_pass_the_walk_rows(padded):
+    """The C entry points' walk operands: the given 16-byte rows (the
+    forward's and K3's), else bvh.nodes (K5 / K6), with the copy's node
+    count, the copies and the outlier tail."""
+    b, _ = _walk_bvh("padded" if padded else "unpadded")
+    tail = (tbvh.outlier_tail(b.perm, b.flat, b.leaf_size) or (0, 0))
+    assert (tail[1] > 0) == padded
+    want = (b.n_trav, b.copies, *tail)
+    args = tmk.bvh_args(b, b.walk_rows)
+    assert args[:3] == (None, 0, 0) and args[4:] == want
+    assert args[3] == b.walk_rows.data_ptr()
+    assert tmk.bvh_args(b)[3] == b.nodes.data_ptr()
+    assert tmk.bvh_args(b)[4:] == want
+
+
+@pytest.mark.parametrize("case", ["rows", "skip", "edge"])
+def test_walk_rows_refuses_what_they_cannot_hold(case):
+    """The 16-byte rows hold a leaf's start and count in 20 bits and a skip
+    in 24: a BVH of 2^20 permuted rows or more, or of 2^24 nodes a copy, is
+    refused, never packed wrong; one row fewer packs, and its largest
+    start, count and skip come back exactly."""
+    cfg = RenderConfig(width=16, height=8, spp=1, depth=1)
+    _, _, scene, _ = _world(48, cfg)
+    b = tbvh.build_bvh(scene, leaf_size=4, pad_leaves=False)
+    last = tbvh.WALK_MAX_ROWS - 1
+    if case == "rows":
+        big = dataclasses.replace(b, perm=torch.zeros(tbvh.WALK_MAX_ROWS))
+        with pytest.raises(ValueError, match="permuted rows"):
+            tbvh.pack_walk_rows(big)
+    elif case == "skip":  # 2^24 nodes as a view of one row: no memory
+        deep = dataclasses.replace(b, nodes=b.nodes[:1].expand(2**24, 9))
+        assert deep.n_trav == 2**24
+        with pytest.raises(ValueError, match="2\\^24"):
+            tbvh.pack_walk_rows(deep)
+    else:
+        nodes = b.nodes.clone()
+        leaf = int(torch.nonzero(nodes[:, 7] > 0)[0])
+        nodes[leaf, 6:8] = torch.tensor([last - 7.0, 7.0])
+        nodes[0, 8] = 2.0**24 - 1  # the largest skip the rows hold
+        edge = dataclasses.replace(b, nodes=nodes, perm=torch.zeros(last))
+        assert torch.equal(tbvh.walk_nodes(tbvh.pack_walk_rows(edge)), nodes)
