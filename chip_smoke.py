@@ -31,7 +31,21 @@ card 0 without it).  Phases, one JSON line each:
     gradients, then 20 Adam steps of ``optim.optimize`` on the hero
     sphere's centre, each step one K1a and one K3 launch;
 4.  K1a times from CUDA events, kernel and plain version;
-4b. fwd+bwd and K3 times, beside the plain adjoint's;
+4b. fwd+bwd and K3 times, beside the plain adjoint's; REFERENCE_V2's
+    parallel ``render_grad`` (a full tape: K4/brute, then K3's refill
+    replaying it) with its launches by variant and its kernels' times,
+    both kernels held at that shape (spp cut to 2) against the plain taping
+    forward and the plain VJP replaying the same tape, and at full spp
+    K4's image to ``render()``'s and the taped refill to the untaped one
+    (``brute_main_path_vs_plain``);
+4d. brute_redesign: the brute sweep's main paths beside their bounds
+    (config 2's ``render()``, K4/brute and the taped refill on REFERENCE_V2
+    in parallel RNG, K3 brute on its sequential ``render_grad``), the
+    counted warp efficiencies of K1a on config 2 and of K4/brute on
+    REFERENCE_V2 beside the per-sample loop's (estimated from a K4 tape),
+    ptxas's registers and spills of every brute instantiation (staged rows
+    and scene pack), the bytes staged and K3's refill lanes at 327, 4096
+    and 4097 spheres (fails below two refill blocks an SM at 4096);
 4c. taped against untaped ``render_grad`` in alternating pairs at the
     config-2 frame over 4 to 500 spheres (where the tape starts to pay);
 5.  config 4 (BASELINE: ``final_world()``, 500 spheres, 800x400, 100 spp,
@@ -122,8 +136,9 @@ card 0 without it).  Phases, one JSON line each:
         rows the wrappers build each launch; ptxas's registers and spills
         of every walk instantiation (the forward's, K3's, K5's and K6's).
 8.  the dense stage K1e and the sorted wavefront (K5, K6):
-    8a. K1e against K1a forced at the full REFERENCE_V2 frame (0 pixels
-        differ) and against its plain version at 2 spp; its warp counters
+    8a. K1e (K1a's kernel: the brute sweep over staged rows) against phase
+        3's ``render()`` (bit-equal) and against its plain version at 2
+        spp; its warp counters
         and efficiencies there (the census kernel K1'/dense, counting
         K1'/brute's steps and samples) and on 4x the pixels at a quarter
         of the spp (the launch's tail), beside the loop efficiency of the
@@ -146,8 +161,8 @@ card 0 without it).  Phases, one JSON line each:
         sequential RNG and in parallel RNG (``refill=2``; K3 on its windowed
         refill); ``cli render --backend wavefront --refill 2`` (PNG
         byte-equal);
-    8d. times (CUDA events, a warm-up call, then each call's time): K1e
-        against K1a, the wavefront against the megakernel per frame, and
+    8d. times (CUDA events, a warm-up call, then each call's time): K1e,
+        the wavefront against the megakernel per frame, and
         where a traced wavefront frame's device time goes (segments, sorts,
         gathers, the rest) with the device's idle share of that call.
 9.  K3's windowed refill (raytpu's parallel-RNG backward):
@@ -176,8 +191,8 @@ card 0 without it).  Phases, one JSON line each:
 
 It exits non-zero at the first failure.  The line before the last is the
 card's name and power limit, the line before it the kernel table as JSON
-(the flat rows, the walk's forward rows and K1e with their warp
-efficiencies; each bound the larger
+(the flat rows, the walk's forward rows, K1a, K1e and K4/brute with their
+warp efficiencies; each bound the larger
 of the bytes over 3.35 TB/s and the f32 operations over the card's f32
 rate, ``ops_peak()``), the last line ``{"ok": true, "device": {...}}``.
 """
@@ -324,6 +339,228 @@ def cuda_ms(fn, iters: int) -> float:
     return sum(each) / iters
 
 
+def launch_split(fn, iters: int = 50) -> dict:
+    """Where the time of a launch ``fn`` goes, from CUDA events after a
+    warm-up call: ``queued_ms``, the mean of ``iters`` calls made back to
+    back between one pair of events (the host runs ahead, so this is the
+    device's time a call: the kernels it launches and the gaps between
+    them); ``alone_ms``, the mean of calls made one at a time after a
+    synchronize (the host's share included: the device waits for it);
+    ``host_us``, the host's time to make one call, queued."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    queued = start.elapsed_time(stop) / iters
+    alone = []
+    for _ in range(iters // 5):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        alone.append(start.elapsed_time(stop))
+    return {"queued_ms": queued, "alone_ms": sum(alone) / len(alone),
+            "host_us": host_us}
+
+
+def k1a_split() -> None:
+    """K1a on config 2 (400x200, 20 spp, depth 12, 4 spheres), split:
+    :func:`launch_split` of ``megakernel.launch`` and of ``render()``,
+    and the kernel's own device time (:func:`kernel_ms`, the only
+    profiler trace of the process), for the ``raytpu_torch`` beside this
+    file.  One JSON line.  To compare checkouts on one card, copy this
+    file into each and run it there, one process each, in turns:
+
+        python3 -c 'import chip_smoke; chip_smoke.k1a_split()'
+    """
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a card")
+    sys.path.insert(0, ROOT)
+    import raytpu_torch as rt
+    from raytpu_torch.config import CONFIG2
+    from raytpu_torch.kernels import megakernel
+
+    dev = torch.device("cuda", 0)
+    scene = rt.config2_world(device=dev)
+    cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                         aspect=CONFIG2.aspect, device=dev)
+    cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
+    k1a = launch_split(lambda: megakernel.launch(cp, sp, CONFIG2))
+    render = launch_split(lambda: rt.render(scene, cam, CONFIG2))
+    own = kernel_ms(lambda: megakernel.launch(cp, sp, CONFIG2),
+                    "render_fwd_kernel")
+    phase("k1a_split", root=ROOT, card=card_line(),
+          frame="400x200 spp20 d12 sequential, 4 spheres", k1a=k1a,
+          render=render, kernel_ms=own)
+
+
+def brute_outputs(path: str) -> None:
+    """Every brute-sweep output of the ``raytpu_torch`` beside this file on
+    fixed inputs, saved to ``path`` (torch.save: a SHA-256 of each output's
+    bytes, shape and dtype, and the tensor itself up to 2^22 elements), for
+    a comparison of two checkouts (:func:`compare_outputs`): the forward's
+    image, census counts, taping image and tape, K2's sums and seeds (both
+    RNG modes; 50x21, slabs past and across the frame's edge, 2x2, 1003x301
+    at 1 spp, config 2, REFERENCE_V2 at 4 spp, 4097 spheres (the scene
+    pack), 500 spheres), and K3's image, f32 gradients and f64 sums (config
+    3 with and without ``vis_w``, both PASS 2 schedules taped and not,
+    REFERENCE_V2 at 2 spp in both RNG modes, 4097 spheres).  Copy this file
+    into each checkout and run it there, one process each:
+
+        python3 -c 'import chip_smoke; chip_smoke.brute_outputs("a.pt")'
+    """
+    import hashlib
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a card")
+    sys.path.insert(0, ROOT)
+    import raytpu_torch as rt
+    from raytpu_torch import golden, optim
+    from raytpu_torch.config import CONFIG2, CONFIG3, REFERENCE_V2, \
+        RenderConfig
+    from raytpu_torch.kernels import _build, gradkernel, megakernel
+
+    dev = torch.device("cuda", 0)
+    _build.load_all([megakernel.SOURCE, gradkernel.SOURCE])
+    out = {}
+
+    def spheres(n, seed=5):
+        g = torch.Generator().manual_seed(seed)
+        return rt.Scene(
+            (torch.rand(n, 3, generator=g) * 20 - 10).to(dev),
+            (torch.rand(n, generator=g) * 0.3 + 0.05).to(dev),
+            torch.randint(0, 3, (n,), generator=g, dtype=torch.int32).to(dev),
+            torch.rand(n, 3, generator=g).to(dev),
+            (torch.rand(n, generator=g) + 1.0).to(dev))
+
+    def cam_of(cfg, **kw):
+        return rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                              aspect=cfg.aspect, device=dev, **kw)
+
+    def forward_set(tag, scene, cam, cfg, row0=0, rows=None):
+        cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
+        r = rows or cfg.height
+        out[f"{tag}/img"] = megakernel.launch(cp, sp, cfg, row0=row0,
+                                              rows=rows)
+        out[f"{tag}/census"] = megakernel.launch(cp, sp, cfg, count=True,
+                                                 row0=row0, rows=rows)[1]
+        tape = torch.full((cfg.spp * cfg.depth, r * cfg.width),
+                          golden.TAPE_UNWRITTEN,
+                          dtype=golden.tape_dtype(sp.shape[1]), device=dev)
+        out[f"{tag}/tape_img"] = megakernel.launch(cp, sp, cfg, tape=tape,
+                                                   row0=row0, rows=rows)
+        out[f"{tag}/tape"] = tape
+        gen = torch.Generator().manual_seed(3)
+        acc = torch.rand((r, cfg.width, 3), generator=gen).to(dev)
+        seed = torch.randint(-2**31, 2**31 - 1, (r, cfg.width), generator=gen,
+                             dtype=torch.int32).to(dev)
+        out[f"{tag}/k2_acc"], out[f"{tag}/k2_seed"] = \
+            megakernel.launch_accumulate(cp, sp, cfg, acc, seed, 7, 3, None,
+                                         row0, rows)
+
+    def vjp_set(tag, scene, cam, cfg, vis_w=0.0, tape=False, p2=None):
+        img = rt.render(scene, cam, cfg)
+        gen = torch.Generator().manual_seed(11)
+        ct = (2.0 * (img - torch.rand(img.shape, generator=gen).to(dev))
+              / img.numel())
+        kw = dict(img=img if cfg.rng_mode == "parallel" else None,
+                  vis_w=vis_w, p2_refill=p2)
+        if tape:
+            kw["tape"] = gradkernel.render_tape_fwd(scene, cam, cfg,
+                                                    cfg.spp * cfg.depth)[1]
+        o = gradkernel.render_vjp(scene, cam, cfg, ct, **kw)
+        out[f"{tag}/vjp_img"] = o[0]
+        for k in ("center", "radius", "albedo", "mat_param"):
+            out[f"{tag}/d_{k}"] = getattr(o[1], k)
+        for k, v in zip(rt.Camera._fields, o[2]):
+            out[f"{tag}/d_cam_{k}"] = v
+        cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
+        _, out[f"{tag}/f64_sphere_sums"], out[f"{tag}/f64_cam_sums"] = \
+            gradkernel.launch(cp, sp, cfg, ct, kw["img"], vis_w, None,
+                              kw.get("tape"), p2_refill=p2)
+
+    tw = rt.test_world(device=dev)
+    for mode in ("sequential", "parallel"):
+        c = RenderConfig(width=50, height=21, spp=3, depth=6, rng_mode=mode)
+        forward_set(f"{mode}/50x21", tw, cam_of(c, aperture=0.1,
+                                                focus_dist=10.0), c)
+        forward_set(f"{mode}/slab_past", tw, cam_of(c), c, 21, 1)
+        forward_set(f"{mode}/slab_edge", tw, cam_of(c), c, 18, 5)
+        c = RenderConfig(width=2, height=2, spp=3, depth=50, rng_mode=mode)
+        forward_set(f"{mode}/2x2", tw, cam_of(c), c)
+        c = RenderConfig(width=1003, height=301, spp=1, depth=8,
+                         rng_mode=mode)
+        forward_set(f"{mode}/1003x301", tw, cam_of(c), c)
+        c = CONFIG2.replace(rng_mode=mode)
+        forward_set(f"{mode}/config2", rt.config2_world(device=dev),
+                    cam_of(c), c)
+        c = REFERENCE_V2.replace(spp=4, rng_mode=mode)
+        forward_set(f"{mode}/rv2_spp4", rt.random_world(device=dev),
+                    rt.reference_camera_v2(c.aspect, device=dev), c)
+        c = RenderConfig(width=64, height=32, spp=2, depth=4, rng_mode=mode)
+        forward_set(f"{mode}/pack4097", spheres(4097), cam_of(c), c)
+        c = RenderConfig(width=480, height=270, spp=4, depth=12,
+                         rng_mode=mode)
+        forward_set(f"{mode}/final500", rt.final_world(device=dev),
+                    cam_of(c), c)
+    _, s3, c3, _, _ = optim.inverse_render_problem(CONFIG3, device=dev)
+    vjp_set("config3", s3, c3, CONFIG3)
+    vjp_set("config3_vis_w", s3, c3, CONFIG3, vis_w=VIS_W)
+    c2p = CONFIG2.replace(rng_mode="parallel")
+    c2w = rt.config2_world(device=dev)
+    vjp_set("config2_refill", c2w, cam_of(c2p), c2p)
+    vjp_set("config2_per_sample", c2w, cam_of(c2p), c2p, p2=False)
+    c = RenderConfig(width=200, height=100, spp=4, depth=8,
+                     rng_mode="parallel")
+    fw = rt.final_world(device=dev)
+    vjp_set("final500_refill_tape", fw, cam_of(c), c, tape=True)
+    vjp_set("final500_per_sample_tape", fw, cam_of(c), c, tape=True, p2=False)
+    vjp_set("final500_refill_vis_w", fw, cam_of(c), c, vis_w=VIS_W)
+    c = REFERENCE_V2.replace(spp=2)
+    rw = rt.random_world(device=dev)
+    rcam = rt.reference_camera_v2(c.aspect, device=dev)
+    vjp_set("rv2_spp2_seq", rw, rcam, c)
+    vjp_set("rv2_spp2_refill", rw, rcam, c.replace(rng_mode="parallel"))
+    c = RenderConfig(width=64, height=32, spp=2, depth=4, rng_mode="parallel")
+    vjp_set("pack4097_refill", spheres(4097), cam_of(c), c)
+    vjp_set("pack4097_seq_vis_w", spheres(4097), cam_of(c),
+            c.replace(rng_mode="sequential"), vis_w=VIS_W)
+    torch.cuda.synchronize()
+    saved = {}
+    for k, v in out.items():
+        v = v.detach().contiguous().cpu()
+        saved[k] = {"sha": hashlib.sha256(v.numpy().tobytes()).hexdigest()
+                    + str(tuple(v.shape)) + str(v.dtype),
+                    "t": v if v.numel() <= 2**22 else None}
+    torch.save(saved, path)
+    phase("brute_outputs", root=ROOT, outputs=len(saved), path=path)
+
+
+def compare_outputs(a: str, b: str) -> None:
+    """Two :func:`brute_outputs` files compared: one JSON line with the
+    outputs counted, whether both hold the same ones, and each output that
+    differs with its largest |a - b| ("differs" where either was saved
+    without its tensor or the shapes differ)."""
+    a, b = torch.load(a), torch.load(b)
+    differ = {}
+    for k in a:
+        if k in b and a[k]["sha"] == b[k]["sha"]:
+            continue
+        ta, tb = a[k]["t"], b.get(k, {}).get("t")
+        differ[k] = (float((ta.double() - tb.double()).abs().max())
+                     if ta is not None and tb is not None
+                     and ta.shape == tb.shape else "differs")
+    phase("compare_outputs", outputs=len(a), same_keys=set(a) == set(b),
+          differ=differ)
+
+
 def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
     d = (got - want).abs().amax(dim=-1)  # per pixel, worst channel
     return {"max_abs_err": float(d.max()),
@@ -410,15 +647,22 @@ def k3_ops(c: dict, sweeps: int, taped_steps: int = 0,
             + near_miss_tests * OPS_SPHERE_TEST)
 
 
+def kernel_pack(scene, bvh=None) -> torch.Tensor:
+    """``scene``'s pack as the kernels read it: in leaf order under a
+    BVH."""
+    from raytpu_torch import bvh as tbvh
+    from raytpu_torch.kernels import megakernel
+    return megakernel.pack_scene(scene if bvh is None
+                                 else tbvh.permute_scene(scene, bvh.perm))
+
+
 def frame_tape(scene, cam, cfg, bvh=None) -> torch.Tensor:
     """The frame's full winner-index tape from K4's taping forward, (spp x
     depth, H x W), filled with ``golden.TAPE_UNWRITTEN`` first: a pixel's
     steps in order across its samples, -1 for a miss, unwritten past its
     last step.  Its launch counts as a K4 launch."""
-    from raytpu_torch import bvh as tbvh
     from raytpu_torch.kernels import megakernel
-    sp = megakernel.pack_scene(scene if bvh is None
-                               else tbvh.permute_scene(scene, bvh.perm))
+    sp = kernel_pack(scene, bvh)
     tape = marked_tape(cfg, sp.shape[1], cfg.spp * cfg.depth,
                        scene.center.device)
     megakernel.launch(megakernel.pack_camera(cam), sp, cfg, bvh, tape=tape)
@@ -550,12 +794,14 @@ def variant_counts(*modules) -> dict:
     return {k: v for m in modules for k, v in m.variants.items() if v}
 
 
-def k3_plan(cfg, bvh, dev) -> dict:
-    """K3's windowed-refill plan of a full-frame launch (lanes, pixels a
-    lane, window, scratch bytes) and the bytes it stages over a flat BVH
+def k3_plan(cfg, scene_pack, bvh) -> dict:
+    """K3's windowed-refill plan of a full-frame launch on ``scene_pack``
+    (:func:`kernel_pack`; lanes, pixels a lane, window, scratch bytes) and
+    the bytes it stages, the brute sweep's rows or a flat BVH's
     (``gradkernel.launch_plan``: the lanes count them)."""
     from raytpu_torch.kernels import gradkernel
-    stage, plan = gradkernel.launch_plan(cfg, cfg.height, bvh, True, dev)
+    stage, plan = gradkernel.launch_plan(cfg, cfg.height, scene_pack, bvh,
+                                         True)
     return {**plan, "stage_bytes": stage["bytes"]}
 
 
@@ -721,7 +967,7 @@ def config4_phases(dev, card: str) -> list:
     want, k1c_plain_ms = once_ms(lambda: golden.render_golden(
         scene, cam, cfg2.replace(**plain), bvh))
     res = compare(k1c2, want)
-    k1a4 = megakernel.launch(cp, sp, cfg4, brute=True)
+    k1a4 = megakernel.launch(cp, sp, cfg4)
     k1c4 = megakernel.launch(cp, spv, cfg4, bvh)
     differ = int((k1a4 != k1c4).any(dim=-1).sum())
     ok = res["share_above_budget"] <= BUDGET_SHARE and differ <= TIE_SHARE * npix
@@ -825,7 +1071,7 @@ def config4_phases(dev, card: str) -> list:
     img_tb = megakernel.launch(cp, spv, cfg4p, bvh, tape=tape4)
     img_ta = megakernel.launch(cp, sp, cfg4p, tape=tape4_b)
     k1c4p = megakernel.launch(cp, spv, cfg4p, bvh)
-    k1a4p = megakernel.launch(cp, sp, cfg4p, brute=True)
+    k1a4p = megakernel.launch(cp, sp, cfg4p)
     row = {"frame": "800x400 spp100 d12 parallel",
            "tape_bvh_img_bit_equal_k1c": torch.equal(img_tb, k1c4p),
            "tape_brute_img_bit_equal_k1a": torch.equal(img_ta, k1a4p),
@@ -1042,8 +1288,7 @@ def config4_phases(dev, card: str) -> list:
 
     # -- 5g: times at full config 4 (CUDA events, after a warm-up call)
     t = {"card": card}
-    t["fwd_k1a_ms"] = cuda_ms(lambda: megakernel.launch(cp, sp, cfg4,
-                                                        brute=True), 3)
+    t["fwd_k1a_ms"] = cuda_ms(lambda: megakernel.launch(cp, sp, cfg4), 3)
     t["fwd_k1c_ms"] = cuda_ms(lambda: megakernel.launch(cp, spv, cfg4, bvh),
                               3)
     t["census_k1prime_ms"] = cuda_ms(lambda: megakernel.launch(
@@ -1878,7 +2123,7 @@ def config5_phases(dev, card: str) -> dict:
             step = shard.make_train_step(cfg, group=group, lr=1e-2, bvh=bvh)
             step_times = dict(schedule_times(
                 lambda: step(scene, cam, target)),
-                plan=k3_plan(cfg, bvh, dev))
+                plan=k3_plan(cfg, kernel_pack(scene, bvh), bvh))
             phase("main_path_refill", path="config 5 train step",
                   frame="1920x1080 spp20 d12 parallel bvh, world-1 NCCL, "
                         "taped", card=card, **step_times)
@@ -2701,24 +2946,20 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
     mods = (megakernel, gradkernel, kwf)
     entries = {}
 
-    # -- 8a: K1e against K1a forced and its plain version, REFERENCE_V2
+    # -- 8a: K1e (the brute sweep's kernel) against phase 3's render() and
+    # its plain version, REFERENCE_V2
     cfg = REFERENCE_V2
     rv2 = rt.random_world(device=dev)
     cam_rv2 = rt.reference_camera_v2(cfg.aspect, device=dev)
     cp, sp = megakernel.pack_camera(cam_rv2), megakernel.pack_scene(rv2)
     k1e = megakernel.launch(cp, sp, cfg)
-    k1a = megakernel.launch(cp, sp, cfg, brute=True)
     cfg2 = cfg.replace(spp=2, chunk_pixels=PLAIN_CHUNK)
     k1e2 = megakernel.launch(cp, sp, cfg2)
     want, plain_ms = once_ms(lambda: golden.render_golden(rv2, cam_rv2,
                                                           cfg2))
     res = compare(k1e2, want)
     t = {"k1e_ms": cuda_ms(lambda: megakernel.launch(cp, sp, cfg), 3),
-         "k1a_ms": cuda_ms(lambda: megakernel.launch(cp, sp, cfg,
-                                                     brute=True), 3),
-         "k1e_spp2_ms": cuda_ms(lambda: megakernel.launch(cp, sp, cfg2), 5),
-         "k1a_spp2_ms": cuda_ms(lambda: megakernel.launch(
-             cp, sp, cfg2, brute=True), 5)}
+         "k1e_spp2_ms": cuda_ms(lambda: megakernel.launch(cp, sp, cfg2), 5)}
     c2, cf = slab_census(rv2, cam_rv2, cfg2, None), \
         slab_census(rv2, cam_rv2, cfg, None)
     # the warps of the dense stage's refill (its census kernel, K1'/dense)
@@ -2731,9 +2972,7 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
     wide = megakernel.warp_census(cp, sp, cfg.replace(
         width=2 * cfg.width, height=2 * cfg.height, spp=cfg.spp // 4), None)
     counted = ("leaves_entered", "bounce_steps", "samples")
-    row = {"k1e_vs_k1a_full_frame_pixels_differ": int(
-        (k1e != k1a).any(-1).sum()),
-        "k1e_bit_equal_render": torch.equal(k1e, rv2_img), **res,
+    row = {"k1e_bit_equal_render": torch.equal(k1e, rv2_img), **res,
         "plain_ms": plain_ms, "card": card, **t,
         "bound_full_ms": bound(forward_ops(cf), frame_bytes(cfg, rv2.count,
                                                             1))["bound_ms"],
@@ -2745,25 +2984,24 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
                                DENSE_KERNELS)},
         "census_equal_k1_brute": all(warps[k] == cf[k] for k in counted)
         and before["bounce_steps"] == cf["bounce_steps"]}
-    ok = (row["k1e_vs_k1a_full_frame_pixels_differ"] == 0
-          and row["k1e_bit_equal_render"] and row["census_equal_k1_brute"]
+    ok = (row["k1e_bit_equal_render"] and row["census_equal_k1_brute"]
           and res["share_above_budget"] <= BUDGET_SHARE)
-    phase("k1e_vs_k1a", frame="1024x576 spp60 d50 random_world (plain: "
-          "spp2)", ok=ok, tolerance="0 pixels differ from K1a; plain: share "
-          f"|d| > {BUDGET_DELTA} <= {BUDGET_SHARE}; K1'/dense's and the "
-          "tape's counts equal K1'/brute's", **row)
+    phase("k1e_vs_plain", frame="1024x576 spp60 d50 random_world (plain: "
+          "spp2)", ok=ok, tolerance="bit-equal to phase 3's render(); "
+          f"plain: share |d| > {BUDGET_DELTA} <= {BUDGET_SHARE}; K1'/dense's "
+          "and the tape's counts equal K1'/brute's", **row)
     if not ok:
-        fail(f"K1e disagrees with K1a or its plain version: {row}")
+        fail(f"K1e disagrees with render() or its plain version: {row}")
     entries["K1e"] = dict(
         max_abs_err=res["max_abs_err"], ms=t["k1e_spp2_ms"],
-        plain_ms=plain_ms, k1a_ms=t["k1a_spp2_ms"],
+        plain_ms=plain_ms,
         **bound(forward_ops(c2), frame_bytes(cfg2, rv2.count, 1)),
-        main_path_ms=t["k1e_ms"], main_path_k1a_ms=t["k1a_ms"],
+        main_path_ms=t["k1e_ms"],
         main_path_bound_ms=row["bound_full_ms"],
         loop_efficiency=warps["loop_efficiency"],
         sweep_efficiency=warps["sweep_efficiency"],
         efficiency_cell="REFERENCE_V2, the main path's frame")
-    del k1e, k1a, k1e2, want
+    del k1e, k1e2, want
 
     # the other scenes: config 2 (4 spheres), config 4 over its BVH (flat),
     # the 10k scene over its BVH (the walk)
@@ -2942,8 +3180,7 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
     for label, scene, cam, c, b, kw, _ in runs[:4] + runs[5:]:
         t[f"{label}_breakdown"] = wavefront_breakdown(lambda: rt.render(
             scene, cam, c, backend="wavefront", bvh=b, **kw))
-    t.update(k1e_ms=entries["K1e"]["main_path_ms"],
-             k1a_ms=entries["K1e"]["main_path_k1a_ms"])
+    t.update(k1e_ms=entries["K1e"]["main_path_ms"])
     phase("timing_wavefront", frame="REFERENCE_V2, config 2, config 4 "
           "(sequential; parallel for refill), the 10k scene (parallel)", **t)
 
@@ -2997,7 +3234,7 @@ def refill_vs(label, card, scene, cam, cfg, bvh, vis_w, target,
     rel, _ = leaf_errors(got, ref, rt.Camera._fields)
     row = {"case": label, "frame": f"{cfg.width}x{cfg.height} spp{cfg.spp} "
            f"d{cfg.depth} parallel", "spheres": scene.count, "vis_w": vis_w,
-           "plan": k3_plan(cfg, bvh, img.device),
+           "plan": k3_plan(cfg, kernel_pack(scene, bvh), bvh),
            "img_bit_equal": torch.equal(got[0], img)
            and torch.equal(ref[0], img),
            "vs_per_sample_rel": rel, "vs_per_sample_worst": max(rel.values())}
@@ -3025,7 +3262,8 @@ def refill_vs(label, card, scene, cam, cfg, bvh, vis_w, target,
 # per-sample pass) and render_vjp_refill_kernel<kHit, kTape>
 K3_KERNELS = {f"K3/{sweep}{'+refill' if r else ''}{'+tape' if t else ''}":
               f"render_vjp{'_refill' if r else ''}_kernelILi{h}ELb{int(t)}E"
-              for h, sweep in ((0, "brute"), (1, "bvh"), (2, "walk"))
+              for h, sweep in ((0, "brute"), (1, "bvh"), (2, "walk"),
+                               (3, "brute_staged"))
               for r in (False, True) for t in (False, True)}
 
 
@@ -3063,6 +3301,212 @@ def k3_phase(dev, card: str, entries: dict, vis: dict) -> None:
                 "K3/bvh+refill+tape"):
         entries[key].update(stage_bytes=stage["bytes"],
                             registers=ptxas[key]["registers"])
+
+
+# the brute sweep's instantiations, by their template arguments in the
+# mangled names: render_fwd_kernel<kHit (kDense 3: the rows staged; kBrute
+# 0: the scene pack), kTape, kCount, kCarry>, K3's (K3_KERNELS), and K5's
+# and K6's brute segments (the pack)
+BRUTE_KERNELS = {
+    **{f"{k} ({form})": f"render_fwd_kernelILi{h}E{args}"
+       for h, form in ((3, "staged"), (0, "pack"))
+       for k, args in (("K1a, K1e, K1b", "Li0ELb0ELb0E"),
+                       ("K1'", "Li0ELb1ELb0E"), ("K2", "Li0ELb0ELb1E"),
+                       ("K4", "Li1ELb0ELb0E"))},
+    **{k: v for k, v in K3_KERNELS.items() if k.startswith("K3/brute")},
+    "K5/brute": "render_segment_kernelILi0EE",
+    "K6/brute": "render_refill_kernelILi0EE"}
+
+
+def brute_phase(dev, card: str, scene, cam, target,
+                grad_timings: dict) -> dict:
+    """Phase 4d (brute_redesign), with 4b's last case: REFERENCE_V2's
+    parallel ``render_grad`` (``scene``, ``cam``; tape_plan takes a full
+    tape), its launches by variant and its time, then its kernels' (K4/brute,
+    then K3's refill replaying the tape) beside their bounds, both held
+    (``brute_main_path_vs_plain``) against the plain taping forward and the
+    plain VJP at that shape with the spp cut to 2, and at full spp to
+    render()'s image and the untaped refill's; K3 brute's on
+    the sequential ``render_grad`` (4b's ``reference_v2``) beside its bound;
+    config 2's ``render()`` (K1a); the counted warp efficiencies of K1a on
+    config 2 and of K4/brute on REFERENCE_V2 (warp_census: the census kernel
+    on the same schedule) beside the per-sample loop's loop efficiency
+    estimated from each frame's K4 tape; ptxas's registers and spills of
+    every brute instantiation; the bytes the brute sweep stages and K3's
+    refill lanes with them at 327, 4096 and 4097 spheres -> the main-path
+    fields of the kernel table's brute rows."""
+    import raytpu_torch as rt
+    from raytpu_torch import golden, profiling
+    from raytpu_torch.config import CONFIG2, REFERENCE_V2
+    from raytpu_torch.kernels import _build, gradkernel, megakernel
+    from raytpu_torch.kernels import wavefront as kwf
+
+    cfg_s, cfg_p = REFERENCE_V2, REFERENCE_V2.replace(rng_mode="parallel")
+    n = scene.count
+    cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
+    plan = gradkernel.tape_plan(cfg_p, n)
+    reset_counts(megakernel, gradkernel)
+    rt.render_grad(scene, cam, cfg_p, target)
+    torch.cuda.synchronize()
+    launches = variant_counts(megakernel, gradkernel)
+    fwd_bwd_ms = cuda_ms(lambda: rt.render_grad(scene, cam, cfg_p, target), 3)
+    tape = marked_tape(cfg_p, n, cfg_p.spp * cfg_p.depth, dev)
+    img = megakernel.launch(cp, sp, cfg_p, tape=tape)
+    k4_ms = cuda_ms(lambda: megakernel.launch(cp, sp, cfg_p, tape=tape), 3)
+    ct = 2.0 * (img - target) / img.numel()
+    k3_tape_ms = cuda_ms(lambda: gradkernel.launch(cp, sp, cfg_p, ct, img,
+                                                   tape=tape), 3)
+    before = per_sample_efficiency(tape, scene.mat_type, cfg_p)
+    # at full spp: K4's image is render()'s, and the taped refill's image
+    # and camera sums are the untaped refill's (its sphere sums within
+    # REFILL_TOL: f64 atomics add in no fixed order)
+    taped = gradkernel.launch(cp, sp, cfg_p, ct, img, tape=tape)
+    untaped = gradkernel.launch(cp, sp, cfg_p, ct, img)
+    sums_rel = k3_sums_rel(k3_sums(taped), k3_sums(untaped), n)
+    full = {"k4_img_bit_equal_render": torch.equal(
+                img, rt.render(scene, cam, cfg_p)),
+            "k3_tape_img_bit_equal_untaped": torch.equal(taped[0],
+                                                         untaped[0]),
+            "k3_tape_cam_sums_bit_equal_untaped": torch.equal(taped[2],
+                                                              untaped[2]),
+            "k3_tape_vs_untaped_rel": sums_rel}
+    ok_full = (full["k4_img_bit_equal_render"]
+               and full["k3_tape_img_bit_equal_untaped"]
+               and full["k3_tape_cam_sums_bit_equal_untaped"]
+               and max(sums_rel.values()) <= REFILL_TOL)
+    del tape, img, taped, untaped
+    # the same kernels at the main path's shape with the spp cut to 2 (the
+    # plain adjoint keeps every bounce's residuals, as in phase 2b): K4's
+    # image and tape against the plain taping forward, the taped refill
+    # against the plain VJP replaying the same tape
+    cfg_c = cfg_p.replace(spp=2)
+    plain_c = cfg_c.replace(chunk_pixels=PLAIN_CHUNK)
+    g_c = cfg_c.spp * cfg_c.depth
+    tape_c = marked_tape(cfg_c, n, g_c, dev)
+    reset_counts(megakernel, gradkernel)
+    img_c = megakernel.launch(cp, sp, cfg_c, tape=tape_c)
+    ct_c = 2.0 * (img_c - target) / img_c.numel()
+    got = gradkernel.render_vjp(scene, cam, cfg_c, ct_c, img=img_c,
+                                tape=tape_c)
+    torch.cuda.synchronize()
+    cut_launches = variant_counts(megakernel, gradkernel)
+    pimg, ptape = golden.render_golden_tape(scene, cam, plain_c, g_c)
+    written = ptape != golden.TAPE_UNWRITTEN  # the rest is never read
+    tape_share = float((ptape == tape_c)[written].float().mean())
+    k4_vs_plain = compare(img_c, pimg)
+    want = gradkernel.render_vjp_plain(scene, cam, plain_c, ct_c, 0.0, None,
+                                       tape_c)
+    rel, abs_err = leaf_errors(got, want, rt.Camera._fields)
+    ok_cut = (cut_launches == {"K4/brute": 1, "K3/refill+tape": 1}
+              and k4_vs_plain["share_above_budget"] <= BUDGET_SHARE
+              and tape_share >= 1 - BUDGET_SHARE
+              and torch.equal(got[0], img_c)
+              and max(rel.values()) <= GRAD_BUDGET)
+    phase("brute_main_path_vs_plain", ok=ok_cut and ok_full, card=card,
+          frame=f"{cfg_c.width}x{cfg_c.height} spp{cfg_c.spp} d{cfg_c.depth} "
+                f"parallel, {n} spheres (REFERENCE_V2's spp cut to 2); full "
+                f"spp {cfg_p.spp}", tolerance=(
+              f"K4 image: share |d| > {BUDGET_DELTA} <= {BUDGET_SHARE}; tape "
+              f"slots equal >= {1 - BUDGET_SHARE}; K3 image bit-equal, "
+              f"{GRAD_BUDGET} of each leaf's largest; at full spp bit-equal, "
+              f"the sphere sums {REFILL_TOL}"),
+          launches=cut_launches, k4_vs_plain=k4_vs_plain,
+          k4_tape_share_equal=tape_share,
+          k3_img_bit_equal=torch.equal(got[0], img_c), k3_rel_err=rel,
+          k3_abs_err=abs_err, full_spp=full)
+    if not (ok_cut and ok_full):
+        fail("K4/brute or the taped K3 refill on REFERENCE_V2's parallel "
+             "render_grad disagrees with its plain version or its own "
+             "untaped or render() output")
+    del tape_c, img_c, got, want, pimg, ptape
+    rays = cfg_p.width * cfg_p.height * cfg_p.spp
+    ok_launches = (plan is not None and not plan["partial"]
+                   and launches == {"K4/brute": 1, "K3/refill+tape": 1})
+    phase("grad_timing", case="reference_v2_parallel", ok=ok_launches,
+          frame=f"{cfg_p.width}x{cfg_p.height} spp{cfg_p.spp} "
+                f"d{cfg_p.depth} parallel", card=card, tape_plan=plan,
+          launches=launches, fwd_bwd_ms=fwd_bwd_ms,
+          fwd_bwd_mrays_s=rays / fwd_bwd_ms / 1e3, k4_ms=k4_ms,
+          k3_tape_ms=k3_tape_ms)
+    if not ok_launches:
+        fail(f"REFERENCE_V2's parallel render_grad made {launches} with "
+             f"the tape plan {plan}: want one K4/brute and one "
+             "K3/refill+tape (a full tape)")
+
+    c_s = profiling.census(scene, cam, cfg_s)
+    c_p = profiling.census(scene, cam, cfg_p)
+    elt = torch.empty((), dtype=golden.tape_dtype(n)).element_size()
+    tbytes = c_p["bounce_steps"] * elt
+    b_k4 = bound(forward_ops(c_p), frame_bytes(cfg_p, n, 1) + tbytes)
+    b_k3 = bound(k3_ops(c_s, 2), frame_bytes(cfg_s, n, 2) + 64 * n)
+    b_k3t = bound(k3_ops(c_p, 1, c_p["bounce_steps"]),
+                  frame_bytes(cfg_p, n, 3) + tbytes + 8 * 8 * n)
+    c2_scene = rt.config2_world(device=dev)
+    c2_cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                            aspect=CONFIG2.aspect, device=dev)
+    config2_render_ms = cuda_ms(lambda: rt.render(c2_scene, c2_cam, CONFIG2),
+                                20)
+    cp2, sp2 = megakernel.pack_camera(c2_cam), megakernel.pack_scene(c2_scene)
+    config2_k1a_ms = cuda_ms(lambda: megakernel.launch(cp2, sp2, CONFIG2), 20)
+    warps_k1a = megakernel.warp_census(cp2, sp2, CONFIG2, None)
+    before_c2 = per_sample_efficiency(frame_tape(c2_scene, c2_cam, CONFIG2),
+                                      c2_scene.mat_type, CONFIG2)
+    warps_k4 = megakernel.warp_census(cp, sp, cfg_p, None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stage = {}
+    for k in (n, megakernel.DENSE_MAX, megakernel.DENSE_MAX + 1):
+        staged = megakernel.brute_stage_bytes(k)
+        lanes = gradkernel.refill_lanes(dev, staged)
+        stage[k] = {"bytes": staged, "refill_lanes": lanes,
+                    "blocks_per_sm": lanes / (sms * gradkernel.REFILL_BLOCK)}
+    ptxas = {}
+    for src in (megakernel.SOURCE, gradkernel.SOURCE, kwf.SOURCE):
+        ptxas.update(flat_ptxas(_build.build_log[src]["ptxas"],
+                                BRUTE_KERNELS))
+    k3_ms = grad_timings["reference_v2"]["k3_ms"]
+    ok = (len(ptxas) == len(BRUTE_KERNELS)
+          and stage[megakernel.DENSE_MAX]["blocks_per_sm"] >= 2)
+    phase("brute_redesign", ok=ok, card=card,
+          frames={"reference_v2": "1024x576 spp60 d50 sequential "
+                                  "random_world",
+                  "reference_v2_parallel": "the same, parallel RNG",
+                  "config2": "400x200 spp20 d12 sequential"},
+          main_paths={
+              "config2_render": {"ms": config2_render_ms},
+              "config2_k1a": {"ms": config2_k1a_ms},
+              "k4_brute_reference_v2_parallel": {"ms": k4_ms, **b_k4},
+              "k3_refill_tape_reference_v2_parallel": {"ms": k3_tape_ms,
+                                                       **b_k3t},
+              "k3_brute_reference_v2_sequential": {"ms": k3_ms, **b_k3}},
+          census_reference_v2=c_s, census_reference_v2_parallel=c_p,
+          warps={"k1a_config2": warps_k1a,
+                 "k4_brute_reference_v2_parallel": warps_k4},
+          per_sample_loop_reference_v2_parallel=before,
+          per_sample_loop_config2=before_c2, ptxas=ptxas,
+          stage=stage)
+    if not ok:
+        fail(f"ptxas reported {sorted(ptxas)} of the brute instantiations; "
+             f"K3's refill keeps {stage[megakernel.DENSE_MAX]} at 4096 "
+             "spheres (two blocks an SM wanted)")
+    main = "REFERENCE_V2 parallel render_grad (a full tape)"
+    return {
+        "config2_render_ms": config2_render_ms,
+        "warps_k1a_config2": warps_k1a,
+        "k3_main_path": dict(
+            main_path="REFERENCE_V2 sequential render_grad",
+            main_path_ms=k3_ms, main_path_bound_ms=b_k3["bound_ms"],
+            main_path_bound_by=b_k3["bound_by"]),
+        "k4_main_path": dict(
+            main_path=main, main_path_ms=k4_ms,
+            main_path_bound_ms=b_k4["bound_ms"],
+            main_path_bound_by=b_k4["bound_by"],
+            loop_efficiency=warps_k4["loop_efficiency"],
+            sweep_efficiency=warps_k4["sweep_efficiency"],
+            efficiency_cell="REFERENCE_V2 parallel"),
+        "k3_tape_main_path": dict(
+            main_path=main, main_path_ms=k3_tape_ms,
+            main_path_bound_ms=b_k3t["bound_ms"],
+            main_path_bound_by=b_k3t["bound_by"])}
 
 
 def near_miss_share(args: dict) -> dict:
@@ -3136,7 +3580,7 @@ def refill_phases(dev, card: str) -> dict:
         phase("k4_taped_vs_untaped", ok=True, sweep="bvh",
               schedule="refill, window of depth",
               frame="800x400 spp2 d12 parallel", g_caps=caps,
-              plan=k3_plan(c4s, bvh4, dev))
+              plan=k3_plan(c4s, kernel_pack(scene4, bvh4), bvh4))
         del img, tape
     finally:
         gradkernel.REFILL_BUDGET = budget
@@ -3197,7 +3641,8 @@ def refill_phases(dev, card: str) -> dict:
         if label == "config4_vis_w":  # the near-miss sweep's share
             k3["near_miss"] = near_miss_share(k3_args.arguments)
         row = dict(schedule_times(fn), k3=k3,
-                   plan=k3_plan(cfg, k3_args.arguments.get("bvh"), dev),
+                   plan=k3_plan(cfg, k3_args.arguments["scene_pack"],
+                                k3_args.arguments.get("bvh")),
                    launches={s: launches[f"{label}/{s}"]
                              for s in ("refill", "per_sample")},
                    refill_vs_per_sample_worst=max(rel.values()),
@@ -3312,7 +3757,7 @@ def main() -> None:
     worst = 0.0
     for name, cfg, scene, cam, tol in cases:
         got = megakernel.launch(megakernel.pack_camera(cam),
-                                megakernel.pack_scene(scene), cfg, brute=True)
+                                megakernel.pack_scene(scene), cfg)
         want = golden.render_golden(scene, cam,
                                     cfg.replace(chunk_pixels=PLAIN_CHUNK))
         torch.cuda.synchronize()
@@ -3354,7 +3799,7 @@ def main() -> None:
     k3_worst_rel, k3_worst_abs = 0.0, 0.0
     for name, cfg, scene, cam, vis_w, target in vjp_cases:
         img = megakernel.launch(megakernel.pack_camera(cam),
-                                megakernel.pack_scene(scene), cfg, brute=True)
+                                megakernel.pack_scene(scene), cfg)
         if target is None:  # a fixed target from a seed
             gen = torch.Generator().manual_seed(7)
             target = torch.rand(img.shape, generator=gen).to(dev)
@@ -3527,7 +3972,7 @@ def main() -> None:
         rays = cfg_t.width * cfg_t.height * cfg_t.spp
         row = {"frame": f"{cfg_t.width}x{cfg_t.height} spp{cfg_t.spp} "
                         f"d{cfg_t.depth}", "card": card}
-        ms = cuda_ms(lambda: megakernel.launch(cp, sp, cfg_t, brute=True),
+        ms = cuda_ms(lambda: megakernel.launch(cp, sp, cfg_t),
                      iters_k)
         row.update(kernel_ms=ms, kernel_mrays_s=rays / ms / 1e3)
         if iters_p:
@@ -3582,6 +4027,7 @@ def main() -> None:
                        plain_vjp_mrays_s=rays / pk3 / 1e3)
         grad_timings[label] = row
         phase("grad_timing", case=label, **row)
+    brute = brute_phase(dev, card, scene, cam, rv2_target, grad_timings)
 
     tape_pairs(dev, card)
 
@@ -3621,14 +4067,19 @@ def main() -> None:
     n3 = scene0.count
     src = "raytpu_torch/csrc/"
     fwd_src, grad_src = src + "megakernel.cu", src + "gradkernel.cu"
+    k1a_bound = bound(forward_ops(c_k1a), frame_bytes(CONFIG2, 4, 1))
     table = [dict(
         name="render_fwd_kernel (K1a, brute sweep)", route="cuda",
         source=fwd_src, replaces="raytpu/kernels/megakernel.py:1456",
         cell="config 2", launches=grad_launches[0], max_abs_err=worst,
         ms=timings["config2"]["kernel_ms"],
-        plain_ms=timings["config2"]["plain_ms"],
-        **bound(forward_ops(c_k1a), frame_bytes(CONFIG2, 4, 1)),
-        library_ms=None), dict(
+        plain_ms=timings["config2"]["plain_ms"], **k1a_bound,
+        main_path="config 2 render()",
+        main_path_ms=brute["config2_render_ms"],
+        main_path_bound_ms=k1a_bound["bound_ms"],
+        loop_efficiency=brute["warps_k1a_config2"]["loop_efficiency"],
+        sweep_efficiency=brute["warps_k1a_config2"]["sweep_efficiency"],
+        efficiency_cell="config 2", library_ms=None), dict(
         name="render_vjp_kernel (K3, brute sweep)", route="cuda",
         source=grad_src, replaces="raytpu/kernels/gradkernel.py:1519",
         cell="config 3, vis_w 0.005", launches=grad_launches[1],
@@ -3637,7 +4088,9 @@ def main() -> None:
         plain_ms=grad_timings["config3_vis_w"]["plain_vjp_ms"],
         **bound(k3_ops(c_k3, 2, near_miss_tests=near_miss_tests(
             scene0, cam3, CONFIG3)), frame_bytes(CONFIG3, n3, 2) + 64 * n3),
-        library_ms=None)]
+        **brute["k3_main_path"], library_ms=None)]
+    entries["K4/brute"].update(brute["k4_main_path"])
+    entries["K3/refill+tape"].update(brute["k3_tape_main_path"])
     for key, name, source, replaces, cell in (
             ("K1c", "render_fwd_kernel<bvh> (K1c, flat BVH sweep)", fwd_src,
              "raytpu/kernels/megakernel.py:1456 (_flat_sweep_ti :246)",
@@ -3724,11 +4177,12 @@ def main() -> None:
     wf_src = src + "wavefront.cu"
     e = entries8["K1e"]
     table.append(dict(
-        name="render_fwd_kernel<dense> (K1e, the dense stage)", route="cuda",
+        name="render_fwd_kernel<dense> (K1e, the dense stage: K1a's kernel)",
+        route="cuda",
         source=fwd_src, replaces="raytpu/kernels/megakernel.py:1456 (dense "
         "branch :1497-1506, body :462-527)",
-        cell="REFERENCE_V2 at 2 spp (plain version; K1a forced beside it); "
-             "main path: REFERENCE_V2 render(), phase 3",
+        cell="REFERENCE_V2 at 2 spp (plain version); main path: "
+             "REFERENCE_V2 render(), phase 3",
         launches=fwd_variants.get("K1e", 0), library_ms=None, **e))
     for key in ("K5/brute", "K5/dense", "K5/bvh", "K5/walk"):
         table.append(dict(

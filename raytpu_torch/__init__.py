@@ -16,9 +16,10 @@ in parallel RNG the gradient path tapes each bounce's winner in the
 forward and replays the tape in the backward.  ``progressive`` renders in
 checkpointed sample batches (the carry-state kernel K2 on a card) and
 ``shard`` splits the frame into row slabs over a ``torch.distributed``
-group (every kernel's slab mode).  Scenes of 96 to 4096 spheres without a
-BVH take the dense stage K1e (raytpu's rule), bit-equal to the brute
-sweep.  ``wavefront`` is raytpu's sorted-wavefront engine
+group (every kernel's slab mode).  Without a BVH the kernels sweep every
+sphere over the scene's rows staged in shared memory (up to 4096
+spheres); from 96 spheres that forward is counted as raytpu's dense stage
+K1e.  ``wavefront`` is raytpu's sorted-wavefront engine
 (``render(backend="wavefront")``: the segment kernels K5 and K6 on a
 card).  ``scene_io`` reads and writes raytpu's JSON scene files, ``debug``
 holds the scene lint, the checked render and the kernel-against-plain

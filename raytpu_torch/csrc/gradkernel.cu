@@ -64,6 +64,10 @@
 // full frame's over its pixels.  Rows past the frame's last one trace
 // nothing, add nothing (their cotangent is ignored) and write 0.
 //
+// Without a BVH every sweep is the forward's brute sweep (K1a's): up to
+// kDenseMax spheres over the rows stage_dense() puts in shared memory once
+// a block (kDense; every thread stages before any pass, and no thread
+// returns early), past that over the scene pack (kBrute).
 // With a BVH the scene arrives in leaf order (padded with NaN dummies that
 // never win): the sweeps are K1c's (closest_hit_staged over the rows
 // stage_flat() puts in shared memory) or K1d's (closest_hit_walk over the
@@ -125,6 +129,11 @@
 //   both read through L1, the same early exit, each lane walking to its
 //   next entered leaf and the lanes sweeping their leaves together; its
 //   winner and t are closest_hit<kWalk>'s.
+// - Without a BVH every sweep is K1a's: the rows staged in shared memory
+//   (a broadcast where the pack took four loads a sphere), a missed test
+//   ended before sqrtf; the near-miss sweep reads the same rows.  The
+//   refill's lanes count the staged bytes (64 KB at kDenseMax beside the
+//   36 KB of cam_sh still keeps two blocks an SM).
 // - The near-miss sweep is the warp's (near_miss_sweep), called once a
 //   reverse iteration by all 32 lanes, as add_by_key: the lanes whose row
 //   is a miss are taken one by one, each lane testing every 32nd sphere of
@@ -151,7 +160,7 @@
 // - Lanes with the same winner are summed with shuffles (a full-warp
 //   butterfly when all 32 agree) before one lane issues the atomics.
 // The refill's rows through device memory and per-block partial sums are
-// later work, as is the brute sweep's early exit.
+// later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -453,10 +462,10 @@ __device__ __forceinline__ void boundary(const float o[3], const float d[3],
 }
 
 // The near-miss test of sphere j, read from row q of `rows` (the scene
-// pack, or the rows stage_flat() staged), against ray r into the lane's
-// running best: a forward-facing miss (hb < 0, disc < 0; a NaN row fails
-// both) with the largest discriminant, strict >, so among equal ones the
-// first tested wins.  disc_at()'s arithmetic, golden's.
+// pack, or the rows stage_flat() or stage_dense() staged), against ray r
+// into the lane's running best: a forward-facing miss (hb < 0, disc < 0; a
+// NaN row fails both) with the largest discriminant, strict >, so among
+// equal ones the first tested wins.  disc_at()'s arithmetic, golden's.
 template <class Rows>
 __device__ __forceinline__ void near_miss_test(const Rows& rows, const Ray& r,
                                                float a, int q, int j,
@@ -476,7 +485,7 @@ __device__ __forceinline__ void near_miss_test(const Rows& rows, const Ray& r,
 // i's row of sphere j is j + i; the unused row after each leaf is NaN, see
 // render_vjp), then spheres from the first unstaged one on, the staged
 // outliers from their rows and the rest from the pack; else spheres lane,
-// lane + 32, ... from the pack.
+// lane + 32, ... from the rows stage_dense() staged (kDense) or the pack.
 template <int kHit>
 __device__ __forceinline__ void near_miss_share(const Params& p,
                                                 const SceneView& s,
@@ -499,6 +508,10 @@ __device__ __forceinline__ void near_miss_share(const Params& p,
         near_miss_test(staged, r, a, out_row + j, j, best, m);
       return;
     }
+  }
+  if constexpr (kHit == kDense) {
+    for (; j < s.n; j += 32) near_miss_test(DenseRows{}, r, a, j, j, best, m);
+    return;
   }
   for (; j < s.n; j += 32) near_miss_test(SceneRows{s}, r, a, j, j, best, m);
 }
@@ -705,7 +718,8 @@ __device__ __forceinline__ void raygen_vjp(const float g[9], const RayGen& gr,
 // closest_hit_staged() on the rows stage_flat() put in shared memory (the
 // forward's K1c sweep: closest_hit<kFlat>'s winner and t), over the walk by
 // closest_hit_walk() (K1d's sweep: closest_hit<kWalk>'s winner and t),
-// else by closest_hit(); then shade().
+// else by closest_hit(), K1a's brute sweep over the staged rows (kDense)
+// or the pack (kBrute); then shade().
 // kStore writes the step's Residual to *res.
 template <bool kStore, int kHit, bool kTape>
 __device__ __forceinline__ bool k3_step(const Params& p, const SceneView& s,
@@ -738,10 +752,10 @@ __device__ __forceinline__ bool k3_step(const Params& p, const SceneView& s,
   return shade(s, win, tb, v1, sd, r, cr, cg, cb, rr, rg, rb);
 }
 
-// One sample of K3 for at most p.depth bounces through k3_step()
-// (trace_path()'s loop): returns the bounces taken (rows of res written
-// when kStore); sd ends as the sample's final seed, (rr, rg, rb) as its
-// radiance; tc advances one step a bounce.
+// One sample of K3 for at most p.depth bounces through k3_step(), stopping
+// at the first miss, absorption or the depth cap: returns the bounces
+// taken (rows of res written when kStore); sd ends as the sample's final
+// seed, (rr, rg, rb) as its radiance; tc advances one step a bounce.
 template <bool kStore, int kHit, bool kTape>
 __device__ __forceinline__ int k3_trace(const Params& p, const SceneView& s,
                                         Ray r, uint32_t& sd, bool v1,
@@ -1076,10 +1090,12 @@ __device__ __forceinline__ void refill_pass(const Params& p,
 // warp's row of camera sums.
 template <int kHit, bool kTape, bool kRefill>
 __device__ __forceinline__ void render_vjp(const Params& p) {
-  // over a flat BVH every sweep reads what stage_flat() stages; every
-  // thread of the block reaches its barrier (none returns early).  Before
-  // it, the row stage_flat() leaves unused after each staged leaf is set to
-  // NaN, so the near-miss sweep reads the staged leaves' rows as one run.
+  // over a flat BVH every sweep reads what stage_flat() stages, without
+  // one up to kDenseMax spheres what stage_dense() stages; every thread of
+  // the block reaches its barrier (none returns early).  Before stage_flat,
+  // the row it leaves unused after each staged leaf is set to NaN, so the
+  // near-miss sweep reads the staged leaves' rows as one run.
+  if constexpr (kHit == kDense) stage_dense(p.scene, p.n);
   if constexpr (kHit == kFlat) {
     const int ls = p.bvh.leaf_size;
     const float nan = __int_as_float(0x7fc00000);
@@ -1150,11 +1166,13 @@ int blocks_per_sm(Kernel kernel, int threads, size_t shmem, size_t fixed) {
 
 template <int kHit, bool kTape, bool kRefill>
 int launch(const Params& p, cudaStream_t stream) {
-  // the flat sweep's staged rows (stage_flat)
+  // the staged rows: the brute sweep's (stage_dense) or the flat sweep's
+  // (stage_flat)
   const size_t shmem =
-      kHit == kFlat
-          ? sizeof(float4) * flat_stage_rows(p.stage, p.bvh.leaf_size)
-          : 0;
+      kHit == kDense  ? sizeof(float4) * p.n
+      : kHit == kFlat ? sizeof(float4) * flat_stage_rows(p.stage,
+                                                         p.bvh.leaf_size)
+                      : 0;
   if constexpr (kRefill) {
     auto kernel = render_vjp_refill_kernel<kHit, kTape>;
     const cudaError_t e = allow_shmem(kernel, shmem, kCamShBytes);
@@ -1177,15 +1195,17 @@ template <bool kTape, bool kRefill>
 int launch_hit(int hit, const Params& p, cudaStream_t stream) {
   if (hit == kFlat) return launch<kFlat, kTape, kRefill>(p, stream);
   if (hit == kWalk) return launch<kWalk, kTape, kRefill>(p, stream);
+  if (hit == kDense) return launch<kDense, kTape, kRefill>(p, stream);
   return launch<kBrute, kTape, kRefill>(p, stream);
 }
 
 // Blocks of the refill instantiation (kHit, kTape) one SM keeps resident,
-// kFlat's with `shmem` bytes staged.
+// kFlat's and kDense's with `shmem` bytes staged.
 template <int kHit, bool kTape>
 int refill_blocks_per_sm(int shmem) {
   return blocks_per_sm(render_vjp_refill_kernel<kHit, kTape>, kRefillBlock,
-                       kHit == kFlat ? shmem : 0, kCamShBytes);
+                       kHit == kFlat || kHit == kDense ? shmem : 0,
+                       kCamShBytes);
 }
 
 }  // namespace
@@ -1199,19 +1219,21 @@ int refill_blocks_per_sm(int shmem) {
 // width and rows, or lanes / 32 with the refill.  `flat` non-null: the flat
 // BVH sweep over the scene in leaf order (n permuted rows); `nodes`
 // non-null: the skip-pointer walk of its `copies` copies of n_trav nodes,
-// likewise; both: refused.  `tape_read`: the replay of a winner-index tape
-// of g_cap steps a pixel (int32 when tape_wide; null only when g_cap is 0);
-// it needs parallel RNG and img_in.  `refill`: PASS 2 on the windowed
-// refill schedule, `lanes` threads (a multiple of 256) and a window of
-// `window` >= depth steps, residual rows in `rows_buf` (window * 12 * lanes
-// words); it needs parallel RNG and img_in, and hops * spp < 2^28, hops
-// the pixels a lane takes.  The flat sweep stages stage_leaves leaves,
+// likewise; both: refused; neither: the brute sweep, over the rows it
+// stages in shared memory (16 n bytes) up to kDenseMax spheres (kDense),
+// else over the scene pack (kBrute).  `tape_read`: the replay of a winner-index
+// tape of g_cap steps a pixel (int32 when tape_wide; null only when g_cap is
+// 0); it needs parallel RNG and img_in.  `refill`: PASS 2 on the windowed
+// refill schedule, `lanes` threads (a multiple of 256) and a window of `window`
+// >= depth steps, residual rows in `rows_buf` (window * 12 * lanes words); it
+// needs parallel RNG and img_in, and hops * spp < 2^28, hops the pixels a lane
+// takes.  The flat sweep stages stage_leaves leaves,
 // stage_outliers outlier rows (0 or out_cnt) and stage_boxes box rows (0
 // or 16 n_leaves) in shared memory (FlatStage: the wrapper plans it within
-// raytpu_render_vjp_device's limits, the refill's lanes from
-// raytpu_render_vjp_refill_lanes of its bytes).  The walk's `nodes` are in
-// the 16-byte layout (WalkRow in render_common.cuh), over the permuted
-// scene's rows (cx, cy, cz, rad * rad) in `spheres`.
+// raytpu_render_vjp_device's limits); the refill's lanes are
+// raytpu_render_vjp_refill_lanes of the staged bytes.  The walk's `nodes`
+// are in the 16-byte layout (WalkRow in render_common.cuh), over the
+// permuted scene's rows (cx, cy, cz, rad * rad) in `spheres`.
 extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
                                  const void* flat, int n_leaves,
                                  int leaf_size, const void* nodes,
@@ -1288,7 +1310,10 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.parallel = parallel;
   p.v1 = v1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hit = flat != nullptr ? kFlat : (nodes != nullptr ? kWalk : kBrute);
+  const int hit = flat != nullptr    ? kFlat
+                  : nodes != nullptr ? kWalk
+                  : n <= kDenseMax   ? kDense
+                                     : kBrute;
   if (refill)
     return tape_read ? launch_hit<true, true>(hit, p, st)
                      : launch_hit<false, true>(hit, p, st);
@@ -1304,23 +1329,26 @@ extern "C" int raytpu_render_vjp_warps(int width, int rows) {
 
 // The refill's lane cap on the current device: its SMs times the blocks of
 // 256 threads one SM keeps resident of the refill instantiation that keeps
-// the fewest, the flat sweep's with `shmem` bytes staged (a taped and an
-// untaped launch of one scene get the same lanes, so the taped one sums
-// the camera terms in the untaped one's order); 0 on an error.
+// the fewest, the flat sweep's and the staged brute sweep's with `shmem`
+// bytes staged (a taped and an untaped launch of one scene get the same
+// lanes, so the taped one sums the camera terms in the untaped one's
+// order); 0 on an error.
 extern "C" int raytpu_render_vjp_refill_lanes(int shmem) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     return 0;
-  const int per_sm[6] = {refill_blocks_per_sm<kBrute, false>(shmem),
+  const int per_sm[8] = {refill_blocks_per_sm<kBrute, false>(shmem),
                          refill_blocks_per_sm<kFlat, false>(shmem),
                          refill_blocks_per_sm<kWalk, false>(shmem),
+                         refill_blocks_per_sm<kDense, false>(shmem),
                          refill_blocks_per_sm<kBrute, true>(shmem),
                          refill_blocks_per_sm<kFlat, true>(shmem),
-                         refill_blocks_per_sm<kWalk, true>(shmem)};
+                         refill_blocks_per_sm<kWalk, true>(shmem),
+                         refill_blocks_per_sm<kDense, true>(shmem)};
   int least = per_sm[0];
-  for (int i = 1; i < 6; ++i) least = per_sm[i] < least ? per_sm[i] : least;
+  for (int i = 1; i < 8; ++i) least = per_sm[i] < least ? per_sm[i] : least;
   return sms * least * kRefillBlock;
 }
 

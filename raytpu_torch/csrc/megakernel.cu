@@ -1,4 +1,5 @@
-// Forward render megakernels for Hopper (sm_90a): one thread per pixel.
+// Forward render megakernels for Hopper (sm_90a): raytpu's persistent
+// sample refill, a thread taking one pixel after another.
 //
 // One kernel template, six TPU kernels:
 //   K1a  brute sweep           raytpu/kernels/megakernel.py
@@ -11,7 +12,9 @@
 //                              unpadded (megakernel.py:531-696)
 //   K1e  dense stage           the same function's dense branch
 //                              (megakernel.py:1497-1506, body :462-527):
-//                              no BVH, 96 <= n <= 4096 spheres
+//                              no BVH, 96 <= n <= 4096 spheres; here the
+//                              brute sweep's kernel (K1a's) under another
+//                              name
 //   K1'  census                the same function with count_leaves=True
 //                              (brute, flat or walk)
 //   K2   carry-state batch     raytpu/kernels/megakernel.py
@@ -24,14 +27,14 @@
 // computes the same thing, not the same schedule: the (8, 128) tiles, SMEM
 // scalar packs, block_w scramble, "enter a leaf if any lane hits it", the
 // one-hot MXU winner extraction and the windowed refill schedule of the TPU
-// tape are TPU mechanisms with no counterpart here.  A thread owns one pixel
-// and runs its spp samples in order, each for at most `depth` bounces,
-// stopping at the first miss, absorption or the depth cap.  That is the
-// reference's own shape (one thread per pixel, ShaderCompute.hlsl CSMain)
-// and it gives both of the JAX kernel's loop forms, which are bit-identical.
+// tape are TPU mechanisms with no counterpart here.  Each pixel runs its
+// spp samples in order, each for at most `depth` bounces, stopping at the
+// first miss, absorption or the depth cap: the reference's per-pixel loop
+// (ShaderCompute.hlsl CSMain), which gives both of the JAX kernel's loop
+// forms bit for bit, on the persistent sample refill (render_refill).
 //
-// What bounds it on this card: FP32 ALU work in the closest-hit sweep (about
-// 24 operations per ray and sphere test), and warp divergence, because
+// What bounds it on this card: FP32 ALU work in the closest-hit sweep (18
+// operations for a missed sphere test), and warp divergence, because
 // paths end at different depths, rays enter different leaves and the
 // material branches differ per lane.  K1a tests every sphere for every ray.
 // The flat BVH sweep (K1c and the flat K1b, K1', K2 and K4) tests the
@@ -65,23 +68,24 @@
 // k, so the stores coalesce whenever the warp's lanes are at the same step
 // (under the refill, lanes part after their first sample and their first
 // pixel).  The census (K1') keeps three per-thread counters in registers
-// (four for the walk: the nodes visited; four more under the refill: the
-// warp's bounce-loop, sphere-test and node-loop iterations, counted by one
-// of the lanes that run them, and the lane's sphere tests) and adds them
-// once per warp at the end (a warp reduction, then one 64-bit atomic per
-// counter); without it the counting code is not compiled.  K1e
-// is the brute sweep over the scene's rows (cx, cy, cz, r^2) staged in
-// shared memory once per block (see stage_dense in render_common.cuh): the
-// same tests in the same order, so its image is K1a's bit for bit.  Its
+// (four for the walk: the nodes visited; four more: the warp's
+// bounce-loop, sphere-test and node-loop iterations, counted by one of the
+// lanes that run them, and the lane's sphere tests) and adds them once per
+// warp at the end (a warp reduction, then one 64-bit atomic per counter);
+// without it the counting code is not compiled.
+// The brute sweep (K1a, and K1b, K1', K2 and K4 without a BVH; K1e is the
+// same kernel, which raytpu_torch.kernels.megakernel counts as K1e where
+// raytpu's dense stage would run) tests every sphere in index order over
+// the scene's rows (cx, cy, cz, r^2) staged in shared memory once per block
+// (kDense, up to kDenseMax spheres; see stage_dense in render_common.cuh),
+// past that over the scene pack (kBrute), each missed test ended at the
+// sign of its discriminant, before sqrtf's slow path (sweep_rows).  Its
 // design for SIMT is the flat sweep's: render_refill's persistent sample
 // refill (at REFERENCE_V2's depth 50 through glass and metal a warp's
-// lanes end their samples far apart), the rows read from shared memory (a
-// broadcast instead of four L1 reads a sphere) and each missed test ended
-// at the sign of its discriminant, before sqrtf's slow path (sweep_rows).
-// It is a plain forward only, full frame or slab, plus the counting
-// variant megakernel.warp_census launches (K1'/dense): K2, K4, the
-// census and K3 keep the brute sweep, as raytpu's do.  The brute sweep
-// keeps the per-sample loop.
+// lanes end their samples far apart) and the rows read from shared memory
+// (a broadcast instead of four L1 reads a sphere).  The same tests in the
+// same order as the pack's sweep, so every output is the per-sample
+// loop's it replaced bit for bit.
 //
 // Slab mode (K1b, and every variant): the launch covers rows [row0, row0 +
 // rows) of the cfg-sized frame and its buffers (image, tape, carried state)
@@ -115,9 +119,6 @@ constexpr int kCensus = 4;
 // the refill's warp counters after them: the warp's bounce-loop,
 // sphere-test and node-loop iterations, the lanes' sphere tests
 constexpr int kWarpCensus = 4;
-// the dense stage's largest scene: 64 KB of staged rows (raytpu's
-// _DENSE_MAX; raytpu_torch.kernels.megakernel.DENSE_MAX)
-constexpr int kDenseMax = 4096;
 
 struct Params {
   const CamPack* cam;
@@ -152,10 +153,11 @@ __device__ __forceinline__ void add_census(const unsigned (&v)[kN],
   }
 }
 
-// The flat sweep's forward (K1c, K1b/bvh, K1'/bvh, K2/bvh, K4/bvh and
-// their slabs), the walk's (K1d, K1b/walk, K1'/walk, K2/walk, K4/walk and
-// their slabs) and the dense stage's (K1e, K1b/dense and its census
-// K1'/dense): raytpu's persistent sample refill (make_refill_step,
+// Every forward: the brute sweep's (K1a, K1e, K1b/brute, K1b/dense,
+// K1'/brute, K1'/dense, K2/brute, K4/brute and their slabs), the flat
+// sweep's (K1c, K1b/bvh, K1'/bvh, K2/bvh, K4/bvh and their slabs) and the
+// walk's (K1d, K1b/walk, K1'/walk, K2/walk, K4/walk and their slabs):
+// raytpu's persistent sample refill (make_refill_step,
 // raytpu/kernels/megakernel.py:881-1000) on SIMT, with its multi-tile tail
 // grouping.  A persistent grid (as many blocks as the card holds at once)
 // runs one loop of bounce steps a thread.  When a lane's sample ends (a
@@ -169,9 +171,10 @@ __device__ __forceinline__ void add_census(const unsigned (&v)[kN],
 // waited for the longest path of each sample.  The closest hit is
 // closest_hit_staged() over what stage_flat() puts in shared memory
 // (kFlat), closest_hit_walk() over the node rows in device memory (kWalk),
-// or the dense sweep over the rows stage_dense() puts there (kDense).  The
-// tape cursor runs across a pixel's samples as before; K2's carry is read
-// when a pixel starts and written when it is done.
+// or the brute sweep over the rows stage_dense() puts there (kDense) or
+// over the scene pack (kBrute).  The tape cursor runs across a pixel's
+// samples in order; K2's carry is read when a pixel starts and written
+// when it is done.
 template <int kHit, int kTape, bool kCount, bool kCarry>
 __device__ __forceinline__ void render_refill(const Params& p) {
   if constexpr (kHit == kFlat)
@@ -299,86 +302,15 @@ __device__ __forceinline__ void render_refill(const Params& p) {
 template <int kHit, int kTape, bool kCount, bool kCarry>
 __global__ void __launch_bounds__(256)
 render_fwd_kernel(Params p) {
-  if constexpr (kHit != kBrute) {
-    render_refill<kHit, kTape, kCount, kCarry>(p);
-  } else {
-    // the brute sweep: each thread runs its pixel's samples one by one
-    const int x = blockIdx.x * blockDim.x + threadIdx.x;
-    const int ly = blockIdx.y * blockDim.y + threadIdx.y;  // row in the slab
-    const int y = p.row0 + ly;                              // row in the frame
-    // valid: a pixel of the slab's buffers; live: one the frame holds.
-    // Lanes outside the buffers stay to the end when counting: the census
-    // adds per warp, with all 32 lanes
-    const bool valid = x < p.width && ly < p.rows;
-    const bool live = valid && y < p.height;
-    if (!kCount && !valid) return;
-
-    const CamPack cam = *p.cam;
-    const SceneView s = scene_view(p.scene, p.n);
-    const float fx = static_cast<float>(x);
-    const float fy = static_cast<float>(y);
-    const uint32_t seed0 = base_hash(static_cast<uint32_t>(x),
-                                     static_cast<uint32_t>(y));
-    const size_t pix = static_cast<size_t>(ly) * p.width + x;
-    TapeCursor tc{p.tape, static_cast<size_t>(p.width) * p.rows, pix,
-                  p.g_cap, 0, p.tape_wide};
-    Census cn{};
-
-    uint32_t chain = seed0;  // the sequential mode's carried seed
-    float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-    if (kCarry && live) {
-      if (!p.parallel) chain = p.seed_in[pix];
-      acc_r = p.acc_in[pix * 3];
-      acc_g = p.acc_in[pix * 3 + 1];
-      acc_b = p.acc_in[pix * 3 + 2];
-    }
-    const int spp = live ? p.spp : 0;
-    for (int smp = 0; smp < spp; ++smp) {
-      uint32_t sd = p.parallel
-                        ? fold_in(seed0, p.s0 + static_cast<uint32_t>(smp))
-                        : chain;
-      RayGen g;
-      Ray r = gen_ray(cam, fx, fy, p.inv_w, p.inv_h, sd, g);
-      float rr, rg, rb;
-      trace_path<kHit, kTape, kCount>(s, p.bvh, p.walk, r, sd, p.depth,
-                                      p.t_min, p.v1 != 0, rr, rg, rb, tc,
-                                      cn);
-      acc_r = acc_r + rr;
-      acc_g = acc_g + rg;
-      acc_b = acc_b + rb;
-      if (!p.parallel) chain = sd;
-    }
-
-    if (valid) {
-      // a row past the frame traced nothing: its sums are 0, and so is the
-      // gamma image of 0
-      float* o = p.out + pix * 3;
-      if (kCarry) {
-        o[0] = acc_r;
-        o[1] = acc_g;
-        o[2] = acc_b;
-        p.seed_out[pix] = live ? (p.parallel ? seed0 : chain) : 0u;
-      } else {
-        o[0] = to_gamma(acc_r * p.inv_spp, p.gamma);
-        o[1] = to_gamma(acc_g * p.inv_spp, p.gamma);
-        o[2] = to_gamma(acc_b * p.inv_spp, p.gamma);
-      }
-    }
-    if (kCount) {  // leaves (none), steps, samples
-      const unsigned v[3] = {cn.leaves, cn.steps, cn.samples};
-      add_census(v, p.census);
-    }
-  }
+  render_refill<kHit, kTape, kCount, kCarry>(p);
 }
 
 template <int kHit, int kTape, bool kCount, bool kCarry>
 int launch(const Params& p, cudaStream_t stream) {
   auto kernel = render_fwd_kernel<kHit, kTape, kCount, kCarry>;
-  dim3 block(32, 8);
-  dim3 grid((p.width + block.x - 1) / block.x,
-            (p.rows + block.y - 1) / block.y);
-  // the dense stage's rows or the flat sweep's; past 48 KB only after the
-  // kernel opts in
+  const dim3 block(32, 8);
+  // the brute sweep's staged rows or the flat sweep's; past 48 KB only
+  // after the kernel opts in
   const size_t shmem =
       kHit == kDense ? sizeof(float4) * p.n
       : kHit == kFlat ? sizeof(float4) * flat_stage_rows(p.stage,
@@ -390,23 +322,21 @@ int launch(const Params& p, cudaStream_t stream) {
         static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  // the refill (all but the brute sweep): a persistent grid, the blocks the
-  // card holds at once
-  if (kHit != kBrute) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, block.x * block.y, shmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const long long pixels = static_cast<long long>(p.width) * p.rows;
-    const long long need = (pixels + block.x * block.y - 1) /
-                           (block.x * block.y);
-    grid = dim3(static_cast<unsigned>(
-        std::max(1LL, std::min(need, static_cast<long long>(sms) * per_sm))));
-  }
+  // a persistent grid: the blocks the card holds at once, no more than
+  // the pixels fill
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, block.x * block.y, shmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long pixels = static_cast<long long>(p.width) * p.rows;
+  const long long need = (pixels + block.x * block.y - 1) /
+                         (block.x * block.y);
+  const dim3 grid(static_cast<unsigned>(
+      std::max(1LL, std::min(need, static_cast<long long>(sms) * per_sm))));
   kernel<<<grid, block, shmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -416,6 +346,7 @@ template <int kTape, bool kCount, bool kCarry>
 int launch_hit(int hit, const Params& p, cudaStream_t stream) {
   if (hit == kFlat) return launch<kFlat, kTape, kCount, kCarry>(p, stream);
   if (hit == kWalk) return launch<kWalk, kTape, kCount, kCarry>(p, stream);
+  if (hit == kDense) return launch<kDense, kTape, kCount, kCarry>(p, stream);
   return launch<kBrute, kTape, kCount, kCarry>(p, stream);
 }
 
@@ -429,7 +360,9 @@ int launch_hit(int hit, const Params& p, cudaStream_t stream) {
 // the skip-pointer walk of its `copies` copies of n_trav node rows in the
 // 16-byte layout (WalkRow, render_common.cuh) over the permuted scene's
 // rows (cx, cy, cz, rad * rad) in `spheres` (scene in leaf order),
-// neither -> the brute sweep, both -> refused; the flat sweep stages
+// neither -> the brute sweep, over the rows it stages in shared memory
+// up to kDenseMax spheres (kDense) or else over the scene pack (kBrute),
+// both -> refused; the flat sweep stages
 // stage_leaves leaves, stage_outliers outlier rows (0 or out_cnt) and
 // stage_boxes box rows (0 or 16 n_leaves) in shared memory (FlatStage: the
 // wrapper plans it within raytpu_flat_device's opt-in limit); `taping` ->
@@ -439,14 +372,12 @@ int launch_hit(int hit, const Params& p, cudaStream_t stream) {
 // counters); `carry` -> K2, which reads acc_in / seed_in and writes `out` /
 // seed_out (either pair may alias: a thread reads its own pixel before it
 // writes it) from sample index s0 on.  A tape, the census and the carry
-// exclude one another.  `dense` (no BVH, n <= kDenseMax) ->
-// the dense stage, a plain forward or (`census`) its counting variant.  The
-// refill (the flat sweep, the walk, the dense stage) hands out the pixels
-// past its persistent grid's first ones from `pixel_next`, one u32 that is
-// 0 at launch.  spp >= 1.  The block's x extent is one warp, so threadIdx.x
-// is the lane.
+// exclude one another.  The refill hands out the pixels past its
+// persistent grid's first ones from `pixel_next`, one u32 of the caller's
+// that this entry zeroes on `stream` before the launch.  spp >= 1.  The
+// block's x extent is one warp, so threadIdx.x is the lane.
 extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
-                                 int dense, const void* flat, int n_leaves,
+                                 const void* flat, int n_leaves,
                                  int leaf_size, const void* nodes,
                                  int n_trav, int copies, int out_base,
                                  int out_cnt, int stage_leaves,
@@ -463,20 +394,17 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
                                  float gamma, int parallel, int v1,
                                  const void* spheres, void* stream) {
   if ((taping != 0) + (census != nullptr) + (carry != 0) > 1 || rows < 1 ||
-      row0 < 0 || (flat != nullptr && nodes != nullptr) ||
+      row0 < 0 || pixel_next == nullptr ||
+      (flat != nullptr && nodes != nullptr) ||
       (nodes != nullptr &&
-       (n_trav < 1 || (copies != 1 && copies != 8) || spheres == nullptr ||
-        pixel_next == nullptr)) ||
+       (n_trav < 1 || (copies != 1 && copies != 8) || spheres == nullptr)) ||
       (carry && (acc_in == nullptr || seed_in == nullptr ||
                  seed_out == nullptr)) ||
       (flat != nullptr &&
-       (pixel_next == nullptr || stage_leaves < 0 ||
-        stage_leaves > n_leaves ||
+       (stage_leaves < 0 || stage_leaves > n_leaves ||
         (stage_outliers != 0 && stage_outliers != out_cnt) ||
         (stage_boxes != 0 && stage_boxes != 16 * n_leaves))) ||
-      spp < 1 ||
-      (dense && (flat != nullptr || nodes != nullptr || taping || carry ||
-                 pixel_next == nullptr || n > kDenseMax)))
+      spp < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.cam = static_cast<const CamPack*>(cam);
@@ -512,10 +440,13 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   p.parallel = parallel;
   p.v1 = v1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hit = flat != nullptr ? kFlat : (nodes != nullptr ? kWalk : kBrute);
-  if (dense)
-    return census != nullptr ? launch<kDense, kNoTape, true, false>(p, st)
-                             : launch<kDense, kNoTape, false, false>(p, st);
+  const cudaError_t zeroed = cudaMemsetAsync(pixel_next, 0, sizeof(unsigned),
+                                             st);
+  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  const int hit = flat != nullptr    ? kFlat
+                  : nodes != nullptr ? kWalk
+                  : n <= kDenseMax   ? kDense
+                                     : kBrute;
   if (taping) return launch_hit<kTapeWrite, false, false>(hit, p, st);
   if (census != nullptr) return launch_hit<kNoTape, true, false>(hit, p, st);
   if (carry) return launch_hit<kNoTape, false, true>(hit, p, st);

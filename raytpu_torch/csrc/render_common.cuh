@@ -6,12 +6,11 @@
 // walk, the dense stage, tape read), the v2 / v1 materials, the sky and the
 // gamma.  K3's passes must give the forward's image bit for bit, and the
 // wavefront the same samples, so every kernel takes a bounce through
-// bounce_step() below and nothing else (the megakernels through
-// trace_path(), its loop over a sample's bounces), or through its two
-// halves: the flat sweep's forward runs closest_hit_staged(), the same
-// tests as closest_hit<kFlat>, then shade(); K3 (gradkernel.cu, k3_step)
-// takes its closest hit from the tape, closest_hit_staged() over a flat
-// BVH or closest_hit(), then shade().
+// bounce_step() below (the wavefront) or through its two halves: the
+// forward's render_refill (megakernel.cu) takes its closest hit from
+// closest_hit_staged() over a flat BVH, closest_hit_walk() over the walk
+// or closest_hit(), then shade(); K3 (gradkernel.cu, k3_step) the same, or
+// the tape's winner.
 //
 // The skip-pointer walk (K1d) replaces raytpu/kernels/megakernel.py:640-696
 // and its VJP twin gradkernel.py:544-594, the path raytpu takes past 64
@@ -85,16 +84,21 @@ __device__ __forceinline__ SceneView scene_view(const float* pack, int n) {
                    pack + 6 * n, pack + 7 * n, pack + 8 * n, n};
 }
 
-// The dense stage (K1e, and K5 / K6 on the same scenes): the scene's rows
-// (cx, cy, cz, rad * rad) staged once per block in the kernel's dynamic
-// shared memory, 16 bytes a sphere (327 spheres 5.2 KB, the policy's cap of
-// 4096 64 KB).  rad * rad is the f32 product sphere_root() forms, so the
-// root test is the brute sweep's to the bit.  Every thread of the block
-// calls stage_dense() before any thread returns (threads past the frame
-// included): it ends with the block's one barrier, and the sweeps after it
-// read the rows with no other, since threads of a block sit at different
-// samples and bounces.
+// The brute sweep's stage (kDense: every forward and K3 launch without a
+// BVH up to kDenseMax spheres, and K5 / K6 under the dense stage): the
+// scene's rows (cx, cy, cz, rad * rad) staged once per block in the
+// kernel's dynamic shared memory, 16 bytes a sphere (327 spheres 5.2 KB,
+// the cap of 4096 64 KB).  rad * rad is the f32 product sphere_root()
+// forms, so the root test is the pack's to the bit.  Every thread of the
+// block calls stage_dense() before any thread returns (threads past the
+// frame included): it ends with the block's one barrier, and the sweeps
+// after it read the rows with no other, since threads of a block sit at
+// different samples and bounces.  Past kDenseMax the brute sweep reads the
+// scene pack (kBrute), as K5 / K6's brute segments do at any size.
 extern __shared__ float4 dense_rows[];
+// the largest scene stage_dense() stages: 64 KB of rows (raytpu's
+// _DENSE_MAX; raytpu_torch.kernels.megakernel.DENSE_MAX)
+constexpr int kDenseMax = 4096;
 
 __device__ __forceinline__ void stage_dense(const float* pack, int n) {
   const int nt = blockDim.x * blockDim.y;
@@ -239,20 +243,23 @@ __device__ __forceinline__ Ray gen_ray(const CamPack& cam, float fx, float fy,
   return r;
 }
 
-// ---- the closest hit: a compile-time policy of trace_path ---------------
+// ---- the closest hit: a compile-time policy ------------------------------
 //
-// Brute (K1a, K3): every sphere, in index order.  Dense (K1e, K5 / K6 on
-// the same scenes): every sphere in index order from the rows
-// stage_dense() put in shared memory, each missed test ended before the
-// square root (sweep_rows); raytpu's dense MXU stage, megakernel.py:462-527,
-// is a TPU layout of this same min / argmin: its bf16x3 one-hot extraction
-// is this sweep reading the winner's attributes once, in scatter().  Flat BVH (K1c, K3's BVH
-// variant): the outlier tail, then the leaf rows of the octant copy the
-// ray's own direction picks.  Walk (K5 / K6; the forward and K3 take the
-// same tests through closest_hit_walk()): the outlier tail, then the
-// skip-pointer walk of that copy's nodes.  Tape read (K3's
-// replay of K4's tape): the winner from the tape, its t recomputed for that
-// one sphere.  All of them compute a sphere's t with sphere_root(), so a
+// The brute sweep: every sphere in index order, each missed test ended
+// before the square root (sweep_rows), from the rows stage_dense() put in
+// shared memory (kDense: the forward's K1a, K1b, K1', K2, K4 and K1e, and
+// K3, up to kDenseMax spheres; K5 / K6 under the dense stage) or from the
+// scene pack (kBrute: the same kernels past kDenseMax, and K5 / K6's brute
+// segments); raytpu's dense MXU stage, megakernel.py:462-527, is a TPU
+// layout of this same min / argmin: its bf16x3 one-hot extraction is this
+// sweep reading the winner's attributes once, in scatter().  Flat BVH
+// (K5 / K6; the forward and K3 take the same tests through
+// closest_hit_staged()): the outlier tail, then the leaf rows of the
+// octant copy the ray's own direction picks.  Walk (K5 / K6; the forward
+// and K3 take the same tests through closest_hit_walk()): the outlier
+// tail, then the skip-pointer walk of that copy's nodes.  Tape read (K3's
+// replay of K4's tape): the winner from the tape, its t recomputed for
+// that one sphere.  All of them compute a sphere's t with sphere_root(), so a
 // winner's t is one number wherever it comes from, and the images and
 // residuals of every variant are bit-equal (the BVH's up to exact equal-t
 // ties of distinct spheres).  The flat sweep and the walk enter the same
@@ -288,10 +295,10 @@ struct NodeBvh {
 
 // Per-thread counts of the census (K1'): leaves entered, closest-hit
 // steps, samples, nodes the walk visits (the other policies leave it 0);
-// under the persistent sample refill (the flat sweep, the walk, the dense
-// stage) also the warp's bounce-loop, sphere-test and node-loop iterations,
-// each counted by one lane of the lanes that run it (warp_tick), and the
-// lane's own sphere tests.
+// under the forward's persistent sample refill also the warp's
+// bounce-loop, sphere-test and node-loop iterations, each counted by one
+// lane of the lanes that run it (warp_tick), and the lane's own sphere
+// tests.
 struct Census {
   unsigned leaves, steps, samples, nodes, warp_steps, warp_tests,
       warp_nodes, tests;
@@ -319,9 +326,9 @@ __device__ __forceinline__ int next_item(unsigned* counter, int first) {
 }
 
 // Where a sweep reads sphere j's centre and squared radius: the scene pack
-// (the brute sweep, the BVH sweeps, the tape's one sphere) or the rows
-// stage_dense() staged (the dense stage).  r2 is the f32 product rad * rad
-// either way.
+// (the brute sweep past kDenseMax, the BVH sweeps' unstaged rows, the
+// tape's one sphere) or the rows stage_dense() staged (the brute sweep up
+// to kDenseMax).  r2 is the f32 product rad * rad either way.
 struct SceneRows {
   const SceneView& s;
   __device__ __forceinline__ float x(int j) const { return s.cx[j]; }
@@ -360,8 +367,8 @@ struct StagedRows {
 // op for op): the t the sweeps compare, NaN or < t_min on a miss.  The NaN
 // form of the root test: disc < 0 -> sqrtf gives NaN -> compares false.
 // In two halves: disc_at(), the discriminant (and half_b), then root_of(),
-// the roots; the flat sweep's forward and the dense stage end a test
-// between them when the discriminant is negative or NaN (see sweep_rows).
+// the roots; every sweep but closest_hit<kFlat>'s ends a test between them
+// when the discriminant is negative or NaN (see sweep_rows).
 template <class Rows>
 __device__ __forceinline__ float disc_at(const Rows& rows, const Ray& r,
                                          float a, int j, float& half_b) {
@@ -398,7 +405,8 @@ __device__ __forceinline__ float sphere_root(const SceneView& s, const Ray& r,
 }
 
 // Spheres [j0, j1) into the running best: strict <, so among equal t the
-// first tested wins (the lowest index in the brute sweep, like argmin).
+// first tested wins.  Only closest_hit<kFlat> (K5 / K6 over a flat BVH)
+// still takes every test to its square root.
 __device__ __forceinline__ void sweep_range(const SceneView& s, const Ray& r,
                                             float a, float inv_a, float t_min,
                                             int j0, int j1, float& tb,
@@ -474,7 +482,7 @@ __device__ __forceinline__ bool box_enter(const float* row, const Ray& r,
 // Closest hit (golden.hit_world for kBrute and kDense; golden.hit_world_bvh
 // over the scene in leaf order for kFlat, golden.hit_world_walk for kWalk).
 // Returns the winner or -1; tb = its t.  `bvh` is read by kFlat, `walk` by
-// kWalk, dense_rows by kDense.
+// kWalk, dense_rows by kDense (the kernel staged them first).
 template <int kHit, bool kCount>
 __device__ __forceinline__ int closest_hit(const SceneView& s,
                                            const FlatBvh& bvh,
@@ -485,11 +493,12 @@ __device__ __forceinline__ int closest_hit(const SceneView& s,
   float inv_a = 1.0f / a;
   tb = kInf;
   int win = -1;
-  if (kHit == kBrute) {
-    sweep_range(s, r, a, inv_a, t_min, 0, s.n, tb, win);
+  if (kHit == kBrute) {  // the pack, each missed test ended early
+    sweep_rows<kCount>(SceneRows{s}, 0, s.n, 0, r, a, inv_a, t_min, tb, win,
+                       cn);
     return win;
   }
-  if (kHit == kDense) {  // the staged rows, each missed test ended early
+  if (kHit == kDense) {  // the staged rows, likewise
     sweep_rows<kCount>(DenseRows{}, 0, s.n, 0, r, a, inv_a, t_min, tb, win,
                        cn);
     return win;
@@ -951,8 +960,7 @@ __device__ __forceinline__ bool shade(const SceneView& s, int win, float tb,
 // one draw.  Returns whether the ray scattered (lives on).  On a miss the
 // slot's radiance (rr, rg, rb) gains c * sky, raytpu's add-once rule
 // (megakernel.py:734: a sample misses once, so a radiance carried across a
-// slot's samples sums them, as the wavefront's does; trace_path's radiance
-// is +0 there, so it ends as c * sky).
+// slot's samples sums them, as the wavefront's does).
 template <int kHit, int kTape, bool kCount>
 __device__ __forceinline__ bool bounce_step(const SceneView& s,
                                             const FlatBvh& bvh,
@@ -964,32 +972,6 @@ __device__ __forceinline__ bool bounce_step(const SceneView& s,
   float tb;
   int win = step_hit<kHit, kTape, kCount>(s, bvh, walk, r, t_min, tb, tc, cn);
   return shade(s, win, tb, v1, sd, r, cr, cg, cb, rr, rg, rb);
-}
-
-// Trace one sample for at most `depth` bounces, stopping at the first
-// miss, absorption or the depth cap (black).  Returns the number of
-// bounces taken; `sd` ends as the sample's final seed and (rr, rg, rb) as
-// its radiance.  The closest hit of each step is step_hit's policy (kHit,
-// kTape, kCount); `tc` advances one step per bounce taken.
-template <int kHit, int kTape, bool kCount>
-__device__ __forceinline__ int trace_path(const SceneView& s,
-                                          const FlatBvh& bvh,
-                                          const NodeBvh& walk, Ray r,
-                                          uint32_t& sd, int depth,
-                                          float t_min, bool v1, float& rr,
-                                          float& rg, float& rb,
-                                          TapeCursor& tc, Census& cn) {
-  float cr = 1.0f, cg = 1.0f, cb = 1.0f;
-  rr = 0.0f;
-  rg = 0.0f;
-  rb = 0.0f;
-  if (kCount) ++cn.samples;
-  for (int d = 0; d < depth; ++d) {
-    if (!bounce_step<kHit, kTape, kCount>(s, bvh, walk, r, sd, t_min, v1, cr,
-                                          cg, cb, rr, rg, rb, tc, cn))
-      return d + 1;
-  }
-  return depth;  // depth cap: rr, rg, rb are still 0 (black)
 }
 
 }  // namespace rt

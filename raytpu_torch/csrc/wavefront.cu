@@ -373,9 +373,6 @@ int launch(void (*kernel)(P), bool dense, bool persistent, const P& p,
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// The dense stage's largest scene (raytpu_torch.kernels.megakernel.DENSE_MAX)
-constexpr int kDenseMax = 4096;
-
 bool bad_operands(int n, int dense, const void* flat, const void* nodes,
                   int n_trav, int copies, int R) {
   return n < 1 || R < 1 || (flat != nullptr && nodes != nullptr) ||
@@ -390,7 +387,8 @@ bool bad_operands(int n, int dense, const void* flat, const void* nodes,
 // reported.  The closest-hit policy follows the operands as in
 // megakernel.cu: `flat` -> the flat BVH sweep, `nodes` -> the walk (the
 // scene in leaf order for both, the outlier tail [out_base, +out_cnt)),
-// neither -> the brute sweep, or with `dense` the dense stage.  `box`: the
+// neither -> the brute sweep over the scene pack (kBrute: no stage), or
+// with `dense` over the rows stage_dense() stages (kDense).  `box`: the
 // key's 6 floats on the device.  `in` and `out` hold (planes, R) f32
 // planes and must not overlap.
 //

@@ -27,10 +27,13 @@ another order (allclose, not bit-equal).  :func:`refill_plan` sizes the
 lanes and the window from :data:`REFILL_BUDGET`; ``p2_refill=False`` (or
 :data:`P2_REFILL` set to False) forces the per-sample pass.
 
+Without a BVH every K3 sweep is the forward's brute sweep, over the
+scene's rows staged in shared memory up to :data:`megakernel.DENSE_MAX`
+spheres (:func:`megakernel.brute_stage_bytes`), else over the scene pack.
 Over a flat BVH every K3 sweep is the forward's K1c sweep, over the rows
 :func:`k3_stage` plans to stage in shared memory (within what keeps the
 kernel's blocks resident beside the refill's camera sums: a large BVH may
-stage part of itself, the rest read from the scene pack); the refill's
+stage part of itself, the rest read from the scene pack).  The refill's
 lanes count the staged bytes (:func:`refill_lanes`), the same for a taped
 and an untaped launch of one scene.  Over the walk every K3 sweep is the
 forward's K1d sweep, over the node rows ``BVH.walk_rows`` and the sphere
@@ -125,8 +128,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raytpu_render_vjp
-    fn.argtypes = [ptr, ptr, i, ptr, i, i, ptr, i, i, i, i, i, i, i, i, ptr,
-                   i, i, ptr, ptr, ptr, ptr, ptr,
+    fn.argtypes = [ptr, ptr, i, ptr, i, i, ptr, i, i, i, i, i, i, i, i,
+                   ptr, i, i, ptr, ptr, ptr, ptr, ptr,
                    i, i, i, i, i, i, f, f, f, f, f, f, i, i, i, i, i, ptr,
                    ptr, ptr]
     fn.restype = ctypes.c_int
@@ -151,8 +154,9 @@ _lanes_cap: dict[tuple, int] = {}  # (device index, shmem) -> refill_lanes()
 def refill_lanes(device, shmem: int = 0) -> int:
     """The refill's lane cap on a CUDA device: its SMs times the threads
     one SM keeps resident of the refill instantiation that keeps the
-    fewest, the flat sweep's with ``shmem`` bytes staged (the same for a
-    taped and an untaped launch of one stage)."""
+    fewest, the flat sweep's and the staged brute sweep's with ``shmem``
+    bytes staged (the same for a taped and an untaped launch of one
+    stage)."""
     key = (_index(device), int(shmem))
     if key not in _lanes_cap:
         with torch.cuda.device(key[0]):
@@ -203,14 +207,22 @@ def k3_stage(bvh: BVH, device) -> dict:
 _NO_STAGE = {"leaves": 0, "outliers": 0, "boxes": 0, "bytes": 0}
 
 
-def launch_plan(cfg: RenderConfig, rows: int, bvh: BVH | None, refill: bool,
-                device) -> tuple[dict, dict | None]:
-    """A launch's (stage, refill plan): over a flat BVH its
-    :func:`k3_stage` (else nothing staged), and on the refill
+def launch_plan(cfg: RenderConfig, rows: int, scene_pack: torch.Tensor,
+                bvh: BVH | None, refill: bool) -> tuple[dict, dict | None]:
+    """A launch's (stage, refill plan) on ``scene_pack``'s device: over a
+    flat BVH its :func:`k3_stage`, without a BVH the brute sweep's
+    :func:`megakernel.brute_stage_bytes` of the pack's spheres (nothing
+    else staged), over the walk nothing; and on the refill
     :func:`refill_plan` of the lanes with those bytes staged, so a taped
     and an untaped launch of one scene get the same lanes."""
-    flat = bvh is not None and sweep_of(bvh) == "flat"
-    stage = k3_stage(bvh, device) if flat else _NO_STAGE
+    device = scene_pack.device
+    if bvh is None:
+        stage = {**_NO_STAGE,
+                 "bytes": megakernel.brute_stage_bytes(scene_pack.shape[1])}
+    elif sweep_of(bvh) == "flat":
+        stage = k3_stage(bvh, device)
+    else:
+        stage = _NO_STAGE
     plan = (refill_plan(cfg, rows, refill_lanes(device, stage["bytes"]))
             if refill else None)
     return stage, plan
@@ -339,7 +351,7 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     out = torch.empty((rows, cfg.width, 3), dtype=torch.float32,
                       device=device)
     gsc = torch.zeros((LEAVES, n), dtype=torch.float64, device=device)
-    stage, plan = launch_plan(cfg, rows, bvh, refill, device)
+    stage, plan = launch_plan(cfg, rows, scene_pack, bvh, refill)
     walk = bvh is not None and sweep_of(bvh) == "walk"
     node_rows = bvh.walk_rows if walk else None
     spheres = megakernel.sphere_rows(scene_pack) if walk else None

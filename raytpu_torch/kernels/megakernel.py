@@ -3,9 +3,10 @@
 Counterpart of ``raytpu/kernels/megakernel.py::render_pallas`` and
 ``_render_pallas_fwd_impl``, of ``accumulate_pallas`` and of the write side
 of ``raytpu/kernels/gradkernel.py::render_tape_fwd``.  One kernel
-template, variants by operand: K1a (the brute-force sphere sweep), K1e (the
-dense stage: the same sweep over the scene staged in shared memory, taken
-by raytpu's rule, :func:`use_dense`, bit-equal to K1a), K1c and K1d
+template, variants by operand: K1a (the brute-force sphere sweep, over the
+scene's rows staged in shared memory up to :data:`DENSE_MAX` spheres,
+:func:`brute_stage_bytes`), K1e (the dense stage: raytpu's name for the
+same launch where its rule, :func:`use_dense`, takes the scene), K1c and K1d
 (``bvh=``: over the scene in leaf order, the flat
 leaf-list sweep or the skip-pointer walk by raytpu's rule,
 :func:`raytpu_torch.bvh.sweep_of`: the walk past
@@ -17,11 +18,11 @@ progressive batch on carried linear sums and seeds).  Every variant takes
 raytpu's slab mode, ``row0`` / ``rows``: rows ``[row0, row0 + rows)`` of
 the cfg-sized frame, with the image, the tape and the carried state
 ``(rows, W, ...)`` (K1b is the forward in slab mode).  A slab may run
-past the frame's last row; those rows trace nothing and come out 0.  The
-CUDA kernel is one thread per pixel, but the flat sweep, the walk and the
-dense stage run on a persistent grid whose lanes take their next pixel from
-a counter the wrapper zeroes each launch; see the note at the top of the
-``.cu`` file.  The walk reads its node rows in the 16-byte layout of
+past the frame's last row; those rows trace nothing and come out 0.  Every
+variant runs on a persistent grid whose lanes take their next pixel from
+a counter the C entry point zeroes each launch (one a device and stream,
+:func:`_pixel_counter`); see the note at the top of the ``.cu`` file.
+The walk reads its node rows in the 16-byte layout of
 :func:`raytpu_torch.bvh.pack_walk_rows` (``BVH.walk_rows``) and the
 spheres as 16-byte rows (:func:`sphere_rows`).
 
@@ -74,9 +75,10 @@ from raytpu_torch.scene import Scene
 SOURCE = "megakernel.cu"
 CAM_PACK = 19   # origin, horizontal, vertical, lower_left, u, v, lens_radius
 SCENE_ROWS = 9  # cx, cy, cz, radius, mat_type, ar, ag, ab, mat_param
-# the dense stage's scene sizes (raytpu's _DENSE_MIN / _DENSE_MAX): from 96
-# spheres the sweep's loads are worth staging; up to 4096, 64 KB of shared
-# memory a block (csrc/megakernel.cu kDenseMax)
+# the dense stage's scene sizes (raytpu's _DENSE_MIN / _DENSE_MAX), which
+# name a brute launch K1e here; the brute sweep stages its rows up to 4096
+# spheres, 64 KB of shared memory a block (csrc/render_common.cuh
+# kDenseMax)
 DENSE_MIN = 96
 DENSE_MAX = 4096
 
@@ -87,8 +89,8 @@ launches = 0    # kernel launches through launch(); a run resets and reads it
 # forward (by sweep, "+slab" for a slab); the sweeps are "brute", "bvh"
 # (flat) and "walk"; a run resets and reads them
 SWEEP_TAGS = ("brute", "bvh", "walk")
-# the counters the census kernel of the refill (the flat sweep, the walk,
-# the dense stage) adds after golden.CENSUS's counts (see warp_census)
+# the counters the census kernel adds after golden.CENSUS's counts (see
+# warp_census)
 WARP_CENSUS = ("warp_steps", "warp_sphere_tests", "warp_node_steps",
                "lane_sphere_tests")
 variants = dict.fromkeys(
@@ -106,7 +108,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.raytpu_render_fwd
-    fn.argtypes = [ptr, ptr, i, i, ptr, i, i, ptr, i, i, i, i, i, i, i, i,
+    fn.argtypes = [ptr, ptr, i, ptr, i, i, ptr, i, i, i, i, i, i, i, i,
                    ptr, i, i, ptr, i, ptr, ptr, ptr, ptr, ctypes.c_uint, ptr,
                    i, i, i, i, i, i, f, f, f, f, f, i, i, ptr, ptr]
     fn.restype = ctypes.c_int
@@ -119,11 +121,23 @@ def _lib() -> ctypes.CDLL:
 def use_dense(n: int, bvh: BVH | None) -> bool:
     """The dense stage's policy, raytpu's ``_use_dense(n, interpret=False,
     has_bvh)`` (raytpu/kernels/megakernel.py:1415-1430): no BVH and
-    ``DENSE_MIN <= n <= DENSE_MAX`` spheres.  The forward (K1e, full frame
-    or slab) and the wavefront's segment kernels take it; K2, K4, the
-    census K1' (but :func:`warp_census`'s) and K3 keep the brute sweep, as
-    raytpu's do."""
+    ``DENSE_MIN <= n <= DENSE_MAX`` spheres.  It names the plain forward
+    (K1e, ``K1b/dense`` on a slab) and :func:`warp_census`'s launch
+    (``K1'/dense``), which run the brute sweep's kernel, and it picks the
+    wavefront's dense segment kernels; K2, K4, the census K1' and K3 keep
+    raytpu's brute names."""
     return bvh is None and DENSE_MIN <= n <= DENSE_MAX
+
+
+def brute_stage_bytes(n: int) -> int:
+    """The shared memory a block of the brute sweep (the forward and K3
+    without a BVH) stages: the rows (cx, cy, cz, rad * rad) of a scene of
+    ``n`` spheres, 16 bytes a sphere, up to :data:`DENSE_MAX` spheres (64
+    KB); 0 past it, where the sweep reads the scene pack.  The C entry
+    points pick the form by ``n`` themselves (csrc/render_common.cuh
+    ``kDenseMax``, ``stage_dense``); K3's refill plan counts these bytes
+    for its lanes (``gradkernel.launch_plan``)."""
+    return 16 * n if n <= DENSE_MAX else 0
 
 
 def slab(cfg: RenderConfig, row0: int = 0,
@@ -380,32 +394,44 @@ def flat_stage_on(bvh: BVH, device) -> dict:
     return flat_stage(bvh, _smem_optin[index])
 
 
+_counters: dict[tuple, torch.Tensor] = {}  # (device, stream) -> counter
+
+
+def _pixel_counter(device, stream: int) -> torch.Tensor:
+    """The persistent grid's pixel counter of launches on ``stream`` of
+    ``device``: one int32 a stream, kept across launches (the C entry point
+    zeroes it on the stream before each), so a launch allocates and zeroes
+    nothing here."""
+    key = (device, stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _counters[key]
+
+
 def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
             rows: int, spp: int, out: torch.Tensor, *, tape=None,
-            census=None, carry=None, dense: bool = False) -> None:
+            census=None, carry=None) -> None:
     """Run the C entry point once; ``carry`` = (acc_in, seed_in, seed_out,
-    s0) for K2, the seeds as int32 bits; ``dense`` the dense stage."""
+    s0) for K2, the seeds as int32 bits."""
     global launches
     n = scene_pack.shape[1]
     sweep = None if bvh is None else sweep_of(bvh)
     acc_in, seed_in, seed_out, s0 = carry if carry else (None,) * 3 + (0,)
     lib = _lib()
     device = scene_pack.device
-    # the flat sweep's staging, the walk's node and sphere rows, and the
-    # counter the persistent grid of the refill (all but the brute sweep)
-    # takes its pixels from
+    # the flat sweep's staging, the walk's node and sphere rows (the brute
+    # sweep stages by n in the C entry point), and the counter the
+    # persistent grid takes its pixels from
     stage = (flat_stage_on(bvh, device) if sweep == "flat"
              else dict.fromkeys(("leaves", "outliers", "boxes"), 0))
     node_rows = spheres = None
     if sweep == "walk":
         node_rows, spheres = bvh.walk_rows, sphere_rows(scene_pack)
-    pixel_next = (torch.zeros(1, dtype=torch.int32, device=device)
-                  if sweep is not None or dense else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        pixel_next = _pixel_counter(device, stream)
         err = lib.raytpu_render_fwd(
-            cam_pack.data_ptr(), scene_pack.data_ptr(), n, int(dense),
-            *bvh_args(bvh, node_rows), stage["leaves"], stage["outliers"],
+            cam_pack.data_ptr(), scene_pack.data_ptr(), n, *bvh_args(bvh, node_rows), stage["leaves"], stage["outliers"],
             stage["boxes"], int(tape is not None),
             None if tape is None or tape.numel() == 0 else tape.data_ptr(),
             0 if tape is None else tape.shape[0],
@@ -415,7 +441,7 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
             None if acc_in is None else acc_in.data_ptr(),
             None if seed_in is None else seed_in.data_ptr(),
             None if seed_out is None else seed_out.data_ptr(),
-            None if pixel_next is None else pixel_next.data_ptr(),
+            pixel_next.data_ptr(),
             int(s0) & 0xFFFFFFFF, out.data_ptr(),
             cfg.width, cfg.height, row0, rows, spp, cfg.depth,
             float(np.float32(cfg.t_min)),
@@ -441,7 +467,7 @@ def sweep_tag(bvh: BVH | None) -> str:
 def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
            cfg: RenderConfig, bvh: BVH | None = None,
            tape: torch.Tensor | None = None, count: bool = False,
-           row0: int = 0, rows: int | None = None, brute: bool = False):
+           row0: int = 0, rows: int | None = None):
     """Launch the kernel on the packed operands -> (rows, W, 3) f32 image
     (rows = H without a slab), or (image, census) with ``count``:
     ``census`` (4,) int64 on the device, the frame's ``golden.CENSUS``
@@ -454,21 +480,25 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     pixel's first g_cap winners (-1 for a miss) into it; other slots keep
     their value.  ``row0`` / ``rows``: the slab (K1b; see :func:`slab`).
     A plain forward (no tape, no census) of a scene :func:`use_dense`
-    takes is the dense stage (K1e, or ``K1b/dense`` on a slab), unless
-    ``brute`` forces the brute sweep (K1a): the same image bit for bit.
-    The census keeps the brute sweep there (K1'/brute), as raytpu's does.
-    Runs on the current stream of the operands' device and does not
-    synchronise.  ``inv_w``, ``inv_h`` and ``inv_spp`` are computed in f64
-    here and rounded to f32, as raytpu's kernel and both goldens do."""
+    takes counts as the dense stage's (K1e, or ``K1b/dense`` on a slab),
+    the others without a BVH as K1a / ``K1b/brute``: one kernel, the brute
+    sweep.  The census counts as K1'/brute there, as raytpu's census runs
+    its brute sweep.  Runs on the current stream of the operands' device
+    and does not synchronise.  ``inv_w``, ``inv_h`` and ``inv_spp`` are
+    computed in f64 here and rounded to f32, as raytpu's kernel and both
+    goldens do."""
+    dense = (tape is None and not count
+             and use_dense(scene_pack.shape[-1], bvh))
     out, census = _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count,
-                              row0, rows, brute or count)
+                              row0, rows, dense)
     return (out, census[:len(golden.CENSUS)]) if count else out
 
 
 def _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count, row0, rows,
-                brute):
+                dense):
     """:func:`launch`'s body -> (image, the census buffer: the
-    ``golden.CENSUS`` counts, then :data:`WARP_CENSUS`'s, or None)."""
+    ``golden.CENSUS`` counts, then :data:`WARP_CENSUS`'s, or None);
+    ``dense``: count the launch as the dense stage's."""
     check_packs(cam_pack, scene_pack)
     slabbed = rows is not None
     row0, rows = slab(cfg, row0, rows)
@@ -485,9 +515,8 @@ def _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count, row0, rows,
     census = (torch.zeros(len(golden.CENSUS) + len(WARP_CENSUS),
                           dtype=torch.int64, device=device)
               if count else None)
-    dense = tape is None and not brute and use_dense(n, bvh)
     _launch(cam_pack, scene_pack, cfg, bvh, row0, rows, cfg.spp, out,
-            tape=tape, census=census, dense=dense)
+            tape=tape, census=census)
     tag = "dense" if dense else sweep_tag(bvh)
     if tape is not None:
         variants[f"K4/{tag}" + ("+slab" if slabbed else "")] += 1
@@ -504,26 +533,21 @@ def _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count, row0, rows,
 def warp_census(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
                 cfg: RenderConfig, bvh: BVH | None, row0: int = 0,
                 rows: int | None = None) -> dict:
-    """K1' over a BVH (the flat sweep or the walk) or the dense stage
-    (``bvh`` None, a scene :func:`use_dense` takes: K1'/dense) with its
-    warp counters -> the frame's ``golden.CENSUS`` counts,
-    :data:`WARP_CENSUS`'s and the shares ``loop_efficiency``, bounce steps
-    over (warp_steps x 32), and ``sweep_efficiency``, the lanes' sphere
-    tests over (warp_sphere_tests x 32); over the walk also
+    """K1' over a BVH (the flat sweep or the walk) or the brute sweep
+    (``bvh`` None: K1'/dense for a scene :func:`use_dense` takes, else
+    K1'/brute) with its warp counters -> the frame's ``golden.CENSUS``
+    counts, :data:`WARP_CENSUS`'s and the shares ``loop_efficiency``,
+    bounce steps over (warp_steps x 32), and ``sweep_efficiency``, the
+    lanes' sphere tests over (warp_sphere_tests x 32); over the walk also
     ``walk_efficiency``, the nodes visited over (warp_node_steps x 32).
     ``warp_steps`` counts one for each iteration of the bounce loop that any
     lane of a warp runs, ``warp_sphere_tests`` and ``warp_node_steps`` one
     for each sphere-test and node-loop iteration likewise: what a warp runs,
     whichever of its lanes take part.  ``lane_sphere_tests`` counts each
     lane's own tests (the walk's unpadded leaves hold different counts).
-    Warps exist on the card only, and only the refill's census kernels count
-    them: CUDA tensors only."""
-    n = scene_pack.shape[-1]
-    if bvh is None and not use_dense(n, None):
-        raise ValueError("warp_census counts the refill's kernels only: the "
-                         "flat sweep, the walk and the dense stage")
+    Warps exist on the card only: CUDA tensors only."""
     _, census = _launch_fwd(cam_pack, scene_pack, cfg, bvh, None, True,
-                            row0, rows, False)
+                            row0, rows, use_dense(scene_pack.shape[-1], bvh))
     c = dict(zip(golden.CENSUS + WARP_CENSUS, map(int, census.tolist())))
     c["loop_efficiency"] = c["bounce_steps"] / max(32 * c["warp_steps"], 1)
     c["sweep_efficiency"] = (c["lane_sphere_tests"]

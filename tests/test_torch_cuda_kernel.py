@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-forward megakernel K1a, its dense stage K1e, its BVH variants K1c (the flat
+forward megakernel K1a (its brute sweep over staged rows up to 4096
+spheres, over the scene pack past that), K1e (raytpu's dense stage: K1a's
+kernel under raytpu's name), its BVH variants K1c (the flat
 sweep) and K1d (the skip-pointer walk) and census K1', the taping forward
 K4, the fused VJP kernel K3 with its BVH, walk and tape-replay variants,
 the carry-state kernel K2, the slab mode of every one of them (K1b) and the
@@ -34,9 +36,8 @@ within 1e-6 of each leaf's largest entry.  The walk's image equals the
 flat sweep's on the same BVH bit for bit (the same leaves in the same
 order), and its census counts the flat sweep's leaves and steps; on the
 refill (K1d, K2, K4 and their slabs) the walk equals its plain versions
-bit for bit.  K1e
-traces K1a's sweep over the same values from shared memory: its image
-equals K1a's and the plain version's bit for bit.  K3 over a flat BVH
+bit for bit, and so does the brute sweep's (K1a, K1b, K1', K2, K4,
+over staged rows and over the pack).  K3 over a flat BVH
 sweeps the rows it stages in shared memory, and its warp-wide near-miss
 sweep picks the sequential loop's sphere: staged in part or not at all,
 its image and f32 cotangents are bit for bit the same where the refill's
@@ -228,10 +229,10 @@ def test_bvh_kernel_matches_plain_and_brute(rng_mode):
     scene, cam, bvh = _bvh_world(cfg)
     _reset_counts()
     got = rt.render(scene, cam, cfg, bvh=bvh)
-    # 120 spheres would take the dense stage: force the brute sweep K1a
+    # the brute sweep (120 spheres: counted as the dense stage, K1e)
     brute = megakernel.launch(megakernel.pack_camera(cam),
-                              megakernel.pack_scene(scene), cfg, brute=True)
-    assert megakernel.variants["K1c"] == 1 == megakernel.variants["K1a"]
+                              megakernel.pack_scene(scene), cfg)
+    assert megakernel.variants["K1c"] == 1 == megakernel.variants["K1e"]
     _agree(got, golden.render_golden(scene, cam, cfg, bvh))
     assert torch.equal(got, brute)
 
@@ -598,16 +599,16 @@ def test_device_ms_reads_the_kernels_time():
 @needs_card
 @pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
 def test_dense_stage_bit_equal_k1a_and_plain(rng_mode):
-    """K1e (random_world, 327 spheres, by the policy; the persistent sample
-    refill) against K1a forced and the plain version, bit for bit: a frame
-    at depth 8 and one at depth 50 through glass and metal; on a slab
-    ending past the frame (K1b/dense) the frame's rows; a ragged frame
-    (1003 wide) at 1 spp with more pixels than the persistent grid holds
-    (at most 2048 threads an SM); the smallest frame the entry points take
-    (2x2; 1/(W - 1) rules out one pixel a row) and a 1-row slab of it; at
-    4096 spheres (64 KB of staged rows, past the 48 KB default).  The
-    dense census kernel (warp_census, K1'/dense) counts the plain census's
-    steps and samples."""
+    """K1e (random_world, 327 spheres, by the policy; K1a's kernel, the
+    brute sweep over staged rows on the persistent sample refill) against
+    the plain version, bit for bit: a frame at depth 8 and one at depth 50
+    through glass and metal; on a slab ending past the frame (K1b/dense)
+    the frame's rows; a ragged frame (1003 wide) at 1 spp with more pixels
+    than the persistent grid holds (at most 2048 threads an SM); the
+    smallest frame the entry points take (2x2; 1/(W - 1) rules out one
+    pixel a row) and a 1-row slab of it; at 4096 spheres (64 KB of staged
+    rows, past the 48 KB default).  The dense census kernel (warp_census,
+    K1'/dense) counts the plain census's steps and samples."""
     cfg = RenderConfig(width=96, height=48, spp=2, depth=8,
                        rng_mode=rng_mode)
     scene = rt.random_world(device="cuda")
@@ -616,11 +617,9 @@ def test_dense_stage_bit_equal_k1a_and_plain(rng_mode):
     cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
     _reset_counts()
     dense = megakernel.launch(cp, sp, cfg)
-    brute = megakernel.launch(cp, sp, cfg, brute=True)
     part = megakernel.launch(cp, sp, cfg, row0=20, rows=40)
-    assert (megakernel.variants["K1e"], megakernel.variants["K1a"],
-            megakernel.variants["K1b/dense"]) == (1, 1, 1)
-    assert torch.equal(dense, brute)
+    assert {k: v for k, v in megakernel.variants.items() if v} == {
+        "K1e": 1, "K1b/dense": 1}
     assert torch.equal(dense, golden.render_golden(scene, cam, cfg))
     assert torch.equal(part[:28], dense[20:]) and not bool(part[28:].any())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -632,8 +631,6 @@ def test_dense_stage_bit_equal_k1a_and_plain(rng_mode):
         cam_c = _cam(c, aperture=0.1, focus_dist=10.0)
         cp_c = megakernel.pack_camera(cam_c)
         got = megakernel.launch(cp_c, sp, c, row0=row0, rows=rows)
-        assert torch.equal(got, megakernel.launch(cp_c, sp, c, brute=True,
-                                                  row0=row0, rows=rows))
         assert torch.equal(got, golden.render_golden(scene, cam_c, c,
                                                      row0=row0, rows=rows))
         if c.width == 1003:
@@ -646,19 +643,135 @@ def test_dense_stage_bit_equal_k1a_and_plain(rng_mode):
                                               for k in golden.CENSUS]
     assert 0.0 < cn["loop_efficiency"] <= 1.0
     assert 0.0 < cn["sweep_efficiency"] <= 1.0
-    g = torch.Generator().manual_seed(5)
-    n = megakernel.DENSE_MAX
-    big = rt.Scene(
+    big = _random_spheres(megakernel.DENSE_MAX)
+    small = cfg.replace(width=32, height=16, spp=1, depth=4)
+    got = megakernel.launch(cp, megakernel.pack_scene(big), small)
+    assert torch.equal(got, golden.render_golden(big, cam, small))
+
+
+def _random_spheres(n, seed=5):
+    """n spheres of every material at random in a 20-unit box, from a
+    seed."""
+    g = torch.Generator().manual_seed(seed)
+    return rt.Scene(
         (torch.rand(n, 3, generator=g) * 20 - 10).cuda(),
         (torch.rand(n, generator=g) * 0.3 + 0.05).cuda(),
         torch.randint(0, 3, (n,), generator=g, dtype=torch.int32).cuda(),
         torch.rand(n, 3, generator=g).cuda(),
         (torch.rand(n, generator=g) + 1.0).cuda())
-    small = cfg.replace(width=32, height=16, spp=1, depth=4)
-    bp = megakernel.pack_scene(big)
-    got = megakernel.launch(cp, bp, small)
-    assert torch.equal(got, megakernel.launch(cp, bp, small, brute=True))
-    assert torch.equal(got, golden.render_golden(big, cam, small))
+
+
+# The brute sweep's forward cases, (frame, row0, rows, spheres; 0:
+# test_world's): an unaligned frame, the smallest frame the entry points
+# take, a 1-row slab wholly past the frame, a ragged frame with more pixels
+# than the persistent grid holds (at most 2048 threads an SM) at 1 spp,
+# and 4097 spheres, one past the stage (the sweep reads the scene pack).
+_BRUTE_CASES = {
+    "unaligned_50x21": (RenderConfig(width=50, height=21, spp=3, depth=6),
+                        0, None, 0),
+    "tiny_2x2": (RenderConfig(width=2, height=2, spp=3, depth=50), 0, None,
+                 0),
+    "slab_1row_past_frame": (RenderConfig(width=50, height=21, spp=3,
+                                          depth=6), 21, 1, 0),
+    "wide_1003x301_spp1": (RenderConfig(width=1003, height=301, spp=1,
+                                        depth=8), 0, None, 0),
+    "pack_4097": (RenderConfig(width=64, height=32, spp=2, depth=4), 0, None,
+                  4097),
+}
+
+
+@needs_card
+@pytest.mark.parametrize("case", list(_BRUTE_CASES))
+@pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
+def test_brute_refill_bit_equal_plain(rng_mode, case):
+    """The brute sweep's forward on the persistent sample refill (K1a or
+    K1b/brute, K2/brute, K4/brute, K1'/brute) against the plain versions on
+    the same CUDA tensors, bit for bit: the image, a K2 batch from s0 = 2
+    (sums and seeds), the taping forward (image and every tape slot) and
+    the census's four counts, which warp_census counts too."""
+    cfg, row0, rows, n = _BRUTE_CASES[case]
+    cfg = cfg.replace(rng_mode=rng_mode)
+    scene = _random_spheres(n) if n else rt.test_world(device="cuda")
+    assert {0, 1, 2} <= set(scene.mat_type.tolist())
+    cam = _cam(cfg, aperture=0.1, focus_dist=10.0)
+    cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
+    r, g = rows or cfg.height, cfg.spp * cfg.depth
+    if case == "wide_1003x301_spp1":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert cfg.width * cfg.height > sms * 2048
+    _reset_counts()
+    img = megakernel.launch(cp, sp, cfg, row0=row0, rows=rows)
+    assert torch.equal(img, golden.render_golden(scene, cam, cfg, row0=row0,
+                                                 rows=rows))
+    st = progressive.accumulate(scene, cam, cfg, progressive.init_state(
+        cfg, device="cuda"), 2, backend="golden")
+    acc, seed = shard.slab_of(st.acc, row0, r), shard.slab_of(st.seed, row0,
+                                                                r)
+    got = megakernel.accumulate(scene, cam, cfg, acc, seed, 2, 3, None, row0,
+                                rows)
+    want = golden.accumulate_golden(scene, cam, cfg, acc, seed, 2, 3, None,
+                                    row0, rows)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    tape = torch.full((g, r * cfg.width), golden.TAPE_UNWRITTEN,
+                      dtype=golden.tape_dtype(sp.shape[1]), device="cuda")
+    timg = megakernel.launch(cp, sp, cfg, tape=tape, row0=row0, rows=rows)
+    pimg, ptape = golden.render_golden_tape(scene, cam, cfg, g, None, row0,
+                                            rows)
+    assert torch.equal(timg, pimg) and torch.equal(tape, ptape)
+    _, cen = megakernel.launch(cp, sp, cfg, count=True, row0=row0, rows=rows)
+    plain = dict.fromkeys(golden.CENSUS, 0)
+    golden.render_golden(scene, cam, cfg, census=plain, row0=row0, rows=rows)
+    assert cen.tolist() == [plain[k] for k in golden.CENSUS]
+    slab = "+slab" if rows is not None else ""
+    assert {k: v for k, v in megakernel.variants.items() if v} == {
+        "K1b/brute" if slab else "K1a": 1, f"K2/brute{slab}": 1,
+        f"K4/brute{slab}": 1, "K1'/brute": 1}
+    c = megakernel.warp_census(cp, sp, cfg, None, row0, rows)
+    assert [c[k] for k in golden.CENSUS] == cen.tolist()
+    if plain["samples"]:
+        assert 0.0 < c["loop_efficiency"] <= 1.0
+        assert 0.0 < c["sweep_efficiency"] <= 1.0
+
+
+@needs_card
+@pytest.mark.parametrize("n", [4096, 4097], ids=["stage_64kb", "pack_4097"])
+def test_k3_brute_stage_and_pack_match_plain(n):
+    """K3 under the brute sweep at the stage's largest scene (4096
+    spheres: 64 KB of rows, past the 48 KB default, beside the refill's 36
+    KB of camera sums) and one past it (the scene pack): the per-sample
+    pass in sequential RNG and the windowed refill, each without and with
+    vis_w, within 1e-3 of the plain version per leaf, the refill within
+    3e-5 of the per-sample pass, every image the forward's; the refill
+    replaying a full K4 tape bit for bit the untaped one."""
+    cfg = RenderConfig(width=48, height=24, spp=2, depth=4,
+                       rng_mode="parallel")
+    seq = cfg.replace(rng_mode="sequential")
+    scene = _random_spheres(n)
+    cam = _cam(cfg, aperture=0.1, focus_dist=10.0)
+    img = rt.render(scene, cam, seq)
+    ct = 2.0 * (img - 0.5) / img.numel()
+    for vis_w in (0.0, 0.005):
+        _reset_counts()
+        got = gradkernel.render_vjp(scene, cam, seq, ct, vis_w=vis_w)
+        assert gradkernel.variants["K3"] == 1 and torch.equal(got[0], img)
+        errs = _vjp_errors(got, gradkernel.render_vjp_plain(scene, cam, seq,
+                                                            ct, vis_w))
+        assert max(errs.values()) <= 1e-3, (vis_w, errs)
+        got, ct_p = _refill_vs_per_sample(scene, cam, cfg, None, vis_w)
+        errs = _vjp_errors(got, gradkernel.render_vjp_plain(scene, cam, cfg,
+                                                            ct_p, vis_w))
+        assert max(errs.values()) <= 1e-3, (vis_w, errs)
+    full = cfg.spp * cfg.depth
+    img, tape = gradkernel.render_tape_fwd(scene, cam, cfg, full)
+    assert torch.equal(img, rt.render(scene, cam, cfg))
+    ct = 2.0 * (img - 0.5) / img.numel()
+    base = _grads(gradkernel.render_vjp(scene, cam, cfg, ct, img=img))
+    _reset_counts()
+    taped = _grads(gradkernel.render_vjp(scene, cam, cfg, ct, img=img,
+                                         tape=tape))
+    assert gradkernel.variants["K3/refill+tape"] == 1
+    for a, b in zip(taped, base):
+        assert torch.equal(a, b)
 
 
 def _same(a, b):

@@ -198,10 +198,12 @@ def test_k3_stage_within_limit(monkeypatch, limits, want):
 
 
 def test_k3_launch_plan_lanes(monkeypatch):
-    """A launch's plan (launch_plan): over a flat BVH its stage, elsewhere
-    nothing staged; the refill's lanes are those of the staged bytes, one
-    plan whether or not the launch replays a tape (the tape is no input of
-    it), so a taped and an untaped launch sum the camera terms alike."""
+    """A launch's plan (launch_plan): over a flat BVH its stage, without a
+    BVH the brute sweep's rows (16 bytes a sphere up to 4096 spheres, none
+    above), over the walk nothing staged; the refill's lanes are those of
+    the staged bytes, one plan whether or not the launch replays a tape
+    (the tape is no input of it), so a taped and an untaped launch sum the
+    camera terms alike."""
     monkeypatch.setattr(tgk, "device_limits", lambda device: H100_LIMITS)
     asked = []
 
@@ -213,15 +215,24 @@ def test_k3_launch_plan_lanes(monkeypatch):
                        rng_mode="parallel")
     scene = rt.final_world(n=4000, device="cpu")
     bvh = rt.build_bvh(scene, leaf_size=64)
-    stage, plan = tgk.launch_plan(cfg, 400, bvh, True, "cpu")
+    sp = torch.zeros(tmk.SCENE_ROWS, int(bvh.perm.shape[0]))
+    stage, plan = tgk.launch_plan(cfg, 400, sp, bvh, True)
     assert stage == tgk.k3_stage(bvh, "cpu") and asked == [stage["bytes"]]
     assert plan == tgk.refill_plan(cfg, 400, lanes("cpu", stage["bytes"]))
-    assert tgk.launch_plan(cfg, 400, bvh, True, "cpu") == (stage, plan)
-    assert tgk.launch_plan(cfg, 400, bvh, False, "cpu") == (stage, None)
-    for other in (None, tbvh.with_sweep(bvh, "walk")):
-        st, pl = tgk.launch_plan(cfg, 400, other, True, "cpu")
-        assert st["bytes"] == 0 and asked[-1] == 0
-        assert pl == tgk.refill_plan(cfg, 400, 132 * 512)
+    assert tgk.launch_plan(cfg, 400, sp, bvh, True) == (stage, plan)
+    assert tgk.launch_plan(cfg, 400, sp, bvh, False) == (stage, None)
+    st, pl = tgk.launch_plan(cfg, 400, sp, tbvh.with_sweep(bvh, "walk"),
+                             True)
+    assert st["bytes"] == 0 and asked[-1] == 0
+    assert pl == tgk.refill_plan(cfg, 400, 132 * 512)
+    for n, staged in ((4, 64), (2600, 41600), (4096, 65536), (4097, 0)):
+        sp = torch.zeros(tmk.SCENE_ROWS, n)
+        st, pl = tgk.launch_plan(cfg, 400, sp, None, True)
+        assert st == {"leaves": 0, "outliers": 0, "boxes": 0,
+                      "bytes": staged} and asked[-1] == staged
+        assert pl == tgk.refill_plan(cfg, 400, lanes("cpu", staged))
+        assert tgk.launch_plan(cfg, 400, sp, None, True) == (st, pl)
+        assert tgk.launch_plan(cfg, 400, sp, None, False) == (st, None)
 
 
 @pytest.mark.parametrize("aperture", [0.0, 0.3], ids=["pinhole", "defocus"])
