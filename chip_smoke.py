@@ -144,19 +144,22 @@ card 0 without it).  Phases, one JSON line each:
         of the spp (the launch's tail), beside the loop efficiency of the
         per-sample loop it replaced (from the frame's K4 tape); ptxas's
         registers and spills of the dense instantiations;
-    8b. every K5 launch of a ``render(backend="wavefront")`` frame against
-        its plain version, bit for bit, brute (config 2's scene), dense
-        (REFERENCE_V2's), flat BVH (config 4's) and walk (the 10k scene),
-        and every K6 launch of a ``refill=2`` frame (config 4's), each at
-        its main path's full frame and RNG mode at 2 spp (the slots do not
-        depend on spp); the other RNG mode and K6 under the other policies
-        at frames a few hundred pixels wide; K5/dense's launches at
-        REFERENCE_V2 also summed by segment;
+    8b. every K5 launch of a ``render(backend="wavefront")`` frame and
+        every K6 launch of a ``refill=2`` frame against its plain version,
+        bit for bit, brute (config 2's scene), dense (REFERENCE_V2's), flat
+        BVH (config 4's) and walk (the 10k scene), each at its main path's
+        full frame and RNG mode (8c) at 2 spp (the slots do not depend on
+        spp); K5 in the other RNG mode at frames a few hundred pixels
+        wide, and both over 4097 spheres (the brute sweep's pack
+        instantiations); K5/dense's launches at REFERENCE_V2 also summed
+        by segment (the cases: ``segment_cases()``);
     8c. the main path at full width: ``render(backend="wavefront")`` at
         REFERENCE_V2, config 2, config 4 (sequential; parallel with
-        ``refill=2`` at 1 and 4 samples in flight) and the 10k scene,
-        against ``render()`` (bit-equal at one slot a pixel), with their
-        launches by variant; ``render_grad(backend="wavefront")`` and a
+        ``refill=2`` at 1 and 4 samples in flight), the 10k scene, and
+        with ``refill=2`` (parallel) at config 2, REFERENCE_V2 and the
+        10k scene (K6 under the other policies), against ``render()``
+        (bit-equal at one slot a pixel), with their launches by variant;
+        ``render_grad(backend="wavefront")`` and a
         wavefront image's K3 gradients against the megakernel path's, in
         sequential RNG and in parallel RNG (``refill=2``; K3 on its windowed
         refill); ``cli render --backend wavefront --refill 2`` (PNG
@@ -164,7 +167,10 @@ card 0 without it).  Phases, one JSON line each:
     8d. times (CUDA events, a warm-up call, then each call's time): K1e,
         the wavefront against the megakernel per frame, and
         where a traced wavefront frame's device time goes (segments, sorts,
-        gathers, the rest) with the device's idle share of that call.
+        gathers, the rest) with the device's idle share of that call;
+    8e. segment_redesign: ptxas's registers and spills of every K5 and K6
+        instantiation (flat sweep, walk, staged rows, pack) and what the
+        flat segments stage of config 4's BVH.
 9.  K3's windowed refill (raytpu's parallel-RNG backward):
     9a. the refill against the per-sample pass on the same operands (image
         bit-equal, every leaf within raytpu's 3e-5) and against the plain
@@ -188,6 +194,9 @@ card 0 without it).  Phases, one JSON line each:
         their bounds, ptxas's registers and spills of every K3
         instantiation, what K3 stages of config 4's BVH in shared memory
         within this card's limits, and the refill's lanes with it.
+
+``compare_trees.py`` compares two checkouts on one card (their outputs,
+K5's and K6's times) with this file's helpers and tables.
 
 It exits non-zero at the first failure.  The line before the last is the
 card's name and power limit, the line before it the kernel table as JSON
@@ -339,226 +348,20 @@ def cuda_ms(fn, iters: int) -> float:
     return sum(each) / iters
 
 
-def launch_split(fn, iters: int = 50) -> dict:
-    """Where the time of a launch ``fn`` goes, from CUDA events after a
-    warm-up call: ``queued_ms``, the mean of ``iters`` calls made back to
-    back between one pair of events (the host runs ahead, so this is the
-    device's time a call: the kernels it launches and the gaps between
-    them); ``alone_ms``, the mean of calls made one at a time after a
-    synchronize (the host's share included: the device waits for it);
-    ``host_us``, the host's time to make one call, queued."""
-    fn()
-    torch.cuda.synchronize()
-    start, stop = (torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True))
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    host_us = (time.perf_counter() - t0) / iters * 1e6
-    torch.cuda.synchronize()
-    queued = start.elapsed_time(stop) / iters
-    alone = []
-    for _ in range(iters // 5):
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        alone.append(start.elapsed_time(stop))
-    return {"queued_ms": queued, "alone_ms": sum(alone) / len(alone),
-            "host_us": host_us}
+PACK_SPHERES = 4097    # one past the brute sweep's stage: it reads the pack
 
 
-def k1a_split() -> None:
-    """K1a on config 2 (400x200, 20 spp, depth 12, 4 spheres), split:
-    :func:`launch_split` of ``megakernel.launch`` and of ``render()``,
-    and the kernel's own device time (:func:`kernel_ms`, the only
-    profiler trace of the process), for the ``raytpu_torch`` beside this
-    file.  One JSON line.  To compare checkouts on one card, copy this
-    file into each and run it there, one process each, in turns:
-
-        python3 -c 'import chip_smoke; chip_smoke.k1a_split()'
-    """
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this run needs a card")
-    sys.path.insert(0, ROOT)
+def spheres_scene(n: int, dev, seed: int = 5):
+    """``n`` spheres of every material at random in a 20-unit box, from a
+    seed."""
     import raytpu_torch as rt
-    from raytpu_torch.config import CONFIG2
-    from raytpu_torch.kernels import megakernel
-
-    dev = torch.device("cuda", 0)
-    scene = rt.config2_world(device=dev)
-    cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                         aspect=CONFIG2.aspect, device=dev)
-    cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
-    k1a = launch_split(lambda: megakernel.launch(cp, sp, CONFIG2))
-    render = launch_split(lambda: rt.render(scene, cam, CONFIG2))
-    own = kernel_ms(lambda: megakernel.launch(cp, sp, CONFIG2),
-                    "render_fwd_kernel")
-    phase("k1a_split", root=ROOT, card=card_line(),
-          frame="400x200 spp20 d12 sequential, 4 spheres", k1a=k1a,
-          render=render, kernel_ms=own)
-
-
-def brute_outputs(path: str) -> None:
-    """Every brute-sweep output of the ``raytpu_torch`` beside this file on
-    fixed inputs, saved to ``path`` (torch.save: a SHA-256 of each output's
-    bytes, shape and dtype, and the tensor itself up to 2^22 elements), for
-    a comparison of two checkouts (:func:`compare_outputs`): the forward's
-    image, census counts, taping image and tape, K2's sums and seeds (both
-    RNG modes; 50x21, slabs past and across the frame's edge, 2x2, 1003x301
-    at 1 spp, config 2, REFERENCE_V2 at 4 spp, 4097 spheres (the scene
-    pack), 500 spheres), and K3's image, f32 gradients and f64 sums (config
-    3 with and without ``vis_w``, both PASS 2 schedules taped and not,
-    REFERENCE_V2 at 2 spp in both RNG modes, 4097 spheres).  Copy this file
-    into each checkout and run it there, one process each:
-
-        python3 -c 'import chip_smoke; chip_smoke.brute_outputs("a.pt")'
-    """
-    import hashlib
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this run needs a card")
-    sys.path.insert(0, ROOT)
-    import raytpu_torch as rt
-    from raytpu_torch import golden, optim
-    from raytpu_torch.config import CONFIG2, CONFIG3, REFERENCE_V2, \
-        RenderConfig
-    from raytpu_torch.kernels import _build, gradkernel, megakernel
-
-    dev = torch.device("cuda", 0)
-    _build.load_all([megakernel.SOURCE, gradkernel.SOURCE])
-    out = {}
-
-    def spheres(n, seed=5):
-        g = torch.Generator().manual_seed(seed)
-        return rt.Scene(
-            (torch.rand(n, 3, generator=g) * 20 - 10).to(dev),
-            (torch.rand(n, generator=g) * 0.3 + 0.05).to(dev),
-            torch.randint(0, 3, (n,), generator=g, dtype=torch.int32).to(dev),
-            torch.rand(n, 3, generator=g).to(dev),
-            (torch.rand(n, generator=g) + 1.0).to(dev))
-
-    def cam_of(cfg, **kw):
-        return rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                              aspect=cfg.aspect, device=dev, **kw)
-
-    def forward_set(tag, scene, cam, cfg, row0=0, rows=None):
-        cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
-        r = rows or cfg.height
-        out[f"{tag}/img"] = megakernel.launch(cp, sp, cfg, row0=row0,
-                                              rows=rows)
-        out[f"{tag}/census"] = megakernel.launch(cp, sp, cfg, count=True,
-                                                 row0=row0, rows=rows)[1]
-        tape = torch.full((cfg.spp * cfg.depth, r * cfg.width),
-                          golden.TAPE_UNWRITTEN,
-                          dtype=golden.tape_dtype(sp.shape[1]), device=dev)
-        out[f"{tag}/tape_img"] = megakernel.launch(cp, sp, cfg, tape=tape,
-                                                   row0=row0, rows=rows)
-        out[f"{tag}/tape"] = tape
-        gen = torch.Generator().manual_seed(3)
-        acc = torch.rand((r, cfg.width, 3), generator=gen).to(dev)
-        seed = torch.randint(-2**31, 2**31 - 1, (r, cfg.width), generator=gen,
-                             dtype=torch.int32).to(dev)
-        out[f"{tag}/k2_acc"], out[f"{tag}/k2_seed"] = \
-            megakernel.launch_accumulate(cp, sp, cfg, acc, seed, 7, 3, None,
-                                         row0, rows)
-
-    def vjp_set(tag, scene, cam, cfg, vis_w=0.0, tape=False, p2=None):
-        img = rt.render(scene, cam, cfg)
-        gen = torch.Generator().manual_seed(11)
-        ct = (2.0 * (img - torch.rand(img.shape, generator=gen).to(dev))
-              / img.numel())
-        kw = dict(img=img if cfg.rng_mode == "parallel" else None,
-                  vis_w=vis_w, p2_refill=p2)
-        if tape:
-            kw["tape"] = gradkernel.render_tape_fwd(scene, cam, cfg,
-                                                    cfg.spp * cfg.depth)[1]
-        o = gradkernel.render_vjp(scene, cam, cfg, ct, **kw)
-        out[f"{tag}/vjp_img"] = o[0]
-        for k in ("center", "radius", "albedo", "mat_param"):
-            out[f"{tag}/d_{k}"] = getattr(o[1], k)
-        for k, v in zip(rt.Camera._fields, o[2]):
-            out[f"{tag}/d_cam_{k}"] = v
-        cp, sp = megakernel.pack_camera(cam), megakernel.pack_scene(scene)
-        _, out[f"{tag}/f64_sphere_sums"], out[f"{tag}/f64_cam_sums"] = \
-            gradkernel.launch(cp, sp, cfg, ct, kw["img"], vis_w, None,
-                              kw.get("tape"), p2_refill=p2)
-
-    tw = rt.test_world(device=dev)
-    for mode in ("sequential", "parallel"):
-        c = RenderConfig(width=50, height=21, spp=3, depth=6, rng_mode=mode)
-        forward_set(f"{mode}/50x21", tw, cam_of(c, aperture=0.1,
-                                                focus_dist=10.0), c)
-        forward_set(f"{mode}/slab_past", tw, cam_of(c), c, 21, 1)
-        forward_set(f"{mode}/slab_edge", tw, cam_of(c), c, 18, 5)
-        c = RenderConfig(width=2, height=2, spp=3, depth=50, rng_mode=mode)
-        forward_set(f"{mode}/2x2", tw, cam_of(c), c)
-        c = RenderConfig(width=1003, height=301, spp=1, depth=8,
-                         rng_mode=mode)
-        forward_set(f"{mode}/1003x301", tw, cam_of(c), c)
-        c = CONFIG2.replace(rng_mode=mode)
-        forward_set(f"{mode}/config2", rt.config2_world(device=dev),
-                    cam_of(c), c)
-        c = REFERENCE_V2.replace(spp=4, rng_mode=mode)
-        forward_set(f"{mode}/rv2_spp4", rt.random_world(device=dev),
-                    rt.reference_camera_v2(c.aspect, device=dev), c)
-        c = RenderConfig(width=64, height=32, spp=2, depth=4, rng_mode=mode)
-        forward_set(f"{mode}/pack4097", spheres(4097), cam_of(c), c)
-        c = RenderConfig(width=480, height=270, spp=4, depth=12,
-                         rng_mode=mode)
-        forward_set(f"{mode}/final500", rt.final_world(device=dev),
-                    cam_of(c), c)
-    _, s3, c3, _, _ = optim.inverse_render_problem(CONFIG3, device=dev)
-    vjp_set("config3", s3, c3, CONFIG3)
-    vjp_set("config3_vis_w", s3, c3, CONFIG3, vis_w=VIS_W)
-    c2p = CONFIG2.replace(rng_mode="parallel")
-    c2w = rt.config2_world(device=dev)
-    vjp_set("config2_refill", c2w, cam_of(c2p), c2p)
-    vjp_set("config2_per_sample", c2w, cam_of(c2p), c2p, p2=False)
-    c = RenderConfig(width=200, height=100, spp=4, depth=8,
-                     rng_mode="parallel")
-    fw = rt.final_world(device=dev)
-    vjp_set("final500_refill_tape", fw, cam_of(c), c, tape=True)
-    vjp_set("final500_per_sample_tape", fw, cam_of(c), c, tape=True, p2=False)
-    vjp_set("final500_refill_vis_w", fw, cam_of(c), c, vis_w=VIS_W)
-    c = REFERENCE_V2.replace(spp=2)
-    rw = rt.random_world(device=dev)
-    rcam = rt.reference_camera_v2(c.aspect, device=dev)
-    vjp_set("rv2_spp2_seq", rw, rcam, c)
-    vjp_set("rv2_spp2_refill", rw, rcam, c.replace(rng_mode="parallel"))
-    c = RenderConfig(width=64, height=32, spp=2, depth=4, rng_mode="parallel")
-    vjp_set("pack4097_refill", spheres(4097), cam_of(c), c)
-    vjp_set("pack4097_seq_vis_w", spheres(4097), cam_of(c),
-            c.replace(rng_mode="sequential"), vis_w=VIS_W)
-    torch.cuda.synchronize()
-    saved = {}
-    for k, v in out.items():
-        v = v.detach().contiguous().cpu()
-        saved[k] = {"sha": hashlib.sha256(v.numpy().tobytes()).hexdigest()
-                    + str(tuple(v.shape)) + str(v.dtype),
-                    "t": v if v.numel() <= 2**22 else None}
-    torch.save(saved, path)
-    phase("brute_outputs", root=ROOT, outputs=len(saved), path=path)
-
-
-def compare_outputs(a: str, b: str) -> None:
-    """Two :func:`brute_outputs` files compared: one JSON line with the
-    outputs counted, whether both hold the same ones, and each output that
-    differs with its largest |a - b| ("differs" where either was saved
-    without its tensor or the shapes differ)."""
-    a, b = torch.load(a), torch.load(b)
-    differ = {}
-    for k in a:
-        if k in b and a[k]["sha"] == b[k]["sha"]:
-            continue
-        ta, tb = a[k]["t"], b.get(k, {}).get("t")
-        differ[k] = (float((ta.double() - tb.double()).abs().max())
-                     if ta is not None and tb is not None
-                     and ta.shape == tb.shape else "differs")
-    phase("compare_outputs", outputs=len(a), same_keys=set(a) == set(b),
-          differ=differ)
+    g = torch.Generator().manual_seed(seed)
+    return rt.Scene(
+        (torch.rand(n, 3, generator=g) * 20 - 10).to(dev),
+        (torch.rand(n, generator=g) * 0.3 + 0.05).to(dev),
+        torch.randint(0, 3, (n,), generator=g, dtype=torch.int32).to(dev),
+        torch.rand(n, 3, generator=g).to(dev),
+        (torch.rand(n, generator=g) + 1.0).to(dev))
 
 
 def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -1418,15 +1221,18 @@ def state_bytes(cfg, rows: int) -> int:
 # the flat sweep's forward instantiations and the dense stage's, by their
 # template arguments in the mangled names: render_fwd_kernel<kHit (kFlat 1,
 # kDense 3), kTape, kCount, kCarry>, render_segment_kernel<kHit> (K5) and
-# render_refill_kernel<kHit> (K6)
+# render_refill_kernel<kHit> (K6; under the dense stage, and the brute
+# sweep's segments up to 4096 spheres)
 FLAT_KERNELS = {"K1c, K1b/bvh": "render_fwd_kernelILi1ELi0ELb0ELb0E",
                 "K1'/bvh": "render_fwd_kernelILi1ELi0ELb1ELb0E",
                 "K2/bvh": "render_fwd_kernelILi1ELi0ELb0ELb1E",
                 "K4/bvh": "render_fwd_kernelILi1ELi1ELb0ELb0E"}
 DENSE_KERNELS = {"K1e, K1b/dense": "render_fwd_kernelILi3ELi0ELb0ELb0E",
                  "K1'/dense": "render_fwd_kernelILi3ELi0ELb1ELb0E",
-                 "K5/dense": "render_segment_kernelILi3EE",
-                 "K6/dense": "render_refill_kernelILi3EE"}
+                 "K5/dense, K5/brute (staged)":
+                     "render_segment_kernelILi3EE",
+                 "K6/dense, K6/brute (staged)":
+                     "render_refill_kernelILi3EE"}
 
 
 def flat_ptxas(lines: list, kernels: dict = FLAT_KERNELS) -> dict:
@@ -2839,6 +2645,97 @@ def planes_vs_plain(kernel: str, got: torch.Tensor,
     return same, float((a - b).abs().max())
 
 
+def ten_k_frame():
+    """The 10k scene's wavefront frame: 800x400, 20 spp, depth 12, parallel
+    RNG."""
+    from raytpu_torch.config import RenderConfig
+    return RenderConfig(width=800, height=400, spp=20, depth=12,
+                        rng_mode="parallel")
+
+
+def wavefront_scenes(dev) -> dict:
+    """The wavefront's scenes by the policy each takes -> {policy: (scene,
+    camera, bvh)}: config 2's 4 spheres ("brute"), REFERENCE_V2's 327
+    ("dense"), config 4's 500 over its flat BVH ("bvh"), the 10k scene over
+    its walk ("walk", config 4's camera) and PACK_SPHERES spheres ("pack",
+    the brute sweep's pack instantiations, config 2's camera)."""
+    import raytpu_torch as rt
+    from raytpu_torch import bvh as tbvh
+    from raytpu_torch.config import CONFIG2, CONFIG4, REFERENCE_V2
+    cam2 = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                          aspect=CONFIG2.aspect, device=dev)
+    cam4 = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                          aspect=CONFIG4.aspect, device=dev)
+    s4 = rt.final_world(device=dev)
+    b4 = rt.build_bvh(s4, leaf_size=LEAF)
+    s10 = rt.make_scene(big_world(BIG_SPHERES), dev)
+    b10 = rt.build_bvh(s10, leaf_size=LEAF)
+    if (tbvh.sweep_of(b4), tbvh.sweep_of(b10)) != ("flat", "walk"):
+        fail("config 4's BVH must take the flat sweep, the 10k scene's the "
+             "walk")
+    return {"brute": (rt.config2_world(device=dev), cam2, None),
+            "dense": (rt.random_world(device=dev), rt.reference_camera_v2(
+                REFERENCE_V2.aspect, device=dev), None),
+            "bvh": (s4, cam4, b4), "walk": (s10, cam4, b10),
+            "pack": (spheres_scene(PACK_SPHERES, dev), cam2, None)}
+
+
+def segment_cases() -> tuple:
+    """Phase 8b's cases, (scene's policy, frame, RNG mode, refill): K5 and
+    K6 (``refill=2``) under every policy at its main path's full frame
+    (:func:`wavefront_runs`), K5 in the other RNG mode at a frame a few
+    hundred pixels wide, and both over the pack.  Run at 2 spp: the slots
+    do not depend on spp."""
+    from raytpu_torch.config import CONFIG2, CONFIG4, REFERENCE_V2
+    seq, par = "sequential", "parallel"
+    c10, small = ten_k_frame(), CONFIG2.replace(width=200, height=100)
+    return (("brute", CONFIG2, seq, 0), ("brute", CONFIG2, par, 2),
+            ("dense", REFERENCE_V2, seq, 0), ("dense", REFERENCE_V2, par, 2),
+            ("bvh", CONFIG4, seq, 0), ("bvh", CONFIG4, par, 2),
+            ("walk", c10, par, 0), ("walk", c10, par, 2),
+            ("brute", small, par, 0),
+            ("dense", REFERENCE_V2.replace(width=256, height=144), par, 0),
+            ("bvh", CONFIG4.replace(width=200, height=100), par, 0),
+            ("walk", c10.replace(width=128, height=64), seq, 0),
+            ("pack", small, seq, 0), ("pack", small, par, 2))
+
+
+def wavefront_runs() -> tuple:
+    """Phases 8c's and 8d's main paths at full width, (name, scene's
+    policy, frame, ``render()`` options): REFERENCE_V2, config 2, config 4
+    (sequential RNG; parallel with ``refill=2`` at 1 and 4 samples in
+    flight) and the 10k scene, each policy also with ``refill=2``."""
+    from raytpu_torch.config import CONFIG2, CONFIG4, REFERENCE_V2
+    par, c10 = "parallel", ten_k_frame()
+    r2 = {"refill": 2}
+    return (("reference_v2", "dense", REFERENCE_V2, {}),
+            ("config2", "brute", CONFIG2, {}),
+            ("config4", "bvh", CONFIG4, {}),
+            ("config4_refill2", "bvh", CONFIG4.replace(rng_mode=par), r2),
+            ("config4_refill2_spp_batch4", "bvh",
+             CONFIG4.replace(rng_mode=par), {"refill": 2, "spp_batch": 4}),
+            ("10k", "walk", c10, {}),
+            ("config2_refill2", "brute", CONFIG2.replace(rng_mode=par), r2),
+            ("reference_v2_refill2", "dense",
+             REFERENCE_V2.replace(rng_mode=par), r2),
+            ("10k_refill2", "walk", c10, r2))
+
+
+def segment_launches(scene, cam, cfg, bvh, refill: int):
+    """One ``render(backend="wavefront")`` frame with its K5 (or, with
+    ``refill``, K6) launches recorded -> (image, the wrapper, [(bound
+    arguments, planes out), ...])."""
+    import raytpu_torch as rt
+    from raytpu_torch.kernels import wavefront as kwf
+    name = "launch_refill_segment" if refill else "launch_segment"
+    calls = []
+    with recording(kwf, name, calls):
+        img = rt.render(scene, cam, cfg, backend="wavefront", bvh=bvh,
+                        refill=refill)
+    torch.cuda.synchronize()
+    return img, getattr(kwf, name), calls
+
+
 def segments_vs_plain(label, scene, cam, cfg, bvh, refill: int,
                       card: str, by_segment: bool = False) -> dict:
     """Phase 8b, one case: every K5 (or, with ``refill``, K6) launch of
@@ -2849,17 +2746,10 @@ def segments_vs_plain(label, scene, cam, cfg, bvh, refill: int,
     launches' times also summed by segment (``n_bounces``)."""
     import raytpu_torch as rt
     from raytpu_torch import profiling, wavefront as wf
-    from raytpu_torch.kernels import wavefront as kwf
     kernel = "K6" if refill else "K5"
-    name = "launch_refill_segment" if refill else "launch_segment"
     plain = wf.refill_segment_plain if refill else wf.segment_plain
-    calls = []
-    with recording(kwf, name, calls):
-        img = rt.render(scene, cam, cfg, backend="wavefront", bvh=bvh,
-                        refill=refill)
-    torch.cuda.synchronize()
+    img, fn, calls = segment_launches(scene, cam, cfg, bvh, refill)
     ref = rt.render(scene, cam, cfg, bvh=bvh)
-    fn = getattr(kwf, name)
     same, worst, k_ms, p_ms, by = True, 0.0, 0.0, 0.0, {}
     for b, out in calls:
         want, ms = once_ms(lambda: plain(*b.args))
@@ -2932,25 +2822,54 @@ def wavefront_breakdown(fn) -> dict:
                 idle_share=1.0 - busy / wall)
 
 
+def frame_times(scenes: dict, runs, engines=("wavefront", "megakernel"),
+                **t) -> dict:
+    """Phase 8d: each of ``runs`` (:func:`wavefront_runs`) through each of
+    ``engines`` (``render(backend="wavefront")`` with the run's options;
+    ``render()``), the mean of TIMED_FRAMES calls after a warm-up with each
+    call's time, the wavefront's over the megakernel's; then where a traced
+    wavefront frame's device time goes (:func:`wavefront_breakdown`; one
+    sample in flight) -> ``t`` with those entries."""
+    import raytpu_torch as rt
+    for label, policy, c, kw in runs:
+        scene, cam, b = scenes[policy]
+        for engine in engines:
+            extra = dict(backend="wavefront", **kw) \
+                if engine == "wavefront" else {}
+            each = cuda_ms_each(lambda: rt.render(scene, cam, c, bvh=b,
+                                                  **extra), TIMED_FRAMES)
+            t[f"{label}_{engine}_ms"] = sum(each) / TIMED_FRAMES
+            t[f"{label}_{engine}_ms_each"] = each
+        if "megakernel" in engines:
+            t[f"{label}_ratio"] = (t[f"{label}_wavefront_ms"]
+                                   / t[f"{label}_megakernel_ms"])
+    for label, policy, c, kw in runs:
+        if "spp_batch" in kw:
+            continue
+        scene, cam, b = scenes[policy]
+        t[f"{label}_breakdown"] = wavefront_breakdown(lambda: rt.render(
+            scene, cam, c, backend="wavefront", bvh=b, **kw))
+    return t
+
+
 def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
     """Phases 8a-8d (see the module docstring) -> the kernel table's
-    entries K1e, K5/{brute,dense,bvh,walk} and K6/bvh, each with its
-    launches on its main path.  ``rv2_img``: phase 3's REFERENCE_V2
-    render()."""
+    entries K1e, K5/{brute,dense,bvh,walk} and K6/{brute,dense,bvh,walk},
+    each with its launches on its main path.  ``rv2_img``: phase 3's
+    REFERENCE_V2 render()."""
     import raytpu_torch as rt
-    from raytpu_torch import bvh as tbvh, golden, io
-    from raytpu_torch.config import CONFIG2, CONFIG4, REFERENCE_V2, \
-        RenderConfig
+    from raytpu_torch import golden, io
+    from raytpu_torch.config import CONFIG2, CONFIG4, REFERENCE_V2
     from raytpu_torch.kernels import _build, gradkernel, megakernel
     from raytpu_torch.kernels import wavefront as kwf
     mods = (megakernel, gradkernel, kwf)
     entries = {}
+    scenes = wavefront_scenes(dev)
 
     # -- 8a: K1e (the brute sweep's kernel) against phase 3's render() and
     # its plain version, REFERENCE_V2
     cfg = REFERENCE_V2
-    rv2 = rt.random_world(device=dev)
-    cam_rv2 = rt.reference_camera_v2(cfg.aspect, device=dev)
+    rv2, cam_rv2, _ = scenes["dense"]
     cp, sp = megakernel.pack_camera(cam_rv2), megakernel.pack_scene(rv2)
     k1e = megakernel.launch(cp, sp, cfg)
     cfg2 = cfg.replace(spp=2, chunk_pixels=PLAIN_CHUNK)
@@ -3003,64 +2922,26 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         efficiency_cell="REFERENCE_V2, the main path's frame")
     del k1e, k1e2, want
 
-    # the other scenes: config 2 (4 spheres), config 4 over its BVH (flat),
-    # the 10k scene over its BVH (the walk)
-    c2w = rt.config2_world(device=dev)
-    cam2 = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                          aspect=CONFIG2.aspect, device=dev)
-    s4 = rt.final_world(device=dev)
-    cam4 = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
-                          aspect=CONFIG4.aspect, device=dev)
-    b4 = rt.build_bvh(s4, leaf_size=LEAF)
-    s10 = rt.make_scene(big_world(BIG_SPHERES), dev)
-    b10 = rt.build_bvh(s10, leaf_size=LEAF)
-    if (tbvh.sweep_of(b4), tbvh.sweep_of(b10)) != ("flat", "walk"):
-        fail("config 4's BVH must take the flat sweep, the 10k scene's the "
-             "walk")
-
-    # -- 8b: K5 and K6 against their plain versions, launch by launch: at
-    # each main path's full frame and RNG mode (8c), 2 spp; the other RNG
-    # mode and K6 under the other policies on smaller frames
-    cfg4, cfg4p = CONFIG4, CONFIG4.replace(rng_mode="parallel")
-    cfg10 = RenderConfig(width=800, height=400, spp=20, depth=12,
-                         rng_mode="parallel")
-    scenes = {"brute": (c2w, cam2, None), "dense": (rv2, cam_rv2, None),
-              "bvh": (s4, cam4, b4), "walk": (s10, cam4, b10)}
-    cases = (("brute", CONFIG2, (("sequential", 0),)),
-             ("dense", cfg, (("sequential", 0),)),
-             ("bvh", cfg4, (("sequential", 0), ("parallel", 2))),
-             ("walk", cfg10, (("parallel", 0),)),
-             ("brute", CONFIG2.replace(width=200, height=100),
-              (("parallel", 0), ("parallel", 2))),
-             ("dense", cfg.replace(width=256, height=144),
-              (("parallel", 0), ("parallel", 2))),
-             ("bvh", cfg4.replace(width=200, height=100), (("parallel", 0),)),
-             ("walk", cfg10.replace(width=128, height=64),
-              (("sequential", 0), ("parallel", 2))))
+    # -- 8b: K5 and K6 against their plain versions, launch by launch
     seg_rows = {}
-    for label, c, modes in cases:
-        for mode, refill in modes:
-            cm = c.replace(spp=2, rng_mode=mode, chunk_pixels=PLAIN_CHUNK)
-            seg_rows[(label, mode, refill)] = segments_vs_plain(
-                label, *scenes[label][:2], cm, scenes[label][2], refill, card,
-                by_segment=label == "dense" and c is cfg)
+    for policy, c, mode, refill in segment_cases():
+        scene, cam, b = scenes[policy]
+        cm = c.replace(spp=2, rng_mode=mode, chunk_pixels=PLAIN_CHUNK)
+        seg_rows[(policy, mode, refill)] = segments_vs_plain(
+            policy, scene, cam, cm, b, refill, card,
+            by_segment=policy == "dense" and c is cfg and not refill)
 
     # -- 8c: the main path at full width, through the entry points
-    runs = (("reference_v2", rv2, cam_rv2, cfg, None, {}, rv2_img),
-            ("config2", c2w, cam2, CONFIG2, None, {}, None),
-            ("config4", s4, cam4, cfg4, b4, {}, None),
-            ("config4_refill2", s4, cam4, cfg4p, b4, {"refill": 2}, None),
-            ("config4_refill2_spp_batch4", s4, cam4, cfg4p, b4,
-             {"refill": 2, "spp_batch": 4}, None),
-            ("10k", s10, cam4, cfg10, b10, {}, None))
+    runs = wavefront_runs()
     launches, main, frames = {}, {}, {}
-    for label, scene, cam, c, b, kw, ref in runs:
+    for label, policy, c, kw in runs:
+        scene, cam, b = scenes[policy]
         reset_counts(*mods)
         img = rt.render(scene, cam, c, backend="wavefront", bvh=b, **kw)
         torch.cuda.synchronize()
         launches[label] = variant_counts(*mods)
-        if ref is None:
-            ref = rt.render(scene, cam, c, bvh=b)
+        ref = rv2_img if label == "reference_v2" else rt.render(
+            scene, cam, c, bvh=b)
         d = float((img - ref).abs().max())
         main[label] = {"bit_equal_render": torch.equal(img, ref),
                        "max_abs_vs_render": d, "mean": float(img.mean()),
@@ -3068,6 +2949,8 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         frames[label] = img
     # render_grad through the wavefront backend: the kernel path (K3, on
     # its windowed refill in parallel RNG), against render_grad's
+    s4, cam4, b4 = scenes["bvh"]
+    cfg4, cfg4p = CONFIG4, CONFIG4.replace(rng_mode="parallel")
     gen = torch.Generator().manual_seed(7)
     target = torch.rand((cfg4.height, cfg4.width, 3), generator=gen).to(dev)
     rg_rel, rg_img_equal, grad_rel = {}, {}, {}
@@ -3130,12 +3013,15 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         "reference_v2": {"K5/dense": cfg.spp * 3},
         "config2": {"K5/brute": CONFIG2.spp * 2},
         "config4": {"K5/bvh": cfg4.spp * 2},
-        "10k": {"K5/walk": cfg10.spp * 2},
+        "10k": {"K5/walk": ten_k_frame().spp * 2},
         "render_grad": {"K1c": 1, "K3/bvh": 1},
         "render_grad_parallel": {"K4/bvh": 1, "K3/bvh+refill+tape": 1},
         "wavefront_autograd": {"K5/bvh": 2 * 2, "K3/bvh": 1}}
-    rounds = {k: launches[k].get("K6/bvh", 0) for k in
-              ("config4_refill2", "config4_refill2_spp_batch4")}
+    refill_runs = {"config4_refill2": "bvh", "config4_refill2_spp_batch4":
+                   "bvh", "config2_refill2": "brute",
+                   "reference_v2_refill2": "dense", "10k_refill2": "walk"}
+    rounds = {k: launches[k].get(f"K6/{p}", 0)
+              for k, p in refill_runs.items()}
     wf_par = launches["wavefront_autograd_parallel"]
     row = {"launches": launches, "runs": main,
            "render_grad_vs_auto_rel": rg_rel,
@@ -3144,8 +3030,8 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
            "cli_png_identical_to_render": cli_same,
            "command": " ".join(cmd[1:-1])}
     ok = (all(launches[k] == v for k, v in want_launches.items())
-          and all(launches[k] == {"K6/bvh": rounds[k]} and rounds[k] > 0
-                  for k in rounds)
+          and all(launches[k] == {f"K6/{p}": rounds[k]} and rounds[k] > 0
+                  for k, p in refill_runs.items())
           and all(r["finite"] for r in main.values())
           and all(main[k]["bit_equal_render"] for k in main
                   if "spp_batch" not in k)
@@ -3165,22 +3051,9 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         fail(f"the wavefront's main path: {row}")
     del frames
 
-    # -- 8d: times, the wavefront against the megakernel: the mean of
-    # TIMED_FRAMES calls after a warm-up, each call's time beside it
-    t = {"card": card}
-    for label, scene, cam, c, b, kw, _ in runs:
-        for engine, extra in (("wavefront", dict(backend="wavefront", **kw)),
-                              ("megakernel", {})):
-            each = cuda_ms_each(lambda: rt.render(scene, cam, c, bvh=b,
-                                                  **extra), TIMED_FRAMES)
-            t[f"{label}_{engine}_ms"] = sum(each) / TIMED_FRAMES
-            t[f"{label}_{engine}_ms_each"] = each
-        t[f"{label}_ratio"] = (t[f"{label}_wavefront_ms"]
-                               / t[f"{label}_megakernel_ms"])
-    for label, scene, cam, c, b, kw, _ in runs[:4] + runs[5:]:
-        t[f"{label}_breakdown"] = wavefront_breakdown(lambda: rt.render(
-            scene, cam, c, backend="wavefront", bvh=b, **kw))
-    t.update(k1e_ms=entries["K1e"]["main_path_ms"])
+    # -- 8d: times, the wavefront against the megakernel
+    t = frame_times(scenes, runs, card=card,
+                    k1e_ms=entries["K1e"]["main_path_ms"])
     phase("timing_wavefront", frame="REFERENCE_V2, config 2, config 4 "
           "(sequential; parallel for refill), the 10k scene (parallel)", **t)
 
@@ -3202,17 +3075,59 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
             main_path_segments_ms=t[f"{main_run}_breakdown"]["segments_ms"])
         if "ms_by_segment" in r:
             entries[f"K5/{policy}"]["ms_by_segment"] = r["ms_by_segment"]
-    r = seg_rows[("bvh", "parallel", 2)]
-    entries["K6/bvh"] = dict(
-        cell=f"{r['frame']}, refill 2, all {r['launches']} launches of a "
-             "frame summed; main path: config 4 parallel, refill 2",
-        launches=rounds["config4_refill2"], max_abs_err=r["max_abs_err"],
-        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-        bound_by=r["bound_by"],
-        other_policies_bit_equal={p: seg_rows[(p, "parallel", 2)][
-            "bit_equal_plain"] for p in ("brute", "dense", "walk")},
-        main_path_frame_ms=t["config4_refill2_wavefront_ms"])
+    for policy, main_run in (("bvh", "config4_refill2"),
+                             ("brute", "config2_refill2"),
+                             ("dense", "reference_v2_refill2"),
+                             ("walk", "10k_refill2")):
+        r = seg_rows[(policy, "parallel", 2)]
+        entries[f"K6/{policy}"] = dict(
+            cell=f"{r['frame']}, refill 2, all {r['launches']} launches of "
+                 f"a frame summed; main path: {main_run} (parallel, refill "
+                 "2)",
+            launches=rounds[main_run], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"],
+            main_path_frame_ms=t[f"{main_run}_wavefront_ms"],
+            main_path_segments_ms=t[f"{main_run}_breakdown"]["segments_ms"])
+    pack = seg_rows[("pack", "sequential", 0)]
+    entries["K5/brute"]["pack_4097"] = {
+        k: pack[k] for k in ("frame", "launches", "ms", "plain_ms",
+                             "bound_ms", "bit_equal_plain")}
+    entries["K6/brute"]["pack_4097"] = {
+        k: seg_rows[("pack", "parallel", 2)][k]
+        for k in ("frame", "launches", "ms", "plain_ms", "bound_ms",
+                  "bit_equal_plain")}
     return entries
+
+
+# K5's and K6's instantiations, by their template argument kHit in the
+# mangled names: the flat sweep (1), the walk (2), the brute sweep over
+# staged rows (3: the dense stage, and brute segments up to 4096 spheres)
+# and over the pack (0)
+SEGMENT_KERNELS = {f"{k}/{form}": f"render_{fn}_kernelILi{hit}EE"
+                   for k, fn in (("K5", "segment"), ("K6", "refill"))
+                   for form, hit in (("bvh", 1), ("walk", 2),
+                                     ("staged", 3), ("pack", 0))}
+
+
+def segment_phase(dev, card: str) -> None:
+    """Phase 8e (segment_redesign): ptxas's registers and spills of every
+    K5 and K6 instantiation, and what K5/bvh and K6/bvh stage of config
+    4's BVH in shared memory (the forward's plan, ``stage_info``: its
+    blocks an SM are K1c's) beside the brute sweep's staged rows at
+    REFERENCE_V2's 327 spheres."""
+    import raytpu_torch as rt
+    from raytpu_torch.kernels import _build, megakernel
+    from raytpu_torch.kernels import wavefront as kwf
+    ptxas = flat_ptxas(_build.build_log[kwf.SOURCE]["ptxas"], SEGMENT_KERNELS)
+    bvh = rt.build_bvh(rt.final_world(device=dev), leaf_size=LEAF)
+    ok = len([k for k in ptxas if ptxas[k]]) == len(SEGMENT_KERNELS)
+    phase("segment_redesign", ok=ok, card=card, ptxas=ptxas,
+          config4_stage=stage_info(bvh, dev),
+          reference_v2_staged_bytes=megakernel.brute_stage_bytes(327))
+    if not ok:
+        fail(f"ptxas reported {sorted(ptxas)} of K5's and K6's "
+             "instantiations")
 
 
 # Phase 9: K3's windowed refill (raytpu's parallel-RNG backward)
@@ -3306,7 +3221,8 @@ def k3_phase(dev, card: str, entries: dict, vis: dict) -> None:
 # the brute sweep's instantiations, by their template arguments in the
 # mangled names: render_fwd_kernel<kHit (kDense 3: the rows staged; kBrute
 # 0: the scene pack), kTape, kCount, kCarry>, K3's (K3_KERNELS), and K5's
-# and K6's brute segments (the pack)
+# and K6's brute segments past 4096 spheres (the pack; the staged ones
+# are DENSE_KERNELS')
 BRUTE_KERNELS = {
     **{f"{k} ({form})": f"render_fwd_kernelILi{h}E{args}"
        for h, form in ((3, "staged"), (0, "pack"))
@@ -3314,8 +3230,8 @@ BRUTE_KERNELS = {
                        ("K1'", "Li0ELb1ELb0E"), ("K2", "Li0ELb0ELb1E"),
                        ("K4", "Li1ELb0ELb0E"))},
     **{k: v for k, v in K3_KERNELS.items() if k.startswith("K3/brute")},
-    "K5/brute": "render_segment_kernelILi0EE",
-    "K6/brute": "render_refill_kernelILi0EE"}
+    "K5/brute (pack)": "render_segment_kernelILi0EE",
+    "K6/brute (pack)": "render_refill_kernelILi0EE"}
 
 
 def brute_phase(dev, card: str, scene, cam, target,
@@ -4045,6 +3961,7 @@ def main() -> None:
 
     # -- phase 8: the dense stage K1e and the sorted wavefront (K5, K6)
     entries8 = wavefront_phases(dev, card, rv2_img)
+    segment_phase(dev, card)
 
     # -- phase 9: K3's windowed refill
     entries9, entries["K3/bvh+refill"]["launches"], main9 = refill_phases(
@@ -4190,11 +4107,12 @@ def main() -> None:
             route="cuda", source=wf_src,
             replaces="raytpu/wavefront.py:94 (_make_segment_kernel; "
                      "pallas_call :465)", library_ms=None, **entries8[key]))
-    table.append(dict(
-        name="render_refill_kernel<bvh> (K6, refill segment)", route="cuda",
-        source=wf_src, replaces="raytpu/wavefront.py:192 "
-        "(_make_refill_segment_kernel; pallas_call :546)", library_ms=None,
-        **entries8["K6/bvh"]))
+    for key in ("K6/brute", "K6/dense", "K6/bvh", "K6/walk"):
+        table.append(dict(
+            name=f"render_refill_kernel<{key[3:]}> (K6, refill segment)",
+            route="cuda", source=wf_src,
+            replaces="raytpu/wavefront.py:192 (_make_refill_segment_kernel; "
+                     "pallas_call :546)", library_ms=None, **entries8[key]))
     refill_ref = ("raytpu/kernels/gradkernel.py:1519 (p2_refill: PASS 2 "
                   ":999-1518, engaged :1557-1563)")
     c4_cell = "config 4 at 2 spp, parallel"

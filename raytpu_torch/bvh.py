@@ -107,9 +107,9 @@ class BVH:
     @functools.cached_property
     def walk_rows(self) -> torch.Tensor:
         """:func:`pack_walk_rows` of this BVH, the node rows the card's
-        forward and K3 read, packed at the first use and kept: a BVH's
-        arrays are not changed in place (``refit`` and ``with_sweep`` make
-        new ones)."""
+        forward, K3, K5 and K6 read, packed at the first use and kept: a
+        BVH's arrays are not changed in place (``refit`` and ``with_sweep``
+        make new ones)."""
         return pack_walk_rows(self)
 
     @property

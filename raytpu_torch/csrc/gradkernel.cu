@@ -123,12 +123,12 @@
 //   beside the refill's cam_sh; the rest read from the pack), a missed test
 //   ended before sqrtf's slow path, each lane walking its own octant's
 //   boxes and the lanes that entered a leaf sweeping it together.  Its
-//   winner and t are closest_hit<kFlat>'s, so the image and residuals are.
+//   winner and t are the forward's, so the image and residuals are.
 //   Over the walk every sweep is the forward's K1d sweep, closest_hit_walk():
 //   the node rows in the 16-byte layout and the spheres as 16-byte rows,
 //   both read through L1, the same early exit, each lane walking to its
 //   next entered leaf and the lanes sweeping their leaves together; its
-//   winner and t are closest_hit<kWalk>'s.
+//   winner and t are the forward's.
 // - Without a BVH every sweep is K1a's: the rows staged in shared memory
 //   (a broadcast where the pack took four loads a sphere), a missed test
 //   ended before sqrtf; the near-miss sweep reads the same rows.  The
@@ -712,14 +712,13 @@ __device__ __forceinline__ void raygen_vjp(const float g[9], const RayGen& gr,
   }
 }
 
-// One bounce step of K3 (bounce_step()'s, render_common.cuh, with K3's
-// closest hit): the winner from the tape while it holds the step (kTape),
-// its t recomputed for that one sphere; else swept, over the flat BVH by
-// closest_hit_staged() on the rows stage_flat() put in shared memory (the
-// forward's K1c sweep: closest_hit<kFlat>'s winner and t), over the walk by
-// closest_hit_walk() (K1d's sweep: closest_hit<kWalk>'s winner and t),
-// else by closest_hit(), K1a's brute sweep over the staged rows (kDense)
-// or the pack (kBrute); then shade().
+// One bounce step of K3 (golden.bounce_step's, with K3's closest hit): the
+// winner from the tape while it holds the step (kTape), its t recomputed
+// for that one sphere; else swept by the forward's closest_hit()
+// (render_common.cuh): over the flat BVH closest_hit_staged() on the rows
+// stage_flat() put in shared memory (K1c's sweep), over the walk
+// closest_hit_walk() (K1d's), else closest_hit_brute(), K1a's brute sweep
+// over the staged rows (kDense) or the pack (kBrute); then shade().
 // kStore writes the step's Residual to *res.
 template <bool kStore, int kHit, bool kTape>
 __device__ __forceinline__ bool k3_step(const Params& p, const SceneView& s,
@@ -738,12 +737,9 @@ __device__ __forceinline__ bool k3_step(const Params& p, const SceneView& s,
     } else {
       tb = kInf;
     }
-  } else if constexpr (kHit == kFlat) {
-    win = closest_hit_staged<false>(s, p.bvh, p.stage, r, p.t_min, tb, cn);
-  } else if constexpr (kHit == kWalk) {
-    win = closest_hit_walk<false>(p.walk, r, p.t_min, tb, cn);
   } else {
-    win = closest_hit<kHit, false>(s, p.bvh, p.walk, r, p.t_min, tb, cn);
+    win = closest_hit<kHit, false>(s, p.bvh, p.stage, p.walk, r, p.t_min, tb,
+                                   cn);
   }
   if (kTape) ++tc.k;
   if (kStore) {
@@ -1280,7 +1276,7 @@ extern "C" int raytpu_render_vjp(const void* cam, const void* scene, int n,
   p.bvh = FlatBvh{static_cast<const float*>(flat), n_leaves, leaf_size,
                   out_base, out_cnt};
   p.stage = FlatStage{stage_leaves, stage_outliers, stage_boxes};
-  p.walk = NodeBvh{nullptr, n_trav, copies, out_base, out_cnt,
+  p.walk = NodeBvh{n_trav, copies, out_base, out_cnt,
                    static_cast<const float4*>(nodes),
                    static_cast<const float4*>(spheres)};
   p.tape = tape;

@@ -169,12 +169,12 @@ __device__ __forceinline__ void add_census(const unsigned (&v)[kN],
 // per-sample loop's bit for bit; what changes is the warp's schedule: a
 // warp waits for its busiest lane once a launch, where the nested loops
 // waited for the longest path of each sample.  The closest hit is
-// closest_hit_staged() over what stage_flat() puts in shared memory
-// (kFlat), closest_hit_walk() over the node rows in device memory (kWalk),
-// or the brute sweep over the rows stage_dense() puts there (kDense) or
-// over the scene pack (kBrute).  The tape cursor runs across a pixel's
-// samples in order; K2's carry is read when a pixel starts and written
-// when it is done.
+// closest_hit()'s: closest_hit_staged() over what stage_flat() puts in
+// shared memory (kFlat), closest_hit_walk() over the node rows in device
+// memory (kWalk), or the brute sweep over the rows stage_dense() puts
+// there (kDense) or over the scene pack (kBrute).  The tape cursor runs
+// across a pixel's samples in order; K2's carry is read when a pixel
+// starts and written when it is done.
 template <int kHit, int kTape, bool kCount, bool kCarry>
 __device__ __forceinline__ void render_refill(const Params& p) {
   if constexpr (kHit == kFlat)
@@ -244,17 +244,11 @@ __device__ __forceinline__ void render_refill(const Params& p) {
     pixel = next_item(p.pixel_next, threads);
   if (pixel < pixels) sample();
   while (pixel < pixels) {
-    if (d < p.depth) {  // one bounce step (bounce_step's)
+    if (d < p.depth) {  // one bounce step: closest_hit(), then shade()
       if (kCount) warp_tick(cn.warp_steps, 1u);
       float tb;
-      int win;
-      if constexpr (kHit == kFlat)
-        win = closest_hit_staged<kCount>(s, p.bvh, p.stage, r, p.t_min, tb,
-                                         cn);
-      else if constexpr (kHit == kWalk)
-        win = closest_hit_walk<kCount>(p.walk, r, p.t_min, tb, cn);
-      else
-        win = closest_hit<kHit, kCount>(s, p.bvh, p.walk, r, p.t_min, tb, cn);
+      const int win = closest_hit<kHit, kCount>(s, p.bvh, p.stage, p.walk, r,
+                                                p.t_min, tb, cn);
       if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
       if (kTape != kNoTape) ++tc.k;
       if (kCount) ++cn.steps;
@@ -412,7 +406,7 @@ extern "C" int raytpu_render_fwd(const void* cam, const void* scene, int n,
   p.bvh = FlatBvh{static_cast<const float*>(flat), n_leaves, leaf_size,
                   out_base, out_cnt};
   p.stage = FlatStage{stage_leaves, stage_outliers, stage_boxes};
-  p.walk = NodeBvh{nullptr, n_trav, copies, out_base, out_cnt,
+  p.walk = NodeBvh{n_trav, copies, out_base, out_cnt,
                    static_cast<const float4*>(nodes),
                    static_cast<const float4*>(spheres)};
   p.tape = tape;

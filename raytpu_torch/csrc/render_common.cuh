@@ -5,12 +5,13 @@
 // the closest-hit policies (brute sweep, flat BVH sweep, skip-pointer BVH
 // walk, the dense stage, tape read), the v2 / v1 materials, the sky and the
 // gamma.  K3's passes must give the forward's image bit for bit, and the
-// wavefront the same samples, so every kernel takes a bounce through
-// bounce_step() below (the wavefront) or through its two halves: the
-// forward's render_refill (megakernel.cu) takes its closest hit from
-// closest_hit_staged() over a flat BVH, closest_hit_walk() over the walk
-// or closest_hit(), then shade(); K3 (gradkernel.cu, k3_step) the same, or
-// the tape's winner.
+// wavefront the same samples, so every kernel takes a bounce step in the
+// same two halves: its closest hit from closest_hit() below (under the
+// policy: closest_hit_staged() over a flat BVH, closest_hit_walk() over
+// the walk, closest_hit_brute() without a BVH), then shade().  The
+// forward's render_refill (megakernel.cu), K3's k3_step (gradkernel.cu;
+// or the tape's winner) and the wavefront's segment loops (wavefront.cu)
+// all do so.
 //
 // The skip-pointer walk (K1d) replaces raytpu/kernels/megakernel.py:640-696
 // and its VJP twin gradkernel.py:544-594, the path raytpu takes past 64
@@ -84,8 +85,8 @@ __device__ __forceinline__ SceneView scene_view(const float* pack, int n) {
                    pack + 6 * n, pack + 7 * n, pack + 8 * n, n};
 }
 
-// The brute sweep's stage (kDense: every forward and K3 launch without a
-// BVH up to kDenseMax spheres, and K5 / K6 under the dense stage): the
+// The brute sweep's stage (kDense: every forward, K3, K5 and K6 launch
+// without a BVH up to kDenseMax spheres): the
 // scene's rows (cx, cy, cz, rad * rad) staged once per block in the
 // kernel's dynamic shared memory, 16 bytes a sphere (327 spheres 5.2 KB,
 // the cap of 4096 64 KB).  rad * rad is the f32 product sphere_root()
@@ -94,7 +95,7 @@ __device__ __forceinline__ SceneView scene_view(const float* pack, int n) {
 // frame included): it ends with the block's one barrier, and the sweeps
 // after it read the rows with no other, since threads of a block sit at
 // different samples and bounces.  Past kDenseMax the brute sweep reads the
-// scene pack (kBrute), as K5 / K6's brute segments do at any size.
+// scene pack (kBrute).
 extern __shared__ float4 dense_rows[];
 // the largest scene stage_dense() stages: 64 KB of rows (raytpu's
 // _DENSE_MAX; raytpu_torch.kernels.megakernel.DENSE_MAX)
@@ -245,21 +246,20 @@ __device__ __forceinline__ Ray gen_ray(const CamPack& cam, float fx, float fy,
 
 // ---- the closest hit: a compile-time policy ------------------------------
 //
-// The brute sweep: every sphere in index order, each missed test ended
-// before the square root (sweep_rows), from the rows stage_dense() put in
-// shared memory (kDense: the forward's K1a, K1b, K1', K2, K4 and K1e, and
-// K3, up to kDenseMax spheres; K5 / K6 under the dense stage) or from the
-// scene pack (kBrute: the same kernels past kDenseMax, and K5 / K6's brute
-// segments); raytpu's dense MXU stage, megakernel.py:462-527, is a TPU
-// layout of this same min / argmin: its bf16x3 one-hot extraction is this
-// sweep reading the winner's attributes once, in scatter().  Flat BVH
-// (K5 / K6; the forward and K3 take the same tests through
-// closest_hit_staged()): the outlier tail, then the leaf rows of the
-// octant copy the ray's own direction picks.  Walk (K5 / K6; the forward
-// and K3 take the same tests through closest_hit_walk()): the outlier
-// tail, then the skip-pointer walk of that copy's nodes.  Tape read (K3's
-// replay of K4's tape): the winner from the tape, its t recomputed for
-// that one sphere.  All of them compute a sphere's t with sphere_root(), so a
+// The brute sweep (closest_hit_brute()): every sphere in index order, each
+// missed test ended before the square root (sweep_rows), from the rows
+// stage_dense() put in shared memory (kDense: every kernel up to
+// kDenseMax spheres) or from the scene pack (kBrute: past kDenseMax);
+// raytpu's dense MXU stage, megakernel.py:462-527, is a TPU layout of this
+// same min / argmin: its bf16x3 one-hot extraction is this sweep reading
+// the winner's attributes once, in scatter().  Flat BVH
+// (closest_hit_staged()): the outlier tail, then the leaf rows of the
+// octant copy the ray's own direction picks, front to back, a leaf where
+// the ray enters its box within its best t so far.  Walk
+// (closest_hit_walk()): the outlier tail, then the skip-pointer walk of
+// that copy's nodes.  Tape read (K3's replay of K4's tape): the winner
+// from the tape, its t recomputed for that one sphere.  All of them
+// compute a sphere's t with sphere_root()'s arithmetic, so a
 // winner's t is one number wherever it comes from, and the images and
 // residuals of every variant are bit-equal (the BVH's up to exact equal-t
 // ties of distinct spheres).  The flat sweep and the walk enter the same
@@ -276,18 +276,15 @@ struct FlatBvh {
   int n_leaves, leaf_size, out_base, out_cnt;
 };
 
-// The node list of a BVH for the walk: `nodes` (copies * n_trav, 9) f32
-// rows [min xyz, max xyz, start, count, skip] in preorder, count 0 for an
-// interior node, skip the row after the node's subtree, relative within
-// its copy.  copies is 8 (padded leaves: copy o ordered front to back for
-// octant o) or 1 (raytpu's unpadded variable leaves); the outliers as in
-// FlatBvh (none without padding).  closest_hit<kWalk> (K5, K6) reads
-// `nodes` and the scene pack; closest_hit_walk() (the forward, K3) reads
-// the same node rows in the 16-byte layout, `rows` (see WalkRow), and the
-// permuted scene's rows (cx, cy, cz, rad * rad), `spheres`, and leaves
-// `nodes` null.
+// The node list of a BVH for the walk (closest_hit_walk()): copies *
+// n_trav nodes in preorder, each [min xyz, max xyz, start, count, skip]
+// in the 16-byte layout of `rows` (see WalkRow), count 0 for an interior
+// node, skip the row after the node's subtree, relative within its copy;
+// copies is 8 (padded leaves: copy o ordered front to back for octant o)
+// or 1 (raytpu's unpadded variable leaves); the outliers as in FlatBvh
+// (none without padding); `spheres` the permuted scene's rows (cx, cy, cz,
+// rad * rad).
 struct NodeBvh {
-  const float* __restrict__ nodes;
   int n_trav, copies, out_base, out_cnt;
   const float4* __restrict__ rows;
   const float4* __restrict__ spheres;
@@ -326,7 +323,7 @@ __device__ __forceinline__ int next_item(unsigned* counter, int first) {
 }
 
 // Where a sweep reads sphere j's centre and squared radius: the scene pack
-// (the brute sweep past kDenseMax, the BVH sweeps' unstaged rows, the
+// (the brute sweep past kDenseMax, the flat sweep's unstaged rows, the
 // tape's one sphere) or the rows stage_dense() staged (the brute sweep up
 // to kDenseMax).  r2 is the f32 product rad * rad either way.
 struct SceneRows {
@@ -367,8 +364,8 @@ struct StagedRows {
 // op for op): the t the sweeps compare, NaN or < t_min on a miss.  The NaN
 // form of the root test: disc < 0 -> sqrtf gives NaN -> compares false.
 // In two halves: disc_at(), the discriminant (and half_b), then root_of(),
-// the roots; every sweep but closest_hit<kFlat>'s ends a test between them
-// when the discriminant is negative or NaN (see sweep_rows).
+// the roots; every sweep ends a test between them when the discriminant is
+// negative or NaN (see sweep_rows).
 template <class Rows>
 __device__ __forceinline__ float disc_at(const Rows& rows, const Ray& r,
                                          float a, int j, float& half_b) {
@@ -404,24 +401,8 @@ __device__ __forceinline__ float sphere_root(const SceneView& s, const Ray& r,
   return root_at(SceneRows{s}, r, a, inv_a, t_min, j);
 }
 
-// Spheres [j0, j1) into the running best: strict <, so among equal t the
-// first tested wins.  Only closest_hit<kFlat> (K5 / K6 over a flat BVH)
-// still takes every test to its square root.
-__device__ __forceinline__ void sweep_range(const SceneView& s, const Ray& r,
-                                            float a, float inv_a, float t_min,
-                                            int j0, int j1, float& tb,
-                                            int& win) {
-  for (int j = j0; j < j1; ++j) {
-    float root = sphere_root(s, r, a, inv_a, t_min, j);
-    if (root >= t_min && root < tb) {
-      tb = root;
-      win = j;
-    }
-  }
-}
-
 // Rows [j0, j0 + count) of `rows` into the running best, as spheres first,
-// first + 1, ...: sweep_range()'s loop (strict <) over root_at()'s halves.
+// first + 1, ...: strict <, so among equal t the first tested wins.
 // A negative or NaN discriminant (a miss, or a padding row) ends the test
 // before the square root: root_of()'s sqrtf gives NaN there and no root
 // passes, so the outcome is the same, and sqrtf takes its slow path (a
@@ -479,86 +460,37 @@ __device__ __forceinline__ bool box_enter(const float* row, const Ray& r,
   return !(tnear > tfar);
 }
 
-// Closest hit (golden.hit_world for kBrute and kDense; golden.hit_world_bvh
-// over the scene in leaf order for kFlat, golden.hit_world_walk for kWalk).
-// Returns the winner or -1; tb = its t.  `bvh` is read by kFlat, `walk` by
-// kWalk, dense_rows by kDense (the kernel staged them first).
+// The brute sweep's closest hit (golden.hit_world): kDense over the rows
+// stage_dense() staged (the kernel staged them first), kBrute over the
+// scene pack.  Returns the winner or -1; tb = its t.
 template <int kHit, bool kCount>
-__device__ __forceinline__ int closest_hit(const SceneView& s,
-                                           const FlatBvh& bvh,
-                                           const NodeBvh& walk, const Ray& r,
-                                           float t_min, float& tb,
-                                           Census& cn) {
+__device__ __forceinline__ int closest_hit_brute(const SceneView& s,
+                                                 const Ray& r, float t_min,
+                                                 float& tb, Census& cn) {
   float a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
   float inv_a = 1.0f / a;
   tb = kInf;
   int win = -1;
-  if (kHit == kBrute) {  // the pack, each missed test ended early
-    sweep_rows<kCount>(SceneRows{s}, 0, s.n, 0, r, a, inv_a, t_min, tb, win,
-                       cn);
-    return win;
-  }
-  if (kHit == kDense) {  // the staged rows, likewise
+  if (kHit == kDense)
     sweep_rows<kCount>(DenseRows{}, 0, s.n, 0, r, a, inv_a, t_min, tb, win,
                        cn);
-    return win;
-  }
-  // outliers first: a giant ground sphere seeds tb, so far leaves cull
-  const int out_base = kHit == kFlat ? bvh.out_base : walk.out_base;
-  const int out_cnt = kHit == kFlat ? bvh.out_cnt : walk.out_cnt;
-  if (kHit == kFlat)
-    sweep_range(s, r, a, inv_a, t_min, out_base, out_base + out_cnt, tb, win);
-  else  // the walk's, each missed test ended before sqrtf
-    sweep_rows<kCount>(SceneRows{s}, out_base, out_cnt, out_base, r, a, inv_a,
-                       t_min, tb, win, cn);
-  const float inv_dx = 1.0f / r.dx, inv_dy = 1.0f / r.dy,
-              inv_dz = 1.0f / r.dz;
-  const int octant = (r.dx < 0.0f ? 4 : 0) | (r.dy < 0.0f ? 2 : 0) |
-                     (r.dz < 0.0f ? 1 : 0);
-  if (kHit == kFlat) {
-    const float* row =
-        bvh.flat + static_cast<size_t>(octant) * bvh.n_leaves * 9;
-    for (int k = 0; k < bvh.n_leaves; ++k, row += 9) {
-      if (!box_enter(row, r, inv_dx, inv_dy, inv_dz, t_min, tb)) continue;
-      if (kCount) ++cn.leaves;
-      const int start = static_cast<int>(row[6]);
-      sweep_range(s, r, a, inv_a, t_min, start, start + bvh.leaf_size, tb,
-                  win);
-    }
-    return win;
-  }
-  // the walk: a node pointer relative to the copy's first row; an entered
-  // interior node falls through to rel + 1, anything else jumps to skip
-  const float* base =
-      walk.nodes +
-      (walk.copies == 8 ? static_cast<size_t>(octant) * walk.n_trav * 9 : 0);
-  int rel = 0;
-  while (rel < walk.n_trav) {
-    const float* row = base + static_cast<size_t>(rel) * 9;
-    const bool enter = box_enter(row, r, inv_dx, inv_dy, inv_dz, t_min, tb);
-    const int count = static_cast<int>(row[7]);
-    if (kCount) ++cn.nodes;
-    if (enter && count > 0) {
-      if (kCount) ++cn.leaves;
-      const int start = static_cast<int>(row[6]);
-      sweep_rows<kCount>(SceneRows{s}, start, count, start, r, a, inv_a,
-                         t_min, tb, win, cn);
-    }
-    rel = (enter && count == 0) ? rel + 1 : static_cast<int>(row[8]);
-  }
+  else
+    sweep_rows<kCount>(SceneRows{s}, 0, s.n, 0, r, a, inv_a, t_min, tb, win,
+                       cn);
   return win;
 }
 
 // ---- the flat sweep from shared memory (the forward's K1c, K1b/bvh, K1',
-// K2 and K4 over a flat BVH, and K3's every sweep over one; K5 / K6 keep
-// closest_hit<kFlat>) -----------------------------------------------------
+// K2 and K4 over a flat BVH, K3's every sweep over one, K5/bvh and K6/bvh)
 //
-// The same tests as closest_hit<kFlat>, in the same order for each lane, so
-// the same winner, t and census; what changes is where the operands come
-// from and which lanes run a leaf's sweep together.  stage_flat() puts the
-// sweep's operands in the kernel's dynamic shared memory once per block, as
-// much of them as the block may hold (FlatStage, planned by the wrapper
-// from the device's opt-in limit): first the leaves' rows (cx, cy, cz,
+// golden.hit_world_bvh's tests over the scene in leaf order (the outliers,
+// then the leaves whose boxes the ray enters within its best t so far,
+// front to back in its octant's copy), in the same order for each lane, so
+// the same winner, t and census; what is the card's is where the operands
+// come from and which lanes run a leaf's sweep together.  stage_flat()
+// puts the sweep's operands in the kernel's dynamic shared memory once per
+// block, as much of them as the block may hold (FlatStage, planned by the
+// wrapper from the device's opt-in limit): first the leaves' rows (cx, cy, cz,
 // rad * rad) of leaves [0, leaves), leaf by leaf with one unused row after
 // each, then the outliers' rows, then each octant copy's leaf boxes as two
 // rows, (min xyz, the leaf's first staged row or -1) and (max xyz, its
@@ -623,13 +555,13 @@ __device__ __forceinline__ void stage_flat(const float* pack, int n,
   __syncthreads();
 }
 
-// closest_hit<kFlat> over what stage_flat() staged (the rest from the
-// scene pack and bvh.flat).  A lane walks its own octant copy's boxes front
-// to back up to the next leaf it enters (the cheap box tests, run apart),
-// then every lane that found one sweeps its leaf together: a warp runs as
-// many leaf sweeps a step as its busiest lane enters, where the loop over
-// leaf positions ran one for every position any lane entered.  The
-// outliers come first, at warp-uniform rows.
+// The flat sweep's closest hit over what stage_flat() staged (the rest
+// from the scene pack and bvh.flat).  A lane walks its own octant copy's
+// boxes front to back up to the next leaf it enters (the cheap box tests,
+// run apart), then every lane that found one sweeps its leaf together: a
+// warp runs as many leaf sweeps a step as its busiest lane enters, where a
+// loop over leaf positions would run one for every position any lane
+// entered.  The outliers come first, at warp-uniform rows.
 template <bool kCount>
 __device__ __forceinline__ int closest_hit_staged(const SceneView& s,
                                                   const FlatBvh& bvh,
@@ -687,17 +619,15 @@ __device__ __forceinline__ int closest_hit_staged(const SceneView& s,
 }
 
 // ---- the walk over 16-byte rows (the forward's K1d, K1b/walk, K1', K2
-// and K4 over the walk, and K3's every sweep over it; K5 / K6 keep
-// closest_hit<kWalk>) -------------------------------------------------------
+// and K4 over the walk, K3's every sweep over it, K5/walk and K6/walk) ---
 //
-// The same tests as closest_hit<kWalk>, in the same order for each lane,
-// with the same tb at each box test, so the same winner, t and census.
-// The two must stay test for test the same until K5 / K6 move onto this
-// one: the CUDA tests test_walk_kernels_match_plain and
-// test_walk_refill_bit_equal_plain hold this one, and
-// test_segment_kernels_match_plain[walk] and chip_smoke.py's phase 8
-// closest_hit<kWalk>, each bit for bit against one plain version,
-// raytpu_torch.golden.hit_world_walk.
+// golden.hit_world_walk's tests (the outliers, then the copy's nodes in
+// preorder, a leaf swept where the ray enters its box, a subtree skipped
+// where it misses), in the same order for each lane, with the same tb at
+// each box test, so the same winner, t and census: the CUDA tests
+// test_walk_kernels_match_plain, test_walk_refill_bit_equal_plain and
+// test_segment_kernels_match_plain[walk, walk_unpadded], and chip_smoke.py's
+// phases 7b and 8b, hold it bit for bit against that plain version.
 // A node row in the 16-byte layout (WalkRow; written by
 // raytpu_torch.bvh.pack_walk_rows, which refuses a BVH whose values it
 // cannot hold): two float4, lo = (min xyz, w0) and hi = (max xyz, w1), the
@@ -727,14 +657,14 @@ struct WalkRow {
   }
 };
 
-// closest_hit<kWalk> over the node rows walk.rows and the sphere rows
+// The walk's closest hit over the node rows walk.rows and the sphere rows
 // walk.spheres.  A lane walks its own octant copy's nodes, box tests only,
 // up to the next leaf it enters (the cheap tests, run apart), then every
 // lane that found one sweeps its leaf together: a warp runs as many leaf
-// sweeps a step as its busiest lane enters, where the loop over nodes ran
-// a sweep at every node position any lane entered a leaf.  The outliers
-// come first.  Counting, one warp_nodes tick for each node-loop iteration
-// any lane of the warp runs.
+// sweeps a step as its busiest lane enters, where a loop over nodes would
+// run a sweep at every node position any lane entered a leaf.  The
+// outliers come first.  Counting, one warp_nodes tick for each node-loop
+// iteration any lane of the warp runs.
 template <bool kCount>
 __device__ __forceinline__ int closest_hit_walk(const NodeBvh& walk,
                                                 const Ray& r, float t_min,
@@ -780,10 +710,30 @@ __device__ __forceinline__ int closest_hit_walk(const NodeBvh& walk,
   }
 }
 
+// The closest hit of ray r under the policy kHit, for every kernel's bounce
+// step: the flat sweep (kFlat: closest_hit_staged over what stage_flat()
+// staged), the walk (kWalk: closest_hit_walk) or the brute sweep (kDense,
+// kBrute: closest_hit_brute).  Returns the winner or -1; tb = its t.
+template <int kHit, bool kCount>
+__device__ __forceinline__ int closest_hit(const SceneView& s,
+                                           const FlatBvh& bvh,
+                                           const FlatStage& st,
+                                           const NodeBvh& walk, const Ray& r,
+                                           float t_min, float& tb,
+                                           Census& cn) {
+  if constexpr (kHit == kFlat)
+    return closest_hit_staged<kCount>(s, bvh, st, r, t_min, tb, cn);
+  else if constexpr (kHit == kWalk)
+    return closest_hit_walk<kCount>(walk, r, t_min, tb, cn);
+  else
+    return closest_hit_brute<kHit, kCount>(s, r, t_min, tb, cn);
+}
+
 // The winner-index tape of one pixel (K4): tape[k * stride + pix], k the
 // pixel's global bounce step counted across its samples in order; int16
 // (wide == 0) or int32 elements; g_cap steps are kept, later ones are not.
-// K4 writes it through step_hit(); K3 reads it in its own step (k3_step).
+// K4 writes it in render_refill (megakernel.cu); K3 reads it in its own
+// step (k3_step).
 enum TapeMode { kNoTape = 0, kTapeWrite = 1 };
 
 struct TapeCursor {
@@ -804,20 +754,6 @@ struct TapeCursor {
       static_cast<int16_t*>(buf)[i] = static_cast<int16_t>(w);
   }
 };
-
-// One bounce step's closest hit under the policy, written to the tape when
-// kTape is write.
-template <int kHit, int kTape, bool kCount>
-__device__ __forceinline__ int step_hit(const SceneView& s, const FlatBvh& bvh,
-                                        const NodeBvh& walk, const Ray& r,
-                                        float t_min, float& tb,
-                                        TapeCursor& tc, Census& cn) {
-  const int win = closest_hit<kHit, kCount>(s, bvh, walk, r, t_min, tb, cn);
-  if (kTape == kTapeWrite && tc.k < tc.g_cap) tc.put(win);
-  if (kTape != kNoTape) ++tc.k;
-  if (kCount) ++cn.steps;
-  return win;
-}
 
 // Material scatter of a ray that hit sphere `win` at t (golden.scatter):
 // one draw feeds the sphere sample (hash3 lanes) and the Schlick coin
@@ -931,8 +867,14 @@ __device__ __forceinline__ void scatter(const SceneView& s, int win, float tb,
 
 // A bounce past its closest hit `win` at t = tb (-1: a miss): on a miss
 // the sky of the pre-scatter direction, on the hit of an unknown material
-// absorption (black, seed kept), else the scatter.  Returns whether the ray
-// scattered; see bounce_step().
+// absorption (black, seed kept), else the scatter, which moves r,
+// multiplies the throughput (cr, cg, cb) in and advances sd by its one
+// draw.  Returns whether the ray scattered (lives on).  On a miss the
+// radiance (rr, rg, rb) gains c * sky, raytpu's add-once rule
+// (megakernel.py:734: a sample misses once, so a radiance carried across a
+// slot's samples sums them, as the wavefront's does).  A bounce step of
+// golden.bounce_step (raytpu's make_bounce_body) is closest_hit(), then
+// this.
 __device__ __forceinline__ bool shade(const SceneView& s, int win, float tb,
                                       bool v1, uint32_t& sd, Ray& r,
                                       float& cr, float& cg, float& cb,
@@ -950,28 +892,6 @@ __device__ __forceinline__ bool shade(const SceneView& s, int win, float tb,
   if (!(is_d || is_m || is_g)) return false;  // absorbed: black, seed kept
   scatter(s, win, tb, is_g, v1, sd, r, cr, cg, cb);
   return true;
-}
-
-// One bounce of a ray slot (golden.bounce_step; raytpu's make_bounce_body):
-// the closest hit of ray r under step_hit's policy (kHit, kTape, kCount),
-// then on a miss the sky of the pre-scatter direction, on the hit of an
-// unknown material absorption (black, seed kept), else the scatter, which
-// moves r, multiplies the throughput (cr, cg, cb) in and advances sd by its
-// one draw.  Returns whether the ray scattered (lives on).  On a miss the
-// slot's radiance (rr, rg, rb) gains c * sky, raytpu's add-once rule
-// (megakernel.py:734: a sample misses once, so a radiance carried across a
-// slot's samples sums them, as the wavefront's does).
-template <int kHit, int kTape, bool kCount>
-__device__ __forceinline__ bool bounce_step(const SceneView& s,
-                                            const FlatBvh& bvh,
-                                            const NodeBvh& walk, Ray& r,
-                                            uint32_t& sd, float t_min, bool v1,
-                                            float& cr, float& cg, float& cb,
-                                            float& rr, float& rg, float& rb,
-                                            TapeCursor& tc, Census& cn) {
-  float tb;
-  int win = step_hit<kHit, kTape, kCount>(s, bvh, walk, r, t_min, tb, tc, cn);
-  return shade(s, win, tb, v1, sd, r, cr, cg, cb, rr, rg, rb);
 }
 
 }  // namespace rt

@@ -21,7 +21,7 @@ the cfg-sized frame, with the image, the tape and the carried state
 past the frame's last row; those rows trace nothing and come out 0.  Every
 variant runs on a persistent grid whose lanes take their next pixel from
 a counter the C entry point zeroes each launch (one a device and stream,
-:func:`_pixel_counter`); see the note at the top of the ``.cu`` file.
+:func:`slot_counter`); see the note at the top of the ``.cu`` file.
 The walk reads its node rows in the 16-byte layout of
 :func:`raytpu_torch.bvh.pack_walk_rows` (``BVH.walk_rows``) and the
 spheres as 16-byte rows (:func:`sphere_rows`).
@@ -327,19 +327,21 @@ def _check_state(cfg: RenderConfig, rows: int, acc: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, the scene on {device}")
 
 
-def bvh_args(bvh: BVH | None, nodes: torch.Tensor | None = None) -> tuple:
+def bvh_args(bvh: BVH | None, walk_rows: torch.Tensor | None) -> tuple:
     """The C entry points' BVH operands: (flat, n_leaves, leaf_size, nodes,
     n_trav, copies, out_base, out_cnt), ``flat`` set for the flat sweep,
-    ``nodes`` for the walk (``bvh.nodes``, or the given rows: the forward's
-    and K3's ``bvh.walk_rows``), neither for the brute sweep."""
+    ``nodes`` for the walk (``walk_rows``, the node rows in the 16-byte
+    layout: ``bvh.walk_rows``), neither for the brute sweep."""
     if bvh is None:
         return (None, 0, 0, None, 0, 0, 0, 0)
     tail = outlier_tail(bvh.perm, bvh.flat, bvh.leaf_size) or (0, 0)
     if sweep_of(bvh) == "flat":
         return (bvh.flat.data_ptr(), bvh.n_leaves, int(bvh.leaf_size), None,
                 0, 0, *tail)
-    rows = bvh.nodes if nodes is None else nodes
-    return (None, 0, 0, rows.data_ptr(), bvh.n_trav, bvh.copies, *tail)
+    if walk_rows is None:
+        raise ValueError("the walk needs its node rows in the 16-byte "
+                         "layout (BVH.walk_rows)")
+    return (None, 0, 0, walk_rows.data_ptr(), bvh.n_trav, bvh.copies, *tail)
 
 
 def sphere_rows(scene_pack: torch.Tensor) -> torch.Tensor:
@@ -383,25 +385,36 @@ def flat_device(device, shmem: int = 0) -> tuple[int, int]:
     return optin.value, blocks.value
 
 
-def flat_stage_on(bvh: BVH, device) -> dict:
-    """:func:`flat_stage` of ``bvh`` within the opt-in limit of the CUDA
-    ``device``."""
+def smem_optin(device) -> int:
+    """The opt-in shared memory a block of the CUDA ``device`` (the flat
+    sweep's staging limit), read from the card once a device."""
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None \
         else device.index
     if index not in _smem_optin:
         _smem_optin[index] = flat_device(torch.device("cuda", index))[0]
-    return flat_stage(bvh, _smem_optin[index])
+    return _smem_optin[index]
+
+
+def flat_stage_on(bvh: BVH, device) -> dict:
+    """:func:`flat_stage` of ``bvh`` within the opt-in limit of the CUDA
+    ``device``."""
+    return flat_stage(bvh, smem_optin(device))
 
 
 _counters: dict[tuple, torch.Tensor] = {}  # (device, stream) -> counter
 
 
-def _pixel_counter(device, stream: int) -> torch.Tensor:
-    """The persistent grid's pixel counter of launches on ``stream`` of
-    ``device``: one int32 a stream, kept across launches (the C entry point
-    zeroes it on the stream before each), so a launch allocates and zeroes
-    nothing here."""
+def slot_counter(device, stream: int) -> torch.Tensor:
+    """The counter from which a persistent grid's lanes take their next
+    pixel or slot, for every kernel launched on ``stream`` of ``device``
+    (the forward's here, K5's and K6's in ``kernels/wavefront.py``): one
+    int32 a device and stream, kept across launches, so a launch allocates
+    and zeroes nothing here.  The rule that makes the sharing safe: a C
+    entry point zeroes the counter on the launch's stream before any launch
+    that reads it (the forward's every launch; K5's and K6's where the grid
+    has fewer threads than slots), and launches on one stream run in
+    order."""
     key = (device, stream)
     if key not in _counters:
         _counters[key] = torch.zeros(1, dtype=torch.int32, device=device)
@@ -429,7 +442,7 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
         node_rows, spheres = bvh.walk_rows, sphere_rows(scene_pack)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        pixel_next = _pixel_counter(device, stream)
+        pixel_next = slot_counter(device, stream)
         err = lib.raytpu_render_fwd(
             cam_pack.data_ptr(), scene_pack.data_ptr(), n, *bvh_args(bvh, node_rows), stage["leaves"], stage["outliers"],
             stage["boxes"], int(tape is not None),

@@ -3,15 +3,21 @@
 Counterpart of the two ``pallas_call`` sites of
 ``raytpu/wavefront.py::_render_wavefront_impl``: the segment kernel K5
 (``_make_segment_kernel``) and the refill segment kernel K6
-(``_make_refill_segment_kernel``).  Both run over SoA planes of R ray slots,
-one thread a slot, and take their bounces through the megakernels' device
-function under the closest-hit policy the scene takes: the brute sweep, the
-dense stage (:func:`raytpu_torch.kernels.megakernel.use_dense`), the flat
-BVH sweep or the skip-pointer walk (:func:`raytpu_torch.bvh.sweep_of`).
-K5 under the dense stage runs on a persistent grid instead, its lanes
-taking their next slot from a counter the wrapper zeroes each launch.
+(``_make_refill_segment_kernel``).  Both run over SoA planes of R ray slots
+on a persistent slot grid, its lanes taking their next slot from the
+counter of the launch's device and stream (``megakernel.slot_counter``,
+shared with the forward, and its rule), and take their bounces
+through the forward's closest hit under the policy the scene takes: the
+brute sweep (its rows staged up to ``megakernel.DENSE_MAX`` spheres,
+named "dense" where :func:`raytpu_torch.kernels.megakernel.use_dense`
+says so, "brute" otherwise), the flat BVH sweep over the stage
+``megakernel.flat_stage`` plans or the skip-pointer walk over
+``BVH.walk_rows`` and the scene's sphere rows
+(:func:`raytpu_torch.bvh.sweep_of`).
 
-:func:`prepare` packs a render's operands once (:class:`SceneOps`);
+:func:`prepare` packs a render's operands once (:class:`SceneOps`; the
+kernels' own by :func:`kernel_operands`), :func:`hit_args` gives the C
+entry points' closest-hit operands from them;
 :func:`launch_segment` and :func:`launch_refill_segment` check the planes,
 launch on the current stream of their device and do not synchronise.  CPU
 tensors run the plain versions (:func:`raytpu_torch.wavefront.segment_plain`
@@ -24,7 +30,7 @@ launches, ``variants`` the same by kernel and policy ("K5/dense",
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -57,33 +63,66 @@ class SceneOps(NamedTuple):
     box: torch.Tensor       # (6,) f32 the key's box: lo xyz, bins / extent xyz
     cam: Camera
     cam_pack: torch.Tensor  # (19,) f32
+    stage: dict | None      # the flat sweep's stage (megakernel.flat_stage)
+    walk_rows: torch.Tensor | None  # the walk's node rows, BVH.walk_rows
+    spheres: torch.Tensor | None    # the walk's (N, 4) sphere rows
+
+
+def kernel_operands(policy: str, bvh: BVH | None, pack: torch.Tensor,
+                    limit: Callable[[], int]) -> tuple:
+    """The kernels' own operands of a render under ``policy`` (SceneOps'
+    ``stage``, ``walk_rows``, ``spheres``): the flat sweep's stage planned
+    within ``limit()`` bytes a block (``megakernel.flat_stage``; the limit
+    is asked for under that policy only), the walk's node rows
+    (``BVH.walk_rows``) and the sphere rows of the scene ``pack``
+    (``megakernel.sphere_rows``); None where the policy reads none."""
+    if policy == "bvh":
+        return megakernel.flat_stage(bvh, limit()), None, None
+    if policy == "walk":
+        return None, bvh.walk_rows, megakernel.sphere_rows(pack)
+    return None, None, None
 
 
 def prepare(scene: Scene, cam: Camera, bvh: BVH | None,
             box: torch.Tensor) -> SceneOps:
     """The operands of a wavefront render of ``scene`` (checked by the
-    caller) with ``bvh`` and the key's ``box``."""
+    caller) with ``bvh`` and the key's ``box``, made once a render; on a
+    CUDA scene also the kernels' own (:func:`kernel_operands`, the stage
+    within the device's opt-in limit), which the plain versions on the CPU
+    do not read."""
     n = scene.count
     if megakernel.use_dense(n, bvh):
         policy = "dense"
     else:
         policy = megakernel.sweep_tag(bvh)
     kscene = scene if bvh is None else permute_scene(scene, bvh.perm)
+    dev = scene.center.device
     with torch.no_grad():
-        return SceneOps(kscene, megakernel.pack_scene(kscene), bvh, policy,
+        pack = megakernel.pack_scene(kscene)
+        own = (kernel_operands(policy, bvh, pack,
+                               lambda: megakernel.smem_optin(dev))
+               if dev.type == "cuda" else (None, None, None))
+        return SceneOps(kscene, pack, bvh, policy,
                         box.to(torch.float32).contiguous(), cam,
-                        megakernel.pack_camera(cam))
+                        megakernel.pack_camera(cam), *own)
+
+
+_ptr, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry points' closest-hit operands (:func:`hit_args`): scene, n,
+# flat, n_leaves, leaf_size, nodes, n_trav, copies, out_base, out_cnt, the
+# stage's leaves, outliers and boxes, spheres, box
+HIT_ARGTYPES = (_ptr, _i, _ptr, _i, _i, _ptr, _i, _i, _i, _i, _i, _i, _i,
+                _ptr, _ptr)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    hit = [ptr, i, i, ptr, i, i, ptr, i, i, i, i, ptr]  # scene .. box
-    lib.raytpu_wavefront_segment.argtypes = hit + [ptr, ptr, i, i, f, i, ptr,
-                                                    ptr]
+    hit = list(HIT_ARGTYPES)
+    lib.raytpu_wavefront_segment.argtypes = hit + [
+        _ptr, _ptr, _i, _i, _f, _i, _ptr, _ptr]
     lib.raytpu_wavefront_segment.restype = ctypes.c_int
-    lib.raytpu_wavefront_refill.argtypes = [ptr] + hit + [
-        ptr, ptr, ptr, i, i, i, i, i, f, f, f, i, ptr]
+    lib.raytpu_wavefront_refill.argtypes = [_ptr] + hit + [
+        _ptr, _ptr, _ptr, _i, _i, _i, _i, _i, _f, _f, _f, _i, _ptr, _ptr]
     lib.raytpu_wavefront_refill.restype = ctypes.c_int
     return lib
 
@@ -103,10 +142,24 @@ def _check_planes(name: str, t: torch.Tensor, planes: int,
     return t.shape[1]
 
 
-def _hit_args(ops: SceneOps) -> tuple:
-    """The C entry points' scene, policy, BVH and box operands."""
+def hit_args(ops: SceneOps) -> tuple:
+    """The C entry points' closest-hit operands (:data:`HIT_ARGTYPES`), the
+    forward's for the same scene and BVH: the scene pack, the BVH's
+    (``megakernel.bvh_args`` over ``BVH.walk_rows`` for the walk), the flat
+    sweep's stage plan (0 0 0 under the other policies), the walk's sphere
+    rows, the key's box.  The brute sweep stages its rows by the sphere
+    count in the C entry point: no operand says so."""
+    if ops.policy == "bvh" and ops.stage is None:
+        raise ValueError("the flat sweep's stage was not planned: prepare() "
+                         "the operands on the planes' CUDA device")
+    if ops.policy == "walk" and ops.spheres is None:
+        raise ValueError("the walk's sphere rows were not made: prepare() "
+                         "the operands on the planes' CUDA device")
+    st = ops.stage or dict.fromkeys(("leaves", "outliers", "boxes"), 0)
     return (ops.pack.data_ptr(), ops.pack.shape[1],
-            int(ops.policy == "dense"), *megakernel.bvh_args(ops.bvh),
+            *megakernel.bvh_args(ops.bvh, ops.walk_rows), st["leaves"],
+            st["outliers"], st["boxes"],
+            None if ops.spheres is None else ops.spheres.data_ptr(),
             ops.box.data_ptr())
 
 
@@ -135,16 +188,13 @@ def launch_segment(ops: SceneOps, planes: torch.Tensor, cfg: RenderConfig,
         raise ValueError(f"unsupported device {planes.device}")
     out = torch.empty((SEG_PLANES + 1, R), dtype=torch.float32,
                       device=planes.device)
-    # the dense stage's persistent grid takes its slots from this counter
-    slot_next = (torch.zeros(1, dtype=torch.int32, device=planes.device)
-                 if ops.policy == "dense" else None)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = _lib().raytpu_wavefront_segment(
-            *_hit_args(ops), planes.data_ptr(), out.data_ptr(), R,
+            *hit_args(ops), planes.data_ptr(), out.data_ptr(), R,
             int(n_bounces), float(np.float32(cfg.t_min)),
             int(cfg.scatter_mode == "v1"),
-            None if slot_next is None else slot_next.data_ptr(), stream)
+            megakernel.slot_counter(planes.device, stream).data_ptr(), stream)
     _count("K5", err, ops)
     return out
 
@@ -181,11 +231,12 @@ def launch_refill_segment(ops: SceneOps, ride: torch.Tensor,
     with torch.cuda.device(ride.device):
         stream = torch.cuda.current_stream(ride.device).cuda_stream
         err = _lib().raytpu_wavefront_refill(
-            ops.cam_pack.data_ptr(), *_hit_args(ops), ride.data_ptr(),
+            ops.cam_pack.data_ptr(), *hit_args(ops), ride.data_ptr(),
             aux.data_ptr(), out.data_ptr(), R, int(n_bounces), cfg.depth,
             spp_slot, int(spp_batch), float(np.float32(cfg.t_min)),
             float(np.float32(1.0 / (cfg.width - 1))),
             float(np.float32(1.0 / (cfg.height - 1))),
-            int(cfg.scatter_mode == "v1"), stream)
+            int(cfg.scatter_mode == "v1"),
+            megakernel.slot_counter(ride.device, stream).data_ptr(), stream)
     _count("K6", err, ops)
     return out

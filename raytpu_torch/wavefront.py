@@ -21,11 +21,12 @@ raytpu demoted this engine on a TPU (raytpu/wavefront.py:3-20);
 ``render(backend="wavefront")`` runs it only when asked for, never under
 ``"auto"``.  Its speed on an H100 is measured by ``chip_smoke.py``.
 
-Every bounce is the megakernels' (``bounce_step``; the plain versions
-:func:`segment_plain` and :func:`refill_segment_plain` build on
-:func:`raytpu_torch.golden.bounce_step`) under the closest-hit policy the
-scene takes: the dense stage (no BVH, 96 to 4096 spheres, as raytpu's
-``_use_dense``), the brute sweep, the flat BVH sweep or the walk.  A slot's
+Every bounce is the forward megakernel's (its closest hit, then its
+shading; the plain versions :func:`segment_plain` and
+:func:`refill_segment_plain` build on :func:`raytpu_torch.golden.bounce_step`)
+under the closest-hit policy the scene takes: the dense stage (no BVH, 96
+to 4096 spheres, as raytpu's ``_use_dense``), the brute sweep, the flat BVH
+sweep or the walk.  A slot's
 samples add in the order of its samples, so at ``spp_batch`` 1 the image
 is the golden's and ``render()``'s bit for bit; with B > 1 a pixel's B
 slots add in another order (within an ulp or so).  The sort order never

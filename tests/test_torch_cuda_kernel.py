@@ -41,10 +41,11 @@ over staged rows and over the pack).  K3 over a flat BVH
 sweeps the rows it stages in shared memory, and its warp-wide near-miss
 sweep picks the sequential loop's sphere: staged in part or not at all,
 its image and f32 cotangents are bit for bit the same where the refill's
-lanes are.  K5 and K6 equal their
-plain versions (torch on the same CUDA tensors, the same op order) bit for
-bit, planes and keys, launch by launch; the wavefront's image equals
-render()'s bit for bit with one slot a pixel.
+lanes are.  K5 and K6 (on their persistent slot grid, with the
+forward's closest hit under every policy) equal their plain versions
+(torch on the same CUDA tensors, the same op order) bit for bit, planes
+and keys, launch by launch; the wavefront's image equals render()'s bit
+for bit with one slot a pixel.
 """
 
 import pytest
@@ -794,60 +795,113 @@ def _record(monkeypatch, name):
     return calls
 
 
-def _wavefront_world(policy, cfg):
-    if policy == "dense":
-        return rt.random_world(device="cuda"), _cam(cfg), None
-    if policy == "brute":
-        return rt.test_world(device="cuda"), _cam(cfg), None
-    if policy == "bvh":
-        return _bvh_world(cfg)
-    return _walk_world(cfg)
+# The segment kernels' cases: the scene's policy, then a flat BVH staged
+# only in part (a limit that leaves out most leaves: the rest read from
+# the pack and the leaf list), an unpadded walk (one copy, leaves of up
+# to 7 spheres) and 4097 spheres without a BVH (one past the stage: the
+# brute sweep reads the pack) -> (scene, camera, bvh, SceneOps policy).
+def _wavefront_world(case, cfg, monkeypatch):
+    if case == "dense":
+        return rt.random_world(device="cuda"), _cam(cfg), None, "dense"
+    if case == "brute":
+        return rt.test_world(device="cuda"), _cam(cfg), None, "brute"
+    if case == "pack_4097":
+        return _random_spheres(4097), _cam(cfg), None, "brute"
+    if case == "walk_unpadded":
+        return (*_walk_world(cfg, padded=False), "walk")
+    if case == "walk":
+        return (*_walk_world(cfg), "walk")
+    scene, cam, bvh = _bvh_world(cfg)
+    if case == "bvh_part_staged":
+        whole = megakernel.flat_stage(bvh, 1 << 30)
+        limit = whole["bytes"] - 16 * (bvh.n_leaves - 2) * (bvh.leaf_size + 1)
+        monkeypatch.setattr(megakernel, "smem_optin", lambda dev: limit)
+        st = megakernel.flat_stage(bvh, limit)
+        assert st["boxes"] and st["leaves"] == 2 < bvh.n_leaves
+    return scene, cam, bvh, "bvh"
 
 
-def _dense_slot_grid(ops, planes, cfg, _):
-    """K5/dense's persistent slot grid against the plain version, bit for
-    bit, on planes a frame's launches do not give: R not a multiple of 256
-    (1000 slots, fewer than the grid holds), every slot dead, the
-    38-bounce segment of a depth-50 frame, and more slots than the grid
-    holds (the frame's slots tiled 160 times, past 2048 threads an SM)."""
+def _slot_grid(ops, planes, cfg, _):
+    """K5's persistent slot grid against the plain version, bit for bit, on
+    planes a frame's launches do not give: R not a multiple of 256 (1000
+    slots, fewer than the grid holds), every slot dead, a 38-bounce segment
+    (under the dense stage, at depth 50), more slots than the grid holds
+    (the frame's slots tiled 160 times, past 2048 threads an SM; not past
+    the stage, where the plain version's slots x spheres broadcast would
+    take tens of GB: the pack's loop is the staged rows') and, over a flat
+    BVH, nothing of it staged."""
     dead = planes.clone()
     dead[12] = 0.0
-    deep = cfg.replace(depth=50)
     many = planes.repeat(1, 160)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert many.shape[1] > sms * 2048
-    for p, c, k in ((planes[:, :1000].contiguous(), cfg, 3), (dead, cfg, 9),
-                    (planes, deep, 38), (many, deep, 38)):
-        got = kwf.launch_segment(ops, p, c, k)
-        assert _same(got, wf.segment_plain(ops, p, c, k))
+    deep = cfg.replace(depth=50) if ops.policy == "dense" else cfg
+    k = 38 if ops.policy == "dense" else 3
+    cases = [(ops, planes[:, :1000].contiguous(), cfg, 3),
+             (ops, dead, cfg, 9), (ops, planes, deep, k)]
+    if ops.pack.shape[1] <= megakernel.DENSE_MAX:
+        cases.append((ops, many, deep, k))
+    if ops.policy == "bvh":
+        cases.append((ops._replace(stage=megakernel.flat_stage(ops.bvh, 0)),
+                      planes, cfg, 3))
+    for o, p, c, n in cases:
+        got = kwf.launch_segment(o, p, c, n)
+        assert _same(got, wf.segment_plain(o, p, c, n))
+
+
+def _refill_slot_grid(ops, ride, aux, cfg, _, B):
+    """K6's persistent slot grid against the plain version, bit for bit:
+    more slots than the grid holds (tiled 160 times; as in _slot_grid, not
+    past the stage), every slot exhausted (each rides through as a copy)
+    and 1000 slots."""
+    done = ride.clone()
+    done[0] = wf.DEAD_KEY
+    cases = [(done, aux),
+             (ride[:, :1000].contiguous(), aux[:, :1000].contiguous())]
+    if ops.pack.shape[1] <= megakernel.DENSE_MAX:
+        cases.append((ride.repeat(1, 160), aux.repeat(1, 160)))
+    for r, a in cases:
+        got = kwf.launch_refill_segment(ops, r, a, cfg, 2, B)
+        assert _same(got, wf.refill_segment_plain(ops, r, a, cfg, 2, B))
 
 
 @needs_card
-@pytest.mark.parametrize("policy", ["brute", "dense", "bvh", "walk"])
+@pytest.mark.parametrize("policy", ["brute", "dense", "bvh", "walk",
+                                    "bvh_part_staged", "walk_unpadded",
+                                    "pack_4097"])
 @pytest.mark.parametrize("rng_mode", ["sequential", "parallel"])
 def test_segment_kernels_match_plain(monkeypatch, policy, rng_mode):
     """Every K5 launch of a wavefront render (and, in parallel RNG, every
     K6 launch of a refill render) against its plain version on the same
     planes, bit for bit; the images equal render()'s bit for bit (one slot
-    a pixel) and, two samples in flight, within an ulp.  K5/dense also on
-    the planes of _dense_slot_grid."""
+    a pixel) and, two samples in flight, within an ulp.  Every policy's
+    closest hit is the forward's (the flat sweep over the stage, the walk
+    over its 16-byte rows, the brute sweep over staged rows or the pack),
+    on a persistent slot grid: also on the planes of _slot_grid and
+    _refill_slot_grid, and on a slab whose rows run past the frame."""
     cfg = RenderConfig(width=64, height=32, spp=2, depth=6,
                        rng_mode=rng_mode)
-    scene, cam, bvh = _wavefront_world(policy, cfg)
+    scene, cam, bvh, tag = _wavefront_world(policy, cfg, monkeypatch)
     seg = _record(monkeypatch, "launch_segment")
     ref = rt.render(scene, cam, cfg, bvh=bvh)
-    kwf.variants[f"K5/{policy}"] = 0
+    kwf.variants[f"K5/{tag}"] = 0
     img = rt.render(scene, cam, cfg, backend="wavefront", bvh=bvh)
-    assert kwf.variants[f"K5/{policy}"] == len(seg) == 2 * 2
+    assert kwf.variants[f"K5/{tag}"] == len(seg) == 2 * 2
     assert torch.equal(img, ref)
     for (ops, planes, c, k), out in seg:
+        assert ops.policy == tag
         assert _same(out, wf.segment_plain(ops, planes, c, k))
-    if policy == "dense":
-        _dense_slot_grid(*seg[0][0])
+    _slot_grid(*seg[0][0])
+    del seg[:]
+    part = wf._render(scene, cam, cfg, bvh, (2, 4), 1, 1, 65536, 0, row0=16,
+                      rows=32)
+    assert torch.equal(part[:16], ref[16:]) and not bool(part[16:].any())
+    for (ops, planes, c, k), out in seg:
+        assert _same(out, wf.segment_plain(ops, planes, c, k))
     if rng_mode == "sequential":
         return
     rides = _record(monkeypatch, "launch_refill_segment")
-    kwf.variants[f"K6/{policy}"] = 0
+    kwf.variants[f"K6/{tag}"] = 0
     for B in (1, 2):
         img = rt.render(scene, cam, cfg, backend="wavefront", bvh=bvh,
                         spp_batch=B, refill=2)
@@ -855,9 +909,13 @@ def test_segment_kernels_match_plain(monkeypatch, policy, rng_mode):
             assert torch.equal(img, ref)
         else:
             assert float((img - ref).abs().max()) <= 2.5e-7
-    assert kwf.variants[f"K6/{policy}"] == len(rides) > 2
+    part = wf._render(scene, cam, cfg, bvh, (6,), 1, 1, 65536, 2, row0=16,
+                      rows=32)
+    assert torch.equal(part[:16], ref[16:]) and not bool(part[16:].any())
+    assert kwf.variants[f"K6/{tag}"] == len(rides) > 2
     for (ops, ride, aux, c, k, B), out in rides:
         assert _same(out, wf.refill_segment_plain(ops, ride, aux, c, k, B))
+    _refill_slot_grid(*rides[0][0])
 
 
 @needs_card

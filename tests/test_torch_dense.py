@@ -89,7 +89,7 @@ def test_launch_routes_the_dense_stage(monkeypatch, small_bvh):
     _record_entries(monkeypatch, calls)
     cfg = RenderConfig(width=8, height=4, spp=1, depth=2)
     cp = torch.zeros(megakernel.CAM_PACK)
-    counter = megakernel._pixel_counter(torch.device("cpu"), 0)
+    counter = megakernel.slot_counter(torch.device("cpu"), 0)
     assert counter.dtype == torch.int32 and counter.tolist() == [0]
     at = counter.data_ptr()
 

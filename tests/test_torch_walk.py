@@ -421,9 +421,10 @@ def test_walk_rows_round_trip(kind):
 
 @pytest.mark.parametrize("padded", [True, False], ids=["padded", "unpadded"])
 def test_bvh_args_pass_the_walk_rows(padded):
-    """The C entry points' walk operands: the given 16-byte rows (the
-    forward's and K3's), else bvh.nodes (K5 / K6), with the copy's node
-    count, the copies and the outlier tail."""
+    """The C entry points' walk operands: the given 16-byte rows (every
+    kernel's: the forward's, K3's, K5's and K6's), with the copy's node
+    count, the copies and the outlier tail; without them the walk is
+    refused (no kernel reads bvh.nodes)."""
     b, _ = _walk_bvh("padded" if padded else "unpadded")
     tail = (tbvh.outlier_tail(b.perm, b.flat, b.leaf_size) or (0, 0))
     assert (tail[1] > 0) == padded
@@ -431,8 +432,8 @@ def test_bvh_args_pass_the_walk_rows(padded):
     args = tmk.bvh_args(b, b.walk_rows)
     assert args[:3] == (None, 0, 0) and args[4:] == want
     assert args[3] == b.walk_rows.data_ptr()
-    assert tmk.bvh_args(b)[3] == b.nodes.data_ptr()
-    assert tmk.bvh_args(b)[4:] == want
+    with pytest.raises(ValueError, match="walk_rows"):
+        tmk.bvh_args(b, None)
 
 
 @pytest.mark.parametrize("case", ["rows", "skip", "edge"])

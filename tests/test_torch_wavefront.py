@@ -18,6 +18,9 @@ Tolerances:
   same arrays: bit for bit.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -28,7 +31,7 @@ from raytpu import wavefront as jwf
 from raytpu.bvh import build_bvh as jbuild_bvh
 from raytpu.config import RenderConfig as JConfig
 import raytpu_torch as rt
-from raytpu_torch import convert, golden, shard, wavefront as wf
+from raytpu_torch import bvh as tbvh, convert, golden, shard, wavefront as wf
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import megakernel
 from raytpu_torch.kernels import wavefront as kwf
@@ -271,6 +274,95 @@ def test_backward_refused_on_a_card_in_parallel_rng():
             else:  # a pixel's two slots add in another order
                 assert float((a - b).abs().max()) <= 1e-5 * max(
                     float(b.abs().max()), 1e-6)
+
+
+@pytest.mark.parametrize("case", ["flat_part_staged", "walk",
+                                  "walk_unpadded", "brute", "dense"])
+def test_segment_operands_match_the_forward(monkeypatch, case):
+    """K5's and K6's closest-hit operands (kwf.hit_args of prepare's
+    SceneOps, with the kernels' own from kwf.kernel_operands, as prepare
+    makes them on a card) are the ones the forward's launch passes its C
+    entry point, raytpu_render_fwd, recorded here for the same scene and
+    BVH: the scene pack in leaf order, the BVH's operands (the walk's node
+    rows BVH.walk_rows), the stage planned within the same byte limit (one
+    that stages two leaves of the flat BVH), and sphere rows equal to the
+    ones the forward builds, made once in SceneOps; no dense operand (the
+    C entry points stage by the sphere count).  On the CPU prepare makes
+    none of the kernels' operands and hit_args refuses the ones that need
+    them."""
+    cam = rt.make_camera(*LOOK, vfov=20.0, aspect=2.0, device="cpu")
+    box = torch.arange(6, dtype=torch.float32)
+    bvh = None
+    if case == "flat_part_staged":
+        scene = rt.final_world(n=48, device="cpu")
+        bvh = rt.build_bvh(scene, leaf_size=8)
+    elif case.startswith("walk"):
+        scene = rt.final_world(n=300, device="cpu")
+        bvh = rt.build_bvh(scene, leaf_size=4 if case == "walk" else 7,
+                           pad_leaves=case == "walk")
+    else:
+        scene = (rt.test_world if case == "brute" else rt.random_world)(
+            device="cpu")
+    limit = 1 << 20
+    if bvh is not None and tbvh.sweep_of(bvh) == "flat":
+        limit = (megakernel.flat_stage(bvh, limit)["bytes"]
+                 - 16 * (bvh.n_leaves - 2) * (bvh.leaf_size + 1))
+    plain = kwf.prepare(scene, cam, bvh, box)
+    assert plain.stage is plain.walk_rows is plain.spheres is None
+    ops = plain._replace(**dict(zip(
+        ("stage", "walk_rows", "spheres"),
+        kwf.kernel_operands(plain.policy, bvh, plain.pack, lambda: limit))))
+    assert ops.policy == {"flat_part_staged": "bvh", "walk_unpadded":
+                          "walk"}.get(case, case)
+    kscene = scene if bvh is None else tbvh.permute_scene(scene, bvh.perm)
+    want = megakernel.pack_scene(kscene)  # NaN rows pad a leaf: the bits
+    assert torch.equal(ops.pack.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(ops.box, box)
+    if ops.policy == "bvh":
+        assert ops.stage["leaves"] == 2 and ops.stage["boxes"]
+
+    # the forward's C entry point on the same pack and BVH, recorded
+    fwd, rows = [], []
+    sphere_rows = megakernel.sphere_rows
+
+    def made_rows(pack):
+        rows.append(sphere_rows(pack))
+        return rows[-1]
+
+    monkeypatch.setattr(megakernel, "check_packs", lambda cp, sp: None)
+    monkeypatch.setattr(megakernel, "check_bvh", lambda b, n, d: None)
+    monkeypatch.setattr(megakernel, "flat_stage_on",
+                        lambda b, d: megakernel.flat_stage(b, limit))
+    monkeypatch.setattr(megakernel, "sphere_rows", made_rows)
+    monkeypatch.setattr(megakernel, "_lib", lambda: types.SimpleNamespace(
+        raytpu_render_fwd=lambda *a: fwd.append(a) or 0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    cfg = RenderConfig(width=8, height=4, spp=1, depth=2)
+    megakernel.launch(megakernel.pack_camera(cam), ops.pack, cfg, bvh=bvh)
+    (f,) = fwd
+    args = kwf.hit_args(ops)
+    assert len(args) == len(kwf.HIT_ARGTYPES) == 15
+    # scene, n, the BVH's 8 operands, the stage's 3: the forward's 1-13
+    assert args[:13] == f[1:14]
+    assert args[14] == ops.box.data_ptr()
+    if ops.policy == "walk":
+        (made,) = rows
+        assert f[6] == bvh.walk_rows.data_ptr() and f[-2] == made.data_ptr()
+        assert torch.equal(ops.spheres.view(torch.int32),
+                           made.view(torch.int32))
+        assert args[13] == ops.spheres.data_ptr()
+    else:
+        assert not rows and args[13] is f[-2] is None
+    assert kwf.hit_args(ops) == args  # the rows are made once, in prepare
+    if bvh is None:
+        assert kwf.hit_args(plain)[2:] == args[2:] and args[2] is args[5] \
+            is None
+    else:
+        with pytest.raises(ValueError, match="prepare"):
+            kwf.hit_args(plain)
 
 
 def test_render_backend_and_refusals():
