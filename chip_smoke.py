@@ -194,6 +194,20 @@ card 0 without it).  Phases, one JSON line each:
         their bounds, ptxas's registers and spills of every K3
         instantiation, what K3 stages of config 4's BVH in shared memory
         within this card's limits, and the refill's lanes with it.
+10. v1_fractsin: the v1 fract-sin RNG mode (forward-only and golden-only,
+    as in raytpu: the plain PyTorch renderer on CUDA tensors, no kernel)
+    at its full frame, REFERENCE_V1_FAITHFUL (640x480, 1 spp, depth 25,
+    gamma 2) on ``v1_world()`` with ``reference_camera_v1()`` through
+    ``render(..., device="cuda")``: every pixel's post-jitter float2 state
+    and its Schlick draw bit-equal on the card and on the CPU, the image
+    within the cross-context budget of the CPU's (only the mappings'
+    acos / pow / sin / cos, rsqrt and the gamma may round apart), no
+    kernel launched, the frame's time and device time, a progressive
+    render at 4 spp in 2 + 2 batches on the card bit-equal to the
+    one-shot render, and ``megakernel.check_inputs`` still refusing the
+    mode; then ``profiling.device_events`` of config 2's ``render()``.
+    The frame's device time and the events are traced in processes of
+    their own (``own_process``).
 
 ``compare_trees.py`` compares two checkouts on one card (their outputs,
 K5's and K6's times) with this file's helpers and tables.
@@ -3425,6 +3439,104 @@ def brute_phase(dev, card: str, scene, cam, target,
             main_path_bound_by=b_k3t["bound_by"])}
 
 
+def own_process(code: str) -> object:
+    """The last line of ``code``'s standard output, as JSON, run by a
+    Python process of its own from the repository's root.  A
+    ``torch.profiler`` trace taken after other GPU work in a process that
+    has traced before may lose its device events (none for a short call;
+    measured on an H100, PERF.md section 7); a process's first trace holds
+    them."""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"a traced process exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+# one traced call of a preset on card 0, after a warm-up call
+TRACED_RENDER = """
+import json
+import raytpu_torch as rt
+from raytpu_torch import config, profiling
+cfg = config.{preset}
+scene, cam = rt.{world}(device="cuda"), {camera}
+rt.render(scene, cam, cfg)
+print(json.dumps(profiling.{fn}(lambda: rt.render(scene, cam, cfg))))
+"""
+
+
+def fractsin_phase(dev, card: str) -> None:
+    """Phase 10 (see the module docstring); fails on any check."""
+    import raytpu_torch as rt
+    from raytpu_torch import golden, progressive
+    from raytpu_torch.config import REFERENCE_V1_FAITHFUL
+    from raytpu_torch.kernels import gradkernel, megakernel
+    cfg = REFERENCE_V1_FAITHFUL
+    planes = {}
+    for d in ("cpu", dev):
+        cam = rt.reference_camera_v1(device=d)
+        flat = torch.arange(cfg.width * cfg.height, device=d)
+        fx, fy = (flat % cfg.width).float(), (flat // cfg.width).float()
+        sx, sy = golden.fractsin_state(cfg, fx, fy)
+        _, _, draws, (sx, sy) = golden.fractsin_sample(cam, cfg, fx, fy, sx,
+                                                       sy)
+        planes[d] = [t.cpu() for t in (sx, sy, draws[3])]
+    states_equal = all(torch.equal(a, b)
+                       for a, b in zip(planes["cpu"], planes[dev]))
+    scene, cam = rt.v1_world(device="cpu"), rt.reference_camera_v1(
+        device="cpu")
+    t0 = time.perf_counter()
+    want = rt.render(scene, cam, cfg)
+    cpu_s = time.perf_counter() - t0
+    reset_counts(megakernel, gradkernel)
+
+    def frame():
+        return rt.render(scene, cam, cfg, device=dev)
+
+    got, first_ms = once_ms(frame)
+    _, frame_ms = once_ms(frame)
+    launches = megakernel.launches + gradkernel.launches
+    dev_ms = own_process(TRACED_RENDER.format(
+        preset="REFERENCE_V1_FAITHFUL", world="v1_world",
+        camera='rt.reference_camera_v1(device="cuda")', fn="device_ms"))
+    res = compare(got.cpu(), want)
+    cfg4 = cfg.replace(spp=4)
+    scene_d, cam_d = rt.v1_world(device=dev), rt.reference_camera_v1(
+        device=dev)
+    one = rt.render(scene_d, cam_d, cfg4)
+    st = progressive.init_state(cfg4, device=dev)
+    for _ in range(2):
+        st = progressive.accumulate(scene_d, cam_d, cfg4, st, 2)
+    batches_equal = bool(torch.equal(progressive.image(st, cfg4), one))
+    try:
+        megakernel.check_inputs(scene_d, cam_d, cfg)
+        refused = False
+    except ValueError as e:
+        refused = "golden-only" in str(e)
+    ok = (states_equal and res["share_above_budget"] <= BUDGET_SHARE
+          and launches == 0 and batches_equal and refused
+          and tuple(got.shape) == (cfg.height, cfg.width, 3)
+          and bool(torch.isfinite(got).all()))
+    phase("v1_fractsin", ok=ok, card=card,
+          frame="REFERENCE_V1_FAITHFUL 640x480 spp1 d25 gamma 2 v1_world",
+          post_jitter_state_bit_equal_cpu=states_equal,
+          tolerance=f"share |d| > {BUDGET_DELTA} <= {BUDGET_SHARE} against "
+                    "the CPU's image", **res, kernel_launches=launches,
+          frame_ms=frame_ms, first_frame_ms=first_ms, frame_device_ms=dev_ms,
+          cpu_frame_s=cpu_s, mean=float(got.mean()),
+          progressive_2_plus_2_bit_equal=batches_equal,
+          check_inputs_refuses=refused)
+    if not ok:
+        fail("the v1 fract-sin mode failed a check on the card")
+    events = own_process(TRACED_RENDER.format(
+        preset="CONFIG2", world="config2_world", camera=(
+            "rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0, "
+            'aspect=cfg.aspect, device="cuda")'), fn="device_events"))
+    phase("device_events", card=card, call="config 2 render()",
+          events=events)
+
+
 def near_miss_share(args: dict) -> dict:
     """K3's ``vis_w`` launch ``args`` (``gradkernel.launch``'s arguments)
     less the same launch with ``vis_w`` 0, on each PASS 2 schedule, in
@@ -3976,6 +4088,9 @@ def main() -> None:
 
     # -- phase 9c: K3 over the flat BVH redesigned, registers and staging
     k3_phase(dev, card, entries, vis)
+
+    # -- phase 10: the v1 fract-sin mode at REFERENCE_V1_FAITHFUL
+    fractsin_phase(dev, card)
 
     # bounds of K1a and K3 in the cells their times come from
     from raytpu_torch import profiling

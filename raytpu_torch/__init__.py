@@ -23,9 +23,10 @@ K1e.  ``wavefront`` is raytpu's sorted-wavefront engine
 (``render(backend="wavefront")``: the segment kernels K5 and K6 on a
 card).  ``scene_io`` reads and writes raytpu's JSON scene files, ``debug``
 holds the scene lint, the checked render and the kernel-against-plain
-check behind ``cli validate``.  This package never imports jax.
-
-Not ported yet (see ROADMAP.md): the v1 fract-sin RNG mode.
+check behind ``cli validate``.  The v1 fract-sin RNG mode
+(``rng_mode="v1_fractsin"``, reference parity) is forward-only and
+golden-only, as in raytpu: every backend renders it through the plain
+version, on any device.  This package never imports jax.
 """
 
 from raytpu_torch.config import RenderConfig

@@ -299,7 +299,9 @@ def main(argv=None) -> int:
                    choices=("sequential", "parallel", "v1_fractsin"),
                    default="sequential",
                    help="sequential = reference-parity seed chain; parallel "
-                        "= per-sample streams (v1_fractsin: not ported yet)")
+                        "= per-sample streams; v1_fractsin = the v1 pixel "
+                        "shader's fract-sin RNG (with --scatter-mode v1; "
+                        "the plain PyTorch renderer under every backend)")
     r.add_argument("--bvh", action="store_true",
                    help="build a BVH of the scene and sweep it: the flat "
                         "leaf list up to 64 leaves a copy (K1c on a cuda "

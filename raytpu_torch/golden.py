@@ -33,7 +33,11 @@ version of the carry-state kernel K2 (one progressive batch).  All three
 take raytpu's slab mode, ``row0`` / ``rows`` (K1b): a slab's pixels are
 their pixel list.
 
-``rng_mode="v1_fractsin"`` (the v1 fract-sin parity mode) is not ported yet.
+``rng_mode="v1_fractsin"`` (the v1 fract-sin parity mode, forward only)
+runs here and nowhere else, on any device: :func:`accumulate_pixels`
+threads the v1 float2 state (:func:`fractsin_state`,
+:func:`fractsin_sample`) and :func:`trace` reuses one sample's draws at
+every bounce (``fixed_draws``), as raytpu's golden does.
 """
 
 from __future__ import annotations
@@ -52,8 +56,6 @@ TAPE_UNWRITTEN = -2  # a tape slot no step reached (a miss logs -1)
 # the census of a frame (K1'): leaves entered, closest-hit steps, samples,
 # and the nodes the walk visits (0 for the other sweeps)
 CENSUS = ("leaves_entered", "bounce_steps", "samples", "nodes_visited")
-_FRACTSIN_TODO = ("rng_mode='v1_fractsin' is not ported yet (ROADMAP queue 1, "
-                  "M2/M3: the v1 fract-sin helpers and their golden mode)")
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -413,7 +415,8 @@ def _schlick(cosine, ref_idx):
     return r0 + (1.0 - r0) * (m * m * m * m * m)
 
 
-def scatter(scene: Scene, rd, p, normal, front, idx, seed, mode: str = "v2"):
+def scatter(scene: Scene, rd, p, normal, front, idx, seed, mode: str = "v2",
+            fixed_draws=None):
     """Material scatter (ref: ShaderCompute.hlsl:207-252).
 
     Returns (scatter_ok, atten SoA, new_dir SoA, new_seed).  All three
@@ -422,6 +425,9 @@ def scatter(scene: Scene, rd, p, normal, front, idx, seed, mode: str = "v2"):
     pixel-shader generation's materials (ref: Shader_RT.fx:217-243):
     hemisphere diffuse with a near-zero guard and saturated-fuzz metal on
     the normalized incoming direction, both unnormalized.
+    ``fixed_draws = (sx, sy, sz, h1)`` replaces the counter-based draws
+    and leaves the seed untouched: the v1 fract-sin mode, whose by-value
+    state gives every bounce of a path the same draws.
     """
     rdx, rdy, rdz = rd
     nx, ny, nz = normal
@@ -429,8 +435,12 @@ def scatter(scene: Scene, rd, p, normal, front, idx, seed, mode: str = "v2"):
     alb = scene.albedo[idx]
     param = scene.mat_param[idx]
 
-    (sx, sy, sz), seed_new = rng.random_in_unit_sphere(seed)
-    h1, _ = rng.hash1(seed)  # same underlying draw, same new seed
+    if fixed_draws is not None:
+        sx, sy, sz, h1 = fixed_draws
+        seed_new = seed
+    else:
+        (sx, sy, sz), seed_new = rng.random_in_unit_sphere(seed)
+        h1, _ = rng.hash1(seed)  # same underlying draw, same new seed
 
     if mode == "v1":
         # hemisphere flip (Shader_RT.fx:151-163)
@@ -503,7 +513,7 @@ def _sky(rdx, rdy, rdz):
 
 def bounce_step(scene: Scene, ro, rd, c, r, alive, sd, t_min: float,
                 scatter_mode: str = "v2", bvh: BVH | None = None, tape=None,
-                census=None):
+                census=None, fixed_draws=None):
     """One bounce of a batch of ray slots (ref: the body of sample_color's
     loop, hlsl:255-287; raytpu's ``make_bounce_body``): the plain version
     of the kernels' ``bounce_step`` (csrc/render_common.cuh), which the
@@ -518,10 +528,10 @@ def bounce_step(scene: Scene, ro, rd, c, r, alive, sd, t_min: float,
     radiance carried across a slot's samples sums them) and dies; the hit
     of an unknown material dies (black); the rest scatter, which moves the
     ray, multiplies the attenuation into ``c`` and advances the seed by its
-    one draw.  Dead lanes keep their state.  ``tape`` and ``census`` as in
-    :func:`trace`.  Returns ``(ro, rd, c, r, alive, sd, seen)``, ``seen`` =
-    (winner, t, normal, attenuation, new direction) of every lane, for
-    :func:`trace`'s ``check``."""
+    one draw.  Dead lanes keep their state.  ``tape``, ``census`` and
+    ``fixed_draws`` as in :func:`trace`.  Returns ``(ro, rd, c, r, alive,
+    sd, seen)``, ``seen`` = (winner, t, normal, attenuation, new direction)
+    of every lane, for :func:`trace`'s ``check``."""
     ox, oy, oz = ro
     dx, dy, dz = rd
     cr, cg, cb = c
@@ -539,7 +549,8 @@ def bounce_step(scene: Scene, ro, rd, c, r, alive, sd, t_min: float,
     py = oy + t * dy
     pz = oz + t * dz
     ok, (ar, ag, ab), (sx, sy, sz), sd_new = scatter(
-        scene, rd, (px, py, pz), normal, front, idx, sd, scatter_mode)
+        scene, rd, (px, py, pz), normal, front, idx, sd, scatter_mode,
+        fixed_draws)
 
     scat = alive & hit_any & ok
     absorbed = alive & hit_any & ~ok
@@ -567,7 +578,7 @@ def bounce_step(scene: Scene, ro, rd, c, r, alive, sd, t_min: float,
 
 def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
           scatter_mode: str = "v2", bvh: BVH | None = None, tape=None,
-          census=None, check=None):
+          census=None, check=None, fixed_draws=None):
     """Iterative bounce loop (ref: sample_color, hlsl:255-287): up to
     ``depth`` :func:`bounce_step` calls from throughput 1 and radiance 0.
 
@@ -584,6 +595,8 @@ def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
     called after each bounce with every lane's winner and a tuple of the
     bounce's values (t, normal, attenuation, new direction, throughput,
     radiance), for :func:`raytpu_torch.debug.checked_render`.
+    ``fixed_draws`` (see :func:`scatter`): every bounce scatters with these
+    draws and the seed is returned untouched.
     """
     ones = torch.ones_like(ro[0])
     zeros = torch.zeros_like(ro[0])
@@ -597,7 +610,7 @@ def trace(scene: Scene, ro, rd, seed, depth: int, t_min: float,
             break
         ro, rd, c, r, alive, sd, (idx, t, normal, att, new_dir) = \
             bounce_step(scene, ro, rd, c, r, alive, sd, t_min, scatter_mode,
-                        bvh, tape, census)
+                        bvh, tape, census, fixed_draws)
         if check is not None:
             check(bounce, idx, (t, *normal, *att, *new_dir, *c, *r))
     # depth exhausted while alive -> black (r is still 0)
@@ -617,6 +630,47 @@ def gen_ray(cam: Camera, fx, fy, inv_w, inv_h, sd):
     return get_ray(cam, u, v, sd)
 
 
+def fractsin_state(cfg: RenderConfig, fx, fy, s0: int = 0):
+    """The v1 fract-sin float2 state of the pixels ``(fx, fy)`` (f32
+    coordinates) before sample ``s0``: the texcoord of the pixel centre,
+    ``(fx + 0.5) / W`` and ``(fy + 0.5) / H`` (true f32 divisions; ref:
+    Shader_RT.fx:422 randState = frag.tex0), advanced by the two jitter
+    draws of each of the ``s0`` samples before it.  The state comes from
+    absolute pixel coordinates, so batches and slabs draw what a one-shot
+    render draws."""
+    half = rng.f32_like(fx, 0.5)
+    sx = (fx + half) / rng.f32_like(fx, cfg.width)
+    sy = (fy + half) / rng.f32_like(fy, cfg.height)
+    for _ in range(s0):
+        _, (sx, sy) = rng.fs_rand2d(sx, sy)
+        _, (sx, sy) = rng.fs_rand2d(sx, sy)
+    return sx, sy
+
+
+def fractsin_sample(cam: Camera, cfg: RenderConfig, fx, fy, sx, sy):
+    """One v1 fract-sin sample (ref: Shader_RT.fx:419-455 PS_Main, :288-298
+    get_ray) -> ``(ro, rd, draws, (sx', sy'))``.  Only the two jitter draws
+    advance the state; the lens offset, the sphere draw and the Schlick
+    draw ``h1`` (``draws = (x, y, z, h1)``, :func:`trace`'s
+    ``fixed_draws``) are taken BY VALUE from the post-jitter state
+    ``(sx', sy')``.  The jitter is over W, ``u = (fx + 0.5 + j1) / W``
+    (:433-434), not the v2 generation's 1.1 / (W - 1)."""
+    j1, (sx, sy) = rng.fs_rand2d(sx, sy)
+    j2, (sx, sy) = rng.fs_rand2d(sx, sy)
+    half = rng.f32_like(fx, 0.5)
+    u = (fx + half + j1) / rng.f32_like(fx, cfg.width)
+    v = (fy + half + j2) / rng.f32_like(fy, cfg.height)
+    ldx, ldy = rng.fs_unit_disk(sx, sy)
+    lr = cam.lens_radius
+    ro = tuple(cam.origin[i] + lr * (ldx * cam.u[i] + ldy * cam.v[i])
+               for i in range(3))
+    rd = tuple(cam.lower_left[i] + u * cam.horizontal[i]
+               + v * cam.vertical[i] - ro[i] for i in range(3))
+    s3 = rng.fs_unit_sphere(sx, sy)
+    h1, _ = rng.fs_rand2d(sx, sy)
+    return ro, rd, (*s3, h1), (sx, sy)
+
+
 def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
                       px, py, seed, spp: int, init=None, s0: int = 0,
                       bvh: BVH | None = None, tape=None, census=None,
@@ -628,21 +682,40 @@ def accumulate_pixels(scene: Scene, cam: Camera, cfg: RenderConfig,
     equal one spp-sample render bit for bit.  In the "parallel" RNG mode,
     ``seed`` is the per-pixel BASE state and ``s0`` the index of the first
     sample (each sample's stream is ``fold_in(seed, s0 + i)``); the
-    returned seed is the unchanged base.  ``bvh``, ``tape``, ``census``
-    and ``check`` go to :func:`trace` (the scene then in leaf order).
+    returned seed is the unchanged base.  In the "v1_fractsin" mode (with
+    ``scatter_mode="v1"`` only) each sample is :func:`fractsin_sample` from
+    the float2 state :func:`fractsin_state` gives at ``s0``, and ``seed``
+    is returned untouched.  ``bvh``, ``tape``, ``census`` and ``check`` go
+    to :func:`trace` (the scene then in leaf order).
     """
-    if cfg.rng_mode == "v1_fractsin":
-        raise NotImplementedError(_FRACTSIN_TODO)
-    if cfg.rng_mode not in ("sequential", "parallel"):
+    if cfg.rng_mode not in ("sequential", "parallel", "v1_fractsin"):
         raise ValueError(f"unknown rng_mode: {cfg.rng_mode!r}")
     fx = px.to(torch.float32)
     fy = py.to(torch.float32)
-    # rounded to f32 from the f64 quotient, as raytpu and the kernel do
-    inv_w = rng.f32_like(fx, 1.0 / (cfg.width - 1))
-    inv_h = rng.f32_like(fx, 1.0 / (cfg.height - 1))
     if init is None:
         init = (torch.zeros_like(fx),) * 3
     acc_r, acc_g, acc_b = init
+
+    if cfg.rng_mode == "v1_fractsin":
+        if cfg.scatter_mode != "v1":
+            raise ValueError(
+                "rng_mode='v1_fractsin' is the v1 generation's RNG; "
+                "pair it with scatter_mode='v1'")
+        sx, sy = fractsin_state(cfg, fx, fy, s0)
+        for _ in range(spp):
+            ro, rd, draws, (sx, sy) = fractsin_sample(cam, cfg, fx, fy, sx,
+                                                      sy)
+            (r, g, b), _ = trace(scene, ro, rd, seed, cfg.depth, cfg.t_min,
+                                 cfg.scatter_mode, bvh, tape, census, check,
+                                 fixed_draws=draws)
+            acc_r = acc_r + r
+            acc_g = acc_g + g
+            acc_b = acc_b + b
+        return (acc_r, acc_g, acc_b), seed
+
+    # rounded to f32 from the f64 quotient, as raytpu and the kernel do
+    inv_w = rng.f32_like(fx, 1.0 / (cfg.width - 1))
+    inv_h = rng.f32_like(fx, 1.0 / (cfg.height - 1))
     parallel = cfg.rng_mode == "parallel"
 
     sd = seed

@@ -166,7 +166,10 @@ def check_inputs(scene: Scene, cam: Camera, cfg: RenderConfig) -> torch.device:
     """Raise on anything the kernel (or its plain version) does not take;
     return the one device every input lies on."""
     if cfg.rng_mode == "v1_fractsin":
-        raise NotImplementedError(golden._FRACTSIN_TODO)
+        raise ValueError(
+            "rng_mode='v1_fractsin' is golden-only, as in raytpu: no kernel "
+            "takes it; render() and progressive run the plain version "
+            "(golden.render_golden) for it on any device")
     if cfg.rng_mode not in ("sequential", "parallel"):
         raise ValueError(f"unknown rng_mode: {cfg.rng_mode!r}")
     if cfg.scatter_mode not in ("v2", "v1"):

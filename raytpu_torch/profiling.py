@@ -4,10 +4,11 @@
 On a card the time comes from CUDA events around the calls, after a
 ``torch.cuda.synchronize()``; on the CPU from the host clock.  Every result
 names the device it ran on.  :func:`log_run` appends one JSON line a run;
-:func:`trace` and :func:`device_ms` take ``torch.profiler`` where raytpu
-takes ``jax.profiler``.  :func:`census` counts the work of a frame
-(raytpu's ``count_leaves`` census, scripts/probe_roofline.py's input): the
-census kernel K1' on a card, its plain version on the CPU.
+:func:`trace`, :func:`device_ms` and :func:`device_events` take
+``torch.profiler`` where raytpu takes ``jax.profiler``.  :func:`census`
+counts the work of a frame (raytpu's ``count_leaves`` census,
+scripts/probe_roofline.py's input): the census kernel K1' on a card, its
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -97,25 +98,55 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def _traced(run_once, name: str):
+    """``torch.profiler`` trace of one ``run_once()`` call on the card,
+    synchronised before the trace ends; raises on the CPU.
+
+    Take it as the first trace of a process: measured on an H100 (torch
+    2.11, CUDA 12.8), a trace taken after a minute of other GPU work in a
+    process that has traced before held no device event of a short call
+    and lost the first of a long call's, with ``TEARDOWN_CUPTI=0`` too
+    (PERF.md, "Profiler traces late in a process")."""
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{name} needs a CUDA card")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_once()
+        torch.cuda.synchronize()
+    return prof
+
+
 def device_ms(run_once) -> float:
     """The card's kernel time of one call, in ms: the device time of every
     kernel ``run_once()`` launches, summed over the device-side events of a
     ``torch.profiler`` trace (the call is synchronised before the trace
     ends).  Raises when the
     trace holds no device time: on the CPU, or where the profiler cannot
-    see the card (time with CUDA events there)."""
-    from torch.profiler import ProfilerActivity, profile
-    if not torch.cuda.is_available():
-        raise RuntimeError("device_ms needs a CUDA card")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_once()
-        torch.cuda.synchronize()
+    see the card (time with CUDA events there).  See :func:`_traced` on
+    traces late in a process."""
+    prof = _traced(run_once, "device_ms")
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA)
     if us <= 0:
         raise RuntimeError("the profiler trace holds no device time")
     return us / 1e3
+
+
+def device_events(run_once) -> list:
+    """Every device-side event of one traced call -> ``[(name, ms), ...]``,
+    longest first (raytpu's ``device_events``, raytpu/profiling.py:78-111):
+    each kernel ``run_once()`` launches, and each copy or fill the card
+    runs, one entry per launch, from a ``torch.profiler`` trace (see
+    :func:`_traced` on traces late in a process).  Raises as
+    :func:`device_ms` does: on the CPU, or on a trace that holds no device
+    event."""
+    prof = _traced(run_once, "device_events")
+    out = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not out:
+        raise RuntimeError("the profiler trace holds no device event")
+    return sorted(out, key=lambda t: -t[1])
 
 
 def census(scene, cam, cfg: RenderConfig, bvh=None, row0: int = 0,

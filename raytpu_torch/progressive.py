@@ -32,7 +32,7 @@ from raytpu_torch import golden, rng, shard
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import megakernel
-from raytpu_torch.render import check_backend
+from raytpu_torch.render import backend_for, check_backend
 from raytpu_torch.scene import Scene
 
 # checkpoint enum encodings, raytpu's order
@@ -70,9 +70,9 @@ def accumulate(scene: Scene, cam: Camera, cfg: RenderConfig,
     flat or by the walk (K2's walk variant past 64 leaves a copy).  ``group``: each process of the group adds the samples of
     its row slab (:func:`raytpu_torch.shard.slab_rows`) and the slabs are
     gathered, so every process returns the whole state, bit-identical to
-    the unsharded one."""
-    if cfg.rng_mode == "v1_fractsin":
-        raise NotImplementedError(golden._FRACTSIN_TODO)
+    the unsharded one.  ``rng_mode="v1_fractsin"`` runs the plain version
+    under every backend, as :func:`raytpu_torch.render` does."""
+    backend = backend_for(cfg, backend)
     check_backend(backend, scene)
     if spp < 1:
         raise ValueError(f"a batch needs spp >= 1, got {spp}")

@@ -14,6 +14,10 @@ Build a Scene and a Camera on a device, call :func:`render`.  Backends:
   ``refill``.  raytpu demoted it on a TPU; it runs only when asked for by
   name, never under ``"auto"``.
 
+``rng_mode="v1_fractsin"`` (the v1 fract-sin parity mode) is forward-only
+and golden-only, as in raytpu: every backend renders it through the plain
+version, on whatever device the tensors lie on (:func:`backend_for`).
+
 Gradients: :func:`render` on inputs that require grad returns an image with
 a backward (on CUDA tensors the forward kernel K1a and the fused VJP kernel
 K3; on CPU tensors the plain golden forward and the adjoint VJP).
@@ -61,6 +65,18 @@ def check_backend(backend: str, scene: Scene,
                          f"{scene.center.device}")
 
 
+def backend_for(cfg: RenderConfig, backend: str,
+                allowed: tuple = BACKENDS) -> str:
+    """The backend that renders ``cfg`` when ``backend`` is asked for:
+    ``"golden"`` for every name in ``allowed`` under
+    ``rng_mode="v1_fractsin"``, which no kernel takes (raytpu/render.py:
+    73-77), decided before any launch and on any device; else
+    ``backend``."""
+    if cfg.rng_mode == "v1_fractsin" and backend in allowed:
+        return "golden"
+    return backend
+
+
 def render(scene: Scene, cam: Camera, cfg: RenderConfig,
            backend: str = "auto", device=None,
            vis_w: float = 0.0, bvh=None, spp_batch: int = 1,
@@ -80,11 +96,14 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig,
     ties of t between spheres.  ``spp_batch`` and ``refill`` are the
     wavefront's knobs (:func:`raytpu_torch.wavefront.render_wavefront`),
     refused on the other backends as raytpu refuses them.
+    ``rng_mode="v1_fractsin"`` renders through the plain version whatever
+    the backend (so the wavefront's knobs are refused with it).
     """
     if device is not None:
         scene = Scene(*(t.to(device) for t in scene))
         cam = Camera(*(t.to(device) for t in cam))
         bvh = None if bvh is None else bvh.to(device)
+    backend = backend_for(cfg, backend, RENDER_BACKENDS)
     check_backend(backend, scene, RENDER_BACKENDS)
     if (spp_batch > 1 or refill) and backend != "wavefront":
         raise ValueError(

@@ -42,7 +42,7 @@ from raytpu_torch import bvh as tbvh
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import gradkernel, megakernel
-from raytpu_torch.render import BACKENDS, check_backend
+from raytpu_torch.render import BACKENDS, backend_for, check_backend
 from raytpu_torch.scene import Scene
 
 
@@ -130,7 +130,9 @@ def render_sharded(scene: Scene, cam: Camera, cfg: RenderConfig, *,
     world size.  Each process renders its slab: ``"auto"`` / ``"cuda"``
     through the forward kernel's slab mode (K1b, over ``bvh`` K1c's or K1d's sweep)
     on CUDA tensors and its plain version on CPU tensors; ``"golden"``
-    through the plain version on any device.  No autograd."""
+    through the plain version on any device, as every backend does for
+    ``rng_mode="v1_fractsin"``.  No autograd."""
+    backend = backend_for(cfg, backend)
     check_backend(backend, scene)
     fwd = golden.render_golden if backend == "golden" else \
         megakernel.render_fwd

@@ -109,6 +109,24 @@ def test_cli_refuses_unported_options(tmp_path, flag):
     assert not out.exists()
 
 
+def test_cli_renders_the_fractsin_mode(tmp_path):
+    """render --rng-mode v1_fractsin --scatter-mode v1 --gamma 2 writes
+    render()'s image (the plain version under every backend), one-shot and
+    with --progressive."""
+    cfg = RenderConfig(width=32, height=16, spp=2, depth=3, gamma=2.0,
+                       scatter_mode="v1", rng_mode="v1_fractsin")
+    want = io.to_uint8(rt.render(rt.v1_world(device="cpu"), rt.make_camera(
+        (13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0, aspect=cfg.aspect,
+        device="cpu"), cfg).numpy())
+    args = ["render", "--scene", "v1", "--width", "32", "--height", "16",
+            "--spp", "2", "--depth", "3", "--rng-mode", "v1_fractsin",
+            "--scatter-mode", "v1", "--gamma", "2", "--device", "cpu"]
+    for extra in ([], ["--progressive", "1"], ["--backend", "cuda"]):
+        out = tmp_path / "fs.png"
+        assert cli.main([*args, *extra, "--out", str(out)]) == 0
+        np.testing.assert_array_equal(_read_png(out)[2], want)
+
+
 def test_cli_progressive_resumes_an_interrupted_render(tmp_path, capsys):
     """An interrupted progressive render (a checkpoint after 2 of 6
     samples, written by render_progressive) resumes to the uninterrupted

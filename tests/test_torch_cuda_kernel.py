@@ -48,11 +48,17 @@ and keys, launch by launch; the wavefront's image equals render()'s bit
 for bit with one slot a pixel.
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import pytest
 import torch
 
 import raytpu_torch as rt
-from raytpu_torch import bvh as tbvh, golden, profiling, progressive, shard
+from raytpu_torch import bvh as tbvh, golden, profiling, progressive, rng
+from raytpu_torch import shard
 from raytpu_torch import wavefront as wf
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import gradkernel, megakernel
@@ -595,6 +601,61 @@ def test_device_ms_reads_the_kernels_time():
     rt.render(scene, cam, cfg)
     ms = profiling.device_ms(lambda: rt.render(scene, cam, cfg))
     assert 0 < ms < 1000
+
+
+@needs_card
+def test_device_events_lists_the_kernels():
+    """profiling.device_events lists one render's device events, longest
+    first, the forward kernel's launch among them; traced in a process of
+    its own (a process's first trace: see profiling._traced)."""
+    code = (
+        "import json\n"
+        "import raytpu_torch as rt\n"
+        "from raytpu_torch import profiling\n"
+        "from raytpu_torch.config import RenderConfig\n"
+        "cfg = RenderConfig(width=128, height=64, spp=4, depth=8)\n"
+        "scene = rt.test_world(device='cuda')\n"
+        "cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,"
+        " aspect=cfg.aspect, device='cuda')\n"
+        "rt.render(scene, cam, cfg)\n"
+        "print(json.dumps(profiling.device_events(\n"
+        "    lambda: rt.render(scene, cam, cfg))))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    events = json.loads(proc.stdout.strip().splitlines()[-1])
+    ms = [t for _, t in events]
+    assert ms == sorted(ms, reverse=True) and all(t >= 0 for t in ms)
+    assert any("render_fwd_kernel" in name for name, _ in events), events
+
+
+@needs_card
+def test_fractsin_state_bit_equal_cpu():
+    """The v1 fract-sin mode on CUDA tensors (the plain version, no
+    kernel): every pixel's post-jitter float2 state and its chained draws
+    equal the CPU's bit for bit (one torch op per f32 operation on both),
+    and the image is within the cross-context budget of the CPU's (the
+    mappings' acos / pow / sin / cos, rsqrt and the gamma may round apart)."""
+    cfg = RenderConfig(width=64, height=48, spp=1, depth=25, gamma=2.0,
+                       scatter_mode="v1", rng_mode="v1_fractsin")
+    planes = {}
+    for dev in ("cpu", "cuda"):
+        cam = rt.reference_camera_v1(device=dev)
+        flat = torch.arange(cfg.width * cfg.height, device=dev)
+        fx = (flat % cfg.width).float()
+        fy = (flat // cfg.width).float()
+        sx, sy = golden.fractsin_state(cfg, fx, fy)
+        _, _, _, st = golden.fractsin_sample(cam, cfg, fx, fy, sx, sy)
+        draws, s = [], st
+        for _ in range(3):
+            v, s = rng.fs_rand2d(*s)
+            draws.append(v)
+        img = rt.render(rt.v1_world(device=dev), cam, cfg)
+        planes[dev] = [t.cpu() for t in (*st, *draws, img)]
+    for a, b in zip(planes["cpu"][:-1], planes["cuda"][:-1]):
+        assert torch.equal(a, b)
+    _agree(planes["cuda"][-1], planes["cpu"][-1])
 
 
 @needs_card

@@ -114,9 +114,16 @@ def test_wrapper_rejects_bad_camera_and_config():
         rt.render(scene, cam, cfg.replace(width=1))
     with pytest.raises(ValueError, match="scatter_mode"):
         rt.render(scene, cam, cfg.replace(scatter_mode="v3"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.render(scene, cam, cfg.replace(rng_mode="v1_fractsin",
-                                          scatter_mode="v1"))
+    # the v1 fract-sin mode is golden-only, as in raytpu: render() takes
+    # it through the plain version under every backend, the kernel
+    # wrapper's check still refuses it
+    fs = cfg.replace(rng_mode="v1_fractsin", scatter_mode="v1")
+    tmk.launches = 0
+    assert torch.equal(rt.render(scene, cam, fs),
+                       golden.render_golden(scene, cam, fs))
+    assert tmk.launches == 0
+    with pytest.raises(ValueError, match="golden-only"):
+        tmk.check_inputs(scene, cam, fs)
 
 
 def test_wrapper_rejects_requires_grad():

@@ -154,10 +154,23 @@ def test_render_progressive_generator(tmp_path):
 
 
 def test_fractsin_refuses_with_its_roadmap_item():
+    """The v1 fract-sin mode, once refused, accumulates: 2 + 2 samples
+    under every backend name equal the one-shot 4-sample render bit for
+    bit (the float2 state is fast-forwarded by the samples already
+    taken), the carried u32 seeds stay each pixel's base hash, and
+    render_progressive's last image is the same."""
     *_, scene, cam = _world()
-    cfg = CFG.replace(rng_mode="v1_fractsin")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        progressive.accumulate(scene, cam, cfg,
-                               progressive.init_state(cfg, device="cpu"), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(progressive.render_progressive(scene, cam, cfg))
+    cfg = CFG.replace(spp=4, rng_mode="v1_fractsin", scatter_mode="v1",
+                      gamma=2.0)
+    one = rt.render(scene, cam, cfg)
+    for backend in ("auto", "golden"):
+        st = progressive.init_state(cfg, device="cpu")
+        for _ in range(2):
+            st = progressive.accumulate(scene, cam, cfg, st, 2,
+                                        backend=backend)
+        assert st.samples == 4
+        assert torch.equal(progressive.image(st, cfg), one)
+        assert torch.equal(st.seed,
+                           progressive.init_state(cfg, device="cpu").seed)
+    *_, (_, last) = progressive.render_progressive(scene, cam, cfg, batch=2)
+    assert torch.equal(last, one)

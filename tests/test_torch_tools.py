@@ -184,3 +184,13 @@ def test_profiler_hooks_on_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             profiling.device_ms(lambda: torch.ones(8).sum())
+
+
+def test_device_events_needs_a_card():
+    """device_events() (raytpu's per-event list) says on the CPU that it
+    needs a card, as device_ms() does, and runs nothing there."""
+    calls = []
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device_events needs a CUDA"):
+            profiling.device_events(lambda: calls.append(1))
+        assert not calls
