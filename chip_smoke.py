@@ -601,7 +601,6 @@ def recording(module, name: str, calls: list):
 def reset_counts(*modules) -> None:
     """Zero the launch counts of the kernel wrapper ``modules``."""
     for m in modules:
-        m.launches = 0
         for k in m.variants:
             m.variants[k] = 0
 
@@ -609,6 +608,12 @@ def reset_counts(*modules) -> None:
 def variant_counts(*modules) -> dict:
     """The launches by variant since the last reset_counts, nonzero only."""
     return {k: v for m in modules for k, v in m.variants.items() if v}
+
+
+def launch_count(module) -> int:
+    """The launches of one kernel wrapper ``module`` since the last
+    reset_counts, every variant summed."""
+    return sum(module.variants.values())
 
 
 def k3_plan(cfg, scene_pack, bvh) -> dict:
@@ -3496,7 +3501,7 @@ def fractsin_phase(dev, card: str) -> None:
 
     got, first_ms = once_ms(frame)
     _, frame_ms = once_ms(frame)
-    launches = megakernel.launches + gradkernel.launches
+    launches = launch_count(megakernel) + launch_count(gradkernel)
     dev_ms = own_process(TRACED_RENDER.format(
         preset="REFERENCE_V1_FAITHFUL", world="v1_world",
         camera='rt.reference_camera_v1(device="cuda")', fn="device_ms"))
@@ -3897,7 +3902,7 @@ def main() -> None:
     reset_counts(megakernel, gradkernel)
     img = rt.render(scene, cam, cfg, backend="auto")
     torch.cuda.synchronize()
-    fwd_launches = (megakernel.launches, gradkernel.launches)
+    fwd_launches = (launch_count(megakernel), launch_count(gradkernel))
     fwd_variants = variant_counts(megakernel, gradkernel)
     rv2_img = img
     band = (0.45, 0.75)  # mean of this frame (plain version, 128x72 4 spp: 0.61)
@@ -3955,21 +3960,20 @@ def main() -> None:
     cfg = CONFIG3
     truth, scene0, cam3, target3, loss_fn = optim.inverse_render_problem(
         cfg, device=dev, vis_w=VIS_W)
-    megakernel.launches = 0
-    gradkernel.launches = 0
+    reset_counts(megakernel, gradkernel)
     loss, img, (sg, cg) = rt.render_grad(scene0, cam3, cfg, target3,
                                          vis_w=VIS_W)
     torch.cuda.synchronize()
     per_step = []
 
     def count_step(step, _loss):
-        per_step.append((megakernel.launches, gradkernel.launches))
+        per_step.append((launch_count(megakernel), launch_count(gradkernel)))
 
     params, losses = optim.optimize(loss_fn, {"center": scene0.center[1]},
                                     steps=ADAM_STEPS, lr=ADAM_LR,
                                     callback=count_step)
     torch.cuda.synchronize()
-    grad_launches = (megakernel.launches, gradkernel.launches)
+    grad_launches = (launch_count(megakernel), launch_count(gradkernel))
     grads = [sg.center, sg.radius, sg.albedo, sg.mat_param, *cg]
     err0 = float((scene0.center[1] - truth.center[1]).norm())
     err1 = float((params["center"] - truth.center[1]).norm())

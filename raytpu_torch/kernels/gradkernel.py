@@ -14,8 +14,11 @@ version (:func:`render_vjp_plain`, a VJP of
 :func:`raytpu_torch.adjoint.render_golden_adjoint`, as raytpu's
 ``megakernel._golden_bwd``); for CUDA tensors it launches the kernel or
 raises, never falling back.  :func:`launch` is the kernel wrapper proper, on
-packed operands.  ``launches`` counts the kernel launches made through it,
-``variants`` the same launches by variant.
+packed operands.  ``variants`` counts the kernel launches made through it
+by variant.  The wrappers mark the host's preparation of a launch, the
+launch and the scatter of its cotangents as the spans ``raytpu.pack``,
+``raytpu.launch`` and ``raytpu.scatter``
+(:func:`raytpu_torch.profiling.span`).
 
 The windowed refill (raytpu's ``p2_refill``).  Given the forward image in
 parallel RNG, PASS 2 runs on raytpu's refill schedule by raytpu's rule
@@ -58,7 +61,7 @@ import ctypes
 import numpy as np
 import torch
 
-from raytpu_torch import adjoint, golden
+from raytpu_torch import adjoint, golden, profiling
 from raytpu_torch.bvh import BVH, permute_scene, sweep_of
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
@@ -69,8 +72,6 @@ SOURCE = "gradkernel.cu"
 MAX_DEPTH = 64  # the kernel's per-thread residual rows (kMaxDepth)
 LEAVES = 8      # sphere cotangent rows: cx cy cz rad ar ag ab mp
 CAM_SUMS = 18   # raygen cotangent sums (raytpu gradkernel.py:960-969)
-
-launches = 0    # kernel launches through launch(); a run resets and reads it
 
 
 def _variant(sweep: str | None, refill: bool, tape: bool, slab: bool) -> str:
@@ -325,7 +326,6 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     ``rows``: the slab (:func:`megakernel.slab`); ``ct`` and ``img`` are
     then (rows, W, 3).  Runs on the current stream of the operands' device
     and does not synchronise."""
-    global launches
     megakernel.check_packs(cam_pack, scene_pack)
     if cfg.depth > MAX_DEPTH:
         raise ValueError(f"depth {cfg.depth}: the VJP kernel keeps at most "
@@ -345,29 +345,32 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
             raise ValueError("the tape replay needs parallel RNG and the "
                              "forward image (img=)")
         megakernel.check_tape(tape, cfg, n, device, rows)
-    ct = ct.contiguous()
-    img_in = None if img_in is None else img_in.detach().contiguous()
-    lib = _lib()
-    out = torch.empty((rows, cfg.width, 3), dtype=torch.float32,
-                      device=device)
-    gsc = torch.zeros((LEAVES, n), dtype=torch.float64, device=device)
-    stage, plan = launch_plan(cfg, rows, scene_pack, bvh, refill)
-    walk = bvh is not None and sweep_of(bvh) == "walk"
-    node_rows = bvh.walk_rows if walk else None
-    spheres = megakernel.sphere_rows(scene_pack) if walk else None
-    scratch = None
-    if refill:
-        if plan["hops"] * cfg.spp >= 2**28:
-            raise ValueError(f"{plan['hops']} pixels a lane at {cfg.spp} spp: "
-                             "the refill numbers a lane's samples below 2^28")
-        scratch = torch.empty(plan["bytes"] // 4, dtype=torch.int32,
-                              device=device)
-    # one row of camera sums per warp, summed below in a fixed order
-    n_warps = (plan["lanes"] // 32 if refill
-               else lib.raytpu_render_vjp_warps(cfg.width, rows))
-    gcam = torch.empty((n_warps, CAM_SUMS), dtype=torch.float64,
-                       device=device)
-    with torch.cuda.device(device):
+    # the operands and outputs, the stage and refill plans
+    with profiling.span("raytpu.pack"):
+        ct = ct.contiguous()
+        img_in = None if img_in is None else img_in.detach().contiguous()
+        lib = _lib()
+        out = torch.empty((rows, cfg.width, 3), dtype=torch.float32,
+                          device=device)
+        gsc = torch.zeros((LEAVES, n), dtype=torch.float64, device=device)
+        stage, plan = launch_plan(cfg, rows, scene_pack, bvh, refill)
+        walk = bvh is not None and sweep_of(bvh) == "walk"
+        node_rows = bvh.walk_rows if walk else None
+        spheres = megakernel.sphere_rows(scene_pack) if walk else None
+        scratch = None
+        if refill:
+            if plan["hops"] * cfg.spp >= 2**28:
+                raise ValueError(f"{plan['hops']} pixels a lane at "
+                                 f"{cfg.spp} spp: the refill numbers a "
+                                 "lane's samples below 2^28")
+            scratch = torch.empty(plan["bytes"] // 4, dtype=torch.int32,
+                                  device=device)
+        # one row of camera sums per warp, summed below in a fixed order
+        n_warps = (plan["lanes"] // 32 if refill
+                   else lib.raytpu_render_vjp_warps(cfg.width, rows))
+        gcam = torch.empty((n_warps, CAM_SUMS), dtype=torch.float64,
+                           device=device)
+    with torch.cuda.device(device), profiling.span("raytpu.launch"):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.raytpu_render_vjp(
             cam_pack.data_ptr(), scene_pack.data_ptr(), n,
@@ -391,7 +394,6 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
             None if spheres is None else spheres.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"render_vjp_kernel launch failed: CUDA error {err}")
-    launches += 1
     variants[_variant(None if bvh is None else megakernel.sweep_tag(bvh),
                       refill, tape is not None, slabbed)] += 1
     return out, gsc, gcam.sum(dim=0)
@@ -493,24 +495,28 @@ def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
                                 rows, reduce)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    packed = megakernel.pack_scene(scene if bvh is None else
-                                   permute_scene(scene, bvh.perm))
-    out, gsc, gcam = launch(megakernel.pack_camera(cam), packed, cfg, ct,
-                            img, vis_w, bvh, tape, row0,
-                            rows if slabbed else None, p2_refill)
+    with profiling.span("raytpu.pack"):
+        packed = megakernel.pack_scene(scene if bvh is None else
+                                       permute_scene(scene, bvh.perm))
+        cam_pack = megakernel.pack_camera(cam)
+    out, gsc, gcam = launch(cam_pack, packed, cfg, ct, img, vis_w, bvh, tape,
+                            row0, rows if slabbed else None, p2_refill)
     if reduce is not None:
         gsc, gcam = _reduced([gsc, gcam], reduce)
-    gsc, gcam = gsc.to(torch.float32), gcam.to(torch.float32)
-    if bvh is not None:
-        # leaf order -> input order; each sphere has one row, dummies none
-        perm = bvh.perm.to(torch.int64)
-        real = perm >= 0
-        g = torch.zeros((LEAVES, scene.count), dtype=gsc.dtype, device=device)
-        g[:, perm[real]] = gsc[:, real]
-        gsc = g
-    d_scene = _scene_grads(gsc[0:3].T.contiguous(), gsc[3],
-                           gsc[4:7].T.contiguous(), gsc[7])
-    return out, d_scene, camera_grads(gcam, cam)
+    with profiling.span("raytpu.scatter"):
+        gsc, gcam = gsc.to(torch.float32), gcam.to(torch.float32)
+        if bvh is not None:
+            # leaf order -> input order; each sphere has one row, dummies
+            # none
+            perm = bvh.perm.to(torch.int64)
+            real = perm >= 0
+            g = torch.zeros((LEAVES, scene.count), dtype=gsc.dtype,
+                            device=device)
+            g[:, perm[real]] = gsc[:, real]
+            gsc = g
+        d_scene = _scene_grads(gsc[0:3].T.contiguous(), gsc[3],
+                               gsc[4:7].T.contiguous(), gsc[7])
+        return out, d_scene, camera_grads(gcam, cam)
 
 
 def tape_plan(cfg: RenderConfig, n: int, bvh: BVH | None = None,
@@ -574,11 +580,12 @@ def render_tape_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
                                          rows)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    tape = torch.empty((g_cap, rows * cfg.width),
-                       dtype=golden.tape_dtype(n), device=device)
-    packed = megakernel.pack_scene(scene if bvh is None else
-                                   permute_scene(scene, bvh.perm))
-    img = megakernel.launch(megakernel.pack_camera(cam), packed, cfg, bvh,
-                            tape=tape, row0=row0,
+    with profiling.span("raytpu.pack"):
+        tape = torch.empty((g_cap, rows * cfg.width),
+                           dtype=golden.tape_dtype(n), device=device)
+        packed = megakernel.pack_scene(scene if bvh is None else
+                                       permute_scene(scene, bvh.perm))
+        cam_pack = megakernel.pack_camera(cam)
+    img = megakernel.launch(cam_pack, packed, cfg, bvh, tape=tape, row0=row0,
                             rows=rows if slabbed else None)
     return img, tape

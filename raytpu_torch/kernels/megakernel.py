@@ -35,10 +35,12 @@ launch the kernel or raise — they never fall back, and a walk BVH always
 launches a walk variant.  :func:`launch` and :func:`launch_accumulate` are
 the kernel wrappers proper, on the packed operands the kernel reads (a
 BVH from :func:`raytpu_torch.bvh.with_sweep` forces a sweep, for
-``chip_smoke.py`` and the tests).  ``launches`` counts the kernel launches made through them,
-``variants`` the same launches by variant; a launch given ``rows`` (the
+``chip_smoke.py`` and the tests).  ``variants`` counts the kernel
+launches made through them by variant; a launch given ``rows`` (the
 sharded paths pass it, a world of one included) counts as a slab
-launch.
+launch.  The wrappers mark the host's preparation of a launch and the
+launch itself as the spans ``raytpu.pack`` and ``raytpu.launch``
+(:func:`raytpu_torch.profiling.span`).
 
 Under autograd (any continuous leaf requires grad) :func:`render_fwd` goes
 through :class:`_Render`, the counterpart of raytpu's ``custom_vjp``s
@@ -65,7 +67,7 @@ import ctypes
 import numpy as np
 import torch
 
-from raytpu_torch import golden
+from raytpu_torch import golden, profiling
 from raytpu_torch.bvh import BVH, outlier_tail, permute_scene, sweep_of
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
@@ -82,8 +84,7 @@ SCENE_ROWS = 9  # cx, cy, cz, radius, mat_type, ar, ag, ab, mat_param
 DENSE_MIN = 96
 DENSE_MAX = 4096
 
-launches = 0    # kernel launches through launch(); a run resets and reads it
-# the same launches by variant: K1a brute, K1c flat BVH, K1d the walk,
+# the kernel launches by variant: K1a brute, K1c flat BVH, K1d the walk,
 # K1e the dense stage, K1b a slab (by sweep), K1' census (K1'/dense:
 # warp_census over the dense stage), K2 carry-state batch and K4 taping
 # forward (by sweep, "+slab" for a slab); the sweeps are "brute", "bvh"
@@ -429,22 +430,22 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
             census=None, carry=None) -> None:
     """Run the C entry point once; ``carry`` = (acc_in, seed_in, seed_out,
     s0) for K2, the seeds as int32 bits."""
-    global launches
     n = scene_pack.shape[1]
     sweep = None if bvh is None else sweep_of(bvh)
     acc_in, seed_in, seed_out, s0 = carry if carry else (None,) * 3 + (0,)
     lib = _lib()
     device = scene_pack.device
     # the flat sweep's staging, the walk's node and sphere rows (the brute
-    # sweep stages by n in the C entry point), and the counter the
-    # persistent grid takes its pixels from
-    stage = (flat_stage_on(bvh, device) if sweep == "flat"
-             else dict.fromkeys(("leaves", "outliers", "boxes"), 0))
-    node_rows = spheres = None
-    if sweep == "walk":
-        node_rows, spheres = bvh.walk_rows, sphere_rows(scene_pack)
-    with torch.cuda.device(device):
+    # sweep stages by n in the C entry point)
+    with profiling.span("raytpu.pack"):
+        stage = (flat_stage_on(bvh, device) if sweep == "flat"
+                 else dict.fromkeys(("leaves", "outliers", "boxes"), 0))
+        node_rows = spheres = None
+        if sweep == "walk":
+            node_rows, spheres = bvh.walk_rows, sphere_rows(scene_pack)
+    with torch.cuda.device(device), profiling.span("raytpu.launch"):
         stream = torch.cuda.current_stream(device).cuda_stream
+        # the counter the persistent grid takes its pixels from
         pixel_next = slot_counter(device, stream)
         err = lib.raytpu_render_fwd(
             cam_pack.data_ptr(), scene_pack.data_ptr(), n, *bvh_args(bvh, node_rows), stage["leaves"], stage["outliers"],
@@ -469,7 +470,6 @@ def _launch(cam_pack, scene_pack, cfg: RenderConfig, bvh, row0: int,
             None if spheres is None else spheres.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"render_fwd_kernel launch failed: CUDA error {err}")
-    launches += 1
 
 
 def sweep_tag(bvh: BVH | None) -> str:
@@ -526,11 +526,12 @@ def _launch_fwd(cam_pack, scene_pack, cfg, bvh, tape, count, row0, rows,
         check_tape(tape, cfg, n, device, rows)
         if count:
             raise ValueError("the census does not count a taping forward")
-    out = torch.empty((rows, cfg.width, 3), dtype=torch.float32,
-                      device=device)
-    census = (torch.zeros(len(golden.CENSUS) + len(WARP_CENSUS),
-                          dtype=torch.int64, device=device)
-              if count else None)
+    with profiling.span("raytpu.pack"):
+        out = torch.empty((rows, cfg.width, 3), dtype=torch.float32,
+                          device=device)
+        census = (torch.zeros(len(golden.CENSUS) + len(WARP_CENSUS),
+                              dtype=torch.int64, device=device)
+                  if count else None)
     _launch(cam_pack, scene_pack, cfg, bvh, row0, rows, cfg.spp, out,
             tape=tape, census=census)
     tag = "dense" if dense else sweep_tag(bvh)
@@ -617,9 +618,11 @@ def _forward(scene: Scene, cam: Camera, cfg: RenderConfig,
                                     rows=rows)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    packed = pack_scene(scene if bvh is None else
-                        permute_scene(scene, bvh.perm))
-    return launch(pack_camera(cam), packed, cfg, bvh, row0=row0, rows=rows)
+    with profiling.span("raytpu.pack"):
+        packed = pack_scene(scene if bvh is None else
+                            permute_scene(scene, bvh.perm))
+        cam_pack = pack_camera(cam)
+    return launch(cam_pack, packed, cfg, bvh, row0=row0, rows=rows)
 
 
 def _grad_forward(ctx, scene: Scene, cam: Camera, cfg: RenderConfig,

@@ -22,9 +22,8 @@ entry points' closest-hit operands from them;
 launch on the current stream of their device and do not synchronise.  CPU
 tensors run the plain versions (:func:`raytpu_torch.wavefront.segment_plain`
 and :func:`raytpu_torch.wavefront.refill_segment_plain`); CUDA tensors
-launch the kernel or raise, never falling back.  ``launches`` counts the
-launches, ``variants`` the same by kernel and policy ("K5/dense",
-"K6/bvh", ...).
+launch the kernel or raise, never falling back.  ``variants`` counts the
+launches by kernel and policy ("K5/dense", "K6/bvh", ...).
 """
 
 from __future__ import annotations
@@ -47,8 +46,8 @@ RIDE_PLANES = 16  # key pid sdpk ox oy oz dx dy dz cr cg cb seed ar ag ab
 AUX_PLANES = 3    # px py bidx
 MAX_SLOTS = 1 << 24  # slot ids ride an f32 plane: exact below 2^24
 
-launches = 0    # kernel launches through the wrappers; a run resets and reads it
-# the same launches by kernel and closest-hit policy
+# the kernel launches through the wrappers by kernel and closest-hit
+# policy; a run resets and reads them
 POLICIES = ("brute", "dense", "bvh", "walk")
 variants = dict.fromkeys(
     (f"{k}/{p}" for k in ("K5", "K6") for p in POLICIES), 0)
@@ -164,10 +163,8 @@ def hit_args(ops: SceneOps) -> tuple:
 
 
 def _count(kernel: str, err: int, ops: SceneOps) -> None:
-    global launches
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    launches += 1
     variants[f"{kernel}/{ops.policy}"] += 1
 
 

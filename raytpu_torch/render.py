@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from raytpu_torch import adjoint, golden
+from raytpu_torch import adjoint, golden, profiling
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import megakernel
@@ -99,27 +99,28 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig,
     ``rng_mode="v1_fractsin"`` renders through the plain version whatever
     the backend (so the wavefront's knobs are refused with it).
     """
-    if device is not None:
-        scene = Scene(*(t.to(device) for t in scene))
-        cam = Camera(*(t.to(device) for t in cam))
-        bvh = None if bvh is None else bvh.to(device)
-    backend = backend_for(cfg, backend, RENDER_BACKENDS)
-    check_backend(backend, scene, RENDER_BACKENDS)
-    if (spp_batch > 1 or refill) and backend != "wavefront":
-        raise ValueError(
-            "spp_batch > 1 / refill are wavefront-only knobs; pass "
-            "backend='wavefront' explicitly (the wavefront is never picked "
-            "by 'auto')")
-    if backend == "golden":
-        return golden.render_golden(scene, cam, cfg, bvh)
-    if backend == "wavefront":
-        from raytpu_torch import wavefront
-        return wavefront.render_wavefront(scene, cam, cfg, bvh=bvh,
-                                          vis_w=vis_w, spp_batch=spp_batch,
-                                          refill=refill)
-    # "auto" and "cuda": the wrapper launches the kernel on CUDA tensors
-    # and runs the plain version on CPU tensors
-    return megakernel.render_fwd(scene, cam, cfg, vis_w=vis_w, bvh=bvh)
+    with profiling.span("raytpu.render"):
+        if device is not None:
+            scene = Scene(*(t.to(device) for t in scene))
+            cam = Camera(*(t.to(device) for t in cam))
+            bvh = None if bvh is None else bvh.to(device)
+        backend = backend_for(cfg, backend, RENDER_BACKENDS)
+        check_backend(backend, scene, RENDER_BACKENDS)
+        if (spp_batch > 1 or refill) and backend != "wavefront":
+            raise ValueError(
+                "spp_batch > 1 / refill are wavefront-only knobs; pass "
+                "backend='wavefront' explicitly (the wavefront is never "
+                "picked by 'auto')")
+        if backend == "golden":
+            return golden.render_golden(scene, cam, cfg, bvh)
+        if backend == "wavefront":
+            from raytpu_torch import wavefront
+            return wavefront.render_wavefront(
+                scene, cam, cfg, bvh=bvh, vis_w=vis_w, spp_batch=spp_batch,
+                refill=refill)
+        # "auto" and "cuda": the wrapper launches the kernel on CUDA
+        # tensors and runs the plain version on CPU tensors
+        return megakernel.render_fwd(scene, cam, cfg, vis_w=vis_w, bvh=bvh)
 
 
 def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,

@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from raytpu_torch import adjoint, golden
+from raytpu_torch import adjoint, golden, profiling
 from raytpu_torch import bvh as tbvh
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
@@ -194,18 +194,26 @@ class TrainStep:
         the plain version's f32) with the loss appended in their dtype, one
         collective; ``loss`` is updated in place."""
         def reduce(sums):
-            both = torch.cat([sums, loss.reshape(1).to(sums.dtype)])
-            dist.all_reduce(both, group=self.group)
-            sums.copy_(both[:-1])
-            loss.copy_(both[-1])
+            with profiling.span("raytpu.reduce"):
+                both = torch.cat([sums, loss.reshape(1).to(sums.dtype)])
+                dist.all_reduce(both, group=self.group)
+                sums.copy_(both[:-1])
+                loss.copy_(both[-1])
         return reduce if dist.is_initialized() else None
 
     def __call__(self, scene: Scene, cam: Camera, target):
+        with profiling.span("raytpu.train_step"), torch.no_grad():
+            return self._step(scene, cam, target)
+
+    def _step(self, scene: Scene, cam: Camera, target):
         cfg, row0, rows = self.cfg, self.row0, self.rows
         check_backend(self.backend, scene)
         plain = self.backend == "golden"
-        with torch.no_grad():
-            bvh = tbvh.refit(self.bvh, scene) if self.refit else self.bvh
+        bvh = self.bvh
+        if self.refit:
+            with profiling.span("raytpu.refit"):
+                bvh = tbvh.refit(bvh, scene)
+        with profiling.span("raytpu.forward"):
             plan = gradkernel.tape_plan(cfg, scene.count, bvh, 0.0, rows)
             if self.use_tape and plan is None:
                 raise ValueError("use_tape=True but tape_plan declined "
@@ -223,6 +231,7 @@ class TrainStep:
             else:
                 img = megakernel.render_fwd(scene, cam, cfg, bvh=bvh,
                                             row0=row0, rows=rows)
+        with profiling.span("raytpu.loss"):
             target = torch.as_tensor(target, dtype=torch.float32,
                                      device=img.device)
             # rows past the frame carry no loss
@@ -232,6 +241,7 @@ class TrainStep:
             inv_m = 1.0 / (cfg.height * cfg.width * 3)
             loss = torch.sum(diff.to(torch.float64) ** 2) * inv_m
             ct = 2.0 * diff * inv_m
+        with profiling.span("raytpu.vjp"):
             kw = dict(bvh=bvh, tape=tape, row0=row0, rows=rows,
                       reduce=self._reduce(loss))
             if plain:
@@ -241,6 +251,7 @@ class TrainStep:
                 _, ds, dc = gradkernel.render_vjp(
                     scene, cam, cfg, ct, img=img,
                     tape_partial=plan is not None and plan["partial"], **kw)
+        with profiling.span("raytpu.sgd"):
             lr = self.lr
             scene = scene._replace(
                 center=scene.center - lr * ds.center,

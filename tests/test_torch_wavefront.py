@@ -72,9 +72,10 @@ def _check(jscene, cfg, kw=None, leaf=None, cam_kw=None, exact=True):
     if leaf:
         jb, tb = jbuild_bvh(js, leaf_size=leaf), rt.build_bvh(ts,
                                                               leaf_size=leaf)
-    before = kwf.launches
+    before = sum(kwf.variants.values())
     img = wf.render_wavefront(ts, tc, cfg, bvh=tb, **kw)
-    assert kwf.launches == before  # CPU tensors never reach the kernels
+    # CPU tensors never reach the kernels
+    assert sum(kwf.variants.values()) == before
     assert img.shape == (cfg.height, cfg.width, 3)
     _close_to_raytpu(img, jwf.render_wavefront(js, jc, _jcfg(cfg), bvh=jb,
                                                interpret=True, **kw))
