@@ -35,9 +35,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from raytpu_torch import native
 from raytpu_torch.scene import Scene
@@ -412,22 +414,57 @@ def refit(bvh: BVH, scene: Scene, pad: float = 1e-4) -> BVH:
     return dataclasses.replace(bvh, nodes=new_nodes, flat=new_flat)
 
 
+class PermRows(NamedTuple):
+    """The indices a ``perm`` gives for a scene of ``n`` spheres: ``rows``
+    (P,) int64, each permuted row's sphere (0 for a dummy); ``valid`` (P,)
+    bool, the row holds a sphere; ``leaf_row`` (n,) int64, each sphere's
+    permuted row (P for a sphere with none)."""
+    rows: torch.Tensor
+    valid: torch.Tensor
+    leaf_row: torch.Tensor
+
+
+# perm tensor -> {(device, n): PermRows}; weak, so the indices go with perm
+_perm_rows = WeakTensorKeyDictionary()
+
+
+def perm_rows(perm, n: int, device) -> PermRows:
+    """:class:`PermRows` of ``perm`` for ``n`` spheres on ``device``,
+    built there with fixed shapes (nothing waits on the device) and kept
+    for a ``perm`` tensor: ``refit``, ``with_sweep`` and ``BVH.to`` on the
+    BVH's device keep ``perm``, so every step of a fit reuses them, and a
+    rebuilt BVH has a new ``perm``.  A BVH's arrays are not changed in
+    place."""
+    perm = torch.as_tensor(perm)
+    built = _perm_rows.setdefault(perm, {})
+    key = (torch.device(device), n)
+    if key not in built:
+        p = perm.to(device=device, dtype=torch.int64)
+        valid = p >= 0
+        count = p.shape[0]
+        # each sphere's row by a scatter of fixed shape: the dummies' rows
+        # go to a spare slot n, dropped
+        leaf_row = torch.full((n + 1,), count, dtype=torch.int64,
+                              device=device)
+        leaf_row.scatter_(0, torch.where(valid, p, n),
+                          torch.arange(count, device=device))
+        built[key] = PermRows(p.clamp(min=0), valid, leaf_row[:n])
+    return built[key]
+
+
 def permute_scene(scene: Scene, perm) -> Scene:
     """The scene in BVH leaf order (leaves contiguous).  Entries with
     ``perm == -1`` are padding dummies: their rows become NaN (center,
     radius, albedo, mat_param; mat_type 0), so every sweep's root test
     fails on them and they never win.  Differentiable: gradients of the
-    permuted leaves flow back to the scene's."""
-    p = torch.as_tensor(perm, device=scene.center.device).to(torch.int64)
-    valid = p >= 0
-    pc = torch.clamp(p, min=0)
-    nan = torch.tensor(float("nan"), dtype=torch.float32,
-                       device=scene.center.device)
+    permuted leaves flow back to the scene's.  Waits on no device: the
+    indices come from :func:`perm_rows`, the fills are scalars."""
+    idx = perm_rows(perm, scene.count, scene.center.device)
+    valid, pc, nan = idx.valid, idx.rows, float("nan")
     return Scene(
         center=torch.where(valid[:, None], scene.center[pc], nan),
         radius=torch.where(valid, scene.radius[pc], nan),
-        mat_type=torch.where(valid, scene.mat_type[pc],
-                             torch.zeros_like(scene.mat_type[pc])),
+        mat_type=torch.where(valid, scene.mat_type[pc], 0),
         albedo=torch.where(valid[:, None], scene.albedo[pc], nan),
         mat_param=torch.where(valid, scene.mat_param[pc], nan),
     )

@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from raytpu_torch import adjoint, golden, profiling
-from raytpu_torch.bvh import BVH, permute_scene, sweep_of
+from raytpu_torch.bvh import BVH, permute_scene, perm_rows, sweep_of
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import _build, megakernel
@@ -461,15 +461,16 @@ def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
 
     ``d_scene.mat_type`` is None (a discrete leaf); ``d_scene`` is in the
     input order of the spheres, also with ``bvh`` (the kernel accumulates
-    in leaf order and the cotangents are scattered back by ``perm``,
-    dummies dropped).  ``img`` (parallel RNG) elides the kernel's PASS 1,
-    and its PASS 2 then runs on the windowed refill by raytpu's rule
-    (:func:`uses_refill`; ``p2_refill=False`` forces the per-sample pass);
-    the plain version ignores both.  ``vis_w > 0`` adds raytpu's silhouette
-    (boundary) gradients.  ``tape`` (from :func:`render_tape_fwd` with the
-    same ``bvh``, parallel RNG, ``img`` given) is replayed instead of
-    sweeping its steps; ``tape_partial`` says whether it holds fewer than
-    ``spp * depth`` steps a pixel, and a tape that disagrees is refused.
+    in leaf order and the cotangents are gathered back by ``perm``,
+    dummies dropped: :func:`input_order`).  ``img`` (parallel RNG) elides
+    the kernel's PASS 1, and its PASS 2 then runs on the windowed refill
+    by raytpu's rule (:func:`uses_refill`; ``p2_refill=False`` forces the
+    per-sample pass); the plain version ignores both.  ``vis_w > 0`` adds
+    raytpu's silhouette (boundary) gradients.  ``tape`` (from
+    :func:`render_tape_fwd` with the same ``bvh``, parallel RNG, ``img``
+    given) is replayed instead of sweeping its steps; ``tape_partial``
+    says whether it holds fewer than ``spp * depth`` steps a pixel, and a
+    tape that disagrees is refused.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     adjoint.check_cfg(cfg)
     device = megakernel.check_inputs(scene, cam, cfg)
@@ -506,17 +507,20 @@ def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
     with profiling.span("raytpu.scatter"):
         gsc, gcam = gsc.to(torch.float32), gcam.to(torch.float32)
         if bvh is not None:
-            # leaf order -> input order; each sphere has one row, dummies
-            # none
-            perm = bvh.perm.to(torch.int64)
-            real = perm >= 0
-            g = torch.zeros((LEAVES, scene.count), dtype=gsc.dtype,
-                            device=device)
-            g[:, perm[real]] = gsc[:, real]
-            gsc = g
+            gsc = input_order(gsc, bvh.perm, scene.count)
         d_scene = _scene_grads(gsc[0:3].T.contiguous(), gsc[3],
                                gsc[4:7].T.contiguous(), gsc[7])
         return out, d_scene, camera_grads(gcam, cam)
+
+
+def input_order(gsc: torch.Tensor, perm, n: int) -> torch.Tensor:
+    """(8, P) sphere cotangents in leaf order -> (8, n) in the spheres'
+    input order: each sphere takes its row's column (:func:`perm_rows`),
+    one gather of fixed shape, so nothing waits on the device; the
+    dummies' columns drop out, and a sphere with no row reads the zero
+    column padded on: its cotangent is 0."""
+    leaf_row = perm_rows(perm, n, gsc.device).leaf_row
+    return torch.nn.functional.pad(gsc, (0, 1))[:, leaf_row]
 
 
 def tape_plan(cfg: RenderConfig, n: int, bvh: BVH | None = None,

@@ -155,6 +155,91 @@ def test_permute_scene_round_trips():
     assert torch.equal(back, scene.center)
 
 
+# BVHs with dummy rows: leaves of 8 and 64 over 48 and 500 spheres
+DUMMY_CASES = [(48, 8), (48, 64), (500, 8), (500, 64)]
+
+
+def _dummy_bvh(n, leaf):
+    scene = rt.final_world(n=n, device="cpu")
+    b = tbvh.build_bvh(scene, leaf_size=leaf)
+    assert bool((b.perm < 0).any())
+    return scene, b
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    a = t.detach().numpy()
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+@pytest.mark.parametrize("n,leaf", DUMMY_CASES)
+def test_permute_scene_bit_for_bit(n, leaf):
+    """permute_scene's rows, NaN rows included, bit for bit: each row the
+    sphere's own, a dummy's NaN (mat_type 0); gradients reach only the
+    spheres' rows, once each."""
+    scene, b = _dummy_bvh(n, leaf)
+    p = b.perm.numpy().astype(np.int64)
+    real = p >= 0
+    src = scene._replace(center=scene.center.clone().requires_grad_())
+    ps = tbvh.permute_scene(src, b.perm)
+    for k in ("center", "radius", "mat_type", "albedo", "mat_param"):
+        x = getattr(scene, k).detach().numpy()
+        fill = np.zeros((), x.dtype) if k == "mat_type" else np.float32("nan")
+        mask = real.reshape((-1,) + (1,) * (x.ndim - 1))
+        want = np.where(mask, x[np.maximum(p, 0)], fill).astype(x.dtype)
+        got = getattr(ps, k)
+        assert got.dtype == getattr(scene, k).dtype, k
+        np.testing.assert_array_equal(_bits(got),
+                                      _bits(torch.from_numpy(want)), err_msg=k)
+    ps.center[torch.from_numpy(real)].sum().backward()
+    assert torch.equal(src.center.grad, torch.ones_like(scene.center))
+
+
+@pytest.mark.parametrize("n,leaf", DUMMY_CASES)
+def test_input_order_equals_masked_scatter(n, leaf):
+    """The gather back to input order gives, on the same leaf-order
+    cotangents, exactly what the masked scatter g[:, perm[real]] =
+    gsc[:, real] gives, dummies' columns dropped."""
+    scene, b = _dummy_bvh(n, leaf)
+    rs = np.random.default_rng(n + leaf)
+    gsc = torch.from_numpy(rs.normal(size=(tgk.LEAVES, b.perm.shape[0]))
+                           .astype(np.float32))
+    gsc[:, b.perm < 0] = float("nan")  # a dummy's column must not leak
+    perm = b.perm.to(torch.int64)
+    real = perm >= 0
+    want = torch.zeros((tgk.LEAVES, n), dtype=gsc.dtype)
+    want[:, perm[real]] = gsc[:, real]
+    got = tgk.input_order(gsc, b.perm, n)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    # the numpy perm takes the same path, uncached
+    assert torch.equal(tgk.input_order(gsc, b.perm.numpy(), n), got)
+
+
+def test_perm_rows_follow_the_perm():
+    """The indices are built once a perm: refit, with_sweep and BVH.to on
+    its device reuse them; a rebuilt BVH (a new perm, even an equal one)
+    builds its own, and a dropped perm takes its indices with it."""
+    scene, b = _dummy_bvh(48, 8)
+    first = tbvh.perm_rows(b.perm, 48, "cpu")
+    for same in (tbvh.refit(b, scene), tbvh.with_sweep(b, "walk"),
+                 b.to("cpu")):
+        assert tbvh.perm_rows(same.perm, 48, "cpu") is first
+    rebuilt = tbvh.build_bvh(scene, leaf_size=8)
+    again = tbvh.perm_rows(rebuilt.perm, 48, "cpu")
+    assert again is not first
+    assert all(torch.equal(a, w) for a, w in zip(again, first))
+    other = tbvh.build_bvh(scene, leaf_size=16)
+    rows = tbvh.perm_rows(other.perm, 48, "cpu")
+    p = other.perm.to(torch.int64)
+    assert torch.equal(rows.valid, p >= 0)
+    assert torch.equal(rows.rows, p.clamp(min=0))
+    assert torch.equal(p[rows.leaf_row], torch.arange(48))
+    ps = tbvh.permute_scene(scene, other.perm)
+    assert torch.equal(ps.radius[p >= 0], scene.radius[p[p >= 0]])
+    held = len(tbvh._perm_rows)
+    del b, same, rebuilt, first, again
+    assert len(tbvh._perm_rows) == held - 2
+
+
 def _rays(n=2048, seed=9):
     rs = np.random.default_rng(seed)
     o = np.float32([13.0, 2.0, 3.0]) + rs.normal(0, 2.0, (n, 3))

@@ -10,7 +10,12 @@ card where one is present.
 - Two gloo processes: each rank's ``raytpu.reduce`` lies inside its
   ``raytpu.vjp``.
 - On a card, a taped step's wrappers mark ``raytpu.pack``,
-  ``raytpu.launch`` (one a kernel launch) and ``raytpu.scatter``.
+  ``raytpu.launch`` (one a kernel launch) and ``raytpu.scatter``; the
+  wrappers run under torch's sync debug mode "error" without raising, and
+  a traced train step holds the refit's three synchronising calls and no
+  other (counted as the benchmark's ``host_syncs`` counts them, in a
+  process of its own: a process's later traces may lose the card's
+  events).
 """
 
 import contextlib
@@ -25,7 +30,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import raytpu_torch as rt
-from raytpu_torch import profiling, shard
+from raytpu_torch import bvh as tbvh, profiling, shard
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import gradkernel, megakernel
 
@@ -33,6 +38,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = RenderConfig(width=16, height=8, spp=1, depth=2, rng_mode="parallel")
 STEP = ("raytpu.refit", "raytpu.forward", "raytpu.loss", "raytpu.vjp",
         "raytpu.sgd")
+# the CUDA runtime's synchronising calls (rtbench/metrics/wrapper_ms.py)
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+         "cudaEventSynchronize")
 
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs a CUDA card")
@@ -182,3 +190,83 @@ def test_taped_step_wrapper_spans():
                    for s in spans)
     assert [s[0] for s in spans if s[0] == "raytpu.scatter"
             and _inside(s, vjp[0])] == ["raytpu.scatter"]
+
+
+@needs_card
+def test_wrappers_make_no_sync():
+    """The taping forward and the taped VJP on a slab over a flat BVH (its
+    scatter back to input order included) and the forward render, under
+    sync debug mode "error": a synchronising call would raise.  The BVH is
+    new, so its perm's indices are built under the mode too."""
+    scene, cam, bvh, target = _inputs("cuda")
+    shard.make_train_step(CFG, bvh=bvh, use_tape=True)(scene, cam, target)
+    bvh = rt.build_bvh(scene, leaf_size=8)
+    assert tbvh.sweep_of(bvh) == "flat" and bool((bvh.perm < 0).any())
+    rows = CFG.height // 2
+    plan = gradkernel.tape_plan(CFG, scene.count, bvh, rows=rows)
+    ct = torch.ones((rows, CFG.width, 3), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, tape = gradkernel.render_tape_fwd(scene, cam, CFG,
+                                               plan["g_cap"], bvh, row0=rows,
+                                               rows=rows)
+        _, ds, _ = gradkernel.render_vjp(
+            scene, cam, CFG, ct, img=img, bvh=bvh, tape=tape,
+            tape_partial=plan["partial"], row0=rows, rows=rows)
+        full = megakernel.render_fwd(scene, cam, CFG, bvh=bvh)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tuple(ds.center.shape) == (scene.count, 3)
+    assert bool(torch.isfinite(ds.center).all())
+    assert torch.equal(img, full[rows:])
+
+
+# One train step traced on a card, after one untraced: argv = output JSON,
+# the repository.  It writes the host events (name, start us, end us).
+_SYNC_WORKER = r"""
+import json, sys
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[2])
+import raytpu_torch as rt
+from raytpu_torch import shard
+from raytpu_torch.config import RenderConfig
+
+cfg = RenderConfig(width=16, height=8, spp=1, depth=2, rng_mode="parallel")
+scene = rt.final_world(n=24, device="cuda")
+cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
+                     aspect=cfg.aspect, device="cuda")
+target = torch.from_numpy(np.random.default_rng(3).uniform(
+    0, 1, (8, 16, 3)).astype(np.float32)).cuda()
+step = shard.make_train_step(cfg, bvh=rt.build_bvh(scene, leaf_size=8),
+                             use_tape=True)
+scene, cam, _ = step(scene, cam, target)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    step(scene, cam, target)
+    torch.cuda.synchronize()
+with open(sys.argv[1], "w") as f:
+    json.dump([(e.name, e.time_range.start, e.time_range.end)
+               for e in p.events()
+               if e.device_type == torch.autograd.DeviceType.CPU], f)
+"""
+
+
+@needs_card
+def test_train_step_syncs_are_the_refits(tmp_path):
+    out = tmp_path / "host.json"
+    run = subprocess.run([sys.executable, "-c", _SYNC_WORKER, str(out), ROOT],
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    with open(out) as f:
+        host = [tuple(h) for h in json.load(f)]
+    step, refit = ([h for h in host if h[0] == name]
+                   for name in ("raytpu.train_step", "raytpu.refit"))
+    assert len(step) == 1 and len(refit) == 1
+    syncs = [h for h in host if h[0] in SYNCS
+             and step[0][1] <= h[1] <= step[0][2]]
+    assert len(syncs) == 3, syncs
+    assert all(_inside(h, refit[0]) for h in syncs)
