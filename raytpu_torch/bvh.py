@@ -25,10 +25,12 @@ the skip-pointer walk (K1d, :func:`raytpu_torch.golden.hit_world_walk`)
 follows ``nodes`` and serves the rest, unpadded BVHs included.
 :func:`closest_hit_numpy` is the walk's scalar oracle.
 
-:func:`refit` recomputes the boxes for moved spheres in torch, as raytpu's
-in-graph refit does; it voids the interior boxes of ``nodes`` to
-always-enter, so a walk over a refit BVH visits every node (still right,
-slower).
+:func:`refit` recomputes the boxes for moved spheres in torch, on the
+scene's device: the leaf boxes as raytpu's in-graph refit does, and each
+interior box of ``nodes`` as the union of the leaf boxes under it, so a
+walk over a refit BVH culls as the built one does.  Here the port departs
+from raytpu, whose refit voids the interior boxes to always-enter (a walk
+over its refit BVH visits every node).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from raytpu_torch import native
+from raytpu_torch.profiling import span
 from raytpu_torch.scene import Scene
 
 # The flat leaf-list sweep serves BVHs of at most this many leaves a copy,
@@ -379,11 +382,13 @@ def build_bvh(scene: Scene, leaf_size: int = 64, pad: float = 1e-4,
 
 def refit(bvh: BVH, scene: Scene, pad: float = 1e-4) -> BVH:
     """The BVH's boxes recomputed for the current geometry, topology,
-    ``perm`` and leaf order kept (raytpu's refit, in torch, on the scene's
-    device).  Leaf boxes are exact (NaN dummies skipped, ``pad`` as in the
-    build) in every octant copy of ``flat`` and in the leaf rows of
-    ``nodes``; interior boxes of ``nodes`` are voided to always-enter.
-    Needs padded leaves and a flat leaf list."""
+    ``perm`` and leaf order kept, in torch on the scene's device.  Leaf
+    boxes are exact (NaN dummies skipped, ``pad`` as in the build) in every
+    octant copy of ``flat`` and of ``nodes``, as raytpu's refit computes
+    them; every interior box of ``nodes`` is the union of the leaf boxes
+    under it (:func:`subtree_leaves`), where raytpu's refit voids it to
+    always-enter.  The interior pass runs in the ``raytpu.refit_nodes``
+    span.  Needs padded leaves and a flat leaf list."""
     if not bvh.leaf_size or bvh.flat is None:
         raise ValueError("refit needs padded static leaves with a flat "
                          "leaf list")
@@ -397,21 +402,65 @@ def refit(bvh: BVH, scene: Scene, pad: float = 1e-4) -> BVH:
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=c.device)
     lo = torch.where(torch.isnan(lo_all), inf, lo_all).amin(dim=1) - pad_t
     hi = torch.where(torch.isnan(hi_all), -inf, hi_all).amax(dim=1) + pad_t
-    leaf_boxes = torch.cat([lo, hi], dim=-1)               # (L, 6)
 
     flat = bvh.flat.to(torch.float32)
     fid = (flat[:, 6] / ls).to(torch.int64)                # start -> leaf
     new_flat = flat.clone()
-    new_flat[:, 0:6] = leaf_boxes[fid]
+    new_flat[:, 0:6] = torch.cat([lo, hi], dim=-1)[fid]
 
     nodes = bvh.nodes.to(torch.float32)
-    is_leaf = nodes[:, 7] > 0
-    nid = (nodes[:, 6] / ls).to(torch.int64).clamp(0, nl - 1)
-    void = torch.tensor([-3.0e38] * 3 + [3.0e38] * 3, dtype=torch.float32,
-                        device=nodes.device)
-    new_nodes = nodes.clone()
-    new_nodes[:, 0:6] = torch.where(is_leaf[:, None], leaf_boxes[nid], void)
+    with span("raytpu.refit_nodes"):
+        # every row's box is the union over its subtree's leaves (a leaf
+        # row's subtree is the leaf): one masked min and max of fixed shape
+        under = subtree_leaves(bvh)[:, :, None]            # (rows, L, 1)
+        node_lo = torch.where(under, lo, inf).amin(dim=1)
+        node_hi = torch.where(under, hi, -inf).amax(dim=1)
+        new_nodes = torch.cat([node_lo, node_hi, nodes[:, 6:]], dim=1)
     return dataclasses.replace(bvh, nodes=new_nodes, flat=new_flat)
+
+
+# perm tensor -> {key: what was built from it}; weak, so it all goes with
+# perm
+_per_perm = WeakTensorKeyDictionary()
+
+
+def _kept(perm: torch.Tensor, key: tuple, build):
+    """``build()``, made once for the ``perm`` tensor and ``key``."""
+    built = _per_perm.setdefault(perm, {})
+    if key not in built:
+        built[key] = build()
+    return built[key]
+
+
+def subtree_leaves(bvh: BVH) -> torch.Tensor:
+    """(node rows, leaves) bool on the BVH's device: row ``k`` of ``nodes``
+    holds leaf ``l`` in its subtree.  In the skip-pointer layout node ``j``
+    of a copy lies under node ``i`` iff ``i <= j < skip(i)``, so a leaf row
+    holds itself alone and the root every leaf; a leaf is numbered by its
+    ``start / leaf_size``, as ``flat``'s rows are.  Built with fixed shapes
+    (nothing waits on the device) and kept for a ``perm`` tensor, as
+    :func:`perm_rows` keeps its indices: ``refit``, ``with_sweep`` and
+    ``BVH.to`` keep ``perm`` and the topology."""
+    nodes = bvh.nodes
+
+    def build():
+        copies, m, nl = bvh.copies, bvh.n_trav, bvh.n_leaves
+        rows = nodes.reshape(copies, m, 9)
+        pos = torch.arange(m, device=nodes.device)
+        leaf = torch.where(rows[..., 7] > 0,
+                           (rows[..., 6] / bvh.leaf_size).to(torch.int64),
+                           nl)
+        # each leaf's position in each copy by a scatter of fixed shape:
+        # the interior rows go to a spare slot nl, dropped
+        at = torch.full((copies, nl + 1), m, dtype=torch.int64,
+                        device=nodes.device)
+        at.scatter_(1, leaf, pos.expand(copies, m))
+        at = at[:, None, :nl]                                # (copies, 1, L)
+        skip = rows[..., 8].to(torch.int64)[..., None]       # (copies, m, 1)
+        under = (pos[None, :, None] <= at) & (at < skip)
+        return under.reshape(copies * m, nl)
+    return _kept(bvh.perm, ("subtrees", nodes.device, nodes.shape[0],
+                            bvh.n_leaves), build)
 
 
 class PermRows(NamedTuple):
@@ -424,10 +473,6 @@ class PermRows(NamedTuple):
     leaf_row: torch.Tensor
 
 
-# perm tensor -> {(device, n): PermRows}; weak, so the indices go with perm
-_perm_rows = WeakTensorKeyDictionary()
-
-
 def perm_rows(perm, n: int, device) -> PermRows:
     """:class:`PermRows` of ``perm`` for ``n`` spheres on ``device``,
     built there with fixed shapes (nothing waits on the device) and kept
@@ -436,9 +481,9 @@ def perm_rows(perm, n: int, device) -> PermRows:
     rebuilt BVH has a new ``perm``.  A BVH's arrays are not changed in
     place."""
     perm = torch.as_tensor(perm)
-    built = _perm_rows.setdefault(perm, {})
-    key = (torch.device(device), n)
-    if key not in built:
+    device = torch.device(device)
+
+    def build():
         p = perm.to(device=device, dtype=torch.int64)
         valid = p >= 0
         count = p.shape[0]
@@ -448,8 +493,8 @@ def perm_rows(perm, n: int, device) -> PermRows:
                               device=device)
         leaf_row.scatter_(0, torch.where(valid, p, n),
                           torch.arange(count, device=device))
-        built[key] = PermRows(p.clamp(min=0), valid, leaf_row[:n])
-    return built[key]
+        return PermRows(p.clamp(min=0), valid, leaf_row[:n])
+    return _kept(perm, ("rows", device, n), build)
 
 
 def permute_scene(scene: Scene, perm) -> Scene:

@@ -17,7 +17,9 @@ beside the kernels, copies and CUDA runtime calls, on its clock:
 
 - ``raytpu.render``: the whole of :func:`raytpu_torch.render.render`;
 - ``raytpu.train_step``: a train step (``shard.TrainStep.__call__``), and
-  inside it, in turn, ``raytpu.refit`` (``bvh.refit``), ``raytpu.forward``
+  inside it, in turn, ``raytpu.refit`` (``bvh.refit``; inside it
+  ``raytpu.refit_nodes``, the pass that gives each node the union of the
+  leaf boxes under it), ``raytpu.forward``
   (the taping or plain forward with its wrapper), ``raytpu.loss``,
   ``raytpu.vjp`` (the backward with its wrapper; inside it
   ``raytpu.reduce``, the host side of a sharded step's all-reduce) and
@@ -46,7 +48,6 @@ import time
 
 import torch
 
-from raytpu_torch import golden
 from raytpu_torch.config import RenderConfig
 
 # the span of every phase while no profiler runs: one shared object, so a
@@ -204,6 +205,7 @@ def census(scene, cam, cfg: RenderConfig, bvh=None, row0: int = 0,
     (:func:`raytpu_torch.kernels.megakernel.launch` with ``count=True``);
     CPU tensors run its plain version.  ``row0`` / ``rows``: the work of
     that row slab only."""
+    from raytpu_torch import golden
     from raytpu_torch.bvh import permute_scene, sweep_of
     from raytpu_torch.kernels import megakernel
     device = megakernel.check_inputs(scene, cam, cfg)

@@ -282,8 +282,9 @@ def make_train_step(cfg: RenderConfig, *, group=None, lr: float = 1e-2,
     all-reduces the cotangent sums (K3's in f64) and the loss, and applies
     SGD with rate ``lr`` to the scene's continuous leaves and the camera's
     origin, horizontal, vertical and lower-left corner (raytpu's update).
-    ``refit`` (with ``bvh``) recomputes the BVH's leaf boxes from the
-    current scene every step, as raytpu does, since the step moves spheres.
+    ``refit`` (with ``bvh``) recomputes the BVH's boxes from the current
+    scene every step, as raytpu does, since the step moves spheres (each
+    interior box the union of its leaves', where raytpu voids it).
     ``backend``: ``"auto"`` / ``"cuda"`` the kernels on CUDA tensors and
     the plain versions on CPU tensors, ``"golden"`` the plain versions."""
     return TrainStep(cfg, group, lr, bvh, refit, use_tape, backend)

@@ -123,7 +123,29 @@ def test_native_builder_is_built_here_and_numpy_is_its_fallback(monkeypatch):
         tbvh.build_bvh(scene, builder="lbvh")
 
 
+def _union_of_leaves(nodes: np.ndarray) -> np.ndarray:
+    """Each row of eight octant copies of ``nodes`` with its box the union
+    of the leaf rows under it, recomputed from the skip pointers: node j of
+    a copy lies under node i iff i <= j < skip(i); a leaf row keeps its
+    own box."""
+    nodes = np.asarray(nodes, np.float32)
+    out = nodes.copy()
+    m = len(nodes) // 8
+    for o in range(8):
+        copy = nodes[o * m:(o + 1) * m]
+        for i in range(m):
+            sub = copy[i:int(copy[i, 8])]
+            leaves = sub[sub[:, 7] > 0]
+            out[o * m + i, 0:3] = leaves[:, 0:3].min(axis=0)
+            out[o * m + i, 3:6] = leaves[:, 3:6].max(axis=0)
+    return out
+
+
 def test_refit_matches_raytpu():
+    """The leaf boxes, in ``flat`` and in the leaf rows of ``nodes``, are
+    raytpu's refit's bit for bit.  The interior rows depart from it: raytpu
+    voids them to always-enter, the port gives each the union of the leaf
+    boxes under it."""
     scene = raytpu.final_world(n=48)
     bvh_j = jbvh.build_bvh(scene, leaf_size=8)
     shift = np.random.default_rng(4).normal(0, 0.3, (48, 3)).astype(
@@ -133,10 +155,121 @@ def test_refit_matches_raytpu():
     got = tbvh.refit(tbvh.build_bvh(_port_scene(scene), leaf_size=8),
                      _port_scene(moved))
     np.testing.assert_array_equal(got.flat.numpy(), np.asarray(want.flat))
-    np.testing.assert_array_equal(got.nodes.numpy(), np.asarray(want.nodes))
+    want_nodes = np.asarray(want.nodes)
+    leaf = want_nodes[:, 7] > 0
+    assert (want_nodes[~leaf, 0] == -3.0e38).all()
+    np.testing.assert_array_equal(got.nodes.numpy()[leaf], want_nodes[leaf])
+    np.testing.assert_array_equal(got.nodes.numpy()[:, 6:],
+                                  want_nodes[:, 6:])
+    np.testing.assert_array_equal(got.nodes.numpy(),
+                                  _union_of_leaves(want_nodes))
     with pytest.raises(ValueError, match="refit"):
         tbvh.refit(tbvh.build_bvh(_port_scene(scene), pad_leaves=False),
                    _port_scene(moved))
+
+
+# seeded random scenes of the refit tests: (spheres, leaf size, seed)
+REFIT_CASES = [(48, 8, 0), (300, 4, 1), (500, 64, 2), (500, 8, 3),
+               (1000, 16, 4)]
+
+
+def _random_scene(n, seed):
+    """``final_world`` of ``n`` spheres with every centre but the ground's
+    jittered, radii drawn in [0.1, 0.4], from ``seed``."""
+    scene = rt.final_world(n=n, device="cpu")
+    rs = np.random.default_rng(seed)
+    c = scene.center.clone()
+    c[1:] += torch.from_numpy(rs.normal(0, 0.5, (n - 1, 3)).astype(
+        np.float32))
+    r = scene.radius.clone()
+    r[1:] = torch.from_numpy(rs.uniform(0.1, 0.4, n - 1).astype(np.float32))
+    return scene._replace(center=c, radius=r)
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.contiguous().view(torch.int32).long()
+                - b.contiguous().view(torch.int32).long()).abs().max())
+
+
+@pytest.mark.parametrize("n,leaf,seed", REFIT_CASES)
+def test_refit_of_an_unmoved_scene_is_the_built_tree(n, leaf, seed):
+    """A refit of the scene the BVH was built for gives back the built
+    tree in every octant copy: start, count and skip bit for bit, and each
+    box within one f32 ulp of the build's.  The build accumulates its boxes
+    in f64 and rounds once; the refit's leaf boxes are raytpu's f32
+    arithmetic, which can round the other way.  The union is exact: on the
+    build's own leaf rows it gives the build's interior rows bit for bit,
+    and on the refit's leaf rows the refit's."""
+    scene = _random_scene(n, seed)
+    b = tbvh.build_bvh(scene, leaf_size=leaf)
+    r = tbvh.refit(b, scene)
+    assert torch.equal(r.nodes[:, 6:], b.nodes[:, 6:])
+    assert torch.equal(r.flat[:, 6:], b.flat[:, 6:])
+    assert _ulps(r.nodes[:, :6], b.nodes[:, :6]) <= 1
+    assert _ulps(r.flat[:, :6], b.flat[:, :6]) <= 1
+    np.testing.assert_array_equal(_union_of_leaves(b.nodes.numpy()),
+                                  b.nodes.numpy())
+    np.testing.assert_array_equal(_union_of_leaves(r.nodes.numpy()),
+                                  r.nodes.numpy())
+    # the leaf rows of nodes are flat's rows, copy by copy
+    leaf_rows = r.nodes.reshape(8, -1, 9)
+    leaf_rows = torch.cat([c[c[:, 7] > 0] for c in leaf_rows])
+    assert torch.equal(leaf_rows, r.flat)
+    # a refit of the refit tree is the refit tree
+    again = tbvh.refit(r, scene)
+    assert torch.equal(again.nodes, r.nodes)
+    assert torch.equal(again.flat, r.flat)
+
+
+@pytest.mark.parametrize("n,leaf,seed", REFIT_CASES)
+def test_refit_after_a_move_gives_each_node_its_leaves_union(n, leaf, seed):
+    """After the spheres move (and grow or shrink), every interior box of
+    every copy is the union of the padded leaf boxes under it (a numpy
+    recompute from the skip pointers), every leaf box holds its spheres
+    with the pad, and so every box holds every sphere of its subtree."""
+    scene = _random_scene(n, seed)
+    b = tbvh.build_bvh(scene, leaf_size=leaf)
+    rs = np.random.default_rng(seed + 100)
+    moved = scene._replace(
+        center=scene.center + torch.from_numpy(
+            rs.normal(0, 1.0, (n, 3)).astype(np.float32)),
+        radius=scene.radius * torch.from_numpy(
+            rs.uniform(0.5, 2.0, n).astype(np.float32)))
+    r = tbvh.refit(b, moved)
+    nodes = r.nodes.numpy()
+    np.testing.assert_array_equal(_union_of_leaves(nodes), nodes)
+    assert not np.array_equal(nodes[:, :6], b.nodes.numpy()[:, :6])
+    ps = tbvh.permute_scene(moved, b.perm)
+    c, rad = ps.center.numpy(), ps.radius.numpy()[:, None]
+    copy = nodes[:len(nodes) // 8]
+    for i, row in enumerate(copy):
+        idx = np.concatenate([np.arange(int(x[6]), int(x[6] + x[7]))
+                              for x in copy[i:int(row[8])] if x[7] > 0])
+        real = ~np.isnan(rad[idx, 0])
+        lo = (c[idx] - rad[idx])[real].min(axis=0)
+        hi = (c[idx] + rad[idx])[real].max(axis=0)
+        assert (row[0:3] <= lo).all() and (hi <= row[3:6]).all()
+
+
+def test_subtree_leaves_is_built_once_a_perm():
+    """The subtree mask: a leaf row holds itself alone, the root of every
+    copy every leaf; refit, with_sweep and BVH.to on its device reuse it,
+    a rebuilt BVH builds its own."""
+    scene = _random_scene(300, 1)
+    b = tbvh.build_bvh(scene, leaf_size=4)
+    under = tbvh.subtree_leaves(b)
+    assert under.dtype == torch.bool
+    assert tuple(under.shape) == (b.nodes.shape[0], b.n_leaves)
+    leaf = b.nodes[:, 7] > 0
+    assert bool((under[leaf].sum(dim=1) == 1).all())
+    ids = (b.nodes[leaf, 6] / 4).long()
+    assert torch.equal(under[leaf].float().argmax(dim=1), ids)
+    assert bool(under[::b.n_trav].all())
+    for same in (tbvh.refit(b, scene), tbvh.with_sweep(b, "walk"),
+                 b.to("cpu")):
+        assert tbvh.subtree_leaves(same) is under
+    assert tbvh.subtree_leaves(tbvh.build_bvh(scene, leaf_size=4)) \
+        is not under
 
 
 def test_permute_scene_round_trips():
@@ -235,9 +368,9 @@ def test_perm_rows_follow_the_perm():
     assert torch.equal(p[rows.leaf_row], torch.arange(48))
     ps = tbvh.permute_scene(scene, other.perm)
     assert torch.equal(ps.radius[p >= 0], scene.radius[p[p >= 0]])
-    held = len(tbvh._perm_rows)
+    held = len(tbvh._per_perm)
     del b, same, rebuilt, first, again
-    assert len(tbvh._perm_rows) == held - 2
+    assert len(tbvh._per_perm) == held - 2
 
 
 def _rays(n=2048, seed=9):

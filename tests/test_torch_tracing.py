@@ -4,7 +4,9 @@ card where one is present.
 - A ``torch.profiler`` trace of one train step (plain versions, a BVH
   scene, refit) holds ``raytpu.train_step`` once and inside it, in turn,
   ``raytpu.refit``, ``raytpu.forward``, ``raytpu.loss``, ``raytpu.vjp``
-  and ``raytpu.sgd``; a trace of ``render`` holds ``raytpu.render``.
+  and ``raytpu.sgd``, and ``raytpu.refit_nodes`` (the refit's interior
+  pass) inside ``raytpu.refit``; a trace of ``render`` holds
+  ``raytpu.render``.
 - With no profiler running, ``span`` hands out one shared null context
   and a step or a render makes no ``record_function`` at all.
 - Two gloo processes: each rank's ``raytpu.reduce`` lies inside its
@@ -12,10 +14,10 @@ card where one is present.
 - On a card, a taped step's wrappers mark ``raytpu.pack``,
   ``raytpu.launch`` (one a kernel launch) and ``raytpu.scatter``; the
   wrappers run under torch's sync debug mode "error" without raising, and
-  a traced train step holds the refit's three synchronising calls and no
-  other (counted as the benchmark's ``host_syncs`` counts them, in a
-  process of its own: a process's later traces may lose the card's
-  events).
+  a traced train step holds the refit's two synchronising calls (its
+  scalar tensors ``pad_t`` and ``inf``) and no other (counted as the
+  benchmark's ``host_syncs`` counts them, in a process of its own: a
+  process's later traces may lose the card's events).
 """
 
 import contextlib
@@ -86,6 +88,19 @@ def test_train_step_spans_nest_in_order():
     assert all(_inside(s, outer[0]) for s in phases)
     # one after another, none inside the one before
     assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:]))
+
+
+def test_refit_nodes_inside_the_refit():
+    scene, cam, bvh, target = _inputs()
+    step = shard.make_train_step(CFG, bvh=bvh, refit=True)
+    spans = _traced(lambda: step(scene, cam, target))
+    refit, inner = ([s for s in spans if s[0] == name]
+                    for name in ("raytpu.refit", "raytpu.refit_nodes"))
+    assert len(refit) == 1 and len(inner) == 1
+    assert _inside(inner[0], refit[0])
+    fixed = shard.make_train_step(CFG, bvh=bvh, refit=False)
+    spans = _traced(lambda: fixed(scene, cam, target))
+    assert not [s for s in spans if s[0].startswith("raytpu.refit")]
 
 
 def test_render_span():
@@ -268,5 +283,5 @@ def test_train_step_syncs_are_the_refits(tmp_path):
     assert len(step) == 1 and len(refit) == 1
     syncs = [h for h in host if h[0] in SYNCS
              and step[0][1] <= h[1] <= step[0][2]]
-    assert len(syncs) == 3, syncs
+    assert len(syncs) == 2, syncs
     assert all(_inside(h, refit[0]) for h in syncs)

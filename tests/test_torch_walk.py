@@ -287,13 +287,17 @@ def test_walk_progressive_batches_and_slabs():
 
 
 def test_refit_bvh_walks_every_node():
-    """After refit the interior boxes always enter: the walk visits every
-    node of its copy on every step, and still gives the image."""
+    """After refit the walk visits the nodes it needs and no more: over a
+    refit of the unmoved scene it visits the fresh tree's nodes and enters
+    its leaves (the census equal, far below every node of the copy on
+    every step, which a voided refit visits), and it gives the image."""
     cfg = RenderConfig(width=16, height=8, spp=1, depth=2)
     _, _, scene, cam = _world(300, cfg)
-    b = tbvh.refit(tbvh.build_bvh(scene, leaf_size=4), scene)
+    fresh = tbvh.build_bvh(scene, leaf_size=4)
+    b = tbvh.refit(fresh, scene)
     c = profiling.census(scene, cam, cfg, b)
-    assert c["nodes_visited"] == c["bounce_steps"] * b.n_trav
+    assert c == profiling.census(scene, cam, cfg, fresh)
+    assert c["nodes_visited"] < c["bounce_steps"] * b.n_trav / 4
     assert torch.equal(rt.render(scene, cam, cfg, bvh=b),
                        rt.render(scene, cam, cfg))
 
@@ -301,9 +305,9 @@ def test_refit_bvh_walks_every_node():
 def test_walk_reaches_sharded_progressive_and_train_step():
     """The walk reaches the other entry points through the wrappers:
     render_sharded and render_progressive over a BVH of 75 leaves a copy
-    equal render(); a train step (refit each step: the walk then enters
-    every interior node) equals the step over the same BVH forced flat, bit
-    for bit."""
+    equal render(); a train step (refit each step: the walk then culls by
+    the refit's interior boxes) equals the step over the same BVH forced
+    flat, bit for bit."""
     from raytpu_torch import shard
     cfg = RenderConfig(width=24, height=12, spp=2, depth=3,
                        rng_mode="parallel")
@@ -324,6 +328,52 @@ def test_walk_reaches_sharded_progressive_and_train_step():
         runs.append([loss, *s[:2], *s[3:], *c])
     for a, w in zip(*runs):
         assert torch.equal(a, w)
+
+
+def test_walk_train_step_agrees_with_the_benchmarks_reference():
+    """The train step over a walk BVH (75 leaves a copy, refit each step)
+    against the benchmark's plain reference (rtbench/reference.py, every
+    sphere tested): the image bit for bit, the loss to 1e-6 and every
+    leaf's gradient to 1e-5 of the larger of its norm and the median
+    leaf's (the benchmark's normalisation, rtbench/check.py).  The camera
+    origin's gradient is a cancelling sum here: its norm is a sixth of the
+    median leaf's, its gap (4.3e-8) that of the other camera leaves, 2.2e-5
+    of its own norm on the brute sweep too.  The step equals the brute
+    step (no BVH) bit for bit."""
+    from raytpu_torch import shard
+    from rtbench import reference as R
+    cfg = RenderConfig(width=24, height=12, spp=3, depth=6,
+                       rng_mode="parallel")
+    _, _, scene, cam = _world(300, cfg)
+    b = tbvh.build_bvh(scene, leaf_size=4)
+    assert tbvh.sweep_of(b) == "walk" and b.n_leaves == 75
+    target = torch.rand(12, 24, 3, generator=torch.Generator().manual_seed(1))
+    steps = [shard.make_train_step(cfg, lr=1e-2, bvh=bvh)
+             for bvh in (b, None)]
+    losses = [float(step(scene, cam, target)[2]) for step in steps]
+    walk, brute = steps
+    assert losses[0] == losses[1]
+    assert torch.equal(walk.last_image, brute.last_image)
+    ports = [{"center": ds.center, "radius": ds.radius, "albedo": ds.albedo,
+              "param": ds.mat_param, "origin": dc.origin,
+              "horizontal": dc.horizontal, "vertical": dc.vertical,
+              "lower_left": dc.lower_left}
+             for ds, dc in (step.last_grads for step in steps)]
+    for k in ports[0]:
+        assert torch.equal(ports[0][k], ports[1][k]), k
+    rc = R.camera(*LOOK, 20.0, cfg.aspect, device="cpu")
+    sp = R.Spheres(scene.center, scene.radius, scene.mat_type.long(),
+                   scene.albedo, scene.mat_param)
+    lsum, g, img, _ = R.loss_and_grads(sp, rc,
+                                       R.Settings(24, 12, 3, 6, "parallel"),
+                                       target)
+    assert torch.equal(img, walk.last_image)
+    assert float(lsum) / (12 * 24 * 3) == pytest.approx(losses[0],
+                                                        rel=1e-6)
+    median = float(np.median([float(v.norm()) for v in g.values()]))
+    for k, v in ports[0].items():
+        err = (v.double() - g[k]).norm() / max(float(g[k].norm()), median)
+        assert err < 1e-5, k
 
 
 def _big_world(n=10_000, seed=0, extent=60.0):
@@ -349,6 +399,30 @@ def _big_world(n=10_000, seed=0, extent=60.0):
     return rt.make_scene(spheres, device="cpu")
 
 
+def test_tenk_config_is_the_10k_scene():
+    """The benchmark's ``tenk`` configuration (rtbench/configs/tenk.json)
+    lists the 10k scene sphere by sphere: its values read as f32 are the
+    recipe's bit for bit, and its BVH (median split, leaf 64) has 157
+    leaves and 313 nodes a copy and 1 outlier, so the walk sweeps it."""
+    import json
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "rtbench", "configs", "tenk.json")
+    with open(path) as f:
+        conf = json.load(f)
+    assert conf["scene"]["builder"] == "listed"
+    listed = rt.make_scene([(tuple(c), r, m, tuple(a), p) for c, r, m, a, p
+                            in conf["scene"]["spheres"]], device="cpu")
+    want = _big_world()
+    for k in ("center", "radius", "mat_type", "albedo", "mat_param"):
+        got, ref = getattr(listed, k), getattr(want, k)
+        assert got.dtype == ref.dtype, k
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), k
+    b = tbvh.build_bvh(listed, **conf["bvh"])
+    assert (b.n_leaves, b.n_trav, b.n_outliers) == (157, 313, 1)
+    assert tbvh.sweep_of(b) == "walk"
+
+
 @pytest.mark.parametrize("kind", ["padded", "unpadded"])
 def test_sphere_rows(kind):
     """The walk's sphere rows: (cx, cy, cz, rad * rad) of the scene pack,
@@ -372,8 +446,9 @@ def test_sphere_rows(kind):
 def _walk_bvh(kind):
     """A BVH the walk sweeps: final_world(n=300) at leaf 4 padded (75
     leaves a copy), unpadded at leaf 7 (one copy, leaves of up to 7
-    spheres, not all full), refit (interior boxes voided), a flat BVH
-    forced to the walk, and the 10k scene's at leaf 64 (8 x 313 nodes)."""
+    spheres, not all full), refit (each interior box the union of its
+    leaves'), a flat BVH forced to the walk, and the 10k scene's at leaf 64
+    (8 x 313 nodes)."""
     cfg = RenderConfig(width=16, height=8, spp=1, depth=1)
     if kind == "10k":
         b = tbvh.build_bvh(_big_world(), leaf_size=64)
@@ -389,7 +464,12 @@ def _walk_bvh(kind):
                        pad_leaves=kind != "unpadded")
     if kind == "refit":
         b = tbvh.refit(b, scene)
-        assert bool((b.nodes[b.nodes[:, 7] == 0, 0] == -3.0e38).all())
+        # real interior boxes, each within its parent's and none voided
+        inner = b.nodes[b.nodes[:, 7] == 0]
+        assert bool((inner[:, :3] > -1e3).all()
+                    & (inner[:, 3:6] < 1e3).all())
+        assert bool((inner[:, :3] >= b.nodes[0, :3]).all()
+                    & (inner[:, 3:6] <= b.nodes[0, 3:6]).all())
     return b, leaf_size
 
 
