@@ -388,7 +388,13 @@ def refit(bvh: BVH, scene: Scene, pad: float = 1e-4) -> BVH:
     them; every interior box of ``nodes`` is the union of the leaf boxes
     under it (:func:`subtree_leaves`), where raytpu's refit voids it to
     always-enter.  The interior pass runs in the ``raytpu.refit_nodes``
-    span.  Needs padded leaves and a flat leaf list."""
+    span.  Needs padded leaves and a flat leaf list.
+
+    Makes no host sync: every op is enqueued on the device, so a train
+    step's refit runs while the previous step's kernels do.  That holds on
+    a new ``perm``'s first refit too: :func:`perm_rows` and
+    :func:`subtree_leaves` build their cached indices with fixed shapes
+    on the device."""
     if not bvh.leaf_size or bvh.flat is None:
         raise ValueError("refit needs padded static leaves with a flat "
                          "leaf list")
@@ -397,11 +403,13 @@ def refit(bvh: BVH, scene: Scene, pad: float = 1e-4) -> BVH:
     pc = permute_scene(scene, bvh.perm)
     c = pc.center[:nl * ls].reshape(nl, ls, 3)
     r = pc.radius[:nl * ls].reshape(nl, ls, 1)
-    pad_t = torch.tensor(pad, dtype=torch.float32, device=c.device)
+    # Python scalars, not device tensors (a host scalar copied to the
+    # device waits for the stream); on f32 operands they compute in f32,
+    # ``pad`` rounded to f32, the same values bit for bit
     lo_all, hi_all = c - r, c + r
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=c.device)
-    lo = torch.where(torch.isnan(lo_all), inf, lo_all).amin(dim=1) - pad_t
-    hi = torch.where(torch.isnan(hi_all), -inf, hi_all).amax(dim=1) + pad_t
+    inf = float("inf")
+    lo = torch.where(torch.isnan(lo_all), inf, lo_all).amin(dim=1) - pad
+    hi = torch.where(torch.isnan(hi_all), -inf, hi_all).amax(dim=1) + pad
 
     flat = bvh.flat.to(torch.float32)
     fid = (flat[:, 6] / ls).to(torch.int64)                # start -> leaf

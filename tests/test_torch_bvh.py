@@ -141,33 +141,6 @@ def _union_of_leaves(nodes: np.ndarray) -> np.ndarray:
     return out
 
 
-def test_refit_matches_raytpu():
-    """The leaf boxes, in ``flat`` and in the leaf rows of ``nodes``, are
-    raytpu's refit's bit for bit.  The interior rows depart from it: raytpu
-    voids them to always-enter, the port gives each the union of the leaf
-    boxes under it."""
-    scene = raytpu.final_world(n=48)
-    bvh_j = jbvh.build_bvh(scene, leaf_size=8)
-    shift = np.random.default_rng(4).normal(0, 0.3, (48, 3)).astype(
-        np.float32)
-    moved = scene._replace(center=np.asarray(scene.center) + shift)
-    want = jbvh.refit(bvh_j, moved)
-    got = tbvh.refit(tbvh.build_bvh(_port_scene(scene), leaf_size=8),
-                     _port_scene(moved))
-    np.testing.assert_array_equal(got.flat.numpy(), np.asarray(want.flat))
-    want_nodes = np.asarray(want.nodes)
-    leaf = want_nodes[:, 7] > 0
-    assert (want_nodes[~leaf, 0] == -3.0e38).all()
-    np.testing.assert_array_equal(got.nodes.numpy()[leaf], want_nodes[leaf])
-    np.testing.assert_array_equal(got.nodes.numpy()[:, 6:],
-                                  want_nodes[:, 6:])
-    np.testing.assert_array_equal(got.nodes.numpy(),
-                                  _union_of_leaves(want_nodes))
-    with pytest.raises(ValueError, match="refit"):
-        tbvh.refit(tbvh.build_bvh(_port_scene(scene), pad_leaves=False),
-                   _port_scene(moved))
-
-
 # seeded random scenes of the refit tests: (spheres, leaf size, seed)
 REFIT_CASES = [(48, 8, 0), (300, 4, 1), (500, 64, 2), (500, 8, 3),
                (1000, 16, 4)]
@@ -189,6 +162,42 @@ def _random_scene(n, seed):
 def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.contiguous().view(torch.int32).long()
                 - b.contiguous().view(torch.int32).long()).abs().max())
+
+
+@pytest.mark.parametrize("n,leaf,seed", REFIT_CASES)
+def test_refit_matches_raytpu(n, leaf, seed):
+    """After the spheres move (and grow or shrink), the leaf boxes, in
+    ``flat`` and in the leaf rows of ``nodes``, are raytpu's refit's bit
+    for bit: the padding dummies' NaN rows skipped, ``pad`` added in f32.
+    Start, count and skip are raytpu's too.  The interior rows depart from
+    it: raytpu voids them to always-enter, the port gives each the union
+    of the leaf boxes under it."""
+    scene = _random_scene(n, seed)
+    rs = np.random.default_rng(seed + 200)
+    moved = scene._replace(
+        center=scene.center + torch.from_numpy(
+            rs.normal(0, 0.3, (n, 3)).astype(np.float32)),
+        radius=scene.radius * torch.from_numpy(
+            rs.uniform(0.5, 2.0, n).astype(np.float32)))
+    j_scene, j_moved = (raytpu.Scene(**convert.scene_to_numpy(s))
+                        for s in (scene, moved))
+    bvh_j = jbvh.build_bvh(j_scene, leaf_size=leaf)
+    want = jbvh.refit(bvh_j, j_moved)
+    b = tbvh.build_bvh(scene, leaf_size=leaf)
+    assert bool((b.perm < 0).any())  # leaves padded with dummies
+    got = tbvh.refit(b, moved)
+    np.testing.assert_array_equal(got.flat.numpy(), np.asarray(want.flat))
+    want_nodes = np.asarray(want.nodes)
+    leaf_rows = want_nodes[:, 7] > 0
+    assert (want_nodes[~leaf_rows, 0] == -3.0e38).all()
+    np.testing.assert_array_equal(got.nodes.numpy()[leaf_rows],
+                                  want_nodes[leaf_rows])
+    np.testing.assert_array_equal(got.nodes.numpy()[:, 6:],
+                                  want_nodes[:, 6:])
+    np.testing.assert_array_equal(got.nodes.numpy(),
+                                  _union_of_leaves(want_nodes))
+    with pytest.raises(ValueError, match="refit"):
+        tbvh.refit(tbvh.build_bvh(scene, pad_leaves=False), moved)
 
 
 @pytest.mark.parametrize("n,leaf,seed", REFIT_CASES)
