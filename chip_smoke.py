@@ -1417,7 +1417,7 @@ def k2_phase(dev, card: str) -> dict:
             sp = megakernel.pack_scene(
                 scene if b is None else tbvh.permute_scene(scene, b.perm))
             acc0 = init.acc.contiguous()
-            seed0 = megakernel._u32_bits(init.seed).contiguous()
+            seed0 = megakernel.u32_bits(init.seed).contiguous()
             ms = cuda_ms(lambda: megakernel.launch_accumulate(
                 cp, sp, cfg, acc0, seed0, 0, cfg.spp, b), 5)
             _, plain_ms = once_ms(lambda: golden.accumulate_golden(
@@ -1455,7 +1455,7 @@ def slab_phase(dev, card: str, bvh, scene, cam) -> dict:
         full = megakernel.launch(cp, spv, cfg, bvh)
         init = progressive.init_state(cfg, device=dev)
         acc0 = init.acc.contiguous()
-        seed0 = megakernel._u32_bits(init.seed).contiguous()
+        seed0 = megakernel.u32_bits(init.seed).contiguous()
         facc, fseed = megakernel.launch_accumulate(cp, spv, cfg, acc0, seed0,
                                                    0, 2, bvh)
         target = torch.rand((h, w, 3), generator=gen).to(dev)
@@ -1557,7 +1557,7 @@ def slab_vs_plain(card: str, bvh, scene, cam, cfg, row0: int,
     init = progressive.init_state(cfg, device=spv.device)
     acc_s, seed_s = (shard.slab_of(init.acc, row0, rows),
                      shard.slab_of(init.seed, row0, rows))
-    bits = megakernel._u32_bits(seed_s).contiguous()
+    bits = megakernel.u32_bits(seed_s).contiguous()
     k2 = megakernel.launch_accumulate(cp, spv, cfg, acc_s, bits, 0, cfg.spp,
                                       bvh, row0, rows)
     (pacc, pseed), k2_plain_ms = once_ms(lambda: golden.accumulate_golden(
@@ -1667,7 +1667,7 @@ def slab_main_times(cfg, scene, cam, bvh, card: str) -> dict:
                        device=spv.device)
     elt = tape.element_size()
     init = progressive.init_state(cfg, device=spv.device)
-    bits = megakernel._u32_bits(init.seed).contiguous()
+    bits = megakernel.u32_bits(init.seed).contiguous()
     img = megakernel.launch(cp, spv, cfg, bvh, tape=tape, row0=0, rows=h)
     ct = 2.0 * (img - 0.5) / img.numel()
     fwd = frame_bytes(cfg, n, 1) + extra
@@ -2045,7 +2045,7 @@ def walk_vs_plain(scene, cam, cfg, bvh, card: str) -> dict:
         init = progressive.init_state(cfg2, device=spv.device)
         acc_s = shard.slab_of(init.acc, row0, rows)
         seed_s = shard.slab_of(init.seed, row0, rows)
-        bits = megakernel._u32_bits(seed_s).contiguous()
+        bits = megakernel.u32_bits(seed_s).contiguous()
         k2 = megakernel.launch_accumulate(cp, spv, cfg2, acc_s, bits, 0, 1,
                                           bvh, row0, rows)
         k2 = megakernel.launch_accumulate(cp, spv, cfg2, k2[0], k2[1], 1, 1,
@@ -2559,7 +2559,7 @@ def large_scene_phases(dev, card: str) -> dict:
         t["k3_walk_seq_ms"] = cuda_ms(lambda: gradkernel.launch(
             cp, spv, cfg, ct, None, 0.0, bvh), 2)
         init = progressive.init_state(cfgp, device=dev)
-        bits = megakernel._u32_bits(init.seed).contiguous()
+        bits = megakernel.u32_bits(init.seed).contiguous()
         t["k2_walk_batch5_ms"] = cuda_ms(lambda: megakernel.launch_accumulate(
             cp, spv, cfgp, init.acc, bits, 0, 5, bvh), 3)
         rays = npix * cfg.spp
@@ -2877,7 +2877,7 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
     each with its launches on its main path.  ``rv2_img``: phase 3's
     REFERENCE_V2 render()."""
     import raytpu_torch as rt
-    from raytpu_torch import golden, io
+    from raytpu_torch import autodiff, golden, io
     from raytpu_torch.config import CONFIG2, CONFIG4, REFERENCE_V2
     from raytpu_torch.kernels import _build, gradkernel, megakernel
     from raytpu_torch.kernels import wavefront as kwf
@@ -3003,7 +3003,7 @@ def wavefront_phases(dev, card: str, rv2_img: torch.Tensor) -> dict:
         wg = torch.autograd.grad(wimg, leaves, ct)
         torch.cuda.synchronize()
         launches[label] = variant_counts(*mods)
-        fimg = megakernel.render_fwd(ws, rt.Camera(*leaves[4:]), c, bvh=b4)
+        fimg = autodiff.render_fwd(ws, rt.Camera(*leaves[4:]), c, bvh=b4)
         fg = torch.autograd.grad(fimg, leaves, ct)
         grad_rel[label] = max(
             float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from raytpu_torch import golden
-from raytpu_torch.bvh import BVH, permute_scene, sweep_of
+from raytpu_torch.bvh import BVH, sweep_of
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import megakernel
@@ -113,10 +113,8 @@ def validate_backends(scene: Scene, cam: Camera, cfg: RenderConfig,
               "sweep": "brute" if bvh is None else sweep_of(bvh),
               "plain_finite": bool(torch.isfinite(plain).all())}
     if device.type == "cuda":
-        packed = megakernel.pack_scene(
-            scene if bvh is None else permute_scene(scene, bvh.perm))
-        got = megakernel.launch(megakernel.pack_camera(cam), packed, cfg,
-                                bvh)
+        cam_pack, packed = megakernel.pack(scene, cam, bvh)
+        got = megakernel.launch(cam_pack, packed, cfg, bvh)
         report["kernel_bit_identical"] = bool(torch.equal(got, plain))
         report["kernel_max_diff"] = float((got - plain).abs().max())
     elif bvh is not None:

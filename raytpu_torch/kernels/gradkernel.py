@@ -51,7 +51,7 @@ each of the first ``g_cap`` steps takes its winner from the tape and
 recomputes that one sphere's t, and the steps past the cap sweep.  The
 winner alone decides a bounce, so taped gradients are bit-equal to untaped
 ones for every ``g_cap`` from 0 to ``spp * depth``.  :func:`tape_plan`
-decides when the autograd path tapes.
+decides when the gradient route (:mod:`raytpu_torch.autodiff`) tapes.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from raytpu_torch import adjoint, golden, profiling
-from raytpu_torch.bvh import BVH, permute_scene, perm_rows, sweep_of
+from raytpu_torch.bvh import BVH, perm_rows, sweep_of
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import _build, megakernel
@@ -102,7 +102,7 @@ TAPE_BUDGET = 4 * 2**30
 # sliver of the steps.  (raytpu's 0.15 / 0.5 thresholds are TPU
 # measurements of its windowed schedule and do not carry over.)
 PARTIAL_MIN_COVERAGE = 0.05
-# The fewest spheres at which the autograd path tapes.  Below it a step's
+# The fewest spheres at which the gradient route tapes.  Below it a step's
 # sweep is too cheap to outweigh the tape's stores and reads: on an H100,
 # render_grad at the config-2 frame in parallel RNG lost 7 of 10 pairs
 # taped at 4 spheres (median +3.5%) and won 8 of 10 at 8 spheres (-5.5%),
@@ -497,9 +497,7 @@ def render_vjp(scene: Scene, cam: Camera, cfg: RenderConfig, ct, img=None,
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     with profiling.span("raytpu.pack"):
-        packed = megakernel.pack_scene(scene if bvh is None else
-                                       permute_scene(scene, bvh.perm))
-        cam_pack = megakernel.pack_camera(cam)
+        cam_pack, packed = megakernel.pack(scene, cam, bvh)
     out, gsc, gcam = launch(cam_pack, packed, cfg, ct, img, vis_w, bvh, tape,
                             row0, rows if slabbed else None, p2_refill)
     if reduce is not None:
@@ -525,7 +523,7 @@ def input_order(gsc: torch.Tensor, perm, n: int) -> torch.Tensor:
 
 def tape_plan(cfg: RenderConfig, n: int, bvh: BVH | None = None,
               vis_w: float = 0.0, rows: int | None = None):
-    """-> ``{"g_cap", "bytes", "partial"}`` when the autograd path tapes,
+    """-> ``{"g_cap", "bytes", "partial"}`` when the gradient route tapes,
     else None (raytpu's ``tape_plan`` gate, with the port's sizing).
 
     Tapes in parallel RNG only (K3 elides PASS 1 there, so the replay has
@@ -587,9 +585,7 @@ def render_tape_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
     with profiling.span("raytpu.pack"):
         tape = torch.empty((g_cap, rows * cfg.width),
                            dtype=golden.tape_dtype(n), device=device)
-        packed = megakernel.pack_scene(scene if bvh is None else
-                                       permute_scene(scene, bvh.perm))
-        cam_pack = megakernel.pack_camera(cam)
+        cam_pack, packed = megakernel.pack(scene, cam, bvh)
     img = megakernel.launch(cam_pack, packed, cfg, bvh, tape=tape, row0=row0,
                             rows=rows if slabbed else None)
     return img, tape

@@ -26,14 +26,15 @@ The walk reads its node rows in the 16-byte layout of
 :func:`raytpu_torch.bvh.pack_walk_rows` (``BVH.walk_rows``) and the
 spheres as 16-byte rows (:func:`sphere_rows`).
 
-:func:`render_fwd` and :func:`accumulate` take the scene and camera as the
+:func:`forward` and :func:`accumulate` take the scene and camera as the
 package's NamedTuples.  For CPU tensors they run the plain PyTorch versions
 (:func:`raytpu_torch.golden.render_golden` and
 :func:`raytpu_torch.golden.accumulate_golden`, with a BVH their sweep by the
 same rule, :func:`raytpu_torch.golden.hit_bvh`); for CUDA tensors they
 launch the kernel or raise — they never fall back, and a walk BVH always
-launches a walk variant.  :func:`launch` and :func:`launch_accumulate` are
-the kernel wrappers proper, on the packed operands the kernel reads (a
+launches a walk variant.  :func:`pack` makes every kernel's scene and
+camera operands from them.  :func:`launch` and :func:`launch_accumulate`
+are the kernel wrappers proper, on the packed operands the kernel reads (a
 BVH from :func:`raytpu_torch.bvh.with_sweep` forces a sweep, for
 ``chip_smoke.py`` and the tests).  ``variants`` counts the kernel
 launches made through them by variant; a launch given ``rows`` (the
@@ -42,22 +43,8 @@ launch.  The wrappers mark the host's preparation of a launch and the
 launch itself as the spans ``raytpu.pack`` and ``raytpu.launch``
 (:func:`raytpu_torch.profiling.span`).
 
-Under autograd (any continuous leaf requires grad) :func:`render_fwd` goes
-through :class:`_Render`, the counterpart of raytpu's ``custom_vjp``s
-around ``_render_pallas`` and ``_render_pallas_bvh``
-(raytpu/kernels/megakernel.py:1634-1739), with or without a BVH: the
-forward is this kernel, the backward the fused VJP kernel K3
-(``raytpu_torch/kernels/gradkernel.py``), which takes the forward image in
-parallel RNG mode so as to skip its own PASS 1.  Where
-:func:`raytpu_torch.kernels.gradkernel.tape_plan` applies (parallel RNG,
-``vis_w == 0``, the tape within its budget) the forward is the taping one
-and K3 replays its tape instead of sweeping.  The taping forward traces
-through the same device function as K1a / K1c / K1d, so the image under
-grad is the image without it, bit for bit (raytpu's taping forward runs another
-schedule and may differ by FMA contraction; here that cannot arise).  On
-CPU tensors the same Functions run the plain versions of every piece
-(golden forward, golden taping forward, the adjoint's VJP and its tape
-replay).
+Nothing here runs under autograd: :mod:`raytpu_torch.autodiff`, above the
+kernel wrappers, differentiates a render.
 """
 
 from __future__ import annotations
@@ -157,7 +144,7 @@ def slab(cfg: RenderConfig, row0: int = 0,
     return row0, rows
 
 
-def _u32_bits(seed: torch.Tensor) -> torch.Tensor:
+def u32_bits(seed: torch.Tensor) -> torch.Tensor:
     """The int64 carrier of u32 seeds (:mod:`raytpu_torch.rng`) as int32
     tensors with the same 32 bits, the kernel's ``uint32_t`` layout."""
     return torch.where(seed >= 2**31, seed - 2**32, seed).to(torch.int32)
@@ -220,19 +207,29 @@ def pack_scene(scene: Scene) -> torch.Tensor:
         scene.mat_param]).contiguous()
 
 
+def pack(scene: Scene, cam: Camera,
+         bvh: BVH | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> ``(cam_pack, scene_pack)``, the kernels' operands: the scene in
+    leaf order with a BVH (:func:`raytpu_torch.bvh.permute_scene`, padding
+    dummies as NaN rows), the one place the kernels' leaf order is set."""
+    scene_pack = pack_scene(scene if bvh is None else
+                            permute_scene(scene, bvh.perm))
+    return pack_camera(cam), scene_pack
+
+
 def check_packs(cam_pack: torch.Tensor, scene_pack: torch.Tensor) -> None:
     """Raise unless both packs are contiguous f32 CUDA tensors of the
     kernels' shapes on one device, carrying no autograd history: only
-    :class:`_Render` may run a kernel under autograd, because only it
-    supplies the backward."""
+    :mod:`raytpu_torch.autodiff`'s Function may run a kernel under
+    autograd, because only it supplies the backward."""
     for name, t, shape in (("cam_pack", cam_pack, (CAM_PACK,)),
                            ("scene_pack", scene_pack,
                             (SCENE_ROWS, scene_pack.shape[-1]))):
         if t.requires_grad:
             raise ValueError(f"{name} requires grad: a kernel launched "
                              "directly has no backward; go through "
-                             "render_fwd (or render), whose autograd "
-                             "Function runs K3 backward")
+                             "autodiff.render_fwd (or render), whose "
+                             "autograd Function runs K3 backward")
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
@@ -491,7 +488,7 @@ def launch(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
 
     ``bvh``: the flat BVH sweep (K1c) or the skip-pointer walk (K1d), by
     :func:`raytpu_torch.bvh.sweep_of`; ``scene_pack`` is then the scene in leaf order
-    (``pack_scene(permute_scene(scene, bvh.perm))``).  ``tape``
+    (:func:`pack` with the BVH).  ``tape``
     (g_cap, rows*W): the taping forward (K4's write side) writes each
     pixel's first g_cap winners (-1 for a miss) into it; other slots keep
     their value.  ``row0`` / ``rows``: the slab (K1b; see :func:`slab`).
@@ -609,88 +606,10 @@ def launch_accumulate(cam_pack: torch.Tensor, scene_pack: torch.Tensor,
     return out
 
 
-def _forward(scene: Scene, cam: Camera, cfg: RenderConfig,
-             bvh: BVH | None = None, row0: int = 0,
-             rows: int | None = None) -> torch.Tensor:
-    device = scene.center.device
-    if device.type == "cpu":
-        return golden.render_golden(scene, cam, cfg, bvh, row0=row0,
-                                    rows=rows)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    with profiling.span("raytpu.pack"):
-        packed = pack_scene(scene if bvh is None else
-                            permute_scene(scene, bvh.perm))
-        cam_pack = pack_camera(cam)
-    return launch(cam_pack, packed, cfg, bvh, row0=row0, rows=rows)
-
-
-def _grad_forward(ctx, scene: Scene, cam: Camera, cfg: RenderConfig,
-                  vis_w: float, bvh: BVH | None, row0: int,
-                  rows: int | None) -> torch.Tensor:
-    """The forward under autograd: the taping forward where the tape plan
-    applies (raytpu's ``_fwd`` / ``_fwd_bvh`` gate), else the plain
-    forward kernel.  Keeps on ``ctx`` what the backward needs."""
-    from raytpu_torch.kernels import gradkernel
-    plan = gradkernel.tape_plan(cfg, scene.count, bvh, vis_w, rows)
-    if plan is None:
-        img, tape = _forward(scene, cam, cfg, bvh, row0, rows), None
-    else:
-        img, tape = gradkernel.render_tape_fwd(scene, cam, cfg,
-                                               plan["g_cap"], bvh, row0, rows)
-    ctx.cfg, ctx.vis_w, ctx.bvh, ctx.plan, ctx.tape = cfg, vis_w, bvh, plan, \
-        tape
-    ctx.row0, ctx.rows = row0, rows
-    return img
-
-
-def _grad_backward(ctx, ct, scene: Scene, cam: Camera, img):
-    from raytpu_torch.kernels import gradkernel
-    cfg, plan = ctx.cfg, ctx.plan
-    # parallel RNG: the forward image elides K3's PASS 1; a tape also its
-    # PASS-2 sweep for the steps it holds
-    _, ds, dc = gradkernel.render_vjp(
-        scene, cam, cfg, ct, img=img if cfg.rng_mode == "parallel" else None,
-        vis_w=ctx.vis_w, bvh=ctx.bvh, tape=ctx.tape,
-        tape_partial=plan is not None and plan["partial"], row0=ctx.row0,
-        rows=ctx.rows)
-    return ds, dc
-
-
-class _Render(torch.autograd.Function):
-    """The forward kernel (K1a, K1c or K1d with a BVH, K1b on a slab, or
-    K4's taping forward) with K3 (its BVH variant with a BVH, its slab mode
-    on a slab) as its backward: raytpu's ``_fwd`` / ``_bwd`` and ``_fwd_bvh``
-    / ``_bwd_bvh``.
-
-    apply(cfg, vis_w, bvh, (row0, rows), mat_type, center, radius, albedo,
-    mat_param, *camera) -> image.  ``bvh`` (or None), the slab and
-    ``mat_type`` are derived or discrete data and get no gradient; ``vis_w
-    > 0`` adds silhouette terms to the backward only."""
-
-    @staticmethod
-    def forward(ctx, cfg, vis_w, bvh, slab_rows, mat_type, center, radius,
-                albedo, mat_param, *cam_leaves):
-        scene = Scene(center, radius, mat_type, albedo, mat_param)
-        img = _grad_forward(ctx, scene, Camera(*cam_leaves), cfg, vis_w, bvh,
-                            *slab_rows)
-        ctx.save_for_backward(mat_type, center, radius, albedo, mat_param,
-                              img, *cam_leaves)
-        return img
-
-    @staticmethod
-    def backward(ctx, ct):
-        mat_type, center, radius, albedo, mat_param, img, *cam_leaves = \
-            ctx.saved_tensors
-        ds, dc = _grad_backward(
-            ctx, ct, Scene(center, radius, mat_type, albedo, mat_param),
-            Camera(*cam_leaves), img)
-        return (None, None, None, None, None, ds.center, ds.radius,
-                ds.albedo, ds.mat_param, *dc)
-
-
-def _check_scene_bvh(scene: Scene, cam: Camera, cfg: RenderConfig,
-                     bvh: BVH | None) -> torch.device:
+def check_scene_bvh(scene: Scene, cam: Camera, cfg: RenderConfig,
+                    bvh: BVH | None) -> torch.device:
+    """:func:`check_inputs`, and :func:`check_bvh` of ``bvh`` (when given)
+    built for this scene's sphere count; return the inputs' device."""
     device = check_inputs(scene, cam, cfg)
     if bvh is not None:
         check_bvh(bvh, None, device)
@@ -700,28 +619,27 @@ def _check_scene_bvh(scene: Scene, cam: Camera, cfg: RenderConfig,
     return device
 
 
-def render_fwd(scene: Scene, cam: Camera, cfg: RenderConfig,
-               vis_w: float = 0.0, bvh: BVH | None = None, row0: int = 0,
-               rows: int | None = None) -> torch.Tensor:
-    """Forward render -> (H, W, 3) f32 image in [0, 1] on the inputs'
-    device (row 0 = bottom scanline), or with ``rows`` the (rows, W, 3)
-    slab from absolute row ``row0`` (K1b; rows past the frame are 0).  CPU
-    tensors take the plain PyTorch version; CUDA tensors launch the kernel
-    (K1a, or K1e by :func:`use_dense`, or with ``bvh``, a
+def forward(scene: Scene, cam: Camera, cfg: RenderConfig,
+            bvh: BVH | None = None, row0: int = 0,
+            rows: int | None = None) -> torch.Tensor:
+    """Forward render, no autograd -> (H, W, 3) f32 image in [0, 1] on the
+    inputs' device (row 0 = bottom scanline), or with ``rows`` the (rows,
+    W, 3) slab from absolute row ``row0`` (K1b; rows past the frame are
+    0).  CPU tensors take the plain PyTorch version; CUDA tensors launch
+    the kernel (K1a, or K1e by :func:`use_dense`, or with ``bvh``, a
     :func:`raytpu_torch.bvh.build_bvh` of this scene on its device, K1c or
-    K1d by raytpu's rule).  When autograd is
-    on and a continuous leaf of the scene or camera requires grad, the
-    image carries a backward: K3 on CUDA tensors, the adjoint on CPU
-    tensors (``vis_w > 0`` adds silhouette gradients)."""
-    _check_scene_bvh(scene, cam, cfg, bvh)
+    K1d by raytpu's rule).  The differentiable render is
+    :func:`raytpu_torch.autodiff.render_fwd`."""
+    device = check_scene_bvh(scene, cam, cfg, bvh)
     slab(cfg, row0, rows)
-    leaves = (scene.center, scene.radius, scene.albedo, scene.mat_param,
-              *cam)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-        return _Render.apply(cfg, float(vis_w), bvh, (row0, rows),
-                             scene.mat_type, scene.center, scene.radius,
-                             scene.albedo, scene.mat_param, *cam)
-    return _forward(scene, cam, cfg, bvh, row0, rows)
+    if device.type == "cpu":
+        return golden.render_golden(scene, cam, cfg, bvh, row0=row0,
+                                    rows=rows)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    with profiling.span("raytpu.pack"):
+        cam_pack, scene_pack = pack(scene, cam, bvh)
+    return launch(cam_pack, scene_pack, cfg, bvh, row0=row0, rows=rows)
 
 
 def accumulate(scene: Scene, cam: Camera, cfg: RenderConfig,
@@ -739,7 +657,7 @@ def accumulate(scene: Scene, cam: Camera, cfg: RenderConfig,
     (:func:`raytpu_torch.golden.accumulate_golden`); CUDA tensors launch K2
     into fresh buffers.  No autograd: the carried state is not
     differentiated."""
-    device = _check_scene_bvh(scene, cam, cfg, bvh)
+    device = check_scene_bvh(scene, cam, cfg, bvh)
     slabbed = rows is not None
     row0, rows = slab(cfg, row0, rows)
     _check_state(cfg, rows, acc, seed, device)
@@ -749,10 +667,9 @@ def accumulate(scene: Scene, cam: Camera, cfg: RenderConfig,
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     with torch.no_grad():
-        packed = pack_scene(scene if bvh is None else
-                            permute_scene(scene, bvh.perm))
+        cam_pack, scene_pack = pack(scene, cam, bvh)
         acc2, seed2 = launch_accumulate(
-            pack_camera(cam), packed, cfg, acc.contiguous(),
-            _u32_bits(seed).contiguous(), s0, spp, bvh, row0,
+            cam_pack, scene_pack, cfg, acc.contiguous(),
+            u32_bits(seed).contiguous(), s0, spp, bvh, row0,
             rows if slabbed else None)
     return acc2, seed2.to(torch.int64) & 0xFFFFFFFF

@@ -19,11 +19,11 @@ says so, "brute" otherwise), the flat BVH sweep over the stage
 kernels' own by :func:`kernel_operands`), :func:`hit_args` gives the C
 entry points' closest-hit operands from them;
 :func:`launch_segment` and :func:`launch_refill_segment` check the planes,
-launch on the current stream of their device and do not synchronise.  CPU
-tensors run the plain versions (:func:`raytpu_torch.wavefront.segment_plain`
-and :func:`raytpu_torch.wavefront.refill_segment_plain`); CUDA tensors
-launch the kernel or raise, never falling back.  ``variants`` counts the
-launches by kernel and policy ("K5/dense", "K6/bvh", ...).
+launch on the current stream of their device and do not synchronise; they
+take CUDA tensors only.  The plain versions, which the wavefront runs on
+CPU tensors, are :func:`raytpu_torch.wavefront.segment_plain` and
+:func:`raytpu_torch.wavefront.refill_segment_plain`.  ``variants`` counts
+the launches by kernel and policy ("K5/dense", "K6/bvh", ...).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from raytpu_torch.bvh import BVH, permute_scene
+from raytpu_torch.bvh import BVH
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import _build, megakernel
@@ -55,8 +55,8 @@ variants = dict.fromkeys(
 
 class SceneOps(NamedTuple):
     """A render's operands, packed once (:func:`prepare`)."""
-    scene: Scene            # as the kernels see it: leaf order with a BVH
-    pack: torch.Tensor      # its (9, N) f32 pack
+    scene: Scene            # as given (the plain versions permute it)
+    pack: torch.Tensor      # its (9, N) f32 pack, leaf order with a BVH
     bvh: BVH | None
     policy: str             # one of POLICIES
     box: torch.Tensor       # (6,) f32 the key's box: lo xyz, bins / extent xyz
@@ -94,16 +94,15 @@ def prepare(scene: Scene, cam: Camera, bvh: BVH | None,
         policy = "dense"
     else:
         policy = megakernel.sweep_tag(bvh)
-    kscene = scene if bvh is None else permute_scene(scene, bvh.perm)
     dev = scene.center.device
     with torch.no_grad():
-        pack = megakernel.pack_scene(kscene)
+        cam_pack, pack = megakernel.pack(scene, cam, bvh)
         own = (kernel_operands(policy, bvh, pack,
                                lambda: megakernel.smem_optin(dev))
                if dev.type == "cuda" else (None, None, None))
-        return SceneOps(kscene, pack, bvh, policy,
-                        box.to(torch.float32).contiguous(), cam,
-                        megakernel.pack_camera(cam), *own)
+        return SceneOps(scene, pack, bvh, policy,
+                        box.to(torch.float32).contiguous(), cam, cam_pack,
+                        *own)
 
 
 _ptr, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -178,11 +177,8 @@ def launch_segment(ops: SceneOps, planes: torch.Tensor, cfg: RenderConfig,
     R = _check_planes("planes", planes, SEG_PLANES, ops)
     if n_bounces < 0:
         raise ValueError(f"n_bounces {n_bounces} < 0")
-    if planes.device.type == "cpu":
-        from raytpu_torch import wavefront
-        return wavefront.segment_plain(ops, planes, cfg, n_bounces)
     if planes.device.type != "cuda":
-        raise ValueError(f"unsupported device {planes.device}")
+        raise ValueError(f"K5 runs on CUDA tensors, got {planes.device}")
     out = torch.empty((SEG_PLANES + 1, R), dtype=torch.float32,
                       device=planes.device)
     with torch.cuda.device(planes.device):
@@ -218,12 +214,8 @@ def launch_refill_segment(ops: SceneOps, ride: torch.Tensor,
             "1 <= depth <= 256 and 1 <= spp / spp_batch <= 65535 (got "
             f"{cfg.rng_mode}, {n_bounces}, depth {cfg.depth}, spp "
             f"{cfg.spp} / {spp_batch})")
-    if ride.device.type == "cpu":
-        from raytpu_torch import wavefront
-        return wavefront.refill_segment_plain(ops, ride, aux, cfg, n_bounces,
-                                              spp_batch)
     if ride.device.type != "cuda":
-        raise ValueError(f"unsupported device {ride.device}")
+        raise ValueError(f"K6 runs on CUDA tensors, got {ride.device}")
     out = torch.empty_like(ride)
     with torch.cuda.device(ride.device):
         stream = torch.cuda.current_stream(ride.device).cuda_stream

@@ -206,7 +206,7 @@ def census(scene, cam, cfg: RenderConfig, bvh=None, row0: int = 0,
     CPU tensors run its plain version.  ``row0`` / ``rows``: the work of
     that row slab only."""
     from raytpu_torch import golden
-    from raytpu_torch.bvh import permute_scene, sweep_of
+    from raytpu_torch.bvh import sweep_of
     from raytpu_torch.kernels import megakernel
     device = megakernel.check_inputs(scene, cam, cfg)
     if device.type == "cpu":
@@ -215,10 +215,9 @@ def census(scene, cam, cfg: RenderConfig, bvh=None, row0: int = 0,
                              rows=rows)
         name = "cpu"
     else:
-        packed = megakernel.pack_scene(scene if bvh is None else
-                                       permute_scene(scene, bvh.perm))
-        _, cnt = megakernel.launch(megakernel.pack_camera(cam), packed, cfg,
-                                   bvh, count=True, row0=row0, rows=rows)
+        cam_pack, packed = megakernel.pack(scene, cam, bvh)
+        _, cnt = megakernel.launch(cam_pack, packed, cfg, bvh, count=True,
+                                   row0=row0, rows=rows)
         counts = dict(zip(golden.CENSUS, (int(c) for c in cnt.tolist())))
         name = torch.cuda.get_device_name(device)
     counts["device"] = name

@@ -19,8 +19,9 @@ and golden-only, as in raytpu: every backend renders it through the plain
 version, on whatever device the tensors lie on (:func:`backend_for`).
 
 Gradients: :func:`render` on inputs that require grad returns an image with
-a backward (on CUDA tensors the forward kernel K1a and the fused VJP kernel
-K3; on CPU tensors the plain golden forward and the adjoint VJP).
+a backward (:mod:`raytpu_torch.autodiff`: on CUDA tensors the forward kernel
+K1a and the fused VJP kernel K3; on CPU tensors the plain golden forward and
+the adjoint VJP).
 :func:`render_grad` is raytpu's surface: an MSE loss against a target and
 the gradients of the scene's and camera's continuous leaves.
 
@@ -41,10 +42,9 @@ from __future__ import annotations
 
 import torch
 
-from raytpu_torch import adjoint, golden, profiling
+from raytpu_torch import adjoint, autodiff, golden, profiling
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.kernels import megakernel
 from raytpu_torch.scene import Scene
 
 BACKENDS = ("auto", "golden", "cuda")
@@ -118,9 +118,9 @@ def render(scene: Scene, cam: Camera, cfg: RenderConfig,
             return wavefront.render_wavefront(
                 scene, cam, cfg, bvh=bvh, vis_w=vis_w, spp_batch=spp_batch,
                 refill=refill)
-        # "auto" and "cuda": the wrapper launches the kernel on CUDA
-        # tensors and runs the plain version on CPU tensors
-        return megakernel.render_fwd(scene, cam, cfg, vis_w=vis_w, bvh=bvh)
+        # "auto" and "cuda": the kernel on CUDA tensors, the plain version
+        # on CPU tensors
+        return autodiff.render_fwd(scene, cam, cfg, vis_w=vis_w, bvh=bvh)
 
 
 def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
@@ -160,7 +160,7 @@ def render_grad(scene: Scene, cam: Camera, cfg: RenderConfig, target,
         if backend == "golden":
             img = adjoint.render_golden_adjoint(s, c, cfg, vis_w)
         else:
-            img = megakernel.render_fwd(s, c, cfg, vis_w=vis_w, bvh=bvh)
+            img = autodiff.render_fwd(s, c, cfg, vis_w=vis_w, bvh=bvh)
         loss = torch.mean((img - target) ** 2)
         grads = torch.autograd.grad(loss, leaves)
     scene_grads = Scene(center=grads[0], radius=grads[1], mat_type=None,

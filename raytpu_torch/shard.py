@@ -37,11 +37,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from raytpu_torch import adjoint, golden, profiling
+from raytpu_torch import adjoint, autodiff, golden, profiling
 from raytpu_torch import bvh as tbvh
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
-from raytpu_torch.kernels import gradkernel, megakernel
+from raytpu_torch.kernels import megakernel
 from raytpu_torch.render import BACKENDS, backend_for, check_backend
 from raytpu_torch.scene import Scene
 
@@ -134,8 +134,8 @@ def render_sharded(scene: Scene, cam: Camera, cfg: RenderConfig, *,
     ``rng_mode="v1_fractsin"``.  No autograd."""
     backend = backend_for(cfg, backend)
     check_backend(backend, scene)
-    fwd = golden.render_golden if backend == "golden" else \
-        megakernel.render_fwd
+    fwd = (golden.render_golden if backend == "golden"
+           else megakernel.forward)
     with torch.no_grad():
         return run_slabs(cfg, group, lambda row0, rows: (fwd(
             scene, cam, cfg, bvh=bvh, row0=row0, rows=rows),))[0]
@@ -156,7 +156,7 @@ def render_wavefront_sharded(scene: Scene, cam: Camera, cfg: RenderConfig,
     bit.  The options as in :func:`raytpu_torch.wavefront.render_wavefront`;
     no autograd."""
     from raytpu_torch import wavefront as wf
-    megakernel._check_scene_bvh(scene, cam, cfg, bvh)
+    megakernel.check_scene_bvh(scene, cam, cfg, bvh)
     segments = wf.check_options(cfg, segments, None, sort_every, spp_batch,
                                 sort_chunk, refill)
     rank, n = world(group)
@@ -176,14 +176,14 @@ class TrainStep:
     ``(d_scene, d_cam)``."""
 
     def __init__(self, cfg: RenderConfig, group, lr: float, bvh, refit: bool,
-                 use_tape: bool | None, backend: str):
+                 backend: str):
         adjoint.check_cfg(cfg)
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend: {backend!r} (choose from "
                              f"{BACKENDS})")
         self.cfg, self.group, self.lr, self.bvh = cfg, group, lr, bvh
         self.refit = bool(refit and bvh is not None)
-        self.use_tape, self.backend = use_tape, backend
+        self.backend = backend
         rank, size = world(group)
         self.rows = slab_rows(cfg, size)
         self.row0 = rank * self.rows
@@ -214,23 +214,9 @@ class TrainStep:
             with profiling.span("raytpu.refit"):
                 bvh = tbvh.refit(bvh, scene)
         with profiling.span("raytpu.forward"):
-            plan = gradkernel.tape_plan(cfg, scene.count, bvh, 0.0, rows)
-            if self.use_tape and plan is None:
-                raise ValueError("use_tape=True but tape_plan declined "
-                                 "(sequential RNG, too few spheres, or the "
-                                 "budget too small)")
-            tape = None
-            if plan is not None and self.use_tape is not False:
-                taping = (golden.render_golden_tape if plain
-                          else gradkernel.render_tape_fwd)
-                img, tape = taping(scene, cam, cfg, plan["g_cap"], bvh,
-                                   row0=row0, rows=rows)
-            elif plain:
-                img = golden.render_golden(scene, cam, cfg, bvh, row0=row0,
-                                           rows=rows)
-            else:
-                img = megakernel.render_fwd(scene, cam, cfg, bvh=bvh,
-                                            row0=row0, rows=rows)
+            img, tape, plan = autodiff.forward(scene, cam, cfg, bvh,
+                                               row0=row0, rows=rows,
+                                               plain=plain)
         with profiling.span("raytpu.loss"):
             target = torch.as_tensor(target, dtype=torch.float32,
                                      device=img.device)
@@ -242,15 +228,10 @@ class TrainStep:
             loss = torch.sum(diff.to(torch.float64) ** 2) * inv_m
             ct = 2.0 * diff * inv_m
         with profiling.span("raytpu.vjp"):
-            kw = dict(bvh=bvh, tape=tape, row0=row0, rows=rows,
-                      reduce=self._reduce(loss))
-            if plain:
-                _, ds, dc = gradkernel.render_vjp_plain(scene, cam, cfg, ct,
-                                                        **kw)
-            else:
-                _, ds, dc = gradkernel.render_vjp(
-                    scene, cam, cfg, ct, img=img,
-                    tape_partial=plan is not None and plan["partial"], **kw)
+            ds, dc = autodiff.backward(scene, cam, cfg, ct, img, tape, plan,
+                                       bvh=bvh, row0=row0, rows=rows,
+                                       plain=plain,
+                                       reduce=self._reduce(loss))
         with profiling.span("raytpu.sgd"):
             lr = self.lr
             scene = scene._replace(
@@ -269,22 +250,20 @@ class TrainStep:
 
 def make_train_step(cfg: RenderConfig, *, group=None, lr: float = 1e-2,
                     bvh=None, refit: bool = True,
-                    use_tape: bool | None = None,
                     backend: str = "auto") -> TrainStep:
     """A train step over ``group`` (raytpu's ``make_train_step_pallas``):
     ``step(scene, cam, target) -> (scene', cam', loss)``.
 
-    Each process renders its slab, through the taping forward when
-    :func:`raytpu_torch.kernels.gradkernel.tape_plan` applies at the slab's
-    height (``use_tape``: None follows the plan, False never tapes, True
-    raises where the plan declines), takes the MSE cotangent of its pixels
-    (the loss is the mean over the whole frame) through K3's slab mode,
-    all-reduces the cotangent sums (K3's in f64) and the loss, and applies
-    SGD with rate ``lr`` to the scene's continuous leaves and the camera's
-    origin, horizontal, vertical and lower-left corner (raytpu's update).
+    Each process renders its slab through the gradient route
+    (:mod:`raytpu_torch.autodiff`: taped where the plan applies at the
+    slab's height), takes the MSE cotangent of its pixels (the loss is the
+    mean over the whole frame) through K3's slab mode, all-reduces the
+    cotangent sums (K3's in f64) and the loss, and applies SGD with rate
+    ``lr`` to the scene's continuous leaves and the camera's origin,
+    horizontal, vertical and lower-left corner (raytpu's update).
     ``refit`` (with ``bvh``) recomputes the BVH's boxes from the current
     scene every step, as raytpu does, since the step moves spheres (each
     interior box the union of its leaves', where raytpu voids it).
     ``backend``: ``"auto"`` / ``"cuda"`` the kernels on CUDA tensors and
     the plain versions on CPU tensors, ``"golden"`` the plain versions."""
-    return TrainStep(cfg, group, lr, bvh, refit, use_tape, backend)
+    return TrainStep(cfg, group, lr, bvh, refit, backend)

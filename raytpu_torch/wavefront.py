@@ -42,12 +42,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytpu_torch import golden, rng
-from raytpu_torch.bvh import BVH
+from raytpu_torch import autodiff, golden, rng
+from raytpu_torch.bvh import BVH, permute_scene
 from raytpu_torch.camera import Camera
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import wavefront as kwf
-from raytpu_torch.kernels.megakernel import _check_scene_bvh, _u32_bits
+from raytpu_torch.kernels.megakernel import check_scene_bvh, u32_bits
 from raytpu_torch.scene import Scene
 
 BLOCK = 32             # primary rays are laid out in 32 x 32 pixel blocks
@@ -164,7 +164,13 @@ def _seed_of(bits: torch.Tensor) -> torch.Tensor:
 
 def _bits_of(seed: torch.Tensor) -> torch.Tensor:
     """int64 u32 values -> their bits as an f32 plane."""
-    return _u32_bits(seed).view(torch.float32)
+    return u32_bits(seed).view(torch.float32)
+
+
+def _leaf_scene(ops: kwf.SceneOps) -> Scene:
+    """The scene the plain versions sweep: in leaf order with a BVH."""
+    bvh = ops.bvh
+    return ops.scene if bvh is None else permute_scene(ops.scene, bvh.perm)
 
 
 def segment_plain(ops: kwf.SceneOps, planes: torch.Tensor, cfg: RenderConfig,
@@ -177,11 +183,12 @@ def segment_plain(ops: kwf.SceneOps, planes: torch.Tensor, cfg: RenderConfig,
     c, r = tuple(planes[6:9]), tuple(planes[9:12])
     alive = planes[12] > 0
     sd = _seed_of(planes[13])
+    scene = _leaf_scene(ops)
     for _ in range(n_bounces):
         if not bool(alive.any()):
             break
         ro, rd, c, r, alive, sd, _ = golden.bounce_step(
-            ops.scene, ro, rd, c, r, alive, sd, cfg.t_min, cfg.scatter_mode,
+            scene, ro, rd, c, r, alive, sd, cfg.t_min, cfg.scatter_mode,
             ops.bvh)
     key = torch.where(alive, _cell_key(ops.box, ro, rd), DEAD_KEY)
     return torch.stack([*ro, *rd, *c, *r, alive.to(torch.float32),
@@ -212,12 +219,13 @@ def refill_segment_plain(ops: kwf.SceneOps, ride: torch.Tensor,
     zero = torch.zeros_like(fx)
     r = (zero, zero, zero)
     one = torch.ones_like(fx)
+    scene = _leaf_scene(ops)
     for _ in range(n_bounces):
         if not bool(alive.any()):
             break
         was = alive
         ro, rd, c, r, alive, sd, _ = golden.bounce_step(
-            ops.scene, ro, rd, c, r, alive, sd, cfg.t_min, cfg.scatter_mode,
+            scene, ro, rd, c, r, alive, sd, cfg.t_min, cfg.scatter_mode,
             ops.bvh)
         d = torch.where(was, d + 1, d)
         fin = was & (~alive | (d >= cfg.depth))
@@ -290,6 +298,10 @@ def _render(scene: Scene, cam: Camera, cfg: RenderConfig, bvh: BVH | None,
                          f"{kwf.MAX_SLOTS - 1} (slot ids ride an f32 plane)")
     dev = scene.center.device
     ops = kwf.prepare(scene, cam, bvh, torch.cat(_key_bounds(scene)))
+    # the segment kernels on a card, their plain versions on the CPU
+    cpu = dev.type == "cpu"
+    segment = segment_plain if cpu else kwf.launch_segment
+    refill_segment = refill_segment_plain if cpu else kwf.launch_refill_segment
     n_chunks = _chunks(R, sort_chunk)
     inv_w = torch.tensor(np.float32(1.0 / (w - 1)), device=dev)
     inv_h = torch.tensor(np.float32(1.0 / (cfg.height - 1)), device=dev)
@@ -314,7 +326,7 @@ def _render(scene: Scene, cam: Camera, cfg: RenderConfig, bvh: BVH | None,
             ride = ride[:, _sort_order(ride[0], n_chunks)]
             px, py, bidx = _pixels(ride[1].to(torch.int64), wp, B, row0)
             aux = torch.stack([px, py, bidx]).to(torch.float32)
-            ride = kwf.launch_refill_segment(ops, ride, aux, cfg, refill, B)
+            ride = refill_segment(ops, ride, aux, cfg, refill, B)
         pid, rad = ride[1].to(torch.int64), ride[13:16]
     else:
         parallel = cfg.rng_mode == "parallel"
@@ -332,7 +344,7 @@ def _render(scene: Scene, cam: Camera, cfg: RenderConfig, bvh: BVH | None,
             # sort_every > 1: only every k-th wave sorts (raytpu :624-628)
             do_sort = s % sort_every == 0
             for i, seg in enumerate(segments):
-                out = kwf.launch_segment(ops, planes, cfg, seg)
+                out = segment(ops, planes, cfg, seg)
                 if do_sort and i < len(segments) - 1:
                     order = _sort_order(out[14], n_chunks)
                     out, pid = out[:, order], pid[order]
@@ -387,41 +399,6 @@ def check_options(cfg: RenderConfig, segments, tile_rows, sort_every: int,
     return segments
 
 
-class _Wavefront(torch.autograd.Function):
-    """The wavefront forward with the fused VJP kernel K3 as its backward
-    (raytpu's ``custom_vjp``, raytpu/wavefront.py:682-730): the wavefront
-    changes the forward's schedule only, so K3 takes its image as given.
-    As in raytpu, that engages K3's windowed refill in parallel RNG and its
-    per-sample pass in sequential RNG; on CPU tensors the backward is the
-    adjoint's VJP.
-
-    apply(cfg, vis_w, bvh, options, mat_type, center, radius, albedo,
-    mat_param, *camera) -> image; ``options`` = (segments, sort_every,
-    spp_batch, sort_chunk, refill)."""
-
-    @staticmethod
-    def forward(ctx, cfg, vis_w, bvh, options, mat_type, center, radius,
-                albedo, mat_param, *cam_leaves):
-        scene = Scene(center, radius, mat_type, albedo, mat_param)
-        img = _render(scene, Camera(*cam_leaves), cfg, bvh, *options)
-        ctx.cfg, ctx.vis_w, ctx.bvh = cfg, vis_w, bvh
-        ctx.save_for_backward(mat_type, center, radius, albedo, mat_param,
-                              img, *cam_leaves)
-        return img
-
-    @staticmethod
-    def backward(ctx, ct):
-        from raytpu_torch.kernels import gradkernel
-        mat_type, center, radius, albedo, mat_param, img, *cam_leaves = \
-            ctx.saved_tensors
-        _, ds, dc = gradkernel.render_vjp(
-            Scene(center, radius, mat_type, albedo, mat_param),
-            Camera(*cam_leaves), ctx.cfg, ct, img=img, vis_w=ctx.vis_w,
-            bvh=ctx.bvh)
-        return (None, None, None, None, None, ds.center, ds.radius,
-                ds.albedo, ds.mat_param, *dc)
-
-
 def render_wavefront(scene: Scene, cam: Camera, cfg: RenderConfig,
                      bvh: BVH | None = None, segments=None,
                      tile_rows: int | None = None, vis_w: float = 0.0,
@@ -447,15 +424,14 @@ def render_wavefront(scene: Scene, cam: Camera, cfg: RenderConfig,
     with a continuous leaf that requires grad the backward is K3 on CUDA
     tensors, its windowed refill in parallel RNG (``vis_w > 0`` adds
     silhouette gradients), the adjoint's VJP on CPU tensors."""
-    _check_scene_bvh(scene, cam, cfg, bvh)
+    check_scene_bvh(scene, cam, cfg, bvh)
     options = (check_options(cfg, segments, tile_rows, int(sort_every),
                              int(spp_batch), int(sort_chunk), int(refill)),
                int(sort_every), int(spp_batch), int(sort_chunk), int(refill))
-    leaves = (scene.center, scene.radius, scene.albedo, scene.mat_param,
-              *cam)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
-        return _Wavefront.apply(cfg, float(vis_w), bvh, options,
-                                scene.mat_type, scene.center, scene.radius,
-                                scene.albedo, scene.mat_param, *cam)
+    if autodiff.needs_grad(scene, cam):
+        # K3 takes the wavefront's image as given (raytpu/wavefront.py:682)
+        return autodiff.differentiable(
+            scene, cam, cfg, vis_w, bvh,
+            render=lambda s, c: _render(s, c, cfg, bvh, *options))
     with torch.no_grad():
         return _render(scene, cam, cfg, bvh, *options)

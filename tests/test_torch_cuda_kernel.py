@@ -57,8 +57,8 @@ import pytest
 import torch
 
 import raytpu_torch as rt
-from raytpu_torch import bvh as tbvh, golden, profiling, progressive, rng
-from raytpu_torch import shard
+from raytpu_torch import autodiff, bvh as tbvh, golden, profiling
+from raytpu_torch import progressive, rng, shard
 from raytpu_torch import wavefront as wf
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import gradkernel, megakernel
@@ -409,8 +409,8 @@ def test_slabs_stitch_to_the_frame(rng_mode):
     _reset_counts()
     imgs, accs, seeds = [], [], []
     for row0, rows in _SLABS:
-        img = megakernel.render_fwd(scene, cam, cfg, bvh=bvh, row0=row0,
-                                    rows=rows)
+        img = megakernel.forward(scene, cam, cfg, bvh=bvh, row0=row0,
+                                 rows=rows)
         acc, seed = megakernel.accumulate(
             scene, cam, cfg, shard.slab_of(init.acc, row0, rows),
             shard.slab_of(init.seed, row0, rows), 0, 2, bvh, row0, rows)
@@ -588,7 +588,7 @@ def test_walk_against_forced_flat_census_and_slabs():
     assert torch.equal(a[0], b[0])
     for x, y in ((a[1], b[1]), (a[2], b[2])):
         assert float((x - y).abs().max()) <= 1e-9 * float(y.abs().max())
-    part = megakernel.render_fwd(scene, cam, cfg, bvh=bvh, row0=20, rows=40)
+    part = megakernel.forward(scene, cam, cfg, bvh=bvh, row0=20, rows=40)
     assert megakernel.variants["K1b/walk"] == 1
     assert torch.equal(part[:28], walk[20:]) and not bool(part[28:].any())
     part_k3 = gradkernel.launch(cp, sp, cfg, ct[20:], walk[20:], 0.0, bvh,
@@ -1000,7 +1000,7 @@ def test_wavefront_backward_sequential_and_parallel_refusal():
         c = cfg.replace(rng_mode=rng_mode)
         par = rng_mode == "parallel"
         grads = []
-        for fn in (wf.render_wavefront, megakernel.render_fwd):
+        for fn in (wf.render_wavefront, autodiff.render_fwd):
             leaves = [t.detach().requires_grad_() for t in
                       (scene.center, scene.radius, scene.albedo,
                        scene.mat_param, *cam)]
@@ -1012,7 +1012,7 @@ def test_wavefront_backward_sequential_and_parallel_refusal():
             grads.append([img, *torch.autograd.grad(img, leaves,
                                                      img.detach() - target)])
             want = ("K3/bvh" if not par else "K3/bvh+refill+tape"
-                    if fn is megakernel.render_fwd else "K3/bvh+refill")
+                    if fn is autodiff.render_fwd else "K3/bvh+refill")
             assert gradkernel.variants[want] == 1 == sum(
                 gradkernel.variants.values()), want
         assert torch.equal(grads[0][0], grads[1][0])

@@ -1,6 +1,7 @@
 """The fused VJP kernel's wrapper (raytpu_torch.kernels.gradkernel), the
-autograd wiring around the forward kernel, ``render_grad`` and the config-3
-optimisation, on the CPU against raytpu.
+gradient route around the kernels (raytpu_torch.autodiff, which no kernel
+wrapper imports), ``render_grad`` and the config-3 optimisation, on the CPU
+against raytpu.
 
 On CPU tensors ``render_vjp`` runs its plain version (the VJP of the
 port's adjoint renderer); it is held against
@@ -17,6 +18,10 @@ raytpu's golden backend 3.1e-4 with either port backend, the loss within
 3e-7 relative.  The camera assembly from the 18 sums is exact up to the
 order of a 3-term dot product (rtol 1e-6).
 """
+
+import ast
+import glob
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -329,6 +334,38 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="v1_fractsin"):
         rt.render_grad(s, c, cfg.replace(rng_mode="v1_fractsin"),
                        np.zeros((cfg.height, cfg.width, 3), np.float32))
+
+
+def test_kernel_wrappers_import_nothing_above_them():
+    """The kernel wrappers sit below the gradient route: no module of
+    raytpu_torch/kernels imports, at its top or inside a function, the
+    route (autodiff) or an entry above it (render, shard, wavefront,
+    progressive), and megakernel does not import gradkernel."""
+    above = {f"raytpu_torch.{m}" for m in ("autodiff", "render", "shard",
+                                            "wavefront", "progressive")}
+    kernels = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "raytpu_torch", "kernels")
+    paths = sorted(glob.glob(os.path.join(kernels, "*.py")))
+    assert {os.path.basename(p) for p in paths} >= {
+        "megakernel.py", "gradkernel.py", "wavefront.py"}
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        names = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                pkg = "raytpu_torch.kernels".split(".")
+                base = (".".join(pkg[:len(pkg) + 1 - node.level]
+                                 + [node.module or ""]).strip(".")
+                        if node.level else node.module)
+                names.add(base)
+                names.update(f"{base}.{a.name}" for a in node.names)
+        module = os.path.basename(path)[:-3]
+        assert not names & above, (module, names & above)
+        if module == "megakernel":
+            assert "raytpu_torch.kernels.gradkernel" not in names
 
 
 def test_config3_problem_loss_decreases():

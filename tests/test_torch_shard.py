@@ -13,8 +13,8 @@ step.
   processes) and a train step's image are bit-identical to world size 1;
   the step's loss and updated leaves agree within 1e-6 (the all-reduce
   adds the per-process sums in another order).
-- ``make_train_step``'s options (``use_tape``, ``backend``, ``refit``)
-  against its default step, bit for bit.
+- ``make_train_step``'s options (``backend``, ``refit``) against its
+  default step, bit for bit; the step tapes where ``tape_plan`` says.
 - ``make_train_step`` (plain path, one process) against raytpu's golden
   ``make_train_step(cfg, mesh)`` on one device: the updated leaves within
   ``lr`` x 5e-3 of each leaf's largest gradient entry (the port's gradient
@@ -72,8 +72,8 @@ def test_plain_slabs_stitch_to_the_frame(rng_mode):
     sums = None
     for row0, rows in SLABS:
         live = _live(row0, rows)
-        img = megakernel.render_fwd(scene, cam, cfg, bvh=bvh, row0=row0,
-                                    rows=rows)
+        img = megakernel.forward(scene, cam, cfg, bvh=bvh, row0=row0,
+                                 rows=rows)
         img_t, tape_s = gradkernel.render_tape_fwd(scene, cam, cfg, g, bvh,
                                                    row0, rows)
         acc, seed = megakernel.accumulate(
@@ -217,20 +217,17 @@ def test_gloo_worlds_match_world_of_one(tmp_path):
                                                            one.seed)
 
 
-@pytest.mark.parametrize("option", ["use_tape=False", "use_tape=True",
-                                    "backend=golden", "refit=False"])
+@pytest.mark.parametrize("option", ["backend=golden", "refit=False"])
 def test_train_step_options(option):
     """Each option of ``make_train_step`` (one process) against the default
     step (taped as the plan says, refit, ``"auto"``), two steps on the same
-    inputs, bit for bit: the tape and the backend change no value, and
-    ``refit=False`` sweeps the BVH it is given, so given the refit BVH each
-    step it takes the default's steps.  ``use_tape=True`` where the plan
-    declines (sequential RNG) raises."""
+    inputs, bit for bit: the backend changes no value, and ``refit=False``
+    sweeps the BVH it is given, so given the refit BVH each step it takes
+    the default's steps."""
     scene, cam, bvh = _world()
     target = torch.from_numpy(np.random.default_rng(4).uniform(
         0, 1, (21, 40, 3)).astype(np.float32))
     key, value = option.split("=")
-    value = {"False": False, "True": True}.get(value, value)
     runs = []
     for kw in ({}, {key: value}):
         step = shard.make_train_step(CFG, bvh=bvh, **kw)
@@ -244,10 +241,43 @@ def test_train_step_options(option):
         runs.append(out)
     for i, (a, b) in enumerate(zip(*runs)):
         assert torch.equal(a, b), i
-    if key == "use_tape" and value:
-        with pytest.raises(ValueError, match="use_tape=True"):
-            shard.make_train_step(CFG.replace(rng_mode="sequential"),
-                                  bvh=bvh, use_tape=True)(scene, cam, target)
+
+
+@pytest.mark.parametrize("rng_mode", ["parallel", "sequential"])
+def test_train_step_tapes_as_the_plan_says(monkeypatch, rng_mode):
+    """A step (one process, a BVH over ``TAPE_MIN_SPHERES`` or more
+    spheres) tapes where ``tape_plan`` says: in parallel RNG it runs the
+    taping forward once and the backward's plain replay is given that
+    tape; in sequential RNG it runs no taping forward and the backward
+    sweeps (no tape)."""
+    cfg = CFG.replace(rng_mode=rng_mode)
+    scene, cam, bvh = _world(cfg)
+    assert scene.count >= gradkernel.TAPE_MIN_SPHERES
+    taped, replayed = [], []
+    tape_fwd, vjp_plain = (gradkernel.render_tape_fwd,
+                           gradkernel.render_vjp_plain)
+
+    def spy_tape_fwd(*args, **kw):
+        out = tape_fwd(*args, **kw)
+        taped.append(out[1])
+        return out
+
+    def spy_vjp_plain(*args):  # render_vjp passes its operands by position
+        replayed.append(args[6])
+        return vjp_plain(*args)
+
+    monkeypatch.setattr(gradkernel, "render_tape_fwd", spy_tape_fwd)
+    monkeypatch.setattr(gradkernel, "render_vjp_plain", spy_vjp_plain)
+    step = shard.make_train_step(cfg, bvh=bvh)
+    plan = gradkernel.tape_plan(cfg, scene.count, bvh, rows=step.rows)
+    target = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (21, 40, 3)).astype(np.float32))
+    step(scene, cam, target)
+    if rng_mode == "parallel":
+        assert plan is not None and len(taped) == 1
+        assert len(replayed) == 1 and replayed[0] is taped[0]
+    else:
+        assert plan is None and taped == [] and replayed == [None]
 
 
 def test_train_step_matches_raytpu_golden():

@@ -185,7 +185,8 @@ def test_gloo_reduce_inside_vjp(tmp_path):
 @needs_card
 def test_taped_step_wrapper_spans():
     scene, cam, bvh, target = _inputs("cuda")
-    step = shard.make_train_step(CFG, bvh=bvh, use_tape=True)
+    assert gradkernel.tape_plan(CFG, scene.count, bvh) is not None
+    step = shard.make_train_step(CFG, bvh=bvh)
     step(scene, cam, target)  # builds and loads the kernels
     torch.cuda.synchronize()
     before = sum(sum(m.variants.values()) for m in (megakernel, gradkernel))
@@ -214,7 +215,8 @@ def test_wrappers_make_no_sync():
     sync debug mode "error": a synchronising call would raise.  The BVH is
     new, so its perm's indices are built under the mode too."""
     scene, cam, bvh, target = _inputs("cuda")
-    shard.make_train_step(CFG, bvh=bvh, use_tape=True)(scene, cam, target)
+    assert gradkernel.tape_plan(CFG, scene.count, bvh) is not None
+    shard.make_train_step(CFG, bvh=bvh)(scene, cam, target)
     bvh = rt.build_bvh(scene, leaf_size=8)
     assert tbvh.sweep_of(bvh) == "flat" and bool((bvh.perm < 0).any())
     rows = CFG.height // 2
@@ -229,7 +231,7 @@ def test_wrappers_make_no_sync():
         _, ds, _ = gradkernel.render_vjp(
             scene, cam, CFG, ct, img=img, bvh=bvh, tape=tape,
             tape_partial=plan["partial"], row0=rows, rows=rows)
-        full = megakernel.render_fwd(scene, cam, CFG, bvh=bvh)
+        full = megakernel.forward(scene, cam, CFG, bvh=bvh)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -251,6 +253,7 @@ sys.path.insert(0, sys.argv[2])
 import raytpu_torch as rt
 from raytpu_torch import shard
 from raytpu_torch.config import RenderConfig
+from raytpu_torch.kernels import gradkernel
 
 cfg = RenderConfig(width=16, height=8, spp=1, depth=2, rng_mode="parallel")
 scene = rt.final_world(n=24, device="cuda")
@@ -258,8 +261,9 @@ cam = rt.make_camera((13.0, 2.0, 3.0), (0.0, 0.0, 0.0), vfov=20.0,
                      aspect=cfg.aspect, device="cuda")
 target = torch.from_numpy(np.random.default_rng(3).uniform(
     0, 1, (8, 16, 3)).astype(np.float32)).cuda()
-step = shard.make_train_step(cfg, bvh=rt.build_bvh(scene, leaf_size=8),
-                             use_tape=True)
+bvh = rt.build_bvh(scene, leaf_size=8)
+assert gradkernel.tape_plan(cfg, scene.count, bvh) is not None
+step = shard.make_train_step(cfg, bvh=bvh)
 scene, cam, _ = step(scene, cam, target)
 torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
@@ -267,8 +271,7 @@ with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
     torch.cuda.synchronize()
 host = [(e.name, e.time_range.start, e.time_range.end) for e in p.events()
         if e.device_type == torch.autograd.DeviceType.CPU]
-fresh = shard.make_train_step(cfg, bvh=rt.build_bvh(scene, leaf_size=8),
-                              use_tape=True)
+fresh = shard.make_train_step(cfg, bvh=rt.build_bvh(scene, leaf_size=8))
 torch.cuda.synchronize()
 torch.cuda.set_sync_debug_mode("error")
 step(scene, cam, target)

@@ -275,7 +275,7 @@ def test_walk_progressive_batches_and_slabs():
     assert torch.equal(progressive.image(st, cfg),
                        rt.render(scene, cam, cfg, bvh=b))
     full = rt.render(scene, cam, cfg, bvh=b)
-    part = tmk.render_fwd(scene, cam, cfg, bvh=b, row0=5, rows=9)
+    part = tmk.forward(scene, cam, cfg, bvh=b, row0=5, rows=9)
     assert torch.equal(part[:7], full[5:]) and not bool(part[7:].any())
     walk = profiling.census(scene, cam, cfg, b)
     flat = profiling.census(scene, cam, cfg, tbvh.with_sweep(b, "flat"))

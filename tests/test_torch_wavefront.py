@@ -31,7 +31,8 @@ from raytpu import wavefront as jwf
 from raytpu.bvh import build_bvh as jbuild_bvh
 from raytpu.config import RenderConfig as JConfig
 import raytpu_torch as rt
-from raytpu_torch import bvh as tbvh, convert, golden, shard, wavefront as wf
+from raytpu_torch import autodiff, bvh as tbvh, convert, golden, shard
+from raytpu_torch import wavefront as wf
 from raytpu_torch.config import RenderConfig
 from raytpu_torch.kernels import megakernel
 from raytpu_torch.kernels import wavefront as kwf
@@ -220,7 +221,7 @@ def test_gradients_equal_render_fwd(case):
     ct = torch.from_numpy(np.random.default_rng(3).normal(
         size=(16, 32, 3)).astype(np.float32))
     grads = []
-    for fn in (wf.render_wavefront, megakernel.render_fwd):
+    for fn in (wf.render_wavefront, autodiff.render_fwd):
         leaves = [t.detach().requires_grad_() for t in
                   (scene.center, scene.radius, scene.albedo, scene.mat_param,
                    *cam)]
